@@ -1,9 +1,11 @@
 """Coarse-to-fine cascade: CascadeREDNet under RPC geometry, inference.
 
 Counterpart of `satmvs_tpu/models/cascade.py` with regularizer="red",
-geo_model="rpc", sampler="window", confidence="max" and the scan RED
-regularizer (the JAX model's fused_red=False).  The cost volume of every
-stage comes from the `sweep_variance` kernel.
+geo_model="rpc", sampler="window", confidence="max" and the JAX model's
+default fused RED regularizer (fused_red=True).  The cost volume of every
+stage comes from the `sweep_variance` kernel, and its RED regularizer runs
+the `conv_dn`, `red_recur`, `deconv_up` and `conv_head` kernels
+(`nn/red.py`).
 
 Input (channels-last, view 0 = reference view):
   imgs          (B, V, H, W, 3)

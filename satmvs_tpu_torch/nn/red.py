@@ -1,15 +1,20 @@
-"""Recurrent Encoder-Decoder (RED) cost regularization, scan form.
+"""Recurrent Encoder-Decoder (RED) cost regularization, the fused pipeline.
 
-Counterpart of `satmvs_tpu/nn/red.py` (`REDStep` and the scan path of
-`REDRegularizer`, the path the JAX model takes with fused_red=False).  Per
-depth plane: a 3-level stride-2 conv pyramid over the negated cost, a
-ConvGRU at each of 4 scales whose state runs across planes in hypothesis
-order (index 0 first), transposed-conv decoding with additive skips, and a
-1-channel logit head.  H and W must be divisible by 8.
+Counterpart of `satmvs_tpu/nn/red.py`'s `REDRegularizer` on its default path
+(fused=True, `packed_red_pipeline` / `_packed_pipeline_body`, red.py:182-269),
+one batch element at a time as red.py:362-366 does.  For the (D, H, W, C)
+volume of one element:
 
-Only the GRU recurrences depend on the previous plane, so the encoder, the
-GRUs' input convolutions and the decoder run once over all B·D planes; a
-Python loop over D carries the four GRU states.
+  encode  neg = −volume;  c1, c2, c3 = conv_dn ×3 (stride 2 each)
+  recur   r1 .. r4 = red_recur on (neg, c1, c2, c3), fine → coarse: a
+          ConvGRU per scale whose state runs across planes in hypothesis order
+  decode  t2 = deconv_up(r4) + r3;  t1 = deconv_up(t2) + r2;
+          hin = deconv_up(t1) + r1;  logits = conv_head(hin)
+
+Each step is a call of `ops/kernels` (a CUDA kernel for CUDA tensors, its
+plain version for CPU tensors), so on the CPU this composition of plain
+versions is the scan form of the same function.  H and W must be divisible
+by 8.
 """
 
 from __future__ import annotations
@@ -17,24 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
+from ..ops.kernels.red_recur import red_recur
 from .blocks import ConvBlock, ConvGRUCell, DeconvBlock
-
-SCALES = (1, 2, 4, 8)
-
-
-def init_red_states(batch: int, height: int, width: int, base_channels: int = 8,
-                    dtype=torch.float32, device=None) -> tuple[torch.Tensor, ...]:
-    """Zero GRU states at scales 1, 2, 4, 8: (B, base·s, H/s, W/s) each (NCHW)."""
-    return tuple(
-        torch.zeros((batch, base_channels * s, height // s, width // s), dtype=dtype,
-                    device=device)
-        for s in SCALES
-    )
 
 
 class REDStep(nn.Module):
-    """The layers of one depth plane of RED regularization, split into the
-    parts the scan runs: `encode`, the cells' `recur`, `decode`."""
+    """The layers of RED regularization (the flax `ScanREDStep_0`): the
+    encoder convs, the four ConvGRU cells, the decoder deconvs and the head."""
 
     def __init__(self, in_channels: int, base_channels: int = 8):
         super().__init__()
@@ -56,49 +51,26 @@ class REDStep(nn.Module):
         """The cells fine → coarse (scales 1, 2, 4, 8)."""
         return self.gru1, self.gru2, self.gru3, self.gru4
 
-    def encode(self, cost: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """cost (N, C, H, W) → the GRU inputs (neg, c1, c2, c3), fine → coarse."""
-        neg = -cost
-        c1 = self.enc1(neg)
-        c2 = self.enc2(c1)
-        c3 = self.enc3(c2)
-        return neg, c1, c2, c3
-
-    def recur(self, states, xcs) -> tuple[torch.Tensor, ...]:
-        """One plane: GRU states and the plane's input contributions
-        (`ConvGRUCell.x_contrib`), fine → coarse → the new states."""
-        return tuple(g.recur(xc, s) for g, xc, s in zip(self.grus, xcs, states))
-
-    def decode(self, r1, r2, r3, r4) -> torch.Tensor:
-        """GRU outputs fine → coarse → logits (N, H, W)."""
-        u3 = self.up3(r4)
-        u2 = self.up2(u3 + r3)
-        u1 = self.up1(u2 + r2)
-        return self.head(u1 + r1)[:, 0]
-
 
 class REDRegularizer(nn.Module):
     """(B, D, H, W, C) variance volume → (B, D, H, W) float32 logits."""
 
     def __init__(self, in_channels: int, base_channels: int = 8):
         super().__init__()
-        self.base_channels = base_channels
         self.step = REDStep(in_channels, base_channels)
 
+    def pipeline(self, volume: torch.Tensor) -> torch.Tensor:
+        """One batch element: (D, H, W, C) → (D, H, W) logits."""
+        s = self.step
+        neg = -volume
+        c1 = conv_dn(neg, s.enc1.conv.weight)
+        c2 = conv_dn(c1, s.enc2.conv.weight)
+        c3 = conv_dn(c2, s.enc3.conv.weight)
+        r1, r2, r3, r4 = (red_recur(x, g) for x, g in zip((neg, c1, c2, c3), s.grus))
+        t2 = deconv_up(r4, s.up3.conv.weight, r3)
+        t1 = deconv_up(t2, s.up2.conv.weight, r2)
+        hin = deconv_up(t1, s.up1.conv.weight, r1)
+        return conv_head(hin, s.head.weight, s.head.bias)[..., 0]
+
     def forward(self, volume: torch.Tensor) -> torch.Tensor:
-        batch, d, height, width, cin = volume.shape
-        flat = volume.reshape(batch * d, height, width, cin).permute(0, 3, 1, 2)
-        pyr = self.step.encode(flat)
-        # x-halves of every cell for all planes at once: (B, D, 3C, h, w)
-        xcs = [g.x_contrib(x).unflatten(0, (batch, d)) for g, x in zip(self.step.grus, pyr)]
-        del pyr
-        states = init_red_states(batch, height, width, self.base_channels,
-                                 volume.dtype, volume.device)
-        outs = [[] for _ in SCALES]
-        for i in range(d):
-            states = self.step.recur(states, [xc[:, i] for xc in xcs])
-            for out, s in zip(outs, states):
-                out.append(s)
-        rs = [torch.stack(o, dim=1).flatten(0, 1) for o in outs]
-        logits = self.step.decode(*rs)
-        return logits.reshape(batch, d, height, width).to(torch.float32)
+        return torch.stack([self.pipeline(v) for v in volume])

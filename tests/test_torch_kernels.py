@@ -1,6 +1,7 @@
-"""The sweep_variance wrapper: CPU tensors take the plain version, CUDA
-tensors the CUDA kernel (tests marked `cuda` need a GPU and nvcc and skip
-without them), and the module imports without nvcc."""
+"""The kernel wrappers (sweep_variance, conv_dn, deconv_up, conv_head,
+red_recur): CPU tensors take the plain version, CUDA tensors the CUDA kernel
+(tests marked `cuda` need a GPU and nvcc and skip without them), and the
+modules import without nvcc."""
 
 import os
 import subprocess
@@ -55,13 +56,15 @@ def test_kernel_module_imports_without_nvcc(tmp_path, monkeypatch):
     env = {**os.environ, "PATH": str(tmp_path), "CUDA_HOME": str(tmp_path),
            "PYTHONPATH": str(ROOT)}
     code = ("import satmvs_tpu_torch.ops.kernels.sweep_variance, "
+            "satmvs_tpu_torch.ops.kernels.plane_conv, "
+            "satmvs_tpu_torch.ops.kernels.red_recur, "
             "satmvs_tpu_torch.models.cascade")
     subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
-    assert "sweep_variance" in build.sources()
+    assert {"sweep_variance", "plane_conv", "red_recur"} <= set(build.sources())
 
 
 @pytest.mark.cuda
@@ -78,3 +81,94 @@ def test_cuda_kernel_matches_plain_version(c, spread):
     torch.cuda.synchronize()
     assert sweep_variance.launches == before + 1
     torch.testing.assert_close(out, sweep_variance_reference(*args), rtol=0, atol=1e-5)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions in full fp32
+
+
+def _rand(shape, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).cuda()
+
+
+def _close(got, want, what):
+    """1e-5 × max(1, max |plain|): fp32 sums in another order than cuDNN's."""
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape, what
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 16), (2, 7, 9, 6, 5),
+                                            (2, 12, 6, 32, 64)])
+def test_cuda_conv_dn_matches_plain_version(n, h, w, cin, cout):
+    """Even and odd sizes, Cin and Cout with and without C % 4 == 0."""
+    from satmvs_tpu_torch.ops.kernels.plane_conv import conv_dn, conv_dn_reference
+
+    _cuda()
+    x, wt = _rand((n, h, w, cin), 0), _rand((cout, cin, 3, 3), 1, 0.2)
+    before = conv_dn.launches
+    out = conv_dn(x, wt)
+    assert conv_dn.launches == before + 1
+    _close(out, conv_dn_reference(x, wt), "conv_dn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,skip", [(3, 8, 12, 16, 8, True), (2, 5, 7, 6, 3, False),
+                                                 (1, 3, 6, 64, 32, True)])
+def test_cuda_deconv_up_matches_plain_version(n, h, w, cin, cout, skip):
+    """Transposed conv with the torch-exact index map, odd edges included,
+    with and without the fused skip add."""
+    from satmvs_tpu_torch.ops.kernels.plane_conv import deconv_up, deconv_up_reference
+
+    _cuda()
+    x, wt = _rand((n, h, w, cin), 2), _rand((cin, cout, 3, 3), 3, 0.2)
+    s = _rand((n, 2 * h, 2 * w, cout), 4) if skip else None
+    before = deconv_up.launches
+    out = deconv_up(x, wt, s)
+    assert deconv_up.launches == before + 1
+    _close(out, deconv_up_reference(x, wt, s), "deconv_up")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 1), (2, 7, 9, 6, 5)])
+def test_cuda_conv_head_matches_plain_version(n, h, w, cin, cout):
+    from satmvs_tpu_torch.ops.kernels.plane_conv import conv_head, conv_head_reference
+
+    _cuda()
+    x, wt, b = _rand((n, h, w, cin), 5), _rand((cout, cin, 3, 3), 6, 0.2), _rand((cout,), 7)
+    before = conv_head.launches
+    out = conv_head(x, wt, b)
+    assert conv_head.launches == before + 1
+    _close(out, conv_head_reference(x, wt, b), "conv_head")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w,cin,c,seeded", [(5, 16, 24, 8, 8, False), (4, 7, 9, 6, 4, True),
+                                                (3, 6, 12, 64, 64, True)])
+def test_cuda_red_recur_matches_plain_version(d, h, w, cin, c, seeded):
+    """Odd sizes, Cin % 4 != 0, C = 64, zero and seeded start states: 1e-4 on
+    states in (−1, 1) (GroupNorm statistics in float64 against torch's fp32)."""
+    from satmvs_tpu_torch.nn.blocks import ConvGRUCell
+    from satmvs_tpu_torch.ops.kernels.red_recur import red_recur, red_recur_reference
+
+    _cuda()
+    torch.manual_seed(c)
+    cell = ConvGRUCell(cin, c).cuda()
+    with torch.no_grad():
+        for norm in (cell.gn_r, cell.gn_u, cell.gn_y):
+            norm.weight.copy_(_rand((c,), 8, 0.3) + 1.0)
+            norm.bias.copy_(_rand((c,), 9, 0.2))
+        x = _rand((d, h, w, cin), 10)
+        h0 = torch.tanh(_rand((h, w, c), 11)) if seeded else None
+        before = red_recur.launches
+        out = red_recur(x, cell, h0)
+        assert red_recur.launches == before + 1
+        torch.cuda.synchronize()
+        err = (out - red_recur_reference(x, cell, h0)).abs().max().item()
+    assert err <= 1e-4, f"red_recur: max abs err {err}"

@@ -1,6 +1,8 @@
-"""The whole slice: the port's CascadeREDNet (RPC, inference) against
+"""The whole slice: the port's CascadeREDNet (RPC, inference, the fused RED
+pipeline of plain versions on the CPU) against
 `satmvs_tpu.models.CascadeREDNet(geo_model="rpc", fused_red=False)` on the
-same synthetic batch and bridged weights, on the CPU.
+same synthetic batch and bridged weights, on the CPU (the JAX fused and scan
+paths compute the same function).
 
 The logit heads are sharpened ×40 in both (as tests/test_full_net_parity.py
 does) so the softmax is peaked and depth parity is not trivially easy;
@@ -16,6 +18,8 @@ from satmvs_tpu.data import synthetic as jsyn
 from satmvs_tpu.models import CascadeREDNet as JNet
 from satmvs_tpu_torch.data import synthetic as tsyn
 from satmvs_tpu_torch.models import CascadeREDNet as TNet
+from satmvs_tpu_torch.ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
+from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
 from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance
 from satmvs_tpu_torch.params import load_jax_variables
 
@@ -59,9 +63,10 @@ def both_runs():
 
     tb = tsyn.make_batch(1, W, H, seed=0, device="cpu")
     tm = load_jax_variables(TNet(ndepths=NDEPTHS, device="cpu"), v)
-    launches = sweep_variance.launches
+    wrappers = (sweep_variance, conv_dn, red_recur, deconv_up, conv_head)
+    launches = [fn.launches for fn in wrappers]
     got = tm(tb["imgs"], tb["cams"], tb["depth_values"])
-    assert sweep_variance.launches == launches  # CPU tensors: the plain version
+    assert [fn.launches for fn in wrappers] == launches  # CPU tensors: the plain versions
     return want, got, jb["depth_values"][0]
 
 
