@@ -11,14 +11,30 @@ Phases, each reported on its own lines:
      pushed off the image, red_recur also from a non-zero start state);
      kernel, plain and library times (CUDA events, median after warm-up)
      beside the least time the card could take (bound);
-  3  the slice: CascadeREDNet (RPC, ndepths 64/32/8, 384×768, seeded
-     weights, the fused RED regularizer) predicts three synthetic scenes;
-     every kernel of the path must have launched exactly as often as one
-     forward launches it, times three; outputs are checked for range and held
-     against the same model's plain run on the CPU; forward time, peak
-     memory and a profile.
+  2b the batched red_recur (B = 4 elements, each from its own start state)
+     against its plain version and against B = 1 calls on each element, at
+     every shape a 448² tile batch gives it in 8-plane slabs; times per call
+     and per 4-tile chunk;
+  3  the full-volume forward: CascadeREDNet (RPC, ndepths 64/32/8, 384×768,
+     seeded weights, the fused RED regularizer) predicts three synthetic
+     scenes; every kernel of the path must have launched exactly as often as
+     one forward launches it, times three; outputs are checked for range and
+     held against the same model's plain run on the CPU; forward time, peak
+     memory and a profile;
+  5  the scene: `infer.scene.predict_scene` over the slab-streaming tile
+     forward (`infer.predict.streaming_red_forward`, slab 8) on a seeded
+     synthetic 1152² triplet, tile 384 + halo 32 (nine 448² tiles), at
+     batch_tiles 4 (three chunks, the last padded) and 1; exact launches per
+     chunk, range checks, the two runs against each other, ms per tile, the
+     host-prep record, peak memory and a profile of one chunk;
+  4  streaming against full volume, on phase 5's first 4-tile chunk: stage
+     by stage against the same model's full-volume forward, peak memory of
+     each (run after phase 5, whose chunk it takes).
 
-Ends with a JSON line of per-kernel numbers, the nvidia-smi line of the
+The 1152² scene is rendered on the host in a worker process started before
+phase 1, so it overlaps phases 1-3.  Ends with a JSON line of per-kernel
+numbers (each kernel's launches on each path: the full-volume forward, the
+streaming forward of phase 4, the two scene runs), the nvidia-smi line of the
 card, and {"ok": true, "device": ...} as the last line.  Any failed check
 raises, and the script exits non-zero without those last lines.  Without a
 CUDA device, or without the rest of the repository beside it, it fails.
@@ -30,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +71,11 @@ RED_RECUR_TOL = 1e-4
 # softmax move by a large share of a step.
 DEPTH_TOL_MEAN = 0.01
 DEPTH_TOL_P99 = 0.1
+# the scene (scripts/predict_scene.py's defaults): tiles of 384 + 2 × 32
+SCENE_SIZE, TILE, HALO, SLAB = 1152, 384, 32, 8
+TILE_HW = TILE + 2 * HALO
+SLABS_PER_TILE = tuple(nd // SLAB for nd in NDEPTHS)  # 8, 4, 1
+BATCH_TILES = 4
 
 
 def check(cond: bool, msg: str):
@@ -103,9 +125,10 @@ class KernelReport:
         self.by = {"bytes": 0.0, "operations": 0.0}
 
     def case(self, label: str, kernel, plain, tol, nbytes: float, flops: float,
-             library=None, timed: bool = True):
+             library=None, timed: bool = True, count: int = 1):
         """tol(plain result): the largest abs error allowed; library: one
-        PyTorch call that computes the same function, timed as a yardstick."""
+        PyTorch call that computes the same function, timed as a yardstick;
+        count: calls of this shape on the path, which the sums weigh by."""
         name = self.rec["name"]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -119,21 +142,22 @@ class KernelReport:
         self.rec["max_abs_err"] = max(self.rec["max_abs_err"], err)
         del got, want
         if not timed:
-            return
+            return None
         k_ms, p_ms = time_ms(kernel, reps=10), time_ms(plain, reps=5, warmup=1)
         l_ms = time_ms(library, reps=10) if library is not None else None
         b_ms, by = bound_ms(nbytes, flops)
-        self.rec["ms"] += k_ms
-        self.rec["plain_ms"] += p_ms
-        self.rec["bound_ms"] += b_ms
-        self.by[by] += b_ms
+        self.rec["ms"] += count * k_ms
+        self.rec["plain_ms"] += count * p_ms
+        self.rec["bound_ms"] += count * b_ms
+        self.by[by] += count * b_ms
         if l_ms is not None:
-            self.rec["library_ms"] = (self.rec["library_ms"] or 0.0) + l_ms
+            self.rec["library_ms"] = (self.rec["library_ms"] or 0.0) + count * l_ms
         lib = f"{l_ms:.4f}" if l_ms is not None else "null"
         print(f"[kernels] {name} {label} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({by}, {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.3f} GFLOP) kernel/bound={k_ms / b_ms:.2f} card={self.card}",
               flush=True)
+        return k_ms
 
     def record(self) -> dict:
         self.rec["bound_by"] = max(self.by, key=self.by.get)
@@ -207,16 +231,46 @@ def red_shapes():
             for i, (nd, s, c) in enumerate(zip(NDEPTHS, STAGE_SCALES, FEAT_CH))]
 
 
+def red_scales(cin: int):
+    """(scale, Cin, C) of the four recurrences: (cin, b), (2b, 2b), (4b, 4b), (8b, 8b)."""
+    b = RED_BASE
+    return ((1, cin, b), (2, 2 * b, 2 * b), (4, 4 * b, 4 * b), (8, 8 * b, 8 * b))
+
+
+def red_cell(ci: int, c: int, seed: int, randn):
+    """A ConvGRUCell on the card: seeded convs, perturbed norms and biases."""
+    from satmvs_tpu_torch.nn.blocks import ConvGRUCell
+    from satmvs_tpu_torch.params import init_from_seed
+
+    cell = init_from_seed(ConvGRUCell(ci, c), seed).cuda()
+    with torch.no_grad():
+        for norm in (cell.gn_r, cell.gn_u, cell.gn_y):
+            norm.weight.copy_(1.0 + randn(c, scale=0.2))
+            norm.bias.copy_(randn(c, scale=0.1))
+        cell.conv_h.bias.copy_(randn(2 * c, scale=0.1))
+        cell.conv_c.bias.copy_(randn(c, scale=0.1))
+    return cell
+
+
+def recur_work(x, c: int, cell) -> tuple[float, float]:
+    """Bytes (x, h0 and the weights read once, every state written once) and
+    flops (taps inside the plane only) of one red_recur on x ([B,] D, h, w, Cin)."""
+    *lead, h, w, ci = x.shape
+    n = int(np.prod(lead))  # B·D planes
+    taps = conv_taps(h, h, 1) * conv_taps(w, w, 1)
+    h0 = n // lead[-1] * h * w * c
+    nbytes = 4 * (x.numel() + n * h * w * c + h0 + sum(p.numel() for p in cell.parameters()))
+    return nbytes, 2 * n * taps * (ci + c) * 3 * c
+
+
 def phase_red_kernels(card: str) -> list[dict]:
     """Phase 2: the four RED kernels against their plain versions at every
     shape one forward gives them (base 8: channels 16/32/64 down the
     encoder), with seeded inputs and weights."""
     import torch.nn.functional as F
 
-    from satmvs_tpu_torch.nn.blocks import ConvGRUCell
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
-    from satmvs_tpu_torch.params import init_from_seed
 
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -247,19 +301,9 @@ def phase_red_kernels(card: str) -> list[dict]:
                     4 * (x.numel() + out_n + wt.numel()), 2 * d * taps * ci * co,
                     lambda: F.relu(F.conv2d(nchw(x), wt, stride=2, padding=1)))
         # recurrences at scales 1, 2, 4, 8: (cin, C) = (cin, b), (2b, 2b), (4b, 4b), (8b, 8b)
-        for s, ci, c in ((1, cin, b), (2, 2 * b, 2 * b), (4, 4 * b, 4 * b), (8, 8 * b, 8 * b)):
-            cell = init_from_seed(ConvGRUCell(ci, c), s).cuda()
-            with torch.no_grad():
-                for norm in (cell.gn_r, cell.gn_u, cell.gn_y):
-                    norm.weight.copy_(1.0 + randn(c, scale=0.2))
-                    norm.bias.copy_(randn(c, scale=0.1))
-                cell.conv_h.bias.copy_(randn(2 * c, scale=0.1))
-                cell.conv_c.bias.copy_(randn(c, scale=0.1))
+        for s, ci, c in red_scales(cin):
+            cell = red_cell(ci, c, s, randn)
             x = randn(d, h // s, w // s, ci)
-            taps = conv_taps(h // s, h // s, 1) * conv_taps(w // s, w // s, 1)
-            nbytes = 4 * (x.numel() + d * (h // s) * (w // s) * c
-                          + sum(p.numel() for p in cell.parameters()))
-            flops = 2 * d * taps * (ci + c) * 3 * c
             cases = [("", None)]
             if (stage, s) == ("stage3", 1):
                 cases.append((" h0", torch.tanh(randn(h, w, c))))
@@ -269,7 +313,7 @@ def phase_red_kernels(card: str) -> list[dict]:
                              lambda: rr.red_recur(x, cell, h0),
                              lambda: rr.red_recur_reference(x, cell, h0),
                              lambda want: RED_RECUR_TOL,
-                             nbytes, flops, timed=h0 is None)
+                             *recur_work(x, c, cell), timed=h0 is None)
         # decoder: (h/8 → h/4, 8b → 4b), (h/4 → h/2, 4b → 2b), (h/2 → h, 2b → b), skips added
         for k, (s, ci, co) in enumerate(((8, 8 * b, 4 * b), (4, 4 * b, 2 * b), (2, 2 * b, b))):
             x = randn(d, h // s, w // s, ci)
@@ -293,6 +337,54 @@ def phase_red_kernels(card: str) -> list[dict]:
     return [dn.record(), rec.record(), up.record(), head.record()]
 
 
+def phase_batched_red(card: str) -> dict:
+    """Phase 2b: the batched red_recur (TPU kernel row 5) at every shape a
+    448² tile batch gives it: B = 4 tiles, 8-plane slabs, the four scales of
+    each stage, a distinct seeded start state per element.  Held against its
+    plain version and, element by element, against B = 1 calls; kernel,
+    plain and bound times summed over one 4-tile chunk (8 + 4 + 1 slabs)."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    rec = KernelReport("red_recur_batched", "satmvs_tpu_torch/csrc/red_recur.cu",
+                       "satmvs_tpu/ops/pallas/red_recur.py:337", card)
+    bt = BATCH_TILES
+    b1_chunk = 0.0
+    for i, (scale, cin, n_slabs) in enumerate(zip(STAGE_SCALES, FEAT_CH, SLABS_PER_TILE)):
+        h = w = TILE_HW // scale
+        for s, ci, c in red_scales(cin):
+            cell = red_cell(ci, c, 10 + s, randn)
+            x = randn(bt, SLAB, h // s, w // s, ci)
+            h0 = torch.tanh(randn(bt, h // s, w // s, c))
+            label = f"stage{i + 1} scale{s} B={bt} {(SLAB, h // s, w // s, ci)}->{c} h0"
+            with torch.no_grad():
+                k_ms = rec.case(label, lambda: rr.red_recur(x, cell, h0),
+                                lambda: rr.red_recur_reference(x, cell, h0),
+                                lambda want: RED_RECUR_TOL, *recur_work(x, c, cell),
+                                count=n_slabs)
+                got = rr.red_recur(x, cell, h0)
+                err = max((got[e] - rr.red_recur(x[e], cell, h0[e])).abs().max().item()
+                          for e in range(bt))
+                check(err <= RED_RECUR_TOL,
+                      f"red_recur {label}: B={bt} vs B=1 max abs err {err} > {RED_RECUR_TOL}")
+                b1_ms = time_ms(lambda: rr.red_recur(x[0], cell, h0[0]), reps=10)
+            b1_chunk += n_slabs * bt * b1_ms
+            print(f"[batched] {label}: each element vs a B=1 call on it alone, max abs err "
+                  f"{err:.3e} (tol {RED_RECUR_TOL}); B=1 {b1_ms:.4f} ms, {bt} x B=1 "
+                  f"{bt * b1_ms:.4f} ms vs B={bt} {k_ms:.4f} ms ({bt * b1_ms / k_ms:.2f}x); "
+                  f"{n_slabs} calls per chunk card={card}", flush=True)
+    r = rec.record()
+    print(f"[batched] per {bt}-tile chunk of {TILE_HW}x{TILE_HW} tiles ({sum(SLABS_PER_TILE)} "
+          f"slabs x 4 scales): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, {bt * sum(SLABS_PER_TILE)} B=1 "
+          f"calls instead {b1_chunk:.4f} ms card={card}", flush=True)
+    return r
+
+
 # launches of each kernel wrapper in one forward of the slice: sweep_variance
 # once per stage; per stage's RED pipeline conv_dn ×3, red_recur ×4 (one per
 # scale; its input convolutions run inside the same launch), deconv_up ×3 and
@@ -310,26 +402,50 @@ def kernel_wrappers() -> dict:
             "deconv_up": deconv_up, "conv_head": conv_head}
 
 
+def build_model(device):
+    """CascadeREDNet (RPC, ndepths 64/32/8) from seed 0, heads ×40 (a peaked
+    softmax, so depth parity is not trivial)."""
+    from satmvs_tpu_torch.models import CascadeREDNet
+
+    model = CascadeREDNet(geo_model="rpc", ndepths=NDEPTHS, device=device, seed=0)
+    with torch.no_grad():
+        for reg in model.regs:
+            reg.step.head.weight.mul_(40.0)
+            reg.step.head.bias.mul_(40.0)
+    return model
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def stage_steps(lo: float, hi: float, intervals) -> list[float]:
+    """Hypothesis step per stage: the range / (D − 1) at stage 1, D·interval
+    / (D − 1) in the windows of stages 2-3."""
+    return [(hi - lo) / (NDEPTHS[0] - 1)] + [
+        nd * iv / (nd - 1) for nd, iv in zip(NDEPTHS[1:], intervals[1:])]
+
+
+def err_quantiles(err: torch.Tensor) -> tuple[float, float, float]:
+    err = err.flatten().float().cpu()
+    return err.mean().item(), torch.quantile(err, 0.99).item(), err.max().item()
+
+
 def phase_slice(card: str) -> dict:
     """Phase 3: the main path, three predictions; returns each kernel's launches."""
     from satmvs_tpu_torch.data import synthetic
-    from satmvs_tpu_torch.models import CascadeREDNet
 
-    def build(device):
-        model = CascadeREDNet(geo_model="rpc", ndepths=NDEPTHS, device=device, seed=0)
-        with torch.no_grad():  # peaked softmax, so depth parity is not trivial
-            for reg in model.regs:
-                reg.step.head.weight.mul_(40.0)
-                reg.step.head.bias.mul_(40.0)
-        return model
-
-    model = build("cuda")
+    model = build_model("cuda")
     batches = [synthetic.make_batch(1, WIDTH, HEIGHT, seed=s, device="cuda") for s in SEEDS]
     torch.cuda.synchronize()
 
     wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts()
     outs = []
     for i, b in enumerate(batches):
         outs.append(model(b["imgs"], b["cams"], b["depth_values"]))
@@ -338,7 +454,7 @@ def phase_slice(card: str) -> dict:
             check(fn.launches == want,
                   f"{name} launches {fn.launches} after {i + 1} forwards, want {want}")
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = counts()
     print(f"[slice] {len(batches)} forwards at {HEIGHT}x{WIDTH}, ndepths={NDEPTHS}: "
           f"launches {launches}", flush=True)
 
@@ -370,15 +486,13 @@ def phase_slice(card: str) -> dict:
     # depth, so a stage is held to its own numerical differences only; the
     # free-running CPU cascade is reported beside it, not gated
     t0 = time.time()
-    cpu_model = build("cpu")
+    cpu_model = build_model("cpu")
     b0 = batches[0]
     cams_cpu = [c.to("cpu") for c in b0["cams"]]
     dv_cpu = b0["depth_values"].cpu()
     feats_cpu = cpu_model.features(b0["imgs"].cpu())
     free = cpu_model(b0["imgs"].cpu(), cams_cpu, dv_cpu)
-    lo, hi = dv_cpu[0].tolist()
-    steps = [(hi - lo) / (NDEPTHS[0] - 1)] + [
-        nd * iv / (nd - 1) for nd, iv in zip(NDEPTHS[1:], intervals[1:])]
+    steps = stage_steps(*dv_cpu[0].tolist(), intervals)
     for i, step in enumerate(steps):
         gpu = outs[0][f"stage{i + 1}"]
         prev = None if i == 0 else outs[0][f"stage{i}"]["depth"].cpu()
@@ -406,11 +520,171 @@ def phase_slice(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[slice] forward_ms={fwd_ms:.2f} (median of 5, CUDA events, B=1, "
           f"{HEIGHT}x{WIDTH}, 3 views) peak_mem={peak:.2f} GiB card={card}", flush=True)
-    profile_forward(lambda: model(imgs, cams, dvals))
+    profile_forward(lambda: model(imgs, cams, dvals), card)
     return launches
 
 
-def profile_forward(fn, top: int = 8):
+def chunk_launches(bt: int) -> dict:
+    """Launches of one streaming forward of bt tiles: per slab one
+    sweep_variance per tile and one RED pipeline for the whole batch
+    (conv_dn ×3, red_recur ×4, deconv_up ×3, conv_head)."""
+    n = sum(SLABS_PER_TILE)
+    return {"sweep_variance": n * bt, "conv_dn": 3 * n, "red_recur": 4 * n, "deconv_up": 3 * n,
+            "conv_head": n}
+
+
+def render_scene() -> dict:
+    """The 1152² synthetic triplet (host numpy, seeded); runs in a worker
+    process, so it puts the repository on its own import path."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from satmvs_tpu_torch.data import synthetic
+
+    return synthetic.make_scene(SCENE_SIZE, SCENE_SIZE, seed=0, h_amp=80.0)
+
+
+def phase_scene(card: str, model, scene: dict):
+    """Phase 5: predict_scene over the slab-streaming forward at batch_tiles
+    4 and 1.  Returns each run's launches and the first 4-tile chunk's
+    inputs (phase 4 takes them)."""
+    import functools
+
+    from satmvs_tpu_torch.geo import rpc as rpclib
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+    from satmvs_tpu_torch.infer.scene import predict_scene
+
+    order = [2, 0, 1]  # the nadir view is the reference
+    images, rpcs = scene["images"][order], scene["rpcs"][order]
+    lo, hi = rpclib.height_range(rpcs[0])
+    intervals = model.stage_intervals()
+    margin = sum(nd / 2 * iv for nd, iv in zip(NDEPTHS[1:], intervals[1:]))
+    stream = functools.partial(streaming_red_forward, model, slab=SLAB)
+    runs, chunks = {}, []
+    for bt in (BATCH_TILES, 1):
+        per_call = []
+
+        def forward(imgs, cams, dvals):
+            before = counts()
+            out = stream(imgs, cams, dvals)
+            per_call.append({k: v - before[k] for k, v in counts().items()})
+            if not chunks:
+                chunks.append((imgs, cams, dvals))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = {}
+        depth, conf = predict_scene(forward, images, rpcs, tile=TILE, halo=HALO,
+                                    batch_tiles=bt, stats=stats)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = counts()
+        want = chunk_launches(bt)
+        n_chunks = stats["n_chunks"]
+        check(stats["n_tiles"] == 9 and n_chunks == -(-9 // bt),
+              f"scene B={bt}: {stats['n_tiles']} tiles in {n_chunks} chunks")
+        check(len(per_call) == n_chunks and all(c == want for c in per_call),
+              f"scene B={bt}: launches per chunk {per_call}, want {want}")
+        check(launches == {k: v * n_chunks for k, v in want.items()},
+              f"scene B={bt}: launches {launches}")
+        check(depth.shape == conf.shape == (SCENE_SIZE, SCENE_SIZE), f"scene shape {depth.shape}")
+        check(bool(np.isfinite(depth).all() and np.isfinite(conf).all()), "scene: non-finite map")
+        dmin, dmax = float(depth.min()), float(depth.max())
+        check(lo - margin - 1e-3 <= dmin and dmax <= hi + margin + 1e-3,
+              f"scene B={bt}: depth [{dmin}, {dmax}] outside [{lo - margin}, {hi + margin}]")
+        check(0.0 <= conf.min() and conf.max() <= 1.0 + 1e-6,
+              f"scene B={bt}: confidence [{conf.min()}, {conf.max()}]")
+        print(f"[scene] B={bt}: {stats['n_tiles']} tiles of {TILE_HW}x{TILE_HW} in {n_chunks} "
+              f"chunks; launches per chunk {per_call[0]} (exact), in all {launches}; depth "
+              f"[{dmin:.2f}, {dmax:.2f}] m (range {lo:.0f}..{hi:.0f} ± {margin:g}), confidence "
+              f"[{conf.min():.4f}, {conf.max():.4f}]", flush=True)
+        # a chunk's mark spans queueing the next chunk and reading this one
+        # back, so where queueing is slower than the card the marks are host
+        # time and the last one is near 0
+        print(f"[scene] B={bt}: wall {stats['wall_s']:.3f} s = "
+              f"{1e3 * stats['wall_s'] / stats['n_tiles']:.1f} ms per tile, "
+              f"{1e3 * stats['wall_s'] / (n_chunks * bt):.1f} ms per tile forward "
+              f"({n_chunks * bt} with the pads); host prep "
+              f"{stats['host_prep_s']:.3f} s ({stats['host_prep_s'] / stats['wall_s']:.3f} of "
+              f"wall), readback {stats['readback_s']:.3f} s, chunks "
+              f"{[round(t, 4) for t in stats['chunk_s']]} s; peak_mem={peak:.2f} GiB "
+              f"card={card}", flush=True)
+        runs[bt] = (depth, conf, launches)
+    # the largest part of the host prep: norm="tile" normalizes each view crop
+    from satmvs_tpu_torch.data.preprocess import center_image
+
+    crop = np.repeat(images[0][..., None], 3, axis=-1)[:TILE_HW, :TILE_HW]
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(len(order)):
+            center_image(crop)
+        times.append(time.perf_counter() - t0)
+    print(f"[scene] host: center_image of one tile's {len(order)} view crops "
+          f"{1e3 * float(np.median(times)):.1f} ms (median of 5)", flush=True)
+    step = stage_steps(lo, hi, intervals)[-1]
+    mean, p99, mx = err_quantiles(
+        torch.from_numpy(np.abs(runs[BATCH_TILES][0] - runs[1][0]) / step))
+    print(f"[scene] B={BATCH_TILES} vs B=1 stitched depth: err mean {mean:.3e}, p99 {p99:.3e}, "
+          f"max {mx:.3e} of the final step ({step:.3f} m; tol mean {DEPTH_TOL_MEAN}, p99 "
+          f"{DEPTH_TOL_P99}); confidence err max "
+          f"{np.abs(runs[BATCH_TILES][1] - runs[1][1]).max():.3e}", flush=True)
+    check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+          f"scene B={BATCH_TILES} vs B=1: depth err mean {mean}, p99 {p99} of step")
+    print(f"[scene] profile of one {BATCH_TILES}-tile chunk:", flush=True)
+    profile_forward(lambda: stream(*chunks[0]), card)
+    return {f"scene_b{bt}": run[2] for bt, run in runs.items()}, chunks[0]
+
+
+def phase_stream_vs_full(card: str, model, chunk) -> dict:
+    """Phase 4: the streaming forward (slab 8) against the same model's
+    full-volume forward on one 4-tile chunk, stage by stage (each
+    full-volume stage centred on the streaming run's previous-stage depth),
+    and the peak memory of each.  Returns the streaming run's launches."""
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+
+    imgs, cams, dvals = chunk
+    bt = imgs.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stream = streaming_red_forward(model, imgs, cams, dvals, slab=SLAB)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_stream = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == chunk_launches(bt), f"streaming launches {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    full = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated() / 2**30
+    feats = model.features(imgs)
+    d_min, d_max = dvals[:, 0], dvals[:, -1]
+    intervals = model.stage_intervals()
+    for i, step in enumerate(stage_steps(*dvals[0].tolist(), intervals)):
+        prev = None if i == 0 else stream[f"stage{i}"]["depth"]
+        ref = model.stage(i, feats[i], cams[i], d_min, d_max, prev)
+        got = stream[f"stage{i + 1}"]
+        mean, p99, mx = err_quantiles((got["depth"] - ref["depth"]).abs() / step)
+        cerr = (got["photometric_confidence"] - ref["photometric_confidence"]).abs().max().item()
+        fmean, fp99, fmx = err_quantiles(
+            (got["depth"] - full[f"stage{i + 1}"]["depth"]).abs() / step)
+        print(f"[stream] B={bt} slab {SLAB} vs full volume, stage{i + 1} (step {step:.3f} m), "
+              f"same window centres: depth err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of "
+              f"step (tol mean {DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}), conf err max {cerr:.3e}; "
+              f"free-running: mean {fmean:.3e}, p99 {fp99:.3e}, max {fmx:.3e}", flush=True)
+        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+              f"stage{i + 1}: streaming vs full depth err mean {mean}, p99 {p99} of step")
+    s_ms = time_ms(lambda: streaming_red_forward(model, imgs, cams, dvals, slab=SLAB), reps=3,
+                   warmup=1)
+    f_ms = time_ms(lambda: model(imgs, cams, dvals), reps=3, warmup=1)
+    print(f"[stream] B={bt} tiles of {TILE_HW}x{TILE_HW}: streaming {s_ms:.2f} ms "
+          f"({s_ms / bt:.2f} per tile), peak_mem={peak_stream:.2f} GiB; full volume "
+          f"{f_ms:.2f} ms ({f_ms / bt:.2f} per tile), peak_mem={peak_full:.2f} GiB (median of "
+          f"3, CUDA events) card={card}", flush=True)
+    return launches
+
+
+def profile_forward(fn, card: str, top: int = 8):
     """Device time by kernel over one forward (torch.profiler), and the
     share of the forward's wall time the device was busy."""
     from torch.autograd import DeviceType
@@ -429,7 +703,7 @@ def profile_forward(fn, top: int = 8):
     n_kernels = sum(e.count for e in events)
     print(f"[profile] one forward: wall {wall_us / 1e3:.2f} ms (profiler on), device busy "
           f"{busy_us / 1e3:.2f} ms = {busy_us / wall_us:.3f} of wall, {n_kernels} device "
-          f"kernels/copies", flush=True)
+          f"kernels/copies card={card}", flush=True)
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
@@ -440,6 +714,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import multiprocessing
+
+    # the worker renders the scene while phases 1-3 run; leaving the block
+    # stops it
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return run(pool.submit(render_scene))
+
+
+def run(scene_job) -> int:
     from satmvs_tpu_torch.ops.kernels import build
 
     # phase 0
@@ -466,12 +749,29 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # phase 2 and 3
-    records = [phase_sweep(smi), *phase_red_kernels(smi)]
-    launches = phase_slice(smi)
+    # phases 2, 2b and 3
+    sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
+    records = [sweep, dn, rec, phase_batched_red(smi), up, head]
+    launches = {"forward": phase_slice(smi)}
+
+    # phase 5, then phase 4 on phase 5's first chunk
+    t0 = time.time()
+    scene = scene_job.result()
+    print(f"[scene] {SCENE_SIZE}x{SCENE_SIZE} triplet rendered on the host (waited "
+          f"{time.time() - t0:.1f} s for it after phase 3)", flush=True)
+    model = build_model("cuda")
+    scene_launches, chunk = phase_scene(smi, model, scene)
+    launches.update(scene_launches)
+    launches["streaming"] = phase_stream_vs_full(smi, model, chunk)
+
     for record in records:
-        record["launches"] = launches[record["name"]]
-        check(record["launches"] > 0, f"{record['name']} never launched on the main path")
+        # the batched record is the same wrapper, read on the path that batches
+        batched = record["name"] == "red_recur_batched"
+        wrapper = "red_recur" if batched else record["name"]
+        record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
+        record["launches"] = launches[f"scene_b{BATCH_TILES}" if batched else "forward"][wrapper]
+        check(all(n > 0 for n in record["launches_by_path"].values()),
+              f"{record['name']} never launched on a path: {record['launches_by_path']}")
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

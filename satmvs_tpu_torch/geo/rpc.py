@@ -16,8 +16,8 @@ Two halves:
     which at a 768-px image is ±1 px (the TPU's bf16 matmul did the same at
     larger extents);
   * the host half (`photo_to_obj`, `obj_to_photo`, `renorm_affine`,
-    `scale_rpc`, the inverse fit) is numpy float64, so absolute lat/lon never
-    reach the device.
+    `scale_rpc`, `crop_rpc`, the inverse fit) is numpy float64, so absolute
+    lat/lon never reach the device.
 """
 
 from __future__ import annotations
@@ -147,6 +147,15 @@ def scale_rpc(rpc, scale) -> np.ndarray:
     are multiplied, object space and the polynomials are unchanged."""
     out = np.asarray(rpc, dtype=np.float64).copy()
     out[[LINE_OFF, SAMP_OFF, LINE_SCALE, SAMP_SCALE]] *= scale
+    return out
+
+
+def crop_rpc(rpc, start_w, start_h) -> np.ndarray:
+    """RPC of a crop whose top-left corner is (start_w, start_h) px: the
+    image-space offsets shift."""
+    out = np.asarray(rpc, dtype=np.float64).copy()
+    out[SAMP_OFF] -= start_w
+    out[LINE_OFF] -= start_h
     return out
 
 

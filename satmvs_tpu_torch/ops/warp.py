@@ -34,14 +34,15 @@ class RpcWarpCams:
     src_denorm: torch.Tensor  # (S, 2, 2)  [[scale, off] x (samp, line)]
     renorm: torch.Tensor      # (S, 3, 2)  [[scale, shift] x (lat, lon, hei)]
 
-    def _map(self, fn) -> "RpcWarpCams":
+    def map(self, fn) -> "RpcWarpCams":
+        """The bundle with fn applied to every field."""
         return RpcWarpCams(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
 
     def to(self, device) -> "RpcWarpCams":
-        return self._map(lambda t: t.to(device))
+        return self.map(lambda t: t.to(device))
 
     def __getitem__(self, b) -> "RpcWarpCams":
-        return self._map(lambda t: t[b])
+        return self.map(lambda t: t[b])
 
 
 def build_rpc_warp_cams(rpcs, ref_index: int = 0, stage_scale: float = 1.0,

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from satmvs_tpu_torch.data import synthetic as tsyn
+from satmvs_tpu_torch.infer.scene import predict_scene
 from satmvs_tpu_torch.models import CascadeREDNet
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,3 +50,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert all(p.device.type == "cpu" for p in model.parameters())
     assert batch["imgs"].device.type == "cpu"
     assert batch["cams"][0].ref_inv.device.type == "cpu"
+
+
+def test_predict_scene_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """Whole-scene prediction puts its inputs on the GPU by default: without
+    one it raises before any work, and with device="cpu" it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = tsyn.make_scene(32, 32, seed=0)
+    seen = []
+
+    def forward(imgs, cams, dvals):
+        seen.append((imgs.device.type, cams[0].ref_inv.device.type, dvals.device.type))
+        d = imgs[:, 0, :, :, 0]
+        return {"depth": d, "photometric_confidence": torch.ones_like(d)}
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            predict_scene(forward, scene["images"], scene["rpcs"], tile=32, halo=0, device=device)
+    assert not seen
+    depth, conf = predict_scene(forward, scene["images"], scene["rpcs"], tile=32, halo=0,
+                                device="cpu")
+    assert depth.shape == conf.shape == (32, 32)
+    assert seen == [("cpu", "cpu", "cpu")]

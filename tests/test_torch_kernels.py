@@ -58,7 +58,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path, monkeypatch):
     code = ("import satmvs_tpu_torch.ops.kernels.sweep_variance, "
             "satmvs_tpu_torch.ops.kernels.plane_conv, "
             "satmvs_tpu_torch.ops.kernels.red_recur, "
-            "satmvs_tpu_torch.models.cascade")
+            "satmvs_tpu_torch.models.cascade, satmvs_tpu_torch.infer.scene, "
+            "satmvs_tpu_torch.infer.predict")
     subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -172,3 +173,80 @@ def test_cuda_red_recur_matches_plain_version(d, h, w, cin, c, seeded):
         torch.cuda.synchronize()
         err = (out - red_recur_reference(x, cell, h0)).abs().max().item()
     assert err <= 1e-4, f"red_recur: max abs err {err}"
+
+
+def _red_cell(cin, c, seed):
+    from satmvs_tpu_torch.nn.blocks import ConvGRUCell
+
+    torch.manual_seed(seed)
+    cell = ConvGRUCell(cin, c).cuda()
+    with torch.no_grad():
+        for norm in (cell.gn_r, cell.gn_u, cell.gn_y):
+            norm.weight.copy_(_rand((c,), seed + 1, 0.3) + 1.0)
+            norm.bias.copy_(_rand((c,), seed + 2, 0.2))
+    return cell
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,h,w,cin,c", [(3, 4, 7, 9, 6, 4), (2, 3, 6, 12, 64, 64),
+                                           (4, 5, 16, 24, 8, 8)])
+def test_cuda_batched_red_recur_matches_plain_version(b, d, h, w, cin, c):
+    """B elements in one launch, each from its own seeded h0, against the
+    plain version applied to each element: 1e-4 on states in (−1, 1)."""
+    from satmvs_tpu_torch.ops.kernels.red_recur import red_recur, red_recur_reference
+
+    _cuda()
+    cell = _red_cell(cin, c, 20)
+    with torch.no_grad():
+        x = _rand((b, d, h, w, cin), 23)
+        h0 = torch.tanh(_rand((b, h, w, c), 24))
+        before = red_recur.launches
+        out = red_recur(x, cell, h0)
+        assert red_recur.launches == before + 1
+        torch.cuda.synchronize()
+        err = (out - red_recur_reference(x, cell, h0)).abs().max().item()
+    assert out.shape == (b, d, h, w, c)
+    assert err <= 1e-4, f"batched red_recur: max abs err {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_batched_red_recur_elements_are_independent():
+    """Each element of a B = 4 launch against a B = 1 launch on that element
+    alone: the same per-pixel arithmetic, the GroupNorm sums split over
+    other block counts (1e-4)."""
+    from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
+
+    _cuda()
+    cell = _red_cell(16, 16, 30)
+    with torch.no_grad():
+        x = _rand((4, 6, 20, 28, 16), 33)
+        h0 = torch.tanh(_rand((4, 20, 28, 16), 34))
+        out = red_recur(x, cell, h0)
+        for b in range(4):
+            err = (out[b] - red_recur(x[b], cell, h0[b])).abs().max().item()
+            assert err <= 1e-4, f"element {b}: max abs err {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_red_recur_refused_grid_raises(monkeypatch):
+    """A grid the card cannot hold raises and launches nothing: more
+    elements than resident blocks, and a grid cudaLaunchCooperativeKernel
+    refuses; a launch after either still runs."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    _cuda()
+    cell = _red_cell(4, 4, 40)
+    before = rr.red_recur.launches
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="no cooperative grid"):
+            rr.red_recur(_rand((20000, 1, 4, 4, 4), 41), cell)
+        x = _rand((2, 3, 8, 8, 4), 42)
+        monkeypatch.setattr(rr, "grid_blocks", lambda b, h, w, c: 2 * 4000)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rr.red_recur(x, cell)
+        assert rr.red_recur.launches == before
+        monkeypatch.undo()
+        out = rr.red_recur(x, cell)
+        torch.cuda.synchronize()
+    assert rr.red_recur.launches == before + 1
+    assert (out - rr.red_recur_reference(x, cell)).abs().max().item() <= 1e-4

@@ -1,6 +1,6 @@
 """The port's ConvGRU depth recurrence (satmvs_tpu_torch/ops/kernels/red_recur.py)
-against the JAX package's Pallas kernel (ops/pallas/red_recur.py: red_recur,
-red_recur_from) in interpret mode, and the port's REDRegularizer against the
+against the JAX package's Pallas kernels (ops/pallas/red_recur.py: red_recur,
+red_recur_from, red_recur_from_packed_batched) in interpret mode, and the port's REDRegularizer against the
 JAX REDRegularizer's fused pipeline, on the CPU.  Inputs and weights come from
 numpy seeds; weights are bridged by satmvs_tpu_torch/params.py."""
 
@@ -12,6 +12,7 @@ import torch
 
 from satmvs_tpu.nn.red import REDRegularizer as JRED
 from satmvs_tpu.ops.pallas.red_recur import red_recur as jax_red_recur
+from satmvs_tpu.ops.pallas.red_recur import _pack, _unpack, red_recur_from_packed_batched
 from satmvs_tpu.ops.pallas.red_recur import red_recur_from as jax_red_recur_from
 from satmvs_tpu_torch.nn.blocks import ConvGRUCell
 from satmvs_tpu_torch.nn.red import REDRegularizer as TRED
@@ -75,6 +76,37 @@ def test_red_recur_seeded_matches_pallas(cell, x):
     _compare("red_recur h0", got, want)
 
 
+@pytest.mark.parametrize("seeded", [False, True])
+def test_batched_red_recur_matches_pallas(cell, seeded):
+    """B = 2 elements, each with its own start state (zeros, or a seeded
+    h0 per element), against the Pallas grid-(B, D) kernel through JAX's
+    own row packing: 1e-5 on states in (−1, 1)."""
+    jargs, tcell = cell
+    xb = _rand((2, D, H, W, CIN), 12)
+    h0 = np.tanh(_rand((2, H, W, C), 13)) if seeded else None
+    xp = jnp.stack([_pack(jnp.asarray(e)) for e in xb])
+    h0p = None if h0 is None else jnp.stack([_pack(jnp.asarray(e)[None])[0] for e in h0])
+    outp = red_recur_from_packed_batched(h0p, xp, *jargs, H, W, interpret=True)
+    want = np.stack([np.asarray(_unpack(o, H, W)) for o in outp])
+    with torch.no_grad():
+        got = red_recur(torch.from_numpy(xb), tcell, None if h0 is None else torch.from_numpy(h0))
+    _compare(f"batched red_recur {'h0' if seeded else 'zero'}", got, want)
+
+
+def test_batched_red_recur_is_per_element(cell):
+    """Element b of a batched call equals the unbatched call on element b
+    alone with its own h0 (exactly: the plain version is that loop)."""
+    _, tcell = cell
+    xb = torch.from_numpy(_rand((3, D, H, W, CIN), 14))
+    h0 = torch.from_numpy(np.tanh(_rand((3, H, W, C), 15)))
+    with torch.no_grad():
+        got = red_recur(xb, tcell, h0)
+        for b in range(3):
+            torch.testing.assert_close(got[b], red_recur(xb[b], tcell, h0[b]), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        red_recur(xb, tcell, h0[0])
+
+
 def test_red_recur_chaining(cell, x):
     """red_recur(x)[k:] == red_recur(x[k:], h0=red_recur(x[:k])[-1]): the
     state handed over between slabs is the whole state (1e-6: the same
@@ -129,3 +161,29 @@ def test_red_regularizer_matches_jax_fused_pipeline():
         got = tm(torch.from_numpy(vol))
     assert got.shape == (1, 4, 16, 24)
     _compare("REDRegularizer vs fused", got, want, 1e-4)
+
+
+def test_red_pipeline_slabs_carry_the_states():
+    """The pipeline over a (2, 8, 16, 24, 8) volume in slabs of 3, 3 and 2
+    planes, each seeded with the states the previous slab handed on, gives
+    the whole volume's logits and last-plane states (1e-5: the same
+    arithmetic, convs batched over other plane counts); the states are
+    contiguous (B, H/s, W/s, C_s), fine → coarse."""
+    from test_torch_nn import perturbed
+
+    vol = np.abs(_rand((2, 8, 16, 24, 8), 16))
+    v = perturbed(JRED(8).init(jax.random.PRNGKey(5), jnp.asarray(vol[:1, :2])))
+    tm = load_jax_variables(TRED(8, 8), v)
+    vt = torch.from_numpy(vol)
+    with torch.no_grad():
+        full, full_states = tm.pipeline(vt)
+        states, parts = None, []
+        for lo, hi in ((0, 3), (3, 6), (6, 8)):
+            logits, states = tm.pipeline(vt[:, lo:hi], states)
+            parts.append(logits)
+    assert full.shape == (2, 8, 16, 24)
+    torch.testing.assert_close(torch.cat(parts, 1), full, rtol=0, atol=1e-5)
+    for s, st, fst in zip((1, 2, 4, 8), states, full_states):
+        assert st.shape == (2, 16 // s, 24 // s, 8 * s) and st.is_contiguous()
+        torch.testing.assert_close(st, fst, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tm(vt), full, rtol=0, atol=0)
