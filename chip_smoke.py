@@ -29,15 +29,29 @@ Phases, each reported on its own lines:
      host-prep record, peak memory and a profile of one chunk;
   4  streaming against full volume, on phase 5's first 4-tile chunk: stage
      by stage against the same model's full-volume forward, peak memory of
-     each (run after phase 5, whose chunk it takes).
+     each (run after phase 5, whose chunk it takes);
+  6  the training sweep pair, sweep_gather and its adjoint sweep_scatter,
+     against their plain versions at the three training stage shapes (both
+     source views, RPC coordinates) and with coordinates pushed off the
+     image; the scatter's run-to-run difference; kernel, plain, bound and
+     grid_sample times (forward, and its input gradient);
+  7  training (`train.loop`, fused_red off) at 384×768, B = 1: five train
+     steps (exact launches per step: 6 sweep_gather, 6 sweep_scatter, none
+     of the inference kernels), step time, peak memory and losses; one eval
+     step (3 sweep_variance) and its time; one step split into forward,
+     backward and update, and each stage's RED scan alone; a profile of one
+     step; and one step at 96×192, ndepths (16, 8, 4) against the same step
+     on the CPU (loss, eval-mode gradients, the update and the running
+     statistics).
 
 The 1152² scene is rendered on the host in a worker process started before
 phase 1, so it overlaps phases 1-3.  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
-streaming forward of phase 4, the two scene runs), the nvidia-smi line of the
-card, and {"ok": true, "device": ...} as the last line.  Any failed check
-raises, and the script exits non-zero without those last lines.  Without a
-CUDA device, or without the rest of the repository beside it, it fails.
+streaming forward of phase 4, the two scene runs, the train and eval
+steps), the nvidia-smi line of the card, and {"ok": true, "device": ...} as
+the last line.  Any failed check raises, and the script exits non-zero
+without those last lines.  Without a CUDA device, or without the rest of
+the repository beside it, it fails.
 """
 
 from __future__ import annotations
@@ -390,16 +404,27 @@ def phase_batched_red(card: str) -> dict:
 # scale; its input convolutions run inside the same launch), deconv_up ×3 and
 # conv_head ×1
 LAUNCHES_PER_FORWARD = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9,
-                        "conv_head": 3}
+                        "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0}
+# per train step (fused_red off, B = 1): the training sweep pair once per
+# stage and source view, no inference kernel; per eval step the inference
+# sweep once per stage and the scan RED
+LAUNCHES_PER_TRAIN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
+                           "sweep_scatter": 6}
+LAUNCHES_PER_EVAL_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 3}
+# the kernels each path must launch
+INFERENCE_PATHS = ("forward", f"scene_b{BATCH_TILES}", "scene_b1", "streaming")
+TRAIN_KERNELS = ("sweep_gather", "sweep_scatter")
 
 
 def kernel_wrappers() -> dict:
     from satmvs_tpu_torch.ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
     from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
+    from satmvs_tpu_torch.ops.kernels.sweep_gather import sweep_gather, sweep_scatter
     from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance
 
     return {"sweep_variance": sweep_variance, "conv_dn": conv_dn, "red_recur": red_recur,
-            "deconv_up": deconv_up, "conv_head": conv_head}
+            "deconv_up": deconv_up, "conv_head": conv_head, "sweep_gather": sweep_gather,
+            "sweep_scatter": sweep_scatter}
 
 
 def build_model(device):
@@ -530,7 +555,7 @@ def chunk_launches(bt: int) -> dict:
     (conv_dn ×3, red_recur ×4, deconv_up ×3, conv_head)."""
     n = sum(SLABS_PER_TILE)
     return {"sweep_variance": n * bt, "conv_dn": 3 * n, "red_recur": 4 * n, "deconv_up": 3 * n,
-            "conv_head": n}
+            "conv_head": n, "sweep_gather": 0, "sweep_scatter": 0}
 
 
 def render_scene() -> dict:
@@ -684,9 +709,301 @@ def phase_stream_vs_full(card: str, model, chunk) -> dict:
     return launches
 
 
-def profile_forward(fn, card: str, top: int = 8):
-    """Device time by kernel over one forward (torch.profiler), and the
-    share of the forward's wall time the device was busy."""
+def gather_work(src, xs, ys) -> tuple[float, float]:
+    """Bytes (output or cotangent once, coordinates once, source or its
+    cotangent once) and flops (valid taps only: a multiply and an add per
+    channel) of one sweep_gather or sweep_scatter on this data; the same
+    for both."""
+    d, h, w = xs.shape
+    c = src.shape[-1]
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum().item()
+               for dx in (0, 1) for dy in (0, 1))
+    return 4 * (d * h * w * c + 2 * d * h * w + h * w * c), 2 * c * taps
+
+
+def grid_sample_calls(src, xs, ys, g):
+    """grid_sample (bilinear, zero padding, align_corners=True: the same
+    function up to the rounding of the normalisation) over all D planes in
+    one call, and its input gradient: the library yardsticks of the pair."""
+    import torch.nn.functional as F
+
+    d, h, w = xs.shape
+    inp = src.permute(2, 0, 1)[None].contiguous().requires_grad_(True)  # (1, C, H, W)
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1).reshape(
+        1, d * h, w, 2)
+    out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    gout = g.permute(3, 0, 1, 2).reshape(1, -1, d * h, w).contiguous()
+
+    def forward():
+        with torch.no_grad():
+            return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+    return forward, lambda: torch.autograd.grad(out, inp, gout, retain_graph=True)
+
+
+def phase_sweep_gather(card: str) -> list[dict]:
+    """Phase 6: sweep_gather and sweep_scatter against their plain versions
+    at the training shapes (both source views of every stage), and with
+    coordinates pushed off the image."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.geo import rpc as rpclib
+    from satmvs_tpu_torch.ops import warp
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    rpcs = synthetic.make_rpc_triplet(WIDTH, HEIGHT, seed=0)
+    rpcs = np.stack([rpcs[2], rpcs[0], rpcs[1]])  # nadir reference first
+    stage_cams = warp.build_stage_cams(rpcs, 0, device="cuda")
+    h_min, h_max = rpclib.height_range(rpcs[0])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for i, (cams, scale, nd, c) in enumerate(zip(stage_cams, STAGE_SCALES, NDEPTHS, FEAT_CH)):
+        h, w = HEIGHT // scale, WIDTH // scale
+        depths = torch.linspace(h_min, h_max, nd, device="cuda")
+        for s in range(2):
+            xs, ys = (t.contiguous() for t in warp.rpc_sweep_coords(cams, s, depths, h, w))
+            src = torch.randn((h, w, c), generator=gen, device="cuda")
+            g = torch.randn((nd, h, w, c), generator=gen, device="cuda")
+            cases.append((f"stage{i + 1} view{s} {(nd, h, w, c)}", src, xs, ys, g))
+    _, src, xs, ys, g = cases[0]
+    h, w = src.shape[:2]
+    xs_off, ys_off = xs * 1.5 - 0.25 * w, ys * 1.5 - 0.25 * h
+    xs_off.view(-1)[::97] = 1e9
+    ys_off.view(-1)[::89] = -1e9
+    cases.append(("off-image", src, xs_off, ys_off, g))
+
+    gather = KernelReport("sweep_gather", "satmvs_tpu_torch/csrc/sweep_gather.cu",
+                          "satmvs_tpu/ops/pallas/sweep_gather.py:400", card)
+    scatter = KernelReport("sweep_scatter", "satmvs_tpu_torch/csrc/sweep_gather.cu",
+                           "satmvs_tpu/ops/pallas/sweep_gather.py:558", card)
+    for label, src, xs, ys, g in cases:
+        timed = label != "off-image"
+        fwd, bwd = grid_sample_calls(src, xs, ys, g)
+        work = gather_work(src, xs, ys)
+        gather.case(label, lambda: sg.sweep_gather(src, xs, ys),
+                    lambda: sg.sweep_gather_reference(src, xs, ys), rel_tol, *work,
+                    fwd, timed=timed)
+        # each dsrc element is a sum of at most 4·D products: two summation
+        # orders differ by at most 2·(4·D − 1)·2⁻²⁴ × the sum of its terms'
+        # magnitudes (the plain scatter of |g|); its maximum over the elements
+        d, h, w = xs.shape
+        mag = sg.sweep_scatter_reference(g.abs(), xs, ys, h, w).max().item()
+        tol = 2 * (4 * d - 1) * 2.0 ** -24 * mag
+        scatter.case(label, lambda: sg.sweep_scatter(g, xs, ys),
+                     lambda: sg.sweep_scatter_reference(g, xs, ys, h, w), lambda want: tol,
+                     *work, bwd, timed=timed)
+        again = (sg.sweep_scatter(g, xs, ys) - sg.sweep_scatter(g, xs, ys)).abs().max().item()
+        print(f"[sweep] sweep_scatter {label}: run-to-run max abs difference {again:.3e} "
+              f"(atomics; summation bound {tol:.3e}, largest element magnitude sum "
+              f"{mag:.3e})", flush=True)
+        check(again <= tol, f"sweep_scatter {label}: run-to-run {again} > {tol}")
+    return [gather.record(), scatter.record()]
+
+
+TRAIN_STEPS = 5
+PARITY_SIZE, PARITY_NDEPTHS = (96, 192), (16, 8, 4)
+# GPU vs CPU, one step at PARITY_SIZE, where cuDNN's conv algorithms and
+# the scatter's atomics sum in other orders than the CPU.  At this size the
+# gradients are ill-conditioned: on the CPU, perturbing the images by 1e-7
+# relative (rounding level) moves the eval-mode gradients by up to 1.2e-2
+# relative norm per tensor (median 3.1e-3, 2.4e-3 over all) and the update
+# by up to 3.5e-2 (5.5e-3 over all).  Gates, a few times those: the loss to
+# 1e-4 relative; eval-mode gradients to a relative norm of 5e-2 per
+# parameter tensor and 1e-2 over all, the logit-head biases, whose gradient
+# is 0 up to rounding (a softmax ignores a shift of all logits), to 1e-6 of
+# the largest gradient element; the train-mode update (new − old
+# parameters) to 0.25 per tensor and 0.05 over all (train-mode BatchNorm
+# amplifies rounding, and RMSprop's first step carries it through
+# small-gradient elements); running statistics to 1e-4 of each tensor's
+# largest value
+PARITY_LOSS, PARITY_GRAD, PARITY_GRAD_ALL, PARITY_HEAD = 1e-4, 5e-2, 1e-2, 1e-6
+PARITY_UPDATE, PARITY_UPDATE_ALL, PARITY_STATS = 0.25, 0.05, 1e-4
+
+
+def lecun_scale(model):
+    """Scale the seeded He-normal kernels to flax's LeCun scale (variance
+    1/fan_in), as the CPU tests seed them: at He scale the random cascade
+    amplifies rounding (PERF.md, ROADMAP C)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.mul_(0.5 ** 0.5)
+    return model
+
+
+def batch_to(batch: dict, device) -> dict:
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) else
+                tuple(c.to(device) for c in v) if k == "cams" else [t.to(device) for t in v])
+            for k, v in batch.items()}
+
+
+def phase_train_parity(card: str):
+    """Phase 7, last part: one eval-mode gradient and one train step at
+    PARITY_SIZE on the card and on the CPU from the same weights and batch."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.models.losses import cascade_loss
+    from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
+
+    t0 = time.time()
+    h, w = PARITY_SIZE
+    cpu_batch = synthetic.make_batch(1, w, h, seed=1, device="cpu")
+    cfg = Config(ndepths=PARITY_NDEPTHS, seed=5)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        batch = batch_to(cpu_batch, dev)
+        model, state, tx = create_model_and_state(cfg, batch, 1)
+        lecun_scale(model)
+        old = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"], False)
+        loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], cfg.dlossw)[0]
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        state, scalars = make_train_step(model, tx, cfg.dlossw)(state, batch)
+        runs[dev] = {"loss": loss.item(), "step_loss": scalars["loss"].item(), "old": old,
+                     "grads": {n: g.cpu() for n, g in zip(names, grads)},
+                     "params": {k: v.detach().cpu() for k, v in state.params.items()},
+                     "stats": {k: v.cpu() for k, v in state.batch_stats.items()}}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    for name in ("loss", "step_loss"):
+        rel = abs(gpu[name] - cpu[name]) / abs(cpu[name])
+        print(f"[train] GPU vs CPU {h}x{w} ndepths {PARITY_NDEPTHS}: {name} {gpu[name]:.6f} vs "
+              f"{cpu[name]:.6f}, {rel:.3e} relative (tol {PARITY_LOSS})", flush=True)
+        check(rel <= PARITY_LOSS, f"train parity: {name} {rel} relative")
+    scale = max(g.abs().max().item() for g in cpu["grads"].values())
+    worst, head, g_num, g_den = 0.0, 0.0, 0.0, 0.0
+    for n, g in gpu["grads"].items():
+        diff = (g - cpu["grads"][n]).norm().item()
+        if n.endswith("head.bias"):
+            head = max(head, diff / scale)
+        else:
+            worst = max(worst, diff / cpu["grads"][n].norm().item())
+            g_num += diff ** 2
+            g_den += cpu["grads"][n].norm().item() ** 2
+    num = den = upd = 0.0
+    for n, p in gpu["params"].items():
+        if n.endswith("head.bias"):
+            continue
+        d_gpu, d_cpu = p - gpu["old"][n], cpu["params"][n] - cpu["old"][n]
+        num += (d_gpu - d_cpu).norm().item() ** 2
+        den += d_cpu.norm().item() ** 2
+        upd = max(upd, (d_gpu - d_cpu).norm().item() / d_cpu.norm().item())
+    stats = max((v - cpu["stats"][n]).abs().max().item() / cpu["stats"][n].abs().max().item()
+                for n, v in gpu["stats"].items())
+    total = (num / den) ** 0.5
+    g_total = (g_num / g_den) ** 0.5
+    print(f"[train] GPU vs CPU: eval-mode gradients max relative norm {worst:.3e} over "
+          f"{len(gpu['grads'])} tensors (tol {PARITY_GRAD}), {g_total:.3e} over all (tol "
+          f"{PARITY_GRAD_ALL}), head biases {head:.3e} of the "
+          f"largest element (tol {PARITY_HEAD}); update relative norm max {upd:.3e} per tensor "
+          f"(tol {PARITY_UPDATE}), {total:.3e} over all (tol {PARITY_UPDATE_ALL}); running "
+          f"statistics {stats:.3e} (tol {PARITY_STATS}); {time.time() - t0:.1f} s", flush=True)
+    check(worst <= PARITY_GRAD and g_total <= PARITY_GRAD_ALL and head <= PARITY_HEAD,
+          "train parity: eval-mode gradients")
+    check(upd <= PARITY_UPDATE and total <= PARITY_UPDATE_ALL, "train parity: the update")
+    check(stats <= PARITY_STATS, "train parity: running statistics")
+
+
+def train_step_split(model, state, tx, batch, cfg, card: str):
+    """Where a train step's time goes, on the host's clock with the card
+    synchronized between parts: the train-mode forward with the loss, the
+    backward, the update (one more update of `state`); then each stage's
+    RED scan alone, forward and backward, on a random volume of its shape."""
+    from satmvs_tpu_torch.models.losses import cascade_loss
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    names = list(state.params)
+    t0 = clock()
+    with torch.enable_grad():
+        out = model(batch["imgs"], batch["cams"], batch["depth_values"], train=True)
+        loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], cfg.dlossw)[0]
+        t1 = clock()
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+    t2 = clock()
+    tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+    t3 = clock()
+    print(f"[train] one step by part: forward {1e3 * (t1 - t0):.2f} ms, backward "
+          f"{1e3 * (t2 - t1):.2f} ms, update {1e3 * (t3 - t2):.2f} ms (host clock, card "
+          f"synchronized) card={card}", flush=True)
+    del out, loss, grads
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for i, (reg, scale, nd, c) in enumerate(zip(model.regs, STAGE_SCALES, NDEPTHS, FEAT_CH)):
+        vol = torch.rand((1, nd, HEIGHT // scale, WIDTH // scale, c), generator=gen,
+                         device="cuda").requires_grad_(True)
+        with torch.enable_grad():
+            t0 = clock()
+            logits = reg(vol, fused=False)
+            t1 = clock()
+            torch.autograd.grad(logits.sum(), [vol, *reg.parameters()])
+            t2 = clock()
+        print(f"[train] stage{i + 1} RED scan alone {tuple(vol.shape)}: forward "
+              f"{1e3 * (t1 - t0):.2f} ms, backward {1e3 * (t2 - t1):.2f} ms (host clock, card "
+              f"synchronized) card={card}", flush=True)
+
+
+def phase_train(card: str) -> dict:
+    """Phase 7: the training path at full width; returns the launches of the
+    train steps' run and of the eval step's."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import (Config, create_model_and_state, make_eval_step,
+                                        make_train_step)
+
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    cfg = Config(ndepths=NDEPTHS)
+    model, state, tx = create_model_and_state(cfg, batch, TRAIN_STEPS)
+    train_step = make_train_step(model, tx, cfg.dlossw)
+    eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for k in range(TRAIN_STEPS):
+        before = counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, scalars = train_step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append({key: v.item() for key, v in scalars.items()})
+        per_step = {key: v - before[key] for key, v in counts().items()}
+        check(per_step == LAUNCHES_PER_TRAIN_STEP, f"train step {k}: launches {per_step}")
+        check(all(np.isfinite(v) for v in losses[-1].values()), f"train step {k}: {losses[-1]}")
+    train_launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] {TRAIN_STEPS} train steps at {HEIGHT}x{WIDTH}, B=1, ndepths={NDEPTHS}, "
+          f"fused_red off: launches per step {LAUNCHES_PER_TRAIN_STEP} (exact), in all "
+          f"{train_launches}", flush=True)
+    print(f"[train] step ms {[round(t, 2) for t in times]} (CUDA events): median "
+          f"{float(np.median(times)):.2f} ms, first {times[0]:.2f} ms; peak_mem={peak:.2f} GiB "
+          f"card={card}", flush=True)
+    for k, rec in enumerate(losses):
+        print(f"[train] step {k}: " + ", ".join(f"{key} {v:.4f}" for key, v in rec.items()),
+              flush=True)
+    reset_counts()
+    scalars, depth, _ = eval_step(state, batch)
+    torch.cuda.synchronize()
+    eval_launches = counts()
+    check(eval_launches == LAUNCHES_PER_EVAL_STEP, f"eval step launches {eval_launches}")
+    check(all(bool(torch.isfinite(v)) for v in scalars.values()), f"eval step: {scalars}")
+    check(tuple(depth.shape) == (1, HEIGHT, WIDTH), f"eval depth shape {tuple(depth.shape)}")
+    print(f"[train] eval step: launches {eval_launches} (exact); " + ", ".join(
+        f"{key} {v.item():.4f}" for key, v in scalars.items()), flush=True)
+    eval_ms = time_ms(lambda: eval_step(state, batch), reps=3, warmup=1)
+    print(f"[train] eval step {eval_ms:.2f} ms (median of 3, CUDA events) card={card}",
+          flush=True)
+    train_step_split(model, state, tx, batch, cfg, card)
+    profile_forward(lambda: train_step(state, batch), card, top=12, what="one train step")
+    phase_train_parity(card)
+    return {"train_step": train_launches, "eval_step": eval_launches}
+
+
+def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
+    """Device time by kernel over one call of fn (torch.profiler), and the
+    share of its wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -701,7 +1018,7 @@ def profile_forward(fn, card: str, top: int = 8):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events)
-    print(f"[profile] one forward: wall {wall_us / 1e3:.2f} ms (profiler on), device busy "
+    print(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms (profiler on), device busy "
           f"{busy_us / 1e3:.2f} ms = {busy_us / wall_us:.3f} of wall, {n_kernels} device "
           f"kernels/copies card={card}", flush=True)
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
@@ -749,9 +1066,9 @@ def run(scene_job) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # phases 2, 2b and 3
+    # phases 2, 2b, 6 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
-    records = [sweep, dn, rec, phase_batched_red(smi), up, head]
+    records = [sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi)]
     launches = {"forward": phase_slice(smi)}
 
     # phase 5, then phase 4 on phase 5's first chunk
@@ -763,14 +1080,22 @@ def run(scene_job) -> int:
     scene_launches, chunk = phase_scene(smi, model, scene)
     launches.update(scene_launches)
     launches["streaming"] = phase_stream_vs_full(smi, model, chunk)
+    del model, chunk, scene
+
+    # phase 7
+    launches.update(phase_train(smi))
 
     for record in records:
         # the batched record is the same wrapper, read on the path that batches
         batched = record["name"] == "red_recur_batched"
         wrapper = "red_recur" if batched else record["name"]
         record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
-        record["launches"] = launches[f"scene_b{BATCH_TILES}" if batched else "forward"][wrapper]
-        check(all(n > 0 for n in record["launches_by_path"].values()),
+        train = wrapper in TRAIN_KERNELS
+        main = "train_step" if train else f"scene_b{BATCH_TILES}" if batched else "forward"
+        record["launches"] = launches[main][wrapper]
+        paths = ("train_step",) if train else INFERENCE_PATHS + (
+            ("eval_step",) if wrapper == "sweep_variance" else ())
+        check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")
 
     print(json.dumps({"kernels": records}), flush=True)

@@ -32,40 +32,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"
+
 namespace {
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = v[i];
-  }
-}
-
-// Adds weight · src[yi, xi, c0 : c0 + VEC] when the corner lies in the image.
-template <int VEC>
-__device__ __forceinline__ void add_corner(const float* __restrict__ src, int yi, int xi,
-                                           float weight, int H, int W, int C,
-                                           float (&acc)[VEC]) {
-  if (xi < 0 || xi >= W || yi < 0 || yi >= H) return;
-  float v[VEC];
-  load_vec<VEC>(src + ((int64_t)yi * W + xi) * C, v);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] += v[i] * weight;
-}
+using bilinear::load_vec;
+using bilinear::store_vec;
 
 template <int VEC>
 __global__ void __launch_bounds__(256) sweep_variance_kernel(
@@ -88,24 +60,9 @@ __global__ void __launch_bounds__(256) sweep_variance_kernel(
 
   for (int s = 0; s < S; ++s) {
     const int64_t ci = ((int64_t)s * D + d) * hw + p;
-    const float cx = __ldg(xs + ci);
-    const float cy = __ldg(ys + ci);
-    const float fx0 = floorf(cx);
-    const float fy0 = floorf(cy);
-    const float wx = cx - fx0;
-    const float wy = cy - fy0;
-    // clamp before the float → int cast (undefined out of range); below -1
-    // or above W-1 both corners stay invalid, so validity is unchanged
-    const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
-    const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
-    const float* src = srcs + (int64_t)s * hw * C + c0;
+    const bilinear::Taps taps(__ldg(xs + ci), __ldg(ys + ci), H, W);
     float w[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) w[i] = 0.f;
-    add_corner<VEC>(src, y0, x0, (1.f - wy) * (1.f - wx), H, W, C, w);
-    add_corner<VEC>(src, y0, x0 + 1, (1.f - wy) * wx, H, W, C, w);
-    add_corner<VEC>(src, y0 + 1, x0, wy * (1.f - wx), H, W, C, w);
-    add_corner<VEC>(src, y0 + 1, x0 + 1, wy * wx, H, W, C, w);
+    bilinear::sample<VEC>(srcs + (int64_t)s * hw * C + c0, taps, H, W, C, w);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) { sum[i] += w[i]; sq[i] += w[i] * w[i]; }
   }

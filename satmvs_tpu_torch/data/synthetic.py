@@ -17,6 +17,7 @@ import torch
 from ..device import resolve_device
 from ..geo import rpc as rpclib
 from ..ops import warp as warplib
+from .preprocess import build_pyramid
 
 _M_PER_DEG = 111_320.0  # metres per degree of latitude, near enough
 
@@ -164,7 +165,7 @@ def make_scene(width: int = 128, height: int = 128, seed: int = 0, h_amp: float 
 
 
 def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int = 0,
-               device=None) -> dict:
+               with_gt: bool = True, device=None) -> dict:
     """A batch of synthetic scenes (sample b from seed + b) on `device`
     (the GPU unless "cpu" is passed):
 
@@ -172,9 +173,12 @@ def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int
                     each view normalized to zero mean and unit std
       cams          per-stage batched RpcWarpCams, coarsest first
       depth_values  (B, 2) float32 scene height range
+      depth_stages  with_gt: per-stage GT heights of the reference view,
+                    (B, H/4, W/4), (B, H/2, W/2), (B, H, W), coarsest first
+      mask_stages   with_gt: per-stage valid masks (all ones), same shapes
     """
     dev = resolve_device(device)
-    sample_cams, imgs_all, dvals_all = [], [], []
+    sample_cams, imgs_all, dvals_all, gt_all = [], [], [], []
     for b in range(batch_size):
         scene = make_scene(width, height, seed=seed + b, h_amp=80.0)
         order = [2, 0, 1]  # nadir view is the reference, ref-first
@@ -184,8 +188,15 @@ def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int
             imgs.std(axis=(1, 2), keepdims=True) + 1e-8)
         imgs_all.append(np.repeat(imgs[..., None], 3, axis=-1).astype(np.float32))
         dvals_all.append(scene["h_range"])
-    return {
+        gt_all.append(scene["gt_heights"][2])
+    batch = {
         "imgs": torch.as_tensor(np.stack(imgs_all), device=dev),
         "cams": tuple(warplib.stack_cams([c[i] for c in sample_cams]) for i in range(3)),
         "depth_values": torch.as_tensor(np.stack(dvals_all), device=dev),
     }
+    if with_gt:
+        pyrs = [build_pyramid(g, 3) for g in gt_all]
+        batch["depth_stages"] = [torch.as_tensor(np.stack([p[i] for p in pyrs]), device=dev)
+                                 for i in range(3)]
+        batch["mask_stages"] = [torch.ones_like(d) for d in batch["depth_stages"]]
+    return batch

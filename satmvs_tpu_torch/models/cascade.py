@@ -1,11 +1,22 @@
-"""Coarse-to-fine cascade: CascadeREDNet under RPC geometry, inference.
+"""Coarse-to-fine cascade: CascadeREDNet under RPC geometry.
 
 Counterpart of `satmvs_tpu/models/cascade.py` with regularizer="red",
-geo_model="rpc", sampler="window", confidence="max" and the JAX model's
-default fused RED regularizer (fused_red=True).  The cost volume of every
-stage comes from the `sweep_variance` kernel, and its RED regularizer runs
-the `conv_dn`, `red_recur`, `deconv_up` and `conv_head` kernels
-(`nn/red.py`).
+geo_model="rpc", sampler="window", confidence="max", grad_method="through"
+and exact per-pixel coordinates.  Two paths, chosen by whether autograd
+records:
+
+  inference (no gradient): the cost volume of every stage comes from the
+    `sweep_variance` kernel, and the RED regularizer is the fused pipeline
+    of the `conv_dn`, `red_recur`, `deconv_up` and `conv_head` kernels
+    (`nn/red.py`) unless fused_red=False picks its scan path;
+  training (gradients): per source view the `sweep_gather` kernel
+    (`ops.warp.rpc_warp`, backward `sweep_scatter`) and the variance of the
+    warped views, then the RED scan path.  The RED kernels have no backward
+    yet, so fused_red=True raises here, on every device.
+
+The gradient reaches a stage's depth through the next stage's window
+hypotheses (JAX's grad_method="through"); only the sweep coordinates are
+cut from the graph.
 
 Input (channels-last, view 0 = reference view):
   imgs          (B, V, H, W, 3)
@@ -25,8 +36,9 @@ import torch.nn as nn
 from ..nn.featurenet import FeatureNet
 from ..nn.red import REDRegularizer
 from ..ops import depth_range, regression
+from ..ops.cost_volume import sweep_variance_volume
 from ..ops.kernels.sweep_variance import sweep_variance
-from ..ops.warp import RpcWarpCams, rpc_sweep_coords
+from ..ops.warp import RpcWarpCams, rpc_sweep_coords, rpc_warp
 
 
 def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torch.Tensor,
@@ -56,18 +68,43 @@ def build_stage_volume(feats: torch.Tensor, cams: RpcWarpCams,
     return torch.stack(vols)
 
 
+def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams,
+                       hyps: torch.Tensor) -> torch.Tensor:
+    """`build_stage_volume`'s function, differentiable in the features: per
+    sample the variance over the reference view and each source view warped
+    by `rpc_warp` (one `sweep_gather` per source view)."""
+    vols = []
+    for i in range(feats.shape[0]):
+        cams_b = cams[i]
+        vols.append(sweep_variance_volume(
+            feats[i, 0], feats[i, 1:], lambda src, s: rpc_warp(src, cams_b, s, hyps[i])))
+    return torch.stack(vols)
+
+
 class CascadeModel(nn.Module):
-    """Three-stage cascade (1/4, 1/2, full resolution) with RED regularizers."""
+    """Three-stage cascade (1/4, 1/2, full resolution) with RED regularizers.
+
+    fused_red: the RED path without gradients, None (the default) or True
+    for the fused pipeline, False for the scan; with gradients only the
+    scan exists, and True raises.  train_fused_sweep=True (training on the
+    fused sweep, whose backward is not ported) raises.
+    """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
                  depth_intervals_ratio: Sequence[float] = (4.0, 2.0, 1.0),
-                 min_interval: float = 2.5, cr_base_chs: Sequence[int] = (8, 8, 8)):
+                 min_interval: float = 2.5, cr_base_chs: Sequence[int] = (8, 8, 8),
+                 fused_red: bool | None = None, train_fused_sweep: bool = False):
         super().__init__()
         if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
             raise ValueError("the port runs three cascade stages")
+        if train_fused_sweep:
+            raise NotImplementedError("train_fused_sweep=True: the backward of the fused sweep "
+                                      "is not ported; training takes the per-view sweep_gather")
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.min_interval = min_interval
+        self.fused_red = fused_red
+        self.train_fused_sweep = train_fused_sweep
         self.feature = FeatureNet(8)
         self.regs = nn.ModuleList(
             REDRegularizer(c, cr) for c, cr in zip(self.feature.out_channels, cr_base_chs)
@@ -77,35 +114,62 @@ class CascadeModel(nn.Module):
         """Hypothesis interval of each stage (m), before the window stretch."""
         return [r * self.min_interval for r in self.depth_intervals_ratio]
 
+    def _features(self, imgs: torch.Tensor, train: bool) -> list[torch.Tensor]:
+        b, v, height, width, c = imgs.shape
+        return [f.reshape(b, v, *f.shape[1:])
+                for f in self.feature(imgs.reshape(b * v, height, width, c), train)]
+
     @torch.no_grad()
     def features(self, imgs: torch.Tensor) -> list[torch.Tensor]:
         """(B, V, H, W, 3) → per-stage features (B, V, h, w, C), coarsest first."""
-        b, v, height, width, c = imgs.shape
-        return [f.reshape(b, v, *f.shape[1:])
-                for f in self.feature(imgs.reshape(b * v, height, width, c))]
+        return self._features(imgs, False)
+
+    def _stage(self, i: int, feats: torch.Tensor, cams: RpcWarpCams, d_min: torch.Tensor,
+               d_max: torch.Tensor, depth: torch.Tensor | None) -> dict:
+        sh, sw = feats.shape[2:4]
+        hyps = stage_hypotheses(self.ndepths[i], sh, sw, d_min, d_max,
+                                self.stage_intervals()[i], depth)
+        if torch.is_grad_enabled():
+            if self.fused_red:
+                raise NotImplementedError(
+                    "fused_red=True under autograd: the RED kernels have no backward "
+                    "kernels yet; train with fused_red False or None")
+            volume, fused = build_train_volume(feats, cams, hyps), False
+        else:
+            volume = build_stage_volume(feats, cams, hyps)
+            fused = self.fused_red is not False
+        prob = torch.softmax(self.regs[i](volume, fused), dim=1)  # (B, D, h, w)
+        return {"depth": regression.depth_regression(prob, hyps),
+                "photometric_confidence": regression.max_prob_confidence(prob)}
 
     @torch.no_grad()
     def stage(self, i: int, feats: torch.Tensor, cams: RpcWarpCams, d_min: torch.Tensor,
               d_max: torch.Tensor, depth: torch.Tensor | None = None) -> dict:
         """Cascade stage i (0-based) on its features (B, V, h, w, C); `depth`
         (B, h', w') is the previous stage's estimate (None at stage 0)."""
-        sh, sw = feats.shape[2:4]
-        hyps = stage_hypotheses(self.ndepths[i], sh, sw, d_min, d_max,
-                                self.stage_intervals()[i], depth)
-        volume = build_stage_volume(feats, cams, hyps)
-        prob = torch.softmax(self.regs[i](volume), dim=1)  # (B, D, h, w)
-        return {"depth": regression.depth_regression(prob, hyps),
-                "photometric_confidence": regression.max_prob_confidence(prob)}
+        return self._stage(i, feats, cams, d_min, d_max, depth)
 
-    @torch.no_grad()
-    def forward(self, imgs: torch.Tensor, cams: Sequence[RpcWarpCams],
-                depth_values: torch.Tensor) -> dict:
+    def run_cascade(self, imgs: torch.Tensor, cams: Sequence[RpcWarpCams],
+                    depth_values: torch.Tensor, train: bool) -> dict:
+        """The cascade under the caller's autograd mode (the module
+        docstring's two paths).  train: the BatchNorms normalize with batch
+        statistics and update their running ones (flax's train=True); with
+        train=False and gradients, this is JAX's eval-mode gradient."""
         d_min, d_max = depth_values[:, 0], depth_values[:, -1]
         outputs = {}
         depth = None
-        for i, feats in enumerate(self.features(imgs)):
-            out = self.stage(i, feats, cams[i], d_min, d_max, depth)
+        for i, feats in enumerate(self._features(imgs, train)):
+            out = self._stage(i, feats, cams[i], d_min, d_max, depth)
             depth = out["depth"]
             outputs[f"stage{i + 1}"] = out
         outputs.update(outputs[f"stage{len(self.ndepths)}"])
         return outputs
+
+    def forward(self, imgs: torch.Tensor, cams: Sequence[RpcWarpCams],
+                depth_values: torch.Tensor, train: bool = False) -> dict:
+        """train=False: inference, without gradients.  train=True: the
+        training forward (flax's train=True), differentiable."""
+        if train:
+            return self.run_cascade(imgs, cams, depth_values, True)
+        with torch.no_grad():
+            return self.run_cascade(imgs, cams, depth_values, False)

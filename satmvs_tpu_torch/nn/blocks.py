@@ -4,7 +4,9 @@ Counterpart of `satmvs_tpu/nn/blocks.py` (2-D forms).  The blocks take and
 return NCHW tensors, PyTorch's convolution layout; the modules built from
 them (FeatureNet, REDRegularizer) keep the JAX package's channels-last
 layouts at their public boundary.  Padding is torch-style (kernel k → k//2),
-so output sizes match the flax blocks exactly.
+so output sizes match the flax blocks exactly.  As in flax, the blocks with
+a BatchNorm take a `train` argument: the module's own train()/eval() mode
+is not read.
 """
 
 from __future__ import annotations
@@ -12,6 +14,31 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over NCHW channels.
+
+    train=False normalizes with the running statistics.  train=True
+    normalizes with the batch's mean and biased variance E[x²] − E[x]²
+    (clipped at 0, flax's fast variance) and moves the running statistics
+    0.1 of the way to them, the variance biased too: torch's BatchNorm2d
+    moves them to the unbiased variance, which would drift from flax's
+    `batch_stats` at every step.  The running statistics are buffers
+    updated in place, outside autograd.
+    """
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class ConvBlock(nn.Module):
@@ -26,11 +53,11 @@ class ConvBlock(nn.Module):
         bias = (norm == "none") if use_bias is None else use_bias
         self.conv = nn.Conv2d(in_channels, features, kernel_size, stride,
                               padding=kernel_size // 2, bias=bias)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5) if norm == "bn" else None
+        self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.conv(x)
-        return F.relu(x if self.bn is None else self.bn(x))
+        return F.relu(x if self.bn is None else self.bn(x, train))
 
 
 class DeconvBlock(nn.Module):
@@ -49,11 +76,11 @@ class DeconvBlock(nn.Module):
         bias = (norm == "none") if use_bias is None else use_bias
         self.conv = nn.ConvTranspose2d(in_channels, features, 3, 2, padding=1,
                                        output_padding=1, bias=bias)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5) if norm == "bn" else None
+        self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.conv(x)
-        return F.relu(x if self.bn is None else self.bn(x))
+        return F.relu(x if self.bn is None else self.bn(x, train))
 
 
 class ConvGRUCell(nn.Module):
@@ -104,5 +131,5 @@ class DeconvFuse(nn.Module):
         self.deconv = DeconvBlock(in_channels, features, norm="bn")
         self.conv = ConvBlock(features + skip_channels, features, 3, norm="bn")
 
-    def forward(self, x_skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(torch.cat([self.deconv(x), x_skip], dim=1))
+    def forward(self, x_skip: torch.Tensor, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(torch.cat([self.deconv(x, train), x_skip], dim=1), train)

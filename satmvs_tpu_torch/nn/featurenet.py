@@ -29,16 +29,23 @@ class FeatureNet(nn.Module):
         self.out3 = nn.Conv2d(b, b, 1, bias=False)
         self.out_channels = [4 * b, 2 * b, b]
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
         """x (N, H, W, 3) → [(N, H/4, W/4, 4b), (N, H/2, W/2, 2b), (N, H, W, b)],
-        coarsest first, each channels-last and contiguous."""
-        x = x.permute(0, 3, 1, 2)
-        conv0 = self.conv0(x)
-        conv1 = self.conv1(conv0)
-        conv2 = self.conv2(conv1)
+        coarsest first, each channels-last and contiguous.  train: the
+        BatchNorms normalize with batch statistics and update their running
+        ones (flax's `train`)."""
+
+        def run(blocks, t):
+            for block in blocks:
+                t = block(t, train)
+            return t
+
+        conv0 = run(self.conv0, x.permute(0, 3, 1, 2))
+        conv1 = run(self.conv1, conv0)
+        conv2 = run(self.conv2, conv1)
         outs = [self.out1(conv2)]
-        intra = self.deconv1(conv1, conv2)
+        intra = self.deconv1(conv1, conv2, train)
         outs.append(self.out2(intra))
-        intra = self.deconv2(conv0, intra)
+        intra = self.deconv2(conv0, intra, train)
         outs.append(self.out3(intra))
         return [o.permute(0, 2, 3, 1).contiguous() for o in outs]

@@ -1,9 +1,10 @@
-"""Recurrent Encoder-Decoder (RED) cost regularization, the fused pipeline.
+"""Recurrent Encoder-Decoder (RED) cost regularization.
 
-Counterpart of `satmvs_tpu/nn/red.py`'s `REDRegularizer` on its default path
-(fused=True) and of its pipelines `packed_red_pipeline(..., h0s=)` and
-`packed_red_pipeline_batched` (red.py:182-301).  For a (B, D, H, W, C)
-volume and optional per-scale start states:
+Counterpart of `satmvs_tpu/nn/red.py`'s `REDRegularizer` on both its paths.
+`REDRegularizer(volume, fused=True)`, the default, is the fused pipeline,
+as are `packed_red_pipeline(..., h0s=)` and `packed_red_pipeline_batched`
+(red.py:182-301).  For a (B, D, H, W, C) volume and optional per-scale start
+states:
 
   encode  neg = −volume;  c1, c2, c3 = conv_dn ×3 (stride 2 each), over all
           B·D planes at once
@@ -20,8 +21,15 @@ along D gives the same logits as the whole (the slab-streaming carry of
 
 Each step is a call of `ops/kernels` (a CUDA kernel for CUDA tensors, its
 plain version for CPU tensors), so on the CPU this composition of plain
-versions is the scan form of the same function.  H and W must be divisible
-by 8.
+versions is the scan form of the same function.  The CUDA kernels have no
+backward yet.
+
+`REDRegularizer(volume, fused=False)` is the JAX scan path (red.py:368-390),
+which JAX leaves to XLA and the port to torch built-ins (cuDNN convolutions
+on the card, differentiable everywhere): the encoder over all B·D planes at
+once, the four cells' input convolutions likewise, then plane by plane the
+recurrences and the in-plane decoder, interleaved coarse → fine from zero
+states.  H and W must be divisible by 8.
 """
 
 from __future__ import annotations
@@ -89,5 +97,33 @@ class REDRegularizer(nn.Module):
         logits = conv_head(hin, s.head.weight, s.head.bias)[..., 0]
         return logits.reshape(b, d, *logits.shape[1:]), tuple(states)
 
-    def forward(self, volume: torch.Tensor) -> torch.Tensor:
-        return self.pipeline(volume)[0]
+    def scan(self, volume: torch.Tensor) -> torch.Tensor:
+        """(B, D, H, W, C) volume → (B, D, H, W) logits by the scan path."""
+        s = self.step
+        b, d, h, w, c = volume.shape
+        neg = -volume.reshape(b * d, h, w, c).permute(0, 3, 1, 2)
+        c1 = s.enc1(neg)
+        c2 = s.enc2(c1)
+        c3 = s.enc3(c2)
+        xcs = [cell.x_contrib(x).reshape(b, d, 3 * cell.features, *x.shape[2:])
+               for cell, x in zip(s.grus, (neg, c1, c2, c3))]
+        states = [x.new_zeros((b, cell.features, *x.shape[3:]))
+                  for cell, x in zip(s.grus, xcs)]
+        logits = []
+        for k in range(d):
+            s1, s2, s3, s4 = states
+            s4 = s.gru4.recur(xcs[3][:, k], s4)
+            u3 = s.up3(s4)
+            s3 = s.gru3.recur(xcs[2][:, k], s3)
+            u2 = s.up2(u3 + s3)
+            s2 = s.gru2.recur(xcs[1][:, k], s2)
+            u1 = s.up1(u2 + s2)
+            s1 = s.gru1.recur(xcs[0][:, k], s1)
+            logits.append(s.head(u1 + s1)[:, 0])
+            states = [s1, s2, s3, s4]
+        return torch.stack(logits, dim=1)
+
+    def forward(self, volume: torch.Tensor, fused: bool = True) -> torch.Tensor:
+        """(B, D, H, W, C) volume → (B, D, H, W) logits: the fused pipeline,
+        or the scan path with fused=False."""
+        return self.pipeline(volume)[0] if fused else self.scan(volume)

@@ -24,7 +24,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, refuse_graph
+
+# where the backward kernels of the RED regularizer come from
+RED_BACKWARD = ("its backward kernel comes with fused_red=on training; "
+                "train with fused_red off until then")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -110,12 +114,14 @@ def conv_dn(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3) → (N, ⌈H/2⌉, ⌈W/2⌉, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
-    `conv_dn_reference`.  No gradient flows through the CUDA path."""
+    `conv_dn_reference`.  On CUDA tensors it raises where autograd would
+    record a graph (`refuse_graph`)."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"conv_dn: want weight (Cout, Cin, 3, 3), got {tuple(weight.shape)}")
     _check("conv_dn", x, {"weight": weight}, weight.shape[1])
     if x.device.type == "cpu":
         return conv_dn_reference(x, weight)
+    refuse_graph("conv_dn", RED_BACKWARD, x, weight)
     out = _conv3x3("conv_dn", x, weight, None, 2, True)
     conv_dn.launches += 1
     return out
@@ -126,7 +132,8 @@ def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torc
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3), bias (Cout,) → (N, H, W, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
-    `conv_head_reference`.  No gradient flows through the CUDA path."""
+    `conv_head_reference`.  On CUDA tensors it raises where autograd would
+    record a graph (`refuse_graph`)."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"conv_head: want weight (Cout, Cin, 3, 3), got {tuple(weight.shape)}")
     if bias.shape != (weight.shape[0],):
@@ -134,6 +141,7 @@ def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torc
     _check("conv_head", x, {"weight": weight, "bias": bias}, weight.shape[1])
     if x.device.type == "cpu":
         return conv_head_reference(x, weight, bias)
+    refuse_graph("conv_head", RED_BACKWARD, x, weight, bias)
     out = _conv3x3("conv_head", x, weight, bias, 1, False)
     conv_head.launches += 1
     return out
@@ -146,8 +154,8 @@ def deconv_up(x: torch.Tensor, weight: torch.Tensor,
 
     x (N, H, W, Cin) float32, weight (Cin, Cout, 3, 3), skip (N, 2H, 2W, Cout)
     → (N, 2H, 2W, Cout).  CUDA tensors go to the kernel (x and skip must be
-    contiguous), CPU tensors to `deconv_up_reference`.  No gradient flows
-    through the CUDA path."""
+    contiguous), CPU tensors to `deconv_up_reference`.  On CUDA tensors it
+    raises where autograd would record a graph (`refuse_graph`)."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"deconv_up: want weight (Cin, Cout, 3, 3), got {tuple(weight.shape)}")
     extra = {"weight": weight} if skip is None else {"weight": weight, "skip": skip}
@@ -158,6 +166,7 @@ def deconv_up(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"deconv_up: skip {tuple(skip.shape)} != {(n, 2 * h, 2 * w, cout)}")
     if x.device.type == "cpu":
         return deconv_up_reference(x, weight, skip)
+    refuse_graph("deconv_up", RED_BACKWARD, x, weight, skip)
     _contiguous("deconv_up", x=x, skip=skip)
     out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
     w_k = weight.detach().permute(2, 3, 0, 1).contiguous()  # (3, 3, Cin, Cout)

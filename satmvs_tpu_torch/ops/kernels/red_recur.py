@@ -24,7 +24,8 @@ import ctypes
 import torch
 
 from ...nn.blocks import ConvGRUCell
-from . import build
+from . import build, refuse_graph
+from .plane_conv import RED_BACKWARD
 
 _MAX_BLOCKS = 4096  # caps the cooperative grid; sizes the per-block sums scratch
 
@@ -156,12 +157,13 @@ def red_recur(x: torch.Tensor, cell: ConvGRUCell,
     Chaining: red_recur(x)[k:] equals red_recur(x[k:], cell,
     red_recur(x[:k], cell)[-1]) (per element when batched).  CUDA tensors go
     to the kernel (x and h0 contiguous, C % 4 == 0; a grid the card cannot
-    hold raises), CPU tensors to `red_recur_reference`.  No gradient flows
-    through the CUDA path.
+    hold raises), CPU tensors to `red_recur_reference`.  On CUDA tensors it
+    raises where autograd would record a graph (`refuse_graph`).
     """
     _check(x, cell, h0)
     if x.device.type == "cpu":
         return red_recur_reference(x, cell, h0)
+    refuse_graph("red_recur", RED_BACKWARD, x, h0, *cell.parameters())
     if x.ndim == 4:
         return _launch(x[None], cell, None if h0 is None else h0[None])[0]
     return _launch(x, cell, h0)

@@ -1,0 +1,152 @@
+"""Per-view plane-sweep gather and its scatter adjoint: CUDA kernels and
+their plain versions.
+
+Replaces the two TPU kernels of `satmvs_tpu/ops/pallas/sweep_gather.py`:
+`_sweep_gather_impl_hcw` (pallas_call at :436, kernel :315) and
+`_sweep_scatter_impl_hcw` (pallas_call at :576, kernel :475), tied together
+by the custom VJP of its `sweep_gather` (:636-681).  The CUDA source is
+`satmvs_tpu_torch/csrc/sweep_gather.cu`; its header gives the design, the
+bound and the scatter's summation-order tolerance.
+
+`sweep_gather(src, xs, ys)` is differentiable in `src` (the coordinates
+carry no gradient, as in JAX): its backward is `sweep_scatter`.  Both
+wrappers launch their kernel for CUDA tensors and count each launch in
+`<wrapper>.launches`; for CPU tensors, and only for them, they compute the
+plain versions `sweep_gather_reference` (`ops.sampling.bilinear_sample`)
+and `sweep_scatter_reference` (an `index_add_` scatter, the form of
+`_bilinear_scatter`, sweep_gather.py:607-633).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..sampling import bilinear_sample
+from . import build
+
+
+def sweep_gather_reference(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gather: src (H, W, C) sampled at xs, ys (D, H, W)
+    → (D, H, W, C), zero outside the image."""
+    return bilinear_sample(src, xs, ys)
+
+
+def sweep_scatter_reference(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                            height: int, width: int) -> torch.Tensor:
+    """Plain version of the transpose: g (D, H', W', C) scattered into the
+    (height, width, C) source at the taps of the samples (xs, ys) (D, H', W')."""
+    c = g.shape[-1]
+    x, y = xs.reshape(-1), ys.reshape(-1)
+    gf = g.reshape(-1, c).to(torch.float32)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    # the clamp of bilinear_sample: the cast is undefined out of range
+    x0i = x0.clamp(-2, width).to(torch.int64)
+    y0i = y0.clamp(-2, height).to(torch.int64)
+    out = torch.zeros((height * width, c), dtype=torch.float32, device=g.device)
+    for dy, dx, wgt in ((0, 0, (1 - wy) * (1 - wx)), (0, 1, (1 - wy) * wx),
+                        (1, 0, wy * (1 - wx)), (1, 1, wy * wx)):
+        yy, xx = y0i + dy, x0i + dx
+        valid = (xx >= 0) & (xx < width) & (yy >= 0) & (yy < height)
+        idx = yy.clamp(0, height - 1) * width + xx.clamp(0, width - 1)
+        out.index_add_(0, idx, gf * (wgt * valid)[:, None])
+    return out.reshape(height, width, c)
+
+
+def _c_fn(name: str):
+    fn = getattr(build.load("sweep_gather"), name)
+    # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+    for key, t in (("values", values), ("xs", xs), ("ys", ys)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if t.device != values.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, values on {values.device}")
+    if xs.ndim != 3 or ys.shape != xs.shape:
+        raise ValueError(f"{name}: want xs/ys (D, H, W), got {tuple(xs.shape)} / "
+                         f"{tuple(ys.shape)}")
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {values.device}")
+
+
+def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int):
+    """Runs the kernel `name` on CUDA tensors (contiguous; float4 access when
+    C and every pointer allow it) on the current stream; raises on a CUDA error."""
+    for key, t in (("values", values), ("xs", xs), ("ys", ys)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    ptrs = [t.data_ptr() for t in (values, xs, ys, out)]
+    vec = 4 if c % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _c_fn(f"{name}_f32")(*ptrs, d, h, w, c, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    _check("sweep_gather", src, xs, ys)
+    if src.ndim != 3 or tuple(src.shape[:2]) != tuple(xs.shape[1:]):
+        raise ValueError(f"sweep_gather: want src (H, W, C) and xs/ys (D, H, W), got "
+                         f"{tuple(src.shape)} and {tuple(xs.shape)}")
+    if src.device.type == "cpu":
+        return sweep_gather_reference(src, xs, ys)
+    d, h, w = xs.shape
+    out = torch.empty((d, h, w, src.shape[-1]), dtype=torch.float32, device=src.device)
+    _launch("sweep_gather", src, xs, ys, out, d, h, w, src.shape[-1])
+    sweep_gather.launches += 1
+    return out
+
+
+def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """The transpose of `sweep_gather` at (xs, ys): g (D, H, W, C) float32,
+    xs/ys (D, H, W) → the source's cotangent (H, W, C).  CUDA tensors go to
+    the kernel (inputs contiguous; atomics, so the order of each element's
+    sum changes from run to run), CPU tensors to `sweep_scatter_reference`."""
+    _check("sweep_scatter", g, xs, ys)
+    if g.ndim != 4 or tuple(g.shape[:3]) != tuple(xs.shape):
+        raise ValueError(f"sweep_scatter: want g {tuple(xs.shape)} + (C,), got {tuple(g.shape)}")
+    d, h, w, c = g.shape
+    if g.device.type == "cpu":
+        return sweep_scatter_reference(g, xs, ys, h, w)
+    dsrc = torch.zeros((h, w, c), dtype=torch.float32, device=g.device)
+    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c)
+    sweep_scatter.launches += 1
+    return dsrc
+
+
+class _SweepGather(torch.autograd.Function):
+    """gather forward, scatter backward; the coordinates get no gradient."""
+
+    @staticmethod
+    def forward(ctx, src, xs, ys):
+        ctx.save_for_backward(xs, ys)
+        return _gather(src, xs, ys)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ys = ctx.saved_tensors
+        dsrc = sweep_scatter(g.contiguous(), xs, ys) if ctx.needs_input_grad[0] else None
+        return dsrc, None, None
+
+
+def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of one source view at the plane-sweep coordinates.
+
+    src (H, W, C) float32, xs/ys (D, H, W) float32 on one device →
+    (D, H, W, C) float32, zero outside the image; differentiable in src
+    (backward: `sweep_scatter`), not in the coordinates.  CUDA tensors go to
+    the kernel (inputs contiguous), CPU tensors to `sweep_gather_reference`.
+    """
+    return _SweepGather.apply(src, xs, ys)
+
+
+sweep_gather.launches = 0
+sweep_scatter.launches = 0

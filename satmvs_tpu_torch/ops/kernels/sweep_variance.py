@@ -18,7 +18,7 @@ import torch
 
 from ..cost_volume import sweep_variance_volume
 from ..sampling import bilinear_sample
-from . import build
+from . import build, refuse_graph
 
 
 def sweep_variance_reference(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
@@ -64,13 +64,17 @@ def sweep_variance(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
     ref (H, W, C), srcs (S, H, W, C), xs/ys (S, D, H, W), all float32 on one
     device → (D, H, W, C) float32.  CUDA tensors go to the CUDA kernel (the
     inputs must be contiguous); CPU tensors to `sweep_variance_reference`.
-    No gradient flows through the CUDA path.
+    On CUDA tensors it raises where autograd would record a graph
+    (`refuse_graph`).
     """
     _check(ref, srcs, xs, ys)
     if ref.device.type == "cpu":
         return sweep_variance_reference(ref, srcs, xs, ys)
     if ref.device.type != "cuda":
         raise ValueError(f"sweep_variance: unsupported device {ref.device}")
+    refuse_graph("sweep_variance", "its backward composes sweep_gather and sweep_scatter and is "
+                 "not written yet; training takes the per-view sweep_gather instead",
+                 ref, srcs, xs, ys)
     for name, t in (("ref", ref), ("srcs", srcs), ("xs", xs), ("ys", ys)):
         if not t.is_contiguous():
             raise ValueError(f"sweep_variance: {name} must be contiguous")

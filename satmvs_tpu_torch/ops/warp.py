@@ -6,6 +6,9 @@ Counterpart of `satmvs_tpu/ops/warp.py` (RPC, exact per-pixel coordinates).
 host.  The chain ref photo → ref-normalized object → (host-fp64 renorm
 affine) → src-normalized object → src photo then runs in float32 without
 ever forming absolute lat/lon.  Geometry carries no gradient.
+
+`rpc_warp` is the per-view training warp: coordinates as above, then the
+`sweep_gather` kernel, differentiable in the source features.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from ..device import resolve_device
 from ..geo import rpc as rpclib
+from .kernels.sweep_gather import sweep_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,3 +135,26 @@ def rpc_sweep_coords(cams: RpcWarpCams, src_index: int, depth_values: torch.Tens
     ys = torch.arange(height, dtype=torch.float32, device=dev).reshape(height, 1).expand(
         d, height, width)
     return rpc_transform_points(cams, src_index, xs, ys, hyp)
+
+
+def rpc_warp(src_feat: torch.Tensor, cams: RpcWarpCams, src_index: int,
+             depth_values: torch.Tensor, convention: str = "exact",
+             out_dtype=None) -> torch.Tensor:
+    """RPC plane-sweep warp of one source view: src_feat (H, W, C) sampled at
+    the sweep coordinates of `depth_values` ((D, H, W) or (D,) heights) →
+    (D, H, W, C), differentiable in src_feat; the coordinates carry no
+    gradient.
+
+    Counterpart of `satmvs_tpu/ops/warp.py:rpc_warp` with coords="exact";
+    its `method`, `coords` and `stencil` choose among TPU implementations and
+    have none here.  convention="torch" (the reference's grid_sample
+    stretch) and `out_dtype` (bf16 volume transport) are not ported and
+    raise.  Unbatched `cams`.
+    """
+    if convention != "exact":
+        raise ValueError(f"rpc_warp: convention {convention!r} is not ported (torch_compat)")
+    if out_dtype is not None:
+        raise ValueError(f"rpc_warp: out_dtype {out_dtype!r} is not ported (bf16 volume_dtype)")
+    h, w, _ = src_feat.shape
+    xs, ys = rpc_sweep_coords(cams, src_index, depth_values, h, w)
+    return sweep_gather(src_feat, xs.contiguous(), ys.contiguous())

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of satmvs_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax or the JAX package; its entry points run on
-the GPU unless the caller asks for the CPU."""
+"""The port stands alone: no module of satmvs_tpu_torch/ (its training
+modules included), and not chip_smoke.py, imports JAX, flax, optax, orbax
+or the JAX package; its entry points run on the GPU unless the caller asks
+for the CPU."""
 
 import ast
 from pathlib import Path
@@ -13,7 +14,7 @@ from satmvs_tpu_torch.infer.scene import predict_scene
 from satmvs_tpu_torch.models import CascadeREDNet
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "satmvs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "satmvs_tpu")
 
 
 def _imported_modules(path: Path):
@@ -28,6 +29,8 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "satmvs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    train = {p.name for p in files if p.parent.name == "train"}
+    assert {"config.py", "loop.py", "metrics.py", "checkpoints.py", "logging.py"} <= train
     bad = [
         f"{path.relative_to(ROOT)}: {mod}"
         for path in files

@@ -1,7 +1,9 @@
 """The kernel wrappers (sweep_variance, conv_dn, deconv_up, conv_head,
-red_recur): CPU tensors take the plain version, CUDA tensors the CUDA kernel
-(tests marked `cuda` need a GPU and nvcc and skip without them), and the
-modules import without nvcc."""
+red_recur, sweep_gather, sweep_scatter): CPU tensors take the plain version,
+CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and nvcc and
+skip without them), the wrappers without a backward kernel refuse a graph on
+the card while the plain versions differentiate, and the modules import
+without nvcc."""
 
 import os
 import subprocess
@@ -58,14 +60,15 @@ def test_kernel_module_imports_without_nvcc(tmp_path, monkeypatch):
     code = ("import satmvs_tpu_torch.ops.kernels.sweep_variance, "
             "satmvs_tpu_torch.ops.kernels.plane_conv, "
             "satmvs_tpu_torch.ops.kernels.red_recur, "
+            "satmvs_tpu_torch.ops.kernels.sweep_gather, "
             "satmvs_tpu_torch.models.cascade, satmvs_tpu_torch.infer.scene, "
-            "satmvs_tpu_torch.infer.predict")
+            "satmvs_tpu_torch.infer.predict, satmvs_tpu_torch.train")
     subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
-    assert {"sweep_variance", "plane_conv", "red_recur"} <= set(build.sources())
+    assert {"sweep_variance", "plane_conv", "red_recur", "sweep_gather"} <= set(build.sources())
 
 
 @pytest.mark.cuda
@@ -250,3 +253,146 @@ def test_cuda_red_recur_refused_grid_raises(monkeypatch):
         torch.cuda.synchronize()
     assert rr.red_recur.launches == before + 1
     assert (out - rr.red_recur_reference(x, cell)).abs().max().item() <= 1e-4
+
+
+def _graph_cases(device):
+    """(wrapper name, call) of the five wrappers without a backward kernel,
+    on small seeded inputs with x (and the weights) requiring a gradient."""
+    from satmvs_tpu_torch.nn.blocks import ConvGRUCell
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
+
+    def t(shape, seed, scale=1.0):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(
+            device).requires_grad_(True)
+
+    ref, srcs, xs, ys = _inputs(device=device)
+    torch.manual_seed(0)
+    cell = ConvGRUCell(4, 4).to(device)
+    return [
+        ("sweep_variance", lambda: sweep_variance(ref.requires_grad_(True), srcs, xs, ys)),
+        ("conv_dn", lambda: pc.conv_dn(t((2, 8, 8, 4), 1), t((8, 4, 3, 3), 2, 0.2))),
+        ("deconv_up", lambda: pc.deconv_up(t((2, 4, 4, 8), 3), t((8, 4, 3, 3), 4, 0.2))),
+        ("conv_head", lambda: pc.conv_head(t((2, 8, 8, 8), 5), t((1, 8, 3, 3), 6, 0.2),
+                                           t((1,), 7))),
+        ("red_recur", lambda: red_recur(t((3, 6, 8, 4), 8), cell)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_cpu_plain_versions_differentiate(i):
+    """The plain versions (CPU tensors) carry the graph the kernels refuse:
+    the output requires a gradient and its backward reaches the inputs."""
+    name, call = _graph_cases("cpu")[i]
+    out = call()
+    assert out.requires_grad, name
+    (out * out).sum().backward()
+
+
+def test_refuse_graph_only_where_autograd_records():
+    from satmvs_tpu_torch.ops.kernels import refuse_graph
+
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward.*the reason"):
+        refuse_graph("k", "the reason", None, torch.zeros(2), x)
+    refuse_graph("k", "the reason", torch.zeros(2), None)
+    with torch.no_grad():
+        refuse_graph("k", "the reason", x)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_a_graph_they_cannot_carry():
+    """On the card the five kernels without a backward raise when autograd
+    records (and launch nothing), run under torch.no_grad(), and their plain
+    versions on the CPU still differentiate (see the CPU test above)."""
+    _cuda()
+    for name, call in _graph_cases("cuda"):
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+            call()
+        with torch.no_grad():
+            assert not call().requires_grad
+    torch.cuda.synchronize()
+
+
+def _sweep_case(d, h, w, c, spread, seed, device="cuda"):
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(h, w, c)).astype(np.float32)
+    xs = rng.uniform(-spread, w - 1 + spread, (d, h, w)).astype(np.float32)
+    ys = rng.uniform(-spread, h - 1 + spread, (d, h, w)).astype(np.float32)
+    xs.reshape(-1)[::31] = 1e9
+    g = rng.normal(size=(d, h, w, c)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (src, xs, ys, g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w,c,spread", [(4, 16, 24, 8, 0.0), (3, 7, 9, 6, 3.0),
+                                            (5, 12, 20, 32, 4.0)])
+def test_cuda_sweep_gather_and_scatter_match_plain_versions(d, h, w, c, spread):
+    """float4 (C % 4 == 0) and scalar paths, off-image and far-off samples.
+    Gather: 1e-5 × max(1, max |plain|) (FMA contraction).  Scatter: each
+    element within 2·(4·D − 1)·2⁻²⁴ × the sum of its terms' magnitudes
+    (atomics add in any order) of the plain version, and of a second run."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    src, xs, ys, g = _sweep_case(d, h, w, c, spread, d + c)
+    before = (sg.sweep_gather.launches, sg.sweep_scatter.launches)
+    out = sg.sweep_gather(src, xs, ys)
+    dsrc, again = sg.sweep_scatter(g, xs, ys), sg.sweep_scatter(g, xs, ys)
+    assert (sg.sweep_gather.launches, sg.sweep_scatter.launches) == (before[0] + 1, before[1] + 2)
+    _close(out, sg.sweep_gather_reference(src, xs, ys), "sweep_gather")
+    bound = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(g.abs(), xs, ys, h, w)
+    torch.cuda.synchronize()
+    for other in (sg.sweep_scatter_reference(g, xs, ys, h, w), again):
+        assert bool(((dsrc - other).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_gather_backward_launches_the_scatter():
+    """The autograd backward of the gather is one scatter launch, equal to
+    the plain scatter within the summation bound; coordinates get none."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    src, xs, ys, g = _sweep_case(4, 16, 24, 8, 2.0, 50)
+    src.requires_grad_(True)
+    out = sg.sweep_gather(src, xs, ys)
+    before = sg.sweep_scatter.launches
+    (grad,) = torch.autograd.grad(out, src, g)
+    assert sg.sweep_scatter.launches == before + 1
+    bound = 2 * 15 * 2.0 ** -24 * sg.sweep_scatter_reference(g.abs(), xs, ys, 16, 24)
+    assert bool(((grad - sg.sweep_scatter_reference(g, xs, ys, 16, 24)).abs() <= bound + 1e-30)
+                .all())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches():
+    """A train step at 32×64, ndepths (8, 4, 4), B = 1, fused_red off: one
+    sweep_gather and one sweep_scatter per stage and source view (6 each),
+    none of sweep_variance and the RED kernels; an eval step: 3
+    sweep_variance, nothing else.  The loss is finite."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.train import (Config, create_model_and_state, make_eval_step,
+                                        make_train_step)
+
+    _cuda()
+    wrappers = {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
+                "sweep_variance": sweep_variance, "conv_dn": pc.conv_dn,
+                "red_recur": rr.red_recur, "deconv_up": pc.deconv_up, "conv_head": pc.conv_head}
+    batch = synthetic.make_batch(1, 64, 32, seed=0, device="cuda")
+    cfg = Config(ndepths=(8, 4, 4))
+    model, state, tx = create_model_and_state(cfg, batch, 1)
+    for step, want in ((make_train_step(model, tx, cfg.dlossw), {"sweep_gather": 6,
+                                                                 "sweep_scatter": 6}),
+                       (make_eval_step(model, cfg.dlossw, cfg.min_interval),
+                        {"sweep_variance": 3})):
+        before = {k: f.launches for k, f in wrappers.items()}
+        result = step(state, batch)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in wrappers.items()}
+        assert got == {k: want.get(k, 0) for k in wrappers}
+    assert bool(torch.isfinite(result[0]["loss"]))
