@@ -35,28 +35,37 @@ Phases, each reported on its own lines:
      source views, RPC coordinates) and with coordinates pushed off the
      image; the scatter's run-to-run difference; kernel, plain, bound and
      grid_sample times (forward, and its input gradient);
-  7  training (`train.loop`, fused_red off) at 384×768, B = 1: five train
-     steps (exact launches per step: 6 sweep_gather, 6 sweep_scatter, none
-     of the inference kernels), step time, peak memory and losses; one eval
-     step (3 sweep_variance) and its time; one step split into forward,
-     backward and update, and each stage's RED scan alone; a profile of one
-     step; and one step at 96×192, ndepths (16, 8, 4) against the same step
-     on the CPU (loss, eval-mode gradients, the update and the running
-     statistics).
+  8  the backward kernels of the fused RED regularizer (conv_dn, red_recur,
+     deconv_up, conv_head) against their plain backwards at every shape of a
+     384×768 train step, each cotangent on its own, red_recur on states in
+     (−1, 1) over all planes; the same bits in a second run; kernel, plain,
+     bound and cuDNN-gradient times (run before phase 3);
+  7  training (`train.loop`) at 384×768, B = 1: five train steps with
+     Config() defaults, the fused RED pipeline (exact launches per step:
+     6 sweep_gather, 6 sweep_scatter, conv_dn 9, red_recur 12, deconv_up 9,
+     conv_head 3 and their backward kernels 9, 12, 9, 3, no sweep_variance),
+     step time, peak memory and losses (finite, falling); one eval step (a
+     forward's kernels) and its time; one step split into forward, backward
+     and update, and each stage's RED alone, fused and scan; a profile of
+     one step; two steps with fused_red off (the sweep pair only) and a
+     profile of one; and one fused step at 96×192, ndepths (16, 8, 4)
+     against the same step on the CPU (loss, eval-mode gradients, the update
+     and the running statistics).
 
 The 1152² scene is rendered on the host in a worker process started before
 phase 1, so it overlaps phases 1-3.  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
-streaming forward of phase 4, the two scene runs, the train and eval
-steps), the nvidia-smi line of the card, and {"ok": true, "device": ...} as
-the last line.  Any failed check raises, and the script exits non-zero
-without those last lines.  Without a CUDA device, or without the rest of
-the repository beside it, it fails.
+streaming forward of phase 4, the two scene runs, the fused train and eval
+steps and the fused_red-off train steps), the nvidia-smi line of the card,
+and {"ok": true, "device": ...} as the last line.  Any failed check raises,
+and the script exits non-zero without those last lines.  Without a CUDA
+device, or without the rest of the repository beside it, it fails.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +130,18 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's own name in its mangled symbol, whose names are each
+    prefixed by their length ("20wgrad_partial_kernel"; the prefix may
+    follow other digits)."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            part = mangled[m.end():m.end() + int(m.group()[i:])]
+            if part.endswith("_kernel") and part.isidentifier():
+                return part
+    return mangled
+
+
 def conv_taps(n_in: int, n_out: int, stride: int) -> int:
     """(output, tap) pairs of a 3-tap, pad-1 conv along one axis that fall
     inside the input: the multiply-adds this axis contributes."""
@@ -139,22 +160,33 @@ class KernelReport:
         self.by = {"bytes": 0.0, "operations": 0.0}
 
     def case(self, label: str, kernel, plain, tol, nbytes: float, flops: float,
-             library=None, timed: bool = True, count: int = 1):
-        """tol(plain result): the largest abs error allowed; library: one
-        PyTorch call that computes the same function, timed as a yardstick;
-        count: calls of this shape on the path, which the sums weigh by."""
+             library=None, timed: bool = True, count: int = 1, exact=None):
+        """tol(plain result): the abs error allowed, a number or one per
+        element (a tuple of such functions, one per output, for a kernel
+        with several outputs); library: one PyTorch call that computes the
+        same function, timed as a yardstick; count: calls of this shape on
+        the path, which the sums weigh by; exact: what the kernel is held to
+        where that is not the plain version's fp32 result (the plain version
+        in float64), and then tol's argument."""
         name = self.rec["name"]
-        got, want = kernel(), plain()
+        got, want = kernel(), (exact or plain)()
         torch.cuda.synchronize()
-        tol = tol(want)
-        err = (got - want).abs().max().item()
-        print(f"[kernels] {name} {label} out={tuple(got.shape)} max_abs_err={err:.3e} "
-              f"tol={tol:.3e}", flush=True)
-        check(got.shape == want.shape, f"{name} {label}: shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
-        check(err <= tol, f"{name} {label}: max abs err {err} > {tol}")
-        self.rec["max_abs_err"] = max(self.rec["max_abs_err"], err)
-        del got, want
+        # a backward returns several cotangents: each is held to its own tolerance
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        tols = tol if isinstance(tol, tuple) else (tol,) * len(pairs)
+        for i, ((a, b), tol_i) in enumerate(zip(pairs, tols)):
+            part = f"[{i}]" if len(pairs) > 1 else ""
+            t = tol_i(b)
+            diff = (a - b).abs()
+            err = diff.max().item()
+            t_max = t.max().item() if isinstance(t, torch.Tensor) else t
+            print(f"[kernels] {name} {label}{part} out={tuple(a.shape)} max_abs_err={err:.3e} "
+                  f"tol={t_max:.3e}", flush=True)
+            check(a.shape == b.shape, f"{name} {label}{part}: shape {tuple(a.shape)}")
+            check(bool(torch.isfinite(a).all()), f"{name} {label}{part}: non-finite output")
+            check(bool((diff <= t).all()), f"{name} {label}{part}: max abs err {err} > tol")
+            self.rec["max_abs_err"] = max(self.rec["max_abs_err"], err)
+        del got, want, pairs
         if not timed:
             return None
         k_ms, p_ms = time_ms(kernel, reps=10), time_ms(plain, reps=5, warmup=1)
@@ -403,28 +435,40 @@ def phase_batched_red(card: str) -> dict:
 # once per stage; per stage's RED pipeline conv_dn ×3, red_recur ×4 (one per
 # scale; its input convolutions run inside the same launch), deconv_up ×3 and
 # conv_head ×1
+BACKWARD_KERNELS = ("conv_dn_backward", "red_recur_backward", "deconv_up_backward",
+                    "conv_head_backward")
 LAUNCHES_PER_FORWARD = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9,
-                        "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0}
-# per train step (fused_red off, B = 1): the training sweep pair once per
-# stage and source view, no inference kernel; per eval step the inference
-# sweep once per stage and the scan RED
-LAUNCHES_PER_TRAIN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
-                           "sweep_scatter": 6}
-LAUNCHES_PER_EVAL_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 3}
+                        "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0,
+                        **{k: 0 for k in BACKWARD_KERNELS}}
+# per train step at B = 1 on the fused RED pipeline (Config() defaults): the
+# training sweep pair once per stage and source view instead of
+# sweep_variance, the RED kernels as in a forward and each one's backward
+# kernel as often; per eval step (no gradient) a forward's kernels; per train
+# step with fused_red off the sweep pair only (the scan RED is torch built-ins)
+LAUNCHES_PER_TRAIN_STEP = {**LAUNCHES_PER_FORWARD, "sweep_variance": 0, "sweep_gather": 6,
+                           "sweep_scatter": 6, "conv_dn_backward": 9, "red_recur_backward": 12,
+                           "deconv_up_backward": 9, "conv_head_backward": 3}
+LAUNCHES_PER_EVAL_STEP = dict(LAUNCHES_PER_FORWARD)
+LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
+                          "sweep_scatter": 6}
 # the kernels each path must launch
 INFERENCE_PATHS = ("forward", f"scene_b{BATCH_TILES}", "scene_b1", "streaming")
-TRAIN_KERNELS = ("sweep_gather", "sweep_scatter")
+TRAIN_KERNELS = ("sweep_gather", "sweep_scatter", *BACKWARD_KERNELS)
+RED_FORWARD_KERNELS = ("conv_dn", "red_recur", "deconv_up", "conv_head")
 
 
 def kernel_wrappers() -> dict:
-    from satmvs_tpu_torch.ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
-    from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
     from satmvs_tpu_torch.ops.kernels.sweep_gather import sweep_gather, sweep_scatter
     from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance
 
-    return {"sweep_variance": sweep_variance, "conv_dn": conv_dn, "red_recur": red_recur,
-            "deconv_up": deconv_up, "conv_head": conv_head, "sweep_gather": sweep_gather,
-            "sweep_scatter": sweep_scatter}
+    return {"sweep_variance": sweep_variance, "conv_dn": pc.conv_dn, "red_recur": rr.red_recur,
+            "deconv_up": pc.deconv_up, "conv_head": pc.conv_head, "sweep_gather": sweep_gather,
+            "sweep_scatter": sweep_scatter, "conv_dn_backward": pc.conv_dn_backward,
+            "red_recur_backward": rr.red_recur_backward,
+            "deconv_up_backward": pc.deconv_up_backward,
+            "conv_head_backward": pc.conv_head_backward}
 
 
 def build_model(device):
@@ -554,8 +598,8 @@ def chunk_launches(bt: int) -> dict:
     sweep_variance per tile and one RED pipeline for the whole batch
     (conv_dn ×3, red_recur ×4, deconv_up ×3, conv_head)."""
     n = sum(SLABS_PER_TILE)
-    return {"sweep_variance": n * bt, "conv_dn": 3 * n, "red_recur": 4 * n, "deconv_up": 3 * n,
-            "conv_head": n, "sweep_gather": 0, "sweep_scatter": 0}
+    return {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": n * bt, "conv_dn": 3 * n,
+            "red_recur": 4 * n, "deconv_up": 3 * n, "conv_head": n}
 
 
 def render_scene() -> dict:
@@ -801,7 +845,164 @@ def phase_sweep_gather(card: str) -> list[dict]:
     return [gather.record(), scatter.record()]
 
 
+# red_recur's backward against its plain backward, each cotangent, × max(1,
+# max |plain|): the kernel recomputes the GroupNorm statistics in float64,
+# the plain backward in torch's fp32 moments, and the difference is carried
+# back through up to 64 planes of the reverse recurrence and summed over
+# every pixel and plane into the weight cotangents
+RED_BWD_TOL = 1e-3
+# the convs' weight and bias cotangents against their plain versions run in
+# float64, per element: REDUCE_TOL × Σ |terms| of that element's sum over up
+# to 2.4 M pixels.  The kernel sums in fp32 runs of ~10³ pixels, then in
+# float64; the worst case of such sums is ~10³·2⁻²⁴·Σ |terms|, what rounding
+# gives is far less.  1e-6 is ~17·2⁻²⁴.  The bound must also be at most
+# REDUCE_SHARE of the largest exact value of its tensor, so a reduction that
+# was zeroed or had its sign flipped fails
+REDUCE_TOL, REDUCE_SHARE = 1e-6, 1e-2
+
+
+def phase_red_backward(card: str) -> list[dict]:
+    """Phase 8: the backward kernels of the fused RED regularizer against
+    their plain backwards at every shape of a 384×768, B = 1 train step
+    (conv_dn ×9, red_recur ×12, deconv_up ×9, conv_head ×3), each cotangent
+    held to its own tolerance; a second run must give the same bits (no
+    atomics); kernel, plain, bound and cuDNN-gradient times (red_recur has
+    no library call: null)."""
+    import torch.nn.functional as F
+
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def library_grad(fn, inputs, g):
+        """torch.autograd.grad through one functional conv call (cuDNN's
+        gradient), the graph built once: the yardstick."""
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def same_bits(label, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label}: two runs differ (the reductions are meant to be fixed-order)")
+
+    def flat(res):
+        dx, dps = res
+        return (dx, *dps)
+
+    def summed(what, mags):
+        """The tolerance of a reduction whose terms' magnitudes sum to mags,
+        checked to be far under the exact values it is applied to."""
+        bound = REDUCE_TOL * mags
+
+        def tol(want):
+            share = bound.max().item() / want.abs().max().item()
+            print(f"[backward] {what}: bound {bound.max().item():.3e} is {share:.3e} of the "
+                  f"largest value (at most {REDUCE_SHARE})", flush=True)
+            check(share <= REDUCE_SHARE, f"{what}: the bound does not hold the reduction")
+            return bound
+        return tol
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    b = RED_BASE
+    dn = KernelReport("conv_dn_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
+                      "satmvs_tpu/ops/pallas/plane_conv.py:424", card)
+    rec = KernelReport("red_recur_backward", "satmvs_tpu_torch/csrc/red_recur.cu",
+                       "satmvs_tpu/ops/pallas/red_recur.py:755", card)
+    up = KernelReport("deconv_up_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
+                      "satmvs_tpu/ops/pallas/plane_conv.py:610", card)
+    head = KernelReport("conv_head_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
+                        "satmvs_tpu/ops/pallas/plane_conv.py:768", card)
+    for stage, d, h, w, cin in red_shapes():
+        for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
+            x = randn(d, h // s, w // s, ci)
+            wt = randn(co, ci, 3, 3, scale=(2.0 / (9 * ci)) ** 0.5)
+            y = pc.conv_dn_reference(x, wt)
+            g = randn(*y.shape)
+            taps = conv_taps(h // s, h // s // 2, 2) * conv_taps(w // s, w // s // 2, 2)
+            label = f"{stage} enc{k + 1} {(d, h // s, w // s, ci)}->{co}"
+            mags = pc.conv_dn_backward_reference(*f64(x.abs(), wt), y, g.abs().double())[1]
+            # reads x, y, g and the weight, writes dx and dweight; dx and dweight
+            # are each the forward's multiply-adds
+            dn.case(label, lambda: pc.conv_dn_backward(x, wt, y, g),
+                    lambda: pc.conv_dn_backward_reference(x, wt, y, g),
+                    (rel_tol, summed(f"conv_dn_backward {label} dweight", mags)),
+                    4 * (2 * x.numel() + 2 * y.numel() + 2 * wt.numel()),
+                    2 * 2 * d * taps * ci * co,
+                    library_grad(lambda x_, w_: F.relu(F.conv2d(nchw(x_), w_, stride=2,
+                                                                padding=1)), (x, wt), nchw(g)),
+                    exact=lambda: pc.conv_dn_backward_reference(*f64(x, wt), y, g.double()))
+            same_bits(f"conv_dn_backward {label}", lambda: pc.conv_dn_backward(x, wt, y, g))
+        for s, ci, c in red_scales(cin):
+            cell = red_cell(ci, c, s, randn)
+            x = randn(1, d, h // s, w // s, ci)
+            with torch.no_grad():
+                out = rr.red_recur(x, cell)  # states in (-1, 1) over all D planes
+            g = randn(*out.shape)
+            nbytes, flops = recur_work(x, c, cell)
+            label = f"{stage} scale{s} {(d, h // s, w // s, ci)}->{c}"
+            # recompute, data cotangents and weight cotangents: three times the
+            # forward's multiply-adds; reads x, the states and g, writes dx and
+            # the parameters' cotangents
+            rec.case(label, lambda: flat(rr.red_recur_backward(x, out, g, cell)),
+                     lambda: flat(rr.red_recur_backward_reference(x, out, g, cell)),
+                     lambda want: RED_BWD_TOL * max(1.0, want.abs().max().item()),
+                     2 * nbytes + 4 * out.numel(), 3 * flops)
+            same_bits(f"red_recur_backward {label}",
+                      lambda: flat(rr.red_recur_backward(x, out, g, cell)))
+        for k, (s, ci, co) in enumerate(((8, 8 * b, 4 * b), (4, 4 * b, 2 * b), (2, 2 * b, b))):
+            x = randn(d, h // s, w // s, ci)
+            wt = randn(ci, co, 3, 3, scale=(2.0 / (9 * ci)) ** 0.5)
+            act = pc.deconv_up_reference(x, wt)
+            skip = randn(*act.shape)
+            g = randn(*act.shape)
+            taps = (3 * (h // s) - 1) * (3 * (w // s) - 1)
+            label = f"{stage} up{3 - k} {(d, h // s, w // s, ci)}->{co}"
+            mags = pc.deconv_up_backward_reference(*f64(x.abs(), wt), act, g.abs().double())[1]
+            up.case(label, lambda: pc.deconv_up_backward(x, wt, act, g),
+                    lambda: pc.deconv_up_backward_reference(x, wt, act, g),
+                    (rel_tol, summed(f"deconv_up_backward {label} dweight", mags)),
+                    4 * (2 * x.numel() + 2 * act.numel() + 2 * wt.numel()),
+                    2 * 2 * d * taps * ci * co,
+                    library_grad(lambda x_, w_, s_: F.relu(F.conv_transpose2d(
+                        nchw(x_), w_, stride=2, padding=1, output_padding=1)) + nchw(s_),
+                        (x, wt, skip), nchw(g)),
+                    exact=lambda: pc.deconv_up_backward_reference(*f64(x, wt), act, g.double()))
+            same_bits(f"deconv_up_backward {label}", lambda: pc.deconv_up_backward(x, wt, act, g))
+        x = randn(d, h, w, b)
+        wt, bias = randn(1, b, 3, 3, scale=(2.0 / (9 * b)) ** 0.5), randn(1)
+        # a mean of 1, so the bias cotangent Σ g does not cancel to near 0
+        g = randn(d, h, w, 1) + 1.0
+        taps = conv_taps(h, h, 1) * conv_taps(w, w, 1)
+        label = f"{stage} head {(d, h, w, b)}->1"
+        _, mags_w, mags_b = pc.conv_head_backward_reference(*f64(x.abs(), wt, g.abs()))
+        head.case(label, lambda: pc.conv_head_backward(x, wt, g),
+                  lambda: pc.conv_head_backward_reference(x, wt, g),
+                  (rel_tol, summed(f"conv_head_backward {label} dweight", mags_w),
+                   summed(f"conv_head_backward {label} dbias", mags_b)),
+                  4 * (2 * x.numel() + g.numel() + 2 * wt.numel() + 2),
+                  2 * 2 * d * taps * b + g.numel(),
+                  library_grad(lambda x_, w_, b_: F.conv2d(nchw(x_), w_, b_, padding=1),
+                               (x, wt, bias), nchw(g)),
+                  exact=lambda: pc.conv_head_backward_reference(*f64(x, wt, g)))
+        same_bits(f"conv_head_backward {label}", lambda: pc.conv_head_backward(x, wt, g))
+    print("[backward] every backward kernel gave the same bits in a second run (fixed-order "
+          "reductions, no atomics)", flush=True)
+    return [dn.record(), rec.record(), up.record(), head.record()]
+
+
 TRAIN_STEPS = 5
+SCAN_STEPS = 2
 PARITY_SIZE, PARITY_NDEPTHS = (96, 192), (16, 8, 4)
 # GPU vs CPU, one step at PARITY_SIZE, where cuDNN's conv algorithms and
 # the scatter's atomics sum in other orders than the CPU.  At this size the
@@ -867,7 +1068,8 @@ def phase_train_parity(card: str):
     gpu, cpu = runs["cuda"], runs["cpu"]
     for name in ("loss", "step_loss"):
         rel = abs(gpu[name] - cpu[name]) / abs(cpu[name])
-        print(f"[train] GPU vs CPU {h}x{w} ndepths {PARITY_NDEPTHS}: {name} {gpu[name]:.6f} vs "
+        print(f"[train] fused step GPU vs CPU {h}x{w} ndepths {PARITY_NDEPTHS}: {name} "
+              f"{gpu[name]:.6f} vs "
               f"{cpu[name]:.6f}, {rel:.3e} relative (tol {PARITY_LOSS})", flush=True)
         check(rel <= PARITY_LOSS, f"train parity: {name} {rel} relative")
     scale = max(g.abs().max().item() for g in cpu["grads"].values())
@@ -908,7 +1110,8 @@ def train_step_split(model, state, tx, batch, cfg, card: str):
     """Where a train step's time goes, on the host's clock with the card
     synchronized between parts: the train-mode forward with the loss, the
     backward, the update (one more update of `state`); then each stage's
-    RED scan alone, forward and backward, on a random volume of its shape."""
+    RED alone, fused pipeline and scan, forward and backward, on a random
+    volume of its shape."""
     from satmvs_tpu_torch.models.losses import cascade_loss
 
     def clock():
@@ -933,34 +1136,34 @@ def train_step_split(model, state, tx, batch, cfg, card: str):
     for i, (reg, scale, nd, c) in enumerate(zip(model.regs, STAGE_SCALES, NDEPTHS, FEAT_CH)):
         vol = torch.rand((1, nd, HEIGHT // scale, WIDTH // scale, c), generator=gen,
                          device="cuda").requires_grad_(True)
-        with torch.enable_grad():
-            t0 = clock()
-            logits = reg(vol, fused=False)
-            t1 = clock()
-            torch.autograd.grad(logits.sum(), [vol, *reg.parameters()])
-            t2 = clock()
-        print(f"[train] stage{i + 1} RED scan alone {tuple(vol.shape)}: forward "
-              f"{1e3 * (t1 - t0):.2f} ms, backward {1e3 * (t2 - t1):.2f} ms (host clock, card "
-              f"synchronized) card={card}", flush=True)
+        parts = []
+        for fused in (True, False):
+            with torch.enable_grad():
+                reg(vol, fused=fused)  # warm-up
+                t0 = clock()
+                logits = reg(vol, fused=fused)
+                t1 = clock()
+                torch.autograd.grad(logits.sum(), [vol, *reg.parameters()])
+                t2 = clock()
+            parts.append(f"{'fused' if fused else 'scan'} forward {1e3 * (t1 - t0):.2f} ms, "
+                         f"backward {1e3 * (t2 - t1):.2f} ms")
+        print(f"[train] stage{i + 1} RED alone {tuple(vol.shape)}: {'; '.join(parts)} (host "
+              f"clock, card synchronized) card={card}", flush=True)
 
 
-def phase_train(card: str) -> dict:
-    """Phase 7: the training path at full width; returns the launches of the
-    train steps' run and of the eval step's."""
-    from satmvs_tpu_torch.data import synthetic
-    from satmvs_tpu_torch.train import (Config, create_model_and_state, make_eval_step,
-                                        make_train_step)
+def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str):
+    """n_steps train steps of a fresh model from cfg on batch, each checked
+    for exact launches and finite scalars; returns (model, state, tx, step
+    function, launches in all, step ms, losses, peak GiB)."""
+    from satmvs_tpu_torch.train import create_model_and_state, make_train_step
 
-    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
-    cfg = Config(ndepths=NDEPTHS)
     model, state, tx = create_model_and_state(cfg, batch, TRAIN_STEPS)
     train_step = make_train_step(model, tx, cfg.dlossw)
-    eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times, losses = [], []
-    for k in range(TRAIN_STEPS):
+    for k in range(n_steps):
         before = counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -970,19 +1173,37 @@ def phase_train(card: str) -> dict:
         times.append(start.elapsed_time(end))
         losses.append({key: v.item() for key, v in scalars.items()})
         per_step = {key: v - before[key] for key, v in counts().items()}
-        check(per_step == LAUNCHES_PER_TRAIN_STEP, f"train step {k}: launches {per_step}")
-        check(all(np.isfinite(v) for v in losses[-1].values()), f"train step {k}: {losses[-1]}")
-    train_launches = counts()
+        check(per_step == want, f"{what} step {k}: launches {per_step}")
+        check(all(np.isfinite(v) for v in losses[-1].values()), f"{what} step {k}: {losses[-1]}")
+    launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[train] {TRAIN_STEPS} train steps at {HEIGHT}x{WIDTH}, B=1, ndepths={NDEPTHS}, "
-          f"fused_red off: launches per step {LAUNCHES_PER_TRAIN_STEP} (exact), in all "
-          f"{train_launches}", flush=True)
-    print(f"[train] step ms {[round(t, 2) for t in times]} (CUDA events): median "
+    print(f"[train] {n_steps} {what} steps at {HEIGHT}x{WIDTH}, B=1, ndepths={NDEPTHS}: "
+          f"launches per step {({k: v for k, v in want.items() if v})} (exact), in all "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    print(f"[train] {what} step ms {[round(t, 2) for t in times]} (CUDA events): median "
           f"{float(np.median(times)):.2f} ms, first {times[0]:.2f} ms; peak_mem={peak:.2f} GiB "
           f"card={card}", flush=True)
     for k, rec in enumerate(losses):
-        print(f"[train] step {k}: " + ", ".join(f"{key} {v:.4f}" for key, v in rec.items()),
+        print(f"[train] {what} step {k}: " + ", ".join(f"{key} {v:.4f}" for key, v in rec.items()),
               flush=True)
+    return model, state, tx, train_step, launches, times, losses, peak
+
+
+def phase_train(card: str) -> dict:
+    """Phase 7: the training path at full width, on the fused RED pipeline
+    (Config() defaults) and with fused_red off; returns the launches of the
+    fused train steps' run, of the eval step's and of the scan steps'."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config, make_eval_step
+
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    cfg = Config(ndepths=NDEPTHS)
+    check(cfg.fused_red is None, "Config() must default to fused_red None")
+    model, state, tx, train_step, train_launches, _, losses, _ = run_train_steps(
+        cfg, batch, TRAIN_STEPS, LAUNCHES_PER_TRAIN_STEP, "fused", card)
+    check(losses[-1]["loss"] < losses[0]["loss"],
+          f"fused train steps: loss {losses[0]['loss']} -> {losses[-1]['loss']} did not fall")
+    eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
     reset_counts()
     scalars, depth, _ = eval_step(state, batch)
     torch.cuda.synchronize()
@@ -990,15 +1211,25 @@ def phase_train(card: str) -> dict:
     check(eval_launches == LAUNCHES_PER_EVAL_STEP, f"eval step launches {eval_launches}")
     check(all(bool(torch.isfinite(v)) for v in scalars.values()), f"eval step: {scalars}")
     check(tuple(depth.shape) == (1, HEIGHT, WIDTH), f"eval depth shape {tuple(depth.shape)}")
-    print(f"[train] eval step: launches {eval_launches} (exact); " + ", ".join(
-        f"{key} {v.item():.4f}" for key, v in scalars.items()), flush=True)
+    print(f"[train] eval step: launches {({k: v for k, v in eval_launches.items() if v})} "
+          f"(exact); " + ", ".join(f"{key} {v.item():.4f}" for key, v in scalars.items()),
+          flush=True)
     eval_ms = time_ms(lambda: eval_step(state, batch), reps=3, warmup=1)
     print(f"[train] eval step {eval_ms:.2f} ms (median of 3, CUDA events) card={card}",
           flush=True)
     train_step_split(model, state, tx, batch, cfg, card)
-    profile_forward(lambda: train_step(state, batch), card, top=12, what="one train step")
+    profile_forward(lambda: train_step(state, batch), card, top=12, what="one fused train step")
+    del model, state, tx, train_step, eval_step
+    # the fused_red=off path stays driven: fewer steps, its own launches
+    scan_cfg = Config(ndepths=NDEPTHS, fused_red=False)
+    _, scan_state, _, scan_step, scan_launches, _, _, _ = run_train_steps(
+        scan_cfg, batch, SCAN_STEPS, LAUNCHES_PER_SCAN_STEP, "scan (fused_red off)", card)
+    profile_forward(lambda: scan_step(scan_state, batch), card, top=6,
+                    what="one scan (fused_red off) train step")
+    del scan_state, scan_step
     phase_train_parity(card)
-    return {"train_step": train_launches, "eval_step": eval_launches}
+    return {"train_step": train_launches, "eval_step": eval_launches,
+            "scan_train_step": scan_launches}
 
 
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
@@ -1062,13 +1293,17 @@ def run(scene_job) -> int:
     print(f"[build] {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
+            if "Function properties for" in line:
+                kernel = kernel_name(line.split()[-1])
             if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+                print(f"[build] {name} {kernel}: {line.strip()}", flush=True)
 
-    # phases 2, 2b, 6 and 3
+    # phases 2, 2b, 6, 8 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
-    records = [sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi)]
+    records = [sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
+               *phase_red_backward(smi)]
     launches = {"forward": phase_slice(smi)}
 
     # phase 5, then phase 4 on phase 5's first chunk
@@ -1094,7 +1329,8 @@ def run(scene_job) -> int:
         main = "train_step" if train else f"scene_b{BATCH_TILES}" if batched else "forward"
         record["launches"] = launches[main][wrapper]
         paths = ("train_step",) if train else INFERENCE_PATHS + (
-            ("eval_step",) if wrapper == "sweep_variance" else ())
+            ("eval_step",) if wrapper == "sweep_variance" else
+            ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ())
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")
 

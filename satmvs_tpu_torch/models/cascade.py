@@ -6,13 +6,14 @@ and exact per-pixel coordinates.  Two paths, chosen by whether autograd
 records:
 
   inference (no gradient): the cost volume of every stage comes from the
-    `sweep_variance` kernel, and the RED regularizer is the fused pipeline
-    of the `conv_dn`, `red_recur`, `deconv_up` and `conv_head` kernels
-    (`nn/red.py`) unless fused_red=False picks its scan path;
+    `sweep_variance` kernel;
   training (gradients): per source view the `sweep_gather` kernel
     (`ops.warp.rpc_warp`, backward `sweep_scatter`) and the variance of the
-    warped views, then the RED scan path.  The RED kernels have no backward
-    yet, so fused_red=True raises here, on every device.
+    warped views.
+On both, the RED regularizer is the fused pipeline of the `conv_dn`,
+`red_recur`, `deconv_up` and `conv_head` kernels (`nn/red.py`; under
+autograd their backward kernels run too) when fused_red is None or True, on
+every device, and its scan path (torch built-ins) when fused_red=False.
 
 The gradient reaches a stage's depth through the next stage's window
 hypotheses (JAX's grad_method="through"); only the sweep coordinates are
@@ -84,10 +85,12 @@ def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams,
 class CascadeModel(nn.Module):
     """Three-stage cascade (1/4, 1/2, full resolution) with RED regularizers.
 
-    fused_red: the RED path without gradients, None (the default) or True
-    for the fused pipeline, False for the scan; with gradients only the
-    scan exists, and True raises.  train_fused_sweep=True (training on the
-    fused sweep, whose backward is not ported) raises.
+    fused_red: the RED path, None (the default) or True for the fused
+    pipeline, False for the scan, with or without gradients (JAX resolves
+    None by its backend, `satmvs_tpu/models/cascade.py:306-307`; the port's
+    kernels run on every device, so None is the fused pipeline everywhere).
+    train_fused_sweep=True (training on the fused sweep, whose backward is
+    not ported) raises.
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
@@ -130,15 +133,10 @@ class CascadeModel(nn.Module):
         hyps = stage_hypotheses(self.ndepths[i], sh, sw, d_min, d_max,
                                 self.stage_intervals()[i], depth)
         if torch.is_grad_enabled():
-            if self.fused_red:
-                raise NotImplementedError(
-                    "fused_red=True under autograd: the RED kernels have no backward "
-                    "kernels yet; train with fused_red False or None")
-            volume, fused = build_train_volume(feats, cams, hyps), False
+            volume = build_train_volume(feats, cams, hyps)
         else:
             volume = build_stage_volume(feats, cams, hyps)
-            fused = self.fused_red is not False
-        prob = torch.softmax(self.regs[i](volume, fused), dim=1)  # (B, D, h, w)
+        prob = torch.softmax(self.regs[i](volume, self.fused_red is not False), dim=1)
         return {"depth": regression.depth_regression(prob, hyps),
                 "photometric_confidence": regression.max_prob_confidence(prob)}
 

@@ -21,8 +21,12 @@ along D gives the same logits as the whole (the slab-streaming carry of
 
 Each step is a call of `ops/kernels` (a CUDA kernel for CUDA tensors, its
 plain version for CPU tensors), so on the CPU this composition of plain
-versions is the scan form of the same function.  The CUDA kernels have no
-backward yet.
+versions is the scan form of the same function.  Each is a
+`torch.autograd.Function` whose backward is a CUDA kernel too (the JAX
+custom VJPs, red.py:319-366, ops/pallas/plane_conv.py and red_recur.py), so
+the pipeline is differentiable in the volume and every parameter: training
+runs it, as the JAX package does on its accelerator.  The start states h0s
+get no gradient (the seeded JAX recurrence has no VJP).
 
 `REDRegularizer(volume, fused=False)` is the JAX scan path (red.py:368-390),
 which JAX leaves to XLA and the port to torch built-ins (cuDNN convolutions
@@ -78,7 +82,8 @@ class REDRegularizer(nn.Module):
         """(B, D, H, W, C) volume, start states h0s (None for zeros, or one
         (B, H/s, W/s, C_s) tensor per scale s = 1, 2, 4, 8) → logits
         (B, D, H, W) and each scale's last-plane state, contiguous (the next
-        slab's h0s)."""
+        slab's h0s).  Differentiable in the volume and the parameters (H and
+        W even at every scale under autograd), not in h0s."""
         s = self.step
         b, d = volume.shape[:2]
         neg = -volume.reshape(b * d, *volume.shape[2:])

@@ -1,20 +1,28 @@
-"""Plane convolutions of the RED regularizer: CUDA kernels and their plain versions.
+"""Plane convolutions of the RED regularizer: CUDA kernels, their backwards
+and their plain versions.
 
 Replace the TPU kernels of `satmvs_tpu/ops/pallas/plane_conv.py`:
 
-  conv_dn    stride-2 3×3 conv, pad 1, no bias, ReLU    (`_conv_dn_impl`, :382)
+  conv_dn    stride-2 3×3 conv, pad 1, no bias, ReLU    (`_conv_dn_impl`, :382;
+             backward `_conv_dn_bwd`, :424)
   deconv_up  ConvTranspose2d(k=3, s=2, p=1, op=1), no bias, ReLU, then an
-             optional skip add                          (`_deconv_up_impl`, :569)
-  conv_head  stride-1 3×3 conv, pad 1, with bias        (`_conv_head_impl`, :730)
+             optional skip add                          (`_deconv_up_impl`, :569;
+             backward `_deconv_up_bwd`, :610)
+  conv_head  stride-1 3×3 conv, pad 1, with bias        (`_conv_head_impl`, :730;
+             backward `_conv_head_bwd`, :768)
 
 Activations are channels-last (N, H, W, C) float32, as in the JAX NHWC forms;
 weights are the port's `nn.Conv2d` / `nn.ConvTranspose2d` parameters in torch
-layout.  The CUDA source is `satmvs_tpu_torch/csrc/plane_conv.cu`; its header
-gives the design and the bound.
+layout, and the backwards hand their cotangents back in that layout.  The
+CUDA source is `satmvs_tpu_torch/csrc/plane_conv.cu`; its header gives the
+design and the bound.
 
-Each wrapper launches its kernel for CUDA tensors and counts the launch in
-`<wrapper>.launches`; for CPU tensors, and only for them, it computes the plain
-version (`<name>_reference`, the cuDNN-backed functional call).
+Each of `conv_dn`, `deconv_up` and `conv_head` is one `torch.autograd.Function`:
+its forward launches the forward kernel for CUDA tensors and counts the launch
+in `<wrapper>.launches`; its backward calls `<wrapper>_backward`, which
+launches the backward kernels and counts in `<wrapper>_backward.launches`.
+For CPU tensors, and only for them, both compute the plain versions
+(`<name>_reference`, `<name>_backward_reference`: functional convolutions).
 """
 
 from __future__ import annotations
@@ -23,12 +31,10 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+from torch.nn.grad import conv2d_weight
 
-from . import build, refuse_graph
-
-# where the backward kernels of the RED regularizer come from
-RED_BACKWARD = ("its backward kernel comes with fused_red=on training; "
-                "train with fused_red off until then")
+from . import build
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -44,6 +50,16 @@ def conv_dn_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _nhwc(F.relu(F.conv2d(_nchw(x), weight, stride=2, padding=1)))
 
 
+def conv_dn_backward_reference(x: torch.Tensor, weight: torch.Tensor, y: torch.Tensor,
+                               g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cotangents (dx, dweight) of `conv_dn_reference` at x (even H, W) from
+    its output y and the output's cotangent g: dz = g·[y > 0], dx the
+    transposed stride-2 conv of dz, dweight Σ x-patches ⊗ dz."""
+    dz = _nchw(torch.where(y > 0, g, torch.zeros_like(g)))
+    dx = F.conv_transpose2d(dz, weight, stride=2, padding=1, output_padding=1)
+    return _nhwc(dx), conv2d_weight(_nchw(x), weight.shape, dz, stride=2, padding=1)
+
+
 def deconv_up_reference(x: torch.Tensor, weight: torch.Tensor,
                         skip: torch.Tensor | None = None) -> torch.Tensor:
     """relu(conv_transpose2d(x, weight, stride 2, pad 1, output pad 1)) + skip:
@@ -53,17 +69,37 @@ def deconv_up_reference(x: torch.Tensor, weight: torch.Tensor,
     return y if skip is None else y + skip
 
 
+def deconv_up_backward_reference(x: torch.Tensor, weight: torch.Tensor, act: torch.Tensor,
+                                 g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cotangents (dx, dweight) of `deconv_up_reference` at x from act =
+    relu(z), the output before the skip add, and the output's cotangent g
+    (the skip's cotangent is g itself): dz = g·[act > 0], dx the stride-2
+    conv of dz, dweight Σ x ⊗ dz-patches."""
+    dz = _nchw(torch.where(act > 0, g, torch.zeros_like(g)))
+    dx = F.conv2d(dz, weight, stride=2, padding=1)
+    return _nhwc(dx), conv2d_weight(dz, weight.shape, _nchw(x), stride=2, padding=1)
+
+
 def conv_head_reference(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """conv2d(x, weight, bias, pad 1): (N, H, W, Cin) → (N, H, W, Cout)."""
     return _nhwc(F.conv2d(_nchw(x), weight, bias, padding=1))
 
 
-def _c_fn(name: str, n_ints: int):
-    """The C function `name` of plane_conv.cu: 4 pointers, n_ints ints, the stream."""
+def conv_head_backward_reference(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cotangents (dx, dweight, dbias) of `conv_head_reference` at x from the
+    output's cotangent g."""
+    gn = _nchw(g)
+    dx = F.conv_transpose2d(gn, weight, padding=1)
+    return _nhwc(dx), conv2d_weight(_nchw(x), weight.shape, gn, padding=1), g.sum((0, 1, 2))
+
+
+def _c_fn(name: str, n_ptrs: int, n_ints: int):
+    """The C function `name` of plane_conv.cu: n_ptrs pointers, n_ints ints, the stream."""
     fn = getattr(build.load("plane_conv"), name)
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,11 +116,13 @@ def _check(name: str, x: torch.Tensor, tensors: dict, cin: int):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _launch(name: str, fn, *args):
-    """Launches on the current stream of the tensors' device; raises on a CUDA error."""
-    with torch.cuda.device(args[0].device):
+def _launch(name: str, fn, device: torch.device, *args):
+    """Launches on the current stream of `device`; tensors go as pointers,
+    None as a null pointer; raises on a CUDA error."""
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else 0 if a is None else a
+                for a in args]
         rc = fn(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -96,17 +134,185 @@ def _contiguous(name: str, **tensors):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _conv3x3(name: str, x, weight, bias, stride: int, relu: bool) -> torch.Tensor:
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _conv3x3(name: str, x, gate, w_k, bias, stride: int, relu: bool) -> torch.Tensor:
+    """conv3x3_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout)."""
     n, h, w, cin = x.shape
-    cout = weight.shape[0]
-    _contiguous(name, x=x)
+    cout = w_k.shape[3]
+    _contiguous(name, x=x, gate=gate)
     out = torch.empty((n, (h - 1) // stride + 1, (w - 1) // stride + 1, cout),
                       dtype=torch.float32, device=x.device)
-    w_k = weight.detach().permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
-    b = bias.detach().contiguous() if bias is not None else 0  # 0: a null pointer
-    _launch(name, _c_fn("conv3x3_f32", 7), x, w_k, b, out, n, h, w, cin, cout, stride,
-            int(relu))
+    _launch(name, _c_fn("conv3x3_f32", 5, 7), x.device, x, gate, w_k.contiguous(), bias, out,
+            n, h, w, cin, cout, stride, int(relu))
     return out
+
+
+def _deconv3x3(name: str, x, gate, w_k, skip, act, relu: bool) -> torch.Tensor:
+    """deconv3x3_s2_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout)."""
+    n, h, w, cin = x.shape
+    cout = w_k.shape[3]
+    _contiguous(name, x=x, gate=gate, skip=skip)
+    out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
+    _launch(name, _c_fn("deconv3x3_s2_f32", 6, 6), x.device, x, gate, w_k.contiguous(), skip,
+            out, act, n, h, w, cin, cout, int(relu))
+    return out
+
+
+def wgrad3x3(name: str, a1: torch.Tensor, b: torch.Tensor, stride: int,
+             a2: torch.Tensor | None = None, amask: torch.Tensor | None = None,
+             bmask: torch.Tensor | None = None, bias: bool = False):
+    """The weight (and bias) cotangent kernel on CUDA tensors (plane_conv.cu
+    `wgrad3x3_f32`, deterministic):
+
+      dw[dy, dx, ca, cb] = Σ A'[n, s·y + dy − 1, s·x + dx − 1, ca] · B'[n, y, x, cb]
+
+    A = [a1 | a2] (N, Ha, Wa, CA) along channels, B = b (N, Hb, Wb, CB),
+    A' = a1·[amask > 0] (amask only without a2), B' = b·[bmask > 0].
+    Returns dw (3, 3, CA, CB) and, with bias, db (CB,) = Σ B', else None.
+    Counts nothing: it is part of the backward that calls it."""
+    n, ha, wa, ca1 = a1.shape
+    ca2 = 0 if a2 is None else a2.shape[-1]
+    _, hb, wb, cb = b.shape
+    _contiguous(name, a1=a1, a2=a2, amask=amask, b=b, bmask=bmask)
+    n_w = 9 * (ca1 + ca2) * cb
+    n_out = n_w + (cb if bias else 0)
+    k = 4 if cb % 4 == 0 else 1
+    cpb = min(n_out // k, 256)
+    gy = -(-(n_out // k) // cpb)
+    sms = torch.cuda.get_device_properties(b.device).multi_processor_count
+    gx = max(1, min(-(-(n * hb * wb) // 64), 4 * sms // gy))
+    part = torch.empty((gx, n_out), dtype=torch.float32, device=b.device)
+    out = torch.empty((n_out,), dtype=torch.float32, device=b.device)
+    _launch(name, _c_fn("wgrad3x3_f32", 7, 11), b.device, a1, a2, amask, b, bmask, part, out,
+            n, ha, wa, ca1, ca2, hb, wb, cb, stride, int(bias), gx)
+    return out[:n_w].reshape(3, 3, ca1 + ca2, cb), (out[n_w:] if bias else None)
+
+
+def torch_weight(dw: torch.Tensor) -> torch.Tensor:
+    """(3, 3, A, B) → (B, A, 3, 3): a Conv2d weight from (3, 3, I, O), a
+    ConvTranspose2d weight from (3, 3, O, I)."""
+    return dw.permute(3, 2, 0, 1).contiguous()
+
+
+def conv_dn_backward(x: torch.Tensor, weight: torch.Tensor, y: torch.Tensor,
+                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of `conv_dn` at x (N, H, W, Cin), even H and W, from its
+    output y and the output's cotangent g (N, H/2, W/2, Cout).  CUDA tensors
+    go to the kernels (a gated transposed conv and the weight reduction),
+    counted in `conv_dn_backward.launches`; CPU tensors to
+    `conv_dn_backward_reference`."""
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"conv_dn backward: H and W must be even, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return conv_dn_backward_reference(x, weight, y, g)
+    _contiguous("conv_dn backward", y=y, g=g)
+    dx = _deconv3x3("conv_dn backward", g, y, weight.detach().permute(2, 3, 0, 1), None, None,
+                    False)
+    dw, _ = wgrad3x3("conv_dn backward", x, g, 2, bmask=y)
+    conv_dn_backward.launches += 1
+    return dx, torch_weight(dw)
+
+
+def deconv_up_backward(x: torch.Tensor, weight: torch.Tensor, act: torch.Tensor,
+                       g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of `deconv_up` at x (N, H, W, Cin) from act = relu(z)
+    (the output before the skip add) and the output's cotangent g
+    (N, 2H, 2W, Cout).  CUDA tensors go to the kernels (a gated stride-2
+    conv and the weight reduction), counted in `deconv_up_backward.launches`;
+    CPU tensors to `deconv_up_backward_reference`."""
+    if x.device.type == "cpu":
+        return deconv_up_backward_reference(x, weight, act, g)
+    _contiguous("deconv_up backward", act=act, g=g)
+    dx = _conv3x3("deconv_up backward", g, act, weight.detach().permute(2, 3, 1, 0), None, 2,
+                  False)
+    dw, _ = wgrad3x3("deconv_up backward", g, x, 2, amask=act)  # (3, 3, Cout, Cin)
+    deconv_up_backward.launches += 1
+    return dx, torch_weight(dw)  # (Cin, Cout, 3, 3), ConvTranspose2d's layout
+
+
+def conv_head_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dweight, dbias) of `conv_head` at x (N, H, W, Cin) from the
+    output's cotangent g (N, H, W, Cout).  CUDA tensors go to the kernels
+    (the conv with the flipped, channel-transposed kernel and the weight and
+    bias reduction), counted in `conv_head_backward.launches`; CPU tensors to
+    `conv_head_backward_reference`."""
+    if x.device.type == "cpu":
+        return conv_head_backward_reference(x, weight, g)
+    _contiguous("conv_head backward", g=g)
+    w_t = weight.detach().flip(2, 3).permute(2, 3, 0, 1)  # (3, 3, Cout, Cin)
+    dx = _conv3x3("conv_head backward", g, None, w_t, None, 1, False)
+    dw, db = wgrad3x3("conv_head backward", x, g, 1, bias=True)
+    conv_head_backward.launches += 1
+    return dx, torch_weight(dw), db
+
+
+class _ConvDn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        if x.device.type == "cpu":
+            y = conv_dn_reference(x, weight)
+        else:
+            y = _conv3x3("conv_dn", x, None, weight.detach().permute(2, 3, 1, 0), None, 2, True)
+            conv_dn.launches += 1
+        ctx.save_for_backward(x, weight, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, y = ctx.saved_tensors
+        dx, dw = conv_dn_backward(x, weight, y, g.contiguous())
+        return dx, dw
+
+
+class _DeconvUp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, skip, keep_act):
+        if x.device.type == "cpu":
+            act = deconv_up_reference(x, weight)
+            out = act if skip is None else act + skip
+        else:
+            # relu(z) in a buffer of its own only when a backward will read it
+            act = None if skip is None or not keep_act else torch.empty_like(skip)
+            out = _deconv3x3("deconv_up", x, None, weight.detach().permute(2, 3, 0, 1), skip,
+                             act, True)
+            act = out if act is None else act
+            deconv_up.launches += 1
+        if keep_act:
+            ctx.save_for_backward(x, weight, act)
+        ctx.has_skip = skip is not None
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, act = ctx.saved_tensors
+        g = g.contiguous()
+        dx, dw = deconv_up_backward(x, weight, act, g)
+        return dx, dw, (g if ctx.has_skip else None), None
+
+
+class _ConvHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        if x.device.type == "cpu":
+            out = conv_head_reference(x, weight, bias)
+        else:
+            out = _conv3x3("conv_head", x, None, weight.detach().permute(2, 3, 1, 0),
+                           bias.detach().contiguous(), 1, False)
+            conv_head.launches += 1
+        ctx.save_for_backward(x, weight)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return conv_head_backward(x, weight, g.contiguous())
 
 
 def conv_dn(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -114,17 +320,15 @@ def conv_dn(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3) → (N, ⌈H/2⌉, ⌈W/2⌉, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
-    `conv_dn_reference`.  On CUDA tensors it raises where autograd would
-    record a graph (`refuse_graph`)."""
+    `conv_dn_reference`.  Differentiable in x and weight (backward
+    `conv_dn_backward`) where H and W are even; with odd H or W it raises
+    where autograd would record a graph."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"conv_dn: want weight (Cout, Cin, 3, 3), got {tuple(weight.shape)}")
     _check("conv_dn", x, {"weight": weight}, weight.shape[1])
-    if x.device.type == "cpu":
-        return conv_dn_reference(x, weight)
-    refuse_graph("conv_dn", RED_BACKWARD, x, weight)
-    out = _conv3x3("conv_dn", x, weight, None, 2, True)
-    conv_dn.launches += 1
-    return out
+    if _wants_grad(x, weight) and (x.shape[1] % 2 or x.shape[2] % 2):
+        raise ValueError(f"conv_dn: the backward takes even H and W, got {tuple(x.shape)}")
+    return _ConvDn.apply(x, weight)
 
 
 def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -132,19 +336,14 @@ def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torc
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3), bias (Cout,) → (N, H, W, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
-    `conv_head_reference`.  On CUDA tensors it raises where autograd would
-    record a graph (`refuse_graph`)."""
+    `conv_head_reference`.  Differentiable in x, weight and bias (backward
+    `conv_head_backward`)."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"conv_head: want weight (Cout, Cin, 3, 3), got {tuple(weight.shape)}")
     if bias.shape != (weight.shape[0],):
         raise ValueError(f"conv_head: bias {tuple(bias.shape)} != ({weight.shape[0]},)")
     _check("conv_head", x, {"weight": weight, "bias": bias}, weight.shape[1])
-    if x.device.type == "cpu":
-        return conv_head_reference(x, weight, bias)
-    refuse_graph("conv_head", RED_BACKWARD, x, weight, bias)
-    out = _conv3x3("conv_head", x, weight, bias, 1, False)
-    conv_head.launches += 1
-    return out
+    return _ConvHead.apply(x, weight, bias)
 
 
 def deconv_up(x: torch.Tensor, weight: torch.Tensor,
@@ -154,28 +353,25 @@ def deconv_up(x: torch.Tensor, weight: torch.Tensor,
 
     x (N, H, W, Cin) float32, weight (Cin, Cout, 3, 3), skip (N, 2H, 2W, Cout)
     → (N, 2H, 2W, Cout).  CUDA tensors go to the kernel (x and skip must be
-    contiguous), CPU tensors to `deconv_up_reference`.  On CUDA tensors it
-    raises where autograd would record a graph (`refuse_graph`)."""
+    contiguous), CPU tensors to `deconv_up_reference`.  Differentiable in x,
+    weight and skip (backward `deconv_up_backward`); when autograd records,
+    the kernel also keeps relu(z) for the backward's mask."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"deconv_up: want weight (Cin, Cout, 3, 3), got {tuple(weight.shape)}")
     extra = {"weight": weight} if skip is None else {"weight": weight, "skip": skip}
     _check("deconv_up", x, extra, weight.shape[0])
-    n, h, w, cin = x.shape
+    n, h, w, _ = x.shape
     cout = weight.shape[1]
     if skip is not None and tuple(skip.shape) != (n, 2 * h, 2 * w, cout):
         raise ValueError(f"deconv_up: skip {tuple(skip.shape)} != {(n, 2 * h, 2 * w, cout)}")
-    if x.device.type == "cpu":
-        return deconv_up_reference(x, weight, skip)
-    refuse_graph("deconv_up", RED_BACKWARD, x, weight, skip)
-    _contiguous("deconv_up", x=x, skip=skip)
-    out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
-    w_k = weight.detach().permute(2, 3, 0, 1).contiguous()  # (3, 3, Cin, Cout)
-    _launch("deconv_up", _c_fn("deconv3x3_s2_f32", 5), x, w_k,
-            skip if skip is not None else 0, out, n, h, w, cin, cout)
-    deconv_up.launches += 1
-    return out
+    # keep_act from the caller: inside the Function's forward grad mode is
+    # off, and ctx.needs_input_grad says True for a parameter even under no_grad
+    return _DeconvUp.apply(x, weight, skip, _wants_grad(x, weight, skip))
 
 
 conv_dn.launches = 0
 deconv_up.launches = 0
 conv_head.launches = 0
+conv_dn_backward.launches = 0
+deconv_up_backward.launches = 0
+conv_head_backward.launches = 0

@@ -1,20 +1,28 @@
-"""ConvGRU depth recurrence of one RED scale: CUDA kernel and its plain version.
+"""ConvGRU depth recurrence of one RED scale: CUDA kernels and their plain versions.
 
-Replaces two TPU kernels of `satmvs_tpu/ops/pallas/red_recur.py` with one
-CUDA kernel: `_red_recur_impl` (pallas_call at :287; public `red_recur`
+Replaces four TPU kernels of `satmvs_tpu/ops/pallas/red_recur.py`.  The
+forward kernel: `_red_recur_impl` (pallas_call at :287; public `red_recur`
 :1388 and the seeded `red_recur_from` :1429) and its batched form
 `_red_recur_impl_batched` (pallas_call at :368; public
-`red_recur_from_packed_batched` :1450).  The CUDA source is
-`satmvs_tpu_torch/csrc/red_recur.cu`; its header gives the design and the
-bound.
+`red_recur_from_packed_batched` :1450).  The backward kernel: the
+reverse-plane adjoint `_red_recur_bwd_pallas` (:755, pallas_call :802) and
+its slab-streamed twin `_red_recur_bwd_pallas_stream` (:1197, pallas_call
+:1246), whose split is a VMEM workaround; the dispatch is `_red_recur_bwd`
+(:1471).  The CUDA source is `satmvs_tpu_torch/csrc/red_recur.cu`; its header
+gives the design and the bound.
 
 `red_recur(x, cell, h0)` runs a `nn.blocks.ConvGRUCell` over the D planes of
 x, the state starting at h0 (zeros when None), and returns every plane's
 state.  x may carry a leading batch axis B: then B independent recurrences,
-each from its own start state, run in one launch.  It launches the kernel for
-CUDA tensors and counts each launch in `red_recur.launches`; for CPU tensors,
-and only for them, it computes the plain version `red_recur_reference`, a
-loop over the elements and the planes.
+each from its own start state, run in one launch.  It is one
+`torch.autograd.Function`, differentiable in x and the cell's parameters
+(as in JAX, not in h0): the forward launches the kernel for CUDA tensors and
+counts each launch in `red_recur.launches`; the backward calls
+`red_recur_backward`, which launches the adjoint kernel and the weight
+reductions and counts in `red_recur_backward.launches`.  For CPU tensors,
+and only for them, they compute the plain versions `red_recur_reference` (a
+loop over the elements and the planes) and `red_recur_backward_reference` (a
+reverse loop over the planes of the cell's local VJP).
 """
 
 from __future__ import annotations
@@ -22,10 +30,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ...nn.blocks import ConvGRUCell
-from . import build, refuse_graph
-from .plane_conv import RED_BACKWARD
+from . import build
+from .plane_conv import torch_weight, wgrad3x3
 
 _MAX_BLOCKS = 4096  # caps the cooperative grid; sizes the per-block sums scratch
 
@@ -56,6 +66,35 @@ def red_recur_reference(x: torch.Tensor, cell: ConvGRUCell,
                         for b in range(x.shape[0])])
 
 
+def red_recur_backward_reference(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+                                 cell: ConvGRUCell, h0: torch.Tensor | None = None):
+    """Plain backward of `red_recur` at x (B, D, H, W, Cin) from its output
+    `out` and the output's cotangent g: a reverse loop over the planes that
+    recomputes each step from the saved states (h_prev = out[d − 1], h0 or
+    zeros at d = 0) and takes the local VJP of the cell's step, as the JAX
+    fallback does (red_recur.py:1486-1504).  Returns dx and the cotangents of
+    `cell.parameters()` in their order, summed over the elements."""
+    names, params = zip(*cell.named_parameters())
+    dps = [torch.zeros_like(p) for p in params]
+    dx = torch.empty_like(x)
+    nchw = lambda t: t.permute(2, 0, 1)[None]  # noqa: E731
+    for b in range(x.shape[0]):
+        dh = torch.zeros_like(nchw(out[b, 0]))
+        for d in range(x.shape[1] - 1, -1, -1):
+            hp = out[b, d - 1] if d > 0 else h0[b] if h0 is not None else torch.zeros_like(out[b, 0])
+            with torch.enable_grad():
+                hp_ = nchw(hp).detach().requires_grad_(True)
+                x_ = nchw(x[b, d]).detach().requires_grad_(True)
+                ps = [p.detach().requires_grad_(True) for p in params]
+                hn = torch.func.functional_call(cell, dict(zip(names, ps)), (x_, hp_))
+                grads = torch.autograd.grad(hn, (hp_, x_, *ps), dh + nchw(g[b, d]))
+            dh = grads[0]
+            dx[b, d] = grads[1][0].permute(1, 2, 0)
+            for acc, gp in zip(dps, grads[2:]):
+                acc += gp
+    return dx, tuple(dps)
+
+
 def cell_kernel_args(cell: ConvGRUCell) -> tuple[torch.Tensor, ...]:
     """A ConvGRUCell's convs and norms as the kernel's arguments (wa, ba, wb, bb, gn):
 
@@ -78,6 +117,24 @@ def cell_kernel_args(cell: ConvGRUCell) -> tuple[torch.Tensor, ...]:
     return wa, cell.conv_h.bias.detach(), wb, cell.conv_c.bias.detach(), gn
 
 
+def cell_backward_weights(wa: torch.Tensor, wb: torch.Tensor,
+                          cin: int) -> tuple[torch.Tensor, ...]:
+    """The transposed convolutions' weights of the backward kernel, taps
+    flipped (t → 8 − t), input and output channels swapped:
+
+      whT (9, 2C, C)      [t, co, c]  = wa[8 − t, Cin + c, co]
+      wcT (9, C, C)       [t, co, c]  = wb[8 − t, Cin + c, co]
+      wxT (9, 3C, cinp)   [t, co, ci] = wa[8 − t, ci, co] for co < 2C, then wb's;
+                          Cin padded with zeros to cinp, a multiple of 4
+    """
+    flip = torch.arange(8, -1, -1, device=wa.device)
+    wa_f, wb_f = wa[flip], wb[flip]
+    whT = wa_f[:, cin:].transpose(1, 2).contiguous()
+    wcT = wb_f[:, cin:].transpose(1, 2).contiguous()
+    wx = torch.cat([wa_f[:, :cin], wb_f[:, :cin]], dim=2).transpose(1, 2)
+    return whT, wcT, F.pad(wx, (0, -cin % 4)).contiguous()
+
+
 def _check(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None):
     if x.dtype != torch.float32:
         raise TypeError(f"red_recur: x must be float32, got {x.dtype}")
@@ -98,22 +155,39 @@ def _check(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None):
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("red_recur")
-    lib.red_recur_blocks.argtypes = [ctypes.c_int] * 5
-    lib.red_recur_blocks.restype = ctypes.c_int
+    for name in ("red_recur_blocks", "red_recur_bwd_blocks"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
     lib.red_recur_f32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.red_recur_f32.restype = ctypes.c_int
+    lib.red_recur_bwd_f32.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
+                                      + [ctypes.c_void_p])
+    lib.red_recur_bwd_f32.restype = ctypes.c_int
     return lib
 
 
-def grid_blocks(b: int, h: int, w: int, c: int) -> int:
-    """Blocks of the cooperative grid for B elements of (h, w) planes with c
-    state channels (a multiple of B, all resident at once); raises when not
-    even one block per element can be resident.  Call on the current device."""
-    blocks = _lib().red_recur_blocks(b, h, w, c, _MAX_BLOCKS)
+def grid_blocks(b: int, h: int, w: int, c: int, backward: bool = False) -> int:
+    """Blocks of the cooperative grid (of the forward kernel, or the
+    backward's) for B elements of (h, w) planes with c state channels (a
+    multiple of B, all resident at once); raises when not even one block per
+    element can be resident.  Call on the current device."""
+    fn = _lib().red_recur_bwd_blocks if backward else _lib().red_recur_blocks
+    blocks = fn(b, h, w, c, _MAX_BLOCKS)
     if blocks < 1:
         raise RuntimeError(f"red_recur: no cooperative grid for B = {b}: CUDA error {-blocks}")
     return blocks
+
+
+def _start_state(x: torch.Tensor, c: int, h0: torch.Tensor | None) -> torch.Tensor:
+    b, _, h, w, _ = x.shape
+    if h0 is None:
+        h0 = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+    if not h0.is_contiguous():
+        raise ValueError("red_recur: h0 must be contiguous")
+    if h0.data_ptr() % 16:
+        raise ValueError("red_recur: h0 must be 16-byte aligned")
+    return h0
 
 
 def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None) -> torch.Tensor:
@@ -122,13 +196,9 @@ def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None) -> torc
     c = cell.features
     if c % 4:
         raise ValueError(f"red_recur: the kernel takes C % 4 == 0, got C = {c}")
-    if h0 is None:
-        h0 = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
-    for name, t in (("x", x), ("h0", h0)):
-        if not t.is_contiguous():
-            raise ValueError(f"red_recur: {name} must be contiguous")
-    if h0.data_ptr() % 16:
-        raise ValueError("red_recur: h0 must be 16-byte aligned")
+    if not x.is_contiguous():
+        raise ValueError("red_recur: x must be contiguous")
+    h0 = _start_state(x, c, h0)
     lib = _lib()
     wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
     out = torch.empty((b, d, h, w, c), dtype=torch.float32, device=x.device)
@@ -147,6 +217,85 @@ def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None) -> torc
     return out
 
 
+def _param_grads(cell: ConvGRUCell, dwa, dba, dwb, dbb, dgn) -> tuple[torch.Tensor, ...]:
+    """The kernel-layout cotangents as those of `cell.parameters()`, in order."""
+    cin, c = cell.conv_x.in_channels, cell.features
+    dwx = torch_weight(torch.cat([dwa[:, :, :cin], dwb[:, :, :cin]], dim=3))
+    grads = {"conv_x.weight": dwx, "conv_h.weight": torch_weight(dwa[:, :, cin:]),
+             "conv_h.bias": dba, "conv_c.weight": torch_weight(dwb[:, :, cin:]),
+             "conv_c.bias": dbb}
+    for i, norm in enumerate(("gn_r", "gn_u", "gn_y")):
+        grads[f"{norm}.weight"], grads[f"{norm}.bias"] = dgn[2 * i], dgn[2 * i + 1]
+    return tuple(grads[name] for name, _ in cell.named_parameters())
+
+
+def red_recur_backward(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell: ConvGRUCell,
+                       h0: torch.Tensor | None = None):
+    """dx and the cotangents of `cell.parameters()` (in their order, summed
+    over the elements) of `red_recur` at x (B, D, H, W, Cin) from its output
+    `out` and the output's cotangent g; h0 is the start state the forward
+    took (None for zeros; it gets no cotangent).  CUDA tensors go to the
+    adjoint kernel and the weight reductions, counted in
+    `red_recur_backward.launches` (C/4 a power of two ≤ 32; out, g and h0
+    contiguous); CPU tensors to `red_recur_backward_reference`."""
+    if x.device.type == "cpu":
+        return red_recur_backward_reference(x, out, g, cell, h0)
+    b, d, h, w, cin = x.shape
+    c = cell.features
+    if c % 4 or (c // 4) & (c // 4 - 1) or c > 128:
+        raise ValueError(f"red_recur backward: the kernel takes C = 4·2^k ≤ 128, got C = {c}")
+    for name, t in (("x", x), ("out", out), ("g", g)):
+        if not t.is_contiguous():
+            raise ValueError(f"red_recur backward: {name} must be contiguous")
+    h0 = _start_state(x, c, h0)
+    lib = _lib()
+    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
+    whT, wcT, wxT = cell_backward_weights(wa, wb, cin)
+    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                                          device=x.device)
+    dx = new(b, d, h, w, cin)
+    dg, dyl, m = new(b, d, h, w, 2 * c), new(b, d, h, w, c), new(b, d, h, w, c)
+    graw, yraw = new(b, h, w, 2 * c), new(b, h, w, c)
+    dh = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+    dgn = new(6, c)
+    with torch.cuda.device(x.device):
+        blocks = grid_blocks(b, h, w, c, backward=True)
+        part = new(4, blocks, 4, dtype=torch.float64)
+        gnpart = new(blocks, 6, c, dtype=torch.float64)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.red_recur_bwd_f32(
+            *(t.data_ptr() for t in (x, h0, out, g, dx, dg, dyl, m, graw, yraw, dh, part, gnpart,
+                                     dgn, wa, ba, wb, bb, gn, whT, wcT, wxT)),
+            b, d, h, w, cin, c, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"red_recur backward kernel launch failed: CUDA error {rc}")
+    # weight and bias cotangents over all B·D planes: gates over [x | h_prev],
+    # candidate over [x | r·h_prev]
+    planes = lambda t: t.reshape(b * d, h, w, t.shape[-1])  # noqa: E731
+    hprev = torch.cat([h0[:, None], out[:, :-1]], dim=1)
+    dwa, dba = wgrad3x3("red_recur backward", planes(x), planes(dg), 1, a2=planes(hprev),
+                        bias=True)
+    dwb, dbb = wgrad3x3("red_recur backward", planes(x), planes(dyl), 1, a2=planes(m), bias=True)
+    red_recur_backward.launches += 1
+    return dx, _param_grads(cell, dwa, dba, dwb, dbb, dgn)
+
+
+class _RedRecur(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h0, cell, *params):
+        out = red_recur_reference(x, cell, h0) if x.device.type == "cpu" else _launch(x, cell, h0)
+        ctx.cell = cell
+        ctx.save_for_backward(x, h0, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, h0, out = ctx.saved_tensors
+        dx, dps = red_recur_backward(x, out, g.contiguous(), ctx.cell, h0)
+        return (dx, None, None, *dps)
+
+
 def red_recur(x: torch.Tensor, cell: ConvGRUCell,
               h0: torch.Tensor | None = None) -> torch.Tensor:
     """Every plane's state of `cell` run over the planes of x, index 0 first.
@@ -157,16 +306,20 @@ def red_recur(x: torch.Tensor, cell: ConvGRUCell,
     Chaining: red_recur(x)[k:] equals red_recur(x[k:], cell,
     red_recur(x[:k], cell)[-1]) (per element when batched).  CUDA tensors go
     to the kernel (x and h0 contiguous, C % 4 == 0; a grid the card cannot
-    hold raises), CPU tensors to `red_recur_reference`.  On CUDA tensors it
-    raises where autograd would record a graph (`refuse_graph`).
+    hold raises), CPU tensors to `red_recur_reference`.  Differentiable in x
+    and the cell's parameters (backward `red_recur_backward`); an h0 that
+    requires a gradient raises where autograd records, as the seeded JAX
+    forms have no VJP.
     """
     _check(x, cell, h0)
-    if x.device.type == "cpu":
-        return red_recur_reference(x, cell, h0)
-    refuse_graph("red_recur", RED_BACKWARD, x, h0, *cell.parameters())
-    if x.ndim == 4:
-        return _launch(x[None], cell, None if h0 is None else h0[None])[0]
-    return _launch(x, cell, h0)
+    if h0 is not None and torch.is_grad_enabled() and h0.requires_grad:
+        raise RuntimeError("red_recur: the start state h0 gets no gradient (the seeded "
+                           "recurrence has no VJP); detach it or call under torch.no_grad()")
+    if x.ndim == 4:  # one element: the batched form with B = 1
+        return _RedRecur.apply(x[None], None if h0 is None else h0[None], cell,
+                               *cell.parameters())[0]
+    return _RedRecur.apply(x, h0, cell, *cell.parameters())
 
 
 red_recur.launches = 0
+red_recur_backward.launches = 0

@@ -9,11 +9,10 @@ torch_compat, and fused_sweep=False.  `sweep_stencil` is a tap width of the
 TPU gather; the port's gather has no stencil, so it is accepted and has no
 effect.
 
-fused_red: None ("auto") and False run the RED regularizer's scan path
-under training, since the backward kernels of the fused pipeline are not
-ported yet; evaluation then takes the scan too (the JAX package with
-fused_red=False does the same).  True asks for the fused pipeline, whose
-training step raises until those kernels exist.
+fused_red: None ("auto") and True run the RED regularizer's fused pipeline
+(its CUDA kernels and their backward kernels) in training and evaluation,
+as the JAX package's "auto" does on its accelerator; False runs the scan
+path (torch built-ins) in both.
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ class Config:
     compute_dtype: str = "float32"
     volume_dtype: str = "float32"
     torch_compat: bool = False
-    fused_red: Optional[bool] = None         # None = auto: off under training (see above)
+    fused_red: Optional[bool] = None         # None = auto: the fused pipeline (see above)
     fused_sweep: Optional[bool] = None       # None/True: the sweep_variance kernel at inference
 
     # optimization

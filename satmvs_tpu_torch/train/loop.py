@@ -114,13 +114,13 @@ def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int
 
     Weights: numpy-seeded from cfg.seed (`params.init_from_seed`; not the
     JAX package's PRNG draws), or a flax variables tree `variables` loaded
-    with `params.load_jax_variables`.  cfg.fused_red None resolves to False:
-    the fused RED pipeline has no backward kernels yet.
+    with `params.load_jax_variables`.  cfg.fused_red None and True take the
+    fused RED pipeline, False its scan path.
     """
     model = build_model(
         cfg.model, cfg.geo_model, ndepths=tuple(cfg.ndepths), cr_base_chs=tuple(cfg.cr_base_chs),
         min_interval=cfg.min_interval, depth_intervals_ratio=tuple(cfg.depth_inter_r),
-        fused_red=bool(cfg.fused_red), device=sample_batch["imgs"].device, seed=cfg.seed)
+        fused_red=cfg.fused_red, device=sample_batch["imgs"].device, seed=cfg.seed)
     if variables is not None:
         load_jax_variables(model, variables)
     tx = make_optimizer(cfg, steps_per_epoch)

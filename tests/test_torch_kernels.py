@@ -1,9 +1,10 @@
 """The kernel wrappers (sweep_variance, conv_dn, deconv_up, conv_head,
-red_recur, sweep_gather, sweep_scatter): CPU tensors take the plain version,
+red_recur, sweep_gather, sweep_scatter, and the backwards of conv_dn,
+deconv_up, conv_head and red_recur): CPU tensors take the plain version,
 CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and nvcc and
-skip without them), the wrappers without a backward kernel refuse a graph on
-the card while the plain versions differentiate, and the modules import
-without nvcc."""
+skip without them), sweep_variance, the one wrapper without a backward
+kernel, refuses a graph on the card while the plain versions differentiate,
+and the modules import without nvcc."""
 
 import os
 import subprocess
@@ -303,15 +304,21 @@ def test_refuse_graph_only_where_autograd_records():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_a_graph_they_cannot_carry():
-    """On the card the five kernels without a backward raise when autograd
-    records (and launch nothing), run under torch.no_grad(), and their plain
-    versions on the CPU still differentiate (see the CPU test above)."""
+    """On the card sweep_variance, the one kernel without a backward, raises
+    when autograd records (and launches nothing) and runs under
+    torch.no_grad(); its plain version on the CPU still differentiates (see
+    the CPU test above).  The four RED wrappers carry the graph."""
     _cuda()
-    for name, call in _graph_cases("cuda"):
+    cases = _graph_cases("cuda")
+    for name, call in cases[:1]:
+        before = sweep_variance.launches
         with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
             call()
+        assert sweep_variance.launches == before
         with torch.no_grad():
             assert not call().requires_grad
+    for name, call in cases[1:]:
+        assert call().requires_grad, name
     torch.cuda.synchronize()
 
 
@@ -366,33 +373,213 @@ def test_cuda_sweep_gather_backward_launches_the_scatter():
                 .all())
 
 
-@pytest.mark.cuda
-def test_cuda_train_step_launches():
-    """A train step at 32×64, ndepths (8, 4, 4), B = 1, fused_red off: one
-    sweep_gather and one sweep_scatter per stage and source view (6 each),
-    none of sweep_variance and the RED kernels; an eval step: 3
-    sweep_variance, nothing else.  The loss is finite."""
-    from satmvs_tpu_torch.data import synthetic
+def _all_wrappers():
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
-    from satmvs_tpu_torch.train import (Config, create_model_and_state, make_eval_step,
-                                        make_train_step)
 
-    _cuda()
-    wrappers = {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
-                "sweep_variance": sweep_variance, "conv_dn": pc.conv_dn,
-                "red_recur": rr.red_recur, "deconv_up": pc.deconv_up, "conv_head": pc.conv_head}
+    return {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
+            "sweep_variance": sweep_variance, "conv_dn": pc.conv_dn,
+            "red_recur": rr.red_recur, "deconv_up": pc.deconv_up, "conv_head": pc.conv_head,
+            "conv_dn_backward": pc.conv_dn_backward, "red_recur_backward": rr.red_recur_backward,
+            "deconv_up_backward": pc.deconv_up_backward,
+            "conv_head_backward": pc.conv_head_backward}
+
+
+# launches per train step and per eval step at B = 1 with the fused RED
+# pipeline (fused_red None, the default): per stage 2 gathers and 2
+# scatters, 3 conv_dn, 4 red_recur, 3 deconv_up, 1 conv_head, each RED kernel
+# once forward and once backward; the eval step without gradients
+FUSED_TRAIN = {"sweep_gather": 6, "sweep_scatter": 6, "conv_dn": 9, "red_recur": 12,
+               "deconv_up": 9, "conv_head": 3, "conv_dn_backward": 9, "red_recur_backward": 12,
+               "deconv_up_backward": 9, "conv_head_backward": 3}
+FUSED_EVAL = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9, "conv_head": 3}
+
+
+def _step_launches(cfg, want_train, want_eval):
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import create_model_and_state, make_eval_step, make_train_step
+
+    wrappers = _all_wrappers()
     batch = synthetic.make_batch(1, 64, 32, seed=0, device="cuda")
-    cfg = Config(ndepths=(8, 4, 4))
     model, state, tx = create_model_and_state(cfg, batch, 1)
-    for step, want in ((make_train_step(model, tx, cfg.dlossw), {"sweep_gather": 6,
-                                                                 "sweep_scatter": 6}),
-                       (make_eval_step(model, cfg.dlossw, cfg.min_interval),
-                        {"sweep_variance": 3})):
+    for step, want in ((make_train_step(model, tx, cfg.dlossw), want_train),
+                       (make_eval_step(model, cfg.dlossw, cfg.min_interval), want_eval)):
         before = {k: f.launches for k, f in wrappers.items()}
         result = step(state, batch)
         torch.cuda.synchronize()
         got = {k: f.launches - before[k] for k, f in wrappers.items()}
         assert got == {k: want.get(k, 0) for k in wrappers}
     assert bool(torch.isfinite(result[0]["loss"]))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches():
+    """A train step at 32×64, ndepths (8, 4, 4), B = 1, `Config()` defaults
+    (the fused RED pipeline): per stage and source view one sweep_gather and
+    one sweep_scatter, per stage conv_dn ×3, red_recur ×4, deconv_up ×3,
+    conv_head ×1 forward and each of their backward kernels as often, no
+    sweep_variance; an eval step: 3 sweep_variance and the fused pipeline's
+    forward kernels.  The loss is finite."""
+    from satmvs_tpu_torch.train import Config
+
+    _cuda()
+    _step_launches(Config(ndepths=(8, 4, 4)), FUSED_TRAIN, FUSED_EVAL)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_train_step_launches():
+    """fused_red=False: the train step launches the sweep pair only (6 + 6),
+    the eval step 3 sweep_variance only: the scan RED is torch built-ins."""
+    from satmvs_tpu_torch.train import Config
+
+    _cuda()
+    _step_launches(Config(ndepths=(8, 4, 4), fused_red=False),
+                   {"sweep_gather": 6, "sweep_scatter": 6}, {"sweep_variance": 3})
+
+
+def _rel(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 16), (2, 8, 6, 6, 5),
+                                            (2, 12, 8, 32, 64)])
+def test_cuda_conv_dn_backward_matches_plain_version(n, h, w, cin, cout):
+    """dx (the gated transposed conv) and dweight (the two-pass reduction)
+    against the plain backward on the card: 1e-5 × max(1, max |plain|) each,
+    and the same bits in a second run (no atomics)."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    x, wt = _rand((n, h, w, cin), 60), _rand((cout, cin, 3, 3), 61, 0.2)
+    y = pc.conv_dn_reference(x, wt)
+    g = _rand(tuple(y.shape), 62)
+    before = pc.conv_dn_backward.launches
+    got = pc.conv_dn_backward(x, wt, y, g)
+    assert pc.conv_dn_backward.launches == before + 1
+    for a, b, what in zip(got, pc.conv_dn_backward_reference(x, wt, y, g), ("dx", "dw")):
+        _close(a, b, f"conv_dn backward {what}")
+    for a, b in zip(got, pc.conv_dn_backward(x, wt, y, g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 8, 12, 16, 8), (2, 5, 7, 6, 3),
+                                            (1, 3, 6, 64, 32)])
+def test_cuda_deconv_up_backward_matches_plain_version(n, h, w, cin, cout):
+    """dx (the gated stride-2 conv) and dweight, odd sizes included, with
+    pre-activations pushed to ±1e-7 on a share of the outputs so the mask
+    read from relu(z) matters: 1e-5 × max(1, max |plain|)."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    x, wt = _rand((n, h, w, cin), 63), _rand((cin, cout, 3, 3), 64, 0.2)
+    act = pc.deconv_up_reference(x, wt)
+    act.view(-1)[::3] = 1e-7
+    act.view(-1)[1::7] = 0.0
+    g = _rand(tuple(act.shape), 65)
+    before = pc.deconv_up_backward.launches
+    got = pc.deconv_up_backward(x, wt, act, g)
+    assert pc.deconv_up_backward.launches == before + 1
+    for a, b, what in zip(got, pc.deconv_up_backward_reference(x, wt, act, g), ("dx", "dw")):
+        _close(a, b, f"deconv_up backward {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 1), (2, 7, 9, 6, 5)])
+def test_cuda_conv_head_backward_matches_plain_version(n, h, w, cin, cout):
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    x, wt = _rand((n, h, w, cin), 66), _rand((cout, cin, 3, 3), 67, 0.2)
+    g = _rand((n, h, w, cout), 68)
+    before = pc.conv_head_backward.launches
+    got = pc.conv_head_backward(x, wt, g)
+    assert pc.conv_head_backward.launches == before + 1
+    for a, b, what in zip(got, pc.conv_head_backward_reference(x, wt, g), ("dx", "dw", "db")):
+        _close(a, b, f"conv_head backward {what}")
+
+
+@pytest.mark.cuda
+def test_cuda_conv_head_backward_reduces_a_training_plane():
+    """At stage 3 of a 384×768 train step (8 planes, 2.4 M pixels), with a
+    cotangent of mean 1 so Σ g does not cancel: dweight and dbias against
+    the plain backward in float64, each element to 1e-6 × Σ |terms| of its
+    sum, a bound under 1e-2 of the largest value (a zeroed or sign-flipped
+    reduction fails)."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    x, wt = _rand((8, 384, 768, 8), 69), _rand((1, 8, 3, 3), 70, 0.2)
+    g = _rand((8, 384, 768, 1), 71) + 1.0
+    _, dw, db = pc.conv_head_backward(x, wt, g)
+    torch.cuda.synchronize()
+    want = pc.conv_head_backward_reference(x.double(), wt.double(), g.double())[1:]
+    mags = pc.conv_head_backward_reference(x.abs().double(), wt.double(), g.abs().double())[1:]
+    for got, exact, mag, what in zip((dw, db), want, mags, ("dweight", "dbias")):
+        bound = 1e-6 * mag
+        assert bound.max() <= 1e-2 * exact.abs().max(), what
+        assert bool(((got - exact).abs() <= bound).all()), f"{what}: {(got - exact).abs().max()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,h,w,cin,c,seeded", [(1, 5, 16, 24, 8, 8, False),
+                                                  (2, 4, 7, 9, 6, 4, True),
+                                                  (1, 3, 6, 12, 64, 64, False)])
+def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seeded):
+    """The adjoint kernel and its weight reductions against the plain
+    reverse-plane backward on the card, on states in (−1, 1): dx and every
+    parameter's cotangent to a relative norm of 1e-4 (GroupNorm statistics
+    in float64 against torch's fp32 moments), and the same bits in a second
+    run (no atomics)."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    _cuda()
+    cell = _red_cell(cin, c, 70 + c)
+    x = _rand((b, d, h, w, cin), 71)
+    h0 = torch.tanh(_rand((b, h, w, c), 72)) if seeded else None
+    with torch.no_grad():
+        out = rr.red_recur_reference(x, cell, h0)
+    g = _rand(tuple(out.shape), 73)
+    before = rr.red_recur_backward.launches
+    dx, dps = rr.red_recur_backward(x, out, g, cell, h0)
+    assert rr.red_recur_backward.launches == before + 1
+    torch.cuda.synchronize()
+    want_dx, want_dps = rr.red_recur_backward_reference(x, out, g, cell, h0)
+    errs = [_rel(dx, want_dx)] + [_rel(a, e) for a, e in zip(dps, want_dps)]
+    assert max(errs) <= 1e-4, errs
+    dx2, dps2 = rr.red_recur_backward(x, out, g, cell, h0)
+    assert torch.equal(dx, dx2) and all(torch.equal(p, q) for p, q in zip(dps, dps2))
+
+
+@pytest.mark.cuda
+def test_cuda_red_autograd_runs_the_backward_kernels():
+    """REDRegularizer.pipeline under autograd on the card: one launch of each
+    backward kernel per forward launch, and the volume's and parameters'
+    gradients equal the same module's plain run on the CPU (relative norm
+    1e-3 per tensor)."""
+    from satmvs_tpu_torch.nn.red import REDRegularizer
+    from satmvs_tpu_torch.params import init_from_seed
+
+    _cuda()
+    tm = init_from_seed(REDRegularizer(8, 8), 3)
+    vol = torch.rand((1, 4, 16, 32, 8), generator=torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        m = tm.to(dev)
+        v = vol.to(dev).requires_grad_(True)
+        wrappers = _all_wrappers()
+        before = {k: f.launches for k, f in wrappers.items()}
+        logits = m(v)
+        gs = torch.autograd.grad(torch.sin(logits).sum(), [v, *m.parameters()])
+        got = {k: f.launches - before[k] for k, f in wrappers.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert got == {k: {"conv_dn": 3, "red_recur": 4, "deconv_up": 3, "conv_head": 1,
+                               "conv_dn_backward": 3, "red_recur_backward": 4,
+                               "deconv_up_backward": 3, "conv_head_backward": 1}.get(k, 0)
+                           for k in wrappers}
+        grads[dev] = [t.cpu() for t in gs]
+    errs = [_rel(a, b) for a, b in zip(grads["cuda"], grads["cpu"])]
+    assert max(errs) <= 1e-3, errs

@@ -257,15 +257,26 @@ def test_train_step_update_matches_jax(train_step_runs):
     assert r["state"].step == 1 and r["state"].opt_state["count"] == 1
 
 
-def test_fused_red_with_gradients_raises():
-    """The fused RED pipeline has no backward kernels: with gradients it
-    raises on every device, the CPU included; without, it runs."""
+def test_fused_red_trains_on_the_cpu():
+    """fused_red=True trains on the CPU: the train-mode forward runs the
+    fused RED pipeline under autograd (its plain versions here) and its
+    backward reaches every parameter; without gradients it runs too."""
     model = CascadeREDNet(ndepths=NDEPTHS, fused_red=True, device="cpu")
     b = tsyn.make_batch(1, 32, 32, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_red"):
-        model(b["imgs"], b["cams"], b["depth_values"], train=True)
-    out = model(b["imgs"], b["cams"], b["depth_values"])
-    assert out["depth"].shape == (1, 32, 32) and not out["depth"].requires_grad
+    out = model(b["imgs"], b["cams"], b["depth_values"], train=True)
+    assert out["depth"].shape == (1, 32, 32) and out["depth"].requires_grad
+    loss = cascade_loss(out, b["depth_stages"], b["mask_stages"], (0.5, 1.0, 2.0))[0]
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    reg = {n for n, _ in model.named_parameters() if n.startswith("regs.")}
+    got = {n for (n, _), g in zip(model.named_parameters(), grads)
+           if g is not None and bool(torch.isfinite(g).all())}
+    assert reg <= got
+    inf = model(b["imgs"], b["cams"], b["depth_values"])
+    assert inf["depth"].shape == (1, 32, 32) and not inf["depth"].requires_grad
+
+
+def test_train_fused_sweep_raises():
+    """Training on the fused sweep, whose backward is not ported, raises."""
     with pytest.raises(NotImplementedError, match="train_fused_sweep"):
         CascadeModel(NDEPTHS, train_fused_sweep=True)
 
