@@ -34,16 +34,21 @@ Phases, each reported on its own lines:
      against their plain versions at the three training stage shapes (both
      source views, RPC coordinates) and with coordinates pushed off the
      image; the scatter's run-to-run difference; kernel, plain, bound and
-     grid_sample times (forward, and its input gradient);
+     grid_sample times (forward, and its input gradient); the scatter at
+     one plane a thread against its runs over planes;
   8  the backward kernels of the fused RED regularizer (conv_dn, red_recur,
      deconv_up, conv_head) against their plain backwards at every shape of a
      384×768 train step, each cotangent on its own, red_recur on states in
      (−1, 1) over all planes; the same bits in a second run; kernel, plain,
-     bound and cuDNN-gradient times (run before phase 3);
+     bound and cuDNN-gradient times; and their shared weight reduction
+     wgrad3x3 alone at each of its 45 call shapes (9 conv_dn, 24 red_recur,
+     9 deconv_up, 3 conv_head) against its plain version in float64, its
+     time beside cuDNN's weight-only gradient (run before phase 3);
   7  training (`train.loop`) at 384×768, B = 1: five train steps with
      Config() defaults, the fused RED pipeline (exact launches per step:
      6 sweep_gather, 6 sweep_scatter, conv_dn 9, red_recur 12, deconv_up 9,
-     conv_head 3 and their backward kernels 9, 12, 9, 3, no sweep_variance),
+     conv_head 3 and their backward kernels 9, 12, 9, 3, wgrad3x3 45, no
+     sweep_variance),
      step time, peak memory and losses (finite, falling); one eval step (a
      forward's kernels) and its time; one step split into forward, backward
      and update, and each stage's RED alone, fused and scan; a profile of
@@ -439,21 +444,23 @@ BACKWARD_KERNELS = ("conv_dn_backward", "red_recur_backward", "deconv_up_backwar
                     "conv_head_backward")
 LAUNCHES_PER_FORWARD = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9,
                         "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0,
-                        **{k: 0 for k in BACKWARD_KERNELS}}
+                        **{k: 0 for k in BACKWARD_KERNELS}, "wgrad3x3": 0}
 # per train step at B = 1 on the fused RED pipeline (Config() defaults): the
 # training sweep pair once per stage and source view instead of
 # sweep_variance, the RED kernels as in a forward and each one's backward
-# kernel as often; per eval step (no gradient) a forward's kernels; per train
-# step with fused_red off the sweep pair only (the scan RED is torch built-ins)
+# kernel as often, and the shared weight reduction once per conv backward and
+# twice per red_recur backward (9 + 9 + 3 + 24); per eval step (no gradient)
+# a forward's kernels; per train step with fused_red off the sweep pair only
+# (the scan RED is torch built-ins)
 LAUNCHES_PER_TRAIN_STEP = {**LAUNCHES_PER_FORWARD, "sweep_variance": 0, "sweep_gather": 6,
                            "sweep_scatter": 6, "conv_dn_backward": 9, "red_recur_backward": 12,
-                           "deconv_up_backward": 9, "conv_head_backward": 3}
+                           "deconv_up_backward": 9, "conv_head_backward": 3, "wgrad3x3": 45}
 LAUNCHES_PER_EVAL_STEP = dict(LAUNCHES_PER_FORWARD)
 LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
                           "sweep_scatter": 6}
 # the kernels each path must launch
 INFERENCE_PATHS = ("forward", f"scene_b{BATCH_TILES}", "scene_b1", "streaming")
-TRAIN_KERNELS = ("sweep_gather", "sweep_scatter", *BACKWARD_KERNELS)
+TRAIN_KERNELS = ("sweep_gather", "sweep_scatter", *BACKWARD_KERNELS, "wgrad3x3")
 RED_FORWARD_KERNELS = ("conv_dn", "red_recur", "deconv_up", "conv_head")
 
 
@@ -468,7 +475,7 @@ def kernel_wrappers() -> dict:
             "sweep_scatter": sweep_scatter, "conv_dn_backward": pc.conv_dn_backward,
             "red_recur_backward": rr.red_recur_backward,
             "deconv_up_backward": pc.deconv_up_backward,
-            "conv_head_backward": pc.conv_head_backward}
+            "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3}
 
 
 def build_model(device):
@@ -842,7 +849,36 @@ def phase_sweep_gather(card: str) -> list[dict]:
               f"(atomics; summation bound {tol:.3e}, largest element magnitude sum "
               f"{mag:.3e})", flush=True)
         check(again <= tol, f"sweep_scatter {label}: run-to-run {again} > {tol}")
+        if timed:
+            scatter_runs(label, g, xs, ys, card)
     return [gather.record(), scatter.record()]
+
+
+def scatter_runs(label: str, g, xs, ys, card: str):
+    """What the scatter's runs over planes buy: its time at the wrapper's
+    planes per thread against one plane a thread (each sample's four float4
+    atomics, nothing summed in registers), and the share of samples whose
+    floor corner equals the previous plane's inside a run (what the runs
+    save).  Comparison launches: not counted."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    d, h, w, c = g.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planes = sg.scatter_planes(d, h, w, c // 4 if c % 4 == 0 else c, sms)
+
+    def scatter(p):
+        dsrc = torch.zeros((h, w, c), dtype=torch.float32, device="cuda")
+        sg._launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, p)
+        return dsrc
+
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    same = (x0[1:] == x0[:-1]) & (y0[1:] == y0[:-1])
+    in_run = (torch.arange(1, d, device="cuda") % planes != 0)[:, None, None]
+    share = (same & in_run).sum().item() / xs.numel()
+    one, runs = time_ms(lambda: scatter(1), reps=10), time_ms(lambda: scatter(planes), reps=10)
+    print(f"[sweep] sweep_scatter {label}: {planes} planes a thread {runs:.4f} ms, one plane a "
+          f"thread {one:.4f} ms; samples that reuse the previous plane's corner: {share:.3f} "
+          f"card={card}", flush=True)
 
 
 # red_recur's backward against its plain backward, each cotangent, × max(1,
@@ -914,6 +950,39 @@ def phase_red_backward(card: str) -> list[dict]:
     def f64(*ts):
         return [t.double() for t in ts]
 
+    wg = KernelReport("wgrad3x3", "satmvs_tpu_torch/csrc/plane_conv.cu",
+                      "satmvs_tpu/ops/pallas/plane_conv.py:424", card)
+
+    def wgrad_case(label, a1, b_, stride, taps, library, a2=None, amask=None, bmask=None,
+                   bias=False):
+        """The weight reduction alone at one call shape of the step: against
+        the plain version in float64 per element (REDUCE_TOL × Σ |terms|),
+        its time beside cuDNN's weight-only gradient (`library`, on the
+        masked operands), the bound from the multiply-adds of the valid taps
+        and the bytes of A, B, their masks and the result."""
+        kw = {"a2": a2, "amask": amask, "bmask": bmask, "bias": bias}
+        f64 = {k: (v.double() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        mags = pc.wgrad3x3_reference(a1.abs().double(), b_.abs().double(), stride,
+                                     **{**f64, "a2": None if a2 is None else a2.abs().double()})
+        pick = (lambda r: r) if bias else (lambda r: r[0])  # noqa: E731
+        tols = tuple(summed(f"wgrad3x3 {label} {what}", m)
+                     for what, m in zip(("dweight", "dbias"), mags) if m is not None)
+        ca, cb = a1.shape[-1] + (0 if a2 is None else a2.shape[-1]), b_.shape[-1]
+        reads = sum(t.numel() for t in (a1, a2, amask, b_, bmask) if t is not None)
+        wg.case(label, lambda: pick(pc.wgrad3x3("wgrad3x3", a1, b_, stride, **kw)),
+                lambda: pick(pc.wgrad3x3_reference(a1, b_, stride, **kw)),
+                tols if bias else tols[0], 4 * (reads + 9 * ca * cb + (cb if bias else 0)),
+                2 * taps * ca * cb + (b_.numel() if bias else 0), library,
+                exact=lambda: pick(pc.wgrad3x3_reference(a1.double(), b_.double(), stride,
+                                                        **f64)))
+
+    def cudnn_wgrad(grad_out, inp, wt, stride, transposed=False, bias=False):
+        """cuDNN's weight (and bias) gradient alone: one aten call."""
+        pad, op = [1, 1], [1, 1] if transposed else [0, 0]
+        return lambda: torch.ops.aten.convolution_backward(
+            grad_out, inp, wt, [wt.shape[0]] if bias else None, [stride] * 2, pad, [1, 1],
+            transposed, op, 1, [False, True, bias])
+
     b = RED_BASE
     dn = KernelReport("conv_dn_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
                       "satmvs_tpu/ops/pallas/plane_conv.py:424", card)
@@ -943,6 +1012,9 @@ def phase_red_backward(card: str) -> list[dict]:
                                                                 padding=1)), (x, wt), nchw(g)),
                     exact=lambda: pc.conv_dn_backward_reference(*f64(x, wt), y, g.double()))
             same_bits(f"conv_dn_backward {label}", lambda: pc.conv_dn_backward(x, wt, y, g))
+            dz = torch.where(y > 0, g, torch.zeros_like(g))
+            wgrad_case(f"{label} conv_dn", x, g, 2, d * taps,
+                       cudnn_wgrad(nchw(dz), nchw(x), wt, 2), bmask=y)
         for s, ci, c in red_scales(cin):
             cell = red_cell(ci, c, s, randn)
             x = randn(1, d, h // s, w // s, ci)
@@ -960,6 +1032,17 @@ def phase_red_backward(card: str) -> list[dict]:
                      2 * nbytes + 4 * out.numel(), 3 * flops)
             same_bits(f"red_recur_backward {label}",
                       lambda: flat(rr.red_recur_backward(x, out, g, cell)))
+            # its two reductions over all planes, on seeded cotangents of
+            # their shapes: the gates over [x | h_prev], the candidate over
+            # [x | r·h_prev], each with its bias
+            xs, hp = x[0], torch.tanh(randn(d, h // s, w // s, c))
+            taps_r = d * conv_taps(h // s, h // s, 1) * conv_taps(w // s, w // s, 1)
+            xh = nchw(torch.cat([xs, hp], dim=-1))
+            for what, width in (("gates", 2 * c), ("candidate", c)):
+                cot = randn(d, h // s, w // s, width)
+                wcat = torch.empty((width, ci + c, 3, 3), device="cuda")
+                wgrad_case(f"{label} red_recur {what}", xs, cot, 1, taps_r,
+                           cudnn_wgrad(nchw(cot), xh, wcat, 1, bias=True), a2=hp, bias=True)
         for k, (s, ci, co) in enumerate(((8, 8 * b, 4 * b), (4, 4 * b, 2 * b), (2, 2 * b, b))):
             x = randn(d, h // s, w // s, ci)
             wt = randn(ci, co, 3, 3, scale=(2.0 / (9 * ci)) ** 0.5)
@@ -979,6 +1062,9 @@ def phase_red_backward(card: str) -> list[dict]:
                         (x, wt, skip), nchw(g)),
                     exact=lambda: pc.deconv_up_backward_reference(*f64(x, wt), act, g.double()))
             same_bits(f"deconv_up_backward {label}", lambda: pc.deconv_up_backward(x, wt, act, g))
+            dz = torch.where(act > 0, g, torch.zeros_like(g))
+            wgrad_case(f"{label} deconv_up", g, x, 2, d * taps,
+                       cudnn_wgrad(nchw(dz), nchw(x), wt, 2, transposed=True), amask=act)
         x = randn(d, h, w, b)
         wt, bias = randn(1, b, 3, 3, scale=(2.0 / (9 * b)) ** 0.5), randn(1)
         # a mean of 1, so the bias cotangent Σ g does not cancel to near 0
@@ -996,9 +1082,16 @@ def phase_red_backward(card: str) -> list[dict]:
                                (x, wt, bias), nchw(g)),
                   exact=lambda: pc.conv_head_backward_reference(*f64(x, wt, g)))
         same_bits(f"conv_head_backward {label}", lambda: pc.conv_head_backward(x, wt, g))
+        wgrad_case(f"{label} conv_head", x, g, 1, d * taps,
+                   cudnn_wgrad(nchw(g), nchw(x), wt, 1, bias=True), bias=True)
     print("[backward] every backward kernel gave the same bits in a second run (fixed-order "
           "reductions, no atomics)", flush=True)
-    return [dn.record(), rec.record(), up.record(), head.record()]
+    wrec = wg.record()
+    print(f"[backward] wgrad3x3 over the 45 weight reductions of a train step: kernel "
+          f"{wrec['ms']:.4f} ms, bound {wrec['bound_ms']:.4f} ms ({wrec['bound_by']}), plain "
+          f"{wrec['plain_ms']:.4f} ms, cuDNN weight-only gradients {wrec['library_ms']:.4f} ms "
+          f"card={card}", flush=True)
+    return [dn.record(), rec.record(), up.record(), head.record(), wrec]
 
 
 TRAIN_STEPS = 5

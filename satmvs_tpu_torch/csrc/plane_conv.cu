@@ -20,7 +20,8 @@
 // conv_dn, conv_head and the dx of deconv_up and conv_head are one kernel,
 // `conv3x3_kernel`, with the stride, the bias, the ReLU and an input gate as
 // arguments; deconv_up and the dx of conv_dn are `deconv3x3_s2_kernel`; every
-// weight and bias cotangent is `wgrad_partial_kernel` + `wgrad_reduce_kernel`.
+// weight and bias cotangent is `wgrad_partial_kernel` + `wgrad_reduce_kernel`
+// (`wgrad3x3_f32`).
 //
 // Layout: activations are channels-last (N, H, W, C) float32 planes; weights
 // arrive as (3, 3, Cin, Cout), output channels fastest.  The TPU kernels'
@@ -64,17 +65,28 @@
 // W; the wrapper raises on odd sizes.
 //
 // Weight cotangents are reductions over N·H·W pixels (2.4 M at the largest
-// shape) into 9·Cin·Cout values (at most 18,432).  They are deterministic:
-// no atomics.  Pass 1 (`wgrad_partial_kernel`): a 2-D grid of (pixel
-// ranges) × (output ranges); a thread owns one (tap, ca) and 4 consecutive cb
-// (or 1 where CB % 4 != 0) and sums over a strided share of its block's
-// pixels in float32; the block's lanes are added in a fixed order and written
-// as the block's partial sums.  Pass 2 (`wgrad_reduce_kernel`): one thread per
-// output adds the pixel ranges' partials in order, in float64.  The bias
-// cotangent is the same reduction with the A operand taken as 1, in the same
-// launch.  The A operand may be the channel concat of two tensors, so the
-// ConvGRU's concat-convs (satmvs_tpu_torch/csrc/red_recur.cu) take their
-// weight cotangents from this kernel too.
+// shape) into 9·CA·CB values (at most 9·128·128 for the ConvGRU's concat
+// convs of satmvs_tpu_torch/csrc/red_recur.cu, which take their weight
+// cotangents from this kernel too): a GEMM im2col(A)ᵀ·B with a huge depth
+// (the pixels) and a small M × N.  Its arithmetic intensity, 9·CA·CB·2 /
+// (4·(CA + CB)) flops a byte, is 18-72 at the main path's shapes, so tiled
+// it is bound by the CUDA cores' fp32 FMA rate, not by memory: the 45
+// reductions of a 384×768 train step do ~200 GFLOP over ~4.7 GB, ~3.5 ms of
+// operations against ~1.4 ms of bytes.  Pass 1 (`wgrad_partial_kernel`)
+// stages a pixel tile's B strip and the A window it reads in shared memory
+// and runs register-tile outer products (48 fp32 FMAs per four 16-byte
+// shared reads), each staged A value used by every cb and each B value by
+// 9·ca_t outputs; the pixel is found once per tile, not per FMA.  No tensor
+// cores: plain TF32 would miss the gate's fp32 accuracy, and the kernel is
+// first held to the CUDA-core bound.  Deterministic: each thread's fp32 sums
+// run over ~10³ pixels, then go into its own float64 partial row in a fixed
+// order; pass 2 (`wgrad_reduce_kernel`) adds the rows in order, in float64.
+// No atomics.  The bias cotangent is the same reduction with an A row of
+// ones, in the same launch.  The wrapper (plane_conv.py `wgrad3x3_plan`)
+// picks the tiles, lanes and grid: 120-192 threads a block, 7.2-32.8 KB of
+// shared memory at the main path's shapes; the build (-Xptxas -v) gives
+// pass 1 139-145 registers and no spills, so two or three blocks an SM, at
+// most one wave of them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,102 +258,233 @@ __global__ void __launch_bounds__(THREADS) deconv3x3_s2_kernel(
   }
 }
 
-// Pass 1 of a 3×3 weight cotangent.  A = [a1 (ca1) | a2 (ca2)] (N, Ha, Wa, CA)
-// images, B (N, Hb, Wb, CB) cotangents, stride S:
-//   dw[tap, ca, cb] = Σ_{n, by, bx} A'[n, S·by + dy − 1, S·bx + dx − 1, ca] · B'[n, by, bx, cb]
-// (taps outside A count 0), then with bias db[cb] = Σ B'[n, by, bx, cb];
+// Pass 1 of a 3×3 weight cotangent, a GEMM im2col(A')ᵀ·B' over the pixels.
+// A = [a1 (ca1) | a2 (ca2)] (N, Ha, Wa, CA) images, B (N, Hb, Wb, CB)
+// cotangents, stride S:
+//   dw[dy, dx, ca, cb] = Σ_{n, y, x} A'[n, S·y + dy − 1, S·x + dx − 1, ca] · B'[n, y, x, cb]
+// (taps outside A count 0), then with bias db[cb] = Σ B'[n, y, x, cb];
 // A' = a1 · [amask > 0] with amask (only without a2), B' = B · [bmask > 0]
-// with bmask.  Outputs o = (tap·CA + ca)·CB + cb, then the CB bias values;
-// a chunk is K consecutive outputs (K | CB).  Block (x, y) sums pixels
-// [x·ppb, (x + 1)·ppb) into chunks [y·cpb, (y + 1)·cpb): thread t holds chunk
-// y·cpb + t % cpb and pixel lane t / cpb of lanes = THREADS / cpb; the lanes
-// are added in order and the block writes part[x, o].
-template <int K>
-__global__ void __launch_bounds__(THREADS) wgrad_partial_kernel(
-    const float* __restrict__ a1, const float* __restrict__ a2, const float* __restrict__ amask,
-    const float* __restrict__ b, const float* __restrict__ bmask, float* __restrict__ part,
-    int Ha, int Wa, int ca1, int ca2, int Hb, int Wb, int CB, int S, int64_t npix, int64_t ppb,
-    int n_w_chunks, int n_chunks, int cpb, int n_out) {
-  __shared__ float red[THREADS * K];
-  const int CA = ca1 + ca2;
-  const int lanes = THREADS / cpb;
-  const int lane = threadIdx.x / cpb;
-  const int j = blockIdx.y * cpb + threadIdx.x % cpb;
-  const bool active = lane < lanes && j < n_chunks;
-  float acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.f;
-  if (active) {
-    const bool is_bias = j >= n_w_chunks;
-    int cb0, ca = 0, dy = 0, dx = 0;
-    if (is_bias) {
-      cb0 = (j - n_w_chunks) * K;
-    } else {
-      const int o = j * K;
-      cb0 = o % CB;
-      const int rest = o / CB;
-      ca = rest % CA;
-      const int tap = rest / CA;
-      dy = tap / 3;
-      dx = tap % 3;
+// with bmask.  Outputs o = (tap·CA + ca)·CB + cb, then the CB bias values.
+//
+// A pixel tile is tp consecutive pixels (n, y, x0 … x0 + tp − 1) of one row
+// of B; tile t is (row, xt) = (t / nxt, t % nxt), row = n·Hb + y.  Block
+// (x, y) owns the output tile of every tap × ca ∈ [ca0, ca0 + ca_t) × cb ∈
+// [cb0, cb0 + cb_t) (blockIdx.y = ca tile · n_cb_tiles + cb tile) and walks
+// pixel tiles [x·tpb, (x + 1)·tpb) in order.  Per tile it stages into shared
+// memory the B strip (tp × cb_t, bmask applied, zero past the row's end) and
+// the A window those pixels read (3 rows × (S·tp + 2) columns × ca_t, zero
+// outside the image, amask and the concat resolved as it is staged).  Thread
+// (lane, dy, ca4, cb4) holds a 3 × 4 × 4 register tile (dx, 4 ca, 4 cb) and
+// runs outer products over pixels lane, lane + lanes, … of the tile: per
+// pixel three float4 reads of A and one of B for 48 FMAs.  The thread with
+// dy = 1, ca4 = 0 of a block of the first ca tile also sums B' (the bias, an
+// A row of ones).  Each thread's fp32 sums run over at most `run` tiles
+// (~10³ pixels), then are added into its own float64 row of `part` (row
+// x·lanes + lane; written at the first flush, so no zeroing): fixed order,
+// no atomics.
+template <bool VA>
+__device__ __forceinline__ float4 load_a4(const float* __restrict__ a1,
+                                          const float* __restrict__ a2,
+                                          const float* __restrict__ amask, int64_t n, int ay,
+                                          int ax, int Ha, int Wa, int ca1, int ca2, int ca) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ay < 0 || ay >= Ha || ax < 0 || ax >= Wa) return v;
+  const int64_t apix = (n * Ha + ay) * Wa + ax;
+  if constexpr (VA) {  // ca1 % 4 == ca2 % 4 == 0: the group lies in a1, in a2 or past CA
+    if (ca < ca1) {
+      v = __ldg(reinterpret_cast<const float4*>(a1 + apix * ca1 + ca));
+      if (amask != nullptr) {
+        const float4 m = __ldg(reinterpret_cast<const float4*>(amask + apix * ca1 + ca));
+        v.x = m.x > 0.f ? v.x : 0.f;
+        v.y = m.y > 0.f ? v.y : 0.f;
+        v.z = m.z > 0.f ? v.z : 0.f;
+        v.w = m.w > 0.f ? v.w : 0.f;
+      }
+    } else if (ca < ca1 + ca2) {
+      v = __ldg(reinterpret_cast<const float4*>(a2 + apix * ca2 + (ca - ca1)));
     }
-    const float* ap = ca < ca1 ? a1 + ca : a2 + (ca - ca1);
-    const int ac = ca < ca1 ? ca1 : ca2;
-    const int64_t p_stop = (int64_t)(blockIdx.x + 1) * ppb;
-    const int64_t p_end = p_stop < npix ? p_stop : npix;
-    for (int64_t p = (int64_t)blockIdx.x * ppb + lane; p < p_end; p += lanes) {
-      float bv[K];
-      const float* bp = b + p * CB + cb0;
-      if constexpr (K == 4) {
-        const float4 t4 = __ldg(reinterpret_cast<const float4*>(bp));
-        bv[0] = t4.x; bv[1] = t4.y; bv[2] = t4.z; bv[3] = t4.w;
-        if (bmask != nullptr) {
-          const float4 m4 = __ldg(reinterpret_cast<const float4*>(bmask + p * CB + cb0));
-          bv[0] = m4.x > 0.f ? bv[0] : 0.f;
-          bv[1] = m4.y > 0.f ? bv[1] : 0.f;
-          bv[2] = m4.z > 0.f ? bv[2] : 0.f;
-          bv[3] = m4.w > 0.f ? bv[3] : 0.f;
-        }
-      } else {
-        bv[0] = __ldg(bp);
-        if (bmask != nullptr && !(__ldg(bmask + p * CB + cb0) > 0.f)) bv[0] = 0.f;
-      }
-      float av = 1.f;
-      if (!is_bias) {
-        const int bx = (int)(p % Wb);
-        const int by = (int)((p / Wb) % Hb);
-        const int64_t n = p / ((int64_t)Wb * Hb);
-        const int ay = S * by + dy - 1, ax = S * bx + dx - 1;
-        if (ay < 0 || ay >= Ha || ax < 0 || ax >= Wa) continue;
-        const int64_t apix = (n * Ha + ay) * Wa + ax;
-        av = __ldg(ap + apix * ac);
-        if (amask != nullptr && !(__ldg(amask + apix * ca1 + ca) > 0.f)) av = 0.f;
-      }
+  } else {
+    float t[4];
 #pragma unroll
-      for (int k = 0; k < K; ++k) acc[k] = fmaf(av, bv[k], acc[k]);
+    for (int k = 0; k < 4; ++k) {
+      const int c = ca + k;
+      t[k] = 0.f;
+      if (c < ca1) {
+        t[k] = __ldg(a1 + apix * ca1 + c);
+        if (amask != nullptr && !(__ldg(amask + apix * ca1 + c) > 0.f)) t[k] = 0.f;
+      } else if (c < ca1 + ca2) {
+        t[k] = __ldg(a2 + apix * ca2 + (c - ca1));
+      }
+    }
+    v = make_float4(t[0], t[1], t[2], t[3]);
+  }
+  return v;
+}
+
+template <bool VB>
+__device__ __forceinline__ float4 load_b4(const float* __restrict__ b,
+                                          const float* __restrict__ bmask, int64_t p, int CB,
+                                          int cb) {
+  float t[4];
+  if constexpr (VB) {  // CB % 4 == 0
+    const float4 v = __ldg(reinterpret_cast<const float4*>(b + p * CB + cb));
+    t[0] = v.x; t[1] = v.y; t[2] = v.z; t[3] = v.w;
+    if (bmask != nullptr) {
+      const float4 m = __ldg(reinterpret_cast<const float4*>(bmask + p * CB + cb));
+      t[0] = m.x > 0.f ? t[0] : 0.f;
+      t[1] = m.y > 0.f ? t[1] : 0.f;
+      t[2] = m.z > 0.f ? t[2] : 0.f;
+      t[3] = m.w > 0.f ? t[3] : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = cb + k;
+      t[k] = 0.f;
+      if (c < CB) {
+        t[k] = __ldg(b + p * CB + c);
+        if (bmask != nullptr && !(__ldg(bmask + p * CB + c) > 0.f)) t[k] = 0.f;
+      }
     }
   }
+  return make_float4(t[0], t[1], t[2], t[3]);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4][4], const float4 a, const float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-  for (int k = 0; k < K; ++k) red[threadIdx.x * K + k] = acc[k];
-  __syncthreads();
-  if (threadIdx.x < cpb && blockIdx.y * cpb + threadIdx.x < n_chunks) {
-    const int jj = blockIdx.y * cpb + threadIdx.x;
-    for (int k = 0; k < K; ++k) {
-      float s = 0.f;
-      for (int l = 0; l < lanes; ++l) s += red[(l * cpb + threadIdx.x) * K + k];
-      part[(int64_t)blockIdx.x * n_out + (int64_t)jj * K + k] = s;
-    }
+  for (int i = 0; i < 4; ++i) {
+    acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+    acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+    acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+    acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
   }
 }
 
-// Pass 2: out[o] = Σ_x part[x, o], x in order, in float64.
-__global__ void __launch_bounds__(THREADS) wgrad_reduce_kernel(const float* __restrict__ part,
+__device__ __forceinline__ void zero_tile(float (&acc)[3][4][4], float (&bacc)[4]) {
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[dx][i][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) bacc[j] = 0.f;
+}
+
+// Adds a thread's fp32 run sums (taps (dy, 0..2) × ca0..+3 × cb0..+3, and
+// the bias cb0..+3 for the bias thread) into its float64 row of part (sets
+// them at the first flush), then zeroes the run.
+__device__ __forceinline__ void flush_tile(double* __restrict__ prow, float (&acc)[3][4][4],
+                                           float (&bacc)[4], bool first, bool bias_thread,
+                                           int dy, int ca0, int cb0, int CA, int CB) {
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (ca0 + i < CA && cb0 + j < CB) {
+          const int o = ((dy * 3 + dx) * CA + ca0 + i) * CB + cb0 + j;
+          prow[o] = first ? (double)acc[dx][i][j] : prow[o] + (double)acc[dx][i][j];
+        }
+      }
+  if (bias_thread) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cb0 + j < CB) {
+        const int o = 9 * CA * CB + cb0 + j;
+        prow[o] = first ? (double)bacc[j] : prow[o] + (double)bacc[j];
+      }
+    }
+  }
+  zero_tile(acc, bacc);
+}
+
+constexpr int WG_THREADS = 256;  // most threads of a block; the wrapper's plan stays under it
+
+template <int S, bool VA, bool VB>
+__global__ void __launch_bounds__(WG_THREADS) wgrad_partial_kernel(
+    const float* __restrict__ a1, const float* __restrict__ a2, const float* __restrict__ amask,
+    const float* __restrict__ b, const float* __restrict__ bmask, double* __restrict__ part,
+    int Ha, int Wa, int ca1, int ca2, int Hb, int Wb, int CB, int bias, int tp, int ca_t,
+    int cb_t, int lanes, int64_t n_tiles, int64_t tpb, int run, int n_out) {
+  extern __shared__ float4 smem4[];
+  const int CA = ca1 + ca2;
+  const int nca4 = ca_t / 4, ncb4 = cb_t / 4;
+  const int wcol = S * tp + 2;
+  float4* As = smem4;                   // (3, wcol, nca4)
+  float4* Bs = smem4 + 3 * wcol * nca4;  // (tp, ncb4)
+  const int n_cb_tiles = (CB + cb_t - 1) / cb_t;
+  const int ca0 = (int)(blockIdx.y / n_cb_tiles) * ca_t;
+  const int cb0 = (int)(blockIdx.y % n_cb_tiles) * cb_t;
+  int r = threadIdx.x;
+  const int cb4 = r % ncb4;
+  r /= ncb4;
+  const int ca4 = r % nca4;
+  r /= nca4;
+  const int dy = r % 3;
+  const int lane = r / 3;
+  const bool bias_thread = bias && ca0 == 0 && dy == 1 && ca4 == 0;
+  const int nxt = (Wb + tp - 1) / tp;
+  const int n_a = 3 * wcol * nca4, n_b = tp * ncb4;
+  double* prow = part + ((int64_t)blockIdx.x * lanes + lane) * n_out;
+
+  float acc[3][4][4], bacc[4];
+  bool first = true;
+  zero_tile(acc, bacc);
+  const int64_t t_begin = (int64_t)blockIdx.x * tpb;
+  const int64_t t_end = t_begin + tpb < n_tiles ? t_begin + tpb : n_tiles;
+  int in_run = 0;
+  for (int64_t t = t_begin; t < t_end; ++t) {
+    // the tile's pixels, found once per tile
+    const int64_t row = t / nxt;  // n·Hb + y
+    const int x0 = (int)(t - row * nxt) * tp;
+    const int y = (int)(row % Hb);
+    const int64_t n = row / Hb;
+    const int tv = Wb - x0 < tp ? Wb - x0 : tp;
+    __syncthreads();  // the previous tile's reads are done
+    for (int i = threadIdx.x; i < n_a; i += blockDim.x) {
+      const int g = i % nca4, rc = i / nca4;
+      const int c = rc % wcol, rr = rc / wcol;
+      As[i] = load_a4<VA>(a1, a2, amask, n, S * y + rr - 1, S * x0 + c - 1, Ha, Wa, ca1, ca2,
+                          ca0 + 4 * g);
+    }
+    for (int i = threadIdx.x; i < n_b; i += blockDim.x) {
+      const int g = i % ncb4, px = i / ncb4;
+      Bs[i] = px < tv ? load_b4<VB>(b, bmask, row * Wb + x0 + px, CB, cb0 + 4 * g)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    const float4* ap = As + dy * wcol * nca4 + ca4;
+    for (int px = lane; px < tv; px += lanes) {
+      const float4 bv = Bs[px * ncb4 + cb4];
+      const float4* apx = ap + S * px * nca4;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) fma4(acc[dx], apx[dx * nca4], bv);
+      if (bias_thread) {
+        bacc[0] += bv.x; bacc[1] += bv.y; bacc[2] += bv.z; bacc[3] += bv.w;
+      }
+    }
+    if (++in_run == run) {
+      flush_tile(prow, acc, bacc, first, bias_thread, dy, ca0 + 4 * ca4, cb0 + 4 * cb4, CA, CB);
+      first = false;
+      in_run = 0;
+    }
+  }
+  // every thread writes its row at least once
+  if (in_run > 0 || first)
+    flush_tile(prow, acc, bacc, first, bias_thread, dy, ca0 + 4 * ca4, cb0 + 4 * cb4, CA, CB);
+}
+
+// Pass 2: out[o] = Σ_r part[r, o], r in order, in float64.
+__global__ void __launch_bounds__(THREADS) wgrad_reduce_kernel(const double* __restrict__ part,
                                                                float* __restrict__ out,
-                                                               int gx, int n_out) {
+                                                               int rows, int n_out) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= n_out) return;
   double s = 0.0;
-  for (int x = 0; x < gx; ++x) s += (double)part[(int64_t)x * n_out + o];
+  for (int r = 0; r < rows; ++r) s += part[(int64_t)r * n_out + o];
   out[o] = (float)s;
 }
 
@@ -458,40 +601,56 @@ extern "C" int deconv3x3_s2_f32(const float* in, const float* gate, const float*
 // (N, Ha, Wa, ca2) or null (ca2 = 0), amask (shaped as a1; only without a2)
 // or null, b (N, Hb, Wb, CB), bmask (shaped as b) or null, stride S ∈ {1, 2};
 // out (9·(ca1 + ca2)·CB [+ CB when bias != 0]) = dw (3, 3, ca1 + ca2, CB)
-// then db (CB).  part is scratch of gx·len(out) floats, gx the pixel ranges
-// (≥ 1).  Two launches on `stream`, no atomics: the result is the same in
-// every run.  Returns cudaGetLastError() (0 = launched).
+// then db (CB).  The launch is the wrapper's plan (plane_conv.py
+// `wgrad3x3_plan`): tiles of tp pixels, output tiles of ca_t × cb_t
+// channels (multiples of 4), `lanes` pixel lanes, gx pixel ranges, fp32 runs
+// of `run` tiles; part is float64 scratch of gx·lanes·len(out).  Two
+// launches on `stream`, no atomics: the result is the same in every run.
+// Returns cudaGetLastError() (0 = launched).
 extern "C" int wgrad3x3_f32(const float* a1, const float* a2, const float* amask, const float* b,
-                            const float* bmask, float* part, float* out, int N, int Ha, int Wa,
-                            int ca1, int ca2, int Hb, int Wb, int CB, int S, int bias, int gx,
-                            void* stream) {
+                            const float* bmask, double* part, float* out, int N, int Ha, int Wa,
+                            int ca1, int ca2, int Hb, int Wb, int CB, int S, int bias, int tp,
+                            int ca_t, int cb_t, int lanes, int gx, int run, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int CA = ca1 + ca2;
   if (gx < 1 || CB < 1 || CA < 1 || (a2 == nullptr) != (ca2 == 0) ||
-      (amask != nullptr && a2 != nullptr) || (S != 1 && S != 2))
+      (amask != nullptr && a2 != nullptr) || (S != 1 && S != 2) || tp < 1 || ca_t < 4 ||
+      ca_t % 4 || cb_t < 4 || cb_t % 4 || lanes < 1 || run < 1)
     return (int)cudaErrorInvalidValue;
-  const bool vec = CB % 4 == 0 && aligned16(b) && (bmask == nullptr || aligned16(bmask));
-  const int K = vec ? 4 : 1;
-  const int n_w = 9 * CA * CB;
-  const int n_out = n_w + (bias ? CB : 0);
-  const int n_w_chunks = n_w / K;
-  const int n_chunks = n_out / K;
-  const int cpb = n_chunks < THREADS ? n_chunks : THREADS;
-  const int gy = (n_chunks + cpb - 1) / cpb;
-  const int64_t npix = (int64_t)N * Hb * Wb;
-  const int64_t ppb = (npix + gx - 1) / gx;
-  if (npix == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * n_out, st);
-  const dim3 grid((unsigned)gx, (unsigned)gy);
-  if (vec)
-    wgrad_partial_kernel<4><<<grid, THREADS, 0, st>>>(a1, a2, amask, b, bmask, part, Ha, Wa, ca1,
-                                                      ca2, Hb, Wb, CB, S, npix, ppb, n_w_chunks,
-                                                      n_chunks, cpb, n_out);
+  const int threads = lanes * 3 * (ca_t / 4) * (cb_t / 4);
+  if (threads > WG_THREADS) return (int)cudaErrorInvalidConfiguration;
+  const int smem = 16 * (3 * (S * tp + 2) * (ca_t / 4) + tp * (cb_t / 4));
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int n_out = 9 * CA * CB + (bias ? CB : 0);
+  const int64_t n_tiles = (int64_t)N * Hb * ((Wb + tp - 1) / tp);
+  if (n_tiles == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * n_out, st);
+  const int64_t tpb = (n_tiles + gx - 1) / gx;
+  const int gy = ((CA + ca_t - 1) / ca_t) * ((CB + cb_t - 1) / cb_t);
+  const bool va = ca1 % 4 == 0 && ca2 % 4 == 0 && aligned16(a1) &&
+                  (a2 == nullptr || aligned16(a2)) && (amask == nullptr || aligned16(amask));
+  const bool vb = CB % 4 == 0 && aligned16(b) && (bmask == nullptr || aligned16(bmask));
+  auto launch = [&](auto kernel) -> cudaError_t {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((unsigned)gx, (unsigned)gy), threads, smem, st>>>(
+        a1, a2, amask, b, bmask, part, Ha, Wa, ca1, ca2, Hb, Wb, CB, bias, tp, ca_t, cb_t, lanes,
+        n_tiles, tpb, run, n_out);
+    return cudaGetLastError();
+  };
+  cudaError_t err;
+  if (S == 1)
+    err = va ? (vb ? launch(wgrad_partial_kernel<1, true, true>)
+                   : launch(wgrad_partial_kernel<1, true, false>))
+             : (vb ? launch(wgrad_partial_kernel<1, false, true>)
+                   : launch(wgrad_partial_kernel<1, false, false>));
   else
-    wgrad_partial_kernel<1><<<grid, THREADS, 0, st>>>(a1, a2, amask, b, bmask, part, Ha, Wa, ca1,
-                                                      ca2, Hb, Wb, CB, S, npix, ppb, n_w_chunks,
-                                                      n_chunks, cpb, n_out);
-  cudaError_t err = cudaGetLastError();
+    err = va ? (vb ? launch(wgrad_partial_kernel<2, true, true>)
+                   : launch(wgrad_partial_kernel<2, true, false>))
+             : (vb ? launch(wgrad_partial_kernel<2, false, true>)
+                   : launch(wgrad_partial_kernel<2, false, false>));
   if (err != cudaSuccess) return (int)err;
-  wgrad_reduce_kernel<<<(n_out + THREADS - 1) / THREADS, THREADS, 0, st>>>(part, out, gx, n_out);
+  wgrad_reduce_kernel<<<(n_out + THREADS - 1) / THREADS, THREADS, 0, st>>>(part, out, gx * lanes,
+                                                                           n_out);
   return (int)cudaGetLastError();
 }

@@ -30,20 +30,26 @@
 // is 162.8, 174.6 and 103.8 MB per view and stage, ~0.26 ms per step for two
 // views at 3.35 TB/s, and about the same for the scatter.
 //
-// Design (simple first).  One thread owns one output pixel (d, i, j) and a
-// run of VEC contiguous channels (VEC = 4 when C and the pointers allow
-// float4), so a warp reads or writes contiguous channels-last rows.
-//   gather:  it loads the two coordinates once, computes the four corners and
-//            weights, and writes its channels once.
-//   scatter: it reads its channels of g once and adds the four tap-weighted
-//            values into dsrc with atomicAdd (dsrc zeroed by the caller; the
-//            atomics resolve in L2, and dsrc, ≤ 9.4 MB here, stays there).
-// The order of the atomic additions changes from run to run, so the scatter
-// is not bitwise reproducible: each dsrc element is a sum of at most 4·D
-// products, and two summation orders differ by at most 2·(4·D − 1)·2⁻²⁴ times
-// the sum of the magnitudes of its terms; the callers' tolerances follow
-// from that bound.  A deterministic form (per-plane partials reduced in
-// order) is later work.
+// Design.  The gather: one thread owns one output pixel (d, i, j) and a run
+// of VEC contiguous channels (VEC = 4 when C and the pointers allow float4),
+// so a warp reads or writes contiguous channels-last rows; it loads the two
+// coordinates once, computes the four corners and weights, and writes its
+// channels once.  The scatter: one thread owns one (i, j, channel group)
+// and walks a chunk of P consecutive planes d.  Neighbouring planes of a
+// sweep often share their floor corner, so it sums each corner's
+// tap-weighted values in registers while the corner stays and adds them
+// into dsrc (zeroed by the caller) when it moves: one float4 atomic per
+// corner (sm_90's vector atomicAdd) instead of four scalar ones, and one
+// per run of planes instead of one per plane.  The atomics resolve in L2,
+// and dsrc (≤ 9.4 MB here) stays there.  The pixel comes from the grid
+// (x: j and the channel group, y: i, z: the plane chunk), so there is no
+// int64 division.  The order of the atomic additions changes from run to
+// run, so the scatter is not bitwise reproducible: each dsrc element is a
+// sum of at most 4·D products (each rounded as the plain version rounds
+// it, `__fmul_rn`, then summed in some order), and two summation orders
+// differ by at most 2·(4·D − 1)·2⁻²⁴ times the sum of the magnitudes of its
+// terms; the callers' tolerances follow from that bound.  The build gives
+// the scatter 34 (scalar) and 48 (float4) registers, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,27 +74,71 @@ __global__ void __launch_bounds__(256) sweep_gather_kernel(
   bilinear::store_vec<VEC>(out + pix * C + c0, o);
 }
 
+// Adds acc[k] into the dsrc pixel of corner k of the taps at (cx, cy) when
+// it lies in the image, then zeroes acc: one float4 atomic (sm_90's
+// red.global.add.v4.f32) per corner with VEC = 4, else VEC scalar ones.
+template <int VEC>
+__device__ __forceinline__ void flush_corners(float* __restrict__ dsrc, int cx, int cy, int H,
+                                              int W, int C, int c0, float (&acc)[4][VEC]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int x = cx + (k & 1), y = cy + (k >> 1);
+    if (x >= 0 && x < W && y >= 0 && y < H) {
+      float* dst = dsrc + ((int64_t)y * W + x) * C + c0;
+      if constexpr (VEC == 4) {
+        atomicAdd(reinterpret_cast<float4*>(dst), make_float4(acc[k][0], acc[k][1], acc[k][2],
+                                                              acc[k][3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, acc[k][i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
+  }
+}
+
+// Thread (i, j, channel group) of grid (W·groups / 256, H, plane chunks)
+// walks planes [z·P, z·P + P) of its pixel in order.  While consecutive
+// planes share their floor corner (x0, y0), it sums the tap-weighted
+// values of each corner in registers; when the corner moves, and at the
+// end, it adds the four sums into dsrc.  The pixel and channel come from
+// the grid, one 32-bit division per thread.
 template <int VEC>
 __global__ void __launch_bounds__(256) sweep_scatter_kernel(
     const float* __restrict__ g, const float* __restrict__ xs,
-    const float* __restrict__ ys, float* __restrict__ dsrc, int D, int H, int W, int C) {
+    const float* __restrict__ ys, float* __restrict__ dsrc, int D, int H, int W, int C, int P) {
   const int groups = C / VEC;
-  const int64_t total = (int64_t)D * H * W * groups;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c0 = (int)(t % groups) * VEC;
-  const int64_t pix = t / groups;
-  const bilinear::Taps taps(__ldg(xs + pix), __ldg(ys + pix), H, W);
-  float v[VEC];
-  bilinear::load_vec<VEC>(g + pix * C + c0, v);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= W * groups) return;
+  const int j = t / groups;
+  const int c0 = (t - j * groups) * VEC;
+  const int d0 = blockIdx.z * P;
+  const int d1 = d0 + P < D ? d0 + P : D;
+  const int64_t plane = (int64_t)H * W;
+  int64_t pix = d0 * plane + (int64_t)blockIdx.y * W + j;
+  float acc[4][VEC];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int64_t q = taps.pixel(k, H, W);
-    if (q < 0) continue;
-    float* dst = dsrc + q * C + c0;
+  for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, taps.w[k] * v[i]);
+    for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
+  int cx = 0, cy = 0;
+  bool open = false;
+  for (int d = d0; d < d1; ++d, pix += plane) {
+    const bilinear::Taps taps(__ldg(xs + pix), __ldg(ys + pix), H, W);
+    if (open && (taps.x0 != cx || taps.y0 != cy))
+      flush_corners<VEC>(dsrc, cx, cy, H, W, C, c0, acc);
+    cx = taps.x0;
+    cy = taps.y0;
+    open = true;
+    float v[VEC];
+    bilinear::load_vec<VEC>(g + pix * C + c0, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[k][i] += __fmul_rn(taps.w[k], v[i]);
   }
+  if (open) flush_corners<VEC>(dsrc, cx, cy, H, W, C, c0, acc);
 }
 
 constexpr int kThreads = 256;
@@ -120,16 +170,23 @@ extern "C" int sweep_gather_f32(const float* src, const float* xs, const float* 
 }
 
 // dsrc (H, W, C) += the transpose of the gather applied to g (D, H, W, C);
-// the caller zeroes dsrc.  Same launch contract.
+// the caller zeroes dsrc.  Each thread walks `planes` consecutive planes
+// (≥ 1).  Same launch contract otherwise.
 extern "C" int sweep_scatter_f32(const float* g, const float* xs, const float* ys, float* dsrc,
-                                 int D, int H, int W, int C, int vec, void* stream) {
-  const int64_t blocks = grid_blocks(D, H, W, C, vec);
-  if (blocks <= 0) return blocks < 0 ? (int)cudaErrorInvalidValue : 0;
+                                 int D, int H, int W, int C, int vec, int planes, void* stream) {
+  if ((vec != 1 && vec != 4) || C % vec != 0 || planes < 1 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int64_t row_threads = (int64_t)W * (C / vec);
+  const int64_t chunks = ((int64_t)D + planes - 1) / planes;
+  if (row_threads == 0 || H == 0 || chunks == 0) return 0;
+  if (row_threads > 0x7fffffff || chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((row_threads + kThreads - 1) / kThreads), (unsigned)H,
+                  (unsigned)chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    sweep_scatter_kernel<4><<<(unsigned)blocks, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C);
+    sweep_scatter_kernel<4><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes);
   } else {
-    sweep_scatter_kernel<1><<<(unsigned)blocks, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C);
+    sweep_scatter_kernel<1><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes);
   }
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,9 @@ in `<wrapper>.launches`; its backward calls `<wrapper>_backward`, which
 launches the backward kernels and counts in `<wrapper>_backward.launches`.
 For CPU tensors, and only for them, both compute the plain versions
 (`<name>_reference`, `<name>_backward_reference`: functional convolutions).
+Every weight and bias cotangent on the card, these three and red_recur's,
+is `wgrad3x3` (plain version `wgrad3x3_reference`), launched with the plan
+of `wgrad3x3_plan` and counted in `wgrad3x3.launches`.
 """
 
 from __future__ import annotations
@@ -161,33 +164,111 @@ def _deconv3x3(name: str, x, gate, w_k, skip, act, relu: bool) -> torch.Tensor:
     return out
 
 
+def wgrad3x3_reference(a1: torch.Tensor, b: torch.Tensor, stride: int,
+                       a2: torch.Tensor | None = None, amask: torch.Tensor | None = None,
+                       bmask: torch.Tensor | None = None, bias: bool = False):
+    """Plain version of `wgrad3x3`, in the inputs' dtype: the im2col of A'
+    (`F.unfold`) contracted with B' over the pixels.  Returns dw (3, 3, CA,
+    CB) and, with bias, db (CB,) = Σ B', else None."""
+    a = a1 if amask is None else torch.where(amask > 0, a1, torch.zeros_like(a1))
+    if a2 is not None:
+        a = torch.cat([a, a2], dim=-1)
+    bb = b if bmask is None else torch.where(bmask > 0, b, torch.zeros_like(b))
+    n, hb, wb, cb = bb.shape
+    ca = a.shape[-1]
+    cols = F.unfold(_nchw(a), 3, padding=1, stride=stride)  # (N, CA·9, L), (ca, dy, dx)
+    if cols.shape[-1] != hb * wb:
+        raise ValueError(f"wgrad3x3_reference: A {tuple(a.shape)} at stride {stride} does not "
+                         f"give B's {hb}×{wb} pixels")
+    dw = torch.einsum("nkl,nlb->kb", cols, bb.reshape(n, hb * wb, cb))
+    dw = dw.reshape(ca, 3, 3, cb).permute(1, 2, 0, 3)
+    return dw, (bb.sum((0, 1, 2)) if bias else None)
+
+
+WGRAD_THREADS = 192          # threads a block is planned with at most: two blocks an SM
+                             # at WGRAD_REGS (plane_conv.cu takes up to 256)
+WGRAD_TILE = 3 * 4 * 4       # fp32 sums a thread holds: dx × 4 ca × 4 cb
+WGRAD_RUN = 1024             # pixels of one fp32 run before it goes into float64
+WGRAD_MAX_SMEM = 232448      # bytes of shared memory a block may use on sm_90
+WGRAD_REGS = 152             # registers a thread is planned with: the build's -Xptxas -v
+                             # says 139-145, allocated in steps of 8
+
+
+def _tile_channels(c: int) -> int:
+    """Channels of one output tile: c split into the fewest tiles of ≤ 32,
+    balanced, rounded up to a multiple of 4."""
+    per = -(-c // -(-c // 32))
+    return -(-per // 4) * 4
+
+
+def wgrad3x3_plan(n: int, hb: int, wb: int, ca: int, cb: int, stride: int,
+                  sms: int = 132) -> dict:
+    """The launch of `wgrad3x3_f32` for B (n, hb, wb, cb) and A with ca
+    channels at `stride`, on a card with `sms` SMs: pixel tiles of `tp`
+    pixels of one row (the width among 64, 32, 24, 16 that pads a row
+    least), output tiles of ca_t × cb_t channels, `lanes` pixel lanes per
+    block to fill up to WGRAD_THREADS threads, gx pixel ranges so the grid
+    is at most one wave of resident blocks, fp32 runs of `run` tiles.  Pure
+    Python; raises ValueError for a shape the kernel cannot take."""
+    if stride not in (1, 2):
+        raise ValueError(f"wgrad3x3: stride must be 1 or 2, got {stride}")
+    if min(n, hb, wb, ca, cb) < 1:
+        raise ValueError(f"wgrad3x3: empty operand ({n}, {hb}, {wb}), ca {ca}, cb {cb}")
+    ca_t, cb_t = _tile_channels(ca), _tile_channels(cb)
+    base = 3 * (ca_t // 4) * (cb_t // 4)
+    tp = min((64, 32, 24, 16), key=lambda t: (-(-wb // t) * t, -t))
+    lanes = 1
+    while 2 * lanes * base <= WGRAD_THREADS and 2 * lanes <= tp:
+        lanes *= 2
+    threads = lanes * base
+    smem = 16 * (3 * (stride * tp + 2) * (ca_t // 4) + tp * (cb_t // 4))
+    gy = -(-ca // ca_t) * -(-cb // cb_t)
+    tiles = n * hb * -(-wb // tp)
+    n_out = 9 * ca * cb + cb
+    if threads > WGRAD_THREADS or smem > WGRAD_MAX_SMEM or gy > 65535 or n_out >= 2 ** 31:
+        raise ValueError(f"wgrad3x3: no launch for ca {ca}, cb {cb}, stride {stride}")
+    per_sm = max(1, min(2048 // threads, WGRAD_MAX_SMEM // smem,
+                        65536 // (threads * WGRAD_REGS)))
+    # at most one wave: a part-full second wave would cost as long as the first
+    gx = max(1, min(tiles, sms * per_sm // gy))
+    tpb = -(-tiles // gx)
+    gx = -(-tiles // tpb)  # no block without tiles
+    if gx * lanes * n_out >= 2 ** 31:
+        raise ValueError(f"wgrad3x3: partials of {gx * lanes} × {n_out} do not fit")
+    return {"tp": tp, "ca_t": ca_t, "cb_t": cb_t, "lanes": lanes, "threads": threads,
+            "smem": smem, "gx": gx, "gy": gy, "tiles": tiles, "tiles_per_block": tpb,
+            "run": max(1, WGRAD_RUN * lanes // tp)}
+
+
 def wgrad3x3(name: str, a1: torch.Tensor, b: torch.Tensor, stride: int,
              a2: torch.Tensor | None = None, amask: torch.Tensor | None = None,
              bmask: torch.Tensor | None = None, bias: bool = False):
     """The weight (and bias) cotangent kernel on CUDA tensors (plane_conv.cu
-    `wgrad3x3_f32`, deterministic):
+    `wgrad3x3_f32`, deterministic; plain version `wgrad3x3_reference`):
 
       dw[dy, dx, ca, cb] = Σ A'[n, s·y + dy − 1, s·x + dx − 1, ca] · B'[n, y, x, cb]
 
     A = [a1 | a2] (N, Ha, Wa, CA) along channels, B = b (N, Hb, Wb, CB),
     A' = a1·[amask > 0] (amask only without a2), B' = b·[bmask > 0].
     Returns dw (3, 3, CA, CB) and, with bias, db (CB,) = Σ B', else None.
-    Counts nothing: it is part of the backward that calls it."""
+    Counts its launches in `wgrad3x3.launches`; `name` is the caller, for
+    errors."""
+    if b.device.type != "cuda":
+        raise ValueError(f"{name}: wgrad3x3 takes CUDA tensors, got {b.device}")
     n, ha, wa, ca1 = a1.shape
     ca2 = 0 if a2 is None else a2.shape[-1]
     _, hb, wb, cb = b.shape
     _contiguous(name, a1=a1, a2=a2, amask=amask, b=b, bmask=bmask)
     n_w = 9 * (ca1 + ca2) * cb
     n_out = n_w + (cb if bias else 0)
-    k = 4 if cb % 4 == 0 else 1
-    cpb = min(n_out // k, 256)
-    gy = -(-(n_out // k) // cpb)
-    sms = torch.cuda.get_device_properties(b.device).multi_processor_count
-    gx = max(1, min(-(-(n * hb * wb) // 64), 4 * sms // gy))
-    part = torch.empty((gx, n_out), dtype=torch.float32, device=b.device)
+    plan = wgrad3x3_plan(n, hb, wb, ca1 + ca2, cb, stride,
+                         torch.cuda.get_device_properties(b.device).multi_processor_count)
+    part = torch.empty((plan["gx"] * plan["lanes"], n_out), dtype=torch.float64, device=b.device)
     out = torch.empty((n_out,), dtype=torch.float32, device=b.device)
-    _launch(name, _c_fn("wgrad3x3_f32", 7, 11), b.device, a1, a2, amask, b, bmask, part, out,
-            n, ha, wa, ca1, ca2, hb, wb, cb, stride, int(bias), gx)
+    _launch(name, _c_fn("wgrad3x3_f32", 7, 16), b.device, a1, a2, amask, b, bmask, part, out,
+            n, ha, wa, ca1, ca2, hb, wb, cb, stride, int(bias), plan["tp"], plan["ca_t"],
+            plan["cb_t"], plan["lanes"], plan["gx"], plan["run"])
+    wgrad3x3.launches += 1
     return out[:n_w].reshape(3, 3, ca1 + ca2, cb), (out[n_w:] if bias else None)
 
 
@@ -375,3 +456,4 @@ conv_head.launches = 0
 conv_dn_backward.launches = 0
 deconv_up_backward.launches = 0
 conv_head_backward.launches = 0
+wgrad3x3.launches = 0

@@ -55,10 +55,10 @@ def sweep_scatter_reference(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     return out.reshape(height, width, c)
 
 
-def _c_fn(name: str):
+def _c_fn(name: str, n_ints: int):
     fn = getattr(build.load("sweep_gather"), name)
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,9 +76,19 @@ def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
         raise ValueError(f"{name}: unsupported device {values.device}")
 
 
-def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int):
+def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
+    """Planes each scatter thread walks: D cut into the fewest equal chunks
+    that still give about two threads per resident thread slot of the card
+    (2048 an SM), so runs of planes that share a corner are long and the
+    card stays full."""
+    per = max(1, min(d, d * h * w * groups // (2 * 2048 * sms)))
+    return -(-d // -(-d // per))
+
+
+def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, *extra: int):
     """Runs the kernel `name` on CUDA tensors (contiguous; float4 access when
-    C and every pointer allow it) on the current stream; raises on a CUDA error."""
+    C and every pointer allow it) on the current stream, with `extra` ints
+    after vec; raises on a CUDA error."""
     for key, t in (("values", values), ("xs", xs), ("ys", ys)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
@@ -86,7 +96,7 @@ def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int):
     vec = 4 if c % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn(f"{name}_f32")(*ptrs, d, h, w, c, vec, stream)
+        rc = _c_fn(f"{name}_f32", 5 + len(extra))(*ptrs, d, h, w, c, vec, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -108,8 +118,9 @@ def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tens
 def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """The transpose of `sweep_gather` at (xs, ys): g (D, H, W, C) float32,
     xs/ys (D, H, W) → the source's cotangent (H, W, C).  CUDA tensors go to
-    the kernel (inputs contiguous; atomics, so the order of each element's
-    sum changes from run to run), CPU tensors to `sweep_scatter_reference`."""
+    the kernel (inputs contiguous; runs of planes summed in registers, then
+    atomics, so the order of each element's sum changes from run to run),
+    CPU tensors to `sweep_scatter_reference`."""
     _check("sweep_scatter", g, xs, ys)
     if g.ndim != 4 or tuple(g.shape[:3]) != tuple(xs.shape):
         raise ValueError(f"sweep_scatter: want g {tuple(xs.shape)} + (C,), got {tuple(g.shape)}")
@@ -117,7 +128,9 @@ def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.
     if g.device.type == "cpu":
         return sweep_scatter_reference(g, xs, ys, h, w)
     dsrc = torch.zeros((h, w, c), dtype=torch.float32, device=g.device)
-    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c)
+    groups = c // 4 if c % 4 == 0 else c
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, scatter_planes(d, h, w, groups, sms))
     sweep_scatter.launches += 1
     return dsrc
 

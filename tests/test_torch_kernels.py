@@ -356,6 +356,31 @@ def test_cuda_sweep_gather_and_scatter_match_plain_versions(d, h, w, c, spread):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,planes", [(8, 8), (6, 3), (16, 5)])
+def test_cuda_sweep_scatter_runs_of_planes(c, planes):
+    """Threads that walk several planes of a sweep-like motion (the corner
+    moves every few planes, some samples off the image): equal to the plain
+    scatter within the summation bound, float4 and scalar atomics."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    d, h, w = 16, 24, 40
+    rng = np.random.default_rng(c)
+    jj, ii = np.meshgrid(np.arange(w), np.arange(h))
+    shift = 0.37 * np.arange(d)[:, None, None]
+    xs = (jj[None] + shift - 3 + 0.1 * rng.uniform(size=(d, h, w))).astype(np.float32)
+    ys = (ii[None] - 0.5 * shift + 0.1 * rng.uniform(size=(d, h, w))).astype(np.float32)
+    g = rng.normal(size=(d, h, w, c)).astype(np.float32)
+    g, xs, ys = (torch.from_numpy(a).cuda() for a in (g, xs, ys))
+    dsrc = torch.zeros((h, w, c), device="cuda")
+    sg._launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, planes)
+    bound = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(g.abs(), xs, ys, h, w)
+    torch.cuda.synchronize()
+    err = (dsrc - sg.sweep_scatter_reference(g, xs, ys, h, w)).abs()
+    assert bool((err <= bound + 1e-30).all()), err.max().item()
+
+
+@pytest.mark.cuda
 def test_cuda_sweep_gather_backward_launches_the_scatter():
     """The autograd backward of the gather is one scatter launch, equal to
     the plain scatter within the summation bound; coordinates get none."""
@@ -383,16 +408,17 @@ def _all_wrappers():
             "red_recur": rr.red_recur, "deconv_up": pc.deconv_up, "conv_head": pc.conv_head,
             "conv_dn_backward": pc.conv_dn_backward, "red_recur_backward": rr.red_recur_backward,
             "deconv_up_backward": pc.deconv_up_backward,
-            "conv_head_backward": pc.conv_head_backward}
+            "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3}
 
 
 # launches per train step and per eval step at B = 1 with the fused RED
 # pipeline (fused_red None, the default): per stage 2 gathers and 2
 # scatters, 3 conv_dn, 4 red_recur, 3 deconv_up, 1 conv_head, each RED kernel
-# once forward and once backward; the eval step without gradients
+# once forward and once backward, and the weight reduction once per conv
+# backward and twice per red_recur backward; the eval step without gradients
 FUSED_TRAIN = {"sweep_gather": 6, "sweep_scatter": 6, "conv_dn": 9, "red_recur": 12,
                "deconv_up": 9, "conv_head": 3, "conv_dn_backward": 9, "red_recur_backward": 12,
-               "deconv_up_backward": 9, "conv_head_backward": 3}
+               "deconv_up_backward": 9, "conv_head_backward": 3, "wgrad3x3": 45}
 FUSED_EVAL = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9, "conv_head": 3}
 
 
@@ -418,8 +444,8 @@ def test_cuda_train_step_launches():
     """A train step at 32×64, ndepths (8, 4, 4), B = 1, `Config()` defaults
     (the fused RED pipeline): per stage and source view one sweep_gather and
     one sweep_scatter, per stage conv_dn ×3, red_recur ×4, deconv_up ×3,
-    conv_head ×1 forward and each of their backward kernels as often, no
-    sweep_variance; an eval step: 3 sweep_variance and the fused pipeline's
+    conv_head ×1 forward and each of their backward kernels as often, the
+    weight reduction 9 + 9 + 3 + 2·12 times, no sweep_variance; an eval step: 3 sweep_variance and the fused pipeline's
     forward kernels.  The loss is finite."""
     from satmvs_tpu_torch.train import Config
 
@@ -578,8 +604,56 @@ def test_cuda_red_autograd_runs_the_backward_kernels():
             torch.cuda.synchronize()
             assert got == {k: {"conv_dn": 3, "red_recur": 4, "deconv_up": 3, "conv_head": 1,
                                "conv_dn_backward": 3, "red_recur_backward": 4,
-                               "deconv_up_backward": 3, "conv_head_backward": 1}.get(k, 0)
+                               "deconv_up_backward": 3, "conv_head_backward": 1,
+                               "wgrad3x3": 15}.get(k, 0)
                            for k in wrappers}
         grads[dev] = [t.cpu() for t in gs]
     errs = [_rel(a, b) for a, b in zip(grads["cuda"], grads["cpu"])]
     assert max(errs) <= 1e-3, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["concat_bias", "bmask_s2", "amask_s2", "odd"])
+def test_cuda_wgrad3x3_reduces_a_training_plane(case):
+    """The weight reduction at stage 3 of a 384×768 train step (8 planes,
+    2.4 M pixels of B), with masks, the concat and the bias, against
+    `wgrad3x3_reference` in float64: each element to 1e-6 × Σ |terms| of its
+    sum (chip_smoke.py's REDUCE_TOL), a bound under 1e-2 of the largest
+    value, and the same bits in a second run.  "odd": CA and CB not
+    multiples of 4 (the scalar loads) at a smaller size."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    n, h, w = 8, 384, 768
+    kw, a_abs = {}, {}
+    if case == "concat_bias":  # red_recur's gates over [x | h_prev]
+        a1, b, s = _rand((n, h, w, 8), 80), _rand((n, h, w, 16), 81) + 0.5, 1
+        kw = {"a2": _rand((n, h, w, 8), 82), "bias": True}
+        a_abs = {"a2": kw["a2"].abs()}
+    elif case == "bmask_s2":  # conv_dn's: B is the cotangent, masked by y
+        a1, b, s = _rand((n, h, w, 8), 83), _rand((n, h // 2, w // 2, 16), 84), 2
+        kw = {"bmask": _rand((n, h // 2, w // 2, 16), 85)}
+    elif case == "amask_s2":  # deconv_up's: A is the cotangent, masked by relu(z)
+        a1, b, s = _rand((n, h, w, 8), 86), _rand((n, h // 2, w // 2, 16), 87), 2
+        kw = {"amask": _rand((n, h, w, 8), 88)}
+    else:
+        a1, b, s = _rand((3, 97, 131, 5), 89), _rand((3, 97, 131, 3), 90) + 0.5, 1
+        kw = {"a2": _rand((3, 97, 131, 6), 91), "bias": True}
+        a_abs = {"a2": kw["a2"].abs()}
+    before = pc.wgrad3x3.launches
+    dw, db = pc.wgrad3x3("test", a1, b, s, **kw)
+    assert pc.wgrad3x3.launches == before + 1
+    dw2, db2 = pc.wgrad3x3("test", a1, b, s, **kw)
+    torch.cuda.synchronize()
+    f64 = {k: (v.double() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    want = pc.wgrad3x3_reference(a1.double(), b.double(), s, **f64)
+    mags = pc.wgrad3x3_reference(a1.abs().double(), b.abs().double(), s,
+                                 **{**f64, **{k: v.double() for k, v in a_abs.items()}})
+    for got, again, exact, mag, what in zip((dw, db), (dw2, db2), want, mags, ("dw", "db")):
+        if got is None:
+            continue
+        bound = 1e-6 * mag
+        assert bound.max() <= 1e-2 * exact.abs().max(), what
+        err = (got.double() - exact).abs()
+        assert bool((err <= bound).all()), f"{what}: {err.max().item()}"
+        assert torch.equal(got, again), what
