@@ -34,16 +34,21 @@ Phases, each reported on its own lines:
      against their plain versions at the three training stage shapes (both
      source views, RPC coordinates) and with coordinates pushed off the
      image; the scatter's run-to-run difference; kernel, plain, bound and
-     grid_sample times (forward, and its input gradient); the scatter at
-     one plane a thread against its runs over planes;
+     grid_sample times (forward, and its input gradient); the gather's and
+     grid_sample's times over calls launched back to back (the card's time
+     without the host's launch latency); the scatter at one plane a thread
+     against its runs over planes;
   8  the backward kernels of the fused RED regularizer (conv_dn, red_recur,
      deconv_up, conv_head) against their plain backwards at every shape of a
      384×768 train step, each cotangent on its own, red_recur on states in
      (−1, 1) over all planes; the same bits in a second run; kernel, plain,
-     bound and cuDNN-gradient times; and their shared weight reduction
-     wgrad3x3 alone at each of its 45 call shapes (9 conv_dn, 24 red_recur,
-     9 deconv_up, 3 conv_head) against its plain version in float64, its
-     time beside cuDNN's weight-only gradient (run before phase 3);
+     bound and cuDNN-gradient times; red_recur's adjoint kernel alone (row 6
+     without its two weight reductions) beside row 6 and the adjoint's share
+     of the operations bound, per shape and over the 12; and their shared
+     weight reduction wgrad3x3 alone at each of its 45 call shapes (9
+     conv_dn, 24 red_recur, 9 deconv_up, 3 conv_head) against its plain
+     version in float64, its time beside cuDNN's weight-only gradient (run
+     before phase 3);
   7  training (`train.loop`) at 384×768, B = 1: five train steps with
      Config() defaults, the fused RED pipeline (exact launches per step:
      6 sweep_gather, 6 sweep_scatter, conv_dn 9, red_recur 12, deconv_up 9,
@@ -126,6 +131,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def loop_ms(fn, calls: int = 20) -> float:
+    """CUDA-event time per call of `calls` calls of fn launched back to back,
+    after one warm-up call: the host queues them faster than the card runs
+    them, so this is the card's time without the host's launch latency,
+    which time_ms includes for one short call at a time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -828,6 +850,7 @@ def phase_sweep_gather(card: str) -> list[dict]:
                           "satmvs_tpu/ops/pallas/sweep_gather.py:400", card)
     scatter = KernelReport("sweep_scatter", "satmvs_tpu_torch/csrc/sweep_gather.cu",
                            "satmvs_tpu/ops/pallas/sweep_gather.py:558", card)
+    dev = [0.0, 0.0]  # the gather's and grid_sample's times back to back over the six views
     for label, src, xs, ys, g in cases:
         timed = label != "off-image"
         fwd, bwd = grid_sample_calls(src, xs, ys, g)
@@ -835,6 +858,15 @@ def phase_sweep_gather(card: str) -> list[dict]:
         gather.case(label, lambda: sg.sweep_gather(src, xs, ys),
                     lambda: sg.sweep_gather_reference(src, xs, ys), rel_tol, *work,
                     fwd, timed=timed)
+        if timed:
+            # without the host's launch time, which the event times above
+            # include for calls this short
+            k_dev = loop_ms(lambda: sg.sweep_gather(src, xs, ys))
+            l_dev = loop_ms(fwd)
+            dev[0] += k_dev
+            dev[1] += l_dev
+            print(f"[sweep] sweep_gather {label}: back to back {k_dev:.4f} ms, grid_sample "
+                  f"{l_dev:.4f} ms card={card}", flush=True)
         # each dsrc element is a sum of at most 4·D products: two summation
         # orders differ by at most 2·(4·D − 1)·2⁻²⁴ × the sum of its terms'
         # magnitudes (the plain scatter of |g|); its maximum over the elements
@@ -851,6 +883,8 @@ def phase_sweep_gather(card: str) -> list[dict]:
         check(again <= tol, f"sweep_scatter {label}: run-to-run {again} > {tol}")
         if timed:
             scatter_runs(label, g, xs, ys, card)
+    print(f"[sweep] sweep_gather over the six views of a train step, back to back: "
+          f"{dev[0]:.4f} ms, grid_sample {dev[1]:.4f} ms card={card}", flush=True)
     return [gather.record(), scatter.record()]
 
 
@@ -992,6 +1026,7 @@ def phase_red_backward(card: str) -> list[dict]:
                       "satmvs_tpu/ops/pallas/plane_conv.py:610", card)
     head = KernelReport("conv_head_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
                         "satmvs_tpu/ops/pallas/plane_conv.py:768", card)
+    adjoint = []  # (adjoint alone ms, row 6 ms, adjoint's bound ms) per red_recur call
     for stage, d, h, w, cin in red_shapes():
         for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
             x = randn(d, h // s, w // s, ci)
@@ -1026,12 +1061,23 @@ def phase_red_backward(card: str) -> list[dict]:
             # recompute, data cotangents and weight cotangents: three times the
             # forward's multiply-adds; reads x, the states and g, writes dx and
             # the parameters' cotangents
-            rec.case(label, lambda: flat(rr.red_recur_backward(x, out, g, cell)),
-                     lambda: flat(rr.red_recur_backward_reference(x, out, g, cell)),
-                     lambda want: RED_BWD_TOL * max(1.0, want.abs().max().item()),
-                     2 * nbytes + 4 * out.numel(), 3 * flops)
+            row6 = rec.case(label, lambda: flat(rr.red_recur_backward(x, out, g, cell)),
+                            lambda: flat(rr.red_recur_backward_reference(x, out, g, cell)),
+                            lambda want: RED_BWD_TOL * max(1.0, want.abs().max().item()),
+                            2 * nbytes + 4 * out.numel(), 3 * flops)
             same_bits(f"red_recur_backward {label}",
                       lambda: flat(rr.red_recur_backward(x, out, g, cell)))
+            # the adjoint kernel alone (and the weight layouts it is given),
+            # without its two weight reductions: the recompute and the data
+            # cotangents, twice the forward's multiply-adds
+            h0 = torch.zeros_like(out[:, 0])
+            adj = loop_ms(lambda: rr._adjoint(x, out, g, cell, h0), 5)
+            adj_bound, _ = bound_ms(0.0, 2 * flops)
+            adjoint.append((adj, row6, adj_bound))
+            print(f"[backward] red_recur_bwd_kernel {label}: adjoint alone {adj:.4f} ms (back "
+                  f"to back), row 6 {row6:.4f} ms, adjoint's share of the operations "
+                  f"bound {adj_bound:.4f} ms, adjoint/bound {adj / adj_bound:.2f} card={card}",
+                  flush=True)
             # its two reductions over all planes, on seeded cotangents of
             # their shapes: the gates over [x | h_prev], the candidate over
             # [x | r·h_prev], each with its bias
@@ -1086,6 +1132,11 @@ def phase_red_backward(card: str) -> list[dict]:
                    cudnn_wgrad(nchw(g), nchw(x), wt, 1, bias=True), bias=True)
     print("[backward] every backward kernel gave the same bits in a second run (fixed-order "
           "reductions, no atomics)", flush=True)
+    adj, row6, adj_bound = (sum(t[i] for t in adjoint) for i in range(3))
+    print(f"[backward] red_recur_bwd_kernel over the 12 calls of a train step: adjoint alone "
+          f"{adj:.4f} ms (back to back), row 6 {row6:.4f} ms, adjoint's share of the operations "
+          f"bound {adj_bound:.4f} ms, adjoint/bound {adj / adj_bound:.2f} card={card}",
+          flush=True)
     wrec = wg.record()
     print(f"[backward] wgrad3x3 over the 45 weight reductions of a train step: kernel "
           f"{wrec['ms']:.4f} ms, bound {wrec['bound_ms']:.4f} ms ({wrec['bound_by']}), plain "

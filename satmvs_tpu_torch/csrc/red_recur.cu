@@ -84,32 +84,68 @@
 // the forward's batch axis.  Its inputs are x, out and the cotangent g (and
 // h0), as the JAX VJP's residuals: nothing else is saved in the forward.
 //
-// What bounds it: operations, three times the forward's.  It recomputes each
-// plane (the forward's two convs), takes the data cotangents (convᵀ of the
-// candidate's cotangent through Wc, of the gates' through Wh, and dx through
-// Wx: 27·C·(C + Cin) FMAs a pixel) and the weight cotangents (as many).
-// Summed over a B = 1 train step's 12 calls that is ~3 × 183 GFLOP.
+// What bounds it: operations.  Per plane it recomputes the forward's two
+// convs and takes the data cotangents (convᵀ of the candidate's cotangent
+// through Wc, of the gates' through Wh, and dx through Wx): twice the
+// forward's 27·(Cin + C)·C FMAs a pixel, ~367 GFLOP over a B = 1 train
+// step's 12 calls, ~5.5 ms at 67 TFLOP/s.  The weight cotangents (as many
+// operations again) are left to plane_conv.cu's reduction.
 //
-// Design.  The same persistent cooperative grid and per-element block groups
-// as the forward, walking the planes from D − 1 down to 0 with the state's
-// cotangent dh carried in a (B, H, W, C) buffer; each plane takes seven
-// grid syncs (its phases are listed above the kernel).  The recompute uses
-// the forward's own code and statistics formulation (conv_pixel in the same
-// order, one-pass float64 sums, gn_affine), so r, u and y are the values the
-// forward produced, up to the rounding of the float64 sums split over
-// another number of blocks.  The GroupNorm transposes need two whole-plane
-// sums each, taken like the forward's statistics (float64 per-block
-// partials added in block order).  The convᵀ are gathers (conv_pixel with
-// flipped, channel-transposed weights made by the wrapper), so no atomics.
-// The weight cotangents are not reduced in the kernel: a per-block partial
-// of dWa + dWb at C = 64 is 9·128·192 floats (885 KB), a few hundred MB over
-// the grid.  Instead the kernel keeps every plane's gate and candidate
-// cotangents (B, D, H, W, 3C) and the recomputed r·h (B, D, H, W, C), 0.3 GB
-// at stage-3 scale 1, and the wrapper reduces them with plane_conv.cu's
-// two-pass weight kernel (fixed order) after the loop.  The six GroupNorm
-// parameter cotangents (6·C values) accumulate in registers (each thread
-// keeps one channel group for the whole kernel) and are reduced once at the
-// end in a fixed order.  Every result is the same in every run.
+// Design.  The forward's persistent cooperative grid and per-element block
+// groups, walking the planes from D − 1 down to 0 with the state's cotangent
+// dh carried in a (B, H, W, C) buffer.  A plane takes four grid syncs, after
+// its phases A-D (listed above the kernel); phase E needs none, because the
+// next plane's phase A writes only the other one of two raw-gate buffers
+// (chosen by the parity of d) and per-block sums that E does not read.  The
+// elementwise passes that existed only so that the next conv could read
+// mapped values at neighbouring pixels are folded into the staging of that
+// conv: B stages m = r·h from the raw gates and h, D stages dy_lin from the
+// raw do and the raw candidate, E stages the gate cotangents from the raw dr
+// and du and the raw gates.  The raw do, du and dr live in plane-sized
+// scratch that no phase writes while another block reads it as halo; the
+// mapped values go to the per-plane m, dyl and dg slices for the weight
+// reductions (m and dyl written by the work item that owns the pixel, dg by
+// E's own-pixel pass).
+//
+// The four convs (the gates, the candidate, convᵀ through Wc, and one convᵀ
+// whose output channels are dh's C and then dx's Cin, through [Wh | Wx])
+// share one block-tiled routine on the CUDA cores in fp32 FMA.  A work item
+// is a tile of 32 columns × wr·PX rows of one element's plane and a slab of
+// wc·8 output channels.  For each chunk of ck input channels (8 to 64) the
+// block copies the tile's raw operands with their one-pixel halo (one a
+// channel for the gates, two for the others: the raw gate and h for m, the
+// raw do and candidate for dy_lin, the raw dr or du and gate for the gate
+// cotangents) and the matching weights [9][ck][slab] into shared memory
+// with cp.async, zeros outside the plane, all copies in flight at once; the
+// threads then map the raw operands in place.  Staged channels are planes
+// of ≡ 32/min(ck, 32) words mod 32, so a warp's copies land in 32 banks.
+// Each thread holds PX (1 or 2) rows × 8 channels of one column in
+// registers and, per input channel and column shift, reads PX + 2 inputs and
+// 3 × 8 weights (one address across the warp: a broadcast) for 24·PX FMAs;
+// four rows a thread would spill registers.  Weight traffic from L2 falls by
+// the tile's pixel count.  Where a plane has few items, wk warps split each
+// chunk's input channels and add their sums in a fixed order.  The launch
+// plan (PX, wr, wc, wk, ck per conv, blocks per element) comes from a cost
+// model in Python (ops/kernels/red_recur.py `red_recur_bwd_plan`).  A tile's
+// position comes from the item index (one 32-bit division per item), never
+// per element.
+//
+// The recompute runs through this tiled conv, so its r, u and y differ from
+// the forward's by the rounding of conv sums taken in another order (and of
+// float64 statistics split over other blocks): the adjoint is that of a
+// forward equal to red_recur_kernel's up to fp32 rounding.  The statistics
+// and the GroupNorm transposes' two whole-plane sums each are float64
+// per-block partials, which every block of the element adds with all its
+// threads in one fixed order.  The weight
+// cotangents are not reduced in the kernel: a per-block partial of dWa + dWb
+// at C = 64 is 9·128·192 floats (885 KB), a few hundred MB over the grid.
+// Instead the kernel keeps every plane's gate and candidate cotangents
+// (B, D, H, W, 3C) and the recomputed r·h (B, D, H, W, C), and the wrapper
+// reduces them with plane_conv.cu's weight kernel (fixed order) after the
+// loop.  The six GroupNorm parameter cotangents (6·C values) are summed in
+// each thread's own shared-memory slots (a thread keeps one group of four
+// channels in the elementwise passes) and reduced once at the end in a fixed
+// order.  No atomics: every result is the same in every run.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -345,18 +381,51 @@ __global__ void __launch_bounds__(THREADS) red_recur_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // The backward: the reverse-plane adjoint of red_recur_kernel.
 
+constexpr int BT = THREADS;        // threads of a backward block
+constexpr int BCO = 8;             // output channels a thread holds in a conv
+constexpr int TW = 32;             // tile columns: one per lane
+constexpr int RS = TW + 2;         // a staged row: the tile's columns and the halo
+constexpr int TR_MAX = 16;         // tile rows at most: 8 row groups × 2 rows
+constexpr int SLAB_MAX = WARPS * BCO;  // output channels of a slab at most
+
+// Words of one staged input channel of a tile of tr rows when a chunk holds
+// ck (8, 16, 32 or 64) channels: at least (tr + 2)·RS and ≡ m (mod 32),
+// m = 32 / min(ck, 32), so the staging's m pixels × min(ck, 32) channels of a
+// warp store to 32 different banks.
+__host__ __device__ constexpr int staged_plane(int tr, int ck) {
+  return ((tr + 2) * RS - 32 / (ck < 32 ? ck : 32) + 31) / 32 * 32 + 32 / (ck < 32 ? ck : 32);
+}
+
+// the staged inputs (or a reduction of the warps' shares): a chunk's raw
+// operands, two a channel of 16 channels of an 8-row tile (or of 8 channels
+// of a 16-row tile); and the staged weights, 9 × ck × slab
+constexpr int IN_WORDS = 2 * 16 * staged_plane(TR_MAX / 2, 16);
+constexpr int W_WORDS = 9 * 16 * SLAB_MAX;
+constexpr int GACC = 24;  // GroupNorm parameter sums a thread keeps: 6 sums × 4 channels
+constexpr int BWD_SMEM = (IN_WORDS + W_WORDS + GACC * BT) * 4;
+
+// One conv's launch plan: px rows a thread; wr row groups × wc channel groups
+// × wk shares of each chunk's input channels = the block's 8 warps; ck input
+// channels a chunk (8, 16, 32 or 64, as the tile and the slab leave room).
+// An item is (wr·px) × TW pixels of one element's plane and wc·BCO output
+// channels.
+struct ConvPlan {
+  int px, wr, wc, wk, ck;
+};
+
 struct BwdArgs {
   const float* x;     // (B, D, H, W, Cin)
   const float* h0;    // (B, H, W, C)
   const float* out;   // (B, D, H, W, C) the forward's states
   const float* gout;  // (B, D, H, W, C) their cotangent
   float* dx;          // (B, D, H, W, Cin)
-  float* dg;          // (B, D, H, W, 2C) per plane [dr_pre | du_pre], then the gates' cotangent
-  float* dyl;         // (B, D, H, W, C) per plane do, then the candidate's cotangent dy_lin
+  float* dg;          // (B, D, H, W, 2C) per plane the gates' cotangent [dgr | dgu]
+  float* dyl;         // (B, D, H, W, C) per plane the candidate's cotangent dy_lin
   float* m;           // (B, D, H, W, C) per plane r·h, recomputed
-  float* graw;        // (B, H, W, 2C) scratch: raw gates
+  float* graw;        // (2, B, H, W, 2C) scratch: raw gates, by the parity of d
   float* yraw;        // (B, H, W, C) scratch: raw candidate
   float* dh;          // (B, H, W, C) the state's cotangent, carried down the planes (zeros in)
+  float* draw;        // (3, B, H, W, C) scratch: raw do, du, dr
   double* part;       // (4, gridDim.x, 4) per-block sums
   double* gnpart;     // (gridDim.x, 6, C) per-block GroupNorm parameter cotangents
   float* dgn;         // (6, C) the GroupNorm parameter cotangents
@@ -365,301 +434,546 @@ struct BwdArgs {
   const float* wb;    // (9, Cin + C, C)
   const float* bb;    // (C)
   const float* gn;    // (6, C)
-  const float* whT;   // (9, 2C, C)   [t][co][c]  = wa[8 − t][Cin + c][co]
-  const float* wcT;   // (9, C, C)    [t][co][c]  = wb[8 − t][Cin + c][co]
-  const float* wxT;   // (9, 3C, cinp) [t][co][ci] = wa[8 − t][ci][co], then wb's for co ≥ 2C
-  int B, D, H, W, Cin, C, cinp;
+  const float* wcT;   // (9, C, C)      [t][k][c] = wb[8 − t][Cin + c][k]
+  const float* weT;   // (9, 3C, ce)    [t][g][c] = wa[8 − t][Cin + c][g] for c < C, g < 2C
+                      //                (0 for g ≥ 2C); [t][g][C + i] = wa[8 − t][i][g], then
+                      //                wb's for g ≥ 2C; ce = C + Cin rounded up to 4
+  ConvPlan cv[4];     // the gates, the candidate, convᵀ Wc, convᵀ [Wh | Wx]
+  int B, D, H, W, Cin, C;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void st4(float* p, const float (&v)[CO_T]) {
+// An asynchronous 16-byte copy from global to shared memory (zeros when
+// !valid; src must still be a valid address), completed by cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// The same for 4 bytes (through L1).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void unpack4(float4 t, float (&v)[CO_T]) {
+__device__ __forceinline__ void unpack4(float4 t, float (&v)[4]) {
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
-// Adds the per-block sums part (nblocks, 4) in block order and writes the
-// first n of them times inv_n to out.  Every block computes the same values.
-__device__ void plane_means(const double* part, int nblocks, double inv_n, int n, float* out) {
-  if (threadIdx.x < 32) {
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int b = threadIdx.x; b < nblocks; b += 32)
-      for (int k = 0; k < 4; ++k) s[k] += part[b * 4 + k];
-    for (int k = 0; k < 4; ++k)
-      for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_down_sync(0xffffffffu, s[k], off);
-    if (threadIdx.x == 0)
-      for (int k = 0; k < n; ++k) out[k] = (float)(s[k] * inv_n);
+// Adds an element's per-block sums part (nblocks, 4) with all the block's
+// threads (thread t takes blocks t, t + BT, ..., then block_sums' fixed
+// tree) into tot (4 doubles in shared memory), and writes to stats, for each
+// of the `pairs` (sum, sum of squares) columns, the mean and
+// 1/sqrt(var + ε), then the first `means` sums times inv_n.  Every block of
+// the element computes the same values.
+__device__ void elem_stats(const double* part, int nblocks, double inv_n, int pairs, int means,
+                           double* red, double* tot, float* stats) {
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int i = threadIdx.x; i < nblocks; i += BT)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[k] += part[i * 4 + k];
+  block_sums(s, red, tot);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < means; ++k) stats[2 * pairs + k] = (float)(tot[k] * inv_n);
+    for (int j = 0; j < pairs; ++j) {
+      const double mean = tot[2 * j] * inv_n;
+      const double var = fmax(tot[2 * j + 1] * inv_n - mean * mean, 0.0);
+      stats[2 * j] = (float)mean;
+      stats[2 * j + 1] = (float)(1.0 / sqrt(var + EPS));
+    }
   }
   __syncthreads();
 }
 
+// The items item0, item0 + istep, ... of one conv over an element's plane:
+// ny·nx·ns items (row tiles, column tiles, channel slabs; the slab fastest).
+//   out[p, co] = Σ over the 3×3 taps t and input channels c of in[p + shift(t), c]·w[t, c, co]
+// with c < cin, or < cin_short in a slab that ends at or below co_cut, and
+// in(p, c) = map(p, c, *src(p, c, 0), *src(p, c, 1)) inside the plane, 0
+// outside.  src(p, c, k) points at the k-th of the NRAW raw operands of
+// in(p, c) (nullptr for none: map must not use that one; it must point at
+// valid memory for any pixel and c < cin); with NRAW = 1, in = *src(p, c, 0)
+// and map is not called.  keep(p, c, v) is called once for every pixel and
+// input channel, by the item that owns it (slab 0, the tile's interior),
+// with v = in(p, c) (not with NRAW = 1).  w is (9, cin, coutw), coutw a
+// multiple of 4; epi(p, co, v) takes v = out[p, co .. co + 3] for each group
+// of four channels with co < cout.
+//
+// Per chunk of ck input channels the raw operands and the weights are copied
+// into shared memory with cp.async (zeros outside the plane), all in flight
+// at once; then, with NRAW = 2, each thread maps its share in place.  All
+// threads of the block call it with the same arguments.
+template <int PX, int NRAW, typename Src, typename Map, typename Keep, typename Epi>
+__device__ __forceinline__ void conv_items(const ConvPlan& pl, int H, int W, int cin,
+                                           int cin_short, int co_cut,
+                                           const float* __restrict__ w, int cout, int coutw,
+                                           int item0, int istep, float* sm, Src src, Map map,
+                                           Keep keep, Epi epi) {
+  const int tr = pl.wr * PX, slab = pl.wc * BCO, ck = pl.ck;
+  const int ck_log = 31 - __clz(ck);
+  const int ny = (H + tr - 1) / tr, nx = (W + TW - 1) / TW, ns = (cout + slab - 1) / slab;
+  const int items = ny * nx * ns;
+  const int ps = staged_plane(tr, ck);
+  const int n_in = (tr + 2) * RS * ck;  // staged inputs of a chunk
+  const int s4 = slab / 4;
+  const int n_w = 9 * ck * s4;          // staged float4 weights of a chunk
+  float* s_in = sm;                     // [raw operand][ci][row][col]
+  float* s_w = sm + IN_WORDS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kidx = warp % pl.wk;
+  const int cgrp = warp / pl.wk % pl.wc, rgrp = warp / (pl.wk * pl.wc);
+  for (int it = item0; it < items; it += istep) {
+    const int s = it % ns, t = it / ns;
+    const int y0 = t / nx * tr, x0 = t % nx * TW, co0 = s * slab;
+    const int cin_it = co0 + slab <= co_cut ? cin_short : cin;
+    float acc[PX][BCO];
+#pragma unroll
+    for (int j = 0; j < PX; ++j)
+#pragma unroll
+      for (int k = 0; k < BCO; ++k) acc[j][k] = 0.f;
+    for (int ci0 = 0; ci0 < cin_it; ci0 += ck) {
+      // the weights [tap][ci][slab channel] and the raw operands, as they are
+      for (int e = threadIdx.x; e < n_w; e += BT) {
+        const int q = e % s4, rest = e / s4;
+        const int ci = rest & (ck - 1), tap = rest >> ck_log;
+        const int co = co0 + 4 * q, c = ci0 + ci;
+        const bool valid = c < cin_it && co < coutw;
+        cp_async16(s_w + 4 * e, valid ? w + ((int64_t)tap * cin + c) * coutw + co : w, valid);
+      }
+      for (int e = threadIdx.x; e < n_in; e += BT) {
+        const int pos = e >> ck_log, ci = e & (ck - 1), c = ci0 + ci;
+        const int r = pos / RS, iy = y0 - 1 + r, ix = x0 - 1 + pos - r * RS;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && c < cin_it;
+        const int p = ok ? iy * W + ix : 0;
+#pragma unroll
+        for (int k = 0; k < NRAW; ++k) {
+          const float* g = src(p, ok ? c : 0, k);
+          cp_async4(s_in + (k * ck + ci) * ps + pos, g ? g : w, ok && g != nullptr);
+        }
+      }
+      cp_async_wait();
+      __syncthreads();
+      if constexpr (NRAW > 1) {
+        for (int e = threadIdx.x; e < n_in; e += BT) {
+          const int pos = e >> ck_log, ci = e & (ck - 1), c = ci0 + ci;
+          const int r = pos / RS, col = pos - r * RS;
+          const int iy = y0 - 1 + r, ix = x0 - 1 + col;
+          if (iy >= 0 && iy < H && ix >= 0 && ix < W && c < cin_it) {
+            const int p = iy * W + ix;
+            const float v = map(p, c, s_in[ci * ps + pos], s_in[(ck + ci) * ps + pos]);
+            s_in[ci * ps + pos] = v;
+            if (s == 0 && r >= 1 && r <= tr && col >= 1 && col <= TW) keep(p, c, v);
+          }
+        }
+        __syncthreads();
+      }
+      const float* bi = s_in + rgrp * PX * RS + lane;
+      const float* bw = s_w + cgrp * BCO;
+      for (int ci = kidx; ci < ck; ci += pl.wk) {
+        const float* pi = bi + ci * ps;
+        const float* pw = bw + ci * slab;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          float v[PX + 2];
+#pragma unroll
+          for (int j = 0; j < PX + 2; ++j) v[j] = pi[j * RS + dx];
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const float4* wt = reinterpret_cast<const float4*>(pw + (dy * 3 + dx) * ck * slab);
+            const float4 w0 = wt[0], w1 = wt[1];
+            const float wv[BCO] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int j = 0; j < PX; ++j)
+#pragma unroll
+              for (int k = 0; k < BCO; ++k) acc[j][k] = fmaf(v[j + dy], wv[k], acc[j][k]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (pl.wk > 1) {
+      // the wk warps of one (row group, channel group) add their shares in
+      // kidx order, through the free staging buffer
+      float* red = s_in;
+      if (kidx > 0) {
+#pragma unroll
+        for (int j = 0; j < PX; ++j)
+#pragma unroll
+          for (int k = 0; k < BCO; ++k) red[((warp * PX + j) * BCO + k) * 32 + lane] = acc[j][k];
+      }
+      __syncthreads();
+      if (kidx == 0) {
+        for (int q = 1; q < pl.wk; ++q)
+#pragma unroll
+          for (int j = 0; j < PX; ++j)
+#pragma unroll
+            for (int k = 0; k < BCO; ++k)
+              acc[j][k] += red[(((warp + q) * PX + j) * BCO + k) * 32 + lane];
+      }
+      __syncthreads();
+    }
+    if (kidx == 0) {
+      const int x = x0 + lane;
+#pragma unroll
+      for (int j = 0; j < PX; ++j) {
+        const int y = y0 + rgrp * PX + j;
+        if (y < H && x < W) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int co = co0 + cgrp * BCO + 4 * q;
+            if (co < cout) {
+              const float v[4] = {acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2],
+                                  acc[j][4 * q + 3]};
+              epi(y * W + x, co, v);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// conv_items at the plan's rows per thread
+template <int NRAW, typename Src, typename Map, typename Keep, typename Epi>
+__device__ __forceinline__ void conv(const ConvPlan& pl, int H, int W, int cin, int cin_short,
+                                     int co_cut, const float* __restrict__ w, int cout,
+                                     int coutw, int item0, int istep, float* sm, Src src,
+                                     Map map, Keep keep, Epi epi) {
+  if (pl.px == 1)
+    conv_items<1, NRAW>(pl, H, W, cin, cin_short, co_cut, w, cout, coutw, item0, istep, sm, src,
+                        map, keep, epi);
+  else
+    conv_items<2, NRAW>(pl, H, W, cin, cin_short, co_cut, w, cout, coutw, item0, istep, sm, src,
+                        map, keep, epi);
+}
+
 // For d = D−1 .. 0 and every element b (h = out[d − 1], h0 at d = 0), with
 // x̂ = (raw − mean)·inv the normalised values of each GroupNorm(1), γ its scale:
-//   1. recompute the gates g = conv([x_d | h], Wa) + ba      (the forward's phase 1)
-//   2. r, u statistics; m = r·h                              (phase 2)
-//   3. candidate conv([x_d | m], Wb) + bb                    (phase 3)
-//   4. y statistics; dht = dh + gout_d; do = dht·(1 − u)·(1 − y²);
-//      du = dht·(h − y)·u·(1 − u); dh ← dht·u; sums of do·γ_y, do·γ_y·ŷ, du·γ_u, du·γ_u·û
-//   5. dy_lin = inv_y·(do·γ_y − mean(do·γ_y) − ŷ·mean(do·γ_y·ŷ)), the same GN_uᵀ of du
-//   6. dm = convᵀ(dy_lin, Wc); dr = dm·h·r·(1 − r); dh += dm·r; sums of dr·γ_r, dr·γ_r·r̂
-//   7. the GN_rᵀ of dr
-//   8. dh += convᵀ([dgr | dgu], Wh);  dx_d = convᵀ([dgr | dgu], Wx_g) + convᵀ(dy_lin, Wx_c)
-// with a grid.sync() after each of phases 1-7.  Phase 8 needs none before the
-// next plane: that plane's phases 1-3 read only x, out and h0 and write
-// scratch phase 8 does not read.  The GroupNorm parameter cotangents
-// Σ do·ŷ, Σ do, Σ dr·r̂, Σ dr, Σ du·û, Σ du accumulate in each thread's
-// registers (a thread's channel group is the same in every own-pixel phase,
-// since C/4 divides the block size) and are reduced once at the end in a
-// fixed order.  The weight and bias cotangents are left to the caller: dg,
-// dyl and m keep every plane's values for it.
-__global__ void __launch_bounds__(THREADS, 2) red_recur_bwd_kernel(BwdArgs a) {
+//   A. recompute the gates g = conv([x_d | h], Wa) + ba into G[d & 1]; sums of g, g²
+//   B. r, u statistics; candidate conv([x_d | m], Wb) + bb into Y, m = r·h
+//      staged from G and h (and kept in m[d] by the item that owns it); sums
+//   C. y statistics; own pixels: dht = dh + gout_d; do = dht·(1 − u)·(1 − y²),
+//      du = dht·(h − y)·u·(1 − u) into the raw scratch; dh ← dht·u; sums of
+//      do·γ_y, do·γ_y·ŷ, du·γ_u, du·γ_u·û
+//   D. the transposes' means; dm = convᵀ(dy_lin, Wc) with
+//      dy_lin = inv_y·(do·γ_y − mean(do·γ_y) − ŷ·mean(do·γ_y·ŷ)) staged from the
+//      raw do and Y (and kept in dyl[d]); dr = dm·h·r·(1 − r) into the raw
+//      scratch, dh += dm·r; sums of dr·γ_r, dr·γ_r·r̂
+//   E. GN_r's transpose means; [dh | dx_d] += convᵀ([dgr | dgu | dy_lin], [Wh | Wx])
+//      with dgr and dgu, the GN_r and GN_u transposes of dr and du, staged from
+//      the raw scratch and G; own pixels write them to dg[d]
+// with a grid.sync() after each of A-D.  E needs none before the next plane:
+// that plane's A reads x, out and h0 and writes G[(d − 1) & 1] and the first
+// per-block sums, none of which E reads; its B writes Y and m[d − 1] after
+// a sync.  The GroupNorm parameter cotangents Σ do·ŷ, Σ do (C), Σ du·û,
+// Σ du (C) and Σ dr·r̂, Σ dr (E) accumulate in each thread's own slots (a
+// thread keeps the same four channels in every own-pixel pass) and are
+// reduced once at the end in a fixed order.  The weight and bias cotangents
+// are left to the caller: dg, dyl and m keep every plane's values for it.
+// Each phase derives its pointers from the arguments, so few stay live
+// across the plane loop.
+__global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* gsm = sm + IN_WORDS + W_WORDS;  // [GACC][BT]: each thread's own sums
   __shared__ double red[WARPS * 4];
+  __shared__ double tot[4];
   __shared__ float stats[12];  // mean, 1/std of r, u, y; then the transposes' means
-  __shared__ float gsm[WARPS][32];
   const int C = a.C, C2 = 2 * C, Cin = a.Cin, W = a.W, H = a.H;
-  const int64_t P = (int64_t)H * W;
-  const int64_t plane = P * C;
-  const double inv_n = 1.0 / (double)plane;
+  const int P = H * W;
+  const int plane = P * C;
+  const double inv_n = 1.0 / ((double)P * C);
   const int bpe = gridDim.x / a.B;
   const int b = blockIdx.x / bpe;
-  const int64_t first = (int64_t)(blockIdx.x - b * bpe) * blockDim.x + threadIdx.x;
-  const int64_t step = (int64_t)bpe * blockDim.x;
-  const int ga = C2 / CO_T, gc = C / CO_T, gx = a.cinp / CO_T;
-  const float* x = a.x + (int64_t)b * a.D * P * Cin;
-  const float* h0 = a.h0 + (int64_t)b * plane;
-  const float* out = a.out + (int64_t)b * a.D * plane;
-  const float* gout = a.gout + (int64_t)b * a.D * plane;
-  float* dx = a.dx + (int64_t)b * a.D * P * Cin;
-  float* dgs = a.dg + (int64_t)b * a.D * P * C2;
-  float* dyls = a.dyl + (int64_t)b * a.D * plane;
-  float* ms = a.m + (int64_t)b * a.D * plane;
-  float* G = a.graw + (int64_t)b * P * C2;
-  float* Y = a.yraw + (int64_t)b * plane;
-  float* DH = a.dh + (int64_t)b * plane;
-  double* part[4];
-  const double* elem[4];
-  for (int k = 0; k < 4; ++k) {
-    part[k] = a.part + 4 * (int64_t)k * gridDim.x;
-    elem[k] = part[k] + 4 * (int64_t)b * bpe;
-  }
+  const int kb = blockIdx.x - b * bpe;  // this block among element b's
+  // own-pixel passes: thread → (pixel lane, group of four channels)
+  const int gc = C / 4, npl = BT / gc;
+  const int lp = threadIdx.x / gc, c0 = (threadIdx.x - lp * gc) * 4;
+  const bool own_lane = lp < npl;
+  const int p_first = kb * npl + lp, p_step = bpe * npl;
+  const int64_t e1 = (int64_t)b * plane;  // element b in the (B, H, W, C) arrays
+  // the per-block sums of pass k, and element b's first block's
+  auto part = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + blockIdx.x); };
+  auto elem = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + (int64_t)b * bpe); };
   const float* gn = a.gn;
-  const int c0 = (int)(threadIdx.x % gc) * CO_T;  // this thread's channels in own-pixel phases
-  float gacc[6][CO_T];  // Σ dr·r̂, Σ dr, Σ du·û, Σ du, Σ do·ŷ, Σ do for channels c0 ..
-#pragma unroll
-  for (int q = 0; q < 6; ++q)
-#pragma unroll
-    for (int k = 0; k < CO_T; ++k) gacc[q][k] = 0.f;
+  // slot (q·4 + k)·BT + thread: Σ dr·r̂, Σ dr, Σ du·û, Σ du, Σ do·ŷ, Σ do (q = 0 .. 5)
+  // of this thread's channel c0 + k
+  float* gsl = gsm + threadIdx.x;
+  for (int i = 0; i < GACC; ++i) gsl[i * BT] = 0.f;
   // GroupNorm scale and shift of norm q (r, u, y) for this thread's channel c0 + k
   auto gam = [&](int q, int k) { return __ldg(gn + 2 * q * C + c0 + k); };
   auto bet = [&](int q, int k) { return __ldg(gn + (2 * q + 1) * C + c0 + k); };
+  auto none = [](int, int, float) {};
 
   for (int d = a.D - 1; d >= 0; --d) {
-    const float* xd = x + (int64_t)d * P * Cin;
-    const float* h = d == 0 ? h0 : out + (int64_t)(d - 1) * plane;
-    const float* gd = gout + (int64_t)d * plane;
-    float* M = ms + (int64_t)d * plane;
-    float* DG = dgs + (int64_t)d * P * C2;
-    float* DYL = dyls + (int64_t)d * plane;
-    float* DX = dx + (int64_t)d * P * Cin;
+    const int64_t ed = ((int64_t)b * a.D + d) * plane;  // plane d of element b, C channels
+    const float* h = d == 0 ? a.h0 + e1 : a.out + ed - plane;
+    float* G = a.graw + ((int64_t)(d & 1) * a.B + b) * P * C2;
 
-    // 1. gates, as the forward
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int64_t t = first; t < P * ga; t += step) {
-      const int co0 = (int)(t % ga) * CO_T;
-      const int64_t p = t / ga;
-      float acc[CO_T];
+    {  // A. gates
+      const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      conv<1>(
+          a.cv[0], H, W, Cin + C, Cin + C, 0, a.wa, C2, C2, kb, bpe, sm,
+          [&](int p, int c, int) { return c < Cin ? xd + p * Cin + c : h + p * C + c - Cin; },
+          [](int, int, float r0, float) { return r0; }, none,
+          [&](int p, int co, const float (&v)[4]) {
+            float o[4];
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = __ldg(a.ba + co0 + k);
-      conv_pixel<true>(xd, Cin, h, C, a.wa, C2, (int)(p / W), (int)(p % W), H, W, co0, acc);
-      st4(G + p * C2 + co0, acc);
-      const int half = co0 < C ? 0 : 2;
+            for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(a.ba + co + k);
+            st4(G + p * C2 + co, o);
+            double t = 0.0, t2 = 0.0;
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        s[half] += acc[k];
-        s[half + 1] += (double)acc[k] * acc[k];
+            for (int k = 0; k < 4; ++k) {
+              t += o[k];
+              t2 += (double)o[k] * o[k];
+            }
+            if (co < C) {  // the r half, then the u half
+              s[0] += t;
+              s[1] += t2;
+            } else {
+              s[2] += t;
+              s[3] += t2;
+            }
+          });
+      block_sums(s, red, part(0));
+    }
+    grid.sync();
+
+    {  // B. r and u statistics; candidate over [x_d | m]
+      elem_stats(elem(0), bpe, inv_n, 2, 0, red, tot, stats);
+      const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
+      float* M = a.m + ed;
+      float* Y = a.yraw + e1;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      conv<2>(
+          a.cv[1], H, W, Cin + C, Cin + C, 0, a.wb, C, C, kb, bpe, sm,
+          [&](int p, int c, int k) -> const float* {
+            if (c < Cin) return k == 0 ? xd + p * Cin + c : nullptr;
+            return k == 0 ? G + p * C2 + c - Cin : h + p * C + c - Cin;
+          },
+          [&](int, int c, float g, float hv) {
+            if (c < Cin) return g;
+            const int k = c - Cin;
+            return sigmoid(gn_affine(g, stats[0], stats[1], __ldg(gn + k), __ldg(gn + C + k))) * hv;
+          },
+          [&](int p, int c, float v) {
+            if (c >= Cin) M[p * C + c - Cin] = v;
+          },
+          [&](int p, int co, const float (&v)[4]) {
+            float o[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(a.bb + co + k);
+            st4(Y + p * C + co, o);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              s[0] += o[k];
+              s[1] += (double)o[k] * o[k];
+            }
+          });
+      block_sums(s, red, part(1));
+    }
+    grid.sync();
+
+    {  // C. the blend's and the tanh's adjoints; GN_y and GN_u transpose sums
+      elem_stats(elem(1), bpe, inv_n, 1, 0, red, tot, stats + 4);
+      const float* Y = a.yraw + e1;
+      const float* gd = a.gout + ed;
+      float* DH = a.dh + e1;
+      float* DO = a.draw + e1;
+      float* DU = DO + (int64_t)a.B * plane;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      if (own_lane) {
+        float ga[4][4];  // Σ du·û, Σ du, Σ do·ŷ, Σ do
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) ga[q][k] = gsl[((2 + q) * 4 + k) * BT];
+        for (int p = p_first; p < P; p += p_step) {
+          float gu[4], yr[4], hh[4], dhv[4], gv[4], dov[4], duv[4];
+          unpack4(ld4(G + p * C2 + C + c0), gu);
+          unpack4(ld4(Y + p * C + c0), yr);
+          unpack4(ld4(h + p * C + c0), hh);
+          unpack4(ld4(DH + p * C + c0), dhv);
+          unpack4(ld4(gd + p * C + c0), gv);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float uh = (gu[k] - stats[2]) * stats[3];
+            const float u = sigmoid(gn_affine(gu[k], stats[2], stats[3], gam(1, k), bet(1, k)));
+            const float yh = (yr[k] - stats[4]) * stats[5];
+            const float y = tanhf(gn_affine(yr[k], stats[4], stats[5], gam(2, k), bet(2, k)));
+            const float dht = dhv[k] + gv[k];
+            const float dov_ = dht * (1.f - u) * (1.f - y * y);
+            const float duv_ = dht * (hh[k] - y) * u * (1.f - u);
+            dov[k] = dov_;
+            duv[k] = duv_;
+            dhv[k] = dht * u;
+            ga[0][k] += duv_ * uh;
+            ga[1][k] += duv_;
+            ga[2][k] += dov_ * yh;
+            ga[3][k] += dov_;
+            const double dyg = (double)dov_ * gam(2, k), dug = (double)duv_ * gam(1, k);
+            s[0] += dyg;
+            s[1] += dyg * yh;
+            s[2] += dug;
+            s[3] += dug * uh;
+          }
+          st4(DH + p * C + c0, dhv);
+          st4(DO + p * C + c0, dov);
+          st4(DU + p * C + c0, duv);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gsl[((2 + q) * 4 + k) * BT] = ga[q][k];
       }
-    }
-    block_sums(s, red, part[0] + 4 * blockIdx.x);
-    grid.sync();
-
-    // 2. r and u statistics; m = r·h
-    plane_stats(elem[0], bpe, inv_n, 2, stats);
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float gr[CO_T], hh[CO_T], mv[CO_T];
-      unpack4(ld4(G + p * C2 + c0), gr);
-      unpack4(ld4(h + p * C + c0), hh);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k)
-        mv[k] = sigmoid(gn_affine(gr[k], stats[0], stats[1], gam(0, k), bet(0, k))) * hh[k];
-      st4(M + p * C + c0, mv);
+      block_sums(s, red, part(2));
     }
     grid.sync();
 
-    // 3. candidate, as the forward
-    s[0] = s[1] = s[2] = s[3] = 0.0;
-    for (int64_t t = first; t < P * gc; t += step) {
-      const int cc = (int)(t % gc) * CO_T;
-      const int64_t p = t / gc;
-      float acc[CO_T];
+    {  // D. dm = convᵀ(dy_lin, Wc); the r chain; GN_r transpose sums
+      elem_stats(elem(2), bpe, inv_n, 0, 4, red, tot, stats + 6);
+      const float* Y = a.yraw + e1;
+      const float* DO = a.draw + e1;
+      float* DR = a.draw + 2 * (int64_t)a.B * plane + e1;
+      float* DH = a.dh + e1;
+      float* DYL = a.dyl + ed;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      conv<2>(
+          a.cv[2], H, W, C, C, 0, a.wcT, C, C, kb, bpe, sm,
+          [&](int p, int c, int k) { return (k == 0 ? DO : Y) + p * C + c; },
+          [&](int, int c, float dov, float yr) {
+            const float yh = (yr - stats[4]) * stats[5];
+            return (dov * __ldg(gn + 4 * C + c) - stats[6] - yh * stats[7]) * stats[5];
+          },
+          [&](int p, int c, float v) { DYL[p * C + c] = v; },
+          [&](int p, int co, const float (&dm)[4]) {
+            float gr[4], hh[4], dhv[4], drv[4];
+            unpack4(ld4(G + p * C2 + co), gr);
+            unpack4(ld4(h + p * C + co), hh);
+            unpack4(ld4(DH + p * C + co), dhv);
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = __ldg(a.bb + cc + k);
-      conv_pixel<true>(xd, Cin, M, C, a.wb, C, (int)(p / W), (int)(p % W), H, W, cc, acc);
-      st4(Y + p * C + cc, acc);
+            for (int k = 0; k < 4; ++k) {
+              const int c = co + k;
+              const float g_s = __ldg(gn + c);
+              const float rh = (gr[k] - stats[0]) * stats[1];
+              const float r =
+                  sigmoid(gn_affine(gr[k], stats[0], stats[1], g_s, __ldg(gn + C + c)));
+              const float drv_ = dm[k] * hh[k] * r * (1.f - r);
+              drv[k] = drv_;
+              dhv[k] += dm[k] * r;
+              const double drg = (double)drv_ * g_s;
+              s[0] += drg;
+              s[1] += drg * rh;
+            }
+            st4(DH + p * C + co, dhv);
+            st4(DR + p * C + co, drv);
+          });
+      block_sums(s, red, part(3));
+    }
+    grid.sync();
+
+    {  // E. the state's cotangent for plane d − 1, and dx_d
+      elem_stats(elem(3), bpe, inv_n, 0, 2, red, tot, stats + 10);
+      const float* DU = a.draw + (int64_t)a.B * plane + e1;
+      const float* DR = DU + (int64_t)a.B * plane;
+      const float* DYL = a.dyl + ed;
+      float* DH = a.dh + e1;
+      float* DX = a.dx + ((int64_t)b * a.D + d) * P * Cin;
+      conv<2>(
+          a.cv[3], H, W, 3 * C, C2, C, a.weT, C + Cin, (C + Cin + 3) / 4 * 4, kb, bpe, sm,
+          [&](int p, int c, int k) -> const float* {
+            // the raw dr (c < C) or du (c < 2C) and the raw gate, else dy_lin
+            if (c >= C2) return k == 0 ? DYL + p * C + c - C2 : nullptr;
+            if (k == 1) return G + p * C2 + c;
+            return c < C ? DR + p * C + c : DU + p * C + c - C;
+          },
+          [&](int, int c, float raw, float gr) {
+            // the GN_r or GN_u transpose of dr or du
+            if (c >= C2) return raw;
+            const bool is_r = c < C;
+            const int k = is_r ? c : c - C;
+            const float mean = is_r ? stats[0] : stats[2], inv = is_r ? stats[1] : stats[3];
+            const float t0 = is_r ? stats[10] : stats[8], t1 = is_r ? stats[11] : stats[9];
+            const float xh = (gr - mean) * inv;
+            return (raw * __ldg(gn + (is_r ? 0 : C2) + k) - t0 - xh * t1) * inv;
+          },
+          none,
+          [&](int p, int co, const float (&v)[4]) {
+            if (co < C) {
+              float dhv[4];
+              unpack4(ld4(DH + p * C + co), dhv);
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        s[0] += acc[k];
-        s[1] += (double)acc[k] * acc[k];
+              for (int k = 0; k < 4; ++k) dhv[k] += v[k];
+              st4(DH + p * C + co, dhv);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                if (co + k < C + Cin) DX[p * Cin + co + k - C] = v[k];
+            }
+          });
+      // own pixels: the gate cotangents of plane d for the weight
+      // reductions; GN_r's parameter sums
+      if (own_lane) {
+        float* DG = a.dg + ((int64_t)b * a.D + d) * P * C2;
+        float ga[2][4];  // Σ dr·r̂, Σ dr
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) ga[q][k] = gsl[(q * 4 + k) * BT];
+        for (int p = p_first; p < P; p += p_step) {
+          float gr[4], gu[4], drv[4], duv[4], dgr[4], dgu[4];
+          unpack4(ld4(G + p * C2 + c0), gr);
+          unpack4(ld4(G + p * C2 + C + c0), gu);
+          unpack4(ld4(DR + p * C + c0), drv);
+          unpack4(ld4(DU + p * C + c0), duv);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float rh = (gr[k] - stats[0]) * stats[1];
+            const float uh = (gu[k] - stats[2]) * stats[3];
+            ga[0][k] += drv[k] * rh;
+            ga[1][k] += drv[k];
+            dgr[k] = (drv[k] * gam(0, k) - stats[10] - rh * stats[11]) * stats[1];
+            dgu[k] = (duv[k] * gam(1, k) - stats[8] - uh * stats[9]) * stats[3];
+          }
+          st4(DG + p * C2 + c0, dgr);
+          st4(DG + p * C2 + C + c0, dgu);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gsl[(q * 4 + k) * BT] = ga[q][k];
       }
-    }
-    block_sums(s, red, part[1] + 4 * blockIdx.x);
-    grid.sync();
-
-    // 4. the blend's and the tanh's adjoints; GN_y and GN_u transpose sums
-    plane_stats(elem[1], bpe, inv_n, 1, stats + 4);
-    s[0] = s[1] = s[2] = s[3] = 0.0;
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float gu[CO_T], yr[CO_T], hh[CO_T], dhv[CO_T], gv[CO_T], dov[CO_T], duv[CO_T];
-      unpack4(ld4(G + p * C2 + C + c0), gu);
-      unpack4(ld4(Y + p * C + c0), yr);
-      unpack4(ld4(h + p * C + c0), hh);
-      unpack4(ld4(DH + p * C + c0), dhv);
-      unpack4(ld4(gd + p * C + c0), gv);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const float uh = (gu[k] - stats[2]) * stats[3];
-        const float u = sigmoid(gn_affine(gu[k], stats[2], stats[3], gam(1, k), bet(1, k)));
-        const float yh = (yr[k] - stats[4]) * stats[5];
-        const float y = tanhf(gn_affine(yr[k], stats[4], stats[5], gam(2, k), bet(2, k)));
-        const float dht = dhv[k] + gv[k];
-        const float dov_ = dht * (1.f - u) * (1.f - y * y);
-        const float duv_ = dht * (hh[k] - y) * u * (1.f - u);
-        dov[k] = dov_;
-        duv[k] = duv_;
-        dhv[k] = dht * u;
-        gacc[4][k] += dov_ * yh;
-        gacc[5][k] += dov_;
-        gacc[2][k] += duv_ * uh;
-        gacc[3][k] += duv_;
-        const double dyg = (double)dov_ * gam(2, k), dug = (double)duv_ * gam(1, k);
-        s[0] += dyg;
-        s[1] += dyg * yh;
-        s[2] += dug;
-        s[3] += dug * uh;
-      }
-      st4(DH + p * C + c0, dhv);
-      st4(DYL + p * C + c0, dov);
-      st4(DG + p * C2 + C + c0, duv);
-    }
-    block_sums(s, red, part[2] + 4 * blockIdx.x);
-    grid.sync();
-
-    // 5. dy_lin and dgu through the GroupNorm transposes
-    plane_means(elem[2], bpe, inv_n, 4, stats + 6);
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float gu[CO_T], yr[CO_T], dov[CO_T], duv[CO_T];
-      unpack4(ld4(G + p * C2 + C + c0), gu);
-      unpack4(ld4(Y + p * C + c0), yr);
-      unpack4(ld4(DYL + p * C + c0), dov);
-      unpack4(ld4(DG + p * C2 + C + c0), duv);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const float yh = (yr[k] - stats[4]) * stats[5];
-        const float uh = (gu[k] - stats[2]) * stats[3];
-        dov[k] = (dov[k] * gam(2, k) - stats[6] - yh * stats[7]) * stats[5];
-        duv[k] = (duv[k] * gam(1, k) - stats[8] - uh * stats[9]) * stats[3];
-      }
-      st4(DYL + p * C + c0, dov);
-      st4(DG + p * C2 + C + c0, duv);
-    }
-    grid.sync();
-
-    // 6. dm = convᵀ(dy_lin, Wc); the r chain; GN_r transpose sums
-    s[0] = s[1] = 0.0;
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float dm[CO_T] = {0.f, 0.f, 0.f, 0.f};
-      conv_pixel<false>(nullptr, 0, DYL, C, a.wcT, C, (int)(p / W), (int)(p % W), H, W, c0, dm);
-      float gr[CO_T], hh[CO_T], dhv[CO_T], drv[CO_T];
-      unpack4(ld4(G + p * C2 + c0), gr);
-      unpack4(ld4(h + p * C + c0), hh);
-      unpack4(ld4(DH + p * C + c0), dhv);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const float rh = (gr[k] - stats[0]) * stats[1];
-        const float r = sigmoid(gn_affine(gr[k], stats[0], stats[1], gam(0, k), bet(0, k)));
-        const float drv_ = dm[k] * hh[k] * r * (1.f - r);
-        drv[k] = drv_;
-        dhv[k] += dm[k] * r;
-        gacc[0][k] += drv_ * rh;
-        gacc[1][k] += drv_;
-        const double drg = (double)drv_ * gam(0, k);
-        s[0] += drg;
-        s[1] += drg * rh;
-      }
-      st4(DH + p * C + c0, dhv);
-      st4(DG + p * C2 + c0, drv);
-    }
-    block_sums(s, red, part[3] + 4 * blockIdx.x);
-    grid.sync();
-
-    // 7. dgr through GN_r's transpose
-    plane_means(elem[3], bpe, inv_n, 2, stats + 10);
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float gr[CO_T], drv[CO_T];
-      unpack4(ld4(G + p * C2 + c0), gr);
-      unpack4(ld4(DG + p * C2 + c0), drv);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const float rh = (gr[k] - stats[0]) * stats[1];
-        drv[k] = (drv[k] * gam(0, k) - stats[10] - rh * stats[11]) * stats[1];
-      }
-      st4(DG + p * C2 + c0, drv);
-    }
-    grid.sync();
-
-    // 8. the state's cotangent for plane d − 1, and dx_d
-    for (int64_t p = first / gc; p < P; p += step / gc) {
-      float dhv[CO_T];
-      unpack4(ld4(DH + p * C + c0), dhv);
-      conv_pixel<false>(nullptr, 0, DG, C2, a.whT, C, (int)(p / W), (int)(p % W), H, W, c0, dhv);
-      st4(DH + p * C + c0, dhv);
-    }
-    for (int64_t t = first; t < P * gx; t += step) {
-      const int ci0 = (int)(t % gx) * CO_T;
-      const int64_t p = t / gx;
-      float acc[CO_T] = {0.f, 0.f, 0.f, 0.f};
-      conv_pixel<false>(DG, C2, DYL, C, a.wxT, a.cinp, (int)(p / W), (int)(p % W), H, W, ci0,
-                        acc);
-      for (int k = 0; k < CO_T && ci0 + k < Cin; ++k) DX[p * Cin + ci0 + k] = acc[k];
     }
   }
 
-  // the GroupNorm parameter cotangents: lanes of one channel group, then the
-  // warps, then (after the sync) the blocks, each in a fixed order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = gc < 32 ? gc : 32;
-  for (int q = 0; q < 6; ++q) {
-    for (int k = 0; k < CO_T; ++k) {
-      float v = gacc[q][k];
-      for (int off = 16; off >= groups; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane < groups) gsm[warp][lane] = v;
-      __syncthreads();
-      if ((int)threadIdx.x < groups) {
-        double t = 0.0;
-        for (int w = 0; w < WARPS; ++w) t += gsm[w][threadIdx.x];
-        a.gnpart[((int64_t)blockIdx.x * 6 + q) * C + threadIdx.x * CO_T + k] = t;
-      }
-      __syncthreads();
-    }
+  // the GroupNorm parameter cotangents: each block's threads in order, then
+  // (after the sync) the blocks in order
+  __syncthreads();
+  for (int i = threadIdx.x; i < 6 * C; i += BT) {
+    const int q = i / C, c = i - q * C, grp = c / 4, k = c - 4 * grp;
+    double t = 0.0;
+    for (int l = 0; l < npl; ++l) t += gsm[(q * 4 + k) * BT + l * gc + grp];
+    a.gnpart[(int64_t)blockIdx.x * 6 * C + i] = t;
   }
   grid.sync();
   if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < 6 * C; i += blockDim.x) {
+    for (int i = threadIdx.x; i < 6 * C; i += BT) {
       double t = 0.0;
       for (int blk = 0; blk < (int)gridDim.x; ++blk) t += a.gnpart[(int64_t)blk * 6 * C + i];
       a.dgn[i] = (float)t;
@@ -669,18 +983,17 @@ __global__ void __launch_bounds__(THREADS, 2) red_recur_bwd_kernel(BwdArgs a) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Blocks of a cooperative launch of `kernel` for B elements of an (H, W)
+// Blocks of a cooperative launch of the forward for B elements of an (H, W)
 // plane with C state channels: B equal groups, each of at most the blocks one
 // element's gate work fills, all resident at once and at most max_blocks in
 // all.  A negative CUDA error code when not even one block per element fits.
-template <typename K>
-int coop_blocks(K kernel, int B, int H, int W, int C, int max_blocks) {
+int forward_blocks(int B, int H, int W, int C, int max_blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if (B < 1) return -(int)cudaErrorInvalidValue;
   if ((err = cudaGetDevice(&dev))) return -(int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return -(int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0)))
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, red_recur_kernel, THREADS, 0)))
     return -(int)err;
   int64_t per = ((int64_t)H * W * (2 * C / CO_T) + THREADS - 1) / THREADS;
   const int64_t resident = (int64_t)per_sm * sms / B;
@@ -689,13 +1002,14 @@ int coop_blocks(K kernel, int B, int H, int W, int C, int max_blocks) {
   return per < 1 ? -(int)cudaErrorCooperativeLaunchTooLarge : (int)(B * per);
 }
 
-// One cooperative launch of `kernel` with its argument struct; returns
-// cudaGetLastError()-style codes (0 = launched).
+// One cooperative launch of `kernel` with its argument struct and `smem`
+// bytes of dynamic shared memory; returns cudaGetLastError()-style codes
+// (0 = launched).
 template <typename K, typename A>
-int coop_launch(K kernel, A a, int blocks, void* stream) {
+int coop_launch(K kernel, A a, int blocks, int smem, void* stream) {
   void* kargs[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(THREADS),
-                                                kargs, 0, static_cast<cudaStream_t>(stream));
+                                                kargs, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch is not sticky: clear it for later launches
     return (int)err;
@@ -703,12 +1017,14 @@ int coop_launch(K kernel, A a, int blocks, void* stream) {
   return (int)cudaGetLastError();
 }
 
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
 }  // namespace
 
-// Blocks that red_recur_f32 launches (see coop_blocks); the caller sizes the
-// `part` scratch as 8 doubles per block.
+// Blocks that red_recur_f32 launches (see forward_blocks); the caller sizes
+// the `part` scratch as 8 doubles per block.
 extern "C" int red_recur_blocks(int B, int H, int W, int C, int max_blocks) {
-  return coop_blocks(red_recur_kernel, B, H, W, C, max_blocks);
+  return forward_blocks(B, H, W, C, max_blocks);
 }
 
 // Runs the recurrence of B elements over all D planes in one cooperative
@@ -726,41 +1042,67 @@ extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float*
   if (D == 0) return 0;
   return coop_launch(red_recur_kernel, Args{x, h0, out, g, m, part, wa, ba, wb, bb, gn, B, D, H, W,
                                             Cin, C},
-                     blocks, stream);
+                     blocks, 0, stream);
 }
 
-// Blocks that red_recur_bwd_f32 launches (see coop_blocks); the caller sizes
-// `part` as 16 doubles per block and `gnpart` as 6·C.
-extern "C" int red_recur_bwd_blocks(int B, int H, int W, int C, int max_blocks) {
-  return coop_blocks(red_recur_bwd_kernel, B, H, W, C, max_blocks);
+// Bytes of dynamic shared memory a backward block takes (the launch plan's
+// constant RED_BWD_SMEM mirrors it).
+extern "C" int red_recur_bwd_smem() { return BWD_SMEM; }
+
+// Backward blocks that can be resident at once on the current device, or a
+// negative CUDA error code.
+extern "C" int red_recur_bwd_resident() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev))) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return -(int)err;
+  if ((err = cudaFuncSetAttribute(red_recur_bwd_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM)))
+    return -(int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, red_recur_bwd_kernel, BT,
+                                                           BWD_SMEM)))
+    return -(int)err;
+  return per_sm * sms;
 }
 
 // The reverse-plane adjoint of red_recur_f32 over B elements in one
-// cooperative launch of `blocks` blocks (from red_recur_bwd_blocks) on
-// `stream`: dx, the per-plane cotangents dg (B, D, H, W, 2C) and dyl
-// (B, D, H, W, C), the recomputed m (B, D, H, W, C) for the caller's weight
-// cotangents, and dgn (6, C).  dh must hold zeros.  C/4 must be a power of
-// two and at most 32, cinp = Cin rounded up to 4, every float pointer but x's
-// and dx's 16-byte aligned.  Returns cudaGetLastError()-style codes (0 = launched).
+// cooperative launch of `blocks` blocks (B equal groups, at most
+// red_recur_bwd_resident()) on `stream`: dx, the per-plane cotangents dg
+// (B, D, H, W, 2C) and dyl (B, D, H, W, C), the recomputed m (B, D, H, W, C)
+// for the caller's weight cotangents, and dgn (6, C).  plan holds (px, wr, wc,
+// wk, ck) of the four convs (see ConvPlan; ops/kernels/red_recur.py
+// `red_recur_bwd_plan`).  dh must hold zeros.  C must be a multiple of 4 and
+// at most 4·BT, every float pointer but x's and dx's 16-byte aligned.
+// Returns cudaGetLastError()-style codes (0 = launched).
 extern "C" int red_recur_bwd_f32(const float* x, const float* h0, const float* out,
                                  const float* gout, float* dx, float* dg, float* dyl, float* m,
-                                 float* graw, float* yraw, float* dh, double* part,
+                                 float* graw, float* yraw, float* dh, float* draw, double* part,
                                  double* gnpart, float* dgn, const float* wa, const float* ba,
                                  const float* wb, const float* bb, const float* gn,
-                                 const float* whT, const float* wcT, const float* wxT, int B,
+                                 const float* wcT, const float* weT, const int* plan, int B,
                                  int D, int H, int W, int Cin, int C, int blocks, void* stream) {
-  const int gc = C / CO_T;
-  if (C % CO_T != 0 || gc > 32 || (gc & (gc - 1)) != 0 || B < 1 || blocks < B ||
-      blocks % B != 0)
+  if (C < 4 || C % 4 != 0 || C / 4 > BT || Cin < 1 || B < 1 || blocks < B || blocks % B != 0)
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {h0, out, gout, dg, dyl, m, graw, yraw, dh, part, gnpart,
-                        wa, ba, wb, bb, gn, whT, wcT, wxT};
+  if ((int64_t)H * W * (3 * C + Cin) >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  BwdArgs args{x,  h0, out, gout, dx, dg, dyl, m,  graw, yraw, dh, draw, part, gnpart, dgn,
+               wa, ba, wb,  bb,   gn, wcT, weT, {}, B,    D,    H,  W,    Cin,  C};
+  for (int i = 0; i < 4; ++i) {
+    const int* q = plan + 5 * i;
+    const ConvPlan p{q[0], q[1], q[2], q[3], q[4]};
+    if ((p.px != 1 && p.px != 2) || !pow2(p.wr) || !pow2(p.wc) || !pow2(p.wk) ||
+        p.wr * p.wc * p.wk != WARPS || p.ck < 8 || p.ck > 64 || !pow2(p.ck) ||
+        (i == 0 ? 1 : 2) * p.ck * staged_plane(p.wr * p.px, p.ck) > IN_WORDS ||
+        9 * p.ck * p.wc * BCO > W_WORDS)
+      return (int)cudaErrorInvalidValue;
+    args.cv[i] = p;
+  }
+  const void* ptrs[] = {h0, out, gout, dg, dyl, m, graw, yraw, dh, draw, part, gnpart,
+                        wa, ba, wb, bb, gn, wcT, weT};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (D == 0) return 0;
-  return coop_launch(red_recur_bwd_kernel,
-                     BwdArgs{x, h0, out, gout, dx, dg, dyl, m, graw, yraw, dh, part, gnpart, dgn,
-                             wa, ba, wb, bb, gn, whT, wcT, wxT, B, D, H, W, Cin, C,
-                             (Cin + CO_T - 1) / CO_T * CO_T},
-                     blocks, stream);
+  cudaError_t err = cudaFuncSetAttribute(red_recur_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  return coop_launch(red_recur_bwd_kernel, args, blocks, BWD_SMEM, stream);
 }

@@ -30,20 +30,23 @@
 // is 162.8, 174.6 and 103.8 MB per view and stage, ~0.26 ms per step for two
 // views at 3.35 TB/s, and about the same for the scatter.
 //
-// Design.  The gather: one thread owns one output pixel (d, i, j) and a run
-// of VEC contiguous channels (VEC = 4 when C and the pointers allow float4),
-// so a warp reads or writes contiguous channels-last rows; it loads the two
-// coordinates once, computes the four corners and weights, and writes its
-// channels once.  The scatter: one thread owns one (i, j, channel group)
-// and walks a chunk of P consecutive planes d.  Neighbouring planes of a
-// sweep often share their floor corner, so it sums each corner's
-// tap-weighted values in registers while the corner stays and adds them
-// into dsrc (zeroed by the caller) when it moves: one float4 atomic per
-// corner (sm_90's vector atomicAdd) instead of four scalar ones, and one
-// per run of planes instead of one per plane.  The atomics resolve in L2,
-// and dsrc (≤ 9.4 MB here) stays there.  The pixel comes from the grid
-// (x: j and the channel group, y: i, z: the plane chunk), so there is no
-// int64 division.  The order of the atomic additions changes from run to
+// Design.  Both kernels take the pixel from the grid (x: j and the channel
+// group, y: i, z: a chunk of P consecutive planes), so there is no int64
+// division, and give a thread one (i, j, group of VEC contiguous channels)
+// (VEC = 4 when C and the pointers allow float4), the threads of one pixel
+// side by side, so a warp reads and writes contiguous channels-last rows;
+// each thread walks its chunk of planes.  The gather takes them two at a
+// time: both planes' coordinates, both taps, then both samples' corner loads
+// before either store, so eight loads are in flight instead of four.  Its
+// output is written once and never read here, so it goes out with streaming
+// stores (__stcs, evict-first) and the source (≤ 9.4 MB here) keeps its
+// place in L2 for the corners.  Neighbouring planes of a sweep often share
+// their floor corner, so the scatter sums each corner's tap-weighted values
+// in registers while the corner stays and adds them into dsrc (zeroed by the
+// caller) when it moves: one float4 atomic per corner (sm_90's vector
+// atomicAdd) instead of four scalar ones, and one per run of planes instead
+// of one per plane.  The atomics resolve in L2, and dsrc (≤ 9.4 MB here)
+// stays there.  The order of the atomic additions changes from run to
 // run, so the scatter is not bitwise reproducible: each dsrc element is a
 // sum of at most 4·D products (each rounded as the plain version rounds
 // it, `__fmul_rn`, then summed in some order), and two summation orders
@@ -58,20 +61,49 @@
 
 namespace {
 
+// Writes v to p with streaming stores: the output is not read again here.
+template <int VEC>
+__device__ __forceinline__ void store_streaming(float* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) __stcs(p + i, v[i]);
+  }
+}
+
+// Thread (i, j, channel group) of grid (W·groups / 256, H, plane chunks)
+// samples planes [z·P, z·P + P) of its pixel, two at a time.  The pixel and
+// channel come from the grid, one 32-bit division per thread.
 template <int VEC>
 __global__ void __launch_bounds__(256) sweep_gather_kernel(
     const float* __restrict__ src, const float* __restrict__ xs,
-    const float* __restrict__ ys, float* __restrict__ out, int D, int H, int W, int C) {
+    const float* __restrict__ ys, float* __restrict__ out, int D, int H, int W, int C, int P) {
   const int groups = C / VEC;
-  const int64_t total = (int64_t)D * H * W * groups;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c0 = (int)(t % groups) * VEC;
-  const int64_t pix = t / groups;  // d·H·W + i·W + j
-  const bilinear::Taps taps(__ldg(xs + pix), __ldg(ys + pix), H, W);
-  float o[VEC];
-  bilinear::sample<VEC>(src + c0, taps, H, W, C, o);
-  bilinear::store_vec<VEC>(out + pix * C + c0, o);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= W * groups) return;
+  const int j = t / groups;
+  const int c0 = (t - j * groups) * VEC;
+  const int d0 = blockIdx.z * P;
+  const int d1 = d0 + P < D ? d0 + P : D;
+  const int64_t plane = (int64_t)H * W;
+  int64_t pix = d0 * plane + (int64_t)blockIdx.y * W + j;
+  int d = d0;
+  for (; d + 1 < d1; d += 2, pix += 2 * plane) {
+    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), H, W);
+    const bilinear::Taps t1(__ldg(xs + pix + plane), __ldg(ys + pix + plane), H, W);
+    float o0[VEC], o1[VEC];
+    bilinear::sample<VEC>(src + c0, t0, H, W, C, o0);
+    bilinear::sample<VEC>(src + c0, t1, H, W, C, o1);
+    store_streaming<VEC>(out + pix * C + c0, o0);
+    store_streaming<VEC>(out + (pix + plane) * C + c0, o1);
+  }
+  if (d < d1) {
+    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), H, W);
+    float o0[VEC];
+    bilinear::sample<VEC>(src + c0, t0, H, W, C, o0);
+    store_streaming<VEC>(out + pix * C + c0, o0);
+  }
 }
 
 // Adds acc[k] into the dsrc pixel of corner k of the taps at (cx, cy) when
@@ -143,45 +175,47 @@ __global__ void __launch_bounds__(256) sweep_scatter_kernel(
 
 constexpr int kThreads = 256;
 
-// Blocks of kThreads for one thread per (pixel, vec channels): 0 when there
-// is no work, −1 when the arguments are invalid.
-int64_t grid_blocks(int D, int H, int W, int C, int vec) {
-  if ((vec != 1 && vec != 4) || C % vec != 0) return -1;
-  const int64_t blocks = ((int64_t)D * H * W * (C / vec) + kThreads - 1) / kThreads;
-  return blocks > 0x7fffffff ? -1 : blocks;
+// The grid of both kernels, (W·groups / kThreads, H, chunks of `planes`
+// planes); false when the arguments are invalid.  A grid without blocks
+// means there is no work.
+bool sweep_grid(int D, int H, int W, int C, int vec, int planes, dim3& grid) {
+  if ((vec != 1 && vec != 4) || C % vec != 0 || planes < 1 || D < 0 || H < 0 || W < 0 ||
+      H > 65535)
+    return false;
+  const int64_t row_threads = (int64_t)W * (C / vec);
+  const int64_t chunks = ((int64_t)D + planes - 1) / planes;
+  if (row_threads > 0x7fffffff || chunks > 65535) return false;
+  grid = dim3((unsigned)((row_threads + kThreads - 1) / kThreads), (unsigned)H, (unsigned)chunks);
+  return true;
 }
 
 }  // namespace
 
 // out (D, H, W, C) = bilinear samples of src (H, W, C) at xs, ys (D, H, W).
-// Launches on `stream`; vec is 4 (C % 4 == 0, all pointers 16-byte aligned)
-// or 1.  Returns cudaGetLastError() (0 = launched).
+// Each thread walks `planes` consecutive planes (≥ 1).  Launches on
+// `stream`; vec is 4 (C % 4 == 0, all pointers 16-byte aligned) or 1.
+// Returns cudaGetLastError() (0 = launched).
 extern "C" int sweep_gather_f32(const float* src, const float* xs, const float* ys, float* out,
-                                int D, int H, int W, int C, int vec, void* stream) {
-  const int64_t blocks = grid_blocks(D, H, W, C, vec);
-  if (blocks <= 0) return blocks < 0 ? (int)cudaErrorInvalidValue : 0;
+                                int D, int H, int W, int C, int vec, int planes, void* stream) {
+  dim3 grid;
+  if (!sweep_grid(D, H, W, C, vec, planes, grid)) return (int)cudaErrorInvalidValue;
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    sweep_gather_kernel<4><<<(unsigned)blocks, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C);
+    sweep_gather_kernel<4><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes);
   } else {
-    sweep_gather_kernel<1><<<(unsigned)blocks, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C);
+    sweep_gather_kernel<1><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes);
   }
   return (int)cudaGetLastError();
 }
 
 // dsrc (H, W, C) += the transpose of the gather applied to g (D, H, W, C);
-// the caller zeroes dsrc.  Each thread walks `planes` consecutive planes
-// (≥ 1).  Same launch contract otherwise.
+// the caller zeroes dsrc.  Same launch contract.
 extern "C" int sweep_scatter_f32(const float* g, const float* xs, const float* ys, float* dsrc,
                                  int D, int H, int W, int C, int vec, int planes, void* stream) {
-  if ((vec != 1 && vec != 4) || C % vec != 0 || planes < 1 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int64_t row_threads = (int64_t)W * (C / vec);
-  const int64_t chunks = ((int64_t)D + planes - 1) / planes;
-  if (row_threads == 0 || H == 0 || chunks == 0) return 0;
-  if (row_threads > 0x7fffffff || chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((row_threads + kThreads - 1) / kThreads), (unsigned)H,
-                  (unsigned)chunks);
+  dim3 grid;
+  if (!sweep_grid(D, H, W, C, vec, planes, grid)) return (int)cudaErrorInvalidValue;
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
     sweep_scatter_kernel<4><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes);

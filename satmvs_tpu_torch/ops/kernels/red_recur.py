@@ -28,6 +28,7 @@ reverse loop over the planes of the cell's local VJP).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -118,21 +119,23 @@ def cell_kernel_args(cell: ConvGRUCell) -> tuple[torch.Tensor, ...]:
 
 
 def cell_backward_weights(wa: torch.Tensor, wb: torch.Tensor,
-                          cin: int) -> tuple[torch.Tensor, ...]:
+                          cin: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The transposed convolutions' weights of the backward kernel, taps
     flipped (t → 8 − t), input and output channels swapped:
 
-      whT (9, 2C, C)      [t, co, c]  = wa[8 − t, Cin + c, co]
-      wcT (9, C, C)       [t, co, c]  = wb[8 − t, Cin + c, co]
-      wxT (9, 3C, cinp)   [t, co, ci] = wa[8 − t, ci, co] for co < 2C, then wb's;
-                          Cin padded with zeros to cinp, a multiple of 4
+      wcT (9, C, C)       [t, k, c] = wb[8 − t, Cin + c, k]: dm from dy_lin
+      weT (9, 3C, ce)     from [dgr | dgu | dy_lin] to [dh | dx]:
+                          [t, g, c] = wa[8 − t, Cin + c, g] for c < C and g < 2C, 0 for
+                          g ≥ 2C; [t, g, C + i] = wa[8 − t, i, g] for g < 2C, then
+                          wb[8 − t, i, g − 2C]; ce = C + Cin rounded up to 4, the rest 0
     """
+    c = wb.shape[-1]
     flip = torch.arange(8, -1, -1, device=wa.device)
     wa_f, wb_f = wa[flip], wb[flip]
-    whT = wa_f[:, cin:].transpose(1, 2).contiguous()
     wcT = wb_f[:, cin:].transpose(1, 2).contiguous()
+    wh = torch.cat([wa_f[:, cin:].transpose(1, 2), wa.new_zeros((9, c, c))], dim=1)
     wx = torch.cat([wa_f[:, :cin], wb_f[:, :cin]], dim=2).transpose(1, 2)
-    return whT, wcT, F.pad(wx, (0, -cin % 4)).contiguous()
+    return wcT, F.pad(torch.cat([wh, wx], dim=2), (0, -(c + cin) % 4)).contiguous()
 
 
 def _check(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None):
@@ -155,28 +158,125 @@ def _check(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None):
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("red_recur")
-    for name in ("red_recur_blocks", "red_recur_bwd_blocks"):
-        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+    lib.red_recur_blocks.argtypes = [ctypes.c_int] * 5
+    lib.red_recur_blocks.restype = ctypes.c_int
+    for name in ("red_recur_bwd_resident", "red_recur_bwd_smem"):
+        getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
     lib.red_recur_f32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.red_recur_f32.restype = ctypes.c_int
-    lib.red_recur_bwd_f32.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p])
+    lib.red_recur_bwd_f32.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.POINTER(ctypes.c_int)]
+                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.red_recur_bwd_f32.restype = ctypes.c_int
     return lib
 
 
-def grid_blocks(b: int, h: int, w: int, c: int, backward: bool = False) -> int:
-    """Blocks of the cooperative grid (of the forward kernel, or the
-    backward's) for B elements of (h, w) planes with c state channels (a
-    multiple of B, all resident at once); raises when not even one block per
-    element can be resident.  Call on the current device."""
-    fn = _lib().red_recur_bwd_blocks if backward else _lib().red_recur_blocks
-    blocks = fn(b, h, w, c, _MAX_BLOCKS)
+def grid_blocks(b: int, h: int, w: int, c: int) -> int:
+    """Blocks of the forward kernel's cooperative grid for B elements of
+    (h, w) planes with c state channels (a multiple of B, all resident at
+    once); raises when not even one block per element can be resident.  Call
+    on the current device."""
+    blocks = _lib().red_recur_blocks(b, h, w, c, _MAX_BLOCKS)
     if blocks < 1:
         raise RuntimeError(f"red_recur: no cooperative grid for B = {b}: CUDA error {-blocks}")
     return blocks
+
+
+# The backward kernel's geometry (csrc/red_recur.cu): blocks of 8 warps; a
+# conv's work item is a tile of 32 columns × (wr·px) rows and a slab of wc·8
+# output channels, its raw operands (one a channel for the gates, two for the
+# other convs) staged ck (8 to 64) input channels at a time with a one-pixel
+# halo by cp.async, then mapped in shared memory.
+RED_BWD_THREADS = 256
+_TW, _BCO, _RS = 32, 8, 34
+_NRAW = (1, 2, 2, 2)  # raw operands a staged channel of each conv reads
+
+
+def _staged_plane(tr: int, ck: int) -> int:
+    """Words of one staged input channel of a tile of tr rows (≡ 32 / min(ck,
+    32) mod 32)."""
+    m = 32 // min(ck, 32)
+    return ((tr + 2) * _RS - m + 31) // 32 * 32 + m
+
+
+_IN_WORDS = 2 * 16 * _staged_plane(8, 16)
+_W_WORDS = 9 * 16 * 8 * _BCO
+RED_BWD_SMEM = 4 * (_IN_WORDS + _W_WORDS + 24 * RED_BWD_THREADS)
+RED_BWD_MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+# The cost model, in instructions of one thread: mapping one staged element
+# of each conv (m = σ(GN_r(g))·h; dy_lin; the gate cotangents), a chunk's
+# fixed cost (the copies' latency, three barriers) and an item's (the
+# epilogue); issuing a staged element's copies costs 4 + 8 a raw operand
+_MAP_COST = (0, 50, 20, 25)
+_CHUNK_COST, _ITEM_COST = 800, 300
+
+
+def _conv_plan(h: int, w: int, cin: int, cout: int, cap: int, nraw: int, map_cost: int) -> dict:
+    """The least-cost (px, wr, wc, wk, ck) of one conv over an (h, w) plane
+    with cin inputs of nraw raw operands each and cout outputs when `cap`
+    blocks work on the element: the rounds of items a block walks times an
+    item's cost (per chunk the products and their shared loads,
+    3·(ck/wk)·(25·px + 8), the staging and a fixed cost); ties to more rows
+    a thread, wider slabs and deeper chunks.  px is 1 or 2 (four rows a
+    thread would spill registers), no slab is wider than the output rounded
+    up to 8, no chunk deeper than the input, and a chunk's raw operands and
+    weights fit their shared-memory buffers."""
+    best = None
+    for px in (2, 1):
+        for wc in (8, 4, 2, 1):
+            if _BCO * wc > -(-cout // _BCO) * _BCO:
+                continue
+            for wk in (1, 2, 4, 8):
+                if wc * wk > 8:
+                    continue
+                wr = 8 // (wc * wk)
+                tr = wr * px
+                for ck in (64, 32, 16, 8):
+                    if (nraw * ck * _staged_plane(tr, ck) > _IN_WORDS
+                            or 9 * ck * _BCO * wc > _W_WORDS or ck > -(-cin // 8) * 8):
+                        continue
+                    items = -(-h // tr) * -(-w // _TW) * -(-cout // (_BCO * wc))
+                    n_in = (tr + 2) * _RS * ck / RED_BWD_THREADS  # staged elements a thread
+                    chunk = (3 * (ck // wk) * (25 * px + 8)
+                             + n_in * ((4 + 8 * nraw) + (map_cost if nraw > 1 else 0))
+                             + 9 * ck * 2 * wc / RED_BWD_THREADS + _CHUNK_COST)
+                    item = (-(-cin // ck) * chunk + _ITEM_COST
+                            + (16 * px * wk if wk > 1 else 0))
+                    key = (-(-items // cap) * item, -px, -wc, -ck, wk)
+                    if best is None or key < best[0]:
+                        best = (key, {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck,
+                                      "tile_rows": tr, "slab": _BCO * wc, "items": items})
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) -> dict:
+    """The backward kernel's launch for B elements of (h, w) planes, cin
+    input and c state channels, on a card that holds `resident` of its blocks
+    at once: per conv (the gates, the candidate, convᵀ Wc, convᵀ [Wh | Wx])
+    its `_conv_plan`, and `blocks` = B · `per_element`, the most blocks any
+    of the element's passes can use, at most resident // B.  Pure Python,
+    cached (do not modify what it returns); raises ValueError for what the
+    kernel cannot run."""
+    if c < 4 or c % 4 or c // 4 > RED_BWD_THREADS:
+        raise ValueError(f"red_recur backward: the kernel takes C % 4 == 0, 4 ≤ C ≤ "
+                         f"{4 * RED_BWD_THREADS}, got C = {c}")
+    if min(b, h, w, cin) < 1:
+        raise ValueError(f"red_recur backward: empty operand B {b}, {h}×{w}, Cin {cin}")
+    if h * w * (3 * c + cin) >= 2 ** 31:
+        raise ValueError(f"red_recur backward: a {h}×{w} plane of {3 * c + cin} channels "
+                         f"overflows 32-bit indices")
+    if resident < b:
+        raise ValueError(f"red_recur backward: no cooperative grid for B = {b} on a card "
+                         f"that holds {resident} blocks")
+    cap = resident // b
+    shapes = ((cin + c, 2 * c), (cin + c, c), (c, c), (3 * c, c + cin))
+    convs = [_conv_plan(h, w, ci, co, cap, nraw, cost)
+             for (ci, co), nraw, cost in zip(shapes, _NRAW, _MAP_COST)]
+    own = -(-h * w // (RED_BWD_THREADS // (c // 4)))  # blocks the own-pixel passes fill
+    per = min(cap, max(own, *(p["items"] for p in convs)))
+    return {"blocks": b * per, "per_element": per, "convs": convs}
 
 
 def _start_state(x: torch.Tensor, c: int, h0: torch.Tensor | None) -> torch.Tensor:
@@ -229,6 +329,56 @@ def _param_grads(cell: ConvGRUCell, dwa, dba, dwb, dbb, dgn) -> tuple[torch.Tens
     return tuple(grads[name] for name, _ in cell.named_parameters())
 
 
+@functools.lru_cache(maxsize=16)
+def _resident(device: int) -> int:
+    return _lib().red_recur_bwd_resident()
+
+
+def bwd_resident() -> int:
+    """Backward blocks the current device holds at once (its shared memory
+    and registers at two blocks an SM); raises when the query fails."""
+    n = _resident(torch.cuda.current_device())
+    if n < 1:
+        raise RuntimeError(f"red_recur backward: no resident block: CUDA error {-n}")
+    return n
+
+
+def _adjoint(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell: ConvGRUCell,
+             h0: torch.Tensor, plan: dict | None = None) -> tuple[torch.Tensor, ...]:
+    """The adjoint kernel alone on CUDA tensors (not counted): dx, the
+    per-plane cotangents dg (B, D, H, W, 2C) and dyl (B, D, H, W, C), the
+    recomputed r·h m (B, D, H, W, C) and dgn (6, C).  `plan` replaces
+    `red_recur_bwd_plan`'s (to time other plans)."""
+    b, d, h, w, cin = x.shape
+    c = cell.features
+    lib = _lib()
+    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
+    wcT, weT = cell_backward_weights(wa, wb, cin)
+    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                                          device=x.device)
+    dx = new(b, d, h, w, cin)
+    dg, dyl, m = new(b, d, h, w, 2 * c), new(b, d, h, w, c), new(b, d, h, w, c)
+    graw, yraw, draw = new(2, b, h, w, 2 * c), new(b, h, w, c), new(3, b, h, w, c)
+    dh = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+    dgn = new(6, c)
+    with torch.cuda.device(x.device):
+        if plan is None:
+            plan = red_recur_bwd_plan(b, h, w, cin, c, bwd_resident())
+        blocks = plan["blocks"]
+        part = new(4, blocks, 4, dtype=torch.float64)
+        gnpart = new(blocks, 6, c, dtype=torch.float64)
+        convs = (ctypes.c_int * 20)(*(p[k] for p in plan["convs"]
+                                      for k in ("px", "wr", "wc", "wk", "ck")))
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.red_recur_bwd_f32(
+            *(t.data_ptr() for t in (x, h0, out, g, dx, dg, dyl, m, graw, yraw, dh, draw, part,
+                                     gnpart, dgn, wa, ba, wb, bb, gn, wcT, weT)),
+            convs, b, d, h, w, cin, c, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"red_recur backward kernel launch failed: CUDA error {rc}")
+    return dx, dg, dyl, m, dgn
+
+
 def red_recur_backward(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell: ConvGRUCell,
                        h0: torch.Tensor | None = None):
     """dx and the cotangents of `cell.parameters()` (in their order, summed
@@ -236,39 +386,19 @@ def red_recur_backward(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell
     `out` and the output's cotangent g; h0 is the start state the forward
     took (None for zeros; it gets no cotangent).  CUDA tensors go to the
     adjoint kernel and the weight reductions, counted in
-    `red_recur_backward.launches` (C/4 a power of two ≤ 32; out, g and h0
-    contiguous); CPU tensors to `red_recur_backward_reference`."""
+    `red_recur_backward.launches` (C % 4 == 0; x, out, g and h0 contiguous);
+    CPU tensors to `red_recur_backward_reference`."""
     if x.device.type == "cpu":
         return red_recur_backward_reference(x, out, g, cell, h0)
     b, d, h, w, cin = x.shape
     c = cell.features
-    if c % 4 or (c // 4) & (c // 4 - 1) or c > 128:
-        raise ValueError(f"red_recur backward: the kernel takes C = 4·2^k ≤ 128, got C = {c}")
+    if c % 4:
+        raise ValueError(f"red_recur backward: the kernel takes C % 4 == 0, got C = {c}")
     for name, t in (("x", x), ("out", out), ("g", g)):
         if not t.is_contiguous():
             raise ValueError(f"red_recur backward: {name} must be contiguous")
     h0 = _start_state(x, c, h0)
-    lib = _lib()
-    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
-    whT, wcT, wxT = cell_backward_weights(wa, wb, cin)
-    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
-                                                          device=x.device)
-    dx = new(b, d, h, w, cin)
-    dg, dyl, m = new(b, d, h, w, 2 * c), new(b, d, h, w, c), new(b, d, h, w, c)
-    graw, yraw = new(b, h, w, 2 * c), new(b, h, w, c)
-    dh = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
-    dgn = new(6, c)
-    with torch.cuda.device(x.device):
-        blocks = grid_blocks(b, h, w, c, backward=True)
-        part = new(4, blocks, 4, dtype=torch.float64)
-        gnpart = new(blocks, 6, c, dtype=torch.float64)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.red_recur_bwd_f32(
-            *(t.data_ptr() for t in (x, h0, out, g, dx, dg, dyl, m, graw, yraw, dh, part, gnpart,
-                                     dgn, wa, ba, wb, bb, gn, whT, wcT, wxT)),
-            b, d, h, w, cin, c, blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"red_recur backward kernel launch failed: CUDA error {rc}")
+    dx, dg, dyl, m, dgn = _adjoint(x, out, g, cell, h0)
     # weight and bias cotangents over all B·D planes: gates over [x | h_prev],
     # candidate over [x | r·h_prev]
     planes = lambda t: t.reshape(b * d, h, w, t.shape[-1])  # noqa: E731

@@ -76,6 +76,12 @@ def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
         raise ValueError(f"{name}: unsupported device {values.device}")
 
 
+# planes each gather thread walks, two at a time: of 1, 2, 4 and 8, 4 and 8
+# were fastest at the train step's shapes (kernel_ab.py --sweep on an H100),
+# and 4 keeps twice the threads in flight
+GATHER_PLANES = 4
+
+
 def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
     """Planes each scatter thread walks: D cut into the fewest equal chunks
     that still give about two threads per resident thread slot of the card
@@ -109,8 +115,9 @@ def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tens
     if src.device.type == "cpu":
         return sweep_gather_reference(src, xs, ys)
     d, h, w = xs.shape
-    out = torch.empty((d, h, w, src.shape[-1]), dtype=torch.float32, device=src.device)
-    _launch("sweep_gather", src, xs, ys, out, d, h, w, src.shape[-1])
+    c = src.shape[-1]
+    out = torch.empty((d, h, w, c), dtype=torch.float32, device=src.device)
+    _launch("sweep_gather", src, xs, ys, out, d, h, w, c, GATHER_PLANES)
     sweep_gather.launches += 1
     return out
 
@@ -156,7 +163,8 @@ def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch
     src (H, W, C) float32, xs/ys (D, H, W) float32 on one device →
     (D, H, W, C) float32, zero outside the image; differentiable in src
     (backward: `sweep_scatter`), not in the coordinates.  CUDA tensors go to
-    the kernel (inputs contiguous), CPU tensors to `sweep_gather_reference`.
+    the kernel (inputs contiguous; each thread walks GATHER_PLANES
+    planes), CPU tensors to `sweep_gather_reference`.
     """
     return _SweepGather.apply(src, xs, ys)
 

@@ -6,6 +6,7 @@ skip without them), sweep_variance, the one wrapper without a backward
 kernel, refuses a graph on the card while the plain versions differentiate,
 and the modules import without nvcc."""
 
+import itertools
 import os
 import subprocess
 import sys
@@ -381,6 +382,22 @@ def test_cuda_sweep_scatter_runs_of_planes(c, planes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,planes", [(8, 8), (6, 3), (16, 5), (32, 2)])
+def test_cuda_sweep_gather_runs_of_planes(c, planes):
+    """Gather threads that walk several planes, two at a time and an odd
+    one last, float4 and scalar, off-image samples included: equal to the
+    plain gather (1e-5 × max(1, max |plain|), FMA contraction)."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    d, h, w = 11, 24, 40
+    src, xs, ys, _ = _sweep_case(d, h, w, c, 3.0, 90 + c)
+    out = torch.empty((d, h, w, c), device="cuda")
+    sg._launch("sweep_gather", src, xs, ys, out, d, h, w, c, planes)
+    _close(out, sg.sweep_gather_reference(src, xs, ys), "sweep_gather")
+
+
+@pytest.mark.cuda
 def test_cuda_sweep_gather_backward_launches_the_scatter():
     """The autograd backward of the gather is one scatter launch, equal to
     the plain scatter within the summation bound; coordinates get none."""
@@ -552,13 +569,19 @@ def test_cuda_conv_head_backward_reduces_a_training_plane():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,h,w,cin,c,seeded", [(1, 5, 16, 24, 8, 8, False),
                                                   (2, 4, 7, 9, 6, 4, True),
-                                                  (1, 3, 6, 12, 64, 64, False)])
+                                                  (1, 3, 6, 12, 64, 64, False),
+                                                  (2, 3, 12, 24, 64, 64, True),
+                                                  (2, 2, 32, 160, 16, 8, True),
+                                                  (1, 3, 10, 36, 12, 12, True),
+                                                  (2, 2, 9, 20, 24, 24, False)])
 def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seeded):
     """The adjoint kernel and its weight reductions against the plain
     reverse-plane backward on the card, on states in (−1, 1): dx and every
     parameter's cotangent to a relative norm of 1e-4 (GroupNorm statistics
     in float64 against torch's fp32 moments), and the same bits in a second
-    run (no atomics)."""
+    run (no atomics).  Shapes: a coarse plane at C = 64 and a wide one at
+    C = 8 (stage 1 scale 8 and stage 3 in small), and C = 12 and 24, the
+    cells `cr_base_chs` 12 gives."""
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
 
     _cuda()
@@ -577,6 +600,40 @@ def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seede
     assert max(errs) <= 1e-4, errs
     dx2, dps2 = rr.red_recur_backward(x, out, g, cell, h0)
     assert torch.equal(dx, dx2) and all(torch.equal(p, q) for p, q in zip(dps, dps2))
+
+
+@pytest.mark.cuda
+def test_cuda_red_recur_adjoint_under_every_plan():
+    """Each conv of the adjoint under every (px, wc, wk, ck) the plan may pick,
+    the other convs at the plan's own: the same cotangents as the plan's
+    launch to a relative norm of 1e-5 (the shares of wk > 1 sum in another
+    order), and the kernel's shared memory is the plan's."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    _cuda()
+    assert rr._lib().red_recur_bwd_smem() == rr.RED_BWD_SMEM
+    b, d, h, w, cin, c = 2, 3, 13, 40, 12, 12
+    cell = _red_cell(cin, c, 80)
+    x = _rand((b, d, h, w, cin), 81)
+    h0 = torch.tanh(_rand((b, h, w, c), 82))
+    with torch.no_grad():
+        out = rr.red_recur_reference(x, cell, h0)
+    g = _rand(tuple(out.shape), 83)
+    base = rr.red_recur_bwd_plan(b, h, w, cin, c, rr.bwd_resident())
+    want = rr._adjoint(x, out, g, cell, h0)
+    for i, cout in enumerate((2 * c, c, c, c + cin)):
+        for px, wc, wk, ck in itertools.product((1, 2), (1, 2, 4, 8), (1, 2, 4, 8), (8, 16, 32, 64)):
+            wr = 8 // (wc * wk) if wc * wk <= 8 else 0
+            if (not wr or 8 * wc > -(-cout // 8) * 8
+                    or rr._NRAW[i] * ck * rr._staged_plane(wr * px, ck) > rr._IN_WORDS
+                    or 9 * ck * 8 * wc > rr._W_WORDS):
+                continue
+            conv = {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck}
+            plan = {**base, "convs": [conv if j == i else p
+                                      for j, p in enumerate(base["convs"])]}
+            got = rr._adjoint(x, out, g, cell, h0, plan)
+            errs = [_rel(a, e) for a, e in zip(got, want)]
+            assert max(errs) <= 1e-5, (i, conv, errs)
 
 
 @pytest.mark.cuda
