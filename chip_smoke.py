@@ -8,13 +8,14 @@ Phases, each reported on its own lines:
   1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a);
   2  each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it (sweep_variance also with coordinates
-     pushed off the image, red_recur also from a non-zero start state);
-     kernel, plain and library times (CUDA events, median after warm-up)
-     beside the least time the card could take (bound);
+     pushed off the image, red_recur also from a non-zero start state,
+     with its launch plan and the same bits in a second run); kernel, plain
+     and library times (CUDA events, median after warm-up) beside the least
+     time the card could take (bound);
   2b the batched red_recur (B = 4 elements, each from its own start state)
      against its plain version and against B = 1 calls on each element, at
-     every shape a 448² tile batch gives it in 8-plane slabs; times per call
-     and per 4-tile chunk;
+     every shape a 448² tile batch gives it in 8-plane slabs, with its plan
+     and the same bits in a second run; times per call and per 4-tile chunk;
   3  the full-volume forward: CascadeREDNet (RPC, ndepths 64/32/8, 384×768,
      seeded weights, the fused RED regularizer) predicts three synthetic
      scenes; every kernel of the path must have launched exactly as often as
@@ -336,6 +337,20 @@ def recur_work(x, c: int, cell) -> tuple[float, float]:
     return nbytes, 2 * n * taps * (ci + c) * 3 * c
 
 
+def recur_same_bits(rr, label: str, x, cell, h0):
+    """red_recur's launch plan at this shape, and the same bits in a second
+    run (statistics in a fixed order, no atomics)."""
+    b = x.shape[0] if x.ndim == 5 else 1
+    h, w, ci = x.shape[-3:]
+    plan = rr.red_recur_plan(b, h, w, ci, cell.features, rr.resident())
+    convs = [tuple(p[k] for k in rr._PLAN_KEYS) for p in plan["convs"]]
+    same = torch.equal(rr.red_recur(x, cell, h0), rr.red_recur(x, cell, h0))
+    print(f"[kernels] red_recur {label} plan: {plan['per_element']} blocks an element, gates "
+          f"(px, wr, wc, wk, ck) {convs[0]}, candidate {convs[1]}; same bits in a second run: "
+          f"{same}", flush=True)
+    check(same, f"red_recur {label}: a second run differs")
+
+
 def phase_red_kernels(card: str) -> list[dict]:
     """Phase 2: the four RED kernels against their plain versions at every
     shape one forward gives them (base 8: channels 16/32/64 down the
@@ -381,12 +396,13 @@ def phase_red_kernels(card: str) -> list[dict]:
             if (stage, s) == ("stage3", 1):
                 cases.append((" h0", torch.tanh(randn(h, w, c))))
             for tag, h0 in cases:
+                label = f"{stage} scale{s}{tag} {(d, h // s, w // s, ci)}->{c}"
                 with torch.no_grad():
-                    rec.case(f"{stage} scale{s}{tag} {(d, h // s, w // s, ci)}->{c}",
-                             lambda: rr.red_recur(x, cell, h0),
+                    rec.case(label, lambda: rr.red_recur(x, cell, h0),
                              lambda: rr.red_recur_reference(x, cell, h0),
                              lambda want: RED_RECUR_TOL,
                              *recur_work(x, c, cell), timed=h0 is None)
+                    recur_same_bits(rr, label, x, cell, h0)
         # decoder: (h/8 → h/4, 8b → 4b), (h/4 → h/2, 4b → 2b), (h/2 → h, 2b → b), skips added
         for k, (s, ci, co) in enumerate(((8, 8 * b, 4 * b), (4, 4 * b, 2 * b), (2, 2 * b, b))):
             x = randn(d, h // s, w // s, ci)
@@ -439,6 +455,7 @@ def phase_batched_red(card: str) -> dict:
                                 lambda: rr.red_recur_reference(x, cell, h0),
                                 lambda want: RED_RECUR_TOL, *recur_work(x, c, cell),
                                 count=n_slabs)
+                recur_same_bits(rr, label, x, cell, h0)
                 got = rr.red_recur(x, cell, h0)
                 err = max((got[e] - rr.red_recur(x[e], cell, h0[e])).abs().max().item()
                           for e in range(bt))

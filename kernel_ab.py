@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's ConvGRU adjoint and sweep gather of one checkout on one
-CUDA device, to compare two trees (parent, change, change, parent) in one
-call.
+"""Time the port's ConvGRU forward and adjoint and its sweep gather of one
+checkout on one CUDA device, to compare two trees (parent, change, change,
+parent) in one call.
 
     python3 kernel_ab.py [--root DIR] [--sweep] [--reps N]
 
@@ -10,6 +10,11 @@ builds its kernels there, and at every shape a 384×768, B = 1 train step
 gives them (chip_smoke.py's shapes, seeds and cells) prints one JSON line
 per shape:
 
+  red_recur (TPU kernel row 4): CUDA events, median of --reps calls, and
+  the forward kernel `red_recur_kernel`'s device time per call under
+  torch.profiler; the same for row 5 at the 12 shapes of a 4-tile scene
+  chunk (B = 4 tiles of 448², 8-plane slabs, seeded start states), with the
+  chunk's calls of each shape;
   red_recur_backward (TPU kernel row 6: the adjoint kernel and its two
   weight reductions): CUDA events, median of --reps calls; and the adjoint
   kernel `red_recur_bwd_kernel` alone, its device time per call under
@@ -20,19 +25,18 @@ per shape:
   back to back (chip_smoke.loop_ms) and as the device time of the kernels
   under torch.profiler (a call this short is near the host's launch time).
 
-With --sweep (a tree whose `red_recur._adjoint` takes a plan and whose
-gather takes planes a thread) it also times the adjoint at each shape with
-each conv's plan replaced in turn by every other (px, wr, wc, wk, ck), the
-others kept, and prints the best; and the gather at 1, 2, 4 and 8 planes a
-thread.  The last line
-sums the shapes.  Exits non-zero without a CUDA device.
+With --sweep (a tree whose `red_recur._launch` and `red_recur._adjoint`
+take a plan and whose gather takes planes a thread) it also times the
+forward and the adjoint at each train-step shape with each conv's plan
+replaced in turn by every other (px, wr, wc, wk, ck), the others kept, and
+prints the best; and the gather at 1, 2, 4 and 8 planes a thread.  The last
+line sums the shapes.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
-import itertools
 import json
 import subprocess
 import sys
@@ -64,33 +68,19 @@ def device_ms(fn, kernel: str, calls: int) -> float:
     raise RuntimeError(f"kernel_ab: the profiler saw no {kernel} in three captures")
 
 
-def sweep_plans(rr, cs, x, out, g, cell, reps: int) -> dict:
-    """The adjoint's time with its plan, and per conv the best (px, wr, wc,
+def sweep_plans(rr, cs, base: dict, run, couts, reps: int) -> dict:
+    """The time of run(plan) under `base`, and per conv the best (px, wr, wc,
     wk, ck) with the other convs' plans kept."""
-    b, d, h, w, cin = x.shape
-    c = cell.features
-    h0 = torch.zeros((b, h, w, c), device="cuda")
-    base = rr.red_recur_bwd_plan(b, h, w, cin, c, rr.bwd_resident())
-    couts = (2 * c, c, c, c + cin)
-
-    def run(plan):
-        return cs.time_ms(lambda: rr._adjoint(x, out, g, cell, h0, plan), reps=reps, warmup=1)
-
-    res = {"plan_ms": run(base), "plan": [[p[k] for k in ("px", "wr", "wc", "wk", "ck")]
-                                          for p in base["convs"]], "best": []}
+    keys = rr._PLAN_KEYS
+    res = {"plan_ms": cs.time_ms(lambda: run(base), reps=reps, warmup=1),
+           "plan": [[p[k] for k in keys] for p in base["convs"]], "best": []}
     for i, cout in enumerate(couts):
         best = None
-        for px, wc, wk, ck in itertools.product((1, 2), (1, 2, 4, 8), (1, 2, 4, 8), (8, 16, 32, 64)):
-            wr = 8 // (wc * wk) if wc * wk <= 8 else 0
-            if (not wr or 8 * wc > -(-cout // 8) * 8
-                    or rr._NRAW[i] * ck * rr._staged_plane(wr * px, ck) > rr._IN_WORDS
-                    or 9 * ck * 8 * wc > rr._W_WORDS):
-                continue
-            conv = {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck}
+        for conv in rr.conv_plan_options(cout, rr._NRAW[i]):
             plan = {**base, "convs": [conv if j == i else p for j, p in enumerate(base["convs"])]}
-            ms = run(plan)
+            ms = cs.time_ms(lambda: run(plan), reps=reps, warmup=1)
             if best is None or ms < best[0]:
-                best = (ms, [px, wr, wc, wk, ck])
+                best = (ms, [conv[k] for k in keys])
         res["best"].append(best)
     return res
 
@@ -135,8 +125,43 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device="cuda")
 
-    totals = {"row6_ms": 0.0, "adjoint_ms": 0.0, "gather_ms": 0.0, "grid_sample_ms": 0.0,
-              "gather_device_ms": 0.0, "grid_sample_device_ms": 0.0}
+    totals = {"row4_ms": 0.0, "forward_device_ms": 0.0, "row5_chunk_ms": 0.0,
+              "row5_chunk_device_ms": 0.0, "row6_ms": 0.0, "adjoint_ms": 0.0, "gather_ms": 0.0,
+              "grid_sample_ms": 0.0, "gather_device_ms": 0.0, "grid_sample_device_ms": 0.0}
+    sweep_reps = max(3, args.reps // 3)
+    # the forward: row 4 at the train step's shapes (B = 1), row 5 at a scene
+    # chunk's (B tiles, slabs of SLAB planes, seeded), with its calls a chunk
+    cases = [(f"{stage} scale{s}", 1, d, h // s, w // s, ci, c, 1)
+             for stage, d, h, w, cin in cs.red_shapes() for s, ci, c in cs.red_scales(cin)]
+    cases += [(f"chunk stage{i + 1} scale{s}", cs.BATCH_TILES, cs.SLAB, cs.TILE_HW // scale // s,
+               cs.TILE_HW // scale // s, ci, c, n_slabs)
+              for i, (scale, cin, n_slabs) in enumerate(zip(cs.STAGE_SCALES, cs.FEAT_CH,
+                                                            cs.SLABS_PER_TILE))
+              for s, ci, c in cs.red_scales(cin)]
+    with torch.no_grad():
+        for label, b, d, h, w, ci, c, calls in cases:
+            cell = cs.red_cell(ci, c, 20 + c, randn)
+            x = randn(b, d, h, w, ci)
+            h0 = torch.tanh(randn(b, h, w, c)) if b > 1 else None
+            ms = cs.time_ms(lambda: rr.red_recur(x, cell, h0), reps=args.reps)
+            dev = device_ms(lambda: rr.red_recur(x, cell, h0), "red_recur_kernel", args.reps)
+            row = "row5" if b > 1 else "row4"
+            rec = {**tag, "kernel": "red_recur", "row": row, "shape": label,
+                   "bdhwc": [b, d, h, w, ci, c], "ms": ms, "device_ms": dev, "calls": calls}
+            if b > 1:
+                totals["row5_chunk_ms"] += calls * ms
+                totals["row5_chunk_device_ms"] += calls * dev
+            else:
+                totals["row4_ms"] += ms
+                totals["forward_device_ms"] += dev
+                if args.sweep:
+                    base = rr.red_recur_plan(b, h, w, ci, c, rr.resident())
+                    rec.update(sweep_plans(rr, cs, base,
+                                           lambda plan: rr._launch(x, cell, h0, plan),
+                                           (2 * c, c), sweep_reps))
+            print(json.dumps(rec), flush=True)
+            del x, h0, cell
+
     for stage, d, h, w, cin in cs.red_shapes():
         for s, ci, c in cs.red_scales(cin):
             cell = cs.red_cell(ci, c, s, randn)
@@ -150,7 +175,11 @@ def main() -> int:
             rec = {**tag, "kernel": "red_recur_backward", "shape": f"{stage} scale{s}",
                    "dhwc": [d, h // s, w // s, ci, c], "row6_ms": row6, "adjoint_ms": adj}
             if args.sweep:
-                rec.update(sweep_plans(rr, cs, x, out, g, cell, max(3, args.reps // 3)))
+                h0 = torch.zeros((1, h // s, w // s, c), device="cuda")
+                base = rr.red_recur_bwd_plan(1, h // s, w // s, ci, c, rr.resident())
+                rec.update(sweep_plans(rr, cs, base,
+                                       lambda plan: rr._adjoint(x, out, g, cell, h0, plan),
+                                       (2 * c, c, c, c + ci), sweep_reps))
             totals["row6_ms"] += row6
             totals["adjoint_ms"] += adj
             print(json.dumps(rec), flush=True)

@@ -37,42 +37,47 @@
 // all B elements: its grid is at most the blocks that can be resident at once
 // (launched with cudaLaunchCooperativeKernel, which refuses a grid that does
 // not fit; the wrapper then raises), it loops over the D planes, and
-// grid.sync() separates the four phases of a plane:
-//   1. the gates conv over [x_d | h] into the scratch g (H, W, 2C), with each
-//      block's sums of g and g² for the r and u halves;
-//   2. sync; every block combines the per-block sums into the r and u
-//      statistics, then m = r·h into the scratch m (H, W, C);
-//   3. sync; the candidate conv over [x_d | m] into g's dead r half, with the
-//      per-block sums of the candidate;
-//   4. sync; the candidate statistics, then the blend into out[d];
-//   and a sync before the next plane reads the neighbouring pixels of out[d].
+// grid.sync() ends each of a plane's three phases:
+//   A. the gates conv over [x_d | h] into the raw-gate scratch G (H, W, 2C),
+//      with each block's sums of g and g² for the r and u halves;
+//   B. every block combines the per-block sums into the r and u statistics;
+//      the candidate conv over [x_d | m] into the raw scratch Y (H, W, C),
+//      m = σ(GN_r(g))·h mapped in shared memory as the conv stages G and h,
+//      with the per-block sums of the candidate;
+//   C. the candidate statistics, then the blend into out[d] at the block's
+//      own pixels (the next plane reads its neighbours there as halo; after
+//      the last plane no sync is needed).
 // The state needs no buffer of its own: plane d reads h from out[d − 1] (or
 // h0) and writes out[d], so a halo read and a blend write never touch the same
-// array.  The x-side convs carry no state and run inside phases 1 and 3 with
-// the same loop as the state side, so no (D, H, W, 3C) buffer is made.
+// array.  The x-side convs carry no state and run inside A and B with the
+// same loop as the state side, so no (D, H, W, 3C) buffer is made.  Folding
+// the blend into the next plane's gate staging (two syncs a plane) would
+// stage three raw operands a state channel and need a second G; not done.
+//
+// The two convs are phases A and B of the backward kernel below, the same
+// device functions (`gates_pass`, `candidate_pass`) on the same block-tiled
+// routine `conv_items` (described there), under the same launch plan: the
+// wrapper takes the adjoint's plan's two first convs and its blocks per
+// element (ops/kernels/red_recur.py `red_recur_plan`), so the adjoint's
+// recompute repeats the forward's arithmetic in the same order.
 //
 // Batch.  The grid is B equal groups of `bpe` blocks; group b works on element
-// b only (grid-stride loops over that element's pixels), so every block's
-// partial sums belong to one element and GroupNorm statistics are never mixed
-// across elements.  The four syncs of a plane are shared by all B elements:
-// at the coarse scales, where a plane is a few hundred pixels, the work
-// between two syncs grows B-fold.
+// b only (its items and own pixels), so every block's partial sums belong to
+// one element and GroupNorm statistics are never mixed across elements.  The
+// three syncs of a plane are shared by all B elements: at the coarse scales,
+// where a plane is a few hundred pixels, the work between two syncs grows
+// B-fold.
 //
 // Statistics: one pass.  Each thread sums its values and their squares in
 // float64; a block reduces its threads in a fixed tree and writes its partial
-// sums; in the next phase every block adds its element's partials in block
-// order, so the statistics are deterministic and the same in every block of
-// the element.  var = E[g²] − E[g]²
-// in float64 loses nothing that matters at these magnitudes (the products of
-// two floats are exact in a double), and saves the extra sync per norm that
-// the TPU kernel's two passes (mean, then centred variance) would cost.
-//
-// Work items: one thread owns one pixel and CO_T = 4 output channels (threads
-// of one pixel side by side, so their input reads broadcast), in grid-stride
-// loops.  Weights are read through the read-only cache as float4 (up to
-// 9·128·128·4 B = 590 KB at C = 64, beyond shared memory).  Data written
-// inside the kernel (g, m, out, the partial sums) is read with plain loads,
-// never through the non-coherent read-only path.  fp32 FMA on the CUDA cores.
+// sums; in the next phase every block adds its element's partials with all
+// its threads in one fixed order, so the statistics are deterministic and the
+// same in every block of the element.  var = E[g²] − E[g]² in float64 loses
+// nothing that matters at these magnitudes (the products of two floats are
+// exact in a double), and saves the extra sync per norm that the TPU kernel's
+// two passes (mean, then centred variance) would cost.  Data written inside
+// the kernel (G, Y, out, the partial sums) is read with plain loads or
+// cp.async, never through the non-coherent read-only path.
 //
 // The backward, `red_recur_bwd_kernel`, replaces two more TPU kernels with
 // one: the reverse-plane adjoint `_red_recur_bwd_pallas` (:755, pallas_call
@@ -126,18 +131,18 @@
 // the tile's pixel count.  Where a plane has few items, wk warps split each
 // chunk's input channels and add their sums in a fixed order.  The launch
 // plan (PX, wr, wc, wk, ck per conv, blocks per element) comes from a cost
-// model in Python (ops/kernels/red_recur.py `red_recur_bwd_plan`).  A tile's
+// model in Python (ops/kernels/red_recur.py `red_recur_bwd_plan`; the
+// forward's `red_recur_plan` is its first two convs).  A tile's
 // position comes from the item index (one 32-bit division per item), never
 // per element.
 //
-// The recompute runs through this tiled conv, so its r, u and y differ from
-// the forward's by the rounding of conv sums taken in another order (and of
-// float64 statistics split over other blocks): the adjoint is that of a
-// forward equal to red_recur_kernel's up to fp32 rounding.  The statistics
-// and the GroupNorm transposes' two whole-plane sums each are float64
-// per-block partials, which every block of the element adds with all its
-// threads in one fixed order.  The weight
-// cotangents are not reduced in the kernel: a per-block partial of dWa + dWb
+// Phases A and B are the forward's own (the same device functions, plan and
+// blocks per element), so the recomputed r, u and y repeat the forward's
+// arithmetic in the same order: the adjoint is that of red_recur_kernel's
+// own states.  The statistics and the GroupNorm transposes' two whole-plane
+// sums each are float64 per-block partials, which every block of the element
+// adds with all its threads in one fixed order.  The weight cotangents are
+// not reduced in the kernel: a per-block partial of dWa + dWb
 // at C = 64 is 9·128·192 floats (885 KB), a few hundred MB over the grid.
 // Instead the kernel keeps every plane's gate and candidate cotangents
 // (B, D, H, W, 3C) and the recomputed r·h (B, D, H, W, C), and the wrapper
@@ -155,26 +160,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CO_T = 4;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int BT = 256;            // threads of a block
+constexpr int WARPS = BT / 32;
 constexpr double EPS = 1e-5;
-
-struct Args {
-  const float* x;    // (B, D, H, W, Cin)
-  const float* h0;   // (B, H, W, C)
-  float* out;        // (B, D, H, W, C)
-  float* g;          // (B, H, W, 2C) scratch: raw gates; the r half then the candidate
-  float* m;          // (B, H, W, C) scratch: r·h
-  double* part;      // (2, gridDim.x, 4) scratch: per-block sums, element b's at
-                     // blocks b·bpe .. (b + 1)·bpe − 1
-  const float* wa;   // (9, Cin + C, 2C)
-  const float* ba;   // (2C)
-  const float* wb;   // (9, Cin + C, C)
-  const float* bb;   // (C)
-  const float* gn;   // (6, C)
-  int B, D, H, W, Cin, C;
-};
+constexpr int BCO = 8;             // output channels a thread holds in a conv
+constexpr int TW = 32;             // tile columns: one per lane
+constexpr int RS = TW + 2;         // a staged row: the tile's columns and the halo
+constexpr int TR_MAX = 16;         // tile rows at most: 8 row groups × 2 rows
+constexpr int SLAB_MAX = WARPS * BCO;  // output channels of a slab at most
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -183,40 +176,6 @@ __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)
 __device__ __forceinline__ float gn_affine(float raw, float mean, float inv, float scale,
                                            float shift) {
   return (raw - mean) * inv * scale + shift;
-}
-
-__device__ __forceinline__ void fma4(float v, const float* __restrict__ w, float (&acc)[CO_T]) {
-  const float4 w4 = __ldg(reinterpret_cast<const float4*>(w));
-  acc[0] = fmaf(v, w4.x, acc[0]);
-  acc[1] = fmaf(v, w4.y, acc[1]);
-  acc[2] = fmaf(v, w4.z, acc[2]);
-  acc[3] = fmaf(v, w4.w, acc[3]);
-}
-
-// acc += 3×3 conv at pixel (y, x) of the channel concat [a (ca) | b (cb)] with
-// weights w (9, ca + cb, cout), output channels co0 .. co0 + 3.  With A_RO, a
-// is read-only for the whole kernel (read through the read-only cache);
-// otherwise, like b, it may have been written by other blocks of this launch.
-template <bool A_RO>
-__device__ __forceinline__ void conv_pixel(const float* a, int ca, const float* b,
-                                           int cb, const float* __restrict__ w, int cout, int y,
-                                           int x, int H, int W, int co0, float (&acc)[CO_T]) {
-  for (int dy = 0; dy < 3; ++dy) {
-    const int iy = y + dy - 1;
-    if (iy < 0 || iy >= H) continue;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int ix = x + dx - 1;
-      if (ix < 0 || ix >= W) continue;
-      const int64_t pix = (int64_t)iy * W + ix;
-      const float* wr = w + (int64_t)(dy * 3 + dx) * (ca + cb) * cout + co0;
-      const float* pa = a + pix * ca;
-      for (int ci = 0; ci < ca; ++ci)
-        fma4(A_RO ? __ldg(pa + ci) : pa[ci], wr + (int64_t)ci * cout, acc);
-      const float* pb = b + pix * cb;
-      wr += (int64_t)ca * cout;
-      for (int c = 0; c < cb; ++c) fma4(pb[c], wr + (int64_t)c * cout, acc);
-    }
-  }
 }
 
 // Reduces the threads' s[4] over the block in a fixed order; thread 0 writes
@@ -238,156 +197,6 @@ __device__ void block_sums(double (&s)[4], double* red, double* dst) {
   }
 }
 
-// Adds the per-block sums part (nblocks, 4) in block order and writes, for
-// each of the `pairs` (sum, sum of squares) columns, the mean and 1/sqrt(var + ε)
-// to stats.  Every block computes the same values.
-__device__ void plane_stats(const double* part, int nblocks, double inv_n, int pairs,
-                            float* stats) {
-  if (threadIdx.x < 32) {
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int b = threadIdx.x; b < nblocks; b += 32)
-      for (int k = 0; k < 4; ++k) s[k] += part[b * 4 + k];
-    for (int k = 0; k < 4; ++k)
-      for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_down_sync(0xffffffffu, s[k], off);
-    if (threadIdx.x == 0) {
-      for (int j = 0; j < pairs; ++j) {
-        const double mean = s[2 * j] * inv_n;
-        const double var = fmax(s[2 * j + 1] * inv_n - mean * mean, 0.0);
-        stats[2 * j] = (float)mean;
-        stats[2 * j + 1] = (float)(1.0 / sqrt(var + EPS));
-      }
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS) red_recur_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ double red[WARPS * 4];
-  __shared__ float stats[6];  // mean and 1/std of r, u, y
-  const int C = a.C, C2 = 2 * C, Cin = a.Cin, W = a.W, H = a.H;
-  const int64_t P = (int64_t)H * W;
-  const int64_t plane = P * C;
-  const double inv_n = 1.0 / (double)plane;
-  // this block's element b and its place among the element's bpe blocks
-  const int bpe = gridDim.x / a.B;
-  const int b = blockIdx.x / bpe;
-  const int64_t first = (int64_t)(blockIdx.x - b * bpe) * blockDim.x + threadIdx.x;
-  const int64_t step = (int64_t)bpe * blockDim.x;
-  const int ga = C2 / CO_T, gc = C / CO_T;
-  const float* x = a.x + (int64_t)b * a.D * P * Cin;
-  const float* h0 = a.h0 + (int64_t)b * plane;
-  float* out = a.out + (int64_t)b * a.D * plane;
-  float* g = a.g + (int64_t)b * P * C2;
-  float* mm = a.m + (int64_t)b * plane;
-  double* part_g = a.part;
-  double* part_y = a.part + 4 * (int64_t)gridDim.x;
-  const double* elem_g = part_g + 4 * (int64_t)b * bpe;  // element b's partials
-  const double* elem_y = part_y + 4 * (int64_t)b * bpe;
-  const float* gn = a.gn;
-
-  for (int d = 0; d < a.D; ++d) {
-    const float* xd = x + (int64_t)d * P * Cin;
-    const float* h = d == 0 ? h0 : out + (int64_t)(d - 1) * plane;
-    float* hn = out + (int64_t)d * plane;
-
-    // 1. gates
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int64_t t = first; t < P * ga; t += step) {
-      const int co0 = (int)(t % ga) * CO_T;
-      const int64_t p = t / ga;
-      float acc[CO_T];
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = __ldg(a.ba + co0 + k);
-      conv_pixel<true>(xd, Cin, h, C, a.wa, C2, (int)(p / W), (int)(p % W), H, W, co0, acc);
-      *reinterpret_cast<float4*>(g + p * C2 + co0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      const int half = co0 < C ? 0 : 2;
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        s[half] += acc[k];
-        s[half + 1] += (double)acc[k] * acc[k];
-      }
-    }
-    block_sums(s, red, part_g + 4 * blockIdx.x);
-    grid.sync();
-
-    // 2. r and u statistics; m = σ(GN1_r(g_r))·h
-    plane_stats(elem_g, bpe, inv_n, 2, stats);
-    for (int64_t t = first; t < P * gc; t += step) {
-      const int c0 = (int)(t % gc) * CO_T;
-      const int64_t p = t / gc;
-      const float4 gr = *reinterpret_cast<const float4*>(g + p * C2 + c0);
-      const float4 hv = *reinterpret_cast<const float4*>(h + p * C + c0);
-      const float graw[CO_T] = {gr.x, gr.y, gr.z, gr.w};
-      const float hh[CO_T] = {hv.x, hv.y, hv.z, hv.w};
-      float mv[CO_T];
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const int c = c0 + k;
-        const float r =
-            sigmoid(gn_affine(graw[k], stats[0], stats[1], __ldg(gn + c), __ldg(gn + C + c)));
-        mv[k] = r * hh[k];
-      }
-      *reinterpret_cast<float4*>(mm + p * C + c0) = make_float4(mv[0], mv[1], mv[2], mv[3]);
-    }
-    grid.sync();
-
-    // 3. candidate, into the r half of g
-    s[0] = s[1] = s[2] = s[3] = 0.0;
-    for (int64_t t = first; t < P * gc; t += step) {
-      const int c0 = (int)(t % gc) * CO_T;
-      const int64_t p = t / gc;
-      float acc[CO_T];
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = __ldg(a.bb + c0 + k);
-      conv_pixel<true>(xd, Cin, mm, C, a.wb, C, (int)(p / W), (int)(p % W), H, W, c0, acc);
-      *reinterpret_cast<float4*>(g + p * C2 + c0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        s[0] += acc[k];
-        s[1] += (double)acc[k] * acc[k];
-      }
-    }
-    block_sums(s, red, part_y + 4 * blockIdx.x);
-    grid.sync();
-
-    // 4. candidate statistics; blend
-    plane_stats(elem_y, bpe, inv_n, 1, stats + 4);
-    for (int64_t t = first; t < P * gc; t += step) {
-      const int c0 = (int)(t % gc) * CO_T;
-      const int64_t p = t / gc;
-      const float4 yv = *reinterpret_cast<const float4*>(g + p * C2 + c0);
-      const float4 uv = *reinterpret_cast<const float4*>(g + p * C2 + C + c0);
-      const float4 hv = *reinterpret_cast<const float4*>(h + p * C + c0);
-      const float yraw[CO_T] = {yv.x, yv.y, yv.z, yv.w};
-      const float uraw[CO_T] = {uv.x, uv.y, uv.z, uv.w};
-      const float hh[CO_T] = {hv.x, hv.y, hv.z, hv.w};
-      float o[CO_T];
-#pragma unroll
-      for (int k = 0; k < CO_T; ++k) {
-        const int c = c0 + k;
-        const float y = tanhf(
-            gn_affine(yraw[k], stats[4], stats[5], __ldg(gn + 4 * C + c), __ldg(gn + 5 * C + c)));
-        const float u = sigmoid(
-            gn_affine(uraw[k], stats[2], stats[3], __ldg(gn + 2 * C + c), __ldg(gn + 3 * C + c)));
-        o[k] = u * hh[k] + (1.f - u) * y;
-      }
-      *reinterpret_cast<float4*>(hn + p * C + c0) = make_float4(o[0], o[1], o[2], o[3]);
-    }
-    grid.sync();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The backward: the reverse-plane adjoint of red_recur_kernel.
-
-constexpr int BT = THREADS;        // threads of a backward block
-constexpr int BCO = 8;             // output channels a thread holds in a conv
-constexpr int TW = 32;             // tile columns: one per lane
-constexpr int RS = TW + 2;         // a staged row: the tile's columns and the halo
-constexpr int TR_MAX = 16;         // tile rows at most: 8 row groups × 2 rows
-constexpr int SLAB_MAX = WARPS * BCO;  // output channels of a slab at most
-
 // Words of one staged input channel of a tile of tr rows when a chunk holds
 // ck (8, 16, 32 or 64) channels: at least (tr + 2)·RS and ≡ m (mod 32),
 // m = 32 / min(ck, 32), so the staging's m pixels × min(ck, 32) channels of a
@@ -402,7 +211,8 @@ __host__ __device__ constexpr int staged_plane(int tr, int ck) {
 constexpr int IN_WORDS = 2 * 16 * staged_plane(TR_MAX / 2, 16);
 constexpr int W_WORDS = 9 * 16 * SLAB_MAX;
 constexpr int GACC = 24;  // GroupNorm parameter sums a thread keeps: 6 sums × 4 channels
-constexpr int BWD_SMEM = (IN_WORDS + W_WORDS + GACC * BT) * 4;
+constexpr int FWD_SMEM = (IN_WORDS + W_WORDS) * 4;
+constexpr int BWD_SMEM = FWD_SMEM + GACC * BT * 4;
 
 // One conv's launch plan: px rows a thread; wr row groups × wc channel groups
 // × wk shares of each chunk's input channels = the block's 8 warps; ck input
@@ -411,6 +221,22 @@ constexpr int BWD_SMEM = (IN_WORDS + W_WORDS + GACC * BT) * 4;
 // channels.
 struct ConvPlan {
   int px, wr, wc, wk, ck;
+};
+
+struct FwdArgs {
+  const float* x;   // (B, D, H, W, Cin)
+  const float* h0;  // (B, H, W, C)
+  float* out;       // (B, D, H, W, C)
+  float* graw;      // (B, H, W, 2C) scratch: raw gates
+  float* yraw;      // (B, H, W, C) scratch: raw candidate
+  double* part;     // (2, gridDim.x, 4) per-block sums
+  const float* wa;  // (9, Cin + C, 2C)
+  const float* ba;  // (2C)
+  const float* wb;  // (9, Cin + C, C)
+  const float* bb;  // (C)
+  const float* gn;  // (6, C)
+  ConvPlan cv[2];   // the gates, the candidate
+  int B, D, H, W, Cin, C;
 };
 
 struct BwdArgs {
@@ -661,6 +487,175 @@ __device__ __forceinline__ void conv(const ConvPlan& pl, int H, int W, int cin, 
                         map, keep, epi);
 }
 
+// u = σ(GN_u(g_u)) and y = tanh(GN_y(y_raw)) from the statistics (mean and
+// 1/std of r, u, y in stats[0..5]) and the channel's GroupNorm scale and
+// shift: the forward's blend and the adjoint's recompute map them alike
+__device__ __forceinline__ float gate_u(float raw, const float* stats, float scale, float shift) {
+  return sigmoid(gn_affine(raw, stats[2], stats[3], scale, shift));
+}
+
+__device__ __forceinline__ float cand_y(float raw, const float* stats, float scale, float shift) {
+  return tanhf(gn_affine(raw, stats[4], stats[5], scale, shift));
+}
+
+// Phase A of both kernels, plane d of one element (xd its input plane, h the
+// previous state): the raw gates g = conv([x_d | h], Wa) + ba into G (H, W,
+// 2C) under the block's share (item0 = its place kb among the element's bpe
+// blocks), and the block's sums of g and g² over the r half and the u half
+// into part[0..3].
+__device__ __forceinline__ void gates_pass(const ConvPlan& pl, int H, int W, int Cin, int C,
+                                           const float* xd, const float* h,
+                                           const float* __restrict__ wa,
+                                           const float* __restrict__ ba, float* G, int kb,
+                                           int bpe, float* sm, double* red, double* part) {
+  const int C2 = 2 * C;
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  conv<1>(
+      pl, H, W, Cin + C, Cin + C, 0, wa, C2, C2, kb, bpe, sm,
+      [&](int p, int c, int) { return c < Cin ? xd + p * Cin + c : h + p * C + c - Cin; },
+      [](int, int, float r0, float) { return r0; }, [](int, int, float) {},
+      [&](int p, int co, const float (&v)[4]) {
+        float o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(ba + co + k);
+        st4(G + p * C2 + co, o);
+        double t = 0.0, t2 = 0.0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          t += o[k];
+          t2 += (double)o[k] * o[k];
+        }
+        if (co < C) {  // the r half, then the u half
+          s[0] += t;
+          s[1] += t2;
+        } else {
+          s[2] += t;
+          s[3] += t2;
+        }
+      });
+  block_sums(s, red, part);
+}
+
+// Phase B of both kernels: the r and u statistics from the element's phase-A
+// partials (elem, bpe blocks) into stats[0..3]; the raw candidate y =
+// conv([x_d | m], Wb) + bb into Y (H, W, C), m = σ(GN_r(g_r))·h mapped from
+// G and h as the conv stages them (keep(p, k, m) for state channel k, by the
+// item that owns pixel p); the block's sums of y and y² into part[0..1].
+template <typename Keep>
+__device__ __forceinline__ void candidate_pass(const ConvPlan& pl, int H, int W, int Cin, int C,
+                                               const float* xd, const float* G, const float* h,
+                                               const float* __restrict__ wb,
+                                               const float* __restrict__ bb,
+                                               const float* __restrict__ gn, float* Y, int kb,
+                                               int bpe, const double* elem, double inv_n,
+                                               float* sm, double* red, double* tot, float* stats,
+                                               double* part, Keep keep) {
+  elem_stats(elem, bpe, inv_n, 2, 0, red, tot, stats);
+  const int C2 = 2 * C;
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  conv<2>(
+      pl, H, W, Cin + C, Cin + C, 0, wb, C, C, kb, bpe, sm,
+      [&](int p, int c, int k) -> const float* {
+        if (c < Cin) return k == 0 ? xd + p * Cin + c : nullptr;
+        return k == 0 ? G + p * C2 + c - Cin : h + p * C + c - Cin;
+      },
+      [&](int, int c, float g, float hv) {
+        if (c < Cin) return g;
+        const int k = c - Cin;
+        return sigmoid(gn_affine(g, stats[0], stats[1], __ldg(gn + k), __ldg(gn + C + k))) * hv;
+      },
+      [&](int p, int c, float v) {
+        if (c >= Cin) keep(p, c - Cin, v);
+      },
+      [&](int p, int co, const float (&v)[4]) {
+        float o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(bb + co + k);
+        st4(Y + p * C + co, o);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s[0] += o[k];
+          s[1] += (double)o[k] * o[k];
+        }
+      });
+  block_sums(s, red, part);
+}
+
+// For d = 0 .. D−1 and every element b (h = out[d − 1], h0 at d = 0):
+//   A. the raw gates into G; sums of g, g² (gates_pass)
+//   B. r, u statistics; the raw candidate into Y, m staged (candidate_pass)
+//   C. y statistics; own pixels: out[d] = u·h + (1 − u)·y
+// with a grid.sync() after each, but none after the last plane's C.
+__global__ void __launch_bounds__(BT, 2) red_recur_kernel(FwdArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ double red[WARPS * 4];
+  __shared__ double tot[4];
+  __shared__ float stats[6];  // mean, 1/std of r, u, y
+  const int C = a.C, Cin = a.Cin, W = a.W, H = a.H;
+  const int P = H * W;
+  const int plane = P * C;
+  const double inv_n = 1.0 / ((double)P * C);
+  const int bpe = gridDim.x / a.B;
+  const int b = blockIdx.x / bpe;
+  const int kb = blockIdx.x - b * bpe;  // this block among element b's
+  const int64_t e1 = (int64_t)b * plane;  // element b in the (B, H, W, C) arrays
+  // the per-block sums of pass k, and element b's first block's
+  auto part = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + blockIdx.x); };
+  auto elem = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + (int64_t)b * bpe); };
+
+  // each phase derives its pointers from the arguments, so few stay live
+  // across the convs
+  for (int d = 0; d < a.D; ++d) {
+    const int64_t ed = ((int64_t)b * a.D + d) * plane;  // plane d of element b, C channels
+    {  // A. gates
+      const float* h = d == 0 ? a.h0 + e1 : a.out + ed - plane;
+      float* G = a.graw + 2 * e1;
+      const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
+      gates_pass(a.cv[0], H, W, Cin, C, xd, h, a.wa, a.ba, G, kb, bpe, sm, red, part(0));
+    }
+    grid.sync();
+
+    {  // B. r and u statistics; candidate over [x_d | m]
+      const float* h = d == 0 ? a.h0 + e1 : a.out + ed - plane;
+      float* G = a.graw + 2 * e1;
+      const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
+      candidate_pass(a.cv[1], H, W, Cin, C, xd, G, h, a.wb, a.bb, a.gn, a.yraw + e1, kb, bpe,
+                     elem(0), inv_n, sm, red, tot, stats, part(1), [](int, int, float) {});
+    }
+    grid.sync();
+
+    {  // C. y statistics; the blend at the block's own pixels, thread → (pixel
+       // lane, group of four channels)
+      elem_stats(elem(1), bpe, inv_n, 1, 0, red, tot, stats + 4);
+      const int gc = C / 4, npl = BT / gc;
+      const int lp = threadIdx.x / gc, c0 = (threadIdx.x - lp * gc) * 4;
+      const float* h = d == 0 ? a.h0 + e1 : a.out + ed - plane;
+      const float* G = a.graw + 2 * e1;
+      const float* Y = a.yraw + e1;
+      float* hn = a.out + ed;
+      if (lp < npl) {
+        for (int p = kb * npl + lp; p < P; p += bpe * npl) {
+          float gu[4], yr[4], hh[4], o[4];
+          unpack4(ld4(G + p * 2 * C + C + c0), gu);
+          unpack4(ld4(Y + p * C + c0), yr);
+          unpack4(ld4(h + p * C + c0), hh);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int c = c0 + k;
+            const float u = gate_u(gu[k], stats, __ldg(a.gn + 2 * C + c), __ldg(a.gn + 3 * C + c));
+            const float y = cand_y(yr[k], stats, __ldg(a.gn + 4 * C + c), __ldg(a.gn + 5 * C + c));
+            o[k] = u * hh[k] + (1.f - u) * y;
+          }
+          st4(hn + p * C + c0, o);
+        }
+      }
+    }
+    if (d + 1 < a.D) grid.sync();
+  }
+}
+
 // For d = D−1 .. 0 and every element b (h = out[d − 1], h0 at d = 0), with
 // x̂ = (raw − mean)·inv the normalised values of each GroupNorm(1), γ its scale:
 //   A. recompute the gates g = conv([x_d | h], Wa) + ba into G[d & 1]; sums of g, g²
@@ -727,66 +722,16 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
 
     {  // A. gates
       const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
-      double s[4] = {0.0, 0.0, 0.0, 0.0};
-      conv<1>(
-          a.cv[0], H, W, Cin + C, Cin + C, 0, a.wa, C2, C2, kb, bpe, sm,
-          [&](int p, int c, int) { return c < Cin ? xd + p * Cin + c : h + p * C + c - Cin; },
-          [](int, int, float r0, float) { return r0; }, none,
-          [&](int p, int co, const float (&v)[4]) {
-            float o[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(a.ba + co + k);
-            st4(G + p * C2 + co, o);
-            double t = 0.0, t2 = 0.0;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              t += o[k];
-              t2 += (double)o[k] * o[k];
-            }
-            if (co < C) {  // the r half, then the u half
-              s[0] += t;
-              s[1] += t2;
-            } else {
-              s[2] += t;
-              s[3] += t2;
-            }
-          });
-      block_sums(s, red, part(0));
+      gates_pass(a.cv[0], H, W, Cin, C, xd, h, a.wa, a.ba, G, kb, bpe, sm, red, part(0));
     }
     grid.sync();
 
-    {  // B. r and u statistics; candidate over [x_d | m]
-      elem_stats(elem(0), bpe, inv_n, 2, 0, red, tot, stats);
+    {  // B. r and u statistics; candidate over [x_d | m], m kept in m[d]
       const float* xd = a.x + ((int64_t)b * a.D + d) * P * Cin;
       float* M = a.m + ed;
-      float* Y = a.yraw + e1;
-      double s[4] = {0.0, 0.0, 0.0, 0.0};
-      conv<2>(
-          a.cv[1], H, W, Cin + C, Cin + C, 0, a.wb, C, C, kb, bpe, sm,
-          [&](int p, int c, int k) -> const float* {
-            if (c < Cin) return k == 0 ? xd + p * Cin + c : nullptr;
-            return k == 0 ? G + p * C2 + c - Cin : h + p * C + c - Cin;
-          },
-          [&](int, int c, float g, float hv) {
-            if (c < Cin) return g;
-            const int k = c - Cin;
-            return sigmoid(gn_affine(g, stats[0], stats[1], __ldg(gn + k), __ldg(gn + C + k))) * hv;
-          },
-          [&](int p, int c, float v) {
-            if (c >= Cin) M[p * C + c - Cin] = v;
-          },
-          [&](int p, int co, const float (&v)[4]) {
-            float o[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) o[k] = v[k] + __ldg(a.bb + co + k);
-            st4(Y + p * C + co, o);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              s[0] += o[k];
-              s[1] += (double)o[k] * o[k];
-            }
-          });
-      block_sums(s, red, part(1));
+      candidate_pass(a.cv[1], H, W, Cin, C, xd, G, h, a.wb, a.bb, gn, a.yraw + e1, kb, bpe,
+                     elem(0), inv_n, sm, red, tot, stats, part(1),
+                     [&](int p, int k, float v) { M[p * C + k] = v; });
     }
     grid.sync();
 
@@ -814,9 +759,9 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const float uh = (gu[k] - stats[2]) * stats[3];
-            const float u = sigmoid(gn_affine(gu[k], stats[2], stats[3], gam(1, k), bet(1, k)));
+            const float u = gate_u(gu[k], stats, gam(1, k), bet(1, k));
             const float yh = (yr[k] - stats[4]) * stats[5];
-            const float y = tanhf(gn_affine(yr[k], stats[4], stats[5], gam(2, k), bet(2, k)));
+            const float y = cand_y(yr[k], stats, gam(2, k), bet(2, k));
             const float dht = dhv[k] + gv[k];
             const float dov_ = dht * (1.f - u) * (1.f - y * y);
             const float duv_ = dht * (hh[k] - y) * u * (1.f - u);
@@ -980,26 +925,48 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
     }
   }
 }
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Blocks of a cooperative launch of the forward for B elements of an (H, W)
-// plane with C state channels: B equal groups, each of at most the blocks one
-// element's gate work fills, all resident at once and at most max_blocks in
-// all.  A negative CUDA error code when not even one block per element fits.
-int forward_blocks(int B, int H, int W, int C, int max_blocks) {
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// The shapes both kernels take: 4 ≤ C ≤ 4·BT with C % 4 == 0, a grid of B
+// equal groups, and every plane index of (3C + Cin) channels within 32 bits.
+bool valid_shape(int B, int H, int W, int Cin, int C, int blocks) {
+  return C >= 4 && C % 4 == 0 && C / 4 <= BT && Cin >= 1 && B >= 1 && blocks >= B &&
+         blocks % B == 0 && (int64_t)H * W * (3 * C + Cin) < ((int64_t)1 << 31);
+}
+
+// Reads n convs' (px, wr, wc, wk, ck) from plan into cv; false for one the
+// kernels cannot run.  nraw[i]: raw operands a staged channel of conv i reads.
+bool read_plans(const int* plan, int n, const int* nraw, ConvPlan* cv) {
+  for (int i = 0; i < n; ++i) {
+    const int* q = plan + 5 * i;
+    const ConvPlan p{q[0], q[1], q[2], q[3], q[4]};
+    if ((p.px != 1 && p.px != 2) || !pow2(p.wr) || !pow2(p.wc) || !pow2(p.wk) ||
+        p.wr * p.wc * p.wk != WARPS || p.ck < 8 || p.ck > 64 || !pow2(p.ck) ||
+        nraw[i] * p.ck * staged_plane(p.wr * p.px, p.ck) > IN_WORDS ||
+        9 * p.ck * p.wc * BCO > W_WORDS)
+      return false;
+    cv[i] = p;
+  }
+  return true;
+}
+
+constexpr int NRAW[4] = {1, 2, 2, 2};  // the gates, the candidate, convᵀ Wc, convᵀ [Wh | Wx]
+
+// Blocks of `kernel` with `smem` bytes of dynamic shared memory that the
+// current device holds at once, or a negative CUDA error code.
+template <typename K>
+int resident_blocks(K kernel, int smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
-  if (B < 1) return -(int)cudaErrorInvalidValue;
   if ((err = cudaGetDevice(&dev))) return -(int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return -(int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, red_recur_kernel, THREADS, 0)))
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
     return -(int)err;
-  int64_t per = ((int64_t)H * W * (2 * C / CO_T) + THREADS - 1) / THREADS;
-  const int64_t resident = (int64_t)per_sm * sms / B;
-  if (resident < per) per = resident;
-  if (max_blocks / B < per) per = max_blocks / B;
-  return per < 1 ? -(int)cudaErrorCooperativeLaunchTooLarge : (int)(B * per);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BT, smem)))
+    return -(int)err;
+  return per_sm * sms;
 }
 
 // One cooperative launch of `kernel` with its argument struct and `smem`
@@ -1007,9 +974,11 @@ int forward_blocks(int B, int H, int W, int C, int max_blocks) {
 // (0 = launched).
 template <typename K, typename A>
 int coop_launch(K kernel, A a, int blocks, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(THREADS),
-                                                kargs, smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(BT), kargs, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch is not sticky: clear it for later launches
     return (int)err;
@@ -1017,57 +986,48 @@ int coop_launch(K kernel, A a, int blocks, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
-
 }  // namespace
 
-// Blocks that red_recur_f32 launches (see forward_blocks); the caller sizes
-// the `part` scratch as 8 doubles per block.
-extern "C" int red_recur_blocks(int B, int H, int W, int C, int max_blocks) {
-  return forward_blocks(B, H, W, C, max_blocks);
+// Bytes of dynamic shared memory a forward and a backward block take (the
+// launch plan's constants RED_FWD_SMEM and RED_BWD_SMEM mirror them).
+extern "C" int red_recur_smem() { return FWD_SMEM; }
+extern "C" int red_recur_bwd_smem() { return BWD_SMEM; }
+
+// Blocks that the current device holds at once of the forward kernel and of
+// the backward kernel, whichever is fewer (both plans take it, so the two
+// kernels split a plane alike), or a negative CUDA error code.
+extern "C" int red_recur_resident() {
+  const int f = resident_blocks(red_recur_kernel, FWD_SMEM);
+  const int b = resident_blocks(red_recur_bwd_kernel, BWD_SMEM);
+  return f < 0 ? f : b < 0 ? b : f < b ? f : b;
 }
 
 // Runs the recurrence of B elements over all D planes in one cooperative
-// launch of `blocks` blocks (from red_recur_blocks; a multiple of B) on
-// `stream`; returns cudaGetLastError()-style codes (0 = launched).  C must be a
-// multiple of 4 and every float pointer 16-byte aligned.
-extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float* g, float* m,
-                             double* part, const float* wa, const float* ba, const float* wb,
-                             const float* bb, const float* gn, int B, int D, int H, int W,
-                             int Cin, int C, int blocks, void* stream) {
-  if (C % CO_T != 0 || B < 1 || blocks < B || blocks % B != 0) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {h0, out, g, m, part, wa, ba, wb, bb, gn};
+// launch of `blocks` blocks (B equal groups, at most red_recur_resident()) on
+// `stream`: out (B, D, H, W, C) from x and h0, with the scratch graw (B, H, W,
+// 2C), yraw (B, H, W, C) and part (2, blocks, 4).  plan holds (px, wr, wc, wk,
+// ck) of the gates' and the candidate's convs (see ConvPlan;
+// ops/kernels/red_recur.py `red_recur_plan`).  C must be a multiple of 4 and
+// at most 4·BT, every float pointer but x's 16-byte aligned.  Returns
+// cudaGetLastError()-style codes (0 = launched).
+extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float* graw,
+                             float* yraw, double* part, const float* wa, const float* ba,
+                             const float* wb, const float* bb, const float* gn, const int* plan,
+                             int B, int D, int H, int W, int Cin, int C, int blocks,
+                             void* stream) {
+  FwdArgs args{x, h0, out, graw, yraw, part, wa, ba, wb, bb, gn, {}, B, D, H, W, Cin, C};
+  if (!valid_shape(B, H, W, Cin, C, blocks) || !read_plans(plan, 2, NRAW, args.cv))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {h0, out, graw, yraw, part, wa, ba, wb, bb, gn};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (D == 0) return 0;
-  return coop_launch(red_recur_kernel, Args{x, h0, out, g, m, part, wa, ba, wb, bb, gn, B, D, H, W,
-                                            Cin, C},
-                     blocks, 0, stream);
-}
-
-// Bytes of dynamic shared memory a backward block takes (the launch plan's
-// constant RED_BWD_SMEM mirrors it).
-extern "C" int red_recur_bwd_smem() { return BWD_SMEM; }
-
-// Backward blocks that can be resident at once on the current device, or a
-// negative CUDA error code.
-extern "C" int red_recur_bwd_resident() {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev))) return -(int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return -(int)err;
-  if ((err = cudaFuncSetAttribute(red_recur_bwd_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM)))
-    return -(int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, red_recur_bwd_kernel, BT,
-                                                           BWD_SMEM)))
-    return -(int)err;
-  return per_sm * sms;
+  return coop_launch(red_recur_kernel, args, blocks, FWD_SMEM, stream);
 }
 
 // The reverse-plane adjoint of red_recur_f32 over B elements in one
 // cooperative launch of `blocks` blocks (B equal groups, at most
-// red_recur_bwd_resident()) on `stream`: dx, the per-plane cotangents dg
+// red_recur_resident()) on `stream`: dx, the per-plane cotangents dg
 // (B, D, H, W, 2C) and dyl (B, D, H, W, C), the recomputed m (B, D, H, W, C)
 // for the caller's weight cotangents, and dgn (6, C).  plan holds (px, wr, wc,
 // wk, ck) of the four convs (see ConvPlan; ops/kernels/red_recur.py
@@ -1081,28 +1041,14 @@ extern "C" int red_recur_bwd_f32(const float* x, const float* h0, const float* o
                                  const float* wb, const float* bb, const float* gn,
                                  const float* wcT, const float* weT, const int* plan, int B,
                                  int D, int H, int W, int Cin, int C, int blocks, void* stream) {
-  if (C < 4 || C % 4 != 0 || C / 4 > BT || Cin < 1 || B < 1 || blocks < B || blocks % B != 0)
-    return (int)cudaErrorInvalidValue;
-  if ((int64_t)H * W * (3 * C + Cin) >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   BwdArgs args{x,  h0, out, gout, dx, dg, dyl, m,  graw, yraw, dh, draw, part, gnpart, dgn,
                wa, ba, wb,  bb,   gn, wcT, weT, {}, B,    D,    H,  W,    Cin,  C};
-  for (int i = 0; i < 4; ++i) {
-    const int* q = plan + 5 * i;
-    const ConvPlan p{q[0], q[1], q[2], q[3], q[4]};
-    if ((p.px != 1 && p.px != 2) || !pow2(p.wr) || !pow2(p.wc) || !pow2(p.wk) ||
-        p.wr * p.wc * p.wk != WARPS || p.ck < 8 || p.ck > 64 || !pow2(p.ck) ||
-        (i == 0 ? 1 : 2) * p.ck * staged_plane(p.wr * p.px, p.ck) > IN_WORDS ||
-        9 * p.ck * p.wc * BCO > W_WORDS)
-      return (int)cudaErrorInvalidValue;
-    args.cv[i] = p;
-  }
+  if (!valid_shape(B, H, W, Cin, C, blocks) || !read_plans(plan, 4, NRAW, args.cv))
+    return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {h0, out, gout, dg, dyl, m, graw, yraw, dh, draw, part, gnpart,
                         wa, ba, wb, bb, gn, wcT, weT};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (D == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(red_recur_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
   return coop_launch(red_recur_bwd_kernel, args, blocks, BWD_SMEM, stream);
 }

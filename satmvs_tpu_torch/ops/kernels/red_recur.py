@@ -23,6 +23,11 @@ reductions and counts in `red_recur_backward.launches`.  For CPU tensors,
 and only for them, they compute the plain versions `red_recur_reference` (a
 loop over the elements and the planes) and `red_recur_backward_reference` (a
 reverse loop over the planes of the cell's local VJP).
+
+Both kernels run under a launch plan computed here in Python
+(`red_recur_bwd_plan`; the forward's `red_recur_plan` takes its first two
+convs and its blocks, so the adjoint recomputes the forward's gates and
+candidate in the same order).
 """
 
 from __future__ import annotations
@@ -37,8 +42,6 @@ from torch.autograd.function import once_differentiable
 from ...nn.blocks import ConvGRUCell
 from . import build
 from .plane_conv import torch_weight, wgrad3x3
-
-_MAX_BLOCKS = 4096  # caps the cooperative grid; sizes the per-block sums scratch
 
 
 def _reference_one(x: torch.Tensor, cell: ConvGRUCell,
@@ -158,13 +161,12 @@ def _check(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None):
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("red_recur")
-    lib.red_recur_blocks.argtypes = [ctypes.c_int] * 5
-    lib.red_recur_blocks.restype = ctypes.c_int
-    for name in ("red_recur_bwd_resident", "red_recur_bwd_smem"):
+    for name in ("red_recur_resident", "red_recur_smem", "red_recur_bwd_smem"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
-    lib.red_recur_f32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.red_recur_f32.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int)]
+                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.red_recur_f32.restype = ctypes.c_int
     lib.red_recur_bwd_f32.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.POINTER(ctypes.c_int)]
                                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -172,25 +174,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def grid_blocks(b: int, h: int, w: int, c: int) -> int:
-    """Blocks of the forward kernel's cooperative grid for B elements of
-    (h, w) planes with c state channels (a multiple of B, all resident at
-    once); raises when not even one block per element can be resident.  Call
-    on the current device."""
-    blocks = _lib().red_recur_blocks(b, h, w, c, _MAX_BLOCKS)
-    if blocks < 1:
-        raise RuntimeError(f"red_recur: no cooperative grid for B = {b}: CUDA error {-blocks}")
-    return blocks
-
-
-# The backward kernel's geometry (csrc/red_recur.cu): blocks of 8 warps; a
-# conv's work item is a tile of 32 columns × (wr·px) rows and a slab of wc·8
-# output channels, its raw operands (one a channel for the gates, two for the
-# other convs) staged ck (8 to 64) input channels at a time with a one-pixel
-# halo by cp.async, then mapped in shared memory.
+# Both kernels' geometry (csrc/red_recur.cu): blocks of 8 warps; a conv's
+# work item is a tile of 32 columns × (wr·px) rows and a slab of wc·8 output
+# channels, its raw operands (one a channel for the gates, two for the other
+# convs) staged ck (8 to 64) input channels at a time with a one-pixel halo by
+# cp.async, then mapped in shared memory.  The convs are the gates, the
+# candidate (the forward's two), convᵀ Wc and convᵀ [Wh | Wx].
 RED_BWD_THREADS = 256
 _TW, _BCO, _RS = 32, 8, 34
 _NRAW = (1, 2, 2, 2)  # raw operands a staged channel of each conv reads
+_PLAN_KEYS = ("px", "wr", "wc", "wk", "ck")
 
 
 def _staged_plane(tr: int, ck: int) -> int:
@@ -202,7 +195,8 @@ def _staged_plane(tr: int, ck: int) -> int:
 
 _IN_WORDS = 2 * 16 * _staged_plane(8, 16)
 _W_WORDS = 9 * 16 * 8 * _BCO
-RED_BWD_SMEM = 4 * (_IN_WORDS + _W_WORDS + 24 * RED_BWD_THREADS)
+RED_FWD_SMEM = 4 * (_IN_WORDS + _W_WORDS)
+RED_BWD_SMEM = RED_FWD_SMEM + 4 * 24 * RED_BWD_THREADS
 RED_BWD_MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # The cost model, in instructions of one thread: mapping one staged element
 # of each conv (m = σ(GN_r(g))·h; dy_lin; the gate cotangents), a chunk's
@@ -212,17 +206,11 @@ _MAP_COST = (0, 50, 20, 25)
 _CHUNK_COST, _ITEM_COST = 800, 300
 
 
-def _conv_plan(h: int, w: int, cin: int, cout: int, cap: int, nraw: int, map_cost: int) -> dict:
-    """The least-cost (px, wr, wc, wk, ck) of one conv over an (h, w) plane
-    with cin inputs of nraw raw operands each and cout outputs when `cap`
-    blocks work on the element: the rounds of items a block walks times an
-    item's cost (per chunk the products and their shared loads,
-    3·(ck/wk)·(25·px + 8), the staging and a fixed cost); ties to more rows
-    a thread, wider slabs and deeper chunks.  px is 1 or 2 (four rows a
-    thread would spill registers), no slab is wider than the output rounded
-    up to 8, no chunk deeper than the input, and a chunk's raw operands and
-    weights fit their shared-memory buffers."""
-    best = None
+def conv_plan_options(cout: int, nraw: int):
+    """Every (px, wr, wc, wk, ck) the kernels run for a conv with cout
+    outputs and nraw raw operands a staged channel: 8 warps, px 1 or 2, no
+    slab wider than the output rounded up to 8, a chunk's raw operands and
+    weights within their shared-memory buffers."""
     for px in (2, 1):
         for wc in (8, 4, 2, 1):
             if _BCO * wc > -(-cout // _BCO) * _BCO:
@@ -231,22 +219,39 @@ def _conv_plan(h: int, w: int, cin: int, cout: int, cap: int, nraw: int, map_cos
                 if wc * wk > 8:
                     continue
                 wr = 8 // (wc * wk)
-                tr = wr * px
                 for ck in (64, 32, 16, 8):
-                    if (nraw * ck * _staged_plane(tr, ck) > _IN_WORDS
-                            or 9 * ck * _BCO * wc > _W_WORDS or ck > -(-cin // 8) * 8):
-                        continue
-                    items = -(-h // tr) * -(-w // _TW) * -(-cout // (_BCO * wc))
-                    n_in = (tr + 2) * _RS * ck / RED_BWD_THREADS  # staged elements a thread
-                    chunk = (3 * (ck // wk) * (25 * px + 8)
-                             + n_in * ((4 + 8 * nraw) + (map_cost if nraw > 1 else 0))
-                             + 9 * ck * 2 * wc / RED_BWD_THREADS + _CHUNK_COST)
-                    item = (-(-cin // ck) * chunk + _ITEM_COST
-                            + (16 * px * wk if wk > 1 else 0))
-                    key = (-(-items // cap) * item, -px, -wc, -ck, wk)
-                    if best is None or key < best[0]:
-                        best = (key, {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck,
-                                      "tile_rows": tr, "slab": _BCO * wc, "items": items})
+                    if (nraw * ck * _staged_plane(wr * px, ck) <= _IN_WORDS
+                            and 9 * ck * _BCO * wc <= _W_WORDS):
+                        yield {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck}
+
+
+def _conv_plan(h: int, w: int, cin: int, cout: int, cap: int, nraw: int, map_cost: int,
+               order: tuple[int, int] | None = None) -> dict:
+    """The least-cost (px, wr, wc, wk, ck) of one conv over an (h, w) plane
+    with cin inputs of nraw raw operands each and cout outputs when `cap`
+    blocks work on the element, with (wk, ck) = `order` when given: the
+    rounds of items a block walks times an item's cost (per chunk the
+    products and their shared loads, 3·(ck/wk)·(25·px + 8), the staging and
+    a fixed cost); ties to more rows a thread, wider slabs and deeper
+    chunks.  px is 1 or 2 (four rows a thread would spill registers), no
+    slab is wider than the output rounded up to 8, no chunk deeper than the
+    input, and a chunk's raw operands and weights fit their shared-memory
+    buffers."""
+    best = None
+    for o in conv_plan_options(cout, nraw):
+        px, wc, wk, ck = o["px"], o["wc"], o["wk"], o["ck"]
+        if ck > -(-cin // 8) * 8 or (order is not None and order != (wk, ck)):
+            continue
+        tr = o["wr"] * px
+        items = -(-h // tr) * -(-w // _TW) * -(-cout // (_BCO * wc))
+        n_in = (tr + 2) * _RS * ck / RED_BWD_THREADS  # staged elements a thread
+        chunk = (3 * (ck // wk) * (25 * px + 8)
+                 + n_in * ((4 + 8 * nraw) + (map_cost if nraw > 1 else 0))
+                 + 9 * ck * 2 * wc / RED_BWD_THREADS + _CHUNK_COST)
+        item = -(-cin // ck) * chunk + _ITEM_COST + (16 * px * wk if wk > 1 else 0)
+        key = (-(-items // cap) * item, -px, -wc, -ck, wk)
+        if best is None or key < best[0]:
+            best = (key, {**o, "tile_rows": tr, "slab": _BCO * wc, "items": items})
     return best[1]
 
 
@@ -256,27 +261,52 @@ def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) 
     input and c state channels, on a card that holds `resident` of its blocks
     at once: per conv (the gates, the candidate, convᵀ Wc, convᵀ [Wh | Wx])
     its `_conv_plan`, and `blocks` = B · `per_element`, the most blocks any
-    of the element's passes can use, at most resident // B.  Pure Python,
-    cached (do not modify what it returns); raises ValueError for what the
-    kernel cannot run."""
+    of the element's passes can use, at most resident // B.  An output's
+    sum order depends on (wk, ck) alone, so each conv takes the (wk, ck) it
+    would take with the card to itself and fits its tiles to the element's
+    share: an element's results do not depend on the B it is batched with
+    (the GroupNorm sums aside, float64 partials over other blocks).  Pure
+    Python, cached (do not modify what it returns); raises ValueError for
+    what the kernels cannot run."""
     if c < 4 or c % 4 or c // 4 > RED_BWD_THREADS:
-        raise ValueError(f"red_recur backward: the kernel takes C % 4 == 0, 4 ≤ C ≤ "
+        raise ValueError(f"red_recur: the kernels take C % 4 == 0, 4 ≤ C ≤ "
                          f"{4 * RED_BWD_THREADS}, got C = {c}")
     if min(b, h, w, cin) < 1:
-        raise ValueError(f"red_recur backward: empty operand B {b}, {h}×{w}, Cin {cin}")
+        raise ValueError(f"red_recur: empty operand B {b}, {h}×{w}, Cin {cin}")
     if h * w * (3 * c + cin) >= 2 ** 31:
-        raise ValueError(f"red_recur backward: a {h}×{w} plane of {3 * c + cin} channels "
+        raise ValueError(f"red_recur: a {h}×{w} plane of {3 * c + cin} channels "
                          f"overflows 32-bit indices")
     if resident < b:
-        raise ValueError(f"red_recur backward: no cooperative grid for B = {b} on a card "
+        raise ValueError(f"red_recur: no cooperative grid for B = {b} on a card "
                          f"that holds {resident} blocks")
     cap = resident // b
     shapes = ((cin + c, 2 * c), (cin + c, c), (c, c), (3 * c, c + cin))
-    convs = [_conv_plan(h, w, ci, co, cap, nraw, cost)
-             for (ci, co), nraw, cost in zip(shapes, _NRAW, _MAP_COST)]
+    convs = []
+    for (ci, co), nraw, cost in zip(shapes, _NRAW, _MAP_COST):
+        alone = _conv_plan(h, w, ci, co, resident, nraw, cost)
+        convs.append(_conv_plan(h, w, ci, co, cap, nraw, cost, (alone["wk"], alone["ck"])))
     own = -(-h * w // (RED_BWD_THREADS // (c // 4)))  # blocks the own-pixel passes fill
     per = min(cap, max(own, *(p["items"] for p in convs)))
     return {"blocks": b * per, "per_element": per, "convs": convs}
+
+
+@functools.lru_cache(maxsize=256)
+def red_recur_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) -> dict:
+    """The forward kernel's launch: the backward's plan (`red_recur_bwd_plan`,
+    same arguments) for its first two convs, the gates and the candidate,
+    and its blocks.  The adjoint's phases A and B then recompute the
+    forward's r, u and y in the same order, over the same blocks.  Cached
+    (do not modify what it returns); raises ValueError where the backward's
+    plan does."""
+    plan = red_recur_bwd_plan(b, h, w, cin, c, resident)
+    return {"blocks": plan["blocks"], "per_element": plan["per_element"],
+            "convs": plan["convs"][:2]}
+
+
+def _plan_ints(plan: dict):
+    """A plan's convs as the kernels' int array of (px, wr, wc, wk, ck)."""
+    return (ctypes.c_int * (5 * len(plan["convs"])))(*(p[k] for p in plan["convs"]
+                                                      for k in _PLAN_KEYS))
 
 
 def _start_state(x: torch.Tensor, c: int, h0: torch.Tensor | None) -> torch.Tensor:
@@ -290,27 +320,31 @@ def _start_state(x: torch.Tensor, c: int, h0: torch.Tensor | None) -> torch.Tens
     return h0
 
 
-def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None) -> torch.Tensor:
-    """The kernel on x (B, D, H, W, Cin) and h0 (B, H, W, C) or None."""
+def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None,
+            plan: dict | None = None) -> torch.Tensor:
+    """The kernel on x (B, D, H, W, Cin) and h0 (B, H, W, C) or None, counted
+    in `red_recur.launches`.  `plan` replaces `red_recur_plan`'s (to time
+    other plans)."""
     b, d, h, w, cin = x.shape
     c = cell.features
-    if c % 4:
-        raise ValueError(f"red_recur: the kernel takes C % 4 == 0, got C = {c}")
     if not x.is_contiguous():
         raise ValueError("red_recur: x must be contiguous")
+    if plan is None:  # refuses C % 4, 32-bit overflow and more elements than fit
+        with torch.cuda.device(x.device):
+            plan = red_recur_plan(b, h, w, cin, c, resident())
     h0 = _start_state(x, c, h0)
     lib = _lib()
     wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
-    out = torch.empty((b, d, h, w, c), dtype=torch.float32, device=x.device)
+    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                                          device=x.device)
+    out = new(b, d, h, w, c)
+    graw, yraw = new(b, h, w, 2 * c), new(b, h, w, c)
+    part = new(2, plan["blocks"], 4, dtype=torch.float64)
     with torch.cuda.device(x.device):
-        blocks = grid_blocks(b, h, w, c)
-        g = torch.empty((b, h, w, 2 * c), dtype=torch.float32, device=x.device)
-        m = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
-        part = torch.empty((2, blocks, 4), dtype=torch.float64, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.red_recur_f32(*(t.data_ptr() for t in (x, h0, out, g, m, part, wa, ba, wb, bb,
-                                                        gn)),
-                               b, d, h, w, cin, c, blocks, stream)
+        rc = lib.red_recur_f32(*(t.data_ptr() for t in (x, h0, out, graw, yraw, part, wa, ba, wb,
+                                                        bb, gn)),
+                               _plan_ints(plan), b, d, h, w, cin, c, plan["blocks"], stream)
     if rc != 0:
         raise RuntimeError(f"red_recur kernel launch failed: CUDA error {rc}")
     red_recur.launches += 1
@@ -331,15 +365,16 @@ def _param_grads(cell: ConvGRUCell, dwa, dba, dwb, dbb, dgn) -> tuple[torch.Tens
 
 @functools.lru_cache(maxsize=16)
 def _resident(device: int) -> int:
-    return _lib().red_recur_bwd_resident()
+    return _lib().red_recur_resident()
 
 
-def bwd_resident() -> int:
-    """Backward blocks the current device holds at once (its shared memory
-    and registers at two blocks an SM); raises when the query fails."""
+def resident() -> int:
+    """Blocks of the forward and of the backward kernel the current device
+    holds at once, whichever is fewer (their shared memory and registers at
+    two blocks an SM): both plans take it.  Raises when the query fails."""
     n = _resident(torch.cuda.current_device())
     if n < 1:
-        raise RuntimeError(f"red_recur backward: no resident block: CUDA error {-n}")
+        raise RuntimeError(f"red_recur: no resident block: CUDA error {-n}")
     return n
 
 
@@ -363,17 +398,15 @@ def _adjoint(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell: ConvGRUC
     dgn = new(6, c)
     with torch.cuda.device(x.device):
         if plan is None:
-            plan = red_recur_bwd_plan(b, h, w, cin, c, bwd_resident())
+            plan = red_recur_bwd_plan(b, h, w, cin, c, resident())
         blocks = plan["blocks"]
         part = new(4, blocks, 4, dtype=torch.float64)
         gnpart = new(blocks, 6, c, dtype=torch.float64)
-        convs = (ctypes.c_int * 20)(*(p[k] for p in plan["convs"]
-                                      for k in ("px", "wr", "wc", "wk", "ck")))
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.red_recur_bwd_f32(
             *(t.data_ptr() for t in (x, h0, out, g, dx, dg, dyl, m, graw, yraw, dh, draw, part,
                                      gnpart, dgn, wa, ba, wb, bb, gn, wcT, weT)),
-            convs, b, d, h, w, cin, c, blocks, stream)
+            _plan_ints(plan), b, d, h, w, cin, c, blocks, stream)
     if rc != 0:
         raise RuntimeError(f"red_recur backward kernel launch failed: CUDA error {rc}")
     return dx, dg, dyl, m, dgn

@@ -6,7 +6,6 @@ skip without them), sweep_variance, the one wrapper without a backward
 kernel, refuses a graph on the card while the plain versions differentiate,
 and the modules import without nvcc."""
 
-import itertools
 import os
 import subprocess
 import sys
@@ -156,10 +155,13 @@ def test_cuda_conv_head_matches_plain_version(n, h, w, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,w,cin,c,seeded", [(5, 16, 24, 8, 8, False), (4, 7, 9, 6, 4, True),
-                                                (3, 6, 12, 64, 64, True)])
+                                                (3, 6, 12, 64, 64, True),
+                                                (3, 10, 36, 12, 12, True),
+                                                (2, 9, 20, 24, 24, False)])
 def test_cuda_red_recur_matches_plain_version(d, h, w, cin, c, seeded):
-    """Odd sizes, Cin % 4 != 0, C = 64, zero and seeded start states: 1e-4 on
-    states in (−1, 1) (GroupNorm statistics in float64 against torch's fp32)."""
+    """Odd sizes, Cin % 4 != 0, C = 64, C = 12 and 24 (the cells
+    `cr_base_chs` 12 gives), zero and seeded start states: 1e-4 on states in
+    (−1, 1) (GroupNorm statistics in float64 against torch's fp32)."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
     from satmvs_tpu_torch.ops.kernels.red_recur import red_recur, red_recur_reference
 
@@ -233,20 +235,63 @@ def test_cuda_batched_red_recur_elements_are_independent():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,d,h,w,cin,c", [(1, 3, 6, 12, 64, 64), (2, 2, 32, 160, 16, 8)])
+def test_cuda_red_recur_under_every_plan(b, d, h, w, cin, c):
+    """The forward with each of its two convs (the gates, the candidate)
+    under every (px, wr, wc, wk, ck) the kernels run, the other conv at the
+    plan's own, against the plain version (1e-4 on states in (−1, 1)): a
+    coarse plane at C = 64, a few column tiles (the plan splits input
+    channels over warps), and a wide one at C = 8, B = 2."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    _cuda()
+    assert rr._lib().red_recur_smem() == rr.RED_FWD_SMEM
+    cell = _red_cell(cin, c, 90 + c)
+    with torch.no_grad():
+        x = _rand((b, d, h, w, cin), 91)
+        h0 = torch.tanh(_rand((b, h, w, c), 92))
+        want = rr.red_recur_reference(x, cell, h0)
+        base = rr.red_recur_plan(b, h, w, cin, c, rr.resident())
+        for i, cout in enumerate((2 * c, c)):
+            for conv in rr.conv_plan_options(cout, rr._NRAW[i]):
+                plan = {**base, "convs": [conv if j == i else p
+                                          for j, p in enumerate(base["convs"])]}
+                err = (rr._launch(x, cell, h0, plan) - want).abs().max().item()
+                assert err <= 1e-4, (i, conv, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,h,w,cin,c", [(4, 3, 12, 24, 64, 64), (4, 2, 56, 56, 8, 8)])
+def test_cuda_red_recur_same_bits_in_a_second_run(b, d, h, w, cin, c):
+    """B = 4 seeded elements at a coarse and a wide shape: a second launch
+    gives the same bits (statistics in a fixed order, no atomics)."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    _cuda()
+    cell = _red_cell(cin, c, 95)
+    with torch.no_grad():
+        x = _rand((b, d, h, w, cin), 96)
+        h0 = torch.tanh(_rand((b, h, w, c), 97))
+        assert torch.equal(rr.red_recur(x, cell, h0), rr.red_recur(x, cell, h0))
+
+
+@pytest.mark.cuda
 def test_cuda_red_recur_refused_grid_raises(monkeypatch):
     """A grid the card cannot hold raises and launches nothing: more
-    elements than resident blocks, and a grid cudaLaunchCooperativeKernel
-    refuses; a launch after either still runs."""
+    elements than resident blocks (the launch plan refuses it), and a grid
+    cudaLaunchCooperativeKernel refuses; a launch after either still runs."""
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
 
     _cuda()
     cell = _red_cell(4, 4, 40)
     before = rr.red_recur.launches
     with torch.no_grad():
-        with pytest.raises(RuntimeError, match="no cooperative grid"):
+        with pytest.raises(ValueError, match="no cooperative grid"):
             rr.red_recur(_rand((20000, 1, 4, 4, 4), 41), cell)
         x = _rand((2, 3, 8, 8, 4), 42)
-        monkeypatch.setattr(rr, "grid_blocks", lambda b, h, w, c: 2 * 4000)
+        plan = rr.red_recur_plan(2, 8, 8, 4, 4, rr.resident())
+        monkeypatch.setattr(rr, "red_recur_plan",
+                            lambda *args: {**plan, "blocks": 2 * 4000, "per_element": 4000})
         with pytest.raises(RuntimeError, match="launch failed"):
             rr.red_recur(x, cell)
         assert rr.red_recur.launches == before
@@ -619,16 +664,10 @@ def test_cuda_red_recur_adjoint_under_every_plan():
     with torch.no_grad():
         out = rr.red_recur_reference(x, cell, h0)
     g = _rand(tuple(out.shape), 83)
-    base = rr.red_recur_bwd_plan(b, h, w, cin, c, rr.bwd_resident())
+    base = rr.red_recur_bwd_plan(b, h, w, cin, c, rr.resident())
     want = rr._adjoint(x, out, g, cell, h0)
     for i, cout in enumerate((2 * c, c, c, c + cin)):
-        for px, wc, wk, ck in itertools.product((1, 2), (1, 2, 4, 8), (1, 2, 4, 8), (8, 16, 32, 64)):
-            wr = 8 // (wc * wk) if wc * wk <= 8 else 0
-            if (not wr or 8 * wc > -(-cout // 8) * 8
-                    or rr._NRAW[i] * ck * rr._staged_plane(wr * px, ck) > rr._IN_WORDS
-                    or 9 * ck * 8 * wc > rr._W_WORDS):
-                continue
-            conv = {"px": px, "wr": wr, "wc": wc, "wk": wk, "ck": ck}
+        for conv in rr.conv_plan_options(cout, rr._NRAW[i]):
             plan = {**base, "convs": [conv if j == i else p
                                       for j, p in enumerate(base["convs"])]}
             got = rr._adjoint(x, out, g, cell, h0, plan)

@@ -1,7 +1,10 @@
-"""The launch plans of two kernels on the CPU: the ConvGRU adjoint's
+"""The launch plans of three kernels on the CPU: the ConvGRU adjoint's
 (satmvs_tpu_torch/ops/kernels/red_recur.py `red_recur_bwd_plan`, CUDA
 `red_recur_bwd_kernel`) at every call shape of a 384×768 train step, at
-B = 1 and 2 and at the card tests' shapes; the layout of its transposed
+B = 1 and 2 and at the card tests' shapes; the forward recurrence's
+(`red_recur_plan`, CUDA `red_recur_kernel`: the adjoint's first two convs
+and its blocks) at the train step's shapes, at the 4-tile scene chunk's
+and at the card tests'; the layout of its transposed
 weights against autograd through the cell's convolutions; and the grid of
 the sweep gather (sweep_gather.cu `sweep_grid`, `GATHER_PLANES`), with the
 kernel's thread-to-output map written out, covering every output once.  The
@@ -26,25 +29,42 @@ RESIDENT = 2 * 132  # an H100: 132 SMs, two backward blocks an SM
 CARD_SHAPES = [  # (B, H, W, Cin, C) of the `cuda` backward tests
     (1, 16, 24, 8, 8), (2, 7, 9, 6, 4), (1, 6, 12, 64, 64), (2, 12, 24, 64, 64),
     (2, 32, 160, 16, 8), (1, 10, 36, 12, 12), (2, 9, 20, 24, 24)]
+FWD_CARD_SHAPES = [  # (B, H, W, Cin, C) of the `cuda` forward tests
+    (1, 16, 24, 8, 8), (1, 7, 9, 6, 4), (1, 6, 12, 64, 64), (1, 10, 36, 12, 12),
+    (1, 9, 20, 24, 24), (3, 7, 9, 6, 4), (2, 6, 12, 64, 64), (4, 16, 24, 8, 8),
+    (4, 20, 28, 16, 16), (2, 8, 8, 4, 4), (2, 32, 160, 16, 8), (4, 12, 24, 64, 64)]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def _train_shapes():
     """(H, W, Cin, C) of the 12 red_recur calls of a 384×768 train step."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     shapes = [(h // s, w // s, ci, c) for _, _, h, w, cin in cs.red_shapes()
               for s, ci, c in cs.red_scales(cin)]
     assert len(shapes) == 12
     return shapes
 
 
-def _check_plan(b, h, w, cin, c, resident):
-    plan = rr.red_recur_bwd_plan(b, h, w, cin, c, resident)
-    per = plan["per_element"]
-    assert plan["blocks"] == b * per and 1 <= per and plan["blocks"] <= resident
+def _chunk_shapes():
+    """(H, W, Cin, C) of the 12 batched red_recur calls of a 4-tile scene
+    chunk: 448² tiles, each stage's four scales."""
+    cs = _chip_smoke()
+    shapes = [(cs.TILE_HW // scale // s, cs.TILE_HW // scale // s, ci, c)
+              for scale, cin in zip(cs.STAGE_SCALES, cs.FEAT_CH) for s, ci, c in cs.red_scales(cin)]
+    assert len(shapes) == 12 and cs.BATCH_TILES == 4 and cs.SLAB == 8
+    return shapes
+
+
+def _check_convs(convs, h, w, cin, c):
+    """Each conv's plan: 8 warps, coverage, and its shared-memory buffers."""
     couts = (2 * c, c, c, c + cin)
-    for conv, cout, nraw in zip(plan["convs"], couts, rr._NRAW):
+    for conv, cout, nraw in zip(convs, couts, rr._NRAW):
         px, wr, wc, wk, ck = (conv[k] for k in ("px", "wr", "wc", "wk", "ck"))
         assert px in (1, 2) and wr * wc * wk * 32 == rr.RED_BWD_THREADS
         assert all(v & (v - 1) == 0 for v in (wr, wc, wk))
@@ -62,6 +82,20 @@ def _check_plan(b, h, w, cin, c, resident):
         assert ny * tr >= h > (ny - 1) * tr and nx * 32 >= w > (nx - 1) * 32
         assert ns * slab >= cout > (ns - 1) * slab
         assert conv["items"] == ny * nx * ns
+
+
+def _sum_order(plan):
+    """(wk, ck) of each conv: all that decides the order of an output's sum."""
+    return [(p["wk"], p["ck"]) for p in plan["convs"]]
+
+
+def _check_plan(b, h, w, cin, c, resident):
+    plan = rr.red_recur_bwd_plan(b, h, w, cin, c, resident)
+    per = plan["per_element"]
+    assert plan["blocks"] == b * per and 1 <= per and plan["blocks"] <= resident
+    _check_convs(plan["convs"], h, w, cin, c)
+    # an element's sums are taken in the order it would take alone
+    assert _sum_order(plan) == _sum_order(rr.red_recur_bwd_plan(1, h, w, cin, c, resident))
     # the own-pixel passes cover the plane, four channels a thread
     lanes = rr.RED_BWD_THREADS // (c // 4)
     assert lanes >= 1 and per * lanes >= min(h * w, per * lanes)
@@ -170,3 +204,56 @@ def test_gather_grid_covers_every_output_once(d, h, w, c, vec):
     else:  # the first and last rows of every plane, once each
         rows = count.reshape(d, h, w * c)
         assert (rows[:, 0] == 1).all() and (rows[:, -1] == 1).all()
+
+
+def _check_forward_plan(b, h, w, cin, c, resident):
+    """The forward's plan is the adjoint's gates and candidate and its
+    blocks (so the recompute repeats the forward's sums), its convs cover
+    the plane and fit their buffers, its grid is B groups within the card."""
+    plan = rr.red_recur_plan(b, h, w, cin, c, resident)
+    bwd = rr.red_recur_bwd_plan(b, h, w, cin, c, resident)
+    assert plan["convs"] == bwd["convs"][:2] and len(plan["convs"]) == 2
+    assert plan["per_element"] == bwd["per_element"] and plan["blocks"] == bwd["blocks"]
+    per = plan["per_element"]
+    assert plan["blocks"] == b * per and 1 <= per and plan["blocks"] <= resident
+    _check_convs(plan["convs"], h, w, cin, c)
+    return plan
+
+
+def test_forward_plan_at_every_call_of_a_train_step():
+    """B = 1 at the 12 shapes of a 384×768 forward (and train step); the
+    forward's blocks fit two an SM beside the backward's."""
+    assert rr.RED_FWD_SMEM + 4 * 24 * rr.RED_BWD_THREADS == rr.RED_BWD_SMEM
+    assert 2 * (rr.RED_FWD_SMEM + 1024) <= 233472
+    for h, w, cin, c in _train_shapes():
+        plan = _check_forward_plan(1, h, w, cin, c, RESIDENT)
+        assert plan["per_element"] >= 64, (h, w, plan["per_element"])
+
+
+def test_forward_plan_at_every_call_of_a_scene_chunk():
+    """B = 4 tiles at the 12 shapes of a 4-tile chunk of 448² tiles: the grid
+    is split four ways, each element at least 32 blocks, and each conv sums
+    in the order of a B = 1 launch, so a tile's states do not depend on the
+    tiles batched with it."""
+    for h, w, cin, c in _chunk_shapes():
+        plan = _check_forward_plan(4, h, w, cin, c, RESIDENT)
+        assert plan["per_element"] >= 32, (h, w, plan["per_element"])
+        assert _sum_order(plan) == _sum_order(rr.red_recur_plan(1, h, w, cin, c, RESIDENT))
+
+
+@pytest.mark.parametrize("resident", [RESIDENT, 8])
+def test_forward_plan_at_the_card_tests_shapes(resident):
+    for b, h, w, cin, c in FWD_CARD_SHAPES:
+        _check_forward_plan(b, h, w, cin, c, resident)
+
+
+def test_forward_plan_refuses_what_the_kernel_cannot_run():
+    for c in (6, 2, 10):
+        with pytest.raises(ValueError, match="C % 4"):
+            rr.red_recur_plan(1, 8, 8, 4, c, RESIDENT)
+    with pytest.raises(ValueError, match="32-bit"):
+        rr.red_recur_plan(1, 4096, 8192, 64, 64, RESIDENT)
+    with pytest.raises(ValueError, match="cooperative grid"):
+        rr.red_recur_plan(RESIDENT + 1, 8, 8, 4, 8, RESIDENT)
+    with pytest.raises(ValueError, match="cooperative grid"):
+        rr.red_recur_plan(20000, 1, 4, 4, 4, RESIDENT)
