@@ -5,13 +5,16 @@
 
 Phases, each reported on its own lines:
   0  setup: TF32 off for matmuls and cuDNN, the card's name and power limit;
-  1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a);
+  1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a),
+     each kernel instance's registers and spills; no instance of the plane
+     convs may spill;
   2  each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it (sweep_variance also with coordinates
-     pushed off the image, red_recur also from a non-zero start state,
-     with its launch plan and the same bits in a second run); kernel, plain
-     and library times (CUDA events, median after warm-up) beside the least
-     time the card could take (bound);
+     pushed off the image, red_recur also from a non-zero start state;
+     red_recur and the plane convs with their launch plans and the same
+     bits in a second run); kernel, plain and library times (CUDA events,
+     median after warm-up) beside the least time the card could take
+     (bound);
   2b the batched red_recur (B = 4 elements, each from its own start state)
      against its plain version and against B = 1 calls on each element, at
      every shape a 448² tile batch gives it in 8-plane slabs, with its plan
@@ -45,7 +48,9 @@ Phases, each reported on its own lines:
      (−1, 1) over all planes; the same bits in a second run; kernel, plain,
      bound and cuDNN-gradient times; red_recur's adjoint kernel alone (row 6
      without its two weight reductions) beside row 6 and the adjoint's share
-     of the operations bound, per shape and over the 12; and their shared
+     of the operations bound, per shape and over the 12; the plane convs'
+     dx kernel alone (device time under torch.profiler, its plan and its
+     own bound) per shape and over each row's calls; and their shared
      weight reduction wgrad3x3 alone at each of its 45 call shapes (9
      conv_dn, 24 red_recur, 9 deconv_up, 3 conv_head) against its plain
      version in float64, its time beside cuDNN's weight-only gradient (run
@@ -151,6 +156,34 @@ def loop_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def device_ms(fn, kernel, calls: int) -> float:
+    """Device time per call of the kernels that `kernel` picks (a substring
+    of the profiler's kernel name, or a predicate on it) over `calls` calls
+    of fn under torch.profiler, after one warm-up call; a capture that holds
+    none of them is taken again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pick = kernel if callable(kernel) else (lambda key: kernel in key)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and pick(e.key))
+        if us > 0:
+            return us / 1e3 / calls
+    raise RuntimeError(f"the profiler saw no {kernel} kernel in three captures")
+
+
+def conv3x3_kernel_name(key: str) -> bool:
+    """A profiler key of plane_conv.cu's conv kernel (not the transposed one)."""
+    return "conv3x3_kernel" in key and "deconv" not in key
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time for the work: bytes over the HBM rate or fp32 operations
     over the fp32 rate, whichever is larger, and which one that is."""
@@ -168,6 +201,14 @@ def kernel_name(mangled: str) -> str:
             if part.endswith("_kernel") and part.isidentifier():
                 return part
     return mangled
+
+
+def kernel_instance(mangled: str) -> str:
+    """kernel_name with its integer and bool template arguments
+    ("conv3x3_kernel<2,4,0,8>")."""
+    name = kernel_name(mangled)
+    m = re.search(re.escape(name) + r"I((?:L[ib]\d+E)+)E", mangled)
+    return name if m is None else f"{name}<{','.join(re.findall(r'L[ib](\d+)E', m.group(1)))}>"
 
 
 def conv_taps(n_in: int, n_out: int, stride: int) -> int:
@@ -311,6 +352,47 @@ def red_scales(cin: int):
     return ((1, cin, b), (2, 2 * b, 2 * b), (4, 4 * b, 4 * b), (8, 8 * b, 8 * b))
 
 
+def plane_calls():
+    """(label, op, stride, transposed, N, H, W, Cin, Cout, gated) of the 21
+    plane convs of a 384×768 forward (conv_dn ×9, deconv_up ×9, conv_head
+    ×3) and the 21 dx of a train step's backwards, as the kernels see them:
+    a dx takes the cotangent as its input (conv_dn's dx is a gated
+    transposed conv, deconv_up's a gated stride-2 conv, conv_head's a
+    stride-1 conv from one channel)."""
+    b = RED_BASE
+    calls = []
+    for stage, d, h, w, cin in red_shapes():
+        for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
+            hh, ww = h // s, w // s
+            calls.append((f"{stage} enc{k + 1}", "conv_dn", 2, False, d, hh, ww, ci, co, False))
+            calls.append((f"{stage} enc{k + 1}", "conv_dn dx", 2, True, d, hh // 2, ww // 2, co,
+                          ci, True))
+        for k, (s, ci, co) in enumerate(((8, 8 * b, 4 * b), (4, 4 * b, 2 * b), (2, 2 * b, b))):
+            hh, ww = h // s, w // s
+            calls.append((f"{stage} up{3 - k}", "deconv_up", 2, True, d, hh, ww, ci, co, False))
+            calls.append((f"{stage} up{3 - k}", "deconv_up dx", 2, False, d, 2 * hh, 2 * ww, co,
+                          ci, True))
+        calls.append((f"{stage} head", "conv_head", 1, False, d, h, w, b, 1, False))
+        calls.append((f"{stage} head", "conv_head dx", 1, False, d, h, w, 1, b, False))
+    return calls
+
+
+def plane_work(op: str, stride: int, transposed: bool, n: int, h: int, w: int, cin: int,
+               cout: int, gated: bool) -> tuple[float, float]:
+    """Bytes (input and gate, weights, output, and deconv_up's skip and
+    conv_head's bias each read or written once) and flops (the taps inside
+    the plane) of one plane conv as `plane_calls` lists it.  A dx's
+    multiply-adds are its forward's."""
+    if transposed:
+        ho, wo, taps = 2 * h, 2 * w, (3 * h - 1) * (3 * w - 1)
+    else:
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        taps = conv_taps(h, ho, stride) * conv_taps(w, wo, stride)
+    words = n * h * w * cin * (2 if gated else 1) + 9 * cin * cout + n * ho * wo * cout
+    words += n * ho * wo * cout if op == "deconv_up" else cout if op == "conv_head" else 0
+    return 4.0 * words, 2.0 * n * taps * cin * cout
+
+
 def red_cell(ci: int, c: int, seed: int, randn):
     """A ConvGRUCell on the card: seeded convs, perturbed norms and biases."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
@@ -351,6 +433,23 @@ def recur_same_bits(rr, label: str, x, cell, h0):
     check(same, f"red_recur {label}: a second run differs")
 
 
+def plane_same_bits(name: str, label: str, fn, call: tuple):
+    """A plane conv's launch plan at this shape (`plane_conv_plan` of call =
+    (stride, transposed, N, H, W, Cin, Cout, gated), as the kernel sees it),
+    and the same bits in a second run of fn (each output's sum in one fixed
+    order, no atomics)."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    plan = pc.plane_conv_plan(*call, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    a, b = fn(), fn()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"[kernels] {name} {label} plan: slab {plan['slab']}, tile {plan['tile_rows']}×"
+          f"{plan['tx']}, {plan['threads']} threads, chunks of {plan['ck']} channels, "
+          f"{plan['smem']} B, grid {plan['grid']}; same bits in a second run: {same}", flush=True)
+    check(same, f"{name} {label}: a second run differs")
+
+
 def phase_red_kernels(card: str) -> list[dict]:
     """Phase 2: the four RED kernels against their plain versions at every
     shape one forward gives them (base 8: channels 16/32/64 down the
@@ -382,12 +481,12 @@ def phase_red_kernels(card: str) -> list[dict]:
         for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
             x = randn(d, h // s, w // s, ci)
             wt = randn(co, ci, 3, 3, scale=(2.0 / (9 * ci)) ** 0.5)
-            taps = conv_taps(h // s, h // s // 2, 2) * conv_taps(w // s, w // s // 2, 2)
-            out_n = d * (h // s // 2) * (w // s // 2) * co
-            dn.case(f"{stage} enc{k + 1} {(d, h // s, w // s, ci)}->{co}",
-                    lambda: pc.conv_dn(x, wt), lambda: pc.conv_dn_reference(x, wt), rel_tol,
-                    4 * (x.numel() + out_n + wt.numel()), 2 * d * taps * ci * co,
+            call = (2, False, d, h // s, w // s, ci, co, False)
+            label = f"{stage} enc{k + 1} {(d, h // s, w // s, ci)}->{co}"
+            dn.case(label, lambda: pc.conv_dn(x, wt), lambda: pc.conv_dn_reference(x, wt),
+                    rel_tol, *plane_work("conv_dn", *call),
                     lambda: F.relu(F.conv2d(nchw(x), wt, stride=2, padding=1)))
+            plane_same_bits("conv_dn", label, lambda: pc.conv_dn(x, wt), call)
         # recurrences at scales 1, 2, 4, 8: (cin, C) = (cin, b), (2b, 2b), (4b, 4b), (8b, 8b)
         for s, ci, c in red_scales(cin):
             cell = red_cell(ci, c, s, randn)
@@ -408,21 +507,24 @@ def phase_red_kernels(card: str) -> list[dict]:
             x = randn(d, h // s, w // s, ci)
             wt = randn(ci, co, 3, 3, scale=(2.0 / (9 * ci)) ** 0.5)
             skip = randn(d, 2 * (h // s), 2 * (w // s), co)
-            taps = (3 * (h // s) - 1) * (3 * (w // s) - 1)
-            up.case(f"{stage} up{3 - k} {(d, h // s, w // s, ci)}->{co}",
-                    lambda: pc.deconv_up(x, wt, skip),
+            call = (2, True, d, h // s, w // s, ci, co, False)
+            label = f"{stage} up{3 - k} {(d, h // s, w // s, ci)}->{co}"
+            up.case(label, lambda: pc.deconv_up(x, wt, skip),
                     lambda: pc.deconv_up_reference(x, wt, skip), rel_tol,
-                    4 * (x.numel() + 2 * skip.numel() + wt.numel()), 2 * d * taps * ci * co,
+                    *plane_work("deconv_up", *call),
                     lambda: F.relu(F.conv_transpose2d(nchw(x), wt, stride=2, padding=1,
                                                       output_padding=1)) + nchw(skip))
+            plane_same_bits("deconv_up", label, lambda: pc.deconv_up(x, wt, skip), call)
         # logit head: (h, w, b → 1) with bias
         x = randn(d, h, w, b)
         wt, bias = randn(1, b, 3, 3, scale=(2.0 / (9 * b)) ** 0.5), randn(1)
-        taps = conv_taps(h, h, 1) * conv_taps(w, w, 1)
-        head.case(f"{stage} head {(d, h, w, b)}->1", lambda: pc.conv_head(x, wt, bias),
+        call = (1, False, d, h, w, b, 1, False)
+        label = f"{stage} head {(d, h, w, b)}->1"
+        head.case(label, lambda: pc.conv_head(x, wt, bias),
                   lambda: pc.conv_head_reference(x, wt, bias), rel_tol,
-                  4 * (x.numel() + d * h * w + wt.numel() + 1), 2 * d * taps * b,
+                  *plane_work("conv_head", *call),
                   lambda: F.conv2d(nchw(x), wt, bias, padding=1))
+        plane_same_bits("conv_head", label, lambda: pc.conv_head(x, wt, bias), call)
     return [dn.record(), rec.record(), up.record(), head.record()]
 
 
@@ -1044,6 +1146,20 @@ def phase_red_backward(card: str) -> list[dict]:
     head = KernelReport("conv_head_backward", "satmvs_tpu_torch/csrc/plane_conv.cu",
                         "satmvs_tpu/ops/pallas/plane_conv.py:768", card)
     adjoint = []  # (adjoint alone ms, row 6 ms, adjoint's bound ms) per red_recur call
+    dx_alone = {}  # backward → [(dx kernel's device ms, its bound ms)] per call
+
+    def dx_case(report, label, fn, call):
+        """The dx kernel alone in a backward (call as `plane_calls` lists it):
+        its device time under torch.profiler, the weight reduction's kernels
+        not counted, beside its own bound (it reads g, the gate and w, and
+        writes dx; its multiply-adds are the forward's)."""
+        pick = (lambda k: "deconv3x3" in k) if call[3] else conv3x3_kernel_name
+        ms = device_ms(fn, pick, 5)
+        b_ms, by = bound_ms(*plane_work(*call[1:]))
+        dx_alone.setdefault(report, []).append((ms, b_ms))
+        print(f"[backward] {report} {label}: the dx kernel alone {ms:.4f} ms (device), bound "
+              f"{b_ms:.4f} ms ({by}), dx/bound {ms / b_ms:.2f} card={card}", flush=True)
+        plane_same_bits(f"{report} dx", label, fn, call[2:])
     for stage, d, h, w, cin in red_shapes():
         for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
             x = randn(d, h // s, w // s, ci)
@@ -1064,6 +1180,8 @@ def phase_red_backward(card: str) -> list[dict]:
                                                                 padding=1)), (x, wt), nchw(g)),
                     exact=lambda: pc.conv_dn_backward_reference(*f64(x, wt), y, g.double()))
             same_bits(f"conv_dn_backward {label}", lambda: pc.conv_dn_backward(x, wt, y, g))
+            dx_case("conv_dn_backward", label, lambda: pc.conv_dn_backward(x, wt, y, g),
+                    (label, "conv_dn dx", 2, True, d, h // s // 2, w // s // 2, co, ci, True))
             dz = torch.where(y > 0, g, torch.zeros_like(g))
             wgrad_case(f"{label} conv_dn", x, g, 2, d * taps,
                        cudnn_wgrad(nchw(dz), nchw(x), wt, 2), bmask=y)
@@ -1125,6 +1243,9 @@ def phase_red_backward(card: str) -> list[dict]:
                         (x, wt, skip), nchw(g)),
                     exact=lambda: pc.deconv_up_backward_reference(*f64(x, wt), act, g.double()))
             same_bits(f"deconv_up_backward {label}", lambda: pc.deconv_up_backward(x, wt, act, g))
+            dx_case("deconv_up_backward", label, lambda: pc.deconv_up_backward(x, wt, act, g),
+                    (label, "deconv_up dx", 2, False, d, 2 * (h // s), 2 * (w // s), co, ci,
+                     True))
             dz = torch.where(act > 0, g, torch.zeros_like(g))
             wgrad_case(f"{label} deconv_up", g, x, 2, d * taps,
                        cudnn_wgrad(nchw(dz), nchw(x), wt, 2, transposed=True), amask=act)
@@ -1145,6 +1266,8 @@ def phase_red_backward(card: str) -> list[dict]:
                                (x, wt, bias), nchw(g)),
                   exact=lambda: pc.conv_head_backward_reference(*f64(x, wt, g)))
         same_bits(f"conv_head_backward {label}", lambda: pc.conv_head_backward(x, wt, g))
+        dx_case("conv_head_backward", label, lambda: pc.conv_head_backward(x, wt, g),
+                (label, "conv_head dx", 1, False, d, h, w, 1, b, False))
         wgrad_case(f"{label} conv_head", x, g, 1, d * taps,
                    cudnn_wgrad(nchw(g), nchw(x), wt, 1, bias=True), bias=True)
     print("[backward] every backward kernel gave the same bits in a second run (fixed-order "
@@ -1159,7 +1282,16 @@ def phase_red_backward(card: str) -> list[dict]:
           f"{wrec['ms']:.4f} ms, bound {wrec['bound_ms']:.4f} ms ({wrec['bound_by']}), plain "
           f"{wrec['plain_ms']:.4f} ms, cuDNN weight-only gradients {wrec['library_ms']:.4f} ms "
           f"card={card}", flush=True)
-    return [dn.record(), rec.record(), up.record(), head.record(), wrec]
+    records = [dn.record(), rec.record(), up.record(), head.record(), wrec]
+    for r in records:
+        if r["name"] in dx_alone:  # the row's dx kernel alone, over its calls of a step
+            r["dx_device_ms"], r["dx_bound_ms"] = (sum(t[i] for t in dx_alone[r["name"]])
+                                                   for i in (0, 1))
+            print(f"[backward] {r['name']} over its {len(dx_alone[r['name']])} calls of a "
+                  f"train step: the row {r['ms']:.4f} ms (events), its dx kernel alone "
+                  f"{r['dx_device_ms']:.4f} ms (device), the dx's bound {r['dx_bound_ms']:.4f} "
+                  f"ms, cuDNN's gradient {r['library_ms']:.4f} ms card={card}", flush=True)
+    return records
 
 
 TRAIN_STEPS = 5
@@ -1453,13 +1585,21 @@ def run(scene_job) -> int:
         build.load(name)
     print(f"[build] {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.time() - t0:.1f} s", flush=True)
+    spills = {}  # plane-conv instance → bytes of spill stores
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
             if "Function properties for" in line:
-                kernel = kernel_name(line.split()[-1])
+                kernel = kernel_instance(line.split()[-1])
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}", flush=True)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel")):
+                spills[kernel] = int(m.group(1))
+    if spills:  # built in this run: the plane convs' instances must not spill
+        print(f"[build] plane_conv: {len(spills)} instances of conv3x3_kernel and "
+              f"deconv3x3_s2_kernel, {sum(spills.values())} bytes of spill", flush=True)
+        check(not any(spills.values()), f"a plane-conv instance spills: {spills}")
 
     # phases 2, 2b, 6, 8 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's ConvGRU forward and adjoint and its sweep gather of one
-checkout on one CUDA device, to compare two trees (parent, change, change,
-parent) in one call.
+"""Time the port's ConvGRU forward and adjoint, its sweep gather and its plane
+convs of one checkout on one CUDA device, to compare two trees (parent,
+change, change, parent) in one call.
 
     python3 kernel_ab.py [--root DIR] [--sweep] [--reps N]
+                         [--only {all,red_recur,gather,plane}]
 
 Imports `satmvs_tpu_torch` from DIR (default: the directory of this file),
 builds its kernels there, and at every shape a 384×768, B = 1 train step
@@ -23,14 +24,24 @@ per shape:
   against its plain version, and its time and that of grid_sample
   (bilinear, zero padding) on the same data, each over calls launched
   back to back (chip_smoke.loop_ms) and as the device time of the kernels
-  under torch.profiler (a call this short is near the host's launch time).
+  under torch.profiler (a call this short is near the host's launch time);
+  plane_conv (rows 8, 10, 12 and the dx of rows 9, 11, 13) at the 21
+  forward and 21 dx calls of `chip_smoke.plane_calls()`: CUDA events
+  (median of --reps calls of the wrapper a user calls; a dx through the
+  launch its backward makes), back to back, the device time of the kernels
+  whose names hold conv3x3 or deconv3x3 (so it reads the parent's tree
+  too), cuDNN's call for the same function (a dx: the input gradient alone)
+  by events and device time, the kernel's error against cuDNN's result,
+  and the bound.
 
 With --sweep (a tree whose `red_recur._launch` and `red_recur._adjoint`
-take a plan and whose gather takes planes a thread) it also times the
-forward and the adjoint at each train-step shape with each conv's plan
-replaced in turn by every other (px, wr, wc, wk, ck), the others kept, and
-prints the best; and the gather at 1, 2, 4 and 8 planes a thread.  The last
-line sums the shapes.  Exits non-zero without a CUDA device.
+take a plan, whose gather takes planes a thread and whose plane convs take
+a `plane_conv_plan`) it also times the forward and the adjoint at each
+train-step shape with each conv's plan replaced in turn by every other
+(px, wr, wc, wk, ck), the others kept, and prints the best; the gather at
+1, 2, 4 and 8 planes a thread; and each plane conv under every option of
+`plane_conv_plan_options` (slab, tile, threads, chunk), back to back.  The
+last line sums the shapes.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,27 +56,6 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent
-
-
-def device_ms(fn, kernel: str, calls: int) -> float:
-    """Device time per call of the kernels whose name holds `kernel`, over
-    `calls` calls of fn under torch.profiler (after one warm-up call); a
-    capture that holds none of them is taken again, twice at most."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
-        if us > 0:
-            return us / 1e3 / calls
-    raise RuntimeError(f"kernel_ab: the profiler saw no {kernel} in three captures")
 
 
 def sweep_plans(rr, cs, base: dict, run, couts, reps: int) -> dict:
@@ -85,11 +75,117 @@ def sweep_plans(rr, cs, base: dict, run, couts, reps: int) -> dict:
     return res
 
 
+def plane_case(cs, pc, randn, call):
+    """Seeded operands of one call of `cs.plane_calls()`: returns the call
+    through the wrapper a user calls (the public forward; a dx as its
+    backward launches it), the same launch under a given plan (None: the
+    tree's own), and cuDNN's call for the same function (a dx: the input
+    gradient alone, `aten.convolution_backward`)."""
+    import torch.nn.functional as F
+
+    _, op, stride, transposed, n, h, w, cin, cout, gated = call
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    x = randn(n, h, w, cin)
+    gate = randn(n, h, w, cin) if gated else None  # a random sign: about half masked
+    dz = None if gate is None else torch.where(gate > 0, x, torch.zeros_like(x))
+    with_plan = lambda f, *a: (lambda plan=None: f(*a) if plan is None else f(*a, plan))  # noqa
+
+    def grad_in(wt, shape, transposed_, op_pad):
+        out = x.new_empty(shape)
+        return lambda: torch.ops.aten.convolution_backward(
+            nchw(dz if dz is not None else x), nchw(out), wt, None, [stride] * 2, [1, 1], [1, 1],
+            transposed_, [op_pad] * 2, 1, [True, False, False])
+
+    if op == "conv_dn":
+        wt = randn(cout, cin, 3, 3, scale=(2.0 / (9 * cin)) ** 0.5)
+        wk = wt.permute(2, 3, 1, 0).contiguous()
+        return (lambda: pc.conv_dn(x, wt),
+                with_plan(pc._conv3x3, op, x, None, wk, None, 2, True),
+                lambda: F.relu(F.conv2d(nchw(x), wt, stride=2, padding=1)))
+    if op == "conv_dn dx":  # the forward's weight (Cin_f = cout, Cout_f = cin)
+        wt = randn(cin, cout, 3, 3, scale=(2.0 / (9 * cout)) ** 0.5)
+        run = with_plan(pc._deconv3x3, op, x, gate, wt.permute(2, 3, 0, 1).contiguous(), None,
+                        None, False)
+        return run, run, grad_in(wt, (n, 2 * h, 2 * w, cout), False, 0)
+    if op == "deconv_up":
+        wt = randn(cin, cout, 3, 3, scale=(2.0 / (9 * cin)) ** 0.5)
+        skip = randn(n, 2 * h, 2 * w, cout)
+        return (lambda: pc.deconv_up(x, wt, skip),
+                with_plan(pc._deconv3x3, op, x, None, wt.permute(2, 3, 0, 1).contiguous(), skip,
+                          None, True),
+                lambda: F.relu(F.conv_transpose2d(nchw(x), wt, stride=2, padding=1,
+                                                  output_padding=1)) + nchw(skip))
+    if op == "deconv_up dx":  # the forward's weight (Cin_f = cout, Cout_f = cin)
+        wt = randn(cout, cin, 3, 3, scale=(2.0 / (9 * cout)) ** 0.5)
+        run = with_plan(pc._conv3x3, op, x, gate, wt.permute(2, 3, 1, 0).contiguous(), None, 2,
+                        False)
+        return run, run, grad_in(wt, (n, h // 2, w // 2, cout), True, 1)
+    if op == "conv_head":
+        wt, bias = randn(cout, cin, 3, 3, scale=(2.0 / (9 * cin)) ** 0.5), randn(cout)
+        return (lambda: pc.conv_head(x, wt, bias),
+                with_plan(pc._conv3x3, op, x, None, wt.permute(2, 3, 1, 0).contiguous(), bias, 1,
+                          False),
+                lambda: F.conv2d(nchw(x), wt, bias, padding=1))
+    assert op == "conv_head dx"  # the forward's weight (Cout_f = cin = 1, Cin_f = cout)
+    wt = randn(cin, cout, 3, 3, scale=(2.0 / (9 * cout)) ** 0.5)
+    run = with_plan(pc._conv3x3, op, x, None, wt.flip(2, 3).permute(2, 3, 0, 1).contiguous(),
+                    None, 1, False)
+    return run, run, grad_in(wt, (n, h, w, cout), False, 0)
+
+
+def time_plane(cs, randn, args, tag: dict, totals: dict):
+    """The plane convs at every forward and dx call of a 384×768 train step
+    (`cs.plane_calls()`): events (median of --reps calls, and back to back),
+    the device time of the kernels whose names hold conv3x3 / deconv3x3
+    (torch.profiler: it reads any tree), cuDNN's call beside them, and the
+    bound; with --sweep every plan of `plane_conv_plan_options`, back to
+    back, and the best."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    for key in ("plane_fwd_ms", "plane_fwd_device_ms", "plane_fwd_cudnn_ms", "plane_dx_ms",
+                "plane_dx_device_ms", "plane_dx_cudnn_ms", "plane_fwd_bound_ms",
+                "plane_dx_bound_ms"):
+        totals[key] = 0.0
+    for call in cs.plane_calls():
+        label, op, stride, transposed, n, h, w, cin, cout, gated = call
+        user, planned, library = plane_case(cs, pc, randn, call)
+        pick = (lambda k: "deconv3x3" in k) if transposed else cs.conv3x3_kernel_name
+        with torch.no_grad():
+            lib = library()
+            lib = lib[0] if isinstance(lib, tuple) else lib
+            err = (planned().permute(0, 3, 1, 2) - lib).abs().max().item()
+            del lib
+            rec = {**tag, "kernel": "plane_conv", "op": op, "shape": label, "cudnn_err": err,
+                   "nhwc": [n, h, w, cin, cout], "ms": cs.time_ms(user, reps=args.reps),
+                   "loop_ms": cs.loop_ms(lambda: planned(), 2 * args.reps),
+                   "device_ms": cs.device_ms(user, pick, args.reps),
+                   "cudnn_ms": cs.time_ms(library, reps=args.reps),
+                   "cudnn_device_ms": cs.device_ms(library, "", args.reps)}
+            rec["bound_ms"], rec["bound_by"] = cs.bound_ms(*cs.plane_work(*call[1:]))
+            if args.sweep:
+                plan = pc.plane_conv_plan(stride, transposed, n, h, w, cin, cout, gated)
+                keys = ("slab", "tx", "ty", "ck", "threads")
+                rec["plan"] = [plan[k] for k in keys]
+                rec["plan_ms"] = cs.loop_ms(lambda: planned(plan), args.reps)
+                rec["sweep"] = [[cs.loop_ms(lambda: planned(o), args.reps), *(o[k] for k in keys)]
+                                for o in pc.plane_conv_plan_options(stride, transposed, cin, cout,
+                                                                    gated)]
+                rec["best"] = min(rec["sweep"])
+        part = "dx" if op.endswith("dx") else "fwd"
+        for key, val in (("ms", rec["ms"]), ("device_ms", rec["device_ms"]),
+                         ("cudnn_ms", rec["cudnn_ms"]), ("bound_ms", rec["bound_ms"])):
+            totals[f"plane_{part}_{key}"] += val
+        print(json.dumps(rec), flush=True)
+        del user, planned, library
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose port is timed")
     ap.add_argument("--sweep", action="store_true", help="time other plans of each conv")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", choices=("all", "red_recur", "gather", "plane"), default="all",
+                    help="time only these kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
@@ -129,103 +225,107 @@ def main() -> int:
               "row5_chunk_device_ms": 0.0, "row6_ms": 0.0, "adjoint_ms": 0.0, "gather_ms": 0.0,
               "grid_sample_ms": 0.0, "gather_device_ms": 0.0, "grid_sample_device_ms": 0.0}
     sweep_reps = max(3, args.reps // 3)
-    # the forward: row 4 at the train step's shapes (B = 1), row 5 at a scene
-    # chunk's (B tiles, slabs of SLAB planes, seeded), with its calls a chunk
-    cases = [(f"{stage} scale{s}", 1, d, h // s, w // s, ci, c, 1)
-             for stage, d, h, w, cin in cs.red_shapes() for s, ci, c in cs.red_scales(cin)]
-    cases += [(f"chunk stage{i + 1} scale{s}", cs.BATCH_TILES, cs.SLAB, cs.TILE_HW // scale // s,
-               cs.TILE_HW // scale // s, ci, c, n_slabs)
-              for i, (scale, cin, n_slabs) in enumerate(zip(cs.STAGE_SCALES, cs.FEAT_CH,
-                                                            cs.SLABS_PER_TILE))
-              for s, ci, c in cs.red_scales(cin)]
-    with torch.no_grad():
-        for label, b, d, h, w, ci, c, calls in cases:
-            cell = cs.red_cell(ci, c, 20 + c, randn)
-            x = randn(b, d, h, w, ci)
-            h0 = torch.tanh(randn(b, h, w, c)) if b > 1 else None
-            ms = cs.time_ms(lambda: rr.red_recur(x, cell, h0), reps=args.reps)
-            dev = device_ms(lambda: rr.red_recur(x, cell, h0), "red_recur_kernel", args.reps)
-            row = "row5" if b > 1 else "row4"
-            rec = {**tag, "kernel": "red_recur", "row": row, "shape": label,
-                   "bdhwc": [b, d, h, w, ci, c], "ms": ms, "device_ms": dev, "calls": calls}
-            if b > 1:
-                totals["row5_chunk_ms"] += calls * ms
-                totals["row5_chunk_device_ms"] += calls * dev
-            else:
-                totals["row4_ms"] += ms
-                totals["forward_device_ms"] += dev
+    if args.only in ("all", "red_recur"):
+        # the forward: row 4 at the train step's shapes (B = 1), row 5 at a scene
+        # chunk's (B tiles, slabs of SLAB planes, seeded), with its calls a chunk
+        cases = [(f"{stage} scale{s}", 1, d, h // s, w // s, ci, c, 1)
+                 for stage, d, h, w, cin in cs.red_shapes() for s, ci, c in cs.red_scales(cin)]
+        cases += [(f"chunk stage{i + 1} scale{s}", cs.BATCH_TILES, cs.SLAB,
+                   cs.TILE_HW // scale // s, cs.TILE_HW // scale // s, ci, c, n_slabs)
+                  for i, (scale, cin, n_slabs) in enumerate(zip(cs.STAGE_SCALES, cs.FEAT_CH,
+                                                                cs.SLABS_PER_TILE))
+                  for s, ci, c in cs.red_scales(cin)]
+        with torch.no_grad():
+            for label, b, d, h, w, ci, c, calls in cases:
+                cell = cs.red_cell(ci, c, 20 + c, randn)
+                x = randn(b, d, h, w, ci)
+                h0 = torch.tanh(randn(b, h, w, c)) if b > 1 else None
+                ms = cs.time_ms(lambda: rr.red_recur(x, cell, h0), reps=args.reps)
+                dev = cs.device_ms(lambda: rr.red_recur(x, cell, h0), "red_recur_kernel", args.reps)
+                row = "row5" if b > 1 else "row4"
+                rec = {**tag, "kernel": "red_recur", "row": row, "shape": label,
+                       "bdhwc": [b, d, h, w, ci, c], "ms": ms, "device_ms": dev, "calls": calls}
+                if b > 1:
+                    totals["row5_chunk_ms"] += calls * ms
+                    totals["row5_chunk_device_ms"] += calls * dev
+                else:
+                    totals["row4_ms"] += ms
+                    totals["forward_device_ms"] += dev
+                    if args.sweep:
+                        base = rr.red_recur_plan(b, h, w, ci, c, rr.resident())
+                        rec.update(sweep_plans(rr, cs, base,
+                                               lambda plan: rr._launch(x, cell, h0, plan),
+                                               (2 * c, c), sweep_reps))
+                print(json.dumps(rec), flush=True)
+                del x, h0, cell
+
+        for stage, d, h, w, cin in cs.red_shapes():
+            for s, ci, c in cs.red_scales(cin):
+                cell = cs.red_cell(ci, c, s, randn)
+                x = randn(1, d, h // s, w // s, ci)
+                with torch.no_grad():
+                    out = rr.red_recur(x, cell)
+                g = randn(*out.shape)
+                row6 = cs.time_ms(lambda: rr.red_recur_backward(x, out, g, cell), reps=args.reps)
+                adj = cs.device_ms(lambda: rr.red_recur_backward(x, out, g, cell),
+                                "red_recur_bwd_kernel", args.reps)
+                rec = {**tag, "kernel": "red_recur_backward", "shape": f"{stage} scale{s}",
+                       "dhwc": [d, h // s, w // s, ci, c], "row6_ms": row6, "adjoint_ms": adj}
                 if args.sweep:
-                    base = rr.red_recur_plan(b, h, w, ci, c, rr.resident())
+                    h0 = torch.zeros((1, h // s, w // s, c), device="cuda")
+                    base = rr.red_recur_bwd_plan(1, h // s, w // s, ci, c, rr.resident())
                     rec.update(sweep_plans(rr, cs, base,
-                                           lambda plan: rr._launch(x, cell, h0, plan),
-                                           (2 * c, c), sweep_reps))
-            print(json.dumps(rec), flush=True)
-            del x, h0, cell
+                                           lambda plan: rr._adjoint(x, out, g, cell, h0, plan),
+                                           (2 * c, c, c, c + ci), sweep_reps))
+                totals["row6_ms"] += row6
+                totals["adjoint_ms"] += adj
+                print(json.dumps(rec), flush=True)
+                del x, out, g, cell
 
-    for stage, d, h, w, cin in cs.red_shapes():
-        for s, ci, c in cs.red_scales(cin):
-            cell = cs.red_cell(ci, c, s, randn)
-            x = randn(1, d, h // s, w // s, ci)
-            with torch.no_grad():
-                out = rr.red_recur(x, cell)
-            g = randn(*out.shape)
-            row6 = cs.time_ms(lambda: rr.red_recur_backward(x, out, g, cell), reps=args.reps)
-            adj = device_ms(lambda: rr.red_recur_backward(x, out, g, cell),
-                            "red_recur_bwd_kernel", args.reps)
-            rec = {**tag, "kernel": "red_recur_backward", "shape": f"{stage} scale{s}",
-                   "dhwc": [d, h // s, w // s, ci, c], "row6_ms": row6, "adjoint_ms": adj}
-            if args.sweep:
-                h0 = torch.zeros((1, h // s, w // s, c), device="cuda")
-                base = rr.red_recur_bwd_plan(1, h // s, w // s, ci, c, rr.resident())
-                rec.update(sweep_plans(rr, cs, base,
-                                       lambda plan: rr._adjoint(x, out, g, cell, h0, plan),
-                                       (2 * c, c, c, c + ci), sweep_reps))
-            totals["row6_ms"] += row6
-            totals["adjoint_ms"] += adj
-            print(json.dumps(rec), flush=True)
-            del x, out, g, cell
+    if args.only in ("all", "gather"):
+        from satmvs_tpu_torch.data import synthetic
+        from satmvs_tpu_torch.geo import rpc as rpclib
+        from satmvs_tpu_torch.ops import warp
 
-    from satmvs_tpu_torch.data import synthetic
-    from satmvs_tpu_torch.geo import rpc as rpclib
-    from satmvs_tpu_torch.ops import warp
+        rpcs = synthetic.make_rpc_triplet(cs.WIDTH, cs.HEIGHT, seed=0)
+        rpcs = [rpcs[2], rpcs[0], rpcs[1]]
+        import numpy as np
 
-    rpcs = synthetic.make_rpc_triplet(cs.WIDTH, cs.HEIGHT, seed=0)
-    rpcs = [rpcs[2], rpcs[0], rpcs[1]]
-    import numpy as np
-
-    stage_cams = warp.build_stage_cams(np.stack(rpcs), 0, device="cuda")
-    h_min, h_max = rpclib.height_range(rpcs[0])
-    ggen = torch.Generator(device="cuda").manual_seed(3)
-    for i, (cams, scale, nd, c) in enumerate(zip(stage_cams, cs.STAGE_SCALES, cs.NDEPTHS,
-                                                cs.FEAT_CH)):
-        h, w = cs.HEIGHT // scale, cs.WIDTH // scale
-        depths = torch.linspace(h_min, h_max, nd, device="cuda")
-        for v in range(2):
-            xs, ys = (t.contiguous() for t in warp.rpc_sweep_coords(cams, v, depths, h, w))
-            src = torch.randn((h, w, c), generator=ggen, device="cuda")
-            g = torch.randn((nd, h, w, c), generator=ggen, device="cuda")
-            err = (sg.sweep_gather(src, xs, ys)
-                   - sg.sweep_gather_reference(src, xs, ys)).abs().max().item()
-            fwd, _ = cs.grid_sample_calls(src, xs, ys, g)
-            k_ms = cs.loop_ms(lambda: sg.sweep_gather(src, xs, ys), 2 * args.reps)
-            l_ms = cs.loop_ms(fwd, 2 * args.reps)
-            k_dev = device_ms(lambda: sg.sweep_gather(src, xs, ys), "sweep_gather_kernel",
-                              args.reps)
-            l_dev = device_ms(fwd, "", args.reps)  # every kernel the call launches
-            totals["gather_ms"] += k_ms
-            totals["grid_sample_ms"] += l_ms
-            totals["gather_device_ms"] += k_dev
-            totals["grid_sample_device_ms"] += l_dev
-            rec = {**tag, "kernel": "sweep_gather", "shape": f"stage{i + 1} view{v}",
-                   "dhwc": [nd, h, w, c], "ms": k_ms, "grid_sample_ms": l_ms,
-                   "device_ms": k_dev, "grid_sample_device_ms": l_dev, "max_abs_err": err}
-            if args.sweep:  # planes a thread walks: 1, 2, 4 and 8
-                out = torch.empty((nd, h, w, c), device="cuda")
-                rec["planes_ms"] = {p: cs.loop_ms(lambda: sg._launch(
-                    "sweep_gather", src, xs, ys, out, nd, h, w, c, p), 2 * args.reps)
-                    for p in (1, 2, 4, 8)}
-            print(json.dumps(rec), flush=True)
-            del xs, ys, src, g, fwd
+        stage_cams = warp.build_stage_cams(np.stack(rpcs), 0, device="cuda")
+        h_min, h_max = rpclib.height_range(rpcs[0])
+        ggen = torch.Generator(device="cuda").manual_seed(3)
+        for i, (cams, scale, nd, c) in enumerate(zip(stage_cams, cs.STAGE_SCALES, cs.NDEPTHS,
+                                                    cs.FEAT_CH)):
+            h, w = cs.HEIGHT // scale, cs.WIDTH // scale
+            depths = torch.linspace(h_min, h_max, nd, device="cuda")
+            for v in range(2):
+                xs, ys = (t.contiguous() for t in warp.rpc_sweep_coords(cams, v, depths, h, w))
+                src = torch.randn((h, w, c), generator=ggen, device="cuda")
+                g = torch.randn((nd, h, w, c), generator=ggen, device="cuda")
+                err = (sg.sweep_gather(src, xs, ys)
+                       - sg.sweep_gather_reference(src, xs, ys)).abs().max().item()
+                fwd, _ = cs.grid_sample_calls(src, xs, ys, g)
+                k_ms = cs.loop_ms(lambda: sg.sweep_gather(src, xs, ys), 2 * args.reps)
+                l_ms = cs.loop_ms(fwd, 2 * args.reps)
+                k_dev = cs.device_ms(lambda: sg.sweep_gather(src, xs, ys), "sweep_gather_kernel",
+                                  args.reps)
+                l_dev = cs.device_ms(fwd, "", args.reps)  # every kernel the call launches
+                totals["gather_ms"] += k_ms
+                totals["grid_sample_ms"] += l_ms
+                totals["gather_device_ms"] += k_dev
+                totals["grid_sample_device_ms"] += l_dev
+                rec = {**tag, "kernel": "sweep_gather", "shape": f"stage{i + 1} view{v}",
+                       "dhwc": [nd, h, w, c], "ms": k_ms, "grid_sample_ms": l_ms,
+                       "device_ms": k_dev, "grid_sample_device_ms": l_dev, "max_abs_err": err}
+                if args.sweep:  # planes a thread walks: 1, 2, 4 and 8
+                    out = torch.empty((nd, h, w, c), device="cuda")
+                    rec["planes_ms"] = {p: cs.loop_ms(lambda: sg._launch(
+                        "sweep_gather", src, xs, ys, out, nd, h, w, c, p), 2 * args.reps)
+                        for p in (1, 2, 4, 8)}
+                print(json.dumps(rec), flush=True)
+                del xs, ys, src, g, fwd
+    if args.only in ("all", "plane"):
+        time_plane(cs, randn, args, tag, totals)
     print(json.dumps({**tag, "totals": totals}), flush=True)
     return 0
 

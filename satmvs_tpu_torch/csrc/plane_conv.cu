@@ -28,41 +28,57 @@
 // row-packed layout, even/odd column splits and phase matrices are Mosaic
 // workarounds and are not carried over.
 //
-// What bounds them on this card: memory, at the main path's shapes.  A 3×3
-// conv at these channel counts does 9·Cin FMAs per output value, so
-// 2·9·Cin·Cout flops per pixel against 4·(Cin + Cout) bytes per pixel; at the
-// largest shape (Cin 32, Cout 64, stride 2) that is ~18 flops a byte, under the
-// H100's ~20 flops/byte fp32 balance, and the other shapes are far under it.
-// The backwards move the same bytes plus the gate (y or relu(z)) and do twice
-// the forward's operations (dx and dW), still at or under the balance point.
+// What bounds them on this card.  A 3×3 conv does 9·Cin multiply-adds per
+// output value against 4·(Cin + Cout) bytes per pixel.  Of the 42 calls of a
+// 384×768 train step (21 forwards, 21 dx), 27 are bound by bytes (the wide
+// planes at 1-16 channels: the encoder's first conv, the decoder's last, the
+// head) and 15 by the fp32 FMA rate (16 → 32 and 32 → 64 down the encoder,
+// 64 → 32 up the decoder, and those shapes' dx); each call's bound is
+// 10-68 µs.
 //
-// Design (simple first, fp32 FMA on the CUDA cores, no tensor cores): a direct
-// convolution.  One thread owns one output pixel and a run of CO_T = 4 output
-// channels; threads of one pixel sit side by side, so their input reads are
-// one broadcast and their output writes are contiguous.  Each block stages the
-// whole weight tensor, zero-padded to a multiple of CO_T output channels, in
-// shared memory (up to 3·3·64·32·4 B = 73.7 KB at these shapes, so dynamic
-// shared memory past the 48 KB default) and reads it as float4.  Inputs are
-// read 16 bytes at a time where Cin % 4 == 0.  The grid is capped at the
-// blocks that can be resident at once and walks the outputs in a grid-stride
-// loop, so the weights are staged once per resident block.  The transposed
-// conv is a gather over the four output phases (no atomics): out[2i+a, 2j+b]
-// reads 1, 2, 2 or 4 taps, and the output padding of 1 falls out of the
-// index map.
+// Design: direct convolution on the CUDA cores in fp32 (no tensor cores:
+// plain TF32 would miss the gates' fp32 accuracy), one plain grid of
+// (tile, slab, image) blocks, the launch plan chosen in Python
+// (ops/kernels/plane_conv.py `plane_conv_plan`).
+//   * A block owns a tile of output pixels (conv: tile_rows × tx outputs;
+//     transposed: tile_rows × tx input pixels, each the quad of outputs
+//     (2i + a, 2j + b) it feeds) and a slab of co_s ≤ 64 output channels.
+//   * It stages in shared memory, by cp.async with zeros outside the plane
+//     (a zero source size), the input window its tile reads, ck input
+//     channels at a time, as planes of VEC channels (VEC = 4: 16-byte copies
+//     where Cin % 4 == 0 and the pointers are aligned), columns of a stride-2
+//     window split into even and odd halves so neighbouring lanes read
+//     neighbouring words; and only its slab's weights, (ci, tap, co) with
+//     the two float4 of a thread's 8 channels a lane apart.  The inner loop
+//     has no bounds branch.
+//   * A dx's ReLU mask is applied once per element as it is staged: the
+//     cotangent and the gate are each copied once, then each thread masks
+//     the words it copied, so dz = g·[gate > 0] is formed once.
+//   * Register tiles: a conv thread owns CONV_P = 4 output rows of one column
+//     × CO_T = 8 channels (one weight float4 feeds 4 pixels, one staged input
+//     float4 8 channels: 128 FMAs per 12 shared reads); a transposed-conv
+//     thread owns QUAD_Q = 2 input pixels of one column and all four output
+//     phases of each × CO_T channels, and reads the staged 3 × 2
+//     neighbourhood once per channel group: the nine taps' products come
+//     from it, 16 FMAs per weight float4 pair, and no warp diverges on
+//     parity.  torch's index map falls out of the window: the last row and
+//     column have no i + 1 tap because the window holds zeros there.
+//   * Cout = 1 (the head) takes CO_T = 1, so nothing is padded; Cin = 1 (the
+//     head's dx) stages single channels (VEC = 1).
+//   * Deterministic: each output's sum runs over (channel group, tap,
+//     channel) in one fixed order, the same for every plan; no atomics.
 //
 // Backward.  Every dx is a gather of the same two kinds, so it runs through
 // the forward kernels with rearranged weights (the wrapper permutes and flips
-// them) and a gate: the ReLU's mask is applied as the cotangent is loaded
-// (value · [gate > 0]), so dz is never written.  conv_dn's gate is its saved
-// output y (y > 0 is exactly relu′).  deconv_up's output is relu(z) + skip,
-// from which the mask cannot be read (a tiny positive z that the skip add
-// rounds away would read as 0), so when a gradient is wanted the forward
-// also writes relu(z) to a second buffer, and that is the gate: one more
-// output-sized write in the forward and that buffer kept until the backward
-// (the alternative, recomputing z in the backward, costs the whole forward
-// conv again).  dx of conv_dn is torch's conv_transpose2d(p=1, op=1)
-// geometry, which is the transpose of the stride-2 conv only for even H and
-// W; the wrapper raises on odd sizes.
+// them) and a gate.  conv_dn's gate is its saved output y (y > 0 is exactly
+// relu′).  deconv_up's output is relu(z) + skip, from which the mask cannot
+// be read (a tiny positive z that the skip add rounds away would read as 0),
+// so when a gradient is wanted the forward also writes relu(z) to a second
+// buffer, and that is the gate: one more output-sized write in the forward
+// and that buffer kept until the backward (the alternative, recomputing z in
+// the backward, costs the whole forward conv again).  dx of conv_dn is
+// torch's conv_transpose2d(p=1, op=1) geometry, which is the transpose of the
+// stride-2 conv only for even H and W; the wrapper raises on odd sizes.
 //
 // Weight cotangents are reductions over N·H·W pixels (2.4 M at the largest
 // shape) into 9·CA·CB values (at most 9·128·128 for the ConvGRU's concat
@@ -93,168 +109,379 @@
 
 namespace {
 
-constexpr int CO_T = 4;
 constexpr int THREADS = 256;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
+constexpr int CONV_P = 4;         // output rows a conv thread owns
+constexpr int QUAD_Q = 2;         // input rows (rows of output quads) a transposed-conv thread owns
+constexpr int MAX_SLAB = 64;      // output channels a block owns at most
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+// An asynchronous copy of 16 or 4 bytes from global to shared memory (zeros
+// when !valid; src must still be a valid address), completed by
+// cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Words of shared memory a launch stages: the input window (twice with a
+// gate: the cotangent and its mask), rounded up to whole float4, then the
+// slab's weights of one chunk.  The window is (S·(rows − 1) + 3) ×
+// (S·(tx − 1) + 3) for a conv of `rows` output rows, (rows + 1) × (tx + 1)
+// for a transposed conv of `rows` input rows.  plane_conv.py
+// `plane_conv_smem` is the same formula.
+__host__ __device__ inline int window_rows(bool transposed, int stride, int rows) {
+  return transposed ? rows + 1 : stride * (rows - 1) + 3;
+}
+__host__ __device__ inline int window_cols(bool transposed, int stride, int tx) {
+  return transposed ? tx + 1 : stride * (tx - 1) + 3;
+}
+__host__ __device__ inline int window_words(bool transposed, int stride, int rows, int tx, int ck) {
+  return round_up(ck * window_rows(transposed, stride, rows) * window_cols(transposed, stride, tx),
+                  4);
+}
+__host__ __device__ inline int smem_bytes(bool transposed, int stride, bool gate, int rows, int tx,
+                                          int ck, int co_s) {
+  return 4 * (window_words(transposed, stride, rows, tx, ck) * (gate ? 2 : 1) + 9 * ck * co_s);
+}
+
+// Staged column of window column c: a stride-2 window keeps its even
+// columns, then its odd ones (half = the even count), so lanes of
+// neighbouring output columns read neighbouring words.
+template <int S>
+__device__ __forceinline__ int win_col(int c, int half) {
+  if constexpr (S == 2) return (c & 1) ? half + (c >> 1) : (c >> 1);
+  return c;
+}
+
+// Calls f(g, r, c) for every channel group g < ng and pixel (r, c) of a wr ×
+// wc window, spread over the block's threads: channel group fastest, so
+// neighbouring threads take neighbouring words.  A thread keeps its group
+// and walks the pixels with a fixed step, so no index is divided in the
+// loop (threads past the last whole set of ng take none).
+template <typename F>
+__device__ __forceinline__ void for_window(int ng, int wr, int wc, F&& f) {
+  const int step = blockDim.x / ng;
+  const int g = threadIdx.x % ng;
+  int p = threadIdx.x / ng;
+  if (p >= step) return;
+  const int rstep = step / wc, cstep = step - rstep * wc;
+  int r = p / wc, c = p - r * wc;
+  while (r < wr) {
+    f(g, r, c);
+    c += cstep;
+    r += rstep;
+    if (c >= wc) {
+      c -= wc;
+      ++r;
+    }
+  }
+}
+
+// Copies channels [ci0, ci0 + VEC·ng) (zero past Cin) of window rows gy0 …
+// gy0 + wr − 1 and columns gx0 … gx0 + wc − 1 of image n (zero outside the
+// plane) into s as ng planes (wr, wc) of VEC channels.
+template <int VEC, int S>
+__device__ __forceinline__ void stage_window(const float* __restrict__ src, float* s, int64_t n,
+                                             int H, int W, int Cin, int ci0, int ng, int gy0,
+                                             int gx0, int wr, int wc) {
+  const int half = (wc + 1) >> 1;
+  const float* img = src + n * H * W * Cin;
+  for_window(ng, wr, wc, [&](int g, int r, int c) {
+    const int gy = gy0 + r, gx = gx0 + c, ch = ci0 + g * VEC;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < Cin;
+    const float* p = ok ? img + ((int64_t)gy * W + gx) * Cin + ch : src;
+    float* d = s + ((g * wr + r) * wc + win_col<S>(c, half)) * VEC;
+    if constexpr (VEC == 4) cp_async16(d, p, ok);
+    else cp_async4(d, p, ok);
+  });
+}
+
+// After stage_window of the cotangent into s and of its gate into m (and
+// cp_async_wait): s = s·[m > 0] on the words this thread copied, so each
+// element is masked once.
+template <int VEC, int S>
+__device__ __forceinline__ void mask_window(float* s, const float* m, int ng, int wr, int wc) {
+  const int half = (wc + 1) >> 1;
+  for_window(ng, wr, wc, [&](int g, int r, int c) {
+    const int o = ((g * wr + r) * wc + win_col<S>(c, half)) * VEC;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[o + k] = m[o + k] > 0.f ? s[o + k] : 0.f;
+  });
+}
+
+// Staged position of slab channel co of a block with lcn channel lanes:
+// with CO_T = 8 a lane's two float4 sit lcn float4 apart, so one warp-wide
+// read of either touches neighbouring words.
+template <int CO_T>
+__device__ __forceinline__ int w_pos(int co, int lcn) {
+  if constexpr (CO_T == 8) return (((co >> 2) & 1) * lcn + (co >> 3)) * 4 + (co & 3);
+  return co;
+}
+
+// Copies w[tap, ci0 + ci, co0 + co] of w (3, 3, Cin, Cout) for ci < nci and
+// co < co_s (zero past Cin and Cout) into s_w[(ci·9 + tap)·co_s + w_pos(co)];
+// four channels a copy when wvec (Cout % 4 == 0, co_s % 4 == 0, w aligned).
+template <int CO_T>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* s_w, int Cin,
+                                              int Cout, int ci0, int nci, int co0, int co_s,
+                                              bool wvec) {
+  const int lcn = co_s / CO_T;
+  const int per = wvec ? 4 : 1;
+  // a thread keeps one run of `per` channels and walks the (ci, tap) rows
+  for_window(co_s / per, nci * 9, 1, [&](int q, int row, int) {
+    const int co = q * per, tap = row % 9, ci = row / 9;
+    const bool ok = ci0 + ci < Cin && co0 + co < Cout;
+    const float* p = ok ? w + ((int64_t)tap * Cin + ci0 + ci) * Cout + co0 + co : w;
+    float* d = s_w + row * co_s + w_pos<CO_T>(co, lcn);
+    if (wvec) cp_async16(d, p, ok);
+    else cp_async4(d, p, ok);
+  });
+}
+
 template <int VEC>
-__device__ __forceinline__ void load_in(const float* __restrict__ p, float (&v)[VEC]) {
+__device__ __forceinline__ void load_v(const float* p, float (&v)[VEC]) {
   if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else {
-    v[0] = __ldg(p);
+    v[0] = *p;
   }
 }
 
-// Copies w (rows, cout) into shared memory as (rows, cop), zero past cout.
-__device__ void stage_weights(const float* __restrict__ w, float* sw, int rows, int cout,
-                              int cop) {
-  for (int i = threadIdx.x; i < rows * cop; i += blockDim.x) {
-    const int r = i / cop;
-    const int co = i - r * cop;
-    sw[i] = co < cout ? __ldg(w + (int64_t)r * cout + co) : 0.f;
-  }
-  __syncthreads();
-}
-
-// acc += Σ_ci in[ci] · sw[ci, co0 : co0 + CO_T] over one tap; sw points at
-// (tap, 0, co0) of the staged (taps, Cin, cop) weights.  With GATE, in[ci]
-// counts only where gate[ci] > 0 (the ReLU mask of a cotangent).
-template <int VEC, bool GATE>
-__device__ __forceinline__ void tap_fma(const float* __restrict__ in,
-                                        const float* __restrict__ gate, const float* sw,
-                                        int cin, int cop, float (&acc)[CO_T]) {
-  for (int ci = 0; ci < cin; ci += VEC) {
-    float v[VEC];
-    load_in<VEC>(in + ci, v);
-    if constexpr (GATE) {
-      float m[VEC];
-      load_in<VEC>(gate + ci, m);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) v[j] = m[j] > 0.f ? v[j] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float4 w4 = *reinterpret_cast<const float4*>(sw + (ci + j) * cop);
-      acc[0] = fmaf(v[j], w4.x, acc[0]);
-      acc[1] = fmaf(v[j], w4.y, acc[1]);
-      acc[2] = fmaf(v[j], w4.z, acc[2]);
-      acc[3] = fmaf(v[j], w4.w, acc[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_out(float* __restrict__ out, const float* skip, int co0,
-                                          int cout, const float (&acc)[CO_T]) {
-  if (co0 + CO_T <= cout && (cout % 4) == 0) {
-    float4 o = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    if (skip != nullptr) {
-      const float4 s = __ldg(reinterpret_cast<const float4*>(skip));
-      o.x += s.x; o.y += s.y; o.z += s.z; o.w += s.w;
-    }
-    *reinterpret_cast<float4*>(out) = o;
+// A thread's CO_T weights of one (ci, tap) row of the staged slab.
+template <int CO_T>
+__device__ __forceinline__ void load_w(const float* row, int lc, int lcn, float (&wv)[CO_T]) {
+  if constexpr (CO_T == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(row + 4 * lc);
+    const float4 b = *reinterpret_cast<const float4*>(row + 4 * (lcn + lc));
+    wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+    wv[4] = b.x; wv[5] = b.y; wv[6] = b.z; wv[7] = b.w;
   } else {
-    for (int k = 0; k < CO_T && co0 + k < cout; ++k)
-      out[k] = acc[k] + (skip != nullptr ? __ldg(skip + k) : 0.f);
+    wv[0] = row[lc];
   }
 }
 
-// out[n, oy, ox, co] = act(bias[co] + Σ_{dy, dx, ci} in'[n, S·oy + dy − 1, S·ox + dx − 1, ci]
+// Writes v[0 … CO_T) to o[0 …) for the channels co < Cout (plus skip when
+// given); float4 stores when all CO_T are in range and Cout % 4 == 0.
+template <int CO_T>
+__device__ __forceinline__ void store_out(float* __restrict__ o, const float* __restrict__ skip,
+                                          int co, int Cout, const float (&v)[CO_T]) {
+  if (CO_T % 4 == 0 && co + CO_T <= Cout && Cout % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < CO_T; j += 4) {
+      float4 t = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      if (skip != nullptr) {
+        const float4 s = __ldg(reinterpret_cast<const float4*>(skip + j));
+        t.x += s.x; t.y += s.y; t.z += s.z; t.w += s.w;
+      }
+      *reinterpret_cast<float4*>(o + j) = t;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CO_T; ++j)
+      if (co + j < Cout) o[j] = v[j] + (skip != nullptr ? __ldg(skip + j) : 0.f);
+  }
+}
+
+// out[n, oy, ox, co] = act(bias[co] + Σ_{ci, dy, dx} in'[n, S·oy + dy − 1, S·ox + dx − 1, ci]
 //                                                    · w[dy, dx, ci, co]),
-// in' = in, or in · [gate > 0] with GATE (gate shaped as in)
-template <int STRIDE, int VEC, bool GATE>
-__global__ void __launch_bounds__(THREADS) conv3x3_kernel(
+// in' = in, or in · [gate > 0] with GATE (gate shaped as in); act = ReLU when
+// relu != 0.  Block (tile, slab, n): output rows y0 … y0 + CONV_P·ty_n − 1,
+// columns x0 … x0 + tx_n − 1, channels co0 … co0 + co_s − 1; thread (lc,
+// txi, tyi), lc fastest, owns rows y0 + CONV_P·tyi + p (p < CONV_P) of
+// column x0 + txi and channels co0 + CO_T·lc + j (j < CO_T).  The sum runs
+// over channel groups of VEC, then taps, then the group's channels.
+template <int S, int VEC, bool GATE, int CO_T>
+__global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(
     const float* __restrict__ in, const float* __restrict__ gate, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, int N, int H, int W, int Cin, int Ho,
-    int Wo, int Cout, int relu) {
+    const float* __restrict__ bias, float* __restrict__ out, int H, int W, int Cin, int Ho, int Wo,
+    int Cout, int relu, int co_s, int tx_n, int ty_n, int ck, int wvec) {
   extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  const int cop = round_up(Cout, CO_T);
-  stage_weights(w, sw, 9 * Cin, Cout, cop);
-  const int groups = cop / CO_T;
-  const int64_t total = (int64_t)N * Ho * Wo * groups;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int co0 = (int)(t % groups) * CO_T;
-    const int64_t pix = t / groups;  // (n·Ho + oy)·Wo + ox
-    const int ox = (int)(pix % Wo);
-    const int oy = (int)((pix / Wo) % Ho);
-    const int64_t n = pix / ((int64_t)Wo * Ho);
-    float acc[CO_T];
+  float* s_in = reinterpret_cast<float*>(smem4);
+  const int rows = CONV_P * ty_n;
+  const int wr = window_rows(false, S, rows), wc = window_cols(false, S, tx_n);
+  const int words = window_words(false, S, rows, tx_n, ck);
+  float* s_gate = s_in + words;
+  float* s_w = s_in + (GATE ? 2 : 1) * words;
+  const int lcn = co_s / CO_T;
+  const int lc = threadIdx.x % lcn, txi = (threadIdx.x / lcn) % tx_n;
+  const int tyi = threadIdx.x / (lcn * tx_n);
+  const int ntx = (Wo + tx_n - 1) / tx_n;
+  const int y0 = (int)(blockIdx.x / ntx) * rows, x0 = (int)(blockIdx.x % ntx) * tx_n;
+  const int co0 = blockIdx.y * co_s, co = co0 + CO_T * lc;
+  const int64_t n = blockIdx.z;
+  const int half = (wc + 1) >> 1;
+  const int plane = wr * wc * VEC;
+
+  float acc[CONV_P][CO_T];
 #pragma unroll
-    for (int k = 0; k < CO_T; ++k)
-      acc[k] = (bias != nullptr && co0 + k < Cout) ? __ldg(bias + co0 + k) : 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      const int iy = oy * STRIDE + dy - 1;
-      if (iy < 0 || iy >= H) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int ix = ox * STRIDE + dx - 1;
-        if (ix < 0 || ix >= W) continue;
-        const int64_t off = ((n * H + iy) * W + ix) * Cin;
-        tap_fma<VEC, GATE>(in + off, gate + off, sw + (dy * 3 + dx) * Cin * cop + co0, Cin, cop,
-                           acc);
+  for (int j = 0; j < CO_T; ++j) {
+    const float b = (bias != nullptr && co + j < Cout) ? __ldg(bias + co + j) : 0.f;
+#pragma unroll
+    for (int p = 0; p < CONV_P; ++p) acc[p][j] = b;
+  }
+  for (int ci0 = 0; ci0 < Cin; ci0 += ck) {
+    const int nci = min(ck, Cin - ci0);
+    const int ng = (nci + VEC - 1) / VEC;
+    __syncthreads();  // the previous chunk's reads are done
+    stage_window<VEC, S>(in, s_in, n, H, W, Cin, ci0, ng, S * y0 - 1, S * x0 - 1, wr, wc);
+    if constexpr (GATE)
+      stage_window<VEC, S>(gate, s_gate, n, H, W, Cin, ci0, ng, S * y0 - 1, S * x0 - 1, wr, wc);
+    stage_weights<CO_T>(w, s_w, Cin, Cout, ci0, ng * VEC, co0, co_s, wvec);
+    cp_async_wait();
+    if constexpr (GATE) mask_window<VEC, S>(s_in, s_gate, ng, wr, wc);
+    __syncthreads();
+    for (int g = 0; g < ng; ++g) {
+      const float* sg = s_in + g * plane + (S * CONV_P * tyi * wc) * VEC;
+      const float* wg = s_w + g * VEC * 9 * co_s;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int col = S == 2 ? (dx == 1 ? half + txi : txi + (dx >> 1)) : txi + dx;
+          float v[CONV_P][VEC];
+#pragma unroll
+          for (int p = 0; p < CONV_P; ++p) load_v<VEC>(sg + ((S * p + dy) * wc + col) * VEC, v[p]);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            float wv[CO_T];
+            load_w<CO_T>(wg + (k * 9 + dy * 3 + dx) * co_s, lc, lcn, wv);
+#pragma unroll
+            for (int p = 0; p < CONV_P; ++p)
+#pragma unroll
+              for (int j = 0; j < CO_T; ++j) acc[p][j] = fmaf(v[p][k], wv[j], acc[p][j]);
+          }
+        }
       }
     }
+  }
+  const int ox = x0 + txi;
+#pragma unroll
+  for (int p = 0; p < CONV_P; ++p) {
+    const int oy = y0 + CONV_P * tyi + p;
+    if (oy >= Ho || ox >= Wo || co >= Cout) continue;
     if (relu) {
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = fmaxf(acc[k], 0.f);
+      for (int j = 0; j < CO_T; ++j) acc[p][j] = fmaxf(acc[p][j], 0.f);
     }
-    store_out(out + pix * Cout + co0, nullptr, co0, Cout, acc);
+    store_out<CO_T>(out + ((n * Ho + oy) * Wo + ox) * Cout + co, nullptr, co, Cout, acc[p]);
   }
 }
 
-// torch ConvTranspose2d(k=3, s=2, p=1, op=1), output (N, 2H, 2W, Cout):
-//   out[oy] gathers in[iy] with ky = oy + 1 − 2·iy ∈ {0, 1, 2}, i.e.
-//   oy = 2i: (iy = i, ky = 1);  oy = 2i + 1: (iy = i, ky = 2) and (iy = i + 1, ky = 0),
-//   the latter only while i + 1 < H; the same for columns.  Then ReLU when
-//   relu != 0 (written to act too when act is given), then + skip[n, oy, ox, co]
-//   when skip is given.  w is (ky, kx, Cin, Cout); with GATE the input counts
-//   only where gate > 0.
-template <int VEC, bool GATE>
-__global__ void __launch_bounds__(THREADS) deconv3x3_s2_kernel(
+// torch ConvTranspose2d(k=3, s=2, p=1, op=1), output (N, 2H, 2W, Cout), by
+// output quads: input pixel (i, j) feeds out[2i + a, 2j + b] through
+//   (a, b) = (0, 0): in[i, j]·w[1, 1]
+//            (0, 1): in[i, j]·w[1, 2] + in[i, j + 1]·w[1, 0]
+//            (1, 0): in[i, j]·w[2, 1] + in[i + 1, j]·w[0, 1]
+//            (1, 1): in[i, j]·w[2, 2] + in[i, j + 1]·w[2, 0] + in[i + 1, j]·w[0, 2]
+//                    + in[i + 1, j + 1]·w[0, 0],
+// the i + 1 and j + 1 terms only inside the plane (the staged window holds
+// zeros past it), w (ky, kx, Cin, Cout).  Then ReLU when relu != 0 (written
+// to act too when act is given), then + skip[n, oy, ox, co] when skip is
+// given.  With GATE the input counts only where gate > 0.  Block (tile,
+// slab, n): input rows i0 … i0 + QUAD_Q·ty_n − 1, columns j0 … j0 + tx_n −
+// 1; thread (lc, txi, tyi) owns input rows i0 + QUAD_Q·tyi + q (q < QUAD_Q)
+// of column j0 + txi, all four phases of each, and CO_T channels.  The sum
+// runs over channel groups of VEC, then taps (ky, kx), then the group's
+// channels.
+template <int VEC, bool GATE, int CO_T>
+__global__ void __launch_bounds__(THREADS, 2) deconv3x3_s2_kernel(
     const float* __restrict__ in, const float* __restrict__ gate, const float* __restrict__ w,
-    const float* __restrict__ skip, float* __restrict__ out, float* __restrict__ act, int N,
-    int H, int W, int Cin, int Cout, int relu) {
+    const float* __restrict__ skip, float* __restrict__ out, float* __restrict__ act, int H, int W,
+    int Cin, int Cout, int relu, int co_s, int tx_n, int ty_n, int ck, int wvec) {
   extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  const int cop = round_up(Cout, CO_T);
-  stage_weights(w, sw, 9 * Cin, Cout, cop);
-  const int groups = cop / CO_T;
-  const int Ho = 2 * H, Wo = 2 * W;
-  const int64_t total = (int64_t)N * Ho * Wo * groups;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int co0 = (int)(t % groups) * CO_T;
-    const int64_t pix = t / groups;
-    const int ox = (int)(pix % Wo);
-    const int oy = (int)((pix / Wo) % Ho);
-    const int64_t n = pix / ((int64_t)Wo * Ho);
-    float acc[CO_T] = {0.f, 0.f, 0.f, 0.f};
-    const int ny = (oy & 1) ? 2 : 1;
-    const int nx = (ox & 1) ? 2 : 1;
-    for (int a = 0; a < ny; ++a) {
-      const int iy = (oy >> 1) + a;
-      const int ky = (oy & 1) ? (a ? 0 : 2) : 1;
-      if (iy >= H) continue;
-      for (int b = 0; b < nx; ++b) {
-        const int ix = (ox >> 1) + b;
-        const int kx = (ox & 1) ? (b ? 0 : 2) : 1;
-        if (ix >= W) continue;
-        const int64_t off = ((n * H + iy) * W + ix) * Cin;
-        tap_fma<VEC, GATE>(in + off, gate + off, sw + (ky * 3 + kx) * Cin * cop + co0, Cin, cop,
-                           acc);
+  float* s_in = reinterpret_cast<float*>(smem4);
+  const int rows = QUAD_Q * ty_n;
+  const int wr = window_rows(true, 2, rows), wc = window_cols(true, 2, tx_n);
+  const int words = window_words(true, 2, rows, tx_n, ck);
+  float* s_gate = s_in + words;
+  float* s_w = s_in + (GATE ? 2 : 1) * words;
+  const int lcn = co_s / CO_T;
+  const int lc = threadIdx.x % lcn, txi = (threadIdx.x / lcn) % tx_n;
+  const int tyi = threadIdx.x / (lcn * tx_n);
+  const int ntx = (W + tx_n - 1) / tx_n;
+  const int i0 = (int)(blockIdx.x / ntx) * rows, j0 = (int)(blockIdx.x % ntx) * tx_n;
+  const int co0 = blockIdx.y * co_s, co = co0 + CO_T * lc;
+  const int64_t n = blockIdx.z;
+  const int plane = wr * wc * VEC;
+
+  float acc[QUAD_Q][2][2][CO_T];
+#pragma unroll
+  for (int q = 0; q < QUAD_Q; ++q)
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int j = 0; j < CO_T; ++j) acc[q][a][b][j] = 0.f;
+  for (int ci0 = 0; ci0 < Cin; ci0 += ck) {
+    const int nci = min(ck, Cin - ci0);
+    const int ng = (nci + VEC - 1) / VEC;
+    __syncthreads();  // the previous chunk's reads are done
+    stage_window<VEC, 1>(in, s_in, n, H, W, Cin, ci0, ng, i0, j0, wr, wc);
+    if constexpr (GATE) stage_window<VEC, 1>(gate, s_gate, n, H, W, Cin, ci0, ng, i0, j0, wr, wc);
+    stage_weights<CO_T>(w, s_w, Cin, Cout, ci0, ng * VEC, co0, co_s, wvec);
+    cp_async_wait();
+    if constexpr (GATE) mask_window<VEC, 1>(s_in, s_gate, ng, wr, wc);
+    __syncthreads();
+    for (int g = 0; g < ng; ++g) {
+      const float* sg = s_in + g * plane + (QUAD_Q * tyi * wc + txi) * VEC;
+      const float* wg = s_w + g * VEC * 9 * co_s;
+      float v[QUAD_Q + 1][2][VEC];  // the staged neighbourhood, rows then columns
+#pragma unroll
+      for (int r = 0; r <= QUAD_Q; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) load_v<VEC>(sg + (r * wc + c) * VEC, v[r][c]);
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const int a = ky == 1 ? 0 : 1, di = ky == 0 ? 1 : 0;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int b = kx == 1 ? 0 : 1, dj = kx == 0 ? 1 : 0;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            float wv[CO_T];
+            load_w<CO_T>(wg + (k * 9 + ky * 3 + kx) * co_s, lc, lcn, wv);
+#pragma unroll
+            for (int q = 0; q < QUAD_Q; ++q)
+#pragma unroll
+              for (int j = 0; j < CO_T; ++j)
+                acc[q][a][b][j] = fmaf(v[q + di][dj][k], wv[j], acc[q][a][b][j]);
+          }
+        }
       }
     }
-    if (relu) {
+  }
+  const int jj = j0 + txi;
 #pragma unroll
-      for (int k = 0; k < CO_T; ++k) acc[k] = fmaxf(acc[k], 0.f);
-    }
-    if (act != nullptr) store_out(act + pix * Cout + co0, nullptr, co0, Cout, acc);
-    store_out(out + pix * Cout + co0, skip != nullptr ? skip + pix * Cout + co0 : nullptr, co0,
-              Cout, acc);
+  for (int q = 0; q < QUAD_Q; ++q) {
+    const int i = i0 + QUAD_Q * tyi + q;
+    if (i >= H || jj >= W || co >= Cout) continue;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (relu) {
+#pragma unroll
+          for (int j = 0; j < CO_T; ++j) acc[q][a][b][j] = fmaxf(acc[q][a][b][j], 0.f);
+        }
+        const int64_t o = ((n * 2 * H + 2 * i + a) * 2 * W + 2 * jj + b) * Cout + co;
+        if (act != nullptr) store_out<CO_T>(act + o, nullptr, co, Cout, acc[q][a][b]);
+        store_out<CO_T>(out + o, skip != nullptr ? skip + o : nullptr, co, Cout, acc[q][a][b]);
+      }
   }
 }
 
@@ -488,113 +715,131 @@ __global__ void __launch_bounds__(THREADS) wgrad_reduce_kernel(const double* __r
   out[o] = (float)s;
 }
 
-// Blocks for a grid-stride launch: the outputs' blocks, capped at what can be
-// resident at once.  Returns 0 with *err set when the launch cannot be made.
-template <typename K>
-int64_t grid_blocks(K kernel, int smem, int64_t total, cudaError_t* err) {
-  *err = cudaSuccess;
-  if (smem > MAX_SMEM) {
-    *err = cudaErrorInvalidValue;
-    return 0;
-  }
-  if ((*err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
-    return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((*err = cudaGetDevice(&dev))) return 0;
-  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return 0;
-  if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)))
-    return 0;
-  if (per_sm < 1) {
-    *err = cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  const int64_t want = (total + THREADS - 1) / THREADS;
-  const int64_t cap = (int64_t)per_sm * sms;
-  return want < cap ? want : cap;
+using ConvKernel = void (*)(const float*, const float*, const float*, const float*, float*, int,
+                            int, int, int, int, int, int, int, int, int, int, int);
+using DeconvKernel = void (*)(const float*, const float*, const float*, const float*, float*,
+                              float*, int, int, int, int, int, int, int, int, int, int);
+
+template <int S, int VEC, bool GATE>
+ConvKernel conv_co(int co_t) {
+  return co_t == 8 ? conv3x3_kernel<S, VEC, GATE, 8>
+                   : co_t == 1 ? conv3x3_kernel<S, VEC, GATE, 1> : nullptr;
 }
 
-template <int STRIDE, int VEC, bool GATE>
-int launch_conv(const float* in, const float* gate, const float* w, const float* bias, float* out,
-                int N, int H, int W, int Cin, int Cout, int relu, cudaStream_t st) {
-  const int Ho = (H - 1) / STRIDE + 1, Wo = (W - 1) / STRIDE + 1;
-  const int smem = 9 * Cin * round_up(Cout, CO_T) * (int)sizeof(float);
-  const int64_t total = (int64_t)N * Ho * Wo * (round_up(Cout, CO_T) / CO_T);
-  if (total == 0) return 0;
-  cudaError_t err;
-  const int64_t blocks = grid_blocks(conv3x3_kernel<STRIDE, VEC, GATE>, smem, total, &err);
-  if (blocks == 0) return (int)err;
-  conv3x3_kernel<STRIDE, VEC, GATE><<<(unsigned)blocks, THREADS, smem, st>>>(
-      in, gate, w, bias, out, N, H, W, Cin, Ho, Wo, Cout, relu);
-  return (int)cudaGetLastError();
-}
-
-template <int STRIDE, bool GATE>
-int launch_conv_vec(bool vec, const float* in, const float* gate, const float* w,
-                    const float* bias, float* out, int N, int H, int W, int Cin, int Cout,
-                    int relu, cudaStream_t st) {
-  return vec ? launch_conv<STRIDE, 4, GATE>(in, gate, w, bias, out, N, H, W, Cin, Cout, relu, st)
-             : launch_conv<STRIDE, 1, GATE>(in, gate, w, bias, out, N, H, W, Cin, Cout, relu, st);
+// The conv3x3_kernel instance of (stride, VEC, gate, CO_T), or null.
+ConvKernel conv_instance(int stride, int vec, bool gate, int co_t) {
+  if (stride == 1 && vec == 4) return gate ? conv_co<1, 4, true>(co_t) : conv_co<1, 4, false>(co_t);
+  if (stride == 1 && vec == 1) return gate ? conv_co<1, 1, true>(co_t) : conv_co<1, 1, false>(co_t);
+  if (stride == 2 && vec == 4) return gate ? conv_co<2, 4, true>(co_t) : conv_co<2, 4, false>(co_t);
+  if (stride == 2 && vec == 1) return gate ? conv_co<2, 1, true>(co_t) : conv_co<2, 1, false>(co_t);
+  return nullptr;
 }
 
 template <int VEC, bool GATE>
-int launch_deconv(const float* in, const float* gate, const float* w, const float* skip,
-                  float* out, float* act, int N, int H, int W, int Cin, int Cout, int relu,
-                  cudaStream_t st) {
-  const int smem = 9 * Cin * round_up(Cout, CO_T) * (int)sizeof(float);
-  const int64_t total = (int64_t)N * 4 * H * W * (round_up(Cout, CO_T) / CO_T);
-  if (total == 0) return 0;
-  cudaError_t err;
-  const int64_t blocks = grid_blocks(deconv3x3_s2_kernel<VEC, GATE>, smem, total, &err);
-  if (blocks == 0) return (int)err;
-  deconv3x3_s2_kernel<VEC, GATE><<<(unsigned)blocks, THREADS, smem, st>>>(
-      in, gate, w, skip, out, act, N, H, W, Cin, Cout, relu);
-  return (int)cudaGetLastError();
+DeconvKernel deconv_co(int co_t) {
+  return co_t == 8 ? deconv3x3_s2_kernel<VEC, GATE, 8>
+                   : co_t == 1 ? deconv3x3_s2_kernel<VEC, GATE, 1> : nullptr;
+}
+
+DeconvKernel deconv_instance(int vec, bool gate, int co_t) {
+  if (vec == 4) return gate ? deconv_co<4, true>(co_t) : deconv_co<4, false>(co_t);
+  if (vec == 1) return gate ? deconv_co<1, true>(co_t) : deconv_co<1, false>(co_t);
+  return nullptr;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The launch of a plan (plane_conv.py `plane_conv_plan`): block threads
+// (co_s / co_t)·tx·ty, grid (tiles, slabs, N); 0 when the plan is one the
+// kernels take and `smem` is its shared memory, else the CUDA error.
+cudaError_t check_plan(bool transposed, int stride, int N, int rows_in, int cols_in, int Cin,
+                       int Cout, bool gate, int vec, int co_t, int co_s, int tx, int ty, int ck,
+                       int smem, dim3* grid, int* threads) {
+  if (N < 1 || rows_in < 1 || cols_in < 1 || Cin < 1 || Cout < 1 || (vec != 1 && vec != 4) ||
+      (co_t != 1 && co_t != 8) || co_s < co_t || co_s % co_t || co_s > MAX_SLAB || tx < 1 ||
+      ty < 1 || ck < vec || ck % vec || (vec == 4 && Cin % 4))
+    return cudaErrorInvalidValue;
+  *threads = co_s / co_t * tx * ty;
+  if (*threads > THREADS || *threads % 32) return cudaErrorInvalidConfiguration;
+  const int rows = ty * (transposed ? QUAD_Q : CONV_P);
+  if (smem != smem_bytes(transposed, stride, gate, rows, tx, ck, co_s) || smem > MAX_SMEM)
+    return cudaErrorInvalidValue;
+  const int64_t tiles = (int64_t)((rows_in + rows - 1) / rows) * ((cols_in + tx - 1) / tx);
+  const int slabs = (Cout + co_s - 1) / co_s;
+  if (tiles > 0x7fffffff || slabs > 65535 || N > 65535) return cudaErrorInvalidConfiguration;
+  *grid = dim3((unsigned)tiles, (unsigned)slabs, (unsigned)N);
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// Lets the kernel instance of (transposed, stride, vec, gate, co_t) use
+// `smem` bytes of dynamic shared memory on the current device: the wrapper
+// calls it once per instance and size, not per launch.  Returns the CUDA
+// error (0 = set).
+extern "C" int plane_conv_prepare(int transposed, int stride, int vec, int gate, int co_t,
+                                  int smem) {
+  if (smem < 0 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const void* k = !transposed ? (const void*)conv_instance(stride, vec, gate, co_t)
+                  : stride == 2 ? (const void*)deconv_instance(vec, gate, co_t) : nullptr;
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
 
 // 3×3 conv, pad 1, stride 1 or 2: in (N, H, W, Cin), gate (shaped as in) or
 // null, w (3, 3, Cin, Cout), bias (Cout) or null, out (N, ceil(H/stride),
 // ceil(W/stride), Cout), ReLU when relu != 0.  With a gate, in counts only
-// where gate > 0.  Launches on `stream` and returns cudaGetLastError()
-// (0 = launched).
+// where gate > 0.  The launch is the wrapper's plan (plane_conv.py
+// `plane_conv_plan`): vec (4: Cin % 4 == 0 and in, gate 16-byte aligned),
+// co_t (8, or 1 for Cout = 1), slab co_s, tile tx × 4·ty outputs, chunks of
+// ck input channels, smem bytes (set by plane_conv_prepare).  Launches on
+// `stream`, no atomics: the result is the same in every run and under every
+// plan.  Returns cudaGetLastError() (0 = launched).
 extern "C" int conv3x3_f32(const float* in, const float* gate, const float* w, const float* bias,
                            float* out, int N, int H, int W, int Cin, int Cout, int stride,
-                           int relu, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = Cin % 4 == 0 && aligned16(in) && (gate == nullptr || aligned16(gate));
-  if (!aligned16(out)) return (int)cudaErrorMisalignedAddress;
-  if (stride == 1)
-    return gate ? launch_conv_vec<1, true>(vec, in, gate, w, bias, out, N, H, W, Cin, Cout, relu, st)
-                : launch_conv_vec<1, false>(vec, in, gate, w, bias, out, N, H, W, Cin, Cout, relu,
-                                            st);
-  if (stride == 2)
-    return gate ? launch_conv_vec<2, true>(vec, in, gate, w, bias, out, N, H, W, Cin, Cout, relu, st)
-                : launch_conv_vec<2, false>(vec, in, gate, w, bias, out, N, H, W, Cin, Cout, relu,
-                                            st);
-  return (int)cudaErrorInvalidValue;
+                           int relu, int vec, int co_t, int co_s, int tx, int ty, int ck, int smem,
+                           void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  dim3 grid;
+  int threads;
+  cudaError_t err = check_plan(false, stride, N, Ho, Wo, Cin, Cout, gate != nullptr, vec, co_t,
+                               co_s, tx, ty, ck, smem, &grid, &threads);
+  if (err != cudaSuccess) return (int)err;
+  if (!aligned16(out) ||
+      (vec == 4 && (!aligned16(in) || (gate != nullptr && !aligned16(gate)))))
+    return (int)cudaErrorMisalignedAddress;
+  const ConvKernel k = conv_instance(stride, vec, gate != nullptr, co_t);
+  const int wvec = Cout % 4 == 0 && co_s % 4 == 0 && aligned16(w);
+  k<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, gate, w, bias, out, H, W, Cin, Ho, Wo, Cout, relu, co_s, tx, ty, ck, wvec);
+  return (int)cudaGetLastError();
 }
 
 // ConvTranspose2d(k=3, s=2, p=1, op=1), then ReLU when relu != 0 (also
 // written to act when act is not null), then + skip: in (N, H, W, Cin), gate
 // (shaped as in) or null, w (3, 3, Cin, Cout), skip (N, 2H, 2W, Cout) or null,
-// out and act (N, 2H, 2W, Cout).  Launches on `stream` and returns
+// out and act (N, 2H, 2W, Cout).  The plan as for conv3x3_f32, the tile tx ×
+// 2·ty input pixels.  Launches on `stream`, no atomics.  Returns
 // cudaGetLastError() (0 = launched).
 extern "C" int deconv3x3_s2_f32(const float* in, const float* gate, const float* w,
                                 const float* skip, float* out, float* act, int N, int H, int W,
-                                int Cin, int Cout, int relu, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                int Cin, int Cout, int relu, int vec, int co_t, int co_s, int tx,
+                                int ty, int ck, int smem, void* stream) {
+  dim3 grid;
+  int threads;
+  cudaError_t err = check_plan(true, 2, N, H, W, Cin, Cout, gate != nullptr, vec, co_t, co_s, tx,
+                               ty, ck, smem, &grid, &threads);
+  if (err != cudaSuccess) return (int)err;
   if (!aligned16(out) || (skip != nullptr && !aligned16(skip)) ||
-      (act != nullptr && !aligned16(act)))
+      (act != nullptr && !aligned16(act)) ||
+      (vec == 4 && (!aligned16(in) || (gate != nullptr && !aligned16(gate)))))
     return (int)cudaErrorMisalignedAddress;
-  const bool vec = Cin % 4 == 0 && aligned16(in) && (gate == nullptr || aligned16(gate));
-  if (gate != nullptr)
-    return vec ? launch_deconv<4, true>(in, gate, w, skip, out, act, N, H, W, Cin, Cout, relu, st)
-               : launch_deconv<1, true>(in, gate, w, skip, out, act, N, H, W, Cin, Cout, relu, st);
-  return vec ? launch_deconv<4, false>(in, gate, w, skip, out, act, N, H, W, Cin, Cout, relu, st)
-             : launch_deconv<1, false>(in, gate, w, skip, out, act, N, H, W, Cin, Cout, relu, st);
+  const DeconvKernel k = deconv_instance(vec, gate != nullptr, co_t);
+  const int wvec = Cout % 4 == 0 && co_s % 4 == 0 && aligned16(w);
+  k<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, gate, w, skip, out, act, H, W, Cin, Cout, relu, co_s, tx, ty, ck, wvec);
+  return (int)cudaGetLastError();
 }
 
 // 3×3 weight cotangent (see wgrad_partial_kernel): a1 (N, Ha, Wa, ca1), a2

@@ -25,12 +25,16 @@ For CPU tensors, and only for them, both compute the plain versions
 (`<name>_reference`, `<name>_backward_reference`: functional convolutions).
 Every weight and bias cotangent on the card, these three and red_recur's,
 is `wgrad3x3` (plain version `wgrad3x3_reference`), launched with the plan
-of `wgrad3x3_plan` and counted in `wgrad3x3.launches`.
+of `wgrad3x3_plan` and counted in `wgrad3x3.launches`.  The forwards and
+every dx run on two kernels, `conv3x3_f32` and `deconv3x3_s2_f32`, under
+the launch plan of `plane_conv_plan` (tile, slab, threads, chunks, shared
+memory); every plan gives the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -98,11 +102,14 @@ def conv_head_backward_reference(x: torch.Tensor, weight: torch.Tensor, g: torch
     return _nhwc(dx), conv2d_weight(_nchw(x), weight.shape, gn, padding=1), g.sum((0, 1, 2))
 
 
-def _c_fn(name: str, n_ptrs: int, n_ints: int):
-    """The C function `name` of plane_conv.cu: n_ptrs pointers, n_ints ints, the stream."""
+@functools.lru_cache(maxsize=None)
+def _c_fn(name: str, n_ptrs: int, n_ints: int, stream: bool = True):
+    """The C function `name` of plane_conv.cu: n_ptrs pointers, n_ints ints,
+    then the stream when `stream`."""
     fn = getattr(build.load("plane_conv"), name)
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,26 +148,198 @@ def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _conv3x3(name: str, x, gate, w_k, bias, stride: int, relu: bool) -> torch.Tensor:
-    """conv3x3_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout)."""
+# The forward kernels' geometry (csrc/plane_conv.cu conv3x3_kernel,
+# deconv3x3_s2_kernel): a thread owns CONV_ROWS output rows of one column (a
+# conv) or QUAD_ROWS input rows of one column and their output quads (the
+# transposed conv), × co_t channels; a block owns a tile of tx columns ×
+# tile_rows rows and a slab of at most PLANE_MAX_SLAB channels.
+CONV_ROWS = 4
+QUAD_ROWS = 2
+PLANE_MAX_SLAB = 64
+PLANE_MAX_THREADS = 256
+PLANE_REGS = 128             # registers a thread at most: __launch_bounds__(256, 2)
+PLANE_MAX_SMEM = 232448      # bytes of shared memory a block may use on sm_90
+PLANE_SM_SMEM = 233472       # bytes of shared memory an SM holds; a block also reserves 1 KB
+# The cost model, in cycles of one SM, fitted to `kernel_ab.py --sweep` on
+# an H100 (the option it picks against the fastest measured, over the 42
+# calls of a train step): a block's FMAs at 128 a cycle or its shared-memory
+# wavefronts at two a cycle, whichever is more, plus its staged input words
+# at 20 a cycle, its weights at 16 and its stores at 10; a round of resident
+# blocks shares the SM.  Options that keep PLANE_WARPS warps resident on an
+# SM come first (plans with half as many measured 2-7× slower)
+PLANE_LDS_PER_CYCLE = 2.0
+PLANE_IN_WORDS_PER_CYCLE = 20.0
+PLANE_W_WORDS_PER_CYCLE = 16.0
+PLANE_OUT_WORDS_PER_CYCLE = 10.0
+PLANE_WARPS = 16
+
+
+def plane_conv_smem(transposed: bool, stride: int, gate: bool, rows: int, tx: int, ck: int,
+                    co_s: int) -> int:
+    """Shared bytes of a launch (plane_conv.cu `smem_bytes`): the staged input
+    window of ck channels (twice with a gate), rounded up to whole float4,
+    then the slab's weights of one chunk."""
+    wr = rows + 1 if transposed else stride * (rows - 1) + 3
+    wc = tx + 1 if transposed else stride * (tx - 1) + 3
+    words = -(-ck * wr * wc // 4) * 4
+    return 4 * (words * (2 if gate else 1) + 9 * ck * co_s)
+
+
+def plane_conv_plan_options(stride: int, transposed: bool, cin: int, cout: int,
+                            gate: bool = False):
+    """Every launch the kernels take for these channels: vec 4 where Cin % 4
+    == 0 (else 1), co_t 8 (1 for Cout = 1, so nothing is padded), slabs of
+    the output rounded up to co_t (at most 64) and its halves and quarters,
+    tx of 8, 16 or 32 with a warp inside one thread row, thread rows ty to
+    fill up to 256 or 128 threads, chunks of the whole input or 32, 16, 8
+    or 4 channels, within the shared memory that lets two blocks share an
+    SM."""
+    vec = 4 if cin % 4 == 0 else 1
+    co_t = 1 if cout == 1 else 8
+    full = min(PLANE_MAX_SLAB, -(-cout // co_t) * co_t)
+    cin_v = -(-cin // vec) * vec
+    per_thread = QUAD_ROWS if transposed else CONV_ROWS
+    for co_s in sorted({full, full // 2, full // 4}, reverse=True):
+        if co_s < co_t or co_s % co_t:
+            continue
+        lcn = co_s // co_t
+        for tx in (32, 16, 8):
+            if lcn * tx < 32 or lcn * tx > PLANE_MAX_THREADS:
+                continue
+            for ty in sorted({PLANE_MAX_THREADS // (lcn * tx), 128 // (lcn * tx)} - {0},
+                             reverse=True):
+                threads = lcn * tx * ty
+                chunks = {c for c in (cin_v, 32, 16, 8, 4) if c <= cin_v and c % vec == 0}
+                for ck in sorted(chunks, reverse=True):
+                    smem = plane_conv_smem(transposed, stride, gate, ty * per_thread, tx, ck,
+                                           co_s)
+                    if smem <= PLANE_SM_SMEM // 2 - 1024:
+                        yield {"vec": vec, "co_t": co_t, "slab": co_s, "tx": tx, "ty": ty,
+                               "threads": threads, "tile_rows": ty * per_thread, "ck": ck,
+                               "smem": smem}
+
+
+def _plane_resident(o: dict) -> int:
+    """Blocks of a plan an SM holds: by threads, shared memory and registers."""
+    return min(2048 // o["threads"], 32, PLANE_SM_SMEM // (o["smem"] + 1024),
+               65536 // (o["threads"] * PLANE_REGS))
+
+
+def _plane_cost(o: dict, transposed: bool, stride: int, n: int, rows_in: int, cols_in: int,
+                cin: int, cout: int, gate: bool, sms: int) -> tuple:
+    """The cost model's cycles of a launch (PLANE_* constants), then fewer
+    threads a block on a tie."""
+    vec, co_t, co_s, tx, threads = o["vec"], o["co_t"], o["slab"], o["tx"], o["threads"]
+    rows = o["tile_rows"]
+    lcn = co_s // co_t
+    blocks = n * -(-rows_in // rows) * -(-cols_in // tx) * -(-cout // co_s)
+    per_sm = _plane_resident(o)
+    cin_v = -(-cin // vec) * vec
+    wf_in = max(1, 32 // lcn * vec * 4 // 128)  # wavefronts of a warp's read of staged input
+    w_loads = 2 if co_t == 8 else 1
+    loads = (6 * wf_in + 9 * vec * w_loads if transposed
+             else 9 * (CONV_ROWS * wf_in + vec * w_loads))
+    wr = rows + 1 if transposed else stride * (rows - 1) + 3
+    wc = tx + 1 if transposed else stride * (tx - 1) + 3
+    block = (max(rows * tx * co_s * 9 * cin_v / 128,
+                 threads // 32 * (cin_v // vec) * loads / PLANE_LDS_PER_CYCLE)
+             + cin_v * wr * wc * (2 if gate else 1) / PLANE_IN_WORDS_PER_CYCLE
+             + 9 * cin_v * co_s / PLANE_W_WORDS_PER_CYCLE
+             + rows * tx * co_s * (4 if transposed else 1) / PLANE_OUT_WORDS_PER_CYCLE)
+    return -(-blocks // (sms * per_sm)) * per_sm * block, threads
+
+
+@functools.lru_cache(maxsize=1024)
+def plane_conv_plan(stride: int, transposed: bool, n: int, h: int, w: int, cin: int, cout: int,
+                    gate: bool = False, sms: int = 132) -> dict:
+    """The launch of `conv3x3_f32` (transposed=False: stride 1 or 2, input
+    (n, h, w, cin) → ⌈h/stride⌉ × ⌈w/stride⌉ outputs) or `deconv3x3_s2_f32`
+    (transposed=True: stride 2, input (n, h, w, cin) → 2h × 2w) with cout
+    output channels, gated or not, on a card with `sms` SMs: the option of
+    `plane_conv_plan_options` of least modelled cost.  Returns vec, co_t,
+    slab, tx, ty, threads, tile_rows, ck, smem and the grid (tiles, slabs,
+    n).  Pure Python, cached (do not modify what it returns); raises
+    ValueError for a shape the kernels cannot take."""
+    if transposed and stride != 2 or stride not in (1, 2):
+        raise ValueError(f"plane conv: stride {stride} (transposed: {transposed}) is not "
+                         f"1 or 2 for a conv, 2 for a transposed conv")
+    if min(n, h, w, cin, cout) < 1:
+        raise ValueError(f"plane conv: empty operand ({n}, {h}, {w}, {cin}) → {cout}")
+    if n > 65535:
+        raise ValueError(f"plane conv: {n} images exceed the grid's 65535")
+    rows_in, cols_in = (h, w) if transposed else ((h - 1) // stride + 1, (w - 1) // stride + 1)
+    options = list(plane_conv_plan_options(stride, transposed, cin, cout, gate))
+    if not options:
+        raise ValueError(f"plane conv: no tile of {cin} → {cout} channels fits two blocks an SM")
+    full = [o for o in options if _plane_resident(o) * o["threads"] >= 32 * PLANE_WARPS]
+    o = min(full or options, key=lambda o: _plane_cost(o, transposed, stride, n, rows_in,
+                                                       cols_in, cin, cout, gate, sms))
+    tiles = -(-rows_in // o["tile_rows"]) * -(-cols_in // o["tx"])
+    slabs = -(-cout // o["slab"])
+    if tiles >= 2 ** 31 or slabs > 65535:
+        raise ValueError(f"plane conv: a grid of {tiles} tiles × {slabs} slabs is too large")
+    return {**o, "grid": (tiles, slabs, n)}
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_prepared: dict = {}  # (device, kernel instance) → the shared bytes it may use
+
+
+def _plan_args(name: str, transposed: bool, stride: int, x, gate, cout: int, plan: dict | None):
+    """The plan's ints for the C entry (vec, co_t, co_s, tx, ty, ck, smem):
+    `plane_conv_plan`'s unless `plan` is given, vec 1 where x or the gate is
+    not 16-byte aligned; the instance is let use the plan's shared memory
+    once per device and size."""
+    n, h, w, cin = x.shape
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if plan is None:
+        plan = plane_conv_plan(stride, transposed, n, h, w, cin, cout, gate is not None,
+                               _sms(dev))
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x, gate))
+    vec = plan["vec"] if aligned else 1
+    key = (dev, transposed, stride, vec, gate is not None, plan["co_t"])
+    if _prepared.get(key, -1) < plan["smem"]:
+        with torch.cuda.device(x.device):
+            rc = _c_fn("plane_conv_prepare", 0, 6, False)(int(transposed), stride, vec,
+                                                          int(gate is not None), plan["co_t"],
+                                                          plan["smem"])
+        if rc != 0:
+            raise RuntimeError(f"{name}: setting {plan['smem']} bytes of shared memory failed: "
+                               f"CUDA error {rc}")
+        _prepared[key] = plan["smem"]
+    return (vec, plan["co_t"], plan["slab"], plan["tx"], plan["ty"], plan["ck"], plan["smem"])
+
+
+def _conv3x3(name: str, x, gate, w_k, bias, stride: int, relu: bool,
+             plan: dict | None = None) -> torch.Tensor:
+    """conv3x3_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout);
+    `plan` replaces `plane_conv_plan`'s (to time other plans)."""
     n, h, w, cin = x.shape
     cout = w_k.shape[3]
     _contiguous(name, x=x, gate=gate)
     out = torch.empty((n, (h - 1) // stride + 1, (w - 1) // stride + 1, cout),
                       dtype=torch.float32, device=x.device)
-    _launch(name, _c_fn("conv3x3_f32", 5, 7), x.device, x, gate, w_k.contiguous(), bias, out,
-            n, h, w, cin, cout, stride, int(relu))
+    args = _plan_args(name, False, stride, x, gate, cout, plan)
+    _launch(name, _c_fn("conv3x3_f32", 5, 14), x.device, x, gate, w_k.contiguous(), bias, out,
+            n, h, w, cin, cout, stride, int(relu), *args)
     return out
 
 
-def _deconv3x3(name: str, x, gate, w_k, skip, act, relu: bool) -> torch.Tensor:
-    """deconv3x3_s2_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout)."""
+def _deconv3x3(name: str, x, gate, w_k, skip, act, relu: bool,
+               plan: dict | None = None) -> torch.Tensor:
+    """deconv3x3_s2_f32 on x (N, H, W, Cin) with weights w_k (3, 3, Cin, Cout);
+    `plan` replaces `plane_conv_plan`'s (to time other plans)."""
     n, h, w, cin = x.shape
     cout = w_k.shape[3]
     _contiguous(name, x=x, gate=gate, skip=skip)
     out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
-    _launch(name, _c_fn("deconv3x3_s2_f32", 6, 6), x.device, x, gate, w_k.contiguous(), skip,
-            out, act, n, h, w, cin, cout, int(relu))
+    args = _plan_args(name, True, 2, x, gate, cout, plan)
+    _launch(name, _c_fn("deconv3x3_s2_f32", 6, 13), x.device, x, gate, w_k.contiguous(), skip,
+            out, act, n, h, w, cin, cout, int(relu), *args)
     return out
 
 

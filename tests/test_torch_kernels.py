@@ -611,6 +611,97 @@ def test_cuda_conv_head_backward_reduces_a_training_plane():
         assert bool(((got - exact).abs() <= bound).all()), f"{what}: {(got - exact).abs().max()}"
 
 
+def _plane_uses(n, h, w, cin, cout, seed):
+    """(name, kernel, plain) of each use of the two plane-conv kernels at x
+    (n, h, w, cin) → cout channels: conv_dn, deconv_up (with skip) and
+    conv_head forward, and the three backwards (conv_dn's only at even h
+    and w); each call returns a tuple of tensors."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    x = _rand((n, h, w, cin), seed)
+    wd, wu = _rand((cout, cin, 3, 3), seed + 1, 0.2), _rand((cin, cout, 3, 3), seed + 2, 0.2)
+    wh, b = _rand((cout, cin, 3, 3), seed + 3, 0.2), _rand((cout,), seed + 4)
+    skip = _rand((n, 2 * h, 2 * w, cout), seed + 5)
+    y = pc.conv_dn_reference(x, wd)
+    act = pc.deconv_up_reference(x, wu)
+    act.view(-1)[::3] = 1e-7  # the mask read from relu(z) must matter
+    gd, gu = _rand(tuple(y.shape), seed + 6), _rand(tuple(act.shape), seed + 7)
+    gh = _rand((n, h, w, cout), seed + 8)
+    uses = [("conv_dn", lambda: (pc.conv_dn(x, wd),), lambda: (pc.conv_dn_reference(x, wd),)),
+            ("deconv_up", lambda: (pc.deconv_up(x, wu, skip),),
+             lambda: (pc.deconv_up_reference(x, wu, skip),)),
+            ("conv_head", lambda: (pc.conv_head(x, wh, b),),
+             lambda: (pc.conv_head_reference(x, wh, b),)),
+            ("deconv_up backward", lambda: pc.deconv_up_backward(x, wu, act, gu),
+             lambda: pc.deconv_up_backward_reference(x, wu, act, gu)),
+            ("conv_head backward", lambda: pc.conv_head_backward(x, wh, gh),
+             lambda: pc.conv_head_backward_reference(x, wh, gh))]
+    if h % 2 == 0 and w % 2 == 0:
+        uses.append(("conv_dn backward", lambda: pc.conv_dn_backward(x, wd, y, gd),
+                     lambda: pc.conv_dn_backward_reference(x, wd, y, gd)))
+    return uses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 37, 1, 64, 16), (1, 5, 2, 8, 1), (1, 6, 2, 4, 8),
+                                            (4, 33, 35, 8, 1), (3, 10, 14, 3, 6),
+                                            (1, 2, 2, 16, 64), (2, 66, 98, 64, 32),
+                                            (2, 34, 130, 1, 8)])
+def test_cuda_plane_convs_across_tile_edges(n, h, w, cin, cout):
+    """conv_dn, deconv_up and conv_head and their backwards against the
+    plain versions where tiles overhang the plane: W of 1 and 2, odd H and
+    W, N > 1, Cin = 64 staged in chunks, Cin % 4 != 0, Cout = 1 (conv_head's,
+    whose dx then runs from one channel) and Cin = 1; 1e-5 × max(1, max
+    |plain|), and the same bits in a second run, forwards and backwards."""
+    _cuda()
+    for name, kernel, plain in _plane_uses(n, h, w, cin, cout, 100):
+        got, again, want = kernel(), kernel(), plain()
+        for i, (a, a2, ref) in enumerate(zip(got, again, want)):
+            if ref is not None:
+                _close(a, ref, f"{name}[{i}] {(n, h, w, cin, cout)}")
+            assert torch.equal(a, a2), f"{name}[{i}]: a second run differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 12, 24, 64, 32), (1, 40, 200, 8, 16)])
+def test_cuda_plane_convs_under_every_plan(n, h, w, cin, cout):
+    """Each kernel under every plan `plane_conv_plan_options` offers, at a
+    coarse (64 → 32) and a wide (8 → 16) shape, in each of its uses (conv
+    stride 2, gated stride 2, stride 1 from Cin and from Cout; the
+    transposed conv plain and gated): within 1e-5 of the plain version,
+    and the same bits as `plane_conv_plan`'s plan (each output's sum runs in
+    one order whatever the tiles)."""
+    import torch.nn.functional as F
+
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+    x, gate = _rand((n, h, w, cin), 110), _rand((n, h, w, cin), 111)
+    wk = _rand((3, 3, cin, cout), 112, 0.2)
+    wt = wk.permute(3, 2, 0, 1)  # Conv2d's (Cout, Cin, 3, 3)
+    dz = torch.where(gate > 0, x, torch.zeros_like(x))
+    convs = {"stride 2": (2, None, lambda: F.conv2d(nchw(x), wt, stride=2, padding=1)),
+             "stride 2 gated": (2, gate, lambda: F.conv2d(nchw(dz), wt, stride=2, padding=1)),
+             "stride 1": (1, None, lambda: F.conv2d(nchw(x), wt, padding=1))}
+    for what, (stride, g, plain) in convs.items():
+        want, base = nhwc(plain()), pc._conv3x3("test", x, g, wk, None, stride, False)
+        for o in pc.plane_conv_plan_options(stride, False, cin, cout, g is not None):
+            got = pc._conv3x3("test", x, g, wk, None, stride, False, o)
+            _close(got, want, f"conv {what} {o}")
+            assert torch.equal(got, base), f"conv {what} {o}: other bits than the plan's"
+    wu = wk.permute(2, 3, 0, 1)  # ConvTranspose2d's (Cin, Cout, 3, 3)
+    for what, g in (("", None), (" gated", gate)):
+        want = nhwc(F.conv_transpose2d(nchw(x if g is None else dz), wu, stride=2, padding=1,
+                                       output_padding=1))
+        base = pc._deconv3x3("test", x, g, wk, None, None, False)
+        for o in pc.plane_conv_plan_options(2, True, cin, cout, g is not None):
+            got = pc._deconv3x3("test", x, g, wk, None, None, False, o)
+            _close(got, want, f"deconv{what} {o}")
+            assert torch.equal(got, base), f"deconv{what} {o}: other bits than the plan's"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,h,w,cin,c,seeded", [(1, 5, 16, 24, 8, 8, False),
                                                   (2, 4, 7, 9, 6, 4, True),
