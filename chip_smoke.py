@@ -7,14 +7,17 @@ Phases, each reported on its own lines:
   0  setup: TF32 off for matmuls and cuDNN, the card's name and power limit;
   1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a),
      each kernel instance's registers and spills; no instance of the plane
-     convs may spill;
+     convs or of sweep_variance may spill;
   2  each kernel against its plain PyTorch version on the card, at every
-     shape the main path gives it (sweep_variance also with coordinates
-     pushed off the image, red_recur also from a non-zero start state;
-     red_recur and the plane convs with their launch plans and the same
-     bits in a second run); kernel, plain and library times (CUDA events,
-     median after warm-up) beside the least time the card could take
-     (bound);
+     shape the main path gives it (sweep_variance at the forward's
+     coordinates: stage 1 uniform, stages 2-3 windows around a seeded
+     previous depth; also with uniform planes at stages 2-3 and with
+     coordinates pushed off the image; and batched, B = 4 tiles of a scene
+     chunk's 8-plane slabs, against four B = 1 calls; red_recur also from a
+     non-zero start state; sweep_variance, red_recur and the plane convs
+     with their launch plans and the same bits in a second run); kernel,
+     plain and library times (CUDA events, median after warm-up) beside the
+     least time the card could take (bound);
   2b the batched red_recur (B = 4 elements, each from its own start state)
      against its plain version and against B = 1 calls on each element, at
      every shape a 448² tile batch gives it in 8-plane slabs, with its plan
@@ -279,16 +282,17 @@ class KernelReport:
         return self.rec
 
 
-def sweep_work(ref, srcs, xs, ys) -> tuple[float, float]:
+def sweep_work(feats, xs, ys) -> tuple[float, float]:
     """Bytes (output written once, coords and features read once) and flops
-    (valid bilinear taps only) of one sweep_variance on this data."""
-    n_src, d, h, w = xs.shape
-    c = ref.shape[-1]
-    nbytes = 4 * (d * h * w * c + 2 * xs.numel() + ref.numel() + srcs.numel())
+    (valid bilinear taps only) of one sweep_variance_batched on this data:
+    feats (B, V, h, w, C), xs/ys (B, S, D, h, w)."""
+    b, n_src, d, h, w = xs.shape
+    c = feats.shape[-1]
+    nbytes = 4 * (b * d * h * w * c + 2 * xs.numel() + feats.numel())
     x0, y0 = torch.floor(xs), torch.floor(ys)
     taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum().item()
                for dx in (0, 1) for dy in (0, 1))
-    return nbytes, c * (2 * taps + d * h * w * (3 * n_src + 7))
+    return nbytes, c * (2 * taps + b * d * h * w * (3 * n_src + 7))
 
 
 def rel_tol(want) -> float:
@@ -296,48 +300,126 @@ def rel_tol(want) -> float:
     return KERNEL_TOL * max(1.0, want.abs().max().item())
 
 
-def phase_sweep(card: str) -> dict:
-    """Phase 2: sweep_variance against its plain version at the stage shapes."""
+# hypothesis interval of each stage (m): CascadeModel's depth_intervals_ratio
+# (4, 2, 1) × its min_interval 2.5
+STAGE_INTERVALS = (10.0, 5.0, 2.5)
+
+
+def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
+                 planes: slice = slice(None)):
+    """Features (b, 3, h, w, C) and coordinates xs, ys (b, 2, D, h, w) of
+    cascade stage `stage` (0-based) on b patches of h×w pixels at the
+    stage's scale.  Sample i takes the synthetic RPC triplet of seed i (its
+    image the patch at full scale, the nadir view the reference) and the
+    hypotheses the forward builds (`stage_hypotheses`): uniform over the
+    height range at stage 0 or with window=False, else a window around a
+    seeded smooth previous depth within the range; `planes` cuts a slab."""
+    import torch.nn.functional as F
+
     from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.geo import rpc as rpclib
+    from satmvs_tpu_torch.models.cascade import stage_hypotheses
     from satmvs_tpu_torch.ops import warp
-    from satmvs_tpu_torch.ops.kernels.sweep_variance import (
-        sweep_variance, sweep_variance_reference)
 
-    rpcs = synthetic.make_rpc_triplet(WIDTH, HEIGHT, seed=0)
-    rpcs = np.stack([rpcs[2], rpcs[0], rpcs[1]])  # nadir reference first
-    stage_cams = warp.build_stage_cams(rpcs, 0, device="cuda")
-    h_min, h_max = rpclib.height_range(rpcs[0])
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    scale = STAGE_SCALES[stage]
+    coords = []
+    for i in range(b):
+        rpcs = synthetic.make_rpc_triplet(w * scale, h * scale, seed=i)
+        rpcs = np.stack([rpcs[2], rpcs[0], rpcs[1]])
+        cams = warp.build_rpc_warp_cams(rpcs, 0, 1.0 / scale, device="cuda")
+        lo, hi = rpclib.height_range(rpcs[0])
+        prev = None
+        if stage > 0 and window:  # a 6×12 random grid, bilinearly upsampled
+            grid = torch.rand((1, 1, 6, 12), generator=gen, device="cuda")
+            up = F.interpolate(grid, size=(h // 2, w // 2), mode="bilinear", align_corners=True)
+            prev = lo + (hi - lo) * (0.1 + 0.8 * up[:, 0])
+        hyps = stage_hypotheses(NDEPTHS[stage], h, w, torch.tensor([lo], device="cuda"),
+                                torch.tensor([hi], device="cuda"), STAGE_INTERVALS[stage],
+                                prev)[0, planes]
+        coords.append([warp.rpc_sweep_coords(cams, s, hyps, h, w) for s in range(2)])
+    d = coords[0][0][0].shape[0]
+    xs, ys = torch.stack([q[k] for pair in coords for q in pair for k in (0, 1)]).view(
+        b, 2, 2, d, h, w).unbind(2)
+    feats = torch.randn((b, 3, h, w, FEAT_CH[stage]), generator=gen, device="cuda")
+    return feats, xs.contiguous(), ys.contiguous()
+
+
+def sweep_cases(gen, checks: bool = True) -> list[tuple]:
+    """(label, feats, xs, ys, path, calls) of sweep_variance: the three
+    sweeps of a 384×768 forward (path "forward", B = 1: stage 1 uniform over
+    the height range, stages 2-3 windows around a seeded previous depth) and
+    of a 4-tile scene chunk (path "chunk": B = 4 tiles of 448², one 8-plane
+    slab of each stage, `calls` of them a chunk); with `checks`, also stages
+    2-3 with uniform planes and stage 1 with its coordinates pushed off the
+    image on every side, some far off (zero padding and the pre-cast clamp),
+    path "check"."""
     cases = []
-    for i, (cams, scale, nd, c) in enumerate(zip(stage_cams, STAGE_SCALES, NDEPTHS, FEAT_CH)):
-        h, w = HEIGHT // scale, WIDTH // scale
-        depths = torch.linspace(h_min, h_max, nd, device="cuda")
-        coords = [warp.rpc_sweep_coords(cams, s, depths, h, w) for s in range(2)]
-        xs = torch.stack([q[0] for q in coords]).contiguous()
-        ys = torch.stack([q[1] for q in coords]).contiguous()
-        ref = torch.randn((h, w, c), generator=gen, device="cuda")
-        srcs = torch.randn((2, h, w, c), generator=gen, device="cuda")
-        cases.append((f"stage{i + 1}", ref, srcs, xs, ys))
-    # stage-1 shapes with coordinates pushed off the image on every side,
-    # some far off (exercises zero padding and the pre-cast clamp)
-    _, ref, srcs, xs, ys = cases[0]
-    h, w = ref.shape[:2]
-    xs_off = xs * 1.5 - 0.25 * w
-    ys_off = ys * 1.5 - 0.25 * h
-    xs_off.view(-1)[::97] = 1e9
-    ys_off.view(-1)[::89] = -1e9
-    cases.append(("off-image", ref, srcs, xs_off, ys_off))
+    for i in range(3):
+        h, w = HEIGHT // STAGE_SCALES[i], WIDTH // STAGE_SCALES[i]
+        cases.append((f"stage{i + 1}", *sweep_inputs(i, 1, h, w, gen), "forward", 1))
+        if checks and i > 0:
+            cases.append((f"stage{i + 1} uniform", *sweep_inputs(i, 1, h, w, gen, window=False),
+                          "check", 0))
+    for i, n_slabs in enumerate(SLABS_PER_TILE):
+        size = TILE_HW // STAGE_SCALES[i]
+        slab = slice(SLAB * (n_slabs // 2), SLAB * (n_slabs // 2 + 1))  # a middle slab
+        cases.append((f"chunk stage{i + 1} B={BATCH_TILES}",
+                      *sweep_inputs(i, BATCH_TILES, size, size, gen, planes=slab), "chunk",
+                      n_slabs))
+    if checks:
+        _, feats, xs, ys, _, _ = cases[0]
+        h, w = feats.shape[2:4]
+        xs_off, ys_off = xs * 1.5 - 0.25 * w, ys * 1.5 - 0.25 * h
+        xs_off.view(-1)[::97] = 1e9
+        ys_off.view(-1)[::89] = -1e9
+        cases.append(("off-image", feats, xs_off, ys_off, "check", 0))
+    return cases
 
-    rep = KernelReport("sweep_variance", "satmvs_tpu_torch/csrc/sweep_variance.cu",
-                       "satmvs_tpu/ops/pallas/sweep_variance.py:130", card)
-    for name, ref, srcs, xs, ys in cases:
+
+def phase_sweep(card: str) -> list[dict]:
+    """Phase 2: sweep_variance (the batched entry the forward calls) against
+    its plain version at every case of `sweep_cases`, with its launch plan
+    and the same bits in a second run; each B = 1 case also through
+    `sweep_variance` (the same bits), the B = 4 chunk cases against four
+    B = 1 calls (the same bits).  Returns the forward's record (the three
+    forward sweeps) and the chunk's (`sweep_variance_batched`, the 13 calls
+    of a 4-tile chunk)."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    source, replaces = ("satmvs_tpu_torch/csrc/sweep_variance.cu",
+                        "satmvs_tpu/ops/pallas/sweep_variance.py:130")
+    reps = {"forward": KernelReport("sweep_variance", source, replaces, card),
+            "chunk": KernelReport("sweep_variance_batched", source, replaces, card)}
+    reps["check"] = reps["forward"]
+    for label, feats, xs, ys, path, calls in sweep_cases(gen):
+        b, _, d, h, w = xs.shape
+        c = feats.shape[-1]
+        plan = sv.sweep_variance_plan(b, 2, d, h, w, c)
+        run = lambda: sv.sweep_variance_batched(feats, xs, ys)  # noqa: E731
         # library_ms stays null: no single PyTorch call computes warp +
         # variance (grid_sample per view plus the moments is a composition)
-        rep.case(name, lambda: sweep_variance(ref, srcs, xs, ys),
-                 lambda: sweep_variance_reference(ref, srcs, xs, ys), rel_tol,
-                 *sweep_work(ref, srcs, xs, ys), timed=name != "off-image")
-    return rep.record()
+        reps[path].case(label, run, lambda: sv.sweep_variance_batched_reference(feats, xs, ys),
+                        rel_tol, *sweep_work(feats, xs, ys), count=calls,
+                        timed=label != "off-image")
+        got = run()
+        same = torch.equal(got, run())
+        singles = [sv.sweep_variance(feats[i, 0], feats[i, 1:], xs[i], ys[i]) for i in range(b)]
+        as_b1 = all(torch.equal(got[i], one) for i, one in enumerate(singles))
+        print(f"[kernels] sweep_variance {label} (B, S, D, h, w, C) = {(b, 2, d, h, w, c)} "
+              f"plan: {plan['groups']} group(s) of {plan['vec']} channels and {plan['planes']} "
+              f"planes a thread, tile {plan['ty']}x{plan['tx']} px x {plan['lanes']} lanes, "
+              f"{plan['threads']} threads, grid "
+              f"{plan['grid']}; same bits in a second run: {same}; each sample the same bits "
+              f"as a B=1 sweep_variance call: {as_b1}", flush=True)
+        check(same, f"sweep_variance {label}: a second run differs")
+        check(as_b1, f"sweep_variance {label}: a sample differs from its B=1 call")
+        del got, singles
+    chunk = reps["chunk"].record()
+    print(f"[kernels] sweep_variance per {BATCH_TILES}-tile chunk ({sum(SLABS_PER_TILE)} calls): "
+          f"kernel {chunk['ms']:.4f} ms, bound {chunk['bound_ms']:.4f} ms ({chunk['bound_by']}), "
+          f"plain {chunk['plain_ms']:.4f} ms card={card}", flush=True)
+    return [reps["forward"].record(), chunk]
 
 
 def red_shapes():
@@ -743,10 +825,12 @@ def phase_slice(card: str) -> dict:
 
 def chunk_launches(bt: int) -> dict:
     """Launches of one streaming forward of bt tiles: per slab one
-    sweep_variance per tile and one RED pipeline for the whole batch
-    (conv_dn ×3, red_recur ×4, deconv_up ×3, conv_head)."""
+    sweep_variance and one RED pipeline, each for the whole batch
+    (`build_stage_volume` builds all bt tiles' volumes of a slab in one
+    launch; conv_dn ×3, red_recur ×4, deconv_up ×3, conv_head), whatever
+    bt is."""
     n = sum(SLABS_PER_TILE)
-    return {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": n * bt, "conv_dn": 3 * n,
+    return {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": n, "conv_dn": 3 * n,
             "red_recur": 4 * n, "deconv_up": 3 * n, "conv_head": n}
 
 
@@ -1585,7 +1669,7 @@ def run(scene_job) -> int:
         build.load(name)
     print(f"[build] {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.time() - t0:.1f} s", flush=True)
-    spills = {}  # plane-conv instance → bytes of spill stores
+    spills = {}  # plane-conv and sweep instance → bytes of spill stores
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -1594,16 +1678,17 @@ def run(scene_job) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}", flush=True)
             m = re.search(r"(\d+) bytes spill stores", line)
-            if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel")):
+            if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel",
+                                        "sweep_variance_kernel")):
                 spills[kernel] = int(m.group(1))
-    if spills:  # built in this run: the plane convs' instances must not spill
-        print(f"[build] plane_conv: {len(spills)} instances of conv3x3_kernel and "
-              f"deconv3x3_s2_kernel, {sum(spills.values())} bytes of spill", flush=True)
-        check(not any(spills.values()), f"a plane-conv instance spills: {spills}")
+    if spills:  # built in this run: these instances must not spill
+        print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel and "
+              f"sweep_variance_kernel, {sum(spills.values())} bytes of spill", flush=True)
+        check(not any(spills.values()), f"an instance spills: {spills}")
 
     # phases 2, 2b, 6, 8 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
-    records = [sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
+    records = [*sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
                *phase_red_backward(smi)]
     launches = {"forward": phase_slice(smi)}
 
@@ -1622,9 +1707,9 @@ def run(scene_job) -> int:
     launches.update(phase_train(smi))
 
     for record in records:
-        # the batched record is the same wrapper, read on the path that batches
-        batched = record["name"] == "red_recur_batched"
-        wrapper = "red_recur" if batched else record["name"]
+        # a batched record is the same wrapper, read on the path that batches
+        batched = record["name"].endswith("_batched")
+        wrapper = record["name"].removesuffix("_batched")
         record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
         train = wrapper in TRAIN_KERNELS
         main = "train_step" if train else f"scene_b{BATCH_TILES}" if batched else "forward"

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's ConvGRU forward and adjoint, its sweep gather and its plane
-convs of one checkout on one CUDA device, to compare two trees (parent,
-change, change, parent) in one call.
+"""Time the port's ConvGRU forward and adjoint, its sweep gather, its plane
+convs and its cost-volume sweep of one checkout on one CUDA device, to
+compare two trees (parent, change, change, parent) in one call.
 
     python3 kernel_ab.py [--root DIR] [--sweep] [--reps N]
-                         [--only {all,red_recur,gather,plane}]
+                         [--only {all,red_recur,gather,plane,sweep}]
 
 Imports `satmvs_tpu_torch` from DIR (default: the directory of this file),
 builds its kernels there, and at every shape a 384×768, B = 1 train step
@@ -32,15 +32,23 @@ per shape:
   whose names hold conv3x3 or deconv3x3 (so it reads the parent's tree
   too), cuDNN's call for the same function (a dx: the input gradient alone)
   by events and device time, the kernel's error against cuDNN's result,
-  and the bound.
+  and the bound;
+  sweep_variance (row 1) at the three sweeps of a 384×768 forward (B = 1:
+  stage 1 uniform, stages 2-3 windows around a seeded previous depth) and
+  of a 4-tile scene chunk (B = 4 tiles of 448², one 8-plane slab a stage,
+  with the chunk's calls of each), through `sweep_variance_batched` where
+  the tree has it, else one `sweep_variance` call a tile: CUDA events, back
+  to back, the device time of the kernels whose names hold sweep_variance,
+  the bound and the error against the plain version.
 
 With --sweep (a tree whose `red_recur._launch` and `red_recur._adjoint`
 take a plan, whose gather takes planes a thread and whose plane convs take
 a `plane_conv_plan`) it also times the forward and the adjoint at each
 train-step shape with each conv's plan replaced in turn by every other
 (px, wr, wc, wk, ck), the others kept, and prints the best; the gather at
-1, 2, 4 and 8 planes a thread; and each plane conv under every option of
-`plane_conv_plan_options` (slab, tile, threads, chunk), back to back.  The
+1, 2, 4 and 8 planes a thread; each plane conv under every option of
+`plane_conv_plan_options` (slab, tile, threads, chunk), back to back; and
+the sweep under every option of `sweep_variance_plan_options`.  The
 last line sums the shapes.  Exits non-zero without a CUDA device.
 """
 
@@ -179,12 +187,62 @@ def time_plane(cs, randn, args, tag: dict, totals: dict):
         del user, planned, library
 
 
+def time_sweep(cs, args, tag: dict, totals: dict):
+    """Row 1 (sweep_variance) at the three sweeps of a 384×768 forward and
+    the three of a 4-tile scene chunk (`cs.sweep_cases`, B = 4 through the
+    batched entry where the tree has one, else one call a tile): CUDA events
+    (median of --reps calls), back to back, the device time of the kernels
+    whose names hold sweep_variance (so it reads the parent's tree too), the
+    bound and the error against the plain version; with --sweep every plan
+    of `sweep_variance_plan_options`, back to back."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    batched = getattr(sv, "sweep_variance_batched", None)
+    for path in ("forward", "chunk"):
+        for key in ("ms", "loop_ms", "device_ms", "bound_ms"):
+            totals[f"sweep_{path}_{key}"] = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, feats, xs, ys, path, calls in cs.sweep_cases(gen, checks=False):
+        b, n_src, d, h, w = xs.shape
+
+        def run():
+            if batched is not None:
+                return batched(feats, xs, ys)
+            return torch.stack([sv.sweep_variance(feats[i, 0], feats[i, 1:], xs[i], ys[i])
+                                for i in range(b)])
+        with torch.no_grad():
+            want = torch.stack([sv.sweep_variance_reference(feats[i, 0], feats[i, 1:], xs[i],
+                                                            ys[i]) for i in range(b)])
+            err = (run() - want).abs().max().item()
+            del want
+            rec = {**tag, "kernel": "sweep_variance", "path": path, "shape": label,
+                   "bsdhwc": [b, n_src, d, h, w, feats.shape[-1]], "calls": calls,
+                   "entry": "sweep_variance_batched" if batched else f"{b} x sweep_variance",
+                   "max_abs_err": err, "ms": cs.time_ms(run, reps=args.reps),
+                   "loop_ms": cs.loop_ms(run, 2 * args.reps),
+                   "device_ms": cs.device_ms(run, "sweep_variance", args.reps)}
+            rec["bound_ms"], rec["bound_by"] = cs.bound_ms(*cs.sweep_work(feats, xs, ys))
+            if args.sweep and batched is not None:
+                plan = sv.sweep_variance_plan(b, n_src, d, h, w, feats.shape[-1])
+                keys = ("tx", "ty", "planes", "threads")
+                rec["plan"] = [plan[k] for k in keys]
+                rec["sweep"] = sorted(
+                    [cs.loop_ms(lambda: sv._batched(feats, xs, ys, o), args.reps),
+                     *(o[k] for k in keys)]
+                    for o in sv.sweep_variance_plan_options(b, n_src, d, h, w, feats.shape[-1]))
+        for key in ("ms", "loop_ms", "device_ms", "bound_ms"):
+            totals[f"sweep_{path}_{key}"] += calls * rec[key]
+        print(json.dumps(rec), flush=True)
+        del run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose port is timed")
     ap.add_argument("--sweep", action="store_true", help="time other plans of each conv")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("all", "red_recur", "gather", "plane"), default="all",
+    ap.add_argument("--only", choices=("all", "red_recur", "gather", "plane", "sweep"),
+                    default="all",
                     help="time only these kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -326,6 +384,8 @@ def main() -> int:
                 del xs, ys, src, g, fwd
     if args.only in ("all", "plane"):
         time_plane(cs, randn, args, tag, totals)
+    if args.only in ("all", "sweep"):
+        time_sweep(cs, args, tag, totals)
     print(json.dumps({**tag, "totals": totals}), flush=True)
     return 0
 

@@ -27,13 +27,16 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)
   }
 }
 
+// Writes v to p with streaming stores (__stcs, evict-first): for outputs
+// that are not read again by the kernel, so they do not push the features
+// out of L2.
 template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[VEC]) {
+__device__ __forceinline__ void store_streaming(float* __restrict__ p, const float (&v)[VEC]) {
   if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   } else {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = v[i];
+    for (int i = 0; i < VEC; ++i) __stcs(p + i, v[i]);
   }
 }
 
@@ -43,6 +46,7 @@ struct Taps {
   int x0, y0;
   float w[4];
 
+  Taps() = default;
   __device__ __forceinline__ Taps(float cx, float cy, int H, int W) {
     const float fx0 = floorf(cx);
     const float fy0 = floorf(cy);

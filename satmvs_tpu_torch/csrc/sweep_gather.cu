@@ -61,16 +61,7 @@
 
 namespace {
 
-// Writes v to p with streaming stores: the output is not read again here.
-template <int VEC>
-__device__ __forceinline__ void store_streaming(float* __restrict__ p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) __stcs(p + i, v[i]);
-  }
-}
+using bilinear::store_streaming;
 
 // Thread (i, j, channel group) of grid (W·groups / 256, H, plane chunks)
 // samples planes [z·P, z·P + P) of its pixel, two at a time.  The pixel and

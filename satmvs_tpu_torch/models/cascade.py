@@ -6,7 +6,7 @@ and exact per-pixel coordinates.  Two paths, chosen by whether autograd
 records:
 
   inference (no gradient): the cost volume of every stage comes from the
-    `sweep_variance` kernel;
+    `sweep_variance` kernel, one launch for the whole batch;
   training (gradients): per source view the `sweep_gather` kernel
     (`ops.warp.rpc_warp`, backward `sweep_scatter`) and the variance of the
     warped views.
@@ -38,7 +38,7 @@ from ..nn.featurenet import FeatureNet
 from ..nn.red import REDRegularizer
 from ..ops import depth_range, regression
 from ..ops.cost_volume import sweep_variance_volume
-from ..ops.kernels.sweep_variance import sweep_variance
+from ..ops.kernels.sweep_variance import sweep_variance_batched
 from ..ops.warp import RpcWarpCams, rpc_sweep_coords, rpc_warp
 
 
@@ -57,16 +57,16 @@ def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torc
 def build_stage_volume(feats: torch.Tensor, cams: RpcWarpCams,
                        hyps: torch.Tensor) -> torch.Tensor:
     """(B, V, h, w, C) features + batched cameras + (B, D, h, w) hypotheses
-    → (B, D, h, w, C) variance cost volume, one `sweep_variance` per sample."""
+    → (B, D, h, w, C) variance cost volume: every sample's sweep
+    coordinates in one stack, then one `sweep_variance_batched` for the
+    batch."""
     b, v, sh, sw, _ = feats.shape
-    vols = []
-    for i in range(b):
-        cams_b = cams[i]
-        coords = [rpc_sweep_coords(cams_b, s, hyps[i], sh, sw) for s in range(v - 1)]
-        xs = torch.stack([c[0] for c in coords])
-        ys = torch.stack([c[1] for c in coords])
-        vols.append(sweep_variance(feats[i, 0], feats[i, 1:], xs, ys))
-    return torch.stack(vols)
+    per_sample = [cams[i] for i in range(b)]
+    coords = [rpc_sweep_coords(per_sample[i], s, hyps[i], sh, sw)
+              for i in range(b) for s in range(v - 1)]
+    xs, ys = torch.stack([c[k] for k in (0, 1) for c in coords]).view(
+        2, b, v - 1, *hyps.shape[1:]).unbind(0)
+    return sweep_variance_batched(feats, xs, ys)
 
 
 def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams,

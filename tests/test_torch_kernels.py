@@ -1,6 +1,7 @@
-"""The kernel wrappers (sweep_variance, conv_dn, deconv_up, conv_head,
-red_recur, sweep_gather, sweep_scatter, and the backwards of conv_dn,
-deconv_up, conv_head and red_recur): CPU tensors take the plain version,
+"""The kernel wrappers (sweep_variance and sweep_variance_batched, conv_dn,
+deconv_up, conv_head, red_recur, sweep_gather, sweep_scatter, and the
+backwards of conv_dn, deconv_up, conv_head and red_recur): CPU tensors take
+the plain version,
 CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and nvcc and
 skip without them), sweep_variance, the one wrapper without a backward
 kernel, refuses a graph on the card while the plain versions differentiate,
@@ -86,6 +87,80 @@ def test_cuda_kernel_matches_plain_version(c, spread):
     torch.cuda.synchronize()
     assert sweep_variance.launches == before + 1
     torch.testing.assert_close(out, sweep_variance_reference(*args), rtol=0, atol=1e-5)
+
+
+def _batched_inputs(b, s, d, h, w, c, mode, seed=0, device="cuda"):
+    """Features (B, S + 1, H, W, C) and coordinates xs, ys (B, S, D, H, W):
+    "window", planes a fraction of a pixel apart around a random shift of
+    each pixel (corners kept from plane to plane, some off the image), or
+    "off-image", uniform over and beyond the image, some far off."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(b, s + 1, h, w, c))
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    if mode == "window":
+        shift = rng.uniform(-3, 3, (b, s, 1, h, w)) + 0.3 * np.arange(d)[:, None, None]
+        xs = np.broadcast_to(gx + shift, (b, s, d, h, w))
+        ys = np.broadcast_to(gy + 0.5 * shift + rng.uniform(-0.5, 0.5, (b, s, 1, h, w)), xs.shape)
+    else:
+        xs = rng.uniform(-2, w + 1, (b, s, d, h, w))
+        ys = rng.uniform(-2, h + 1, (b, s, d, h, w))
+        xs.reshape(-1)[::37] = 1e9
+        ys.reshape(-1)[::41] = -1e9
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+            for a in (feats, xs, ys)]
+
+
+# (B, S, D, H, W, C): C = 6 (scalar path), 8, 16, 32, three source views, one pixel
+BATCHED_CARD_SHAPES = [(3, 2, 5, 12, 20, 6), (2, 2, 8, 16, 24, 8), (2, 2, 4, 9, 13, 16),
+                       (4, 2, 3, 7, 33, 32), (2, 3, 5, 7, 9, 12), (1, 2, 1, 1, 1, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["window", "off-image"])
+@pytest.mark.parametrize("shape", BATCHED_CARD_SHAPES)
+def test_cuda_batched_sweep_matches_plain_version(shape, mode):
+    """One launch for the batch, against the plain version (1e-5 × max(1,
+    max |plain|), as the B = 1 test) and, sample by sample, against a B = 1
+    `sweep_variance` call (the same bits)."""
+    from satmvs_tpu_torch.ops.kernels.sweep_variance import (
+        sweep_variance_batched, sweep_variance_batched_reference)
+
+    _cuda()
+    feats, xs, ys = _batched_inputs(*shape, mode)
+    before = sweep_variance.launches
+    out = sweep_variance_batched(feats, xs, ys)
+    torch.cuda.synchronize()
+    assert sweep_variance.launches == before + 1
+    _close(out, sweep_variance_batched_reference(feats, xs, ys), f"batched sweep {shape} {mode}")
+    for i in range(shape[0]):
+        assert torch.equal(out[i], sweep_variance(feats[i, 0], feats[i, 1:], xs[i], ys[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 32, 24, 48, 32), (2, 2, 8, 40, 200, 8)])
+def test_cuda_sweep_under_every_plan(shape):
+    """Every plan of `sweep_variance_plan_options` (tile, channel groups and
+    planes a thread) at a coarse and a wide shape gives the chosen plan's
+    bits, which are the plain version's within 1e-5."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    _cuda()
+    feats, xs, ys = _batched_inputs(*shape, "window", seed=1)
+    want = sv._batched(feats, xs, ys)
+    _close(want, sv.sweep_variance_batched_reference(feats, xs, ys), f"sweep {shape}")
+    options = sv.sweep_variance_plan_options(*shape)
+    assert len(options) > 10
+    for plan in options:
+        assert torch.equal(sv._batched(feats, xs, ys, plan), want), plan
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_same_bits_in_a_second_run():
+    from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance_batched
+
+    _cuda()
+    feats, xs, ys = _batched_inputs(4, 2, 8, 56, 56, 32, "window", seed=2)
+    assert torch.equal(sweep_variance_batched(feats, xs, ys), sweep_variance_batched(feats, xs, ys))
 
 
 def _cuda():

@@ -19,7 +19,8 @@ from satmvs_tpu.ops.sampling import bilinear_sample as jbilinear
 from satmvs_tpu_torch.ops import depth_range as tdr
 from satmvs_tpu_torch.ops import regression as treg
 from satmvs_tpu_torch.ops import warp as twarp
-from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance_reference
+from satmvs_tpu_torch.ops.kernels.sweep_variance import (
+    sweep_variance_batched_reference, sweep_variance_reference)
 from satmvs_tpu_torch.ops.sampling import bilinear_sample as tbilinear
 
 T = torch.from_numpy
@@ -91,6 +92,28 @@ def test_sweep_variance_reference_matches_jax_xla_path(rpc_sweep):
           f"(tol 1e-5), {np.abs(got - want).max():.2e} end to end (tol 5e-4)")
     np.testing.assert_allclose(same, want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+
+
+def test_sweep_variance_batched_reference_matches_jax_per_sample(rpc_sweep):
+    """The batched plain version (B = 2: the fixture's sample, and seeded
+    features with the source views' coordinates swapped) against the JAX
+    package's sweep_variance_volume over its bilinear_sample, sample by
+    sample, on JAX's coordinates: within 1e-5 on O(1) variances."""
+    g = rpc_sweep
+    depths = jnp.asarray(g["depths"])
+    jcoords = [jwarp.rpc_sweep_coords(g["jcams"], s, depths, g["h"], g["w"]) for s in range(2)]
+    jxs, jys = (np.stack([np.asarray(c[k]) for c in jcoords]) for k in (0, 1))
+    rng = np.random.default_rng(5)
+    feats = np.stack([np.concatenate([g["ref"][None], g["srcs"]]),
+                      rng.normal(size=(3, g["h"], g["w"], 8)).astype(np.float32)])
+    xs, ys = np.stack([jxs, jxs[::-1]]), np.stack([jys, jys[::-1]])
+    got = sweep_variance_batched_reference(T(feats), T(xs), T(ys)).numpy()
+    assert got.shape == (2, 8, g["h"], g["w"], 8)
+    for i in range(2):
+        want = np.asarray(sweep_variance_volume(
+            jnp.asarray(feats[i, 0]), jnp.asarray(feats[i, 1:]),
+            lambda sf, s: jbilinear(sf, jnp.asarray(xs[i, s]), jnp.asarray(ys[i, s]))))
+        np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-5)
 
 
 def test_sweep_variance_reference_matches_pallas_kernel(rpc_sweep):
