@@ -7,17 +7,22 @@ Phases, each reported on its own lines:
   0  setup: TF32 off for matmuls and cuDNN, the card's name and power limit;
   1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a),
      each kernel instance's registers and spills; no instance of the plane
-     convs or of sweep_variance may spill;
+     convs or of the sweep (sweep_variance_kernel, and
+     sweep_variance_groups_kernel for more than four source views) may
+     spill;
   2  each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it (sweep_variance at the forward's
      coordinates: stage 1 uniform, stages 2-3 windows around a seeded
      previous depth; also with uniform planes at stages 2-3 and with
      coordinates pushed off the image; and batched, B = 4 tiles of a scene
-     chunk's 8-plane slabs, against four B = 1 calls; red_recur also from a
+     chunk's 8-plane slabs, against four B = 1 calls; at 6 and 8 views
+     (stages 1-3, B = 2) also the same bits under every plan; red_recur also from a
      non-zero start state; sweep_variance, red_recur and the plane convs
      with their launch plans and the same bits in a second run); kernel,
      plain and library times (CUDA events, median after warm-up) beside the
      least time the card could take (bound);
+  2c CascadeREDNet inference with 6 and 8 views on a 96×192 patch: a
+     forward's launches, held to the same model's plain run on the CPU;
   2b the batched red_recur (B = 4 elements, each from its own start state)
      against its plain version and against B = 1 calls on each element, at
      every shape a 448² tile batch gives it in 8-plane slabs, with its plan
@@ -69,13 +74,30 @@ Phases, each reported on its own lines:
      one step; two steps with fused_red off (the sweep pair only) and a
      profile of one; and one fused step at 96×192, ndepths (16, 8, 4)
      against the same step on the CPU (loss, eval-mode gradients, the update
-     and the running statistics).
+     and the running statistics);
+  9  from disk: a WHU-TLC tree of 3 train and 1 test blocks of 3 384×768
+     views, written by the port's writer, through the CLIs' `main` at the
+     default Config(): `cli.train` two epochs (six train steps, a test pass
+     each, two checkpoints), a `--resume` run of a third epoch, `--mode=test`
+     (its metrics recomputed from the maps it writes), `cli.predict --fuse`
+     (its maps bit for bit a direct forward of the restored model on the
+     same Loader batches, both on cuDNN's deterministic engines as the CLI
+     runs; fusion on the card against the CPU: the valid fraction within
+     0.5 percentage points, the DSM within a mean |Δ| of 0.05 m), the same
+     predict as `python -m satmvs_tpu_torch.cli.predict` (the same bits),
+     and `cli.predict_scene --streaming --dsm` on phase 5's triplet written
+     as PNG + .rpc; exact launches per run; timing lines (steps/s, the test
+     pass, the loader's time and its split against a step, a forward on
+     cuDNN's default and deterministic engines, the fusion, ms per scene
+     tile).
 
-The 1152² scene is rendered on the host in a worker process started before
-phase 1, so it overlaps phases 1-3.  Ends with a JSON line of per-kernel
+The 1152² scene and phase 9's tree are rendered on the host in two worker
+processes started before phase 1, so they overlap phases 1-3 (phase 9
+writes under build/chip_smoke/).  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
 streaming forward of phase 4, the two scene runs, the fused train and eval
-steps and the fused_red-off train steps), the nvidia-smi line of the card,
+steps, the fused_red-off train steps and phase 9's train, predict and scene
+CLI runs), the nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -118,6 +140,8 @@ SCENE_SIZE, TILE, HALO, SLAB = 1152, 384, 32, 8
 TILE_HW = TILE + 2 * HALO
 SLABS_PER_TILE = tuple(nd // SLAB for nd in NDEPTHS)  # 8, 4, 1
 BATCH_TILES = 4
+MANY_VIEWS = (6, 8)          # views beyond the sweep kernel's four unrolled source views
+MANY_VIEWS_HW = (96, 192)    # the many-view forwards' patch
 
 
 def check(cond: bool, msg: str):
@@ -306,14 +330,16 @@ STAGE_INTERVALS = (10.0, 5.0, 2.5)
 
 
 def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
-                 planes: slice = slice(None)):
-    """Features (b, 3, h, w, C) and coordinates xs, ys (b, 2, D, h, w) of
-    cascade stage `stage` (0-based) on b patches of h×w pixels at the
-    stage's scale.  Sample i takes the synthetic RPC triplet of seed i (its
-    image the patch at full scale, the nadir view the reference) and the
-    hypotheses the forward builds (`stage_hypotheses`): uniform over the
-    height range at stage 0 or with window=False, else a window around a
-    seeded smooth previous depth within the range; `planes` cuts a slab."""
+                 planes: slice = slice(None), views: int = 3):
+    """Features (b, views, h, w, C) and coordinates xs, ys (b, views − 1, D,
+    h, w) of cascade stage `stage` (0-based) on b patches of h×w pixels at
+    the stage's scale.  Sample i takes the synthetic RPC triplet of seed i
+    (its image the patch at full scale, the nadir view the reference; more
+    source views from the forward and backward looks of the triplets of
+    seeds i + 17, i + 34, ...) and the hypotheses the forward builds
+    (`stage_hypotheses`): uniform over the height range at stage 0 or with
+    window=False, else a window around a seeded smooth previous depth within
+    the range; `planes` cuts a slab."""
     import torch.nn.functional as F
 
     from satmvs_tpu_torch.data import synthetic
@@ -324,8 +350,9 @@ def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
     scale = STAGE_SCALES[stage]
     coords = []
     for i in range(b):
-        rpcs = synthetic.make_rpc_triplet(w * scale, h * scale, seed=i)
-        rpcs = np.stack([rpcs[2], rpcs[0], rpcs[1]])
+        trips = [synthetic.make_rpc_triplet(w * scale, h * scale, seed=i + 17 * k)
+                 for k in range(-(-(views - 1) // 2))]
+        rpcs = np.stack([trips[0][2]] + [trips[k // 2][k % 2] for k in range(views - 1)])
         cams = warp.build_rpc_warp_cams(rpcs, 0, 1.0 / scale, device="cuda")
         lo, hi = rpclib.height_range(rpcs[0])
         prev = None
@@ -336,11 +363,11 @@ def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
         hyps = stage_hypotheses(NDEPTHS[stage], h, w, torch.tensor([lo], device="cuda"),
                                 torch.tensor([hi], device="cuda"), STAGE_INTERVALS[stage],
                                 prev)[0, planes]
-        coords.append([warp.rpc_sweep_coords(cams, s, hyps, h, w) for s in range(2)])
+        coords.append([warp.rpc_sweep_coords(cams, s, hyps, h, w) for s in range(views - 1)])
     d = coords[0][0][0].shape[0]
     xs, ys = torch.stack([q[k] for pair in coords for q in pair for k in (0, 1)]).view(
-        b, 2, 2, d, h, w).unbind(2)
-    feats = torch.randn((b, 3, h, w, FEAT_CH[stage]), generator=gen, device="cuda")
+        b, views - 1, 2, d, h, w).unbind(2)
+    feats = torch.randn((b, views, h, w, FEAT_CH[stage]), generator=gen, device="cuda")
     return feats, xs.contiguous(), ys.contiguous()
 
 
@@ -349,10 +376,11 @@ def sweep_cases(gen, checks: bool = True) -> list[tuple]:
     sweeps of a 384×768 forward (path "forward", B = 1: stage 1 uniform over
     the height range, stages 2-3 windows around a seeded previous depth) and
     of a 4-tile scene chunk (path "chunk": B = 4 tiles of 448², one 8-plane
-    slab of each stage, `calls` of them a chunk); with `checks`, also stages
-    2-3 with uniform planes and stage 1 with its coordinates pushed off the
-    image on every side, some far off (zero padding and the pre-cast clamp),
-    path "check"."""
+    slab of each stage, `calls` of them a chunk) and of the three stages at
+    B = 2 with 6 and 8 views (path "views": 5 and 7 source views, beyond the
+    four the kernel unrolls); with `checks`, also stages 2-3 with uniform planes
+    and stage 1 with its coordinates pushed off the image on every side,
+    some far off (zero padding and the pre-cast clamp), path "check"."""
     cases = []
     for i in range(3):
         h, w = HEIGHT // STAGE_SCALES[i], WIDTH // STAGE_SCALES[i]
@@ -366,6 +394,11 @@ def sweep_cases(gen, checks: bool = True) -> list[tuple]:
         cases.append((f"chunk stage{i + 1} B={BATCH_TILES}",
                       *sweep_inputs(i, BATCH_TILES, size, size, gen, planes=slab), "chunk",
                       n_slabs))
+    for views in MANY_VIEWS:
+        for i in range(3):
+            h, w = HEIGHT // STAGE_SCALES[i], WIDTH // STAGE_SCALES[i]
+            cases.append((f"stage{i + 1} V={views} B=2",
+                          *sweep_inputs(i, 2, h, w, gen, views=views), "views", 0))
     if checks:
         _, feats, xs, ys, _, _ = cases[0]
         h, w = feats.shape[2:4]
@@ -381,9 +414,10 @@ def phase_sweep(card: str) -> list[dict]:
     its plain version at every case of `sweep_cases`, with its launch plan
     and the same bits in a second run; each B = 1 case also through
     `sweep_variance` (the same bits), the B = 4 chunk cases against four
-    B = 1 calls (the same bits).  Returns the forward's record (the three
-    forward sweeps) and the chunk's (`sweep_variance_batched`, the 13 calls
-    of a 4-tile chunk)."""
+    B = 1 calls (the same bits), the 6- and 8-view cases also under every
+    plan (the same bits).  Returns the forward's record (the three forward
+    sweeps) and the chunk's (`sweep_variance_batched`, the 13 calls of a
+    4-tile chunk)."""
     from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -391,11 +425,11 @@ def phase_sweep(card: str) -> list[dict]:
                         "satmvs_tpu/ops/pallas/sweep_variance.py:130")
     reps = {"forward": KernelReport("sweep_variance", source, replaces, card),
             "chunk": KernelReport("sweep_variance_batched", source, replaces, card)}
-    reps["check"] = reps["forward"]
+    reps["check"] = reps["views"] = reps["forward"]
     for label, feats, xs, ys, path, calls in sweep_cases(gen):
-        b, _, d, h, w = xs.shape
+        b, n_src, d, h, w = xs.shape
         c = feats.shape[-1]
-        plan = sv.sweep_variance_plan(b, 2, d, h, w, c)
+        plan = sv.sweep_variance_plan(b, n_src, d, h, w, c)
         run = lambda: sv.sweep_variance_batched(feats, xs, ys)  # noqa: E731
         # library_ms stays null: no single PyTorch call computes warp +
         # variance (grid_sample per view plus the moments is a composition)
@@ -406,14 +440,19 @@ def phase_sweep(card: str) -> list[dict]:
         same = torch.equal(got, run())
         singles = [sv.sweep_variance(feats[i, 0], feats[i, 1:], xs[i], ys[i]) for i in range(b)]
         as_b1 = all(torch.equal(got[i], one) for i, one in enumerate(singles))
-        print(f"[kernels] sweep_variance {label} (B, S, D, h, w, C) = {(b, 2, d, h, w, c)} "
+        options = sv.sweep_variance_plan_options(b, n_src, d, h, w, c) if path == "views" else []
+        every = all(torch.equal(sv._batched(feats, xs, ys, o), got) for o in options)
+        print(f"[kernels] sweep_variance {label} (B, S, D, h, w, C) = {(b, n_src, d, h, w, c)} "
               f"plan: {plan['groups']} group(s) of {plan['vec']} channels and {plan['planes']} "
               f"planes a thread, tile {plan['ty']}x{plan['tx']} px x {plan['lanes']} lanes, "
               f"{plan['threads']} threads, grid "
               f"{plan['grid']}; same bits in a second run: {same}; each sample the same bits "
-              f"as a B=1 sweep_variance call: {as_b1}", flush=True)
+              f"as a B=1 sweep_variance call: {as_b1}"
+              + (f"; the same bits under all {len(options)} plans: {every}" if options else ""),
+              flush=True)
         check(same, f"sweep_variance {label}: a second run differs")
         check(as_b1, f"sweep_variance {label}: a sample differs from its B=1 call")
+        check(every, f"sweep_variance {label}: a plan gives other bits")
         del got, singles
     chunk = reps["chunk"].record()
     print(f"[kernels] sweep_variance per {BATCH_TILES}-tile chunk ({sum(SLABS_PER_TILE)} calls): "
@@ -683,6 +722,7 @@ LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather"
                           "sweep_scatter": 6}
 # the kernels each path must launch
 INFERENCE_PATHS = ("forward", f"scene_b{BATCH_TILES}", "scene_b1", "streaming")
+CLI_PATHS = ("cli_train", "cli_predict", "cli_scene")  # phase 9: each runs every inference kernel
 TRAIN_KERNELS = ("sweep_gather", "sweep_scatter", *BACKWARD_KERNELS, "wgrad3x3")
 RED_FORWARD_KERNELS = ("conv_dn", "red_recur", "deconv_up", "conv_head")
 
@@ -735,6 +775,72 @@ def err_quantiles(err: torch.Tensor) -> tuple[float, float, float]:
     return err.mean().item(), torch.quantile(err, 0.99).item(), err.max().item()
 
 
+def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals):
+    """The same model's plain run on the CPU against a GPU forward's output,
+    stage by stage: each CPU stage centres its window on the GPU's
+    previous-stage depth, so a stage is held to its own numerical
+    differences only (DEPTH_TOL_MEAN, DEPTH_TOL_P99 of its step); the
+    free-running CPU cascade is reported beside it, not gated."""
+    cams_cpu = [c.to("cpu") for c in cams]
+    dv_cpu = dvals.cpu()
+    feats_cpu = cpu_model.features(imgs.cpu())
+    free = cpu_model(imgs.cpu(), cams_cpu, dv_cpu)
+    steps = stage_steps(*dv_cpu[0].tolist(), cpu_model.stage_intervals())
+    for i, step in enumerate(steps):
+        gpu = gpu_out[f"stage{i + 1}"]
+        prev = None if i == 0 else gpu_out[f"stage{i}"]["depth"].cpu()
+        cpu = cpu_model.stage(i, feats_cpu[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev)
+        err = (gpu["depth"].cpu() - cpu["depth"]).abs() / step
+        cerr = (gpu["photometric_confidence"].cpu() - cpu["photometric_confidence"]).abs()
+        mean, p99 = err.mean().item(), torch.quantile(err.flatten(), 0.99).item()
+        free_err = (gpu["depth"].cpu() - free[f"stage{i + 1}"]["depth"]).abs() / step
+        print(f"{tag} GPU vs CPU plain, {what} stage{i + 1} (step {step:.3f} m), "
+              f"same window centres: depth err mean {mean:.3e}, p99 {p99:.3e}, "
+              f"max {err.max().item():.3e} of step (tol mean {DEPTH_TOL_MEAN}, "
+              f"p99 {DEPTH_TOL_P99}), share > 1 % of step "
+              f"{(err > 0.01).float().mean().item():.3e}, conf err max "
+              f"{cerr.max().item():.3e}; free-running cascade: mean "
+              f"{free_err.mean().item():.3e}, p99 "
+              f"{torch.quantile(free_err.flatten(), 0.99).item():.3e}, max "
+              f"{free_err.max().item():.3e} of step", flush=True)
+        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+              f"{what} stage{i + 1}: GPU vs CPU depth err mean {mean}, p99 {p99} of step")
+
+
+def phase_many_views(card: str):
+    """Phase 2c: CascadeREDNet inference with 6 and 8 views (5 and 7 source
+    views, beyond the four the sweep kernel unrolls) on a MANY_VIEWS_HW
+    patch: a forward's launches, range checks and the same model's plain
+    run on the CPU, stage by stage.  The views repeat the synthetic
+    triplet's (nadir, forward, backward) looks with their cameras."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.ops import warp
+
+    h, w = MANY_VIEWS_HW
+    scene = synthetic.make_scene(w, h, seed=3, h_amp=80.0)
+    model, cpu_model = build_model("cuda"), build_model("cpu")
+    for v in MANY_VIEWS:
+        order = [(2, 0, 1)[k % 3] for k in range(v)]
+        views = scene["images"][order]
+        views = (views - views.mean(axis=(1, 2), keepdims=True)) / (
+            views.std(axis=(1, 2), keepdims=True) + 1e-8)
+        imgs = torch.as_tensor(np.repeat(views[None, ..., None], 3, axis=-1).astype(np.float32),
+                               device="cuda")
+        cams = tuple(warp.stack_cams([c]) for c in
+                     warp.build_stage_cams(scene["rpcs"][order], 0, device="cuda"))
+        dvals = torch.as_tensor(scene["h_range"][None], device="cuda")
+        reset_counts()
+        out = model(imgs, cams, dvals)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == LAUNCHES_PER_FORWARD, f"V={v} forward launches {launches}")
+        depth = out["depth"]
+        check(bool(torch.isfinite(depth).all()), f"V={v}: non-finite depth")
+        print(f"[views] V={v} forward at {h}x{w}: launches as one forward's (exact), depth "
+              f"[{depth.min().item():.2f}, {depth.max().item():.2f}] m card={card}", flush=True)
+        gpu_vs_cpu("[views]", f"V={v}", out, cpu_model, imgs, cams, dvals)
+
+
 def phase_slice(card: str) -> dict:
     """Phase 3: the main path, three predictions; returns each kernel's launches."""
     from satmvs_tpu_torch.data import synthetic
@@ -780,37 +886,10 @@ def phase_slice(card: str) -> dict:
                   f"(range {lo:.0f}..{hi:.0f} ± {margin:g}) conf [{cmin:.4f}, {cmax:.4f}]",
                   flush=True)
 
-    # the same model's plain run on the CPU, full size, seed 0, stage by
-    # stage: each CPU stage centres its window on the GPU's previous-stage
-    # depth, so a stage is held to its own numerical differences only; the
-    # free-running CPU cascade is reported beside it, not gated
     t0 = time.time()
-    cpu_model = build_model("cpu")
     b0 = batches[0]
-    cams_cpu = [c.to("cpu") for c in b0["cams"]]
-    dv_cpu = b0["depth_values"].cpu()
-    feats_cpu = cpu_model.features(b0["imgs"].cpu())
-    free = cpu_model(b0["imgs"].cpu(), cams_cpu, dv_cpu)
-    steps = stage_steps(*dv_cpu[0].tolist(), intervals)
-    for i, step in enumerate(steps):
-        gpu = outs[0][f"stage{i + 1}"]
-        prev = None if i == 0 else outs[0][f"stage{i}"]["depth"].cpu()
-        cpu = cpu_model.stage(i, feats_cpu[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev)
-        err = (gpu["depth"].cpu() - cpu["depth"]).abs() / step
-        cerr = (gpu["photometric_confidence"].cpu() - cpu["photometric_confidence"]).abs()
-        mean, p99 = err.mean().item(), torch.quantile(err.flatten(), 0.99).item()
-        free_err = (gpu["depth"].cpu() - free[f"stage{i + 1}"]["depth"]).abs() / step
-        print(f"[slice] GPU vs CPU plain, seed 0 stage{i + 1} (step {step:.3f} m), "
-              f"same window centres: depth err mean {mean:.3e}, p99 {p99:.3e}, "
-              f"max {err.max().item():.3e} of step (tol mean {DEPTH_TOL_MEAN}, "
-              f"p99 {DEPTH_TOL_P99}), share > 1 % of step "
-              f"{(err > 0.01).float().mean().item():.3e}, conf err max "
-              f"{cerr.max().item():.3e}; free-running cascade: mean "
-              f"{free_err.mean().item():.3e}, p99 "
-              f"{torch.quantile(free_err.flatten(), 0.99).item():.3e}, max "
-              f"{free_err.max().item():.3e} of step", flush=True)
-        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
-              f"stage{i + 1}: GPU vs CPU depth err mean {mean}, p99 {p99} of step")
+    gpu_vs_cpu("[slice]", "seed 0", outs[0], build_model("cpu"), b0["imgs"], b0["cams"],
+               b0["depth_values"])
     print(f"[slice] CPU plain runs took {time.time() - t0:.1f} s", flush=True)
 
     imgs, cams, dvals = b0["imgs"], b0["cams"], b0["depth_values"]
@@ -1609,6 +1688,287 @@ def phase_train(card: str) -> dict:
             "scan_train_step": scan_launches}
 
 
+# phase 9: the on-disk journey through the CLIs (satmvs_tpu_torch/cli/) on a
+# WHU-TLC tree at the flagship patch: TREE_TRAIN train and TREE_TEST test
+# blocks of 3 views, CLI_EPOCHS epochs at batch 1, the CLIs' defaults
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+TREE_TRAIN, TREE_TEST, CLI_EPOCHS = 3, 1, 2
+FUSE_VALID_TOL = 0.005   # GPU vs CPU fusion: valid fraction, 0.5 percentage points
+FUSE_DSM_TOL = 0.05      # ... and mean |Δ| (m) of the DSM on cells valid in both
+
+
+def render_tree(root: str) -> str:
+    """Phase 9's WHU-TLC tree at HEIGHT × WIDTH, written by the port's
+    writer; runs in a worker process, so it puts the repository on its own
+    import path."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from satmvs_tpu_torch.data import synthetic
+
+    return synthetic.write_whu_tlc_tree(root, num_train=TREE_TRAIN, num_test=TREE_TEST,
+                                        width=WIDTH, height=HEIGHT, seed=0, h_amp=80.0)
+
+
+def write_scene_files(scene: dict, folder: Path) -> tuple[list[str], list[str]]:
+    """Phase 5's triplet as 8-bit PNGs and .rpc files (the port's writers)."""
+    from satmvs_tpu_torch.data import formats, png
+
+    folder.mkdir(parents=True, exist_ok=True)
+    images, rpcs = [], []
+    for v in range(len(scene["images"])):
+        images.append(str(folder / f"view{v}.png"))
+        rpcs.append(str(folder / f"view{v}.rpc"))
+        png.write_png(images[-1], scene["images"][v].astype(np.uint8))
+        formats.save_rpc(rpcs[-1], scene["rpcs"][v])
+    return images, rpcs
+
+
+def dsm_overlap(a, tfw_a, b, tfw_b):
+    """The cells of two north-up DSMs of one cell size that cover the same
+    ground: (a's part, b's part)."""
+    res = tfw_a[0]
+    dc = int(round((tfw_b[4] - tfw_a[4]) / res))  # b's column 0 among a's columns
+    dr = int(round((tfw_a[5] - tfw_b[5]) / res))  # b's row 0 among a's rows
+    r0, c0 = max(0, dr), max(0, dc)
+    r1, c1 = min(a.shape[0], dr + b.shape[0]), min(a.shape[1], dc + b.shape[1])
+    return a[r0:r1, c0:c1], b[r0 - dr:r1 - dr, c0 - dc:c1 - dc]
+
+
+def launches_of(train_steps: int, forwards: int) -> dict:
+    """Launches of train steps at B = 1 and forwards (eval steps are forwards)."""
+    return {k: train_steps * LAUNCHES_PER_TRAIN_STEP[k] + forwards * LAUNCHES_PER_FORWARD[k]
+            for k in LAUNCHES_PER_FORWARD}
+
+
+def phase_from_disk(card: str, root: str, scene_files) -> dict:
+    """Phase 9: from files on disk to a DSM through the CLIs' `main`, at the
+    default Config() (ndepths 64/32/8, RED base 8, fused RED): train
+    CLI_EPOCHS epochs, resume one more, test, predict with --fuse, the same
+    predict as a `python -m` subprocess, and the scene CLI on phase 5's
+    triplet with --streaming and --dsm.  Exact launches per run; the maps of
+    both predict runs bit for bit a direct forward of the restored model on
+    the same Loader batches (cuDNN's deterministic engines, as the CLI
+    runs); every map finite and in range; the test mode's metrics
+    recomputed from its maps; fusion on the card against the CPU.  Returns
+    the launches of the train, predict and scene runs."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import predict as cli_predict
+    from satmvs_tpu_torch.cli import predict_scene as cli_scene
+    from satmvs_tpu_torch.cli import restore_model
+    from satmvs_tpu_torch.cli import train as cli_train
+    from satmvs_tpu_torch.data import formats
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.data.loader import Loader
+    from satmvs_tpu_torch.infer.fuse import INVALID_DEPTH, fuse_scene_to_dsm
+    from satmvs_tpu_torch.infer.tiling import plan_tiles
+    from satmvs_tpu_torch.train import Config, metrics
+
+    logdir = str(WORK / "logs")
+    workdir = os.path.join(logdir, "red", "rpc")
+    testpath = os.path.join(root, "open_dataset_rpc", "test")
+    common = [f"--dataset_root={root}", f"--logdir={logdir}"]
+    launches = {}
+
+    def run(what: str, fn, argv, want: dict):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        check(got == want, f"{what}: launches {got}, want {want}")
+        print(f"[disk] {what}: {wall:.2f} s wall, launches "
+              f"{({k: v for k, v in got.items() if v})} (exact) card={card}", flush=True)
+        return out, got
+
+    # train, then resume
+    out, launches["cli_train"] = run(
+        "cli.train --mode=train", cli_train.main,
+        ["--mode=train", *common, "--epochs", str(CLI_EPOCHS)],
+        launches_of(TREE_TRAIN * CLI_EPOCHS, TREE_TEST * CLI_EPOCHS))
+    timing = out["timing"]
+    check(timing["epochs"] == list(range(1, CLI_EPOCHS + 1))
+          and timing["steps"] == [TREE_TRAIN] * CLI_EPOCHS, f"train epochs {timing}")
+    for e in range(1, CLI_EPOCHS + 1):
+        check(os.path.isfile(os.path.join(workdir, str(e), "state.pt")), f"no checkpoint {e}")
+    for e, steps, t_s, e_s in zip(timing["epochs"], timing["steps"], timing["train_s"],
+                                  timing["test_s"]):
+        print(f"[disk] train epoch {e}: {steps} steps in {t_s:.3f} s = {steps / t_s:.2f} steps/s "
+              f"({1e3 * t_s / steps:.1f} ms a step); test pass ({TREE_TEST} eval steps) "
+              f"{1e3 * e_s:.1f} ms card={card}", flush=True)
+    tl, td = out["train_loader"], out["train_data"]
+    step_ms = 1e3 * timing["train_s"][-1] / timing["steps"][-1]
+    per_batch = {k: 1e3 * tl[k] / tl["batches"] for k in ("read_s", "collate_s", "pin_s")}
+    per_sample = {k: 1e3 * td[k] / td["samples"]
+                  for k in ("read_s", "color_s", "center_s", "cams_gt_s")}
+    print(f"[disk] data, epoch {CLI_EPOCHS}: the loader's worker took "
+          f"{sum(per_batch.values()):.1f} ms a batch (samples {per_batch['read_s']:.1f}, collate "
+          f"{per_batch['collate_s']:.1f}, pin {per_batch['pin_s']:.1f}), the train loop waited "
+          f"{1e3 * tl['wait_s'] / tl['batches']:.1f} ms a batch for it, against {step_ms:.1f} ms "
+          f"a step; a train sample of 3 views, over both epochs ({td['samples']} samples): "
+          f"read + crop {per_sample['read_s']:.1f} ms, random_color {per_sample['color_s']:.1f}, "
+          f"center_image {per_sample['center_s']:.1f}, cameras + ground truth "
+          f"{per_sample['cams_gt_s']:.1f} card={card}", flush=True)
+    out, _ = run("cli.train --resume", cli_train.main,
+                 ["--mode=train", *common, "--epochs", str(CLI_EPOCHS + 1), "--resume"],
+                 launches_of(TREE_TRAIN, TREE_TEST))
+    check(out["timing"]["epochs"] == [CLI_EPOCHS + 1], f"resume ran epochs {out['timing']}")
+
+    # test mode; its metrics again from the maps it wrote
+    out, _ = run("cli.train --mode=test", cli_train.main, ["--mode=test", *common],
+                 launches_of(0, TREE_TEST))
+    check(out["epoch"] == CLI_EPOCHS + 1, f"test mode restored epoch {out['epoch']}")
+    meter = metrics.DictAverageMeter()
+    for k in range(TREE_TEST):
+        stem = os.path.join(out["out_dir"], f"block{k:04d}_2")
+        depth, err = formats.load_pfm(stem + ".pfm"), formats.load_pfm(stem + "_err.pfm")
+        prob = formats.load_pfm(stem + "_prob.pfm")
+        gt = formats.load_pfm(os.path.join(testpath, "height", "2", f"block{k:04d}.pfm"))
+        check(np.isfinite(depth).all() and 0 <= prob.min() and prob.max() <= 1 + 1e-6,
+              f"test map {stem}")
+        mask = (err != -999.0).astype(np.float32)
+        meter.update(metrics.standard_metrics(torch.from_numpy(depth)[None],
+                                              torch.from_numpy(gt)[None],
+                                              torch.from_numpy(mask)[None]))
+    again = meter.mean()
+    diff = max(abs(out["metrics"][k] - v) / max(1.0, abs(v)) for k, v in again.items())
+    print(f"[disk] test mode final: {out['metrics']}; from its height_result maps: {again} "
+          f"(max relative difference {diff:.2e}, tol 1e-5)", flush=True)
+    check(diff <= 1e-5, f"test mode metrics {out['metrics']} vs its maps {again}")
+
+    # predict with --fuse; then the same model by hand on the same batches
+    out, launches["cli_predict"] = run(
+        "cli.predict --fuse", cli_predict.main,
+        [f"--dataset_root={testpath}", f"--loadckpt={workdir}", "--fuse"],
+        launches_of(0, 3 * TREE_TEST))
+    print(f"[disk] predict: {3 * TREE_TEST} forwards "
+          f"{[round(1e3 * t, 2) for t in out['forward_s']]} ms (host clock to the read-back; "
+          f"the first sets up cuDNN), fuse wall "
+          f"{({n: round(1e3 * t, 1) for n, t in out['fuse_s'].items()})} ms card={card}",
+          flush=True)
+    fused = out["fused"]
+
+    # a direct forward of the restored model on the same Loader batches, on
+    # cuDNN's deterministic engines as the predict CLI runs: the same bits as
+    # the maps it wrote.  On the default engines FeatureNet's convolutions
+    # are not bit-reproducible: two direct forwards differ (printed)
+    model, _, _ = restore_model(Config(), workdir, torch.device("cuda"))
+    intervals = model.stage_intervals()
+    margin = sum(nd / 2 * iv for nd, iv in zip(NDEPTHS[1:], intervals[1:]))
+    pred_mode = Loader(MVSDataset(testpath, "pred"), 1, device="cuda")
+    first = next(iter(pred_mode))
+    forward = lambda: model(first["imgs"], first["cams"], first["depth_values"])  # noqa: E731
+    engine_ms = {}
+    for deterministic in (False, True, True, False):
+        torch.backends.cudnn.deterministic = deterministic
+        engine_ms.setdefault(deterministic, []).append(time_ms(forward, reps=10, warmup=2))
+    twice = [forward()["depth"] for _ in range(2)]
+    print(f"[disk] one 384x768 forward (CUDA events, median of 10; runs default, deterministic, "
+          f"deterministic, default): cuDNN's default engines {engine_ms[False]} ms, its "
+          f"deterministic engines {engine_ms[True]} ms; two forwards on the default engines "
+          f"differ by up to {(twice[0] - twice[1]).abs().max().item():.3e} m card={card}",
+          flush=True)
+    torch.backends.cudnn.deterministic = True
+    direct = {}
+    for batch in pred_mode:
+        want = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        direct[(batch["out_view"][0], f"{batch['out_name'][0]}.pfm")] = (
+            want["depth"][0].cpu().numpy(), want["photometric_confidence"][0].cpu().numpy(),
+            *batch["depth_values"][0].tolist())
+    del model, want, first, twice
+
+    def against_direct(what: str, folder):
+        """The maps a predict run wrote under `folder`/mvs_results against
+        the direct forward: the same bits, depth in range, prob in [0, 1]."""
+        maps = {(v, f): (formats.load_pfm(os.path.join(folder, "mvs_results", v, "init", f)),
+                         formats.load_pfm(os.path.join(folder, "mvs_results", v, "prob", f)))
+                for v in "012" for f in os.listdir(os.path.join(folder, "mvs_results", v, "init"))}
+        check(maps.keys() == direct.keys(), f"{what}: maps {sorted(maps)}")
+        for key in sorted(direct):
+            (init, prob), (d_init, d_prob, lo, hi) = maps[key], direct[key]
+            diff = np.abs(init - d_init).max()
+            same = diff == 0 and np.array_equal(prob, d_prob)
+            print(f"[disk] {what} view {key[0]} {key[1]}: init [{init.min():.2f}, "
+                  f"{init.max():.2f}] m (range {lo:.0f}..{hi:.0f} ± {margin:g}), prob "
+                  f"[{prob.min():.4f}, {prob.max():.4f}]; the same bits as a direct forward: "
+                  f"{same} (max |dh| {diff:.3e} m)", flush=True)
+            check(same, f"{what} {key}: the written maps differ from a direct forward")
+            check(np.isfinite(init).all() and lo - margin - 1e-3 <= init.min()
+                  and init.max() <= hi + margin + 1e-3, f"{what} {key}: depth range")
+            check(0 <= prob.min() and prob.max() <= 1 + 1e-6, f"{what} {key}: prob range")
+
+    against_direct("cli.predict --fuse", testpath)
+
+    # fusion on the card against the CPU, on the maps predict wrote
+    for name, (path, valid) in fused.items():
+        order = ["0", "1", "2"]
+        depths = np.stack([formats.load_pfm(os.path.join(testpath, "mvs_results", v, "init",
+                                                         f"{name}.pfm")) for v in order])
+        prob = formats.load_pfm(os.path.join(testpath, "mvs_results", "0", "prob", f"{name}.pfm"))
+        rpcs = np.stack([formats.load_rpc(os.path.join(testpath, "rpc", v, f"{name}.rpc"))[0]
+                         for v in order])
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            dsm_path, mask, _ = fuse_scene_to_dsm(
+                depths, rpcs, str(WORK / f"fuse_{dev}_{name}_dsm.tif"), prob=prob, p_ratio=2.0,
+                d_ratio=7.5, geo_consist_num=1, confidence_ratio=0.1, device=dev)
+            runs[dev] = (time.perf_counter() - t0, mask.mean(), *formats.read_dsm(dsm_path))
+        (t_g, v_g, d_g, tfw_g), (t_c, v_c, d_c, tfw_c) = runs["cuda"], runs["cpu"]
+        a, b = dsm_overlap(d_g, tfw_g, d_c, tfw_c)
+        both = (a != INVALID_DEPTH) & (b != INVALID_DEPTH)
+        dsm_err = float(np.abs(a[both] - b[both]).mean())
+        print(f"[disk] fusion {name}: valid {v_g:.4f} on the card (the CLI's {valid:.4f}), "
+              f"{v_c:.4f} on the CPU (tol {FUSE_VALID_TOL}); DSM {d_g.shape} / {d_c.shape} cells, "
+              f"mean |dh| {dsm_err:.3e} m on {int(both.sum())} cells valid in both (tol "
+              f"{FUSE_DSM_TOL}); wall {1e3 * t_g:.1f} ms on the card, {1e3 * t_c:.1f} ms on "
+              f"the CPU card={card}", flush=True)
+        check(abs(v_g - v_c) <= FUSE_VALID_TOL and dsm_err <= FUSE_DSM_TOL and both.any(),
+              f"fusion {name}: GPU vs CPU valid {v_g} / {v_c}, DSM mean |dh| {dsm_err}")
+
+    # the module entry, in its own process, on a copy of the test split
+    copy = WORK / "test_copy"
+    shutil.copytree(testpath, copy, ignore=shutil.ignore_patterns("mvs_results", "height_result"))
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    env.pop("SATMVS_PLATFORM", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "satmvs_tpu_torch.cli.predict",
+                           f"--dataset_root={copy}", f"--loadckpt={workdir}"],
+                          cwd=str(Path(__file__).resolve().parent), env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"python -m satmvs_tpu_torch.cli.predict: exit "
+          f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    print(f"[disk] python -m satmvs_tpu_torch.cli.predict: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    against_direct("python -m satmvs_tpu_torch.cli.predict", str(copy))
+
+    # the scene CLI on phase 5's triplet
+    images, rpcs = scene_files
+    n_tiles = len(plan_tiles(SCENE_SIZE, SCENE_SIZE, TILE, HALO))
+    n_chunks = 3 * -(-n_tiles // BATCH_TILES)  # every view as the reference
+    out, launches["cli_scene"] = run(
+        "cli.predict_scene --streaming --dsm", cli_scene.main,
+        ["--images", *images, "--rpcs", *rpcs, f"--loadckpt={workdir}",
+         f"--out={WORK / 'scene_height.pfm'}", "--ref_index", "2", "--tile", str(TILE),
+         "--halo", str(HALO), "--streaming", "--slab", str(SLAB), "--batch_tiles",
+         str(BATCH_TILES), f"--dsm={WORK / 'scene_dsm.tif'}"],
+        {k: n_chunks * v for k, v in chunk_launches(BATCH_TILES).items()})
+    check(out["n_chunks"] == n_chunks, f"scene CLI ran {out['n_chunks']} chunks")
+    depth, conf, stats = out["depth"], out["conf"], out["stats"]
+    _, hi, lo = formats.load_rpc(rpcs[2])
+    check(np.isfinite(depth).all() and lo - margin - 1e-3 <= depth.min()
+          and depth.max() <= hi + margin + 1e-3, "scene CLI: depth range")
+    check(0 <= conf.min() and conf.max() <= 1 + 1e-6, "scene CLI: confidence range")
+    print(f"[disk] scene CLI: {stats['n_tiles']} tiles in {stats['n_chunks']} chunks of "
+          f"{BATCH_TILES}, {1e3 * stats['wall_s'] / stats['n_tiles']:.1f} ms per tile (wall "
+          f"{stats['wall_s']:.3f} s, host prep {stats['host_prep_s']:.3f} s); depth "
+          f"[{depth.min():.2f}, {depth.max():.2f}] m; DSM {out['dsm'][0]} valid "
+          f"{out['dsm'][1]:.4f}, fuse wall {1e3 * out['fuse_s']:.1f} ms card={card}", flush=True)
+    return launches
+
+
+
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the device was busy."""
@@ -1640,14 +2000,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import multiprocessing
+    import shutil
 
-    # the worker renders the scene while phases 1-3 run; leaving the block
-    # stops it
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return run(pool.submit(render_scene))
+    shutil.rmtree(WORK, ignore_errors=True)
+    # the workers render the scene and phase 9's tree while phases 1-3 run;
+    # leaving the block stops them
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return run(pool.submit(render_scene), pool.submit(render_tree, str(WORK / "whu_tlc")))
 
 
-def run(scene_job) -> int:
+def run(scene_job, tree_job) -> int:
     from satmvs_tpu_torch.ops.kernels import build
 
     # phase 0
@@ -1679,15 +2041,18 @@ def run(scene_job) -> int:
                 print(f"[build] {name} {kernel}: {line.strip()}", flush=True)
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel",
-                                        "sweep_variance_kernel")):
+                                        "sweep_variance_kernel",
+                                        "sweep_variance_groups_kernel")):
                 spills[kernel] = int(m.group(1))
     if spills:  # built in this run: these instances must not spill
-        print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel and "
-              f"sweep_variance_kernel, {sum(spills.values())} bytes of spill", flush=True)
+        print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel, "
+              f"sweep_variance_kernel and sweep_variance_groups_kernel, "
+              f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
 
     # phases 2, 2b, 6, 8 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
+    phase_many_views(smi)
     records = [*sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
                *phase_red_backward(smi)]
     launches = {"forward": phase_slice(smi)}
@@ -1701,10 +2066,18 @@ def run(scene_job) -> int:
     scene_launches, chunk = phase_scene(smi, model, scene)
     launches.update(scene_launches)
     launches["streaming"] = phase_stream_vs_full(smi, model, chunk)
+    scene_files = write_scene_files(scene, WORK / "scene")
     del model, chunk, scene
 
     # phase 7
     launches.update(phase_train(smi))
+
+    # phase 9
+    t0 = time.time()
+    tree = tree_job.result()
+    print(f"[disk] {TREE_TRAIN} + {TREE_TEST} blocks of 3 {HEIGHT}x{WIDTH} views written "
+          f"(waited {time.time() - t0:.1f} s for them after phase 7)", flush=True)
+    launches.update(phase_from_disk(smi, tree, scene_files))
 
     for record in records:
         # a batched record is the same wrapper, read on the path that batches
@@ -1714,7 +2087,7 @@ def run(scene_job) -> int:
         train = wrapper in TRAIN_KERNELS
         main = "train_step" if train else f"scene_b{BATCH_TILES}" if batched else "forward"
         record["launches"] = launches[main][wrapper]
-        paths = ("train_step",) if train else INFERENCE_PATHS + (
+        paths = ("train_step", "cli_train") if train else INFERENCE_PATHS + CLI_PATHS + (
             ("eval_step",) if wrapper == "sweep_variance" else
             ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ())
         check(all(launches[p][wrapper] > 0 for p in paths),

@@ -36,7 +36,9 @@ per shape:
   sweep_variance (row 1) at the three sweeps of a 384×768 forward (B = 1:
   stage 1 uniform, stages 2-3 windows around a seeded previous depth) and
   of a 4-tile scene chunk (B = 4 tiles of 448², one 8-plane slab a stage,
-  with the chunk's calls of each), through `sweep_variance_batched` where
+  with the chunk's calls of each) and of the three stages at B = 2 with 6
+  and 8 views (where the tree's kernel takes more than four source views),
+  through `sweep_variance_batched` where
   the tree has it, else one `sweep_variance` call a tile: CUDA events, back
   to back, the device time of the kernels whose names hold sweep_variance,
   the bound and the error against the plain version.
@@ -188,9 +190,11 @@ def time_plane(cs, randn, args, tag: dict, totals: dict):
 
 
 def time_sweep(cs, args, tag: dict, totals: dict):
-    """Row 1 (sweep_variance) at the three sweeps of a 384×768 forward and
-    the three of a 4-tile scene chunk (`cs.sweep_cases`, B = 4 through the
-    batched entry where the tree has one, else one call a tile): CUDA events
+    """Row 1 (sweep_variance) at the three sweeps of a 384×768 forward, the
+    three of a 4-tile scene chunk and the three stages with 6 and 8 views
+    (`cs.sweep_cases`, B = 4 and 2 through the batched entry where the tree
+    has one, else one call a tile; the 6- and 8-view cases only on a tree
+    whose kernel takes more than four source views): CUDA events
     (median of --reps calls), back to back, the device time of the kernels
     whose names hold sweep_variance (so it reads the parent's tree too), the
     bound and the error against the plain version; with --sweep every plan
@@ -198,12 +202,16 @@ def time_sweep(cs, args, tag: dict, totals: dict):
     from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
 
     batched = getattr(sv, "sweep_variance_batched", None)
-    for path in ("forward", "chunk"):
+    many_views = not hasattr(sv, "SWEEP_MAX_VIEWS")  # trees before it took S > 4 had the limit
+    for path in ("forward", "chunk", "views"):
         for key in ("ms", "loop_ms", "device_ms", "bound_ms"):
             totals[f"sweep_{path}_{key}"] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, feats, xs, ys, path, calls in cs.sweep_cases(gen, checks=False):
         b, n_src, d, h, w = xs.shape
+        if path == "views" and not many_views:
+            continue
+        calls = calls or 1  # a views case stands alone
 
         def run():
             if batched is not None:

@@ -36,7 +36,8 @@
 // lanes·VEC, so the `lanes` threads of a pixel sit side by side and each
 // load or store of a warp is contiguous channels-last memory) and a run of
 // K consecutive planes, which it walks in order with all S views unrolled
-// (S a template parameter, as the Pallas kernel is traced for its n_src):
+// (S a template parameter up to 4, as the Pallas kernel is traced for its
+// n_src; beyond four, groups of up to four unrolled views a plane, below):
 // the next plane's coordinates are loaded (__ldcs, read once) while this
 // plane's corners are gathered, so a plane waits on one round trip, for
 // the corners of all its views together.  The taps of a (view, plane) are
@@ -88,27 +89,43 @@ __device__ __forceinline__ void load_corners(const float* __restrict__ src,
   }
 }
 
-// Block: a tile of ty rows × tx pixels, `lanes` threads a pixel (fastest),
-// then the pixels of a row, then the rows; grid (tiles, runs of K planes,
-// B).  Threads a block: lanes·tx·ty (the plan's, ≤ kMaxThreads).
+// Where a thread of the plan's grid writes.  Block: a tile of ty rows × tx
+// pixels, `lanes` = C / N threads a pixel (fastest), then the pixels of a
+// row, then the rows; grid (tiles, runs of K planes, B).  The thread owns
+// sample b, pixel (y, x), channels from lane·VEC on and planes d0 .. d1 − 1;
+// ok is false past the plane's edge.
+struct Site {
+  int lanes, lane, y, x, b, d0, d1;
+  bool ok;
+
+  __device__ __forceinline__ Site(int N, int D, int H, int W, int C, int K, int tx, int ty) {
+    lanes = C / N;
+    const int q = threadIdx.x / lanes;  // pixel of the tile
+    lane = threadIdx.x - q * lanes;
+    const int row = q / tx;
+    const int ntx = (W + tx - 1) / tx;
+    const int tile_row = blockIdx.x / ntx;
+    y = tile_row * ty + row;
+    x = (blockIdx.x - tile_row * ntx) * tx + (q - row * tx);
+    ok = y < H && x < W;
+    b = blockIdx.z;
+    d0 = blockIdx.y * K;
+    d1 = d0 + K < D ? d0 + K : D;
+  }
+};
+
+// The kernel for S ≤ 4 source views, all unrolled.  Grid and thread map:
+// Site; threads a block: lanes·tx·ty (the plan's, ≤ kMaxThreads).
 template <int VEC, int G, int S>
 __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, float* __restrict__ out, int D,
     int H, int W, int C, int K, int tx, int ty) {
   constexpr int N = VEC * G;  // channels a thread owns
-  const int lanes = C / N;
-  const int q = threadIdx.x / lanes;  // pixel of the tile
-  const int lane = threadIdx.x - q * lanes;
-  const int row = q / tx;
-  const int ntx = (W + tx - 1) / tx;
-  const int tile_row = blockIdx.x / ntx;
-  const int y = tile_row * ty + row;
-  const int x = (blockIdx.x - tile_row * ntx) * tx + (q - row * tx);
-  if (y >= H || x >= W) return;
-  const int b = blockIdx.z;
-  const int d0 = blockIdx.y * K;
-  const int d1 = d0 + K < D ? d0 + K : D;
+  const Site at(N, D, H, W, C, K, tx, ty);
+  if (!at.ok) return;
+  const int lanes = at.lanes, lane = at.lane, y = at.y, x = at.x, b = at.b, d0 = at.d0,
+            d1 = at.d1;
   const int step = lanes * VEC;
   const int64_t hw = (int64_t)H * W;
   const int64_t p = (int64_t)y * W + x;
@@ -181,6 +198,92 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
   }
 }
 
+// Views s0 .. s0 + NS − 1 of one output pixel and plane (xs, ys at ci
+// for view s0, srcs at src for view s0), added in view order onto the
+// thread's per-channel sums: each view's sample (corners in Taps order, an
+// fma onto 0) onto sum, its square onto sq, the chain of
+// sweep_variance_kernel.  The group's coordinates are loaded together, then
+// its corners together: two memory round trips a group.
+template <int VEC, int NS>
+__device__ __forceinline__ void add_views(const float* __restrict__ src,
+                                          const float* __restrict__ xs,
+                                          const float* __restrict__ ys, int64_t ci, int64_t view,
+                                          int map, int H, int W, int C, int step,
+                                          float (&sum)[VEC], float (&sq)[VEC]) {
+  float cx[NS], cy[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    cx[s] = __ldcs(xs + ci + s * view);
+    cy[s] = __ldcs(ys + ci + s * view);
+  }
+  bilinear::Taps t[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) t[s] = bilinear::Taps(cx[s], cy[s], H, W);
+  float cv[NS][4][VEC];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) load_corners<VEC, 1>(src + (int64_t)s * map, t[s], H, W, C, step, cv[s]);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float w = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w = __fmaf_rn(cv[s][c][j], t[s].w[c], w);
+      sum[j] = __fadd_rn(sum[j], w);
+      sq[j] = __fmaf_rn(w, w, sq[j]);
+    }
+  }
+}
+
+// sweep_variance_kernel for any S ≥ 1 (run for S > 4, one group of VEC
+// channels a thread): each plane walks the views in groups of up to four
+// unrolled views (add_views), so every output is the same chain of
+// roundings as sweep_variance_kernel's, in view order.  The corners are
+// not kept from plane to plane (S views of them would not fit in
+// registers), nor the next plane's coordinates loaded ahead.  The same
+// grid and thread map as sweep_variance_kernel (Site).
+template <int VEC>
+__global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
+    const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
+    const float* __restrict__ xs, const float* __restrict__ ys, float* __restrict__ out, int S,
+    int D, int H, int W, int C, int K, int tx, int ty) {
+  const Site at(VEC, D, H, W, C, K, tx, ty);
+  if (!at.ok) return;
+  const int step = at.lanes * VEC;
+  const int64_t hw = (int64_t)H * W;
+  const int64_t p = (int64_t)at.y * W + at.x;
+  const int64_t view = (int64_t)D * hw;
+  const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
+  const int map = H * W * C;
+  float r[VEC];
+  bilinear::load_vec<VEC>(ref + at.b * feat_bstride + p * C + at.lane * VEC, r);
+  const float inv = __frcp_rn((float)(S + 1));
+  float* o = out + (((int64_t)at.b * D + at.d0) * hw + p) * C + at.lane * VEC;
+  int64_t ci = ((int64_t)at.b * S * D + at.d0) * hw + p;  // view 0, plane d0
+  for (int d = at.d0; d < at.d1; ++d, ci += hw, o += hw * C) {
+    float sum[VEC], sq[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sum[j] = sq[j] = 0.f;
+    for (int s0 = 0; s0 < S; s0 += 4) {
+      const float* g = src + (int64_t)s0 * map;
+      const int64_t gi = ci + s0 * view;
+      switch (S - s0) {
+        case 1: add_views<VEC, 1>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
+        case 2: add_views<VEC, 2>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
+        case 3: add_views<VEC, 3>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
+        default: add_views<VEC, 4>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq);
+      }
+    }
+    float v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float mean = __fmul_rn(__fadd_rn(sum[j], r[j]), inv);
+      v[j] = __fmaf_rn(-mean, mean, __fmul_rn(__fmaf_rn(r[j], r[j], sq[j]), inv));
+    }
+    bilinear::store_streaming<VEC>(o, v);
+  }
+}
+
 template <int VEC, int G, int S>
 void launch(dim3 grid, int threads, cudaStream_t st, const float* ref, const float* srcs,
             int64_t feat_bstride, const float* xs, const float* ys, float* out, int D, int H,
@@ -189,8 +292,9 @@ void launch(dim3 grid, int threads, cudaStream_t st, const float* ref, const flo
                                                             out, D, H, W, C, K, tx, ty);
 }
 
-// The instance for S source views; two groups a thread only up to two
-// views (more spill at 128 registers).
+// The instance for S source views: sweep_variance_kernel up to four
+// views, two groups a thread only up to two (more spill at 128 registers);
+// sweep_variance_groups_kernel beyond four, one group a thread.
 template <int VEC, int G>
 bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* ref,
                   const float* srcs, int64_t feat_bstride, const float* xs, const float* ys,
@@ -203,6 +307,9 @@ bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* r
   if constexpr (G == 1) {
     if (S == 3) { SWEEP_LAUNCH(3); return true; }
     if (S == 4) { SWEEP_LAUNCH(4); return true; }
+    sweep_variance_groups_kernel<VEC><<<grid, threads, 0, st>>>(ref, srcs, feat_bstride, xs, ys,
+                                                                out, S, D, H, W, C, K, tx, ty);
+    return true;
   }
 #undef SWEEP_LAUNCH
   return false;
@@ -215,14 +322,14 @@ bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* r
 // ys (B, S, D, H, W), under the plan (vec, groups G, planes K, tile tx ×
 // ty) of `sweep_variance_plan`.  Launches on `stream`; vec is 4 (C % 4 ==
 // 0, ref, srcs, out and feat_bstride 16-byte aligned) or 1; (vec, G) one of
-// (4, 1), (4, 2) (S ≤ 2), (1, 1); S from 1 to 4.  Returns cudaGetLastError()
+// (4, 1), (4, 2) (S ≤ 2), (1, 1); S ≥ 1.  Returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int sweep_variance_f32(const float* ref, const float* srcs, long long feat_bstride,
                                   const float* xs, const float* ys, float* out, int B, int S,
                                   int D, int H, int W, int C, int vec, int groups, int planes,
                                   int tx, int ty, void* stream) {
   if ((vec != 1 && vec != 4) || (groups != 1 && (vec != 4 || groups != 2)) || C < 1 ||
-      C % (vec * groups) != 0 || planes < 1 || tx < 1 || ty < 1 || B < 0 || S < 1 || S > 4 ||
+      C % (vec * groups) != 0 || planes < 1 || tx < 1 || ty < 1 || B < 0 || S < 1 ||
       D < 0 || H < 0 || W < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t threads = (int64_t)(C / (vec * groups)) * tx * ty;

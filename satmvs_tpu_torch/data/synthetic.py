@@ -1,8 +1,10 @@
 """Synthetic satellite-MVS scenes: RPC triplets, terrain, rendered views.
 
-Counterpart of `satmvs_tpu/data/synthetic.py` (in-memory scenes and
-batches).  Host-side numpy float64 throughout; `make_batch` puts the result
-on a device.  A camera is a hand-built direct RPC (affine ground → image,
+Counterpart of `satmvs_tpu/data/synthetic.py`: in-memory scenes and
+batches, and the same scenes written to disk in the WHU-TLC layout
+(`write_synthetic_dataset`, `write_whu_tlc_tree`; the same files as the
+JAX package's writers, PNGs through the port's own codec).  Host-side
+numpy float64 throughout; `make_batch` puts the result on a device.  A camera is a hand-built direct RPC (affine ground → image,
 height parallax along the look azimuth, small cubic distortions) whose
 inverse RPC is fitted with `geo.rpc.fit_inverse_rpc`.
 """
@@ -10,6 +12,7 @@ inverse RPC is fitted with `geo.rpc.fit_inverse_rpc`.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ import torch
 from ..device import resolve_device
 from ..geo import rpc as rpclib
 from ..ops import warp as warplib
+from . import formats, png
 from .preprocess import build_pyramid
 
 _M_PER_DEG = 111_320.0  # metres per degree of latitude, near enough
@@ -200,3 +204,36 @@ def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int
                                  for i in range(3)]
         batch["mask_stages"] = [torch.ones_like(d) for d in batch["depth_stages"]]
     return batch
+
+
+def write_synthetic_dataset(root: str, num_scenes: int = 2, width: int = 64, height: int = 64,
+                            view_num: int = 3, seed: int = 0, h_amp: float = 80.0,
+                            name_prefix: str = "scene", **rpc_kwargs) -> str:
+    """Write synthetic scenes in the WHU-TLC layout under `root`:
+    image/{v}/name.png (8-bit gray), rpc/{v}/name.rpc and
+    height/{v}/name.pfm for views v of make_rpc_triplet (scene s from seed
+    seed + 31·s, named name_prefix + 4 digits).  Returns root."""
+    for v in range(view_num):
+        for kind in ("image", "rpc", "height"):
+            os.makedirs(os.path.join(root, kind, str(v)), exist_ok=True)
+    for s in range(num_scenes):
+        rpcs = make_rpc_triplet(width, height, seed=seed + 31 * s, **rpc_kwargs)
+        name = f"{name_prefix}{s:04d}"
+        for v, rpc in enumerate(rpcs):
+            img, hmap = render_view(rpc, width, height, terrain_seed=seed + 31 * s, h_amp=h_amp)
+            png.write_png(os.path.join(root, "image", str(v), name + ".png"), img.astype(np.uint8))
+            formats.save_rpc(os.path.join(root, "rpc", str(v), name + ".rpc"), rpc)
+            formats.save_pfm(os.path.join(root, "height", str(v), name + ".pfm"), hmap)
+    return root
+
+
+def write_whu_tlc_tree(root: str, num_train: int = 2, num_test: int = 1, width: int = 64,
+                       height: int = 64, seed: int = 0, h_amp: float = 80.0, **rpc_kwargs) -> str:
+    """The WHU-TLC "open_dataset" tree with synthetic content:
+    <root>/open_dataset_rpc/{train,test}/{image,rpc,height}/{0,1,2}/blockNNNN.*,
+    the train split from `seed`, the test split from seed + 1000.  Returns root."""
+    for split, n, s0 in (("train", num_train, 0), ("test", num_test, 1000)):
+        write_synthetic_dataset(os.path.join(root, "open_dataset_rpc", split), num_scenes=n,
+                                width=width, height=height, seed=seed + s0, h_amp=h_amp,
+                                name_prefix="block", **rpc_kwargs)
+    return root

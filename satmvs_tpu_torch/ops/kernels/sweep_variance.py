@@ -29,8 +29,7 @@ SWEEP_THREADS = 256        # threads a block at most (the kernel's launch bounds
 SWEEP_ROW_THREADS = (32, 64, 128)  # threads a tile row: a warp, two, four
 SWEEP_GROUPS = {4: (1, 2), 1: (1,)}  # channel groups of VEC a thread, by VEC
 SWEEP_PLANES = (1, 2, 4, 8, 16)      # planes a thread
-SWEEP_MAX_VIEWS = 4                  # source views the kernel is built for
-SWEEP_MAX_VIEWS_2 = 2                # ... with two groups a thread (more spill)
+SWEEP_MAX_VIEWS_2 = 2                # source views with two groups a thread (more spill)
 
 
 def sweep_variance_reference(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
@@ -61,7 +60,9 @@ def sweep_variance_plan_options(b: int, s: int, d: int, h: int, w: int, c: int,
     threads a pixel, about `SWEEP_ROW_THREADS` threads a row and at most
     `SWEEP_THREADS` a block, neither wider nor taller than the plane.  Each dict holds vec,
     groups, planes, lanes, tx, ty, threads and the grid (tiles, chunks, B).
-    Every option computes every output the same way (the same bits)."""
+    Every option computes every output the same way (the same bits).  Any
+    S ≥ 1: up to four views the kernel unrolls them all, beyond four it
+    walks them in groups of up to four (the same sums in the same order)."""
     vec = 4 if c % 4 == 0 and aligned else 1
     options = []
     for groups, planes in itertools.product(SWEEP_GROUPS[vec], SWEEP_PLANES):
@@ -96,14 +97,14 @@ def sweep_variance_plan(b: int, s: int, d: int, h: int, w: int, c: int,
     three forward and the three scene-chunk shapes on an H100
     (`kernel_ab.py --only sweep --sweep`: each thread waits on one memory
     round trip a plane, so fewer threads that walk more planes, and more
-    channels a thread, won).  Pure Python, cached (do not modify what it
+    channels a thread, won).  Any number S ≥ 1 of source views; beyond two,
+    one group a thread.  Pure Python, cached (do not modify what it
     returns); raises ValueError for a shape the kernel cannot take."""
     if min(b, d, h, w, c) < 1:
         raise ValueError(f"sweep_variance: empty operand (B, S, D, H, W, C) = "
                          f"{(b, s, d, h, w, c)}")
-    if not 1 <= s <= SWEEP_MAX_VIEWS:
-        raise ValueError(f"sweep_variance: {s} source views; the kernel takes 1 to "
-                         f"{SWEEP_MAX_VIEWS}")
+    if s < 1:
+        raise ValueError(f"sweep_variance: {s} source views; the kernel takes at least 1")
     if b > 65535:
         raise ValueError(f"sweep_variance: {b} samples exceed the grid's 65535")
     if (h + 2) * (w + 2) * c >= 2 ** 31:

@@ -46,3 +46,14 @@ def bilinear_sample(feat: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
         + corner(y1i, x1i, wy * wx)
     )
     return out.reshape(*shape, c)
+
+
+def bilinear_sample_scalar(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                           fill: float = 0.0) -> torch.Tensor:
+    """Bilinear sample of a single-channel (H, W) image at x, y (any common
+    shape), `fill` where the point lies outside [0, W − 1] × [0, H − 1]
+    (cv2.remap with a constant border, the fusion filter's sampling)."""
+    sampled = bilinear_sample(img[..., None], x, y)[..., 0]
+    h, w = img.shape
+    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    return torch.where(inside, sampled, torch.full_like(sampled, fill))

@@ -82,10 +82,14 @@ def build_rpc_warp_cams(rpcs, ref_index: int = 0, stage_scale: float = 1.0,
     )
 
 
-def build_stage_cams(rpcs, ref_index: int = 0, device=None):
-    """Camera bundles of the three cascade stages, coarsest first (image
-    scales 1/4, 1/2, 1)."""
-    return tuple(build_rpc_warp_cams(rpcs, ref_index, s, device) for s in (0.25, 0.5, 1.0))
+STAGE_SCALES = {3: (0.25, 0.5, 1.0), 2: (0.25, 1.0), 1: (0.25,)}
+
+
+def build_stage_cams(rpcs, ref_index: int = 0, device=None, num_stage: int = 3):
+    """Camera bundles of the cascade's stages, coarsest first (image scales
+    1/4, 1/2, 1 for three stages; 1/4, 1 for two; 1/4 for one)."""
+    return tuple(build_rpc_warp_cams(rpcs, ref_index, s, device)
+                 for s in STAGE_SCALES[num_stage])
 
 
 def stack_cams(cams_list) -> RpcWarpCams:

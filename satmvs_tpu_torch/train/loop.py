@@ -177,7 +177,10 @@ def fit(cfg: Config, train_loader, test_loader, workdir: str,
     """A training run: epochs of train steps and a test pass each, the
     per-epoch record `train_record.txt`, `metrics.jsonl`, a checkpoint every
     `save_freq` epochs; with cfg.resume it continues after the latest one.
-    Loaders are re-iterable sequences of batches.  Returns (model, state)."""
+    Loaders are re-iterable sequences of batches.  Returns (model, state,
+    timing): timing lists the epochs run and, per epoch, its steps and the
+    seconds of its train steps and of its test pass, the card synchronized
+    at both ends."""
     steps_per_epoch = max(len(train_loader), 1)
     first = next(iter(train_loader))
     model, state, tx = create_model_and_state(cfg, first, steps_per_epoch, variables)
@@ -194,18 +197,27 @@ def fit(cfg: Config, train_loader, test_loader, workdir: str,
     eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
     logger = MetricLogger(workdir)
     keeper = ckpt_lib.CheckpointKeeper(workdir)
+    timing = {"epochs": [], "train_s": [], "steps": [], "test_s": []}
     try:
         _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_step,
-                    eval_step, logger, keeper, steps_per_epoch, start_epoch)
+                    eval_step, logger, keeper, steps_per_epoch, start_epoch, timing)
     finally:
         keeper.close()
         logger.close()
-    return model, state
+    return model, state, timing
+
+
+def _clock(state) -> float:
+    """The host clock once the card has finished the queued work."""
+    if next(iter(state.params.values())).is_cuda:
+        torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_step,
-                eval_step, logger, keeper, steps_per_epoch, start_epoch):
+                eval_step, logger, keeper, steps_per_epoch, start_epoch, timing):
     for epoch in range(start_epoch, cfg.epochs + 1):
+        t_train, steps = _clock(state), 0
         for it, batch in enumerate(train_loader):
             t0 = time.time()
             state, scalars = train_step(state, batch)
@@ -216,6 +228,11 @@ def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_st
                 if log_fn:
                     log_fn(f"epoch {epoch}/{cfg.epochs} iter {it}/{steps_per_epoch} "
                            f"loss={scal['loss']:.3f} time={time.time() - t0:.3f}s")
+            steps += 1
+        t_test = _clock(state)
+        timing["epochs"].append(epoch)
+        timing["train_s"].append(t_test - t_train)
+        timing["steps"].append(steps)
 
         meter = metrics_lib.DictAverageMeter()
         logged_images = False
@@ -236,6 +253,7 @@ def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_st
                 logger.image("fulltest", "errormap", abs(de - gt) * mk, step_i)
                 logged_images = True
         means = meter.mean()
+        timing["test_s"].append(_clock(state) - t_test)
         logger.scalars("fulltest", means, epoch * steps_per_epoch)
         if log_fn:
             log_fn(f"epoch {epoch} test: {means}")

@@ -112,7 +112,7 @@ def test_fit_checkpoints_and_resume(tmp_path):
     cfg = Config(ndepths=(8, 4, 4), epochs=2, save_freq=1, summary_freq=1, seed=3)
     workdir = str(tmp_path)
     logs = []
-    model, state = fit(cfg, batches, batches[:1], workdir, log_fn=logs.append)
+    model, state, _ = fit(cfg, batches, batches[:1], workdir, log_fn=logs.append)
     assert ckpt.latest_epoch(workdir) == 2 and state.step == 4
     assert {"1", "2", "metrics.jsonl", "train_record.txt"} <= set(os.listdir(workdir))
     records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
@@ -123,7 +123,7 @@ def test_fit_checkpoints_and_resume(tmp_path):
     saved = {k: v.detach().clone() for k, v in state.params.items()}
 
     cfg_resume = Config(ndepths=(8, 4, 4), epochs=2, resume=True, seed=4)
-    _, resumed = fit(cfg_resume, batches, batches[:1], workdir, log_fn=logs.append)
+    _, resumed, _ = fit(cfg_resume, batches, batches[:1], workdir, log_fn=logs.append)
     assert "resumed from epoch 2" in logs
     assert resumed.step == 4 and resumed.opt_state["count"] == 4
     for k, v in resumed.params.items():
@@ -132,7 +132,7 @@ def test_fit_checkpoints_and_resume(tmp_path):
         torch.testing.assert_close(v, state.batch_stats[k], rtol=0, atol=0)
 
     cfg_more = Config(ndepths=(8, 4, 4), epochs=3, resume=True, seed=4)
-    _, more = fit(cfg_more, batches, batches[:1], workdir, log_fn=None)
+    _, more, _ = fit(cfg_more, batches, batches[:1], workdir, log_fn=None)
     assert more.step == 6 and ckpt.latest_epoch(workdir) == 3
     assert any(not torch.equal(v, saved[k]) for k, v in more.params.items())
 

@@ -163,6 +163,32 @@ def test_cuda_sweep_same_bits_in_a_second_run():
     assert torch.equal(sweep_variance_batched(feats, xs, ys), sweep_variance_batched(feats, xs, ys))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 6])
+@pytest.mark.parametrize("s", [5, 7])
+def test_cuda_sweep_more_than_four_views(s, c):
+    """Five and seven source views (six and eight views; the kernel walks
+    them in groups of four): against the plain version (1e-5 × max(1, max
+    |plain|)), the same bits in a second run, under every plan, and each
+    of B = 2 samples the same bits as its B = 1 call."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    _cuda()
+    shape = (2, s, 6, 14, 40, c)
+    for mode in ("window", "off-image"):
+        feats, xs, ys = _batched_inputs(*shape, mode, seed=s)
+        before = sweep_variance.launches
+        out = sv.sweep_variance_batched(feats, xs, ys)
+        torch.cuda.synchronize()
+        assert sweep_variance.launches == before + 1
+        _close(out, sv.sweep_variance_batched_reference(feats, xs, ys), f"sweep S={s} {mode}")
+        assert torch.equal(out, sv.sweep_variance_batched(feats, xs, ys))
+        for i in range(2):
+            assert torch.equal(out[i], sweep_variance(feats[i, 0], feats[i, 1:], xs[i], ys[i]))
+        for plan in sv.sweep_variance_plan_options(*shape):
+            assert torch.equal(sv._batched(feats, xs, ys, plan), out), plan
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

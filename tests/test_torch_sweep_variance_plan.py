@@ -82,12 +82,27 @@ def test_plan_options_follow_the_kernel_instances():
 
 @pytest.mark.parametrize("shape,match", [
     ((0, 2, 4, 8, 8, 8), "empty"), ((1, 2, 0, 8, 8, 8), "empty"), ((1, 0, 4, 8, 8, 8), "views"),
-    ((1, 5, 4, 8, 8, 8), "views"), ((65536, 2, 1, 1, 1, 4), "65535"),
+    ((65536, 2, 1, 1, 1, 4), "65535"),
     ((1, 2, 4, 8, 8, 1025 * 4), "threads"), ((1, 2, 4, 8, 8, 257), "threads"),
     ((1, 2, 4, 2 ** 14, 2 ** 14, 8), "32-bit"), ((1, 2, 2 ** 20, 8, 8, 8), "too large")])
 def test_plan_refuses_what_the_kernel_cannot_take(shape, match):
     with pytest.raises(ValueError, match=match):
         sv.sweep_variance_plan(*shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 5, 12, 20, 8), (1, 5, 8, 96, 192, 32),
+                                   (2, 8, 3, 7, 33, 12), (3, 8, 4, 9, 13, 6)])
+def test_plan_takes_more_than_four_views(shape):
+    """Beyond four source views the kernel walks them in groups of four
+    (`sweep_variance_groups_kernel`): one channel group a thread, the same
+    grid and thread map, every output written once under every plan."""
+    b, s, d, h, w, c = shape
+    options = sv.sweep_variance_plan_options(*shape)
+    assert options and {o["groups"] for o in options} == {1}
+    assert sv.sweep_variance_plan(*shape) in options
+    for plan in options:
+        pix, planes, chans = _covered(plan, b, d, h, w, c)
+        assert (pix == 1).all() and (planes == 1).all() and (chans == 1).all(), plan
 
 
 def _batch(b=3, s=2, d=4, h=9, w=13, c=8, seed=0):
