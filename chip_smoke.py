@@ -91,13 +91,32 @@ Phases, each reported on its own lines:
      cuDNN's default and deterministic engines, the fusion, ms per scene
      tile).
 
+  10 the CostRegNet families (CascadeMVSNet, UCSNet; the packed CostRegNet on
+     the plane convs in their CostRegNet forms): each form (conv_dn and
+     deconv_up without ReLU, conv_head with up to 64 output channels and a
+     zero bias) against its plain version at each of the 33 call shapes of
+     a 384×768 forward, with its plan, the same bits in a second run, a
+     call on two elements' planes the bits of the two B = 1 calls, kernel,
+     plain, bound and F.conv2d / F.conv_transpose2d times; each 3-D block's
+     three taps composed against cuDNN's conv3d / conv_transpose3d on the
+     BN-folded kernel, both timed; each family at 384×768, B = 1, 3 views,
+     ndepths 64/32/8 with non-trivial BatchNorm statistics: exact launches
+     per forward (3 sweep_variance, 27 conv_dn, 27 deconv_up, 45 conv_head,
+     no red_recur), ranges, forward time, peak memory, a profile, stage 1's
+     CostRegNet at B = 2 against B = 1 bit for bit, and the same model's
+     plain run on the CPU at 96×192 stage by stage (depth, the window
+     confidence, UCSNet's variance); `cli.predict --model ucs` from a port
+     checkpoint on phase 9's test split, its maps a direct forward bit for
+     bit.
+
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
 writes under build/chip_smoke/).  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
 streaming forward of phase 4, the two scene runs, the fused train and eval
-steps, the fused_red-off train steps and phase 9's train, predict and scene
-CLI runs), the nvidia-smi line of the card,
+steps, the fused_red-off train steps, phase 9's train, predict and scene
+CLI runs, and phase 10's two family forwards and its predict run), the
+nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -135,6 +154,11 @@ RED_RECUR_TOL = 1e-4
 # softmax move by a large share of a step.
 DEPTH_TOL_MEAN = 0.01
 DEPTH_TOL_P99 = 0.1
+# the CostRegNet families' 4-plane window confidence, GPU vs CPU: a pixel
+# whose soft-argmax index sits at an integer within rounding may take the
+# next band (a jump of up to 1), so the gate is on the mean and the p99
+CONF_TOL_MEAN = 1e-3
+CONF_TOL_P99 = 2e-3
 # the scene (scripts/predict_scene.py's defaults): tiles of 384 + 2 × 32
 SCENE_SIZE, TILE, HALO, SLAB = 1152, 384, 32, 8
 TILE_HW = TILE + 2 * HALO
@@ -514,6 +538,42 @@ def plane_work(op: str, stride: int, transposed: bool, n: int, h: int, w: int, c
     return 4.0 * words, 2.0 * n * taps * cin * cout
 
 
+COSTREG_BASE = 8  # cr_base_chs (8, 8, 8) of CascadeMVSNet and UCSNet
+
+
+def costreg_blocks(b: int = 1):
+    """(stage, block, op, N, H, W, Cin, Cout) of the 33 3-D blocks of a
+    384×768 CostRegNet forward of B = b elements (both families: feature
+    channels 32/16/8), each three plane-conv calls, one per depth tap, on
+    the N = b·D' planes the block reads: ConvBlock_0..6 (the stride-1 ones
+    conv_head with a zero bias, the stride-2 ones conv_dn without ReLU, on
+    D/2 even or odd planes), DeconvBlock_0..2 (deconv_up without ReLU or
+    skip) and the 1-channel head (conv_head)."""
+    c = COSTREG_BASE
+    out = []
+    for stage, d, h, w, cin in red_shapes():
+        chans = (cin, c, 2 * c, 2 * c, 4 * c, 4 * c, 8 * c, 8 * c)
+        for k in range(7):  # ConvBlock_k: stride 2 at k = 1, 3, 5
+            s = 2 ** ((k + 1) // 2)  # output scale of the block (D, H and W)
+            if k % 2:  # reads the even or the odd planes of its input at scale s / 2
+                out.append((stage, f"ConvBlock_{k}", "conv_dn", b * d // s, h * 2 // s,
+                            w * 2 // s, chans[k], chans[k + 1]))
+            else:
+                out.append((stage, f"ConvBlock_{k}", "conv_head", b * d // s, h // s, w // s,
+                            chans[k], chans[k + 1]))
+        for k, (s, ci, co) in enumerate(((8, 8 * c, 4 * c), (4, 4 * c, 2 * c), (2, 2 * c, c))):
+            out.append((stage, f"DeconvBlock_{k}", "deconv_up", b * d // s, h // s, w // s, ci, co))
+        out.append((stage, "Conv_0", "conv_head", b * d, h, w, c, 1))
+    return out
+
+
+def costreg_calls(b: int = 1):
+    """`plane_calls`' tuples for the blocks of `costreg_blocks(b)`, one per
+    block (each call shape runs three times a forward, once per tap)."""
+    return [(f"{stage} {block}", op, 1 if op == "conv_head" else 2, op == "deconv_up", n, h, w,
+             ci, co, False) for stage, block, op, n, h, w, ci, co in costreg_blocks(b)]
+
+
 def red_cell(ci: int, c: int, seed: int, randn):
     """A ConvGRUCell on the card: seeded convs, perturbed norms and biases."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
@@ -778,23 +838,35 @@ def err_quantiles(err: torch.Tensor) -> tuple[float, float, float]:
 def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals):
     """The same model's plain run on the CPU against a GPU forward's output,
     stage by stage: each CPU stage centres its window on the GPU's
-    previous-stage depth, so a stage is held to its own numerical
-    differences only (DEPTH_TOL_MEAN, DEPTH_TOL_P99 of its step); the
-    free-running CPU cascade is reported beside it, not gated."""
+    previous-stage depth (and, for UCSNet, takes its spread), so a stage is
+    held to its own numerical differences only (DEPTH_TOL_MEAN,
+    DEPTH_TOL_P99 of its step; UCSNet's windows: each pixel's own step);
+    the free-running CPU cascade is reported beside it, not gated.  For the
+    4-plane window confidence of the CostRegNet families also the
+    confidence (CONF_TOL_MEAN, CONF_TOL_P99) and UCSNet's variance (the
+    depth gates, in steps)."""
     cams_cpu = [c.to("cpu") for c in cams]
     dv_cpu = dvals.cpu()
     feats_cpu = cpu_model.features(imgs.cpu())
     free = cpu_model(imgs.cpu(), cams_cpu, dv_cpu)
     steps = stage_steps(*dv_cpu[0].tolist(), cpu_model.stage_intervals())
     for i, step in enumerate(steps):
-        gpu = gpu_out[f"stage{i + 1}"]
+        gpu = {k: v.cpu() for k, v in gpu_out[f"stage{i + 1}"].items()}
         prev = None if i == 0 else gpu_out[f"stage{i}"]["depth"].cpu()
-        cpu = cpu_model.stage(i, feats_cpu[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev)
-        err = (gpu["depth"].cpu() - cpu["depth"]).abs() / step
-        cerr = (gpu["photometric_confidence"].cpu() - cpu["photometric_confidence"]).abs()
+        prev_var = None if i == 0 else gpu_out[f"stage{i}"].get("variance")
+        prev_var = None if prev_var is None else prev_var.cpu()
+        cpu = cpu_model.stage(i, feats_cpu[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev,
+                              prev_var)
+        if cpu_model.sampler == "uncertainty" and i > 0:
+            hyps = cpu_model.hypotheses(i, *cpu["depth"].shape[1:], dv_cpu[:, 0], dv_cpu[:, -1],
+                                        prev, prev_var)
+            step = hyps[:, 1] - hyps[:, 0]
+        step_m = float(torch.as_tensor(step).mean())
+        err = (gpu["depth"] - cpu["depth"]).abs() / step
+        cerr = (gpu["photometric_confidence"] - cpu["photometric_confidence"]).abs()
         mean, p99 = err.mean().item(), torch.quantile(err.flatten(), 0.99).item()
-        free_err = (gpu["depth"].cpu() - free[f"stage{i + 1}"]["depth"]).abs() / step
-        print(f"{tag} GPU vs CPU plain, {what} stage{i + 1} (step {step:.3f} m), "
+        free_err = (gpu["depth"] - free[f"stage{i + 1}"]["depth"]).abs() / step
+        print(f"{tag} GPU vs CPU plain, {what} stage{i + 1} (step {step_m:.3f} m), "
               f"same window centres: depth err mean {mean:.3e}, p99 {p99:.3e}, "
               f"max {err.max().item():.3e} of step (tol mean {DEPTH_TOL_MEAN}, "
               f"p99 {DEPTH_TOL_P99}), share > 1 % of step "
@@ -805,6 +877,21 @@ def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals)
               f"{free_err.max().item():.3e} of step", flush=True)
         check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
               f"{what} stage{i + 1}: GPU vs CPU depth err mean {mean}, p99 {p99} of step")
+        if cpu_model.confidence == "window4":
+            c_mean, c_p99 = cerr.mean().item(), torch.quantile(cerr.flatten(), 0.99).item()
+            line = (f"{tag} GPU vs CPU plain, {what} stage{i + 1}: window confidence err mean "
+                    f"{c_mean:.3e}, p99 {c_p99:.3e} (tol {CONF_TOL_MEAN}, {CONF_TOL_P99}), share "
+                    f"> 1e-3 {(cerr > 1e-3).float().mean().item():.3e}")
+            check(c_mean <= CONF_TOL_MEAN and c_p99 <= CONF_TOL_P99,
+                  f"{what} stage{i + 1}: GPU vs CPU confidence err mean {c_mean}, p99 {c_p99}")
+            if "variance" in cpu:
+                verr = (gpu["variance"] - cpu["variance"]).abs() / step
+                v_mean, v_p99 = verr.mean().item(), torch.quantile(verr.flatten(), 0.99).item()
+                line += (f"; variance err mean {v_mean:.3e}, p99 {v_p99:.3e}, max "
+                         f"{verr.max().item():.3e} of step (the depth tolerances)")
+                check(v_mean <= DEPTH_TOL_MEAN and v_p99 <= DEPTH_TOL_P99,
+                      f"{what} stage{i + 1}: GPU vs CPU variance err mean {v_mean}, p99 {v_p99}")
+            print(line, flush=True)
 
 
 def phase_many_views(card: str):
@@ -1484,7 +1571,8 @@ def lecun_scale(model):
     amplifies rounding (PERF.md, ROADMAP C)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d,
+                              torch.nn.ConvTranspose3d)):
                 m.weight.mul_(0.5 ** 0.5)
     return model
 
@@ -1969,6 +2057,291 @@ def phase_from_disk(card: str, root: str, scene_files) -> dict:
 
 
 
+# phase 10: the CostRegNet families (CascadeMVSNet, UCSNet) at inference.
+# Per forward at B = 1: sweep_variance once per stage; per stage's packed
+# CostRegNet conv_head 15 (four stride-1 blocks and the head, three depth
+# taps each), conv_dn 9 and deconv_up 9 (three blocks, three taps); no
+# red_recur
+COSTREG_FAMILIES = ("casmvs", "ucs")
+COSTREG_HEAD_GAIN = 10.0         # the logit heads ×10: a window confidence spread over [0, 1]
+COSTREG_PARITY_HW = (96, 192)    # GPU vs CPU at this patch (the CPU's 3-D convs are slow)
+LAUNCHES_PER_COSTREG_FORWARD = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 3,
+                                "conv_dn": 27, "deconv_up": 27, "conv_head": 45}
+COSTREG_PATHS = (*COSTREG_FAMILIES, "cli_predict_ucs")
+COSTREG_BLOCK_TOL = 1e-4         # composed taps vs cuDNN's conv3d, × max(1, max |cuDNN|)
+
+
+def build_costreg_model(name: str, device):
+    """CascadeMVSNet or UCSNet (RPC, ndepths 64/32/8) from seed 0 at flax's
+    LeCun scale, its norms and BatchNorm statistics drawn from seed 1
+    (scale 1 ± 0.2, shift and mean ± 0.1, var in [0.5, 1.5]: the BN fold is
+    far from the identity), the CostRegNet heads × COSTREG_HEAD_GAIN; drawn
+    on the CPU, so every device gets the same weights."""
+    from satmvs_tpu_torch.models import build_model
+    from satmvs_tpu_torch.nn.blocks import BatchNorm
+
+    model = lecun_scale(build_model(name, "rpc", ndepths=NDEPTHS, device="cpu", seed=0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.num_features
+                m.weight.copy_(1.0 + 0.2 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+        for reg in model.regs:
+            reg.head.weight.mul_(COSTREG_HEAD_GAIN)
+    return model.to(device)
+
+
+def phase_costreg_kernels(card: str) -> list[dict]:
+    """Phase 10, kernels: the CostRegNet forms at each of the 33 call shapes
+    of a 384×768 forward (each three calls a forward, one per depth tap)
+    against their plain versions (KERNEL_TOL), with the plan and the same
+    bits in a second run, a call on two elements' planes the bits of the
+    two B = 1 calls, kernel, plain, bound and library (F.conv2d /
+    F.conv_transpose2d) times; then each 3-D block composed of its three
+    taps (with the tap sums, bias, ReLU, skip) against cuDNN's F.conv3d /
+    F.conv_transpose3d on the BN-folded kernel, both timed."""
+    import torch.nn.functional as F
+
+    from satmvs_tpu_torch.nn import costreg as cr
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    src = "satmvs_tpu_torch/csrc/plane_conv.cu"
+    reps = {"conv_dn": KernelReport("conv_dn_costreg", src,
+                                    "satmvs_tpu/ops/pallas/plane_conv.py:382", card),
+            "deconv_up": KernelReport("deconv_up_costreg", src,
+                                      "satmvs_tpu/ops/pallas/plane_conv.py:569", card),
+            "conv_head": KernelReport("conv_head_costreg", src,
+                                      "satmvs_tpu/ops/pallas/plane_conv.py:730", card)}
+    device = {op: [0.0, 0.0] for op in reps}  # kernel, library device ms a forward
+    for (stage, block, op, n, h, w, ci, co), call in zip(costreg_blocks(1), costreg_calls(1)):
+        label = f"{stage} {block} {(n, h, w, ci)}->{co}"
+        x, x2 = randn(n, h, w, ci), randn(n, h, w, ci)
+        scale = (1.0 / (9 * ci)) ** 0.5
+        if op == "deconv_up":
+            wt = randn(ci, co, 3, 3, scale=scale)
+            kernel = lambda t=x: pc.deconv_up(t, wt, relu=False)  # noqa: E731
+            plain = lambda: pc.deconv_up_reference(x, wt, relu=False)  # noqa: E731
+            library = lambda: F.conv_transpose2d(nchw(x), wt, stride=2, padding=1,  # noqa: E731
+                                                 output_padding=1)
+        elif op == "conv_dn":
+            wt = randn(co, ci, 3, 3, scale=scale)
+            kernel = lambda t=x: pc.conv_dn(t, wt, relu=False)  # noqa: E731
+            plain = lambda: pc.conv_dn_reference(x, wt, relu=False)  # noqa: E731
+            library = lambda: F.conv2d(nchw(x), wt, stride=2, padding=1)  # noqa: E731
+        else:
+            wt, zb = randn(co, ci, 3, 3, scale=scale), torch.zeros(co, device="cuda")
+            kernel = lambda t=x: pc.conv_head(t, wt, zb)  # noqa: E731
+            plain = lambda: pc.conv_head_reference(x, wt, zb)  # noqa: E731
+            library = lambda: F.conv2d(nchw(x), wt, zb, padding=1)  # noqa: E731
+        work_op = "deconv_up costreg" if op == "deconv_up" else op  # no skip to read
+        pick = (lambda key: "deconv3x3" in key) if op == "deconv_up" else conv3x3_kernel_name
+        with torch.no_grad():
+            reps[op].case(label, kernel, plain, rel_tol, *plane_work(work_op, *call[2:]),
+                          library, count=3)
+            plane_same_bits(reps[op].rec["name"], label, kernel, call[2:])
+            k_dev, l_dev = device_ms(kernel, pick, 5), device_ms(library, lambda key: True, 5)
+            device[op][0] += 3 * k_dev
+            device[op][1] += 3 * l_dev
+            print(f"[costreg] {reps[op].rec['name']} {label}: device time {k_dev:.4f} ms, "
+                  f"the library call's {l_dev:.4f} ms card={card}", flush=True)
+            both, one, other = kernel(torch.cat([x, x2])), kernel(x), kernel(x2)
+            same = torch.equal(both[:n], one) and torch.equal(both[n:], other)
+            print(f"[costreg] {reps[op].rec['name']} {label}: a call on B = 2 elements' "
+                  f"{2 * n} planes the bits of the two B = 1 calls: {same}", flush=True)
+            check(same, f"{op} {label}: B = 2 differs from B = 1")
+        del x, x2, both, one, other
+    for op, rep in reps.items():
+        r, calls = rep.rec, 3 * sum(1 for block in costreg_blocks(1) if block[2] == op)
+        print(f"[costreg] {r['name']} per forward ({calls} calls): events {r['ms']:.4f} ms, "
+              f"device time {device[op][0]:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; the library call (F.conv2d "
+              f"/ F.conv_transpose2d) events {r['library_ms']:.4f} ms, device time "
+              f"{device[op][1]:.4f} ms card={card}", flush=True)
+
+    # each 3-D block: its three taps composed as the packed CostRegNet runs
+    # them, against cuDNN's 3-D convolution on the BN-folded kernel
+    totals = {op: [0.0, 0.0, 0] for op in reps}
+    for stage, block, op, n, h, w, ci, co in costreg_blocks(1):
+        d_in = 2 * n if op == "conv_dn" else n  # a stride-2 block reads every plane
+        vol = randn(1, d_in, h, w, ci).abs()
+        scale = (1.0 / (27 * ci)) ** 0.5
+        bias = randn(co, scale=0.1)
+        x5 = vol.permute(0, 4, 1, 2, 3)
+        if op == "deconv_up":
+            wt3 = randn(ci, co, 3, 3, 3, scale=scale)
+            skip = randn(1, 2 * n, 2 * h, 2 * w, co)
+            composed = lambda: cr.d3dT(vol, wt3, bias, skip)  # noqa: E731
+            cudnn = lambda: (F.relu(F.conv_transpose3d(  # noqa: E731
+                x5, wt3, bias, stride=2, padding=1, output_padding=1)).permute(0, 2, 3, 4, 1)
+                + skip)
+        else:
+            w3 = randn(co, ci, 3, 3, 3, scale=scale)
+            stride = 2 if op == "conv_dn" else 1
+            if block == "Conv_0":
+                composed = lambda: cr.c3d_s1(vol, w3, None)  # noqa: E731
+                cudnn = lambda: F.conv3d(x5, w3, padding=1).permute(0, 2, 3, 4, 1)  # noqa: E731
+            else:
+                composed = ((lambda: cr.c3d_s2(vol, w3, bias)) if stride == 2
+                            else (lambda: cr.c3d_s1(vol, w3, bias)))
+                cudnn = lambda: F.relu(F.conv3d(x5, w3, bias, stride=stride,  # noqa: E731
+                                                padding=1)).permute(0, 2, 3, 4, 1)
+        with torch.no_grad():
+            got, want = composed(), cudnn()
+            err = (got - want).abs().max().item()
+            tol = COSTREG_BLOCK_TOL * max(1.0, want.abs().max().item())
+            check(got.shape == want.shape and err <= tol,
+                  f"{stage} {block}: composed taps vs conv3d err {err} > {tol}")
+            c_ms, l_ms = time_ms(composed, reps=10), time_ms(cudnn, reps=10)
+        totals[op][0] += c_ms
+        totals[op][1] += l_ms
+        totals[op][2] += 1
+        print(f"[costreg] 3-D block {stage} {block} {tuple(vol.shape)}->{co}: composed taps "
+              f"{c_ms:.4f} ms, cuDNN {'conv_transpose3d' if op == 'deconv_up' else 'conv3d'} "
+              f"{l_ms:.4f} ms, max abs err {err:.3e} (tol {tol:.3e}) card={card}", flush=True)
+        del vol, x5, got, want
+    for op, (c_ms, l_ms, nb) in totals.items():
+        print(f"[costreg] {op} blocks of a forward's CostRegNets ({nb}): composed taps "
+              f"{c_ms:.4f} ms, cuDNN's 3-D convolution {l_ms:.4f} ms ({c_ms / l_ms:.2f}×) "
+              f"card={card}", flush=True)
+    return [reps[op].record() for op in ("conv_dn", "deconv_up", "conv_head")]
+
+
+def costreg_forward(card: str, name: str) -> dict:
+    """Phase 10, one family: a 384×768 forward with exact launches, range
+    checks, its time and peak memory and a profile; a B = 2 volume through
+    stage 1's CostRegNet against its two elements alone (bit for bit); the
+    same model's plain run on the CPU at COSTREG_PARITY_HW, stage by stage
+    (`gpu_vs_cpu`).  Returns the forward's launches."""
+    from satmvs_tpu_torch.data import synthetic
+
+    model = build_costreg_model(name, "cuda")
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[costreg] {name} forward at {HEIGHT}x{WIDTH}, ndepths={NDEPTHS}: launches "
+          f"{({k: v for k, v in launches.items() if v})} (want exactly "
+          f"{({k: v for k, v in LAUNCHES_PER_COSTREG_FORWARD.items() if v})})", flush=True)
+    check(launches == LAUNCHES_PER_COSTREG_FORWARD, f"{name} forward launches {launches}")
+    lo, hi = dvals[0].tolist()
+    margin = 0.0
+    for i, (scale, nd) in enumerate(zip(STAGE_SCALES, NDEPTHS), start=1):
+        if i > 1 and model.sampler == "window":  # UCSNet's windows stay inside the range
+            margin += nd / 2 * model.stage_intervals()[i - 1]
+        stage = out[f"stage{i}"]
+        depth, conf = stage["depth"], stage["photometric_confidence"]
+        check(tuple(depth.shape) == (1, HEIGHT // scale, WIDTH // scale) and
+              bool(torch.isfinite(depth).all()), f"{name} stage{i} depth")
+        dmin, dmax = depth.min().item(), depth.max().item()
+        check(lo - margin - 1e-3 <= dmin and dmax <= hi + margin + 1e-3,
+              f"{name} stage{i}: depth [{dmin}, {dmax}] outside [{lo - margin}, {hi + margin}]")
+        cmin, cmax = conf.min().item(), conf.max().item()
+        check(0.0 <= cmin and cmax <= 1.0 + 1e-6, f"{name} stage{i}: confidence [{cmin}, {cmax}]")
+        extra = ""
+        if "variance" in stage:
+            var = stage["variance"]
+            check(bool(torch.isfinite(var).all() and (var >= 0).all()), f"{name} stage{i} variance")
+            extra = f", variance [{var.min().item():.2f}, {var.max().item():.2f}] m"
+        print(f"[costreg] {name} stage{i} depth [{dmin:.2f}, {dmax:.2f}] m (range {lo:.0f}.."
+              f"{hi:.0f} ± {margin:g}), conf [{cmin:.4f}, {cmax:.4f}]{extra}", flush=True)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = time_ms(lambda: model(imgs, cams, dvals), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[costreg] {name} forward_ms={fwd_ms:.2f} (median of 5, CUDA events, B=1, "
+          f"{HEIGHT}x{WIDTH}, 3 views) peak_mem={peak:.2f} GiB card={card}", flush=True)
+    profile_forward(lambda: model(imgs, cams, dvals), card, what=f"one {name} forward")
+
+    # the regularizer folds B·D planes into each call: the same bits as B = 1
+    d, h, w, c = NDEPTHS[0], HEIGHT // 4, WIDTH // 4, model.feature.out_channels[0]
+    vol = torch.rand((2, d, h, w, c), generator=torch.Generator("cuda").manual_seed(4),
+                     device="cuda")
+    with torch.no_grad():
+        both = model.regs[0](vol)
+        same = all(torch.equal(both[b:b + 1], model.regs[0](vol[b:b + 1])) for b in range(2))
+    print(f"[costreg] {name} stage-1 CostRegNet on a B = 2 volume {tuple(vol.shape)}: each "
+          f"element the bits of its B = 1 forward: {same}", flush=True)
+    check(same, f"{name}: the CostRegNet's B = 2 logits differ from B = 1")
+    del vol, both
+
+    t0 = time.time()
+    ph, pw = COSTREG_PARITY_HW
+    small = synthetic.make_batch(1, pw, ph, seed=1, device="cuda")
+    gpu_out = model(small["imgs"], small["cams"], small["depth_values"])
+    gpu_vs_cpu("[costreg]", f"{name} at {ph}x{pw}", gpu_out, build_costreg_model(name, "cpu"),
+               small["imgs"], small["cams"], small["depth_values"])
+    print(f"[costreg] {name} CPU plain runs took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+def costreg_cli(card: str, tree: str) -> dict:
+    """Phase 10, the predict CLI: `cli.predict --model ucs` from a port
+    checkpoint of `build_costreg_model("ucs")` on a copy of phase 9's test
+    split: exact launches (a forward's for each of the three views) and its
+    maps bit for bit a direct forward of the restored model (cuDNN's
+    deterministic engines, as the CLI runs).  Returns its launches."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import predict as cli_predict
+    from satmvs_tpu_torch.cli import restore_model
+    from satmvs_tpu_torch.data import formats
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.data.loader import Loader
+    from satmvs_tpu_torch.train import Config
+    from satmvs_tpu_torch.train.checkpoints import save_checkpoint
+    from satmvs_tpu_torch.train.loop import make_optimizer, state_of
+
+    cfg = Config(model="ucs")
+    ckpt = WORK / "ucs_ckpt"
+    save_checkpoint(str(ckpt), 1, state_of(build_costreg_model("ucs", "cuda"),
+                                           make_optimizer(cfg, 1)))
+    copy = WORK / "test_ucs"
+    shutil.copytree(os.path.join(tree, "open_dataset_rpc", "test"), copy,
+                    ignore=shutil.ignore_patterns("mvs_results", "height_result"))
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_predict.main([f"--dataset_root={copy}", f"--loadckpt={ckpt}", "--model", "ucs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = {k: 3 * TREE_TEST * v for k, v in LAUNCHES_PER_COSTREG_FORWARD.items()}
+    print(f"[costreg] cli.predict --model ucs: {wall:.2f} s wall, forwards "
+          f"{[round(1e3 * t, 2) for t in out['forward_s']]} ms, launches "
+          f"{({k: v for k, v in launches.items() if v})} (want exactly "
+          f"{({k: v for k, v in want.items() if v})}) card={card}", flush=True)
+    check(launches == want, f"cli.predict --model ucs: launches {launches}")
+    model, _, _ = restore_model(cfg, str(ckpt), torch.device("cuda"))
+    n_maps = 0
+    for batch in Loader(MVSDataset(str(copy), "pred"), 1, device="cuda"):
+        ref = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        view, block = batch["out_view"][0], batch["out_name"][0]
+        for sub, key in (("init", "depth"), ("prob", "photometric_confidence")):
+            got = formats.load_pfm(str(copy / "mvs_results" / view / sub / f"{block}.pfm"))
+            same = np.array_equal(got, ref[key][0].cpu().numpy())
+            check(same, f"cli.predict --model ucs {view} {block} {sub}: not a direct forward")
+            n_maps += 1
+    print(f"[costreg] cli.predict --model ucs: {n_maps} maps the bits of a direct forward",
+          flush=True)
+    return launches
+
+
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the device was busy."""
@@ -2079,17 +2452,29 @@ def run(scene_job, tree_job) -> int:
           f"(waited {time.time() - t0:.1f} s for them after phase 7)", flush=True)
     launches.update(phase_from_disk(smi, tree, scene_files))
 
+    # phase 10
+    t0 = time.time()
+    records += phase_costreg_kernels(smi)
+    for name in COSTREG_FAMILIES:
+        launches[name] = costreg_forward(smi, name)
+    launches["cli_predict_ucs"] = costreg_cli(smi, tree)
+    print(f"[costreg] phase 10 took {time.time() - t0:.1f} s", flush=True)
+
     for record in records:
-        # a batched record is the same wrapper, read on the path that batches
+        # a batched record is the same wrapper, read on the path that batches;
+        # a costreg record the same wrapper in its CostRegNet form
         batched = record["name"].endswith("_batched")
-        wrapper = record["name"].removesuffix("_batched")
+        costreg = record["name"].endswith("_costreg")
+        wrapper = record["name"].removesuffix("_batched").removesuffix("_costreg")
         record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
         train = wrapper in TRAIN_KERNELS
-        main = "train_step" if train else f"scene_b{BATCH_TILES}" if batched else "forward"
+        main = ("casmvs" if costreg else "train_step" if train else
+                f"scene_b{BATCH_TILES}" if batched else "forward")
         record["launches"] = launches[main][wrapper]
-        paths = ("train_step", "cli_train") if train else INFERENCE_PATHS + CLI_PATHS + (
-            ("eval_step",) if wrapper == "sweep_variance" else
-            ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ())
+        paths = COSTREG_PATHS if costreg else ("train_step", "cli_train") if train else (
+            INFERENCE_PATHS + CLI_PATHS + (
+                ("eval_step",) if wrapper == "sweep_variance" else
+                ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ()))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")
 

@@ -40,10 +40,10 @@ def restore_model(cfg, directory: str, device):
     copied in.  Returns (model, state, epoch); raises SystemExit when no
     checkpoint is there."""
     from ..train.checkpoints import restore_checkpoint
-    from ..train.loop import create_model_and_state
+    from ..train.loop import create_model, make_optimizer, state_of
 
-    model, state, _ = create_model_and_state(cfg, {"imgs": torch.empty(0, device=device)}, 1)
-    restored, epoch = restore_checkpoint(directory, state)
+    model = create_model(cfg, device)
+    restored, epoch = restore_checkpoint(directory, state_of(model, make_optimizer(cfg, 1)))
     if restored is None:
         raise SystemExit(f"no checkpoint found under {directory}")
     print(f"loaded checkpoint epoch {epoch}")

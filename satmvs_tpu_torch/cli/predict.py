@@ -6,12 +6,14 @@
 Every view of every sample in turn is the reference (pred mode, batch 1);
 each prediction goes to <dataset_root>/mvs_results/{view}/{init,prob}/{name}.pfm.
 --streaming runs `infer.predict.streaming_red_forward` (slabs of --slab
-planes), else the full-volume forward.  --fuse filters each scene's views
+planes) for the red model; the CostRegNet families (--model casmvs, ucs)
+have no streaming form and take the full-volume forward with a warning, as
+the JAX script does.  --fuse filters each scene's views
 (`infer.fuse.fuse_scene_to_dsm`) into mvs_results/{name}_dsm.tif, or its
 PFM + TFW fallback without GDAL.  --color also writes colour PNGs and needs
 matplotlib.  Flags and defaults are the JAX script's; values whose features
-the port lacks (--use_qc, pinhole, --torch_compat, --fused_sweep off,
-casmvs/ucs) raise.
+the port lacks (--use_qc, pinhole, --torch_compat, --fused_sweep off)
+raise.
 """
 
 from __future__ import annotations
@@ -100,9 +102,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                    max_w=a.max_w)
     ld = Loader(ds, batch_size=1, device=device)
     model, _, epoch = restore_model(cfg, a.loadckpt, device)
-    if a.streaming:
+    if a.streaming and a.model == "red":
         forward = functools.partial(streaming_red_forward, model, slab=a.slab)
     else:
+        if a.streaming:
+            print("WARNING: --streaming is red-only; using the full-volume forward",
+                  file=sys.stderr)
         forward = model
 
     out_root = os.path.join(a.dataset_root, "mvs_results")

@@ -9,9 +9,11 @@
 Reads the scene rasters (`formats.read_scene_image`, tone-mapped when not
 8-bit) and RPCs, predicts the reference view tile by tile
 (`infer.scene.predict_scene`) over the slab-streaming forward
-(--streaming) or the full-volume forward, writes the height map and its
-_prob map; --dsm also predicts every other view as the reference, writes
-each view's map (<out>_view{v}.pfm) and fuses them into a DSM.
+(--streaming, red model only; the CostRegNet families warn and take the
+full-volume forward, as the JAX script does) or the full-volume forward,
+writes the height map and its _prob map; --dsm also predicts every other
+view as the reference, writes each view's map (<out>_view{v}.pfm) and
+fuses them into a DSM.
 --batch_tiles is the tiles a forward (0: one; the port runs on one GPU).
 Flags and defaults are the JAX script's.
 """
@@ -82,10 +84,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rpcs = np.stack([formats.load_rpc(p)[0] for p in a.rpcs])
     model, _, _ = restore_model(cfg, a.loadckpt, device)
     calls = []
+    streaming = a.streaming and a.model == "red"
+    if a.streaming and not streaming:
+        print("WARNING: --streaming is red-only; using the full-volume forward", file=sys.stderr)
 
     def forward(imgs, cams, dvals):
         calls.append(imgs.shape[0])  # tiles in this chunk
-        if a.streaming:
+        if streaming:
             return streaming_red_forward(model, imgs, cams, dvals, slab=a.slab)
         return model(imgs, cams, dvals)
 

@@ -32,6 +32,9 @@ def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_v
     `model` with `params.load_jax_variables` (the flax `ScanREDStep_0` trees
     of every stage map onto `model.regs`).
     """
+    if model.regularizer != "red":
+        raise ValueError(f"streaming_red_forward: a {model.regularizer!r} model has no "
+                         f"slab-streaming form; run its full-volume forward")
     d_min, d_max = depth_values[:, 0], depth_values[:, -1]
     outputs = {}
     depth = None

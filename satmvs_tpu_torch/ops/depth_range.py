@@ -38,3 +38,16 @@ def upsample_map(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     out = F.interpolate(x.reshape(-1, 1, *x.shape[-2:]), size=(height, width),
                         mode="bilinear", align_corners=False, antialias=False)
     return out.reshape(*lead, height, width)
+
+
+def uncertainty_samples(cur_depth: torch.Tensor, exp_var: torch.Tensor, ndepth: int,
+                        d_min: torch.Tensor, d_max: torch.Tensor) -> torch.Tensor:
+    """UCSNet's window: cur_depth ± the predicted spread exp_var (H, W),
+    clamped to the scene range [d_min, d_max], in ndepth uniform steps, plus
+    1e-12 (as in JAX): (D, H, W)."""
+    eps = 1e-12
+    low = torch.maximum(cur_depth - exp_var, d_min)
+    high = torch.minimum(cur_depth + exp_var, d_max)
+    step = (high - low) / (float(ndepth) - 1.0)
+    steps = torch.arange(ndepth, dtype=cur_depth.dtype, device=cur_depth.device)
+    return low[None] + steps[:, None, None] * step[None] + eps

@@ -11,6 +11,11 @@ Replace the TPU kernels of `satmvs_tpu/ops/pallas/plane_conv.py`:
   conv_head  stride-1 3×3 conv, pad 1, with bias        (`_conv_head_impl`, :730;
              backward `_conv_head_bwd`, :768)
 
+The RED regularizer runs them as written.  The packed CostRegNet
+(`nn/costreg.py`) runs them in their CostRegNet forms, forward only as in
+JAX: conv_dn and deconv_up with relu=False (no skip), and conv_head with up
+to 64 output channels and a zero bias.  relu=False refuses a graph.
+
 Activations are channels-last (N, H, W, C) float32, as in the JAX NHWC forms;
 weights are the port's `nn.Conv2d` / `nn.ConvTranspose2d` parameters in torch
 layout, and the backwards hand their cotangents back in that layout.  The
@@ -52,9 +57,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def conv_dn_reference(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """relu(conv2d(x, weight, stride 2, pad 1)): (N, H, W, Cin) → (N, ⌈H/2⌉, ⌈W/2⌉, Cout)."""
-    return _nhwc(F.relu(F.conv2d(_nchw(x), weight, stride=2, padding=1)))
+def conv_dn_reference(x: torch.Tensor, weight: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """relu(conv2d(x, weight, stride 2, pad 1)), without the ReLU when relu is
+    False: (N, H, W, Cin) → (N, ⌈H/2⌉, ⌈W/2⌉, Cout)."""
+    y = F.conv2d(_nchw(x), weight, stride=2, padding=1)
+    return _nhwc(F.relu(y) if relu else y)
 
 
 def conv_dn_backward_reference(x: torch.Tensor, weight: torch.Tensor, y: torch.Tensor,
@@ -68,11 +75,12 @@ def conv_dn_backward_reference(x: torch.Tensor, weight: torch.Tensor, y: torch.T
 
 
 def deconv_up_reference(x: torch.Tensor, weight: torch.Tensor,
-                        skip: torch.Tensor | None = None) -> torch.Tensor:
-    """relu(conv_transpose2d(x, weight, stride 2, pad 1, output pad 1)) + skip:
-    (N, H, W, Cin) → (N, 2H, 2W, Cout); weight (Cin, Cout, 3, 3)."""
-    y = F.relu(F.conv_transpose2d(_nchw(x), weight, stride=2, padding=1, output_padding=1))
-    y = _nhwc(y)
+                        skip: torch.Tensor | None = None, relu: bool = True) -> torch.Tensor:
+    """relu(conv_transpose2d(x, weight, stride 2, pad 1, output pad 1)) + skip,
+    without the ReLU when relu is False: (N, H, W, Cin) → (N, 2H, 2W, Cout);
+    weight (Cin, Cout, 3, 3)."""
+    y = F.conv_transpose2d(_nchw(x), weight, stride=2, padding=1, output_padding=1)
+    y = _nhwc(F.relu(y) if relu else y)
     return y if skip is None else y + skip
 
 
@@ -512,11 +520,11 @@ def conv_head_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
 
 class _ConvDn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight):
+    def forward(ctx, x, weight, relu):
         if x.device.type == "cpu":
-            y = conv_dn_reference(x, weight)
+            y = conv_dn_reference(x, weight, relu)
         else:
-            y = _conv3x3("conv_dn", x, None, weight.detach().permute(2, 3, 1, 0), None, 2, True)
+            y = _conv3x3("conv_dn", x, None, weight.detach().permute(2, 3, 1, 0), None, 2, relu)
             conv_dn.launches += 1
         ctx.save_for_backward(x, weight, y)
         return y
@@ -526,20 +534,20 @@ class _ConvDn(torch.autograd.Function):
     def backward(ctx, g):
         x, weight, y = ctx.saved_tensors
         dx, dw = conv_dn_backward(x, weight, y, g.contiguous())
-        return dx, dw
+        return dx, dw, None
 
 
 class _DeconvUp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, skip, keep_act):
+    def forward(ctx, x, weight, skip, keep_act, relu):
         if x.device.type == "cpu":
-            act = deconv_up_reference(x, weight)
+            act = deconv_up_reference(x, weight, relu=relu)
             out = act if skip is None else act + skip
         else:
             # relu(z) in a buffer of its own only when a backward will read it
             act = None if skip is None or not keep_act else torch.empty_like(skip)
             out = _deconv3x3("deconv_up", x, None, weight.detach().permute(2, 3, 0, 1), skip,
-                             act, True)
+                             act, relu)
             act = out if act is None else act
             deconv_up.launches += 1
         if keep_act:
@@ -553,7 +561,7 @@ class _DeconvUp(torch.autograd.Function):
         x, weight, act = ctx.saved_tensors
         g = g.contiguous()
         dx, dw = deconv_up_backward(x, weight, act, g)
-        return dx, dw, (g if ctx.has_skip else None), None
+        return dx, dw, (g if ctx.has_skip else None), None, None
 
 
 class _ConvHead(torch.autograd.Function):
@@ -575,24 +583,34 @@ class _ConvHead(torch.autograd.Function):
         return conv_head_backward(x, weight, g.contiguous())
 
 
-def conv_dn(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Stride-2 3×3 conv, pad 1, no bias, ReLU (the RED encoder's ConvBlock).
+def _forward_only(name: str, relu: bool, *tensors):
+    if not relu and _wants_grad(*tensors):
+        raise ValueError(f"{name}: relu=False (the packed CostRegNet's form) is forward-only, "
+                         f"as in JAX; it takes no tensor that requires a gradient")
+
+
+def conv_dn(x: torch.Tensor, weight: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """Stride-2 3×3 conv, pad 1, no bias, ReLU (the RED encoder's ConvBlock);
+    relu=False leaves the ReLU out (the packed CostRegNet's stride-2 taps).
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3) → (N, ⌈H/2⌉, ⌈W/2⌉, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
-    `conv_dn_reference`.  Differentiable in x and weight (backward
-    `conv_dn_backward`) where H and W are even; with odd H or W it raises
-    where autograd would record a graph."""
+    `conv_dn_reference`.  With the ReLU, differentiable in x and weight
+    (backward `conv_dn_backward`) where H and W are even; with odd H or W,
+    or without the ReLU, it raises where autograd would record a graph."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"conv_dn: want weight (Cout, Cin, 3, 3), got {tuple(weight.shape)}")
     _check("conv_dn", x, {"weight": weight}, weight.shape[1])
+    _forward_only("conv_dn", relu, x, weight)
     if _wants_grad(x, weight) and (x.shape[1] % 2 or x.shape[2] % 2):
         raise ValueError(f"conv_dn: the backward takes even H and W, got {tuple(x.shape)}")
-    return _ConvDn.apply(x, weight)
+    return _ConvDn.apply(x, weight, relu)
 
 
 def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Stride-1 3×3 conv, pad 1, with bias, no activation (the RED logit head).
+    """Stride-1 3×3 conv, pad 1, with bias, no activation (the RED logit head,
+    and with up to 64 output channels and a zero bias the packed CostRegNet's
+    stride-1 taps).
 
     x (N, H, W, Cin) float32, weight (Cout, Cin, 3, 3), bias (Cout,) → (N, H, W, Cout).
     CUDA tensors go to the kernel (x must be contiguous), CPU tensors to
@@ -607,15 +625,17 @@ def conv_head(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torc
 
 
 def deconv_up(x: torch.Tensor, weight: torch.Tensor,
-              skip: torch.Tensor | None = None) -> torch.Tensor:
+              skip: torch.Tensor | None = None, relu: bool = True) -> torch.Tensor:
     """relu(ConvTranspose2d(k=3, s=2, p=1, op=1)(x)), plus `skip` after the ReLU
-    when given (the RED decoder's DeconvBlock and its additive skip).
+    when given (the RED decoder's DeconvBlock and its additive skip);
+    relu=False leaves the ReLU out (the packed CostRegNet's depth taps).
 
     x (N, H, W, Cin) float32, weight (Cin, Cout, 3, 3), skip (N, 2H, 2W, Cout)
     → (N, 2H, 2W, Cout).  CUDA tensors go to the kernel (x and skip must be
-    contiguous), CPU tensors to `deconv_up_reference`.  Differentiable in x,
-    weight and skip (backward `deconv_up_backward`); when autograd records,
-    the kernel also keeps relu(z) for the backward's mask."""
+    contiguous), CPU tensors to `deconv_up_reference`.  With the ReLU,
+    differentiable in x, weight and skip (backward `deconv_up_backward`);
+    when autograd records, the kernel also keeps relu(z) for the backward's
+    mask.  Without the ReLU it raises where autograd would record a graph."""
     if weight.ndim != 4 or weight.shape[2:] != (3, 3):
         raise ValueError(f"deconv_up: want weight (Cin, Cout, 3, 3), got {tuple(weight.shape)}")
     extra = {"weight": weight} if skip is None else {"weight": weight, "skip": skip}
@@ -624,9 +644,10 @@ def deconv_up(x: torch.Tensor, weight: torch.Tensor,
     cout = weight.shape[1]
     if skip is not None and tuple(skip.shape) != (n, 2 * h, 2 * w, cout):
         raise ValueError(f"deconv_up: skip {tuple(skip.shape)} != {(n, 2 * h, 2 * w, cout)}")
+    _forward_only("deconv_up", relu, x, weight, skip)
     # keep_act from the caller: inside the Function's forward grad mode is
     # off, and ctx.needs_input_grad says True for a parameter even under no_grad
-    return _DeconvUp.apply(x, weight, skip, _wants_grad(x, weight, skip))
+    return _DeconvUp.apply(x, weight, skip, _wants_grad(x, weight, skip), relu)
 
 
 conv_dn.launches = 0

@@ -9,6 +9,10 @@ rules are those of `satmvs_tpu/train/convert.py`, reversed:
   flax Conv kernel (kh, kw, I, O)                → Conv2d weight (O, I, kh, kw)
   flax ConvTranspose kernel (kh, kw, O, I)
       (transpose_kernel=True)                    → ConvTranspose2d weight (I, O, kh, kw)
+  3-D (CostRegNet's Conv3DVia2D, ConvTranspose3DVia2D): the same with a
+      leading kd, (kd, kh, kw, I, O) → Conv3d (O, I, kd, kh, kw) and
+      (kd, kh, kw, O, I) → ConvTranspose3d (I, O, kd, kh, kw), depth taps
+      in the same order (flax's k[t] is torch's [:, :, t]; no flip)
   BatchNorm scale/bias, batch_stats mean/var     → weight/bias, running_mean/running_var
   GroupNorm scale/bias                           → weight/bias
 
@@ -23,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from .nn.blocks import ConvBlock, ConvGRUCell, DeconvBlock, DeconvFuse
+from .nn.costreg import CostRegNet
 from .nn.featurenet import FeatureNet
 from .nn.red import REDRegularizer, REDStep
 
@@ -33,14 +38,24 @@ def _children(module: nn.Module) -> dict[str, nn.Module]:
 
     if isinstance(module, CascadeModel):
         out = {"FeatureNet_0": module.feature}
-        out.update({f"REDRegularizer_{i}": r for i, r in enumerate(module.regs)})
+        prefix = "REDRegularizer" if module.regularizer == "red" else "CostRegNet"
+        out.update({f"{prefix}_{i}": r for i, r in enumerate(module.regs)})
         return out
     if isinstance(module, FeatureNet):
         blocks = [*module.conv0, *module.conv1, *module.conv2]
         out = {f"ConvBlock_{i}": m for i, m in enumerate(blocks)}
-        out.update({"Conv_0": module.out1, "DeconvFuse_0": module.deconv1,
-                    "Conv_1": module.out2, "DeconvFuse_1": module.deconv2,
-                    "Conv_2": module.out3})
+        if module.arch_mode == "fpn":
+            out.update({"Conv_0": module.out1, "Conv_1": module.inner1, "Conv_2": module.out2,
+                        "Conv_3": module.inner2, "Conv_4": module.out3})
+        else:
+            out.update({"Conv_0": module.out1, "DeconvFuse_0": module.deconv1,
+                        "Conv_1": module.out2, "DeconvFuse_1": module.deconv2,
+                        "Conv_2": module.out3})
+        return out
+    if isinstance(module, CostRegNet):
+        out = {f"ConvBlock_{i}": m for i, m in enumerate(module.convs)}
+        out.update({f"DeconvBlock_{i}": m for i, m in enumerate(module.deconvs)})
+        out["Conv_0"] = module.head
         return out
     if isinstance(module, DeconvFuse):
         return {"DeconvBlock_0": module.deconv, "ConvBlock_0": module.conv}
@@ -67,13 +82,14 @@ def _children(module: nn.Module) -> dict[str, nn.Module]:
     raise TypeError(f"no flax name table for {type(module).__name__}")
 
 
-_LEAVES = (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d, nn.GroupNorm)
+_CONVS = (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d, nn.ConvTranspose3d)
+_LEAVES = (*_CONVS, nn.BatchNorm2d, nn.GroupNorm)
 
 
 def _leaf_tensors(module: nn.Module, params: dict, stats: dict, path: str):
     """[(port tensor, numpy value)] of one leaf module (one of _LEAVES);
     raises on a key set that does not match the module."""
-    conv = isinstance(module, (nn.Conv2d, nn.ConvTranspose2d))
+    conv = isinstance(module, _CONVS)
     bn = isinstance(module, nn.BatchNorm2d)
     if conv:
         want_p = {"kernel"} | ({"bias"} if module.bias is not None else set())
@@ -84,8 +100,10 @@ def _leaf_tensors(module: nn.Module, params: dict, stats: dict, path: str):
         raise KeyError(f"{path}: keys params={sorted(params)} batch_stats={sorted(stats)}, "
                        f"want params={sorted(want_p)} batch_stats={sorted(want_s)}")
     if conv:
-        # both flax layouts map to torch by the same axis order (3, 2, 0, 1)
-        pairs = [(module.weight, np.asarray(params["kernel"]).transpose(3, 2, 0, 1))]
+        # both flax layouts map to torch by the same axis order: the two
+        # channel axes, last first, then the spatial taps in order
+        k = np.asarray(params["kernel"])
+        pairs = [(module.weight, k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))]
         if module.bias is not None:
             pairs.append((module.bias, params["bias"]))
         return pairs
@@ -136,15 +154,15 @@ def _check_all_filled(model: nn.Module, filled: set):
 
 @torch.no_grad()
 def init_from_seed(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded weights from numpy: He-normal convolution kernels, zero conv
-    biases, identity norms (scale 1, shift 0, running mean 0 / var 1)."""
+    """Seeded weights from numpy: He-normal convolution kernels (2-D and
+    3-D), zero conv biases, identity norms (scale 1, shift 0, running mean
+    0 / var 1)."""
     rng = np.random.default_rng(seed)
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-            kh, kw = module.kernel_size
-            fan_in = module.in_channels * kh * kw
-            if isinstance(module, nn.ConvTranspose2d):
-                fan_in //= module.stride[0] * module.stride[1]
+        if isinstance(module, _CONVS):
+            fan_in = module.in_channels * int(np.prod(module.kernel_size))
+            if isinstance(module, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                fan_in //= int(np.prod(module.stride))
             w = rng.normal(0.0, np.sqrt(2.0 / fan_in), tuple(module.weight.shape))
             module.weight.copy_(torch.as_tensor(w, dtype=torch.float32))
             if module.bias is not None:

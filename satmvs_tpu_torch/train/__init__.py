@@ -4,6 +4,7 @@ checkpoints, logging.  Counterpart of `satmvs_tpu/train/` (one device)."""
 from .config import Config  # noqa: F401
 from .loop import (  # noqa: F401
     TrainState,
+    create_model,
     create_model_and_state,
     fit,
     make_eval_step,

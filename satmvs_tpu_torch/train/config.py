@@ -4,10 +4,11 @@ Counterpart of `satmvs_tpu/train/config.py`, with the same fields, CLI
 surface and defaults, so a command line means the same in both packages.
 Values whose features the port lacks raise when set away from their
 defaults: the mesh extents (multi-GPU), use_qc, geo_model="pinhole",
-model other than "red", compute_dtype and volume_dtype other than float32,
-torch_compat, and fused_sweep=False.  `sweep_stencil` is a tap width of the
-TPU gather; the port's gather has no stencil, so it is accepted and has no
-effect.
+compute_dtype and volume_dtype other than float32, torch_compat, and
+fused_sweep=False.  model "casmvs" and "ucs" run at inference (evaluation,
+prediction); training them raises in `loop.create_model_and_state`.
+`sweep_stencil` is a tap width of the TPU gather; the port's gather has no
+stencil, so it is accepted and has no effect.
 
 fused_red: None ("auto") and True run the RED regularizer's fused pipeline
 (its CUDA kernels and their backward kernels) in training and evaluation,
@@ -21,7 +22,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 # field → the value the port supports (every other value raises)
-_ONLY = {"model": "red", "geo_model": "rpc", "use_qc": False, "compute_dtype": "float32",
+_ONLY = {"geo_model": "rpc", "use_qc": False, "compute_dtype": "float32",
          "volume_dtype": "float32", "torch_compat": False, "mesh_data": 1,
          "mesh_spatial": 1, "mesh_depth": 1}
 
@@ -77,6 +78,8 @@ class Config:
     mesh_depth: int = 1
 
     def __post_init__(self):
+        if self.model not in ("red", "casmvs", "ucs"):
+            raise ValueError(f"model={self.model!r}: want 'red', 'casmvs' or 'ucs'")
         for name, value in _ONLY.items():
             if getattr(self, name) != value:
                 raise ValueError(f"{name}={getattr(self, name)!r}: the port supports "

@@ -108,26 +108,44 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> RMSprop:
     return RMSprop(cfg.lr, boundaries, cfg.wd)
 
 
-def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int,
-                           variables: Optional[dict] = None):
-    """The configured model on the sample batch's device and its TrainState.
-
-    Weights: numpy-seeded from cfg.seed (`params.init_from_seed`; not the
-    JAX package's PRNG draws), or a flax variables tree `variables` loaded
-    with `params.load_jax_variables`.  cfg.fused_red None and True take the
-    fused RED pipeline, False its scan path.
-    """
-    model = build_model(
-        cfg.model, cfg.geo_model, ndepths=tuple(cfg.ndepths), cr_base_chs=tuple(cfg.cr_base_chs),
-        min_interval=cfg.min_interval, depth_intervals_ratio=tuple(cfg.depth_inter_r),
-        fused_red=cfg.fused_red, device=sample_batch["imgs"].device, seed=cfg.seed)
+def create_model(cfg: Config, device, variables: Optional[dict] = None):
+    """The configured model on `device`, in eval mode.  Weights:
+    numpy-seeded from cfg.seed (`params.init_from_seed`; not the JAX
+    package's PRNG draws), or a flax variables tree `variables` loaded with
+    `params.load_jax_variables`.  As in JAX, CascadeREDNet and CascadeMVSNet
+    take min_interval and depth_inter_r, UCSNet takes lamb instead."""
+    spacing = ({"min_interval": cfg.min_interval, "depth_intervals_ratio": tuple(cfg.depth_inter_r)}
+               if cfg.model in ("red", "casmvs") else {"lamb": cfg.lamb})
+    model = build_model(cfg.model, cfg.geo_model, ndepths=tuple(cfg.ndepths),
+                        cr_base_chs=tuple(cfg.cr_base_chs), fused_red=cfg.fused_red,
+                        device=device, seed=cfg.seed, **spacing)
     if variables is not None:
         load_jax_variables(model, variables)
-    tx = make_optimizer(cfg, steps_per_epoch)
+    return model
+
+
+def state_of(model, tx: RMSprop) -> TrainState:
+    """A TrainState over the model's own parameter and running-statistic
+    tensors, the optimizer's state fresh."""
     params = dict(model.named_parameters())
     batch_stats = {n: b for n, b in model.named_buffers()
                    if n.endswith(("running_mean", "running_var"))}
-    return model, TrainState(params, batch_stats, tx.init(params), 0), tx
+    return TrainState(params, batch_stats, tx.init(params), 0)
+
+
+def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int,
+                           variables: Optional[dict] = None):
+    """The configured model on the sample batch's device (`create_model`),
+    its TrainState and optimizer, for training.  cfg.fused_red None and True
+    take the fused RED pipeline, False its scan path.  The CostRegNet
+    families (model "casmvs", "ucs") raise: their training is not ported
+    (ROADMAP A7); they evaluate and predict through `create_model`."""
+    if cfg.model != "red":
+        raise ValueError(f"model={cfg.model!r}: training the CostRegNet families is not ported "
+                         f"(ROADMAP A7); the port evaluates and predicts them")
+    model = create_model(cfg, sample_batch["imgs"].device, variables)
+    tx = make_optimizer(cfg, steps_per_epoch)
+    return model, state_of(model, tx), tx
 
 
 def make_train_step(model, tx: RMSprop, dlossw) -> Callable:

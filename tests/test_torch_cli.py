@@ -211,7 +211,7 @@ def test_clis_refuse_what_the_port_lacks(seeded, tmp_path, monkeypatch):
         with pytest.raises(ValueError):
             cli_train.main(["--mode=train", *base, flag])
     pbase = [f"--dataset_root={seeded['root']}", f"--loadckpt={seeded['ckpt']}"]
-    for flag in ("--use_qc", "--torch_compat", "--model=ucs", "--fused_sweep=off"):
+    for flag in ("--use_qc", "--torch_compat", "--fused_sweep=off"):
         with pytest.raises(ValueError):
             cli_predict.main([*pbase, flag])
     with pytest.raises(SystemExit, match="no checkpoint"):

@@ -803,6 +803,99 @@ def test_cuda_plane_convs_under_every_plan(n, h, w, cin, cout):
             assert torch.equal(got, base), f"deconv{what} {o}: other bits than the plan's"
 
 
+def _costreg_calls(stage: int):
+    """`chip_smoke.costreg_calls(1)` of one stage: the packed CostRegNet's
+    eleven call shapes of a 384×768 forward."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.costreg_calls(1)[11 * (stage - 1):11 * stage]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_cuda_costreg_forms_at_every_call(stage):
+    """The CostRegNet forms (conv_dn and deconv_up with relu off, conv_head
+    with Cout up to 64 and a zero bias) at a stage's call shapes of a
+    384×768 forward: within 1e-5 × max(1, max |plain|) of the plain
+    version, the same bits in a second run and under every plan the
+    kernels take, and a call on B = 2 elements' planes the bits of the two
+    B = 1 calls."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    _cuda()
+    for label, op, stride, transposed, n, h, w, cin, cout, _ in _costreg_calls(stage):
+        x, x2 = _rand((n, h, w, cin), 120), _rand((n, h, w, cin), 121)
+        scale = (1.0 / (9 * cin)) ** 0.5
+        if op == "deconv_up":
+            wt = _rand((cin, cout, 3, 3), 122, scale)
+            wk, bias = wt.permute(2, 3, 0, 1), None
+
+            def kernel(t):
+                return pc.deconv_up(t, wt, relu=False)
+
+            def by_plan(o):
+                return pc._deconv3x3("test", x, None, wk, None, None, False, o)
+
+            want = pc.deconv_up_reference(x, wt, relu=False)
+        else:
+            wt = _rand((cout, cin, 3, 3), 123, scale)
+            wk, zb = wt.permute(2, 3, 1, 0), torch.zeros(cout, device="cuda")
+            bias = None if op == "conv_dn" else zb
+
+            def kernel(t):
+                return pc.conv_dn(t, wt, relu=False) if op == "conv_dn" else pc.conv_head(t, wt, zb)
+
+            def by_plan(o):
+                return pc._conv3x3("test", x, None, wk, bias, stride, False, o)
+
+            want = (pc.conv_dn_reference(x, wt, relu=False) if op == "conv_dn"
+                    else pc.conv_head_reference(x, wt, zb))
+        with torch.no_grad():
+            got = kernel(x)
+            _close(got, want, label)
+            assert (want < 0).any(), f"{label}: no negative output (relu off)"
+            assert torch.equal(kernel(x), got), f"{label}: a second run differs"
+            for o in pc.plane_conv_plan_options(stride, transposed, cin, cout):
+                assert torch.equal(by_plan(o), got), f"{label} {o}: other bits than the plan's"
+            both = kernel(torch.cat([x, x2]))
+            assert torch.equal(both[:n], got), f"{label}: B = 2 element 0 differs from B = 1"
+            assert torch.equal(both[n:], kernel(x2)), f"{label}: B = 2 element 1 differs"
+
+
+@pytest.mark.cuda
+def test_cuda_costreg_network_packed():
+    """CostRegNet's packed path on the card: the kernels' launches per
+    forward (conv_head 15, conv_dn 9, deconv_up 9, whatever B is), within
+    1e-4 × max(1, max |logit|) of the plain versions' run on the CPU, and
+    an element of a B = 2 volume the bits of its B = 1 forward."""
+    from satmvs_tpu_torch.nn.costreg import CostRegNet
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.params import init_from_seed
+
+    _cuda()
+    net = init_from_seed(CostRegNet(16, 8), 5).eval()
+    with torch.no_grad():
+        for m in [*net.convs, *net.deconvs]:
+            m.bn.running_mean.uniform_(-0.1, 0.1)
+            m.bn.running_var.uniform_(0.5, 1.5)
+            m.conv.weight.mul_(0.5 ** 0.5)
+    vol = _rand((2, 16, 24, 40, 16), 130).abs()
+    want = net(vol[:1].cpu())
+    net.cuda()
+    before = (pc.conv_head.launches, pc.conv_dn.launches, pc.deconv_up.launches)
+    with torch.no_grad():
+        both = net(vol)
+        one = net(vol[:1])
+    after = (pc.conv_head.launches, pc.conv_dn.launches, pc.deconv_up.launches)
+    assert [a - b for a, b in zip(after, before)] == [30, 18, 18]
+    assert torch.equal(both[:1], one)
+    err = (one.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,h,w,cin,c,seeded", [(1, 5, 16, 24, 8, 8, False),
                                                   (2, 4, 7, 9, 6, 4, True),

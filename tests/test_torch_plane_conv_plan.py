@@ -1,8 +1,9 @@
 """The launch plan of the plane convolutions on the CPU
 (satmvs_tpu_torch/ops/kernels/plane_conv.py `plane_conv_plan`, CUDA
 `conv3x3_kernel` and `deconv3x3_s2_kernel` of csrc/plane_conv.cu) at the 42
-calls of a 384×768 train step (21 forwards, 21 dx) and at the `cuda` tests'
-shapes: the kernels' thread-to-output maps, written out here, cover every
+calls of a 384×768 train step (21 forwards, 21 dx), at the 33 call shapes of
+the packed CostRegNet of a 384×768 forward (B = 1 and 2) and at the `cuda`
+tests' shapes: the kernels' thread-to-output maps, written out here, cover every
 output pixel and channel exactly once; the staged window holds every input a
 tile reads; the window and the slab's weights fit the shared memory; and the
 refusals.  The kernels themselves run only on the card
@@ -32,12 +33,25 @@ CARD_SHAPES = [
     (2, False, 2, 66, 98, 64, 32, True), (2, True, 2, 33, 49, 64, 32, False)]
 
 
-def _train_calls():
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    calls = [c[2:] for c in cs.plane_calls()]
+    return cs
+
+
+def _train_calls():
+    calls = [c[2:] for c in _chip_smoke().plane_calls()]
     assert len(calls) == 42 and sum(c[1] for c in calls) == 18  # 9 deconv_up, 9 conv_dn dx
+    return calls
+
+
+def _costreg_calls(b: int):
+    """The 33 call shapes of a 384×768 CostRegNet forward at B = b (each
+    run once per depth tap): 12 conv_head (Cout 1-64), 9 conv_dn, 9
+    deconv_up per family."""
+    calls = [c[2:] for c in _chip_smoke().costreg_calls(b)]
+    assert len(calls) == 33 and sum(c[1] for c in calls) == 9
     return calls
 
 
@@ -113,6 +127,31 @@ def test_plan_at_every_call_of_a_train_step(half):
     for call in _train_calls()[half::2]:
         plan = _check_plan(*call)
         assert pc._plane_resident(plan) * plan["threads"] >= 32 * pc.PLANE_WARPS, (call, plan)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_plan_at_every_costreg_call(b):
+    """The packed CostRegNet's calls at B = 1 and 2 (B·D planes in one
+    call): coverage, window and shared memory under the chosen plan, from
+    Cin = Cout = 64 at h/8 × w/8 to the 8 → 1 head at 384×768."""
+    for call in _costreg_calls(b):
+        _check_plan(*call)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_every_option_at_the_costreg_calls(stage):
+    """Every plan the kernels may run at a stage's eleven CostRegNet call
+    shapes (B = 1) covers each output once and fits the shared memory."""
+    for stride, transposed, n, h, w, cin, cout, gated in _costreg_calls(1)[11 * (stage - 1):
+                                                                         11 * stage]:
+        for o in pc.plane_conv_plan_options(stride, transposed, cin, cout, gated):
+            rows_in, cols_in = (h, w) if transposed else (-(-h // stride), -(-w // stride))
+            plan = {**o, "grid": (-(-rows_in // o["tile_rows"]) * -(-cols_in // o["tx"]),
+                                  -(-cout // o["slab"]), n)}
+            r, c, co, ho, wo = _outputs(plan, transposed, stride, h, w, cout)
+            count = np.bincount((r * wo + c) * cout + co, minlength=ho * wo * cout)
+            assert (count == 1).all(), (h, w, cin, cout, o)
+            assert o["smem"] <= pc.PLANE_SM_SMEM // 2 - 1024
 
 
 def test_plan_at_the_card_tests_shapes():

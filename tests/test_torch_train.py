@@ -282,7 +282,7 @@ def test_train_fused_sweep_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("model", "casmvs"), ("geo_model", "pinhole"), ("use_qc", True), ("mesh_data", 2),
+    ("geo_model", "pinhole"), ("use_qc", True), ("mesh_data", 2),
     ("mesh_spatial", 2), ("mesh_depth", 2), ("compute_dtype", "bfloat16"),
     ("volume_dtype", "bfloat16"), ("torch_compat", True), ("fused_sweep", False)])
 def test_config_refuses_what_the_port_lacks(field, value):
