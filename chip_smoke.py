@@ -108,6 +108,24 @@ Phases, each reported on its own lines:
      confidence, UCSNet's variance); `cli.predict --model ucs` from a port
      checkpoint on phase 9's test split, its maps a direct forward bit for
      bit.
+  11 the training sweeps at 384×768, B = 1, Config() (the fused RED
+     pipeline): three train steps on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP;
+     exact launches per step: 3 sweep_variance, 3 sweep_variance_backward,
+     6 sweep_scatter, no sweep_gather, and phase 7's RED kernels) and three
+     with bf16 volumes (the sweep pair's bf16 instances, 6 + 6), each one's
+     step ms and peak memory beside phase 7's default step and one step at
+     96×192 against its CPU run; each new kernel instance
+     (sweep_variance_backward, the bf16 gather and scatter; run beside
+     phase 6) against its plain version at the train step's shapes, kernel ms by events, device
+     ms by torch.profiler, bound, plain ms, the same bits twice where no
+     atomics are involved; three CascadeMVSNet and three UCSNet train steps
+     (the sweep pair only: their CostRegNet trains as cuDNN's conv3d), their
+     step ms, peak memory and one step at 96×192 against the CPU, and a
+     `cli.train --mode=train --model ucs` epoch on phase 9's tree; and the
+     per-view inference sweep (fused_sweep off) of CascadeREDNet in fp32 and
+     with bf16 volumes: exact launches (6 gathers, no sweep_variance), depth
+     against the default forward stage by stage and against the CPU at
+     96×192.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -115,8 +133,8 @@ writes under build/chip_smoke/).  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
 streaming forward of phase 4, the two scene runs, the fused train and eval
 steps, the fused_red-off train steps, phase 9's train, predict and scene
-CLI runs, and phase 10's two family forwards and its predict run), the
-nvidia-smi line of the card,
+CLI runs, phase 10's two family forwards and its predict run, and phase
+11's steps, CLI epoch and forwards), the nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -211,7 +229,12 @@ def device_ms(fn, kernel, calls: int) -> float:
     """Device time per call of the kernels that `kernel` picks (a substring
     of the profiler's kernel name, or a predicate on it) over `calls` calls
     of fn under torch.profiler, after one warm-up call; a capture that holds
-    none of them is taken again, twice at most."""
+    none of them is taken again, twice at most.  Late in a long run the
+    profiler has recorded no kernel on the card in three captures (seen in
+    phases 10 and 11, never in phase 8); then the time is CUDA events around
+    `calls` calls launched back to back (`loop_ms`: every kernel fn
+    launches, the card's time without the host's launch latency), and a
+    line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -227,7 +250,11 @@ def device_ms(fn, kernel, calls: int) -> float:
                  if e.device_type == DeviceType.CUDA and pick(e.key))
         if us > 0:
             return us / 1e3 / calls
-    raise RuntimeError(f"the profiler saw no {kernel} kernel in three captures")
+    ms = loop_ms(fn, calls)
+    print(f"[profile] the profiler recorded no {getattr(kernel, '__name__', kernel)} kernel in "
+          f"three captures: {ms:.4f} ms a call by CUDA events, {calls} calls back to back",
+          flush=True)
+    return ms
 
 
 def conv3x3_kernel_name(key: str) -> bool:
@@ -297,7 +324,7 @@ class KernelReport:
         for i, ((a, b), tol_i) in enumerate(zip(pairs, tols)):
             part = f"[{i}]" if len(pairs) > 1 else ""
             t = tol_i(b)
-            diff = (a - b).abs()
+            diff = (a.float() - b.float()).abs()  # a bf16 output compared in fp32
             err = diff.max().item()
             t_max = t.max().item() if isinstance(t, torch.Tensor) else t
             print(f"[kernels] {name} {label}{part} out={tuple(a.shape)} max_abs_err={err:.3e} "
@@ -766,7 +793,9 @@ BACKWARD_KERNELS = ("conv_dn_backward", "red_recur_backward", "deconv_up_backwar
                     "conv_head_backward")
 LAUNCHES_PER_FORWARD = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "deconv_up": 9,
                         "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0,
-                        **{k: 0 for k in BACKWARD_KERNELS}, "wgrad3x3": 0}
+                        **{k: 0 for k in BACKWARD_KERNELS}, "wgrad3x3": 0,
+                        "sweep_variance_backward": 0, "sweep_gather_bf16": 0,
+                        "sweep_scatter_bf16": 0}
 # per train step at B = 1 on the fused RED pipeline (Config() defaults): the
 # training sweep pair once per stage and source view instead of
 # sweep_variance, the RED kernels as in a forward and each one's backward
@@ -780,25 +809,57 @@ LAUNCHES_PER_TRAIN_STEP = {**LAUNCHES_PER_FORWARD, "sweep_variance": 0, "sweep_g
 LAUNCHES_PER_EVAL_STEP = dict(LAUNCHES_PER_FORWARD)
 LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
                           "sweep_scatter": 6}
+# phase 11, per train step at B = 1: on the fused sweep (train_fused_sweep)
+# per stage one sweep_variance forward, one sweep_variance_backward and a
+# sweep_scatter per source view, no sweep_gather; with bf16 volumes the
+# sweep pair's bf16 instances; CasMVS / UCS the fp32 sweep pair only (their
+# CostRegNet trains as cuDNN's conv3d, no plane-conv kernel); per-view
+# inference forwards a gather per stage and source view instead of
+# sweep_variance
+LAUNCHES_PER_FUSED_SWEEP_STEP = {**LAUNCHES_PER_TRAIN_STEP, "sweep_variance": 3,
+                                 "sweep_variance_backward": 3, "sweep_gather": 0}
+LAUNCHES_PER_BF16_STEP = {**LAUNCHES_PER_TRAIN_STEP, "sweep_gather": 0, "sweep_scatter": 0,
+                          "sweep_gather_bf16": 6, "sweep_scatter_bf16": 6}
+LAUNCHES_PER_COSTREG_TRAIN_STEP = LAUNCHES_PER_SCAN_STEP
+LAUNCHES_PER_VIEW_FORWARD = {**LAUNCHES_PER_FORWARD, "sweep_variance": 0, "sweep_gather": 6}
+LAUNCHES_PER_VIEW_BF16_FORWARD = {**LAUNCHES_PER_FORWARD, "sweep_variance": 0,
+                                  "sweep_gather_bf16": 6}
 # the kernels each path must launch
 INFERENCE_PATHS = ("forward", f"scene_b{BATCH_TILES}", "scene_b1", "streaming")
 CLI_PATHS = ("cli_train", "cli_predict", "cli_scene")  # phase 9: each runs every inference kernel
 TRAIN_KERNELS = ("sweep_gather", "sweep_scatter", *BACKWARD_KERNELS, "wgrad3x3")
 RED_FORWARD_KERNELS = ("conv_dn", "red_recur", "deconv_up", "conv_head")
+# phase 11: the new instances' paths, the first the main one, and the fp32
+# sweep pair's further paths (the CostRegNet families' training, the
+# per-view inference sweep)
+SWEEP_TRAIN_PATHS = {"sweep_variance_backward": ("fused_sweep_step",),
+                     "sweep_gather_bf16": ("bf16_step", "per_view_bf16_forward"),
+                     "sweep_scatter_bf16": ("bf16_step",)}
+FP32_SWEEP_PATHS = {"sweep_gather": ("casmvs_train_step", "ucs_train_step", "cli_train_ucs",
+                                     "per_view_forward"),
+                    "sweep_scatter": ("casmvs_train_step", "ucs_train_step", "cli_train_ucs",
+                                      "fused_sweep_step")}
 
 
 def kernel_wrappers() -> dict:
+    """name → (wrapper, the attribute that counts its launches): the sweep
+    pair's fp32 and bf16 instances count apart."""
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
     from satmvs_tpu_torch.ops.kernels.sweep_gather import sweep_gather, sweep_scatter
-    from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance
+    from satmvs_tpu_torch.ops.kernels.sweep_variance import (sweep_variance,
+                                                             sweep_variance_backward)
 
-    return {"sweep_variance": sweep_variance, "conv_dn": pc.conv_dn, "red_recur": rr.red_recur,
-            "deconv_up": pc.deconv_up, "conv_head": pc.conv_head, "sweep_gather": sweep_gather,
-            "sweep_scatter": sweep_scatter, "conv_dn_backward": pc.conv_dn_backward,
-            "red_recur_backward": rr.red_recur_backward,
-            "deconv_up_backward": pc.deconv_up_backward,
-            "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3}
+    fns = {"sweep_variance": sweep_variance, "conv_dn": pc.conv_dn, "red_recur": rr.red_recur,
+           "deconv_up": pc.deconv_up, "conv_head": pc.conv_head, "sweep_gather": sweep_gather,
+           "sweep_scatter": sweep_scatter, "conv_dn_backward": pc.conv_dn_backward,
+           "red_recur_backward": rr.red_recur_backward,
+           "deconv_up_backward": pc.deconv_up_backward,
+           "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3,
+           "sweep_variance_backward": sweep_variance_backward}
+    out = {k: (f, "launches") for k, f in fns.items()}
+    out.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in ("sweep_gather", "sweep_scatter")})
+    return out
 
 
 def build_model(device):
@@ -815,12 +876,12 @@ def build_model(device):
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_wrappers().items()}
 
 
 def reset_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def stage_steps(lo: float, hi: float, intervals) -> list[float]:
@@ -936,15 +997,13 @@ def phase_slice(card: str) -> dict:
     batches = [synthetic.make_batch(1, WIDTH, HEIGHT, seed=s, device="cuda") for s in SEEDS]
     torch.cuda.synchronize()
 
-    wrappers = kernel_wrappers()
     reset_counts()
     outs = []
     for i, b in enumerate(batches):
         outs.append(model(b["imgs"], b["cams"], b["depth_values"]))
-        for name, fn in wrappers.items():
+        for name, n in counts().items():
             want = LAUNCHES_PER_FORWARD[name] * (i + 1)
-            check(fn.launches == want,
-                  f"{name} launches {fn.launches} after {i + 1} forwards, want {want}")
+            check(n == want, f"{name} launches {n} after {i + 1} forwards, want {want}")
     torch.cuda.synchronize()
     launches = counts()
     print(f"[slice] {len(batches)} forwards at {HEIGHT}x{WIDTH}, ndepths={NDEPTHS}: "
@@ -1185,14 +1244,14 @@ def grid_sample_calls(src, xs, ys, g):
     return forward, lambda: torch.autograd.grad(out, inp, gout, retain_graph=True)
 
 
-def phase_sweep_gather(card: str) -> list[dict]:
-    """Phase 6: sweep_gather and sweep_scatter against their plain versions
-    at the training shapes (both source views of every stage), and with
-    coordinates pushed off the image."""
+def gather_cases() -> list[tuple]:
+    """(label, src, xs, ys, g) of the training sweep pair: both source views
+    of every stage of a 384×768 train step (RPC coordinates of uniform
+    planes over the height range), then the first case's coordinates pushed
+    off the image, some far off ("off-image")."""
     from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.geo import rpc as rpclib
     from satmvs_tpu_torch.ops import warp
-    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
 
     rpcs = synthetic.make_rpc_triplet(WIDTH, HEIGHT, seed=0)
     rpcs = np.stack([rpcs[2], rpcs[0], rpcs[1]])  # nadir reference first
@@ -1214,7 +1273,16 @@ def phase_sweep_gather(card: str) -> list[dict]:
     xs_off.view(-1)[::97] = 1e9
     ys_off.view(-1)[::89] = -1e9
     cases.append(("off-image", src, xs_off, ys_off, g))
+    return cases
 
+
+def phase_sweep_gather(card: str) -> list[dict]:
+    """Phase 6: sweep_gather and sweep_scatter against their plain versions
+    at the training shapes (both source views of every stage), and with
+    coordinates pushed off the image."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    cases = gather_cases()
     gather = KernelReport("sweep_gather", "satmvs_tpu_torch/csrc/sweep_gather.cu",
                           "satmvs_tpu/ops/pallas/sweep_gather.py:400", card)
     scatter = KernelReport("sweep_scatter", "satmvs_tpu_torch/csrc/sweep_gather.cu",
@@ -1583,9 +1651,43 @@ def batch_to(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def phase_train_parity(card: str):
-    """Phase 7, last part: one eval-mode gradient and one train step at
-    PARITY_SIZE on the card and on the CPU from the same weights and batch."""
+# phase 11's CasMVS / UCS step, GPU vs CPU: their CostRegNet needs D % 8 == 0,
+# and their train-mode forward is ill-conditioned at B = 1 (the CostRegNet's
+# coarsest train-mode BatchNorms take their statistics over few values a
+# channel, stages 2-3 centre their windows on the previous stage's
+# train-mode depth; `train_sensitivity.py --only jax` measures JAX's own step
+# moving by up to 6.3e-4 in its depth_loss, 0.42 in its update over all and
+# 2.7e-3 in its statistics under a 1e-6 perturbation of the images): the train
+# step's loss to 1e-3, its update to 0.5 over all (per tensor not gated), the
+# running statistics to 3e-3; the eval-mode loss and gradients keep the gates
+# above
+COSTREG_PARITY_NDEPTHS = (16, 8, 8)
+COSTREG_PARITY = {"step_loss": 1e-3, "update": None, "update_all": 0.5, "stats": 3e-3}
+# phase 11's bf16-volume step, GPU vs CPU: a sample whose fp32 value lies
+# near a bf16 rounding boundary rounds the other way on the card (the
+# kernel's FMA taps against the plain version's products), a 2⁻⁸ change of
+# that volume value and of its cotangent; on the CPU a 1e-7 relative
+# perturbation of the images moves the bf16 step's eval-mode gradients by up
+# to 8.6e-2 relative norm per tensor (7.8e-3 over all) and its update by
+# 0.63 per tensor (5.2e-2 over all), against 9.5e-3 / 4.1e-2 in fp32
+# (`train_sensitivity.py --only bf16`).  Gates about 2.5× those:
+# eval-mode gradients 0.2 per tensor and 2e-2 over all, the update 0.15
+# over all (per tensor not gated)
+BF16_PARITY = {"grad": 0.2, "grad_all": 2e-2, "update": None, "update_all": 0.15}
+
+
+def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = False,
+                       gates: dict | None = None, **fields):
+    """One eval-mode gradient and one train step at PARITY_SIZE on the card
+    and on the CPU from the same weights and batch (phase 7, last part, and
+    phase 11): Config(ndepths=PARITY_NDEPTHS, seed=5, **fields), with
+    fused_sweep the train step on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP);
+    `gates` overrides the eval-mode gradients' ("grad" per tensor,
+    "grad_all"), the train step's loss ("step_loss"), update ("update" per
+    tensor, None: not gated; "update_all") and statistics ("stats")
+    gates."""
+    import os
+
     from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.models.losses import cascade_loss
     from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
@@ -1593,11 +1695,18 @@ def phase_train_parity(card: str):
     t0 = time.time()
     h, w = PARITY_SIZE
     cpu_batch = synthetic.make_batch(1, w, h, seed=1, device="cpu")
-    cfg = Config(ndepths=PARITY_NDEPTHS, seed=5)
+    cfg = Config(**{"ndepths": PARITY_NDEPTHS, "seed": 5, **fields})
+    gate = {"step_loss": PARITY_LOSS, "update": PARITY_UPDATE, "update_all": PARITY_UPDATE_ALL,
+            "stats": PARITY_STATS, "grad": PARITY_GRAD, "grad_all": PARITY_GRAD_ALL,
+            **(gates or {})}
     runs = {}
     for dev in ("cuda", "cpu"):
         batch = batch_to(cpu_batch, dev)
-        model, state, tx = create_model_and_state(cfg, batch, 1)
+        os.environ["SATMVS_TRAIN_FUSED_SWEEP"] = "1" if fused_sweep else "0"
+        try:
+            model, state, tx = create_model_and_state(cfg, batch, 1)
+        finally:
+            del os.environ["SATMVS_TRAIN_FUSED_SWEEP"]
         lecun_scale(model)
         old = {k: v.detach().cpu().clone() for k, v in state.params.items()}
         out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"], False)
@@ -1612,10 +1721,11 @@ def phase_train_parity(card: str):
     gpu, cpu = runs["cuda"], runs["cpu"]
     for name in ("loss", "step_loss"):
         rel = abs(gpu[name] - cpu[name]) / abs(cpu[name])
-        print(f"[train] fused step GPU vs CPU {h}x{w} ndepths {PARITY_NDEPTHS}: {name} "
+        tol = PARITY_LOSS if name == "loss" else gate["step_loss"]
+        print(f"[train] {what} GPU vs CPU {h}x{w} ndepths {tuple(cfg.ndepths)}: {name} "
               f"{gpu[name]:.6f} vs "
-              f"{cpu[name]:.6f}, {rel:.3e} relative (tol {PARITY_LOSS})", flush=True)
-        check(rel <= PARITY_LOSS, f"train parity: {name} {rel} relative")
+              f"{cpu[name]:.6f}, {rel:.3e} relative (tol {tol})", flush=True)
+        check(rel <= tol, f"{what} parity: {name} {rel} relative")
     scale = max(g.abs().max().item() for g in cpu["grads"].values())
     worst, head, g_num, g_den = 0.0, 0.0, 0.0, 0.0
     for n, g in gpu["grads"].items():
@@ -1638,16 +1748,17 @@ def phase_train_parity(card: str):
                 for n, v in gpu["stats"].items())
     total = (num / den) ** 0.5
     g_total = (g_num / g_den) ** 0.5
-    print(f"[train] GPU vs CPU: eval-mode gradients max relative norm {worst:.3e} over "
-          f"{len(gpu['grads'])} tensors (tol {PARITY_GRAD}), {g_total:.3e} over all (tol "
-          f"{PARITY_GRAD_ALL}), head biases {head:.3e} of the "
+    print(f"[train] {what} GPU vs CPU: eval-mode gradients max relative norm {worst:.3e} over "
+          f"{len(gpu['grads'])} tensors (tol {gate['grad']}), {g_total:.3e} over all (tol "
+          f"{gate['grad_all']}), head biases {head:.3e} of the "
           f"largest element (tol {PARITY_HEAD}); update relative norm max {upd:.3e} per tensor "
-          f"(tol {PARITY_UPDATE}), {total:.3e} over all (tol {PARITY_UPDATE_ALL}); running "
-          f"statistics {stats:.3e} (tol {PARITY_STATS}); {time.time() - t0:.1f} s", flush=True)
-    check(worst <= PARITY_GRAD and g_total <= PARITY_GRAD_ALL and head <= PARITY_HEAD,
-          "train parity: eval-mode gradients")
-    check(upd <= PARITY_UPDATE and total <= PARITY_UPDATE_ALL, "train parity: the update")
-    check(stats <= PARITY_STATS, "train parity: running statistics")
+          f"(tol {gate['update']}), {total:.3e} over all (tol {gate['update_all']}); running "
+          f"statistics {stats:.3e} (tol {gate['stats']}); {time.time() - t0:.1f} s", flush=True)
+    check(worst <= gate["grad"] and g_total <= gate["grad_all"] and head <= PARITY_HEAD,
+          f"{what} parity: eval-mode gradients")
+    check((gate["update"] is None or upd <= gate["update"]) and total <= gate["update_all"],
+          f"{what} parity: the update")
+    check(stats <= gate["stats"], f"{what} parity: running statistics")
 
 
 def train_step_split(model, state, tx, batch, cfg, card: str):
@@ -1695,13 +1806,23 @@ def train_step_split(model, state, tx, batch, cfg, card: str):
               f"clock, card synchronized) card={card}", flush=True)
 
 
-def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str):
-    """n_steps train steps of a fresh model from cfg on batch, each checked
-    for exact launches and finite scalars; returns (model, state, tx, step
-    function, launches in all, step ms, losses, peak GiB)."""
+def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str,
+                    fused_sweep: bool = False):
+    """n_steps train steps of a fresh model from cfg on batch (with
+    fused_sweep on the fused sweep: SATMVS_TRAIN_FUSED_SWEEP=1 while the
+    model is built), each checked for exact launches and finite scalars;
+    returns (model, state, tx, step function, launches in all, step ms,
+    losses, peak GiB)."""
+    import os
+
     from satmvs_tpu_torch.train import create_model_and_state, make_train_step
 
-    model, state, tx = create_model_and_state(cfg, batch, TRAIN_STEPS)
+    os.environ["SATMVS_TRAIN_FUSED_SWEEP"] = "1" if fused_sweep else "0"
+    try:
+        model, state, tx = create_model_and_state(cfg, batch, TRAIN_STEPS)
+    finally:
+        del os.environ["SATMVS_TRAIN_FUSED_SWEEP"]
+    check(model.train_fused_sweep == fused_sweep, f"{what}: train_fused_sweep")
     train_step = make_train_step(model, tx, cfg.dlossw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1733,18 +1854,20 @@ def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str):
     return model, state, tx, train_step, launches, times, losses, peak
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str) -> tuple[dict, dict]:
     """Phase 7: the training path at full width, on the fused RED pipeline
     (Config() defaults) and with fused_red off; returns the launches of the
-    fused train steps' run, of the eval step's and of the scan steps'."""
+    fused train steps' run, of the eval step's and of the scan steps', and
+    the default step's median ms and peak GiB."""
     from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.train import Config, make_eval_step
 
     batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
     cfg = Config(ndepths=NDEPTHS)
     check(cfg.fused_red is None, "Config() must default to fused_red None")
-    model, state, tx, train_step, train_launches, _, losses, _ = run_train_steps(
+    model, state, tx, train_step, train_launches, times, losses, peak = run_train_steps(
         cfg, batch, TRAIN_STEPS, LAUNCHES_PER_TRAIN_STEP, "fused", card)
+    default_step = {"ms": float(np.median(times)), "peak": peak}
     check(losses[-1]["loss"] < losses[0]["loss"],
           f"fused train steps: loss {losses[0]['loss']} -> {losses[-1]['loss']} did not fall")
     eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
@@ -1773,7 +1896,271 @@ def phase_train(card: str) -> dict:
     del scan_state, scan_step
     phase_train_parity(card)
     return {"train_step": train_launches, "eval_step": eval_launches,
-            "scan_train_step": scan_launches}
+            "scan_train_step": scan_launches}, default_step
+
+
+# phase 11: the training sweeps, each path's own steps
+SWEEP_STEPS = 3
+
+
+def bf16_tol(want) -> torch.Tensor:
+    """The bf16 gather against its plain version: each value within one bf16
+    unit in the last place of the plain value (the two round fp32 samples
+    that differ by FMA contraction, and one near a rounding boundary may
+    round the other way) plus rel_tol (the fp32 samples' own difference,
+    which decides where a sample cancels to near 0)."""
+    _, e = torch.frexp(want.float().abs())
+    return torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8) + rel_tol(want.float())
+
+
+def sweep_backward_work(feats, xs, ys) -> tuple[float, float]:
+    """Bytes (the volume's cotangent read once, the S cotangent volumes and
+    the reference's cotangent written once, coordinates and features read
+    once) and flops (valid taps: a multiply and an add a channel; per
+    output element the mean, the reference's term and each view's: 4·S + 5)
+    of one sweep_variance_backward on this data."""
+    b, n_src, d, h, w = xs.shape
+    c = feats.shape[-1]
+    vol = b * d * h * w * c
+    nbytes = 4 * (vol * (1 + n_src) + b * h * w * c + 2 * xs.numel() + feats.numel())
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum().item()
+               for dx in (0, 1) for dy in (0, 1))
+    return nbytes, 2 * c * taps + vol * (4 * n_src + 5)
+
+
+def phase_sweep_train_kernels(card: str) -> list[dict]:
+    """Phase 11 (c): each new kernel instance against its plain version at
+    the three stage shapes of a 384×768 train step: sweep_variance_backward
+    on the forward's coordinates (B = 1, S = 2; gs and dref, the same bits in
+    a second run), the bf16 gather (`bf16_tol`, the same bits twice) and the bf16 scatter (the
+    summation bound of phase 6; its run-to-run difference) on phase 6's
+    cases; kernel ms by events, device ms by torch.profiler, bound and plain
+    ms.  No single PyTorch call computes any of the three (library null)."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    backward = KernelReport("sweep_variance_backward", "satmvs_tpu_torch/csrc/sweep_variance.cu",
+                            "satmvs_tpu/ops/pallas/sweep_variance.py:226", card)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = 0.0
+    for i in range(3):
+        h, w = HEIGHT // STAGE_SCALES[i], WIDTH // STAGE_SCALES[i]
+        feats, xs, ys = sweep_inputs(i, 1, h, w, gen)
+        g = torch.randn((1, NDEPTHS[i], h, w, FEAT_CH[i]), generator=gen, device="cuda")
+        label = f"stage{i + 1} {tuple(g.shape)}"
+        backward.case(label, lambda: sv.sweep_variance_backward(feats, xs, ys, g),
+                      lambda: sv.sweep_variance_backward_reference(feats, xs, ys, g),
+                      (rel_tol, rel_tol), *sweep_backward_work(feats, xs, ys))
+        a, b = sv.sweep_variance_backward(feats, xs, ys, g), sv.sweep_variance_backward(
+            feats, xs, ys, g)
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        d_ms = device_ms(lambda: sv.sweep_variance_backward(feats, xs, ys, g),
+                         "sweep_variance_backward", 5)
+        dev += d_ms
+        print(f"[sweeps] sweep_variance_backward {label}: same bits in a second run {same}, "
+              f"device {d_ms:.4f} ms (profiler) card={card}", flush=True)
+        check(same, f"sweep_variance_backward {label}: bits differ between runs")
+        del feats, xs, ys, g, a, b
+    print(f"[sweeps] sweep_variance_backward over a train step's 3 launches: device "
+          f"{dev:.4f} ms, events {backward.rec['ms']:.4f} ms, bound {backward.rec['bound_ms']:.4f} "
+          f"ms card={card}", flush=True)
+
+    gather = KernelReport("sweep_gather_bf16", "satmvs_tpu_torch/csrc/sweep_gather.cu",
+                          "satmvs_tpu/ops/pallas/sweep_gather.py:436", card)
+    scatter = KernelReport("sweep_scatter_bf16", "satmvs_tpu_torch/csrc/sweep_gather.cu",
+                           "satmvs_tpu/ops/pallas/sweep_gather.py:576", card)
+
+    def bf16_bytes(d, h, w, c):
+        return 2 * d * h * w * c + 8 * d * h * w + 4 * h * w * c
+
+    dev = [0.0, 0.0]
+    for label, src, xs, ys, g in gather_cases():
+        timed = label != "off-image"
+        d, h, w = xs.shape
+        c = src.shape[-1]
+        flops = gather_work(src, xs, ys)[1]
+        gather.case(label, lambda: sg.sweep_gather(src, xs, ys, torch.bfloat16),
+                    lambda: sg.sweep_gather_reference(src, xs, ys, torch.bfloat16), bf16_tol,
+                    bf16_bytes(d, h, w, c), flops, timed=timed)
+        same = torch.equal(sg.sweep_gather(src, xs, ys, torch.bfloat16),
+                           sg.sweep_gather(src, xs, ys, torch.bfloat16))
+        check(same, f"sweep_gather_bf16 {label}: bits differ between runs")
+        gb = g.to(torch.bfloat16)
+        mag = sg.sweep_scatter_reference(gb.abs(), xs, ys, h, w).max().item()
+        tol = 2 * (4 * d - 1) * 2.0 ** -24 * mag
+        scatter.case(label, lambda: sg.sweep_scatter(gb, xs, ys),
+                     lambda: sg.sweep_scatter_reference(gb, xs, ys, h, w), lambda want: tol,
+                     bf16_bytes(d, h, w, c), flops, timed=timed)
+        again = (sg.sweep_scatter(gb, xs, ys) - sg.sweep_scatter(gb, xs, ys)).abs().max().item()
+        check(again <= tol, f"sweep_scatter_bf16 {label}: run-to-run {again} > {tol}")
+        line = (f"[sweeps] bf16 pair {label}: gather same bits twice {same}; scatter run-to-run "
+                f"{again:.3e} (bound {tol:.3e})")
+        if timed:
+            gd = device_ms(lambda: sg.sweep_gather(src, xs, ys, torch.bfloat16),
+                           lambda k: "sweep_gather_kernel" in k and "unsigned short" in k, 5)
+            sd = device_ms(lambda: sg.sweep_scatter(gb, xs, ys),
+                           lambda k: "sweep_scatter_kernel" in k and "unsigned short" in k, 5)
+            dev[0] += gd
+            dev[1] += sd
+            line += f"; device gather {gd:.4f} ms, scatter {sd:.4f} ms (profiler)"
+        print(f"{line} card={card}", flush=True)
+    print(f"[sweeps] bf16 pair over a train step's six views: device gather {dev[0]:.4f} ms, "
+          f"scatter {dev[1]:.4f} ms; events gather {gather.rec['ms']:.4f}, scatter "
+          f"{scatter.rec['ms']:.4f} ms; bounds {gather.rec['bound_ms']:.4f}, "
+          f"{scatter.rec['bound_ms']:.4f} ms card={card}", flush=True)
+    return [backward.record(), gather.record(), scatter.record()]
+
+
+def per_view_forward(card: str, volume_dtype, want: dict) -> dict:
+    """Phase 11 (e): CascadeREDNet's forward on the per-view sweep
+    (fused_sweep=False; volume_dtype None or torch.bfloat16) at 384×768:
+    exact launches (a gather per stage and source view, no sweep_variance),
+    its ms, each stage against the default forward's, same window centres
+    (the per-view stage i from the default's stage i − 1 depth), and the
+    same model's plain run on the CPU at PARITY_SIZE (`gpu_vs_cpu`).  In
+    fp32 the model is phase 3's (heads ×40) and both comparisons are held to
+    DEPTH_TOL_MEAN / DEPTH_TOL_P99 of a step.  With bf16 volumes the
+    comparison with the fp32 default is reported, not gated: bf16 storage
+    moves every volume value by up to 2⁻⁹ relative, which moves stage 1's
+    depth by 0.31 of a step on average at LeCun scale and by 2.4 steps with
+    the heads ×40 (`train_sensitivity.py --only forward`).  Against the CPU
+    only the values whose fp32 samples round to different bf16 neighbours
+    differ (~3e-5 of them, a one-ulp step each); with the heads ×40 those
+    flips alone moved stage 1's p99 past DEPTH_TOL_P99 on the card, so the
+    bf16 model is phase 3's at LeCun scale without the gain.  Returns the
+    launches."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.models import CascadeREDNet
+
+    def make(device):
+        if volume_dtype is None:
+            return build_model(device)
+        return lecun_scale(CascadeREDNet(geo_model="rpc", ndepths=NDEPTHS, device=device, seed=0))
+
+    model = make("cuda")
+    model.volume_dtype = volume_dtype
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    default = model(imgs, cams, dvals)
+    model.fused_sweep = False
+    what = "per-view" + (" bf16" if volume_dtype is not None else "")
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == want, f"{what} forward launches {launches}")
+    check(all(bool(torch.isfinite(v).all()) for v in (out["depth"],
+                                                      out["photometric_confidence"])),
+          f"{what} forward: non-finite output")
+    fwd_ms = time_ms(lambda: model(imgs, cams, dvals), reps=3, warmup=1)
+    print(f"[sweeps] {what} forward (fused_sweep off) at {HEIGHT}x{WIDTH}: launches "
+          f"{({k: v for k, v in launches.items() if v})} (exact), {fwd_ms:.2f} ms (median of 3, "
+          f"CUDA events) card={card}", flush=True)
+    feats = model.features(imgs)
+    lo, hi = dvals[0].tolist()
+    for i, step in enumerate(stage_steps(lo, hi, model.stage_intervals())):
+        prev = None if i == 0 else default[f"stage{i}"]["depth"]
+        got = model.stage(i, feats[i], cams[i], dvals[:, 0], dvals[:, -1], prev)
+        err = (got["depth"] - default[f"stage{i + 1}"]["depth"]).abs() / step
+        mean, p99, mx = err_quantiles(err)
+        gated = volume_dtype is None
+        print(f"[sweeps] {what} forward stage{i + 1} against the default forward, same window "
+              f"centres: depth err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of step "
+              + (f"(tol mean {DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99})" if gated else
+                 "(bf16 volumes: reported)"), flush=True)
+        check(not gated or (mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99),
+              f"{what} forward stage{i + 1}: depth err mean {mean}, p99 {p99} of step")
+    del default, out, feats
+    h, w = PARITY_SIZE
+    small = synthetic.make_batch(1, w, h, seed=1, device="cuda")
+    cpu_model = make("cpu")
+    cpu_model.fused_sweep, cpu_model.volume_dtype = False, volume_dtype
+    gpu_vs_cpu("[sweeps]", f"{what} forward at {h}x{w}",
+               model(small["imgs"], small["cams"], small["depth_values"]), cpu_model,
+               small["imgs"], small["cams"], small["depth_values"])
+    return launches
+
+
+def phase_training_sweeps(card: str, tree: str, default_step: dict) -> dict:
+    """Phase 11: the training sweeps at 384×768, B = 1, Config() (the fused
+    RED pipeline), TF32 off: (a) train steps on the fused sweep and (b) with
+    bf16 volumes, each beside the default step run before and after them
+    (and phase 7's, `default_step`: its median ms and peak GiB) and against
+    its own CPU run at PARITY_SIZE; (d) CascadeMVSNet and UCSNet train
+    steps, their CPU runs, and a `cli.train --model ucs` epoch on phase 9's
+    tree; (e) the per-view inference sweep in fp32 and bf16.  (c), the new
+    kernel instances alone (`phase_sweep_train_kernels`), runs beside phase
+    6.  Returns each path's launches."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import train as cli_train
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    t0 = time.time()
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    launches = {}
+    steps = {}  # median ms and peak GiB of each run, phase 7's default step before and after
+    for key, what, fields, fused, want in (
+            ("default_before", "default", {}, False, LAUNCHES_PER_TRAIN_STEP),
+            ("fused_sweep_step", "fused-sweep", {}, True, LAUNCHES_PER_FUSED_SWEEP_STEP),
+            ("bf16_step", "bf16-volume", {"volume_dtype": "bfloat16"}, False,
+             LAUNCHES_PER_BF16_STEP),
+            ("default_after", "default", {}, False, LAUNCHES_PER_TRAIN_STEP)):
+        cfg = Config(ndepths=NDEPTHS, **fields)
+        *_, run_launches, times, losses, peak = run_train_steps(
+            cfg, batch, SWEEP_STEPS, want, what, card, fused_sweep=fused)
+        steps[key] = (float(np.median(times)), peak)
+        if key.startswith("default"):
+            continue
+        launches[key] = run_launches
+        check(losses[-1]["loss"] < losses[0]["loss"], f"{what} steps: the loss did not fall")
+        phase_train_parity(card, f"{what} step", fused_sweep=fused,
+                           gates=BF16_PARITY if fields else None, **fields)
+    base_ms = (steps["default_before"][0] + steps["default_after"][0]) / 2
+    base_peak = steps["default_before"][1]
+    for key, what in (("fused_sweep_step", "fused-sweep"), ("bf16_step", "bf16-volume")):
+        ms, peak = steps[key]
+        print(f"[sweeps] {what} step {ms:.2f} ms, peak {peak:.3f} GiB against the default step "
+              f"run before and after it {steps['default_before'][0]:.2f} / "
+              f"{steps['default_after'][0]:.2f} ms, {base_peak:.3f} GiB: {ms / base_ms:.3f}x, "
+              f"{peak - base_peak:+.3f} GiB (phase 7's default step {default_step['ms']:.2f} ms, "
+              f"{default_step['peak']:.3f} GiB) card={card}", flush=True)
+    for name in COSTREG_FAMILIES:
+        cfg = Config(model=name, ndepths=NDEPTHS)
+        *_, launches[f"{name}_train_step"], times, losses, peak = run_train_steps(
+            cfg, batch, SWEEP_STEPS, LAUNCHES_PER_COSTREG_TRAIN_STEP, f"{name}", card)
+        print(f"[sweeps] {name} train step {float(np.median(times)):.2f} ms, peak {peak:.3f} GiB "
+              f"card={card}", flush=True)
+        phase_train_parity(card, f"{name} step", gates=COSTREG_PARITY, model=name,
+                           ndepths=COSTREG_PARITY_NDEPTHS)
+    logdir = WORK / "ucs_logs"
+    shutil.rmtree(logdir, ignore_errors=True)
+    reset_counts()
+    t1 = time.perf_counter()
+    out = cli_train.main(["--mode=train", f"--dataset_root={tree}", f"--logdir={logdir}",
+                          "--model", "ucs", "--epochs", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches["cli_train_ucs"] = counts()
+    want = {k: TREE_TRAIN * LAUNCHES_PER_COSTREG_TRAIN_STEP[k]
+            + TREE_TEST * LAUNCHES_PER_COSTREG_FORWARD[k] for k in LAUNCHES_PER_FORWARD}
+    check(launches["cli_train_ucs"] == want, f"cli.train --model ucs: launches "
+          f"{launches['cli_train_ucs']}")
+    check(out["timing"]["steps"] == [TREE_TRAIN] and os.path.isfile(
+        logdir / "ucs" / "rpc" / "1" / "state.pt"), f"cli.train --model ucs: {out['timing']}")
+    print(f"[sweeps] cli.train --mode=train --model ucs, one epoch ({TREE_TRAIN} steps, "
+          f"{TREE_TEST} test forward): {wall:.2f} s wall, "
+          f"{1e3 * out['timing']['train_s'][0] / TREE_TRAIN:.1f} ms a step, launches "
+          f"{({k: v for k, v in want.items() if v})} (exact) card={card}", flush=True)
+    launches["per_view_forward"] = per_view_forward(card, None, LAUNCHES_PER_VIEW_FORWARD)
+    launches["per_view_bf16_forward"] = per_view_forward(card, torch.bfloat16,
+                                                         LAUNCHES_PER_VIEW_BF16_FORWARD)
+    print(f"[sweeps] phase 11 took {time.time() - t0:.1f} s", flush=True)
+    return launches
 
 
 # phase 9: the on-disk journey through the CLIs (satmvs_tpu_torch/cli/) on a
@@ -2423,11 +2810,11 @@ def run(scene_job, tree_job) -> int:
               f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
 
-    # phases 2, 2b, 6, 8 and 3
+    # phases 2, 2b, 6, 11 (c), 8 and 3
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
     phase_many_views(smi)
     records = [*sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
-               *phase_red_backward(smi)]
+               *phase_sweep_train_kernels(smi), *phase_red_backward(smi)]
     launches = {"forward": phase_slice(smi)}
 
     # phase 5, then phase 4 on phase 5's first chunk
@@ -2443,7 +2830,8 @@ def run(scene_job, tree_job) -> int:
     del model, chunk, scene
 
     # phase 7
-    launches.update(phase_train(smi))
+    train_launches, default_step = phase_train(smi)
+    launches.update(train_launches)
 
     # phase 9
     t0 = time.time()
@@ -2460,6 +2848,9 @@ def run(scene_job, tree_job) -> int:
     launches["cli_predict_ucs"] = costreg_cli(smi, tree)
     print(f"[costreg] phase 10 took {time.time() - t0:.1f} s", flush=True)
 
+    # phase 11
+    launches.update(phase_training_sweeps(smi, tree, default_step))
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches;
         # a costreg record the same wrapper in its CostRegNet form
@@ -2468,13 +2859,16 @@ def run(scene_job, tree_job) -> int:
         wrapper = record["name"].removesuffix("_batched").removesuffix("_costreg")
         record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
         train = wrapper in TRAIN_KERNELS
-        main = ("casmvs" if costreg else "train_step" if train else
+        main = (SWEEP_TRAIN_PATHS[wrapper][0] if wrapper in SWEEP_TRAIN_PATHS else
+                "casmvs" if costreg else "train_step" if train else
                 f"scene_b{BATCH_TILES}" if batched else "forward")
         record["launches"] = launches[main][wrapper]
-        paths = COSTREG_PATHS if costreg else ("train_step", "cli_train") if train else (
-            INFERENCE_PATHS + CLI_PATHS + (
-                ("eval_step",) if wrapper == "sweep_variance" else
-                ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ()))
+        paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
+                 COSTREG_PATHS if costreg else
+                 ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ())) if train else (
+                     INFERENCE_PATHS + CLI_PATHS + (
+                         ("eval_step", "fused_sweep_step") if wrapper == "sweep_variance" else
+                         ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")
 

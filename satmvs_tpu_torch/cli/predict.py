@@ -11,9 +11,10 @@ have no streaming form and take the full-volume forward with a warning, as
 the JAX script does.  --fuse filters each scene's views
 (`infer.fuse.fuse_scene_to_dsm`) into mvs_results/{name}_dsm.tif, or its
 PFM + TFW fallback without GDAL.  --color also writes colour PNGs and needs
-matplotlib.  Flags and defaults are the JAX script's; values whose features
-the port lacks (--use_qc, pinhole, --torch_compat, --fused_sweep off)
-raise.
+matplotlib.  --fused_sweep off builds the cost volumes with the per-view
+sweep (`sweep_gather`) instead of the fused `sweep_variance` kernel.  Flags
+and defaults are the JAX script's; values whose features the port lacks
+(--use_qc, pinhole, --torch_compat) raise.
 """
 
 from __future__ import annotations

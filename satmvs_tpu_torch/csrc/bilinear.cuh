@@ -29,7 +29,7 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)
 
 // Writes v to p with streaming stores (__stcs, evict-first): for outputs
 // that are not read again by the kernel, so they do not push the features
-// out of L2.
+// out of L2.  An overload below stores bfloat16.
 template <int VEC>
 __device__ __forceinline__ void store_streaming(float* __restrict__ p, const float (&v)[VEC]) {
   if constexpr (VEC == 4) {
@@ -37,6 +37,46 @@ __device__ __forceinline__ void store_streaming(float* __restrict__ p, const flo
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) __stcs(p + i, v[i]);
+  }
+}
+
+// bfloat16 storage of the volumes (stored as their 16 bits): a value is
+// rounded to nearest even once, as Tensor.to(torch.bfloat16) rounds it (a
+// NaN becomes the quiet NaN 0x7fc0), and widened exactly to float.
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  const unsigned u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;
+  return (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+__device__ __forceinline__ float bf16_value(unsigned short b) {
+  return __uint_as_float((unsigned)b << 16);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const unsigned short* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_value((unsigned short)(t.x & 0xffffu));
+    v[1] = bf16_value((unsigned short)(t.x >> 16));
+    v[2] = bf16_value((unsigned short)(t.y & 0xffffu));
+    v[3] = bf16_value((unsigned short)(t.y >> 16));
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = bf16_value(__ldg(p + i));
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_streaming(unsigned short* __restrict__ p,
+                                                const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(bf16_bits(v[0]) | ((unsigned)bf16_bits(v[1]) << 16),
+                      bf16_bits(v[2]) | ((unsigned)bf16_bits(v[3]) << 16)));
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) __stcs(p + i, bf16_bits(v[i]));
   }
 }
 

@@ -198,18 +198,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
   }
 }
 
-// Views s0 .. s0 + NS − 1 of one output pixel and plane (xs, ys at ci
-// for view s0, srcs at src for view s0), added in view order onto the
-// thread's per-channel sums: each view's sample (corners in Taps order, an
-// fma onto 0) onto sum, its square onto sq, the chain of
-// sweep_variance_kernel.  The group's coordinates are loaded together, then
-// its corners together: two memory round trips a group.
+// The samples w[s] of views s0 .. s0 + NS − 1 at one output pixel and plane
+// (xs, ys at ci for view s0, srcs at src for view s0), each an fma chain
+// over its corners in Taps order onto 0, as sweep_variance_kernel's.  The
+// group's coordinates are loaded together, then its corners together: two
+// memory round trips a group.
 template <int VEC, int NS>
-__device__ __forceinline__ void add_views(const float* __restrict__ src,
-                                          const float* __restrict__ xs,
-                                          const float* __restrict__ ys, int64_t ci, int64_t view,
-                                          int map, int H, int W, int C, int step,
-                                          float (&sum)[VEC], float (&sq)[VEC]) {
+__device__ __forceinline__ void sample_views(const float* __restrict__ src,
+                                             const float* __restrict__ xs,
+                                             const float* __restrict__ ys, int64_t ci,
+                                             int64_t view, int map, int H, int W, int C, int step,
+                                             float (&w)[NS][VEC]) {
   float cx[NS], cy[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -223,14 +222,31 @@ __device__ __forceinline__ void add_views(const float* __restrict__ src,
 #pragma unroll
   for (int s = 0; s < NS; ++s) load_corners<VEC, 1>(src + (int64_t)s * map, t[s], H, W, C, step, cv[s]);
 #pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      w[s][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[s][j] = __fmaf_rn(cv[s][c][j], t[s].w[c], w[s][j]);
+    }
+}
+
+// sample_views, each sample added in view order onto the thread's sums:
+// onto sum, its square onto sq, the chain of sweep_variance_kernel.
+template <int VEC, int NS>
+__device__ __forceinline__ void add_views(const float* __restrict__ src,
+                                          const float* __restrict__ xs,
+                                          const float* __restrict__ ys, int64_t ci, int64_t view,
+                                          int map, int H, int W, int C, int step,
+                                          float (&sum)[VEC], float (&sq)[VEC]) {
+  float w[NS][VEC];
+  sample_views<VEC, NS>(src, xs, ys, ci, view, map, H, W, C, step, w);
+#pragma unroll
   for (int j = 0; j < VEC; ++j) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      float w = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w = __fmaf_rn(cv[s][c][j], t[s].w[c], w);
-      sum[j] = __fadd_rn(sum[j], w);
-      sq[j] = __fmaf_rn(w, w, sq[j]);
+      sum[j] = __fadd_rn(sum[j], w[s][j]);
+      sq[j] = __fmaf_rn(w[s][j], w[s][j], sq[j]);
     }
   }
 }
@@ -282,6 +298,209 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
     }
     bilinear::store_streaming<VEC>(o, v);
   }
+}
+
+// ---- The backward ----
+//
+// Replaces the fused sweep's custom VJP, `_sweep_variance_bwd`
+// (satmvs_tpu/ops/pallas/sweep_variance.py:226), which re-gathers the
+// source views with the gather kernel and forms the per-view cotangents
+// elementwise before the scatter kernel transposes them.  With V = S + 1
+// views, the samples w_s of the forward, the mean m = (ref + Σ_s w_s) / V
+// (summed in view order after the reference) and the volume's cotangent g
+// (B, D, H, W, C), sweep_variance_backward_kernel writes
+//
+//   gs[b, s, d, y, x, :] = g · ((2/V)·(w_s − m))      (B, S, D, H, W, C)
+//   dref[b, y, x, :]     = Σ_d g · ((2/V)·(ref − m))   (B, H, W, C)
+//
+// each product rounded where JAX's composition rounds it; the caller then
+// scatters each gs[b, s] into its view's cotangent with sweep_scatter
+// (sweep_gather.cu), JAX's composition.
+//
+// What bounds it: memory.  The least traffic is g read once, the S
+// cotangent volumes written once, the coordinates and the features read
+// once: at the cascade's train shapes (S = 2) ~1.1 GB a step.  Design: a
+// thread owns one pixel and group of VEC channels of one sample (the
+// forward's tiles, Site) and walks all D planes in order, so dref is summed
+// over the planes in a fixed order, with no atomics, and every run gives
+// the same bits.  Per plane it gathers the S views' samples together (the
+// forward's sample_views: one memory round trip for the coordinates, one
+// for the corners), reads g once, writes the S cotangents with streaming
+// stores and adds the reference's term in registers.
+
+// g · ((2/V)·(w_s − m)) of views s0 .. s0 + NS − 1 into gs (gsp at view s0,
+// `vol` floats from one view's volume to the next).
+template <int VEC, int NS>
+__device__ __forceinline__ void store_cotangents(const float (&w)[NS][VEC], const float (&m)[VEC],
+                                                 const float (&gv)[VEC], float scale,
+                                                 float* __restrict__ gsp, int64_t vol) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    float v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(w[s][j], m[j])));
+    bilinear::store_streaming<VEC>(gsp + s * vol, v);
+  }
+}
+
+// One plane of a thread: m from the reference and the sums, the
+// reference's term added onto acc.
+template <int VEC>
+__device__ __forceinline__ void mean_and_ref_term(const float (&r)[VEC], const float (&sum)[VEC],
+                                                  const float (&gv)[VEC], float nv, float scale,
+                                                  float (&m)[VEC], float (&acc)[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    m[j] = __fdiv_rn(sum[j], nv);
+    acc[j] = __fadd_rn(acc[j], __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(r[j], m[j]))));
+  }
+}
+
+// The kernel for S ≤ 4 source views, all unrolled: each view's sample is
+// gathered once a plane and kept for its cotangent.  Grid (tiles, 1, B) and
+// thread map: Site with K = D (one group of VEC channels a thread).
+template <int VEC, int S>
+__global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_kernel(
+    const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
+    const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
+    float* __restrict__ gs, float* __restrict__ dref, int D, int H, int W, int C, int tx,
+    int ty) {
+  const Site at(VEC, D, H, W, C, D, tx, ty);
+  if (!at.ok) return;
+  const int step = at.lanes * VEC;
+  const int64_t hw = (int64_t)H * W;
+  const int64_t p = (int64_t)at.y * W + at.x;
+  const int64_t pc = p * C + at.lane * VEC;
+  const int64_t view = (int64_t)D * hw;  // coordinates of one view to the next
+  const int64_t vol = view * C;          // floats of one (D, H, W, C) volume
+  const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
+  const int map = H * W * C;
+  float r[VEC], acc[VEC];
+  bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  const float nv = (float)(S + 1), scale = __fdiv_rn(2.f, nv);
+  int64_t ci = (int64_t)at.b * S * view + p;  // view 0, plane 0
+  const float* gp = g + (int64_t)at.b * vol + pc;
+  float* gsp = gs + (int64_t)at.b * S * vol + pc;
+  for (int d = 0; d < D; ++d, ci += hw, gp += hw * C, gsp += hw * C) {
+    float w[S][VEC], gv[VEC], sum[VEC], m[VEC];
+    sample_views<VEC, S>(src, xs, ys, ci, view, map, H, W, C, step, w);
+    bilinear::load_vec<VEC>(gp, gv);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      sum[j] = r[j];
+#pragma unroll
+      for (int s = 0; s < S; ++s) sum[j] = __fadd_rn(sum[j], w[s][j]);
+    }
+    mean_and_ref_term<VEC>(r, sum, gv, nv, scale, m, acc);
+    store_cotangents<VEC, S>(w, m, gv, scale, gsp, vol);
+  }
+  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * hw * C + pc, acc);
+}
+
+// Views s0 .. s0 + NS − 1 added in view order onto sum.
+template <int VEC, int NS>
+__device__ __forceinline__ void sum_views(const float* __restrict__ src,
+                                          const float* __restrict__ xs,
+                                          const float* __restrict__ ys, int64_t ci, int64_t view,
+                                          int map, int H, int W, int C, int step,
+                                          float (&sum)[VEC]) {
+  float w[NS][VEC];
+  sample_views<VEC, NS>(src, xs, ys, ci, view, map, H, W, C, step, w);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) sum[j] = __fadd_rn(sum[j], w[s][j]);
+}
+
+// Views s0 .. s0 + NS − 1 gathered again and their cotangents stored.
+template <int VEC, int NS>
+__device__ __forceinline__ void cotangent_views(const float* __restrict__ src,
+                                                const float* __restrict__ xs,
+                                                const float* __restrict__ ys, int64_t ci,
+                                                int64_t view, int map, int H, int W, int C,
+                                                int step, const float (&m)[VEC],
+                                                const float (&gv)[VEC], float scale,
+                                                float* __restrict__ gsp, int64_t vol) {
+  float w[NS][VEC];
+  sample_views<VEC, NS>(src, xs, ys, ci, view, map, H, W, C, step, w);
+  store_cotangents<VEC, NS>(w, m, gv, scale, gsp, vol);
+}
+
+// sweep_variance_backward_kernel for any S ≥ 1 (run for S > 4): each plane
+// walks the views in groups of up to four twice, first for the mean (the
+// same sums in the same order as the unrolled kernel), then again for the
+// cotangents (S samples do not fit in registers).  The same grid and
+// thread map.
+template <int VEC>
+__global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_groups_kernel(
+    const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
+    const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
+    float* __restrict__ gs, float* __restrict__ dref, int S, int D, int H, int W, int C, int tx,
+    int ty) {
+  const Site at(VEC, D, H, W, C, D, tx, ty);
+  if (!at.ok) return;
+  const int step = at.lanes * VEC;
+  const int64_t hw = (int64_t)H * W;
+  const int64_t p = (int64_t)at.y * W + at.x;
+  const int64_t pc = p * C + at.lane * VEC;
+  const int64_t view = (int64_t)D * hw;
+  const int64_t vol = view * C;
+  const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
+  const int map = H * W * C;
+  float r[VEC], acc[VEC];
+  bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  const float nv = (float)(S + 1), scale = __fdiv_rn(2.f, nv);
+  int64_t ci = (int64_t)at.b * S * view + p;
+  const float* gp = g + (int64_t)at.b * vol + pc;
+  float* gsp = gs + (int64_t)at.b * S * vol + pc;
+#define SWEEP_GROUP(F, ...)                      \
+  switch (S - s0) {                              \
+    case 1: F<VEC, 1>(__VA_ARGS__); break;       \
+    case 2: F<VEC, 2>(__VA_ARGS__); break;       \
+    case 3: F<VEC, 3>(__VA_ARGS__); break;       \
+    default: F<VEC, 4>(__VA_ARGS__);             \
+  }
+  for (int d = 0; d < D; ++d, ci += hw, gp += hw * C, gsp += hw * C) {
+    float gv[VEC], sum[VEC], m[VEC];
+    bilinear::load_vec<VEC>(gp, gv);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sum[j] = r[j];
+    for (int s0 = 0; s0 < S; s0 += 4) {
+      SWEEP_GROUP(sum_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map, H, W,
+                  C, step, sum)
+    }
+    mean_and_ref_term<VEC>(r, sum, gv, nv, scale, m, acc);
+    for (int s0 = 0; s0 < S; s0 += 4) {
+      SWEEP_GROUP(cotangent_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map,
+                  H, W, C, step, m, gv, scale, gsp + s0 * vol, vol)
+    }
+  }
+#undef SWEEP_GROUP
+  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * hw * C + pc, acc);
+}
+
+template <int VEC>
+void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float* ref,
+                     const float* srcs, int64_t feat_bstride, const float* xs, const float* ys,
+                     const float* g, float* gs, float* dref, int D, int H, int W, int C, int tx,
+                     int ty) {
+#define SWEEP_BWD(NS)                                                                    \
+  sweep_variance_backward_kernel<VEC, NS><<<grid, threads, 0, st>>>(                     \
+      ref, srcs, feat_bstride, xs, ys, g, gs, dref, D, H, W, C, tx, ty)
+  switch (S) {
+    case 1: SWEEP_BWD(1); break;
+    case 2: SWEEP_BWD(2); break;
+    case 3: SWEEP_BWD(3); break;
+    case 4: SWEEP_BWD(4); break;
+    default:
+      sweep_variance_backward_groups_kernel<VEC><<<grid, threads, 0, st>>>(
+          ref, srcs, feat_bstride, xs, ys, g, gs, dref, S, D, H, W, C, tx, ty);
+  }
+#undef SWEEP_BWD
 }
 
 template <int VEC, int G, int S>
@@ -350,4 +569,39 @@ extern "C" int sweep_variance_f32(const float* ref, const float* srcs, long long
                     : launch_views<4, 2>(S, grid, n, st, ref, srcs, feat_bstride, xs, ys, out, D,
                                          H, W, C, planes, tx, ty);
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The backward's cotangents from the forward's operands (ref, srcs,
+// feat_bstride, xs, ys as sweep_variance_f32 takes them) and the volume's
+// cotangent g (B, D, H, W, C): gs (B, S, D, H, W, C), each source view's
+// cotangent volume, and dref (B, H, W, C), the reference's, under the tile
+// (vec, tx × ty) of `sweep_variance_backward_plan` (one group of vec
+// channels a thread, all D planes).  Launches on `stream`; vec is 4 (C % 4
+// == 0, ref, srcs, g, gs, dref and feat_bstride 16-byte aligned) or 1;
+// S ≥ 1.  Returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for arguments it does not take.
+extern "C" int sweep_variance_backward_f32(const float* ref, const float* srcs,
+                                           long long feat_bstride, const float* xs,
+                                           const float* ys, const float* g, float* gs,
+                                           float* dref, int B, int S, int D, int H, int W, int C,
+                                           int vec, int tx, int ty, void* stream) {
+  if ((vec != 1 && vec != 4) || C < 1 || C % vec != 0 || tx < 1 || ty < 1 || B < 0 || S < 1 ||
+      D < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t threads = (int64_t)(C / vec) * tx * ty;
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  if ((int64_t)(H + 2) * (W + 2) * C > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * H * W == 0) return 0;
+  const int64_t tiles = (int64_t)((H + ty - 1) / ty) * ((W + tx - 1) / tx);
+  if (tiles > 0x7fffffff || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1u, (unsigned)B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    launch_backward<4>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
+                       D, H, W, C, tx, ty);
+  } else {
+    launch_backward<1>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
+                       D, H, W, C, tx, ty);
+  }
+  return (int)cudaGetLastError();
 }

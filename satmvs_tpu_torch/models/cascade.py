@@ -5,13 +5,21 @@ exact per-pixel coordinates.  The family knobs are JAX's: regularizer
 ("red" or "costreg"), sampler ("window" or "uncertainty"), confidence
 ("max" or "window4"), grad_method ("through" or "detach"), share_cr, lamb,
 feat_base_chs and arch_mode ("unet" or "fpn"); `models/__init__.py` sets
-them per family.  Two paths, chosen by whether autograd records:
+them per family.  Two sweeps build each stage's cost volume, chosen as JAX
+chooses them (`satmvs_tpu/models/cascade.py:310-318`), with "training"
+meaning that autograd records a graph:
 
-  inference (no gradient): the cost volume of every stage comes from the
-    `sweep_variance` kernel, one launch for the whole batch;
-  training (gradients): per source view the `sweep_gather` kernel
+  the fused sweep: the `sweep_variance` kernel, one launch for the whole
+    batch (under autograd its backward is the `sweep_variance_backward`
+    kernel and a `sweep_scatter` per sample and source view); taken at
+    inference, and in training with train_fused_sweep=True, unless
+    fused_sweep=False;
+  the per-view sweep: per source view the `sweep_gather` kernel
     (`ops.warp.rpc_warp`, backward `sweep_scatter`) and the variance of the
-    warped views.
+    warped views, stored in volume_dtype (float32, or bfloat16 for half the
+    volume's bytes; the moments stay float32); taken in training by
+    default, and always with fused_sweep=False (which also turns
+    train_fused_sweep off, as in JAX).  volume_dtype acts on this path only.
 On both, the RED regularizer is the fused pipeline of the `conv_dn`,
 `red_recur`, `deconv_up` and `conv_head` kernels (`nn/red.py`; under
 autograd their backward kernels run too) when fused_red is None or True, on
@@ -75,7 +83,7 @@ def build_stage_volume(feats: torch.Tensor, cams: RpcWarpCams,
     """(B, V, h, w, C) features + batched cameras + (B, D, h, w) hypotheses
     → (B, D, h, w, C) variance cost volume: every sample's sweep
     coordinates in one stack, then one `sweep_variance_batched` for the
-    batch."""
+    batch (the fused sweep; differentiable in the features)."""
     b, v, sh, sw, _ = feats.shape
     per_sample = [cams[i] for i in range(b)]
     coords = [rpc_sweep_coords(per_sample[i], s, hyps[i], sh, sw)
@@ -85,16 +93,18 @@ def build_stage_volume(feats: torch.Tensor, cams: RpcWarpCams,
     return sweep_variance_batched(feats, xs, ys)
 
 
-def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams,
-                       hyps: torch.Tensor) -> torch.Tensor:
-    """`build_stage_volume`'s function, differentiable in the features: per
-    sample the variance over the reference view and each source view warped
-    by `rpc_warp` (one `sweep_gather` per source view)."""
+def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams, hyps: torch.Tensor,
+                       volume_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`build_stage_volume`'s function on the per-view sweep: per sample the
+    variance over the reference view and each source view warped by
+    `rpc_warp` (one `sweep_gather` per source view, its volume stored in
+    volume_dtype; None: float32)."""
     vols = []
     for i in range(feats.shape[0]):
         cams_b = cams[i]
         vols.append(sweep_variance_volume(
-            feats[i, 0], feats[i, 1:], lambda src, s: rpc_warp(src, cams_b, s, hyps[i])))
+            feats[i, 0], feats[i, 1:],
+            lambda src, s: rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype)))
     return torch.stack(vols)
 
 
@@ -111,8 +121,9 @@ class CascadeModel(nn.Module):
     pipeline, False for the scan, with or without gradients (JAX resolves
     None by its backend, `satmvs_tpu/models/cascade.py:306-307`; the port's
     kernels run on every device, so None is the fused pipeline everywhere).
-    train_fused_sweep=True (training on the fused sweep, whose backward is
-    not ported) raises.  share_cr=True (one regularizer for every stage)
+    train_fused_sweep, fused_sweep (None: True) and volume_dtype (None or
+    torch.float32, or torch.bfloat16) choose the sweep as the module
+    docstring says.  share_cr=True (one regularizer for every stage)
     raises: the stages' features have 4b, 2b and b channels, which one
     regularizer's first convolution cannot take (JAX's fails the same way,
     on the parameter's shape).
@@ -122,15 +133,13 @@ class CascadeModel(nn.Module):
                  depth_intervals_ratio: Sequence[float] = (4.0, 2.0, 1.0),
                  min_interval: float = 2.5, cr_base_chs: Sequence[int] = (8, 8, 8),
                  fused_red: bool | None = None, train_fused_sweep: bool = False,
+                 fused_sweep: bool | None = None, volume_dtype: torch.dtype | None = None,
                  regularizer: str = "red", sampler: str = "window", confidence: str = "max",
                  grad_method: str = "through", share_cr: bool = False, lamb: float = 1.5,
                  feat_base_chs: int = 8, arch_mode: str = "unet"):
         super().__init__()
         if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
             raise ValueError("the port runs three cascade stages")
-        if train_fused_sweep:
-            raise NotImplementedError("train_fused_sweep=True: the backward of the fused sweep "
-                                      "is not ported; training takes the per-view sweep_gather")
         for knob, value in (("regularizer", regularizer), ("sampler", sampler),
                             ("confidence", confidence), ("grad_method", grad_method),
                             ("arch_mode", arch_mode)):
@@ -141,6 +150,11 @@ class CascadeModel(nn.Module):
         self.min_interval = min_interval
         self.fused_red = fused_red
         self.train_fused_sweep = train_fused_sweep
+        self.fused_sweep = fused_sweep
+        if volume_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"volume_dtype={volume_dtype!r}: want None, torch.float32 or "
+                             f"torch.bfloat16")
+        self.volume_dtype = None if volume_dtype == torch.float32 else volume_dtype
         self.regularizer, self.sampler, self.confidence = regularizer, sampler, confidence
         self.grad_method, self.lamb = grad_method, lamb
         if share_cr:
@@ -177,10 +191,11 @@ class CascadeModel(nn.Module):
                exp_var: torch.Tensor | None = None, train: bool = False) -> dict:
         sh, sw = feats.shape[2:4]
         hyps = self.hypotheses(i, sh, sw, d_min, d_max, depth, exp_var)
-        if torch.is_grad_enabled():
-            volume = build_train_volume(feats, cams, hyps)
-        else:
+        if self.fused_sweep is not False and (self.train_fused_sweep
+                                              or not torch.is_grad_enabled()):
             volume = build_stage_volume(feats, cams, hyps)
+        else:
+            volume = build_train_volume(feats, cams, hyps, self.volume_dtype)
         if self.regularizer == "red":
             logits = self.regs[i](volume, self.fused_red is not False)
         else:

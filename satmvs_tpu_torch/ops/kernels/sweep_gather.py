@@ -8,13 +8,18 @@ by the custom VJP of its `sweep_gather` (:636-681).  The CUDA source is
 `satmvs_tpu_torch/csrc/sweep_gather.cu`; its header gives the design, the
 bound and the scatter's summation-order tolerance.
 
-`sweep_gather(src, xs, ys)` is differentiable in `src` (the coordinates
-carry no gradient, as in JAX): its backward is `sweep_scatter`.  Both
-wrappers launch their kernel for CUDA tensors and count each launch in
-`<wrapper>.launches`; for CPU tensors, and only for them, they compute the
-plain versions `sweep_gather_reference` (`ops.sampling.bilinear_sample`)
-and `sweep_scatter_reference` (an `index_add_` scatter, the form of
-`_bilinear_scatter`, sweep_gather.py:607-633).
+`sweep_gather(src, xs, ys, out_dtype=None)` is differentiable in `src`
+(the coordinates carry no gradient, as in JAX): its backward is
+`sweep_scatter`.  out_dtype=torch.bfloat16 stores the warped volume in
+bf16 (JAX's `out_dtype=bfloat16`, the same pallas_call traced with a bf16
+output): the taps are summed in fp32 and rounded once at the store, and the
+backward reads the bf16 cotangent into the fp32 scatter.  Both wrappers
+launch their kernel for CUDA tensors and count each launch, the fp32
+instances in `<wrapper>.launches` and the bf16 ones in
+`<wrapper>.launches_bf16`; for CPU tensors, and only for them, they compute
+the plain versions `sweep_gather_reference` (`ops.sampling.bilinear_sample`,
+then the cast) and `sweep_scatter_reference` (an `index_add_` scatter of
+the fp32 cotangent, the form of `_bilinear_scatter`, sweep_gather.py:607-633).
 """
 
 from __future__ import annotations
@@ -27,16 +32,29 @@ from ..sampling import bilinear_sample
 from . import build
 
 
-def sweep_gather_reference(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # volume dtype → kernel instance
+
+
+def _volume_dtype(out_dtype) -> torch.dtype:
+    dtype = torch.float32 if out_dtype is None else out_dtype
+    if dtype not in _SUFFIX:
+        raise ValueError(f"sweep_gather: out_dtype {out_dtype!r}: want None, torch.float32 or "
+                         f"torch.bfloat16")
+    return dtype
+
+
+def sweep_gather_reference(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                           out_dtype=None) -> torch.Tensor:
     """Plain version of the gather: src (H, W, C) sampled at xs, ys (D, H, W)
-    → (D, H, W, C), zero outside the image."""
-    return bilinear_sample(src, xs, ys)
+    → (D, H, W, C), zero outside the image, cast to out_dtype (None: fp32)."""
+    return bilinear_sample(src, xs, ys).to(_volume_dtype(out_dtype))
 
 
 def sweep_scatter_reference(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                             height: int, width: int) -> torch.Tensor:
-    """Plain version of the transpose: g (D, H', W', C) scattered into the
-    (height, width, C) source at the taps of the samples (xs, ys) (D, H', W')."""
+    """Plain version of the transpose: g (D, H', W', C), fp32 or bf16 (widened
+    to fp32), scattered into the (height, width, C) fp32 source at the taps
+    of the samples (xs, ys) (D, H', W')."""
     c = g.shape[-1]
     x, y = xs.reshape(-1), ys.reshape(-1)
     gf = g.reshape(-1, c).to(torch.float32)
@@ -63,10 +81,12 @@ def _c_fn(name: str, n_ints: int):
     return fn
 
 
-def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+           value_dtypes=(torch.float32,)):
     for key, t in (("values", values), ("xs", xs), ("ys", ys)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        want = value_dtypes if key == "values" else (torch.float32,)
+        if t.dtype not in want:
+            raise TypeError(f"{name}: {key} must be {' or '.join(map(str, want))}, got {t.dtype}")
         if t.device != values.device:
             raise ValueError(f"{name}: {key} is on {t.device}, values on {values.device}")
     if xs.ndim != 3 or ys.shape != xs.shape:
@@ -92,9 +112,10 @@ def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
 
 
 def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, *extra: int):
-    """Runs the kernel `name` on CUDA tensors (contiguous; float4 access when
-    C and every pointer allow it) on the current stream, with `extra` ints
-    after vec; raises on a CUDA error."""
+    """Runs the kernel `name` (its instance for the volume's dtype: out's for
+    the gather, values' for the scatter) on CUDA tensors (contiguous; float4
+    access when C and every pointer allow it) on the current stream, with
+    `extra` ints after vec; raises on a CUDA error."""
     for key, t in (("values", values), ("xs", xs), ("ys", ys)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
@@ -102,33 +123,44 @@ def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, *ext
     vec = 4 if c % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn(f"{name}_f32", 5 + len(extra))(*ptrs, d, h, w, c, vec, *extra, stream)
+        volume = out if name == "sweep_gather" else values
+        rc = _c_fn(f"{name}_{_SUFFIX[volume.dtype]}", 5 + len(extra))(*ptrs, d, h, w, c, vec,
+                                                                      *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+def _count(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
     _check("sweep_gather", src, xs, ys)
     if src.ndim != 3 or tuple(src.shape[:2]) != tuple(xs.shape[1:]):
         raise ValueError(f"sweep_gather: want src (H, W, C) and xs/ys (D, H, W), got "
                          f"{tuple(src.shape)} and {tuple(xs.shape)}")
     if src.device.type == "cpu":
-        return sweep_gather_reference(src, xs, ys)
+        return sweep_gather_reference(src, xs, ys, out_dtype)
     d, h, w = xs.shape
     c = src.shape[-1]
-    out = torch.empty((d, h, w, c), dtype=torch.float32, device=src.device)
+    out = torch.empty((d, h, w, c), dtype=out_dtype, device=src.device)
     _launch("sweep_gather", src, xs, ys, out, d, h, w, c, GATHER_PLANES)
-    sweep_gather.launches += 1
+    _count(sweep_gather, out_dtype)
     return out
 
 
 def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """The transpose of `sweep_gather` at (xs, ys): g (D, H, W, C) float32,
-    xs/ys (D, H, W) → the source's cotangent (H, W, C).  CUDA tensors go to
+    """The transpose of `sweep_gather` at (xs, ys): g (D, H, W, C) float32
+    or bfloat16 (widened exactly at the read), xs/ys (D, H, W) float32 → the
+    source's cotangent (H, W, C) float32.  CUDA tensors go to
     the kernel (inputs contiguous; runs of planes summed in registers, then
     atomics, so the order of each element's sum changes from run to run),
     CPU tensors to `sweep_scatter_reference`."""
-    _check("sweep_scatter", g, xs, ys)
+    _check("sweep_scatter", g, xs, ys, tuple(_SUFFIX))
     if g.ndim != 4 or tuple(g.shape[:3]) != tuple(xs.shape):
         raise ValueError(f"sweep_scatter: want g {tuple(xs.shape)} + (C,), got {tuple(g.shape)}")
     d, h, w, c = g.shape
@@ -138,36 +170,40 @@ def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.
     groups = c // 4 if c % 4 == 0 else c
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, scatter_planes(d, h, w, groups, sms))
-    sweep_scatter.launches += 1
+    _count(sweep_scatter, g.dtype)
     return dsrc
 
 
 class _SweepGather(torch.autograd.Function):
-    """gather forward, scatter backward; the coordinates get no gradient."""
+    """gather forward, scatter backward (its cotangent in the volume's dtype);
+    the coordinates get no gradient."""
 
     @staticmethod
-    def forward(ctx, src, xs, ys):
+    def forward(ctx, src, xs, ys, out_dtype):
         ctx.save_for_backward(xs, ys)
-        return _gather(src, xs, ys)
+        return _gather(src, xs, ys, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         xs, ys = ctx.saved_tensors
         dsrc = sweep_scatter(g.contiguous(), xs, ys) if ctx.needs_input_grad[0] else None
-        return dsrc, None, None
+        return dsrc, None, None, None
 
 
-def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                 out_dtype=None) -> torch.Tensor:
     """Bilinear samples of one source view at the plane-sweep coordinates.
 
     src (H, W, C) float32, xs/ys (D, H, W) float32 on one device →
-    (D, H, W, C) float32, zero outside the image; differentiable in src
-    (backward: `sweep_scatter`), not in the coordinates.  CUDA tensors go to
-    the kernel (inputs contiguous; each thread walks GATHER_PLANES
-    planes), CPU tensors to `sweep_gather_reference`.
+    (D, H, W, C) in out_dtype (None or torch.float32: fp32; torch.bfloat16:
+    the fp32 sample rounded once to nearest even), zero outside the image;
+    differentiable in src (backward: `sweep_scatter` of the cotangent, in
+    the output's dtype), not in the coordinates.  CUDA tensors go to the
+    kernel (inputs contiguous; each thread walks GATHER_PLANES planes), CPU
+    tensors to `sweep_gather_reference`.
     """
-    return _SweepGather.apply(src, xs, ys)
+    return _SweepGather.apply(src, xs, ys, _volume_dtype(out_dtype))
 
 
-sweep_gather.launches = 0
-sweep_scatter.launches = 0
+sweep_gather.launches = sweep_gather.launches_bf16 = 0
+sweep_scatter.launches = sweep_scatter.launches_bf16 = 0

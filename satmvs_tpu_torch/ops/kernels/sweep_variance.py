@@ -11,6 +11,16 @@ place into one (B, D, H, W, C) volume).  Both count each launch in
 `sweep_variance.launches`.  For CPU tensors, and only for them, they compute
 the plain versions `sweep_variance_reference` and
 `sweep_variance_batched_reference`.
+
+Both are differentiable in the features, as JAX's custom VJP
+(`_sweep_variance_bwd`, sweep_variance.py:226-256) makes its kernel: the
+forward saves the features and the coordinates, never a volume; the
+backward is the `sweep_variance_backward` kernel (it gathers the source
+views again and writes each one's cotangent volume and the reference's
+cotangent, counted in `sweep_variance_backward.launches`), then one
+`sweep_scatter` per sample and source view (`_vjp`).  The
+coordinates get no gradient.  For CPU tensors the backward is the plain
+`sweep_variance_backward_reference`, then `sweep_scatter_reference`.
 """
 
 from __future__ import annotations
@@ -23,7 +33,8 @@ import torch
 
 from ..cost_volume import sweep_variance_volume
 from ..sampling import bilinear_sample
-from . import build, refuse_graph
+from . import build
+from .sweep_gather import sweep_scatter
 
 SWEEP_THREADS = 256        # threads a block at most (the kernel's launch bounds)
 SWEEP_ROW_THREADS = (32, 64, 128)  # threads a tile row: a warp, two, four
@@ -47,6 +58,31 @@ def sweep_variance_batched_reference(feats: torch.Tensor, xs: torch.Tensor,
     (B, V − 1, D, H, W) → (B, D, H, W, C) float32."""
     return torch.stack([sweep_variance_reference(f[0], f[1:], x, y)
                         for f, x, y in zip(feats, xs, ys)])
+
+
+def sweep_variance_backward_reference(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                                      g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `sweep_variance_backward` kernel, JAX's
+    composition (`_sweep_variance_bwd`): each source view sampled again
+    (`bilinear_sample`), the mean m = (ref + Σ_s w_s) / V over the V = S + 1
+    views, and the elementwise adjoint of the variance, ∂var/∂f = (2/V)(f − m):
+    feats (B, V, H, W, C), view 0 the reference; xs/ys (B, S, D, H, W); g
+    (B, D, H, W, C) the volume's cotangent → gs (B, S, D, H, W, C), each
+    source view's cotangent volume g·((2/V)(w_s − m)), and dref (B, H, W, C),
+    Σ_d g·((2/V)(ref − m)).  `_vjp` transposes gs into the
+    source views' cotangents with `sweep_scatter_reference`."""
+    v = feats.shape[1]
+    scale = 2.0 / v
+    gs, dref = [], []
+    for f, x, y, gb in zip(feats, xs, ys, g):
+        warped = [bilinear_sample(f[s + 1], x[s], y[s]) for s in range(v - 1)]
+        mean = f[0][None]
+        for w in warped:
+            mean = mean + w
+        mean = mean / v
+        dref.append(torch.sum(gb * (scale * (f[0][None] - mean)), dim=0))
+        gs.append(torch.stack([gb * (scale * (w - mean)) for w in warped]))
+    return torch.stack(gs), torch.stack(dref)
 
 
 def sweep_variance_plan_options(b: int, s: int, d: int, h: int, w: int, c: int,
@@ -156,6 +192,53 @@ def _launch(ref, srcs, bstride: int, xs, ys, out, plan: dict | None = None):
     sweep_variance.launches += 1
 
 
+@functools.lru_cache(maxsize=64)
+def sweep_variance_backward_plan(b: int, s: int, d: int, h: int, w: int, c: int,
+                                 aligned: bool = True) -> dict:
+    """The launch of `sweep_variance_backward_f32`: the forward's vec, one
+    group of vec channels a thread, a tile of about two warps a row (one of
+    `sweep_variance_plan_options`), and every thread walking all D planes,
+    so each reference cotangent is summed over the planes in order by one
+    thread (grid (tiles, 1, B)).  Raises where `sweep_variance_plan` does."""
+    sweep_variance_plan(b, s, d, h, w, c, aligned)
+    options = [o for o in sweep_variance_plan_options(b, s, d, h, w, c, aligned)
+               if o["groups"] == 1]
+    plan = min(options, key=lambda o: abs(o["lanes"] * o["tx"] - 64))
+    return {**plan, "planes": d, "grid": (plan["grid"][0], 1, b)}
+
+
+@functools.lru_cache(maxsize=1)
+def _c_bwd():
+    fn = build.load("sweep_variance").sweep_variance_backward_f32
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _cotangents(ref, srcs, bstride: int, xs, ys, g):
+    """The backward kernel for sample b's maps at ref + b·bstride and srcs +
+    b·bstride (as `_launch` takes them), xs/ys (B, S, D, H, W) and g (B, D, H,
+    W, C) → (gs, dref); counts the launch."""
+    b, n_src, d, h, w = xs.shape
+    c = g.shape[-1]
+    gs = torch.empty((b, n_src, d, h, w, c), dtype=torch.float32, device=g.device)
+    dref = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    if dref.numel() == 0:
+        return gs, dref
+    aligned = bstride % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (ref, srcs, g, gs, dref))
+    plan = sweep_variance_backward_plan(b, n_src, d, h, w, c, aligned)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _c_bwd()(ref.data_ptr(), srcs.data_ptr(), bstride, xs.data_ptr(), ys.data_ptr(),
+                      g.data_ptr(), gs.data_ptr(), dref.data_ptr(), b, n_src, d, h, w, c,
+                      plan["vec"], plan["tx"], plan["ty"], stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_variance_backward kernel launch failed: CUDA error {rc}")
+    sweep_variance_backward.launches += 1
+    return gs, dref
+
+
 def _check(ref, srcs, xs, ys, batched: bool):
     """ref (H, W, C), srcs (S, H, W, C), xs/ys (S, D, H, W), each with a
     leading B when batched; all float32 on one device."""
@@ -180,15 +263,57 @@ def _check(ref, srcs, xs, ys, batched: bool):
 
 
 def _cuda_operands(name: str, **tensors):
-    """Raise unless the operands are contiguous CUDA tensors that need no graph."""
+    """Raise unless the operands are contiguous CUDA tensors."""
     device = next(iter(tensors.values())).device
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
-    refuse_graph(name, "its backward composes sweep_gather and sweep_scatter and is not written "
-                 "yet; training takes the per-view sweep_gather instead", *tensors.values())
     for what, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _vjp(ref, srcs, bstride: int, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of the sweep for sample b's maps at ref + b·bstride and
+    srcs + b·bstride (ref (B, H, W, C) and srcs (B, S, H, W, C), as `_launch`
+    takes them; bstride is not read for CPU tensors), xs/ys (B, S, D, H, W)
+    and the volume's cotangent g (B, D, H, W, C) contiguous → (dref (B, H,
+    W, C), dsrcs (B, S, H, W, C)): `sweep_variance_backward`'s cotangents
+    (the kernel, or for CPU tensors its plain version), then each source
+    view's volume scattered into its cotangent by `sweep_scatter`."""
+    if g.device.type == "cpu":
+        feats = torch.cat([ref[:, None], srcs], dim=1)
+        gs, dref = sweep_variance_backward_reference(feats, xs, ys, g)
+    else:
+        gs, dref = _cotangents(ref, srcs, bstride, xs, ys, g)
+    dsrcs = torch.stack([torch.stack([sweep_scatter(gs[b, s], xs[b, s], ys[b, s])
+                                      for s in range(xs.shape[1])])
+                         for b in range(xs.shape[0])])
+    return dref, dsrcs
+
+
+class _SweepVariance(torch.autograd.Function):
+    """The sweep of sample b's maps at ref + b·bstride and srcs + b·bstride
+    (ref (B, H, W, C), srcs (B, S, H, W, C)): the kernel forward (for CPU
+    tensors its plain version), saving the features and the coordinates;
+    backward `_vjp`.  The coordinates get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ref, srcs, xs, ys, bstride):
+        ctx.save_for_backward(ref, srcs, xs, ys)
+        ctx.bstride = bstride
+        if ref.device.type == "cpu":
+            return torch.stack([sweep_variance_reference(*args)
+                                for args in zip(ref, srcs, xs, ys)])
+        b, _, d, h, w = xs.shape
+        out = torch.empty((b, d, h, w, ref.shape[-1]), dtype=torch.float32, device=ref.device)
+        _launch(ref, srcs, bstride, xs, ys, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ref, srcs, xs, ys = ctx.saved_tensors
+        dref, dsrcs = _vjp(ref, srcs, ctx.bstride, xs, ys, g.contiguous())
+        return dref, dsrcs, None, None, None
 
 
 def sweep_variance(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
@@ -196,25 +321,22 @@ def sweep_variance(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
     """Variance cost volume over {ref, srcs warped at (xs, ys)}.
 
     ref (H, W, C), srcs (S, H, W, C), xs/ys (S, D, H, W), all float32 on one
-    device → (D, H, W, C) float32.  CUDA tensors go to the CUDA kernel (the
-    inputs must be contiguous; one launch, as `sweep_variance_batched` with
-    B = 1); CPU tensors to `sweep_variance_reference`.  On CUDA tensors it
-    raises where autograd would record a graph (`refuse_graph`).
+    device → (D, H, W, C) float32, differentiable in ref and srcs (module
+    docstring).  CUDA tensors go to the CUDA kernel (the inputs must be
+    contiguous; one launch, as `sweep_variance_batched` with B = 1); CPU
+    tensors to `sweep_variance_reference`.
     """
     _check(ref, srcs, xs, ys, batched=False)
-    if ref.device.type == "cpu":
-        return sweep_variance_reference(ref, srcs, xs, ys)
-    _cuda_operands("sweep_variance", ref=ref, srcs=srcs, xs=xs, ys=ys)
-    h, w, c = ref.shape
-    out = torch.empty((xs.shape[1], h, w, c), dtype=torch.float32, device=ref.device)
-    _launch(ref, srcs, 0, xs[None], ys[None], out[None])
-    return out
+    if ref.device.type != "cpu":
+        _cuda_operands("sweep_variance", ref=ref, srcs=srcs, xs=xs, ys=ys)
+    return _SweepVariance.apply(ref[None], srcs[None], xs[None], ys[None], 0)[0]
 
 
 def _batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
              plan: dict | None = None) -> torch.Tensor:
-    """sweep_variance_batched on contiguous CUDA operands, under `plan` (one
-    of `sweep_variance_plan_options`) or `sweep_variance_plan`'s."""
+    """sweep_variance_batched's forward on contiguous CUDA operands, under
+    `plan` (one of `sweep_variance_plan_options`) or `sweep_variance_plan`'s;
+    no graph."""
     b, v, h, w, c = feats.shape
     out = torch.empty((b, xs.shape[2], h, w, c), dtype=torch.float32, device=feats.device)
     _launch(feats, feats[:, 1:], v * h * w * c, xs, ys, out, plan)
@@ -226,19 +348,41 @@ def sweep_variance_batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tens
 
     feats (B, V, H, W, C), view 0 the reference; xs/ys (B, V − 1, D, H, W);
     all float32 on one device → (B, D, H, W, C) float32, each sample
-    `sweep_variance(feats[b, 0], feats[b, 1:], xs[b], ys[b])` bit for bit.
-    CUDA tensors (contiguous) go to the CUDA kernel; CPU tensors to
-    `sweep_variance_batched_reference`.  On CUDA tensors it raises where
-    autograd would record a graph (`refuse_graph`).
+    `sweep_variance(feats[b, 0], feats[b, 1:], xs[b], ys[b])` bit for bit,
+    differentiable in feats (one `sweep_variance_backward` launch for the
+    batch, then the scatters).  CUDA tensors (contiguous) go to the CUDA
+    kernel; CPU tensors to `sweep_variance_batched_reference`.
     """
     if feats.ndim != 5:
         raise ValueError(f"sweep_variance_batched: want feats (B, V, H, W, C), got "
                          f"{tuple(feats.shape)}")
     _check(feats[:, 0], feats[:, 1:], xs, ys, batched=True)
+    if feats.device.type != "cpu":
+        _cuda_operands("sweep_variance_batched", feats=feats, xs=xs, ys=ys)
+    b, v, h, w, c = feats.shape
+    return _SweepVariance.apply(feats[:, 0], feats[:, 1:], xs, ys, v * h * w * c)
+
+
+def sweep_variance_backward(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                            g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel alone: feats (B, V, H, W, C), view 0 the
+    reference; xs/ys (B, V − 1, D, H, W); g (B, D, H, W, C) the volume's
+    cotangent; all float32 on one device → (gs (B, S, D, H, W, C), dref (B,
+    H, W, C)) as `sweep_variance_backward_reference` defines them.  CUDA
+    tensors (contiguous) go to the kernel (one launch; every output the same
+    bits in every run), CPU tensors to the plain version."""
+    if feats.ndim != 5 or tuple(g.shape) != (feats.shape[0], xs.shape[2], *feats.shape[2:]):
+        raise ValueError(f"sweep_variance_backward: want feats (B, V, H, W, C) and g (B, D, H, "
+                         f"W, C), got {tuple(feats.shape)} and {tuple(g.shape)}")
+    _check(feats[:, 0], feats[:, 1:], xs, ys, batched=True)
+    if g.dtype != torch.float32 or g.device != feats.device:
+        raise TypeError(f"sweep_variance_backward: g must be float32 on {feats.device}")
     if feats.device.type == "cpu":
-        return sweep_variance_batched_reference(feats, xs, ys)
-    _cuda_operands("sweep_variance_batched", feats=feats, xs=xs, ys=ys)
-    return _batched(feats, xs, ys)
+        return sweep_variance_backward_reference(feats, xs, ys, g)
+    _cuda_operands("sweep_variance_backward", feats=feats, xs=xs, ys=ys, g=g)
+    b, v, h, w, c = feats.shape
+    return _cotangents(feats[:, 0], feats[:, 1:], v * h * w * c, xs, ys, g)
 
 
 sweep_variance.launches = 0
+sweep_variance_backward.launches = 0

@@ -151,14 +151,14 @@ def rpc_warp(src_feat: torch.Tensor, cams: RpcWarpCams, src_index: int,
 
     Counterpart of `satmvs_tpu/ops/warp.py:rpc_warp` with coords="exact";
     its `method`, `coords` and `stencil` choose among TPU implementations and
-    have none here.  convention="torch" (the reference's grid_sample
-    stretch) and `out_dtype` (bf16 volume transport) are not ported and
-    raise.  Unbatched `cams`.
+    have none here.  out_dtype: the warped volume's storage dtype (None:
+    float32; torch.bfloat16 halves the volume's bytes: the sample is taken
+    in float32 and rounded once, and the backward reads the bf16 cotangent
+    into the float32 scatter).  convention="torch" (the reference's
+    grid_sample stretch) is not ported and raises.  Unbatched `cams`.
     """
     if convention != "exact":
         raise ValueError(f"rpc_warp: convention {convention!r} is not ported (torch_compat)")
-    if out_dtype is not None:
-        raise ValueError(f"rpc_warp: out_dtype {out_dtype!r} is not ported (bf16 volume_dtype)")
     h, w, _ = src_feat.shape
     xs, ys = rpc_sweep_coords(cams, src_index, depth_values, h, w)
-    return sweep_gather(src_feat, xs.contiguous(), ys.contiguous())
+    return sweep_gather(src_feat, xs.contiguous(), ys.contiguous(), out_dtype)

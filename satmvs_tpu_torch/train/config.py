@@ -4,11 +4,13 @@ Counterpart of `satmvs_tpu/train/config.py`, with the same fields, CLI
 surface and defaults, so a command line means the same in both packages.
 Values whose features the port lacks raise when set away from their
 defaults: the mesh extents (multi-GPU), use_qc, geo_model="pinhole",
-compute_dtype and volume_dtype other than float32, torch_compat, and
-fused_sweep=False.  model "casmvs" and "ucs" run at inference (evaluation,
-prediction); training them raises in `loop.create_model_and_state`.
-`sweep_stencil` is a tap width of the TPU gather; the port's gather has no
-stencil, so it is accepted and has no effect.
+compute_dtype other than float32, and torch_compat.  All three models
+train, evaluate and predict.  volume_dtype="bfloat16" stores the per-view
+sweep's warped volumes in bf16 (a no-op on the fused sweep, which stores
+none); fused_sweep=False takes the per-view sweep at inference too (and
+turns train_fused_sweep off, as in JAX).  `sweep_stencil` is a tap width
+of the TPU gather; the port's gather has no stencil, so it is accepted and
+has no effect.
 
 fused_red: None ("auto") and True run the RED regularizer's fused pipeline
 (its CUDA kernels and their backward kernels) in training and evaluation,
@@ -23,8 +25,7 @@ from typing import Optional, Sequence
 
 # field → the value the port supports (every other value raises)
 _ONLY = {"geo_model": "rpc", "use_qc": False, "compute_dtype": "float32",
-         "volume_dtype": "float32", "torch_compat": False, "mesh_data": 1,
-         "mesh_spatial": 1, "mesh_depth": 1}
+         "torch_compat": False, "mesh_data": 1, "mesh_spatial": 1, "mesh_depth": 1}
 
 
 @dataclasses.dataclass
@@ -55,10 +56,11 @@ class Config:
     cr_base_chs: Sequence[int] = (8, 8, 8)
     sweep_stencil: int = 0                   # TPU tap width: accepted, no effect
     compute_dtype: str = "float32"
-    volume_dtype: str = "float32"
+    volume_dtype: str = "float32"            # float32 | bfloat16: the per-view sweep's volumes
     torch_compat: bool = False
     fused_red: Optional[bool] = None         # None = auto: the fused pipeline (see above)
-    fused_sweep: Optional[bool] = None       # None/True: the sweep_variance kernel at inference
+    fused_sweep: Optional[bool] = None       # None/True: the sweep_variance kernel at inference;
+                                             # False: the per-view sweep everywhere
 
     # optimization
     epochs: int = 30
@@ -84,9 +86,8 @@ class Config:
             if getattr(self, name) != value:
                 raise ValueError(f"{name}={getattr(self, name)!r}: the port supports "
                                  f"{name}={value!r} only")
-        if self.fused_sweep is False:
-            raise ValueError("fused_sweep=False: the port's inference sweep is the "
-                             "sweep_variance kernel only")
+        if self.volume_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"volume_dtype={self.volume_dtype!r}: want 'float32' or 'bfloat16'")
 
     @property
     def num_stage(self) -> int:

@@ -108,8 +108,10 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> RMSprop:
     return RMSprop(cfg.lr, boundaries, cfg.wd)
 
 
-def create_model(cfg: Config, device, variables: Optional[dict] = None):
-    """The configured model on `device`, in eval mode.  Weights:
+def create_model(cfg: Config, device, variables: Optional[dict] = None,
+                 train_fused_sweep: bool = False):
+    """The configured model on `device`, in eval mode, with cfg's fused_red,
+    fused_sweep and volume_dtype and the given train_fused_sweep.  Weights:
     numpy-seeded from cfg.seed (`params.init_from_seed`; not the JAX
     package's PRNG draws), or a flax variables tree `variables` loaded with
     `params.load_jax_variables`.  As in JAX, CascadeREDNet and CascadeMVSNet
@@ -118,6 +120,8 @@ def create_model(cfg: Config, device, variables: Optional[dict] = None):
                if cfg.model in ("red", "casmvs") else {"lamb": cfg.lamb})
     model = build_model(cfg.model, cfg.geo_model, ndepths=tuple(cfg.ndepths),
                         cr_base_chs=tuple(cfg.cr_base_chs), fused_red=cfg.fused_red,
+                        fused_sweep=cfg.fused_sweep, train_fused_sweep=train_fused_sweep,
+                        volume_dtype=torch.bfloat16 if cfg.volume_dtype == "bfloat16" else None,
                         device=device, seed=cfg.seed, **spacing)
     if variables is not None:
         load_jax_variables(model, variables)
@@ -137,13 +141,13 @@ def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int
                            variables: Optional[dict] = None):
     """The configured model on the sample batch's device (`create_model`),
     its TrainState and optimizer, for training.  cfg.fused_red None and True
-    take the fused RED pipeline, False its scan path.  The CostRegNet
-    families (model "casmvs", "ucs") raise: their training is not ported
-    (ROADMAP A7); they evaluate and predict through `create_model`."""
-    if cfg.model != "red":
-        raise ValueError(f"model={cfg.model!r}: training the CostRegNet families is not ported "
-                         f"(ROADMAP A7); the port evaluates and predicts them")
-    model = create_model(cfg, sample_batch["imgs"].device, variables)
+    take the fused RED pipeline, False its scan path.  train_fused_sweep is
+    read from the environment once, here, as the JAX package reads it
+    (SATMVS_TRAIN_FUSED_SWEEP=1: train on the fused sweep).  The CostRegNet
+    families (model "casmvs", "ucs") train their CostRegNet as 3-D
+    convolutions with train-mode BatchNorm."""
+    model = create_model(cfg, sample_batch["imgs"].device, variables,
+                         train_fused_sweep=os.environ.get("SATMVS_TRAIN_FUSED_SWEEP") == "1")
     tx = make_optimizer(cfg, steps_per_epoch)
     return model, state_of(model, tx), tx
 

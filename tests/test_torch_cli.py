@@ -207,11 +207,11 @@ def test_scene_cli_is_predict_scene_and_fuses(seeded, tmp_path):
 
 def test_clis_refuse_what_the_port_lacks(seeded, tmp_path, monkeypatch):
     base = [f"--dataset_root={seeded['root']}", f"--logdir={tmp_path}", "--ndepths", NDEPTHS]
-    for flag in ("--use_qc", "--geo_model=pinhole", "--model=casmvs", "--fused_sweep=off"):
+    for flag in ("--use_qc", "--geo_model=pinhole"):
         with pytest.raises(ValueError):
             cli_train.main(["--mode=train", *base, flag])
     pbase = [f"--dataset_root={seeded['root']}", f"--loadckpt={seeded['ckpt']}"]
-    for flag in ("--use_qc", "--torch_compat", "--fused_sweep=off"):
+    for flag in ("--use_qc", "--torch_compat"):
         with pytest.raises(ValueError):
             cli_predict.main([*pbase, flag])
     with pytest.raises(SystemExit, match="no checkpoint"):

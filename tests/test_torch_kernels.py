@@ -1,11 +1,10 @@
-"""The kernel wrappers (sweep_variance and sweep_variance_batched, conv_dn,
-deconv_up, conv_head, red_recur, sweep_gather, sweep_scatter, and the
-backwards of conv_dn, deconv_up, conv_head and red_recur): CPU tensors take
-the plain version,
-CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and nvcc and
-skip without them), sweep_variance, the one wrapper without a backward
-kernel, refuses a graph on the card while the plain versions differentiate,
-and the modules import without nvcc."""
+"""The kernel wrappers (sweep_variance and sweep_variance_batched and their
+backward sweep_variance_backward, conv_dn, deconv_up, conv_head, red_recur,
+sweep_gather and sweep_scatter in fp32 and bf16, and the backwards of
+conv_dn, deconv_up, conv_head and red_recur): CPU tensors take the plain
+version, CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and
+nvcc and skip without them), every wrapper carries an autograd graph on
+both, and the modules import without nvcc."""
 
 import os
 import subprocess
@@ -404,8 +403,8 @@ def test_cuda_red_recur_refused_grid_raises(monkeypatch):
 
 
 def _graph_cases(device):
-    """(wrapper name, call) of the five wrappers without a backward kernel,
-    on small seeded inputs with x (and the weights) requiring a gradient."""
+    """(wrapper name, call) of the five forward wrappers, on small seeded
+    inputs with x (and the weights) requiring a gradient."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
@@ -430,43 +429,122 @@ def _graph_cases(device):
 
 @pytest.mark.parametrize("i", range(5))
 def test_cpu_plain_versions_differentiate(i):
-    """The plain versions (CPU tensors) carry the graph the kernels refuse:
-    the output requires a gradient and its backward reaches the inputs."""
+    """The plain versions (CPU tensors) carry the graph: the output requires
+    a gradient and its backward reaches the inputs."""
     name, call = _graph_cases("cpu")[i]
     out = call()
     assert out.requires_grad, name
     (out * out).sum().backward()
 
 
-def test_refuse_graph_only_where_autograd_records():
-    from satmvs_tpu_torch.ops.kernels import refuse_graph
-
-    x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward.*the reason"):
-        refuse_graph("k", "the reason", None, torch.zeros(2), x)
-    refuse_graph("k", "the reason", torch.zeros(2), None)
-    with torch.no_grad():
-        refuse_graph("k", "the reason", x)
-
-
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_a_graph_they_cannot_carry():
-    """On the card sweep_variance, the one kernel without a backward, raises
-    when autograd records (and launches nothing) and runs under
-    torch.no_grad(); its plain version on the CPU still differentiates (see
-    the CPU test above).  The four RED wrappers carry the graph."""
+    """On the card every forward wrapper carries the graph (none refuses
+    one): sweep_variance's backward is one sweep_variance_backward launch
+    and one sweep_scatter per source view, and equals the plain backward's
+    (the CPU run of the same wrapper) within the scatter's summation bound
+    and 1e-5 for the reference view; the four RED wrappers' outputs require
+    a gradient."""
+    from satmvs_tpu_torch.ops.kernels.sweep_gather import sweep_scatter
+    from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance_backward
+
     _cuda()
     cases = _graph_cases("cuda")
-    for name, call in cases[:1]:
-        before = sweep_variance.launches
-        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
-            call()
-        assert sweep_variance.launches == before
-        with torch.no_grad():
-            assert not call().requires_grad
+    ref, srcs, xs, ys = _inputs(device="cuda")
+    ref.requires_grad_(True)
+    srcs.requires_grad_(True)
+    out = sweep_variance(ref, srcs, xs, ys)
+    before = (sweep_variance_backward.launches, sweep_scatter.launches)
+    dref, dsrcs = torch.autograd.grad((out * out).sum(), [ref, srcs])
+    torch.cuda.synchronize()
+    assert (sweep_variance_backward.launches, sweep_scatter.launches) == (
+        before[0] + 1, before[1] + srcs.shape[0])
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (ref, srcs)]
+    out_cpu = sweep_variance(cpu[0], cpu[1], xs.cpu(), ys.cpu())
+    want = torch.autograd.grad((out_cpu * out_cpu).sum(), cpu)
+    _close(dref.cpu(), want[0], "sweep_variance dref")
+    _close(dsrcs.cpu(), want[1], "sweep_variance dsrcs")
+    with torch.no_grad():
+        assert not cases[0][1]().requires_grad
     for name, call in cases[1:]:
         assert call().requires_grad, name
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["window", "off-image"])
+@pytest.mark.parametrize("s", [2, 5])
+@pytest.mark.parametrize("c", [6, 8, 16, 32])
+def test_cuda_sweep_variance_backward_matches_plain_version(c, s, mode):
+    """The backward kernel at B = 2 against its plain version (gs and dref,
+    1e-5 × max(1, max |plain|): dref sums the D planes in another order),
+    each sample the same bits as its B = 1 call, and every output the same
+    bits in a second run (no atomics)."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    _cuda()
+    shape = (2, s, 7, 13, 21, c)
+    feats, xs, ys = _batched_inputs(*shape, mode, seed=10 + c + s)
+    g = _rand((2, 7, 13, 21, c), 20 + c)
+    before = sv.sweep_variance_backward.launches
+    gs, dref = sv.sweep_variance_backward(feats, xs, ys, g)
+    torch.cuda.synchronize()
+    assert sv.sweep_variance_backward.launches == before + 1
+    assert gs.shape == (2, s, 7, 13, 21, c) and dref.shape == (2, 13, 21, c)
+    want = sv.sweep_variance_backward_reference(feats, xs, ys, g)
+    _close(gs, want[0], f"sweep_variance_backward gs {shape} {mode}")
+    _close(dref, want[1], f"sweep_variance_backward dref {shape} {mode}")
+    again = sv.sweep_variance_backward(feats, xs, ys, g)
+    assert torch.equal(gs, again[0]) and torch.equal(dref, again[1])
+    for i in range(2):
+        one = sv.sweep_variance_backward(feats[i:i + 1].contiguous(), xs[i:i + 1].contiguous(),
+                                         ys[i:i + 1].contiguous(), g[i:i + 1].contiguous())
+        assert torch.equal(one[0][0], gs[i]) and torch.equal(one[1][0], dref[i])
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each value of x (x itself bf16)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,w,c,spread", [(4, 16, 24, 8, 0.0), (3, 7, 9, 6, 3.0),
+                                            (5, 12, 20, 32, 4.0)])
+def test_cuda_bf16_gather_and_scatter_match_plain_versions(d, h, w, c, spread):
+    """The bf16 instances: the gather within one bf16 ulp of the plain
+    version's rounding (the fp32 samples differ by FMA contraction, and a
+    value near a rounding boundary may round the other way) plus the fp32
+    gather's 1e-5 × max(1, max |plain|) (where a sample cancels to near 0,
+    that fp32 difference is many of its ulps), the same bits in a second
+    run, counted in launches_bf16; the scatter of a bf16
+    cotangent within the summation bound of the plain scatter of its fp32
+    widening; the autograd backward of a bf16 gather is one bf16 scatter."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    src, xs, ys, g = _sweep_case(d, h, w, c, spread, 70 + c)
+    before = (sg.sweep_gather.launches, sg.sweep_gather.launches_bf16)
+    out = sg.sweep_gather(src, xs, ys, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (sg.sweep_gather.launches, sg.sweep_gather.launches_bf16) == (before[0], before[1] + 1)
+    want = sg.sweep_gather_reference(src, xs, ys, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    tol = _bf16_ulp(want) + 1e-5 * max(1.0, want.float().abs().max().item())
+    assert bool(((out.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(out, sg.sweep_gather(src, xs, ys, torch.bfloat16))
+    gb = g.to(torch.bfloat16)
+    got = sg.sweep_scatter(gb, xs, ys)
+    bound = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(gb.abs(), xs, ys, h, w)
+    assert bool(((got - sg.sweep_scatter_reference(gb, xs, ys, h, w)).abs() <= bound + 1e-30)
+                .all())
+    src.requires_grad_(True)
+    vol = sg.sweep_gather(src, xs, ys, torch.bfloat16)
+    before = sg.sweep_scatter.launches_bf16
+    (grad,) = torch.autograd.grad(vol, src, gb)
+    assert sg.sweep_scatter.launches_bf16 == before + 1
+    assert bool(((grad - sg.sweep_scatter_reference(gb, xs, ys, h, w)).abs() <= bound + 1e-30)
+                .all())
 
 
 def _sweep_case(d, h, w, c, spread, seed, device="cuda"):
@@ -562,16 +640,22 @@ def test_cuda_sweep_gather_backward_launches_the_scatter():
 
 
 def _all_wrappers():
+    """name → (wrapper, the attribute that counts its launches)."""
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance_backward
 
-    return {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
-            "sweep_variance": sweep_variance, "conv_dn": pc.conv_dn,
-            "red_recur": rr.red_recur, "deconv_up": pc.deconv_up, "conv_head": pc.conv_head,
-            "conv_dn_backward": pc.conv_dn_backward, "red_recur_backward": rr.red_recur_backward,
-            "deconv_up_backward": pc.deconv_up_backward,
-            "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3}
+    fns = {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
+           "sweep_variance": sweep_variance, "sweep_variance_backward": sweep_variance_backward,
+           "conv_dn": pc.conv_dn, "red_recur": rr.red_recur, "deconv_up": pc.deconv_up,
+           "conv_head": pc.conv_head, "conv_dn_backward": pc.conv_dn_backward,
+           "red_recur_backward": rr.red_recur_backward,
+           "deconv_up_backward": pc.deconv_up_backward,
+           "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3}
+    out = {k: (f, "launches") for k, f in fns.items()}
+    out.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in ("sweep_gather", "sweep_scatter")})
+    return out
 
 
 # launches per train step and per eval step at B = 1 with the fused RED
@@ -594,10 +678,10 @@ def _step_launches(cfg, want_train, want_eval):
     model, state, tx = create_model_and_state(cfg, batch, 1)
     for step, want in ((make_train_step(model, tx, cfg.dlossw), want_train),
                        (make_eval_step(model, cfg.dlossw, cfg.min_interval), want_eval)):
-        before = {k: f.launches for k, f in wrappers.items()}
+        before = {k: getattr(f, a) for k, (f, a) in wrappers.items()}
         result = step(state, batch)
         torch.cuda.synchronize()
-        got = {k: f.launches - before[k] for k, f in wrappers.items()}
+        got = {k: getattr(f, a) - before[k] for k, (f, a) in wrappers.items()}
         assert got == {k: want.get(k, 0) for k in wrappers}
     assert bool(torch.isfinite(result[0]["loss"]))
 
@@ -614,6 +698,26 @@ def test_cuda_train_step_launches():
 
     _cuda()
     _step_launches(Config(ndepths=(8, 4, 4)), FUSED_TRAIN, FUSED_EVAL)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_sweep_and_bf16_train_step_launches(monkeypatch):
+    """SATMVS_TRAIN_FUSED_SWEEP=1: the train step's sweep is per stage one
+    sweep_variance and one sweep_variance_backward, then a sweep_scatter per
+    source view, no sweep_gather; volume_dtype="bfloat16": the per-view
+    sweep's bf16 instances (6 + 6) instead of the fp32 ones.  The eval
+    steps launch a forward's kernels."""
+    from satmvs_tpu_torch.train import Config
+
+    _cuda()
+    red = {k: v for k, v in FUSED_TRAIN.items() if not k.startswith("sweep_")}
+    monkeypatch.setenv("SATMVS_TRAIN_FUSED_SWEEP", "1")
+    _step_launches(Config(ndepths=(8, 4, 4)), {**red, "sweep_variance": 3,
+                                               "sweep_variance_backward": 3,
+                                               "sweep_scatter": 6}, FUSED_EVAL)
+    monkeypatch.delenv("SATMVS_TRAIN_FUSED_SWEEP")
+    _step_launches(Config(ndepths=(8, 4, 4), volume_dtype="bfloat16"),
+                   {**red, "sweep_gather_bf16": 6, "sweep_scatter_bf16": 6}, FUSED_EVAL)
 
 
 @pytest.mark.cuda
@@ -977,10 +1081,10 @@ def test_cuda_red_autograd_runs_the_backward_kernels():
         m = tm.to(dev)
         v = vol.to(dev).requires_grad_(True)
         wrappers = _all_wrappers()
-        before = {k: f.launches for k, f in wrappers.items()}
+        before = {k: getattr(f, a) for k, (f, a) in wrappers.items()}
         logits = m(v)
         gs = torch.autograd.grad(torch.sin(logits).sum(), [v, *m.parameters()])
-        got = {k: f.launches - before[k] for k, f in wrappers.items()}
+        got = {k: getattr(f, a) - before[k] for k, (f, a) in wrappers.items()}
         if dev == "cuda":
             torch.cuda.synchronize()
             assert got == {k: {"conv_dn": 3, "red_recur": 4, "deconv_up": 3, "conv_head": 1,

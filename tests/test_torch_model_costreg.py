@@ -14,6 +14,7 @@ step), confidence within 2e-3, UCSNet's variance within 1e-3 relative.
 Also: a B = 2 forward against two B = 1 forwards, the bridge's coverage,
 and the predict and train CLIs on the two families."""
 
+import json
 import os
 
 import jax
@@ -231,22 +232,28 @@ def test_predict_cli_runs_a_costreg_family(tree, tmp_path, monkeypatch, capsys, 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_train_cli_tests_and_does_not_train_a_costreg_family(tree, tmp_path, monkeypatch, name):
-    """`cli.train --mode=test` evaluates a costreg family from its checkpoint;
-    `--mode=train` and `create_model_and_state` raise, naming the ROADMAP
-    item: their training is not ported; share_cr=True raises (one
-    regularizer cannot take the stages' feature widths)."""
+    """`cli.train --mode=train` trains a costreg family for an epoch (a
+    finite loss, a checkpoint) and `--resume` continues with the second;
+    `--mode=test` evaluates it from that checkpoint; share_cr=True raises
+    (one regularizer cannot take the stages' feature widths)."""
     monkeypatch.setenv("SATMVS_PLATFORM", "cpu")
     logdir = str(tmp_path / "logs")
     common = [f"--dataset_root={tree}", f"--logdir={logdir}", "--model", name, "--ndepths",
               ",".join(map(str, NDEPTHS))]
-    _checkpoint(name, os.path.join(logdir, name, "rpc"))
+    out = cli_train.main(["--mode=train", *common, "--epochs", "1"])
+    assert out["timing"]["epochs"] == [1] and out["timing"]["steps"] == [1]
+    out = cli_train.main(["--mode=train", *common, "--epochs", "2", "--resume"])
+    assert out["timing"]["epochs"] == [2]
+    workdir = os.path.join(logdir, name, "rpc")
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if r["mode"] == "train"]
+    assert losses and all(np.isfinite(losses))
     out = cli_train.main(["--mode=test", *common])
-    assert out["epoch"] == 1 and all(np.isfinite(v) for v in out["metrics"].values())
+    assert out["epoch"] == 2 and all(np.isfinite(v) for v in out["metrics"].values())
     assert os.path.isfile(os.path.join(out["out_dir"], "block0000_2_prob.pfm"))
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        cli_train.main(["--mode=train", *common, "--epochs", "1"])
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        create_model_and_state(Config(model=name), {"imgs": torch.empty(0)}, 1)
+    model, state, _ = create_model_and_state(Config(model=name, ndepths=NDEPTHS),
+                                             {"imgs": torch.empty(0)}, 1)
+    assert model.regularizer == "costreg" and state.batch_stats
     assert build_model(name, "rpc", ndepths=NDEPTHS, device="cpu").regularizer == "costreg"
     with pytest.raises(ValueError, match="share_cr"):
         build_model(name, "rpc", share_cr=True, device="cpu")

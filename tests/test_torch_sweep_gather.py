@@ -149,7 +149,8 @@ def test_rpc_warp_matches_jax():
     the hypotheses through the coordinates.  The two packages' fp32
     coordinates are ~2e-5 px apart (tests/test_torch_ops.py), and a sample
     moves by up to (neighbour difference ≤ ~8 on unit-normal features) × the
-    shift: 2e-4."""
+    shift: 2e-4.  With out_dtype=bfloat16 both round their sample once to
+    bf16: within 2e-4 plus one bf16 ulp of JAX's."""
     h, w, c, d = 16, 24, 8, 5
     _, _, cams, depths = _rpc_coords(h, w, d, seed=3)
     hyps = np.asarray(depths)[:, None, None] + _rand((d, h, w), 13)
@@ -164,5 +165,13 @@ def test_rpc_warp_matches_jax():
         assert not got.requires_grad
     with pytest.raises(ValueError, match="torch"):
         twarp.rpc_warp(T(src), tcams, 0, T(hyps), convention="torch")
-    with pytest.raises(ValueError, match="bf16"):
-        twarp.rpc_warp(T(src), tcams, 0, T(hyps), out_dtype=torch.bfloat16)
+    for s in range(2):  # bf16 volumes: the same samples, each rounded once
+        want = jwarp.rpc_warp(jnp.asarray(src), cams, s, jnp.asarray(hyps), method="xla",
+                              coords="exact", out_dtype=jnp.bfloat16)
+        got = twarp.rpc_warp(T(src), tcams, s, T(hyps), out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        _, e = np.frexp(np.abs(want))
+        err = np.abs(got.float().numpy() - want) - np.ldexp(1.0, e - 8)
+        print(f"[parity] rpc_warp bf16 view {s}: {err.max():.2e} beyond one bf16 ulp (tol 2e-4)")
+        assert err.max() <= 2e-4

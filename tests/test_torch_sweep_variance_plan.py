@@ -4,8 +4,10 @@ thread-to-output map, written out here from the kernel's index arithmetic,
 covers every (sample, plane, pixel, channel) exactly once at the forward's,
 the scene chunk's and the `cuda` tests' shapes, and its refusals; the
 batched entry's plain version is the per-sample one; `build_stage_volume` at
-B = 2 is two B = 1 calls; the batched wrapper's refusals.  The kernel itself
-runs only on the card (tests/test_torch_kernels.py, `cuda`)."""
+B = 2 is two B = 1 calls; the batched wrapper's refusals; the backward
+kernel's plan (`sweep_variance_backward_plan`) covers every output once.
+The kernels themselves run only on the card (tests/test_torch_kernels.py,
+`cuda`)."""
 
 import numpy as np
 import pytest
@@ -67,6 +69,27 @@ def test_every_plan_writes_every_output_once(shape):
     if shape in FORWARD_SHAPES + CHUNK_SHAPES:
         assert (chosen["vec"], chosen["groups"], chosen["planes"]) == (4, 2, 8)
         assert chosen["threads"] == sv.SWEEP_THREADS
+
+
+# the backward's: a train step's three sweeps and the `cuda` tests' shapes
+BACKWARD_SHAPES = FORWARD_SHAPES + [(2, s, 7, 13, 21, c) for s in (2, 5) for c in (6, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_backward_plan_writes_every_output_once(shape):
+    """sweep_variance_backward's plan: one group of vec channels a thread,
+    every thread walking all D planes (one run: the reference's cotangent is
+    summed over the planes by one thread), every (sample, pixel, channel)
+    once, at most SWEEP_THREADS a block; refused where the forward's plan
+    is."""
+    b, s, d, h, w, c = shape
+    plan = sv.sweep_variance_backward_plan(*shape)
+    assert plan["groups"] == 1 and plan["planes"] == d and plan["grid"][1:] == (1, b)
+    assert plan["vec"] == sv.sweep_variance_plan(*shape)["vec"]
+    pix, planes, chans = _covered(plan, b, d, h, w, c)
+    assert (pix == 1).all() and (planes == 1).all() and (chans == 1).all()
+    with pytest.raises(ValueError, match="source views"):
+        sv.sweep_variance_backward_plan(b, 0, d, h, w, c)
 
 
 def test_plan_options_follow_the_kernel_instances():

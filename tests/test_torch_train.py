@@ -276,15 +276,26 @@ def test_fused_red_trains_on_the_cpu():
 
 
 def test_train_fused_sweep_raises():
-    """Training on the fused sweep, whose backward is not ported, raises."""
-    with pytest.raises(NotImplementedError, match="train_fused_sweep"):
-        CascadeModel(NDEPTHS, train_fused_sweep=True)
+    """train_fused_sweep=True trains on the fused sweep: the train-mode
+    forward builds each stage's volume with sweep_variance (its plain
+    versions here, forward and backward) and the backward reaches every
+    parameter with finite gradients; fused_sweep=False turns it off (the
+    per-view sweep), as in JAX."""
+    model = CascadeModel(NDEPTHS, train_fused_sweep=True).eval()
+    b = tsyn.make_batch(1, 32, 32, seed=0, device="cpu")
+    out = model(b["imgs"], b["cams"], b["depth_values"], train=True)
+    loss = cascade_loss(out, b["depth_stages"], b["mask_stages"], (0.5, 1.0, 2.0))[0]
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+    assert model.train_fused_sweep and CascadeModel(NDEPTHS, train_fused_sweep=True,
+                                                    fused_sweep=False).fused_sweep is False
 
 
 @pytest.mark.parametrize("field,value", [
     ("geo_model", "pinhole"), ("use_qc", True), ("mesh_data", 2),
     ("mesh_spatial", 2), ("mesh_depth", 2), ("compute_dtype", "bfloat16"),
-    ("volume_dtype", "bfloat16"), ("torch_compat", True), ("fused_sweep", False)])
+    ("torch_compat", True)])
 def test_config_refuses_what_the_port_lacks(field, value):
     with pytest.raises(ValueError, match=field):
         Config(**{field: value})
