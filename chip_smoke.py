@@ -126,6 +126,28 @@ Phases, each reported on its own lines:
      with bf16 volumes: exact launches (6 gathers, no sweep_variance), depth
      against the default forward stage by stage and against the CPU at
      96×192.
+  12 the two other camera models, pinhole cameras fitted to phase 3's
+     synthetic triplet (`geo.pinhole.fit_pinhole_from_rpc`, composed in the
+     local frame as the dataset composes them; depths are camera z) and
+     QC-form RPC bundles of it: (a) `homo_sweep_coords` and
+     `rpc_sweep_coords_qc` at the forward's three stage shapes against a
+     float64 oracle (0.05 px, 0.01 px) and against the CPU, and each
+     geometry's ms a forward beside `rpc_sweep_coords`; (b) CascadeREDNet
+     forwards at 384×768 on each (exact launches: 3 sweep_variance and the
+     RED kernels; ranges, ms, peak memory, a profile) and their plain runs
+     on the CPU at 96×192 stage by stage; the QC forward against the
+     basis-form forward (seeded weights, heads ×1) stage by stage; a pinhole
+     CascadeMVSNet forward at 96×192 against the CPU; a pinhole streaming
+     forward (slab 8) against the pinhole full-volume forward; (c) three
+     train steps each with Config(geo_model="pinhole") and
+     Config(use_qc=True) (exact launches: phase 7's), their ms and peak
+     memory beside phase 7's default step, one step at 96×192 against the
+     CPU; (d) a pinhole tree of 384×768 blocks (`write_pinhole_tree`)
+     through `cli.train --geo_model pinhole` and `cli.predict --geo_model
+     pinhole` (its maps a direct forward bit for bit), `filter_depth_pinhole`
+     on the predicted and the exact depth maps, card against CPU, and
+     `cli.train --use_qc` and `cli.predict --use_qc` (bit for bit) on phase
+     9's tree; exact launches for every run.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -133,8 +155,9 @@ writes under build/chip_smoke/).  Ends with a JSON line of per-kernel
 numbers (each kernel's launches on each path: the full-volume forward, the
 streaming forward of phase 4, the two scene runs, the fused train and eval
 steps, the fused_red-off train steps, phase 9's train, predict and scene
-CLI runs, phase 10's two family forwards and its predict run, and phase
-11's steps, CLI epoch and forwards), the nvidia-smi line of the card,
+CLI runs, phase 10's two family forwards and its predict run, phase
+11's steps, CLI epoch and forwards, and phase 12's forwards, steps and CLI
+runs), the nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -862,12 +885,12 @@ def kernel_wrappers() -> dict:
     return out
 
 
-def build_model(device):
-    """CascadeREDNet (RPC, ndepths 64/32/8) from seed 0, heads ×40 (a peaked
-    softmax, so depth parity is not trivial)."""
+def build_model(device, geo_model: str = "rpc"):
+    """CascadeREDNet (RPC or pinhole, ndepths 64/32/8) from seed 0, heads ×40
+    (a peaked softmax, so depth parity is not trivial)."""
     from satmvs_tpu_torch.models import CascadeREDNet
 
-    model = CascadeREDNet(geo_model="rpc", ndepths=NDEPTHS, device=device, seed=0)
+    model = CascadeREDNet(geo_model=geo_model, ndepths=NDEPTHS, device=device, seed=0)
     with torch.no_grad():
         for reg in model.regs:
             reg.step.head.weight.mul_(40.0)
@@ -1162,11 +1185,12 @@ def phase_scene(card: str, model, scene: dict):
     return {f"scene_b{bt}": run[2] for bt, run in runs.items()}, chunks[0]
 
 
-def phase_stream_vs_full(card: str, model, chunk) -> dict:
+def phase_stream_vs_full(card: str, model, chunk, what: str = "RPC") -> dict:
     """Phase 4: the streaming forward (slab 8) against the same model's
     full-volume forward on one 4-tile chunk, stage by stage (each
     full-volume stage centred on the streaming run's previous-stage depth),
-    and the peak memory of each.  Returns the streaming run's launches."""
+    and the peak memory of each (phase 12: on a pinhole batch).  Returns
+    the streaming run's launches."""
     from satmvs_tpu_torch.infer.predict import streaming_red_forward
 
     imgs, cams, dvals = chunk
@@ -1194,7 +1218,8 @@ def phase_stream_vs_full(card: str, model, chunk) -> dict:
         cerr = (got["photometric_confidence"] - ref["photometric_confidence"]).abs().max().item()
         fmean, fp99, fmx = err_quantiles(
             (got["depth"] - full[f"stage{i + 1}"]["depth"]).abs() / step)
-        print(f"[stream] B={bt} slab {SLAB} vs full volume, stage{i + 1} (step {step:.3f} m), "
+        print(f"[stream] {what} B={bt} slab {SLAB} vs full volume, stage{i + 1} (step "
+              f"{step:.3f} m), "
               f"same window centres: depth err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of "
               f"step (tol mean {DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}), conf err max {cerr:.3e}; "
               f"free-running: mean {fmean:.3e}, p99 {fp99:.3e}, max {fmx:.3e}", flush=True)
@@ -1203,7 +1228,8 @@ def phase_stream_vs_full(card: str, model, chunk) -> dict:
     s_ms = time_ms(lambda: streaming_red_forward(model, imgs, cams, dvals, slab=SLAB), reps=3,
                    warmup=1)
     f_ms = time_ms(lambda: model(imgs, cams, dvals), reps=3, warmup=1)
-    print(f"[stream] B={bt} tiles of {TILE_HW}x{TILE_HW}: streaming {s_ms:.2f} ms "
+    print(f"[stream] {what} B={bt} tiles of {imgs.shape[2]}x{imgs.shape[3]}: streaming "
+          f"{s_ms:.2f} ms "
           f"({s_ms / bt:.2f} per tile), peak_mem={peak_stream:.2f} GiB; full volume "
           f"{f_ms:.2f} ms ({f_ms / bt:.2f} per tile), peak_mem={peak_full:.2f} GiB (median of "
           f"3, CUDA events) card={card}", flush=True)
@@ -1674,14 +1700,28 @@ COSTREG_PARITY = {"step_loss": 1e-3, "update": None, "update_all": 0.5, "stats":
 # eval-mode gradients 0.2 per tensor and 2e-2 over all, the update 0.15
 # over all (per tensor not gated)
 BF16_PARITY = {"grad": 0.2, "grad_all": 2e-2, "update": None, "update_all": 0.15}
+# phase 12's pinhole step, GPU vs CPU: its depths are camera z at orbit
+# distance (~ −1.5e5 m, an fp32 ulp of 0.016 m against hypothesis steps of
+# 3-17 m), so the softmax's backward, p·(d − depth), cancels large values;
+# on the CPU a 1e-7 relative perturbation of the images moves the pinhole
+# step's eval-mode gradients by up to 0.124 relative norm per tensor
+# (1.98e-4 over all) and its update by 0.490 per tensor (7.06e-2 over all),
+# against 2.37e-2 / 7.83e-5 / 4.14e-2 / 6.26e-3 for RPC cameras and
+# 1.92e-2 / 2.61e-5 / 8.61e-2 / 7.89e-3 for QC (`train_sensitivity.py
+# --only cameras`).  Gates about 2.5× the pinhole spread: eval-mode
+# gradients 0.3 per tensor, the update 0.2 over all (per tensor not gated);
+# the QC step keeps phase 7's gates
+PINHOLE_PARITY = {"grad": 0.3, "update": None, "update_all": 0.2}
 
 
 def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = False,
-                       gates: dict | None = None, **fields):
+                       gates: dict | None = None, make_batch=None, **fields):
     """One eval-mode gradient and one train step at PARITY_SIZE on the card
     and on the CPU from the same weights and batch (phase 7, last part, and
-    phase 11): Config(ndepths=PARITY_NDEPTHS, seed=5, **fields), with
-    fused_sweep the train step on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP);
+    phases 11 and 12): Config(ndepths=PARITY_NDEPTHS, seed=5, **fields) on
+    make_batch(width, height) (a CPU batch; by default
+    `synthetic.make_batch(1, w, h, seed=1, use_qc=...)` with cfg's use_qc),
+    with fused_sweep the train step on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP);
     `gates` overrides the eval-mode gradients' ("grad" per tensor,
     "grad_all"), the train step's loss ("step_loss"), update ("update" per
     tensor, None: not gated; "update_all") and statistics ("stats")
@@ -1694,8 +1734,9 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
 
     t0 = time.time()
     h, w = PARITY_SIZE
-    cpu_batch = synthetic.make_batch(1, w, h, seed=1, device="cpu")
     cfg = Config(**{"ndepths": PARITY_NDEPTHS, "seed": 5, **fields})
+    cpu_batch = (make_batch(w, h) if make_batch else
+                 synthetic.make_batch(1, w, h, seed=1, device="cpu", use_qc=cfg.use_qc))
     gate = {"step_loss": PARITY_LOSS, "update": PARITY_UPDATE, "update_all": PARITY_UPDATE_ALL,
             "stats": PARITY_STATS, "grad": PARITY_GRAD, "grad_all": PARITY_GRAD_ALL,
             **(gates or {})}
@@ -1727,13 +1768,14 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
               f"{cpu[name]:.6f}, {rel:.3e} relative (tol {tol})", flush=True)
         check(rel <= tol, f"{what} parity: {name} {rel} relative")
     scale = max(g.abs().max().item() for g in cpu["grads"].values())
-    worst, head, g_num, g_den = 0.0, 0.0, 0.0, 0.0
+    worst, head, g_num, g_den, worst_name = 0.0, 0.0, 0.0, 0.0, ""
     for n, g in gpu["grads"].items():
         diff = (g - cpu["grads"][n]).norm().item()
         if n.endswith("head.bias"):
             head = max(head, diff / scale)
         else:
-            worst = max(worst, diff / cpu["grads"][n].norm().item())
+            rel = diff / cpu["grads"][n].norm().item()
+            worst, worst_name = max((worst, worst_name), (rel, n))
             g_num += diff ** 2
             g_den += cpu["grads"][n].norm().item() ** 2
     num = den = upd = 0.0
@@ -1749,7 +1791,8 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
     total = (num / den) ** 0.5
     g_total = (g_num / g_den) ** 0.5
     print(f"[train] {what} GPU vs CPU: eval-mode gradients max relative norm {worst:.3e} over "
-          f"{len(gpu['grads'])} tensors (tol {gate['grad']}), {g_total:.3e} over all (tol "
+          f"{len(gpu['grads'])} tensors ({worst_name}; tol {gate['grad']}), {g_total:.3e} over "
+          f"all (tol "
           f"{gate['grad_all']}), head biases {head:.3e} of the "
           f"largest element (tol {PARITY_HEAD}); update relative norm max {upd:.3e} per tensor "
           f"(tol {gate['update']}), {total:.3e} over all (tol {gate['update_all']}); running "
@@ -2458,8 +2501,8 @@ COSTREG_PATHS = (*COSTREG_FAMILIES, "cli_predict_ucs")
 COSTREG_BLOCK_TOL = 1e-4         # composed taps vs cuDNN's conv3d, × max(1, max |cuDNN|)
 
 
-def build_costreg_model(name: str, device):
-    """CascadeMVSNet or UCSNet (RPC, ndepths 64/32/8) from seed 0 at flax's
+def build_costreg_model(name: str, device, geo_model: str = "rpc"):
+    """CascadeMVSNet or UCSNet (ndepths 64/32/8) from seed 0 at flax's
     LeCun scale, its norms and BatchNorm statistics drawn from seed 1
     (scale 1 ± 0.2, shift and mean ± 0.1, var in [0.5, 1.5]: the BN fold is
     far from the identity), the CostRegNet heads × COSTREG_HEAD_GAIN; drawn
@@ -2467,7 +2510,7 @@ def build_costreg_model(name: str, device):
     from satmvs_tpu_torch.models import build_model
     from satmvs_tpu_torch.nn.blocks import BatchNorm
 
-    model = lecun_scale(build_model(name, "rpc", ndepths=NDEPTHS, device="cpu", seed=0))
+    model = lecun_scale(build_model(name, geo_model, ndepths=NDEPTHS, device="cpu", seed=0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for m in model.modules():
@@ -2729,6 +2772,507 @@ def costreg_cli(card: str, tree: str) -> dict:
     return launches
 
 
+# phase 12: the pinhole and QC-form RPC camera models.  Pinhole cameras are
+# fitted (`geo.pinhole.fit_pinhole_from_rpc`) to the synthetic triplet's RPCs
+# in the reference view's UTM zone and composed in the local frame as
+# `MVSDataset` composes them; depths are camera z along the fitted reference
+# camera's axis (~ −1e5 to −6e5 m: the fitted camera sits at orbit distance)
+PIN_COORD_TOL = 0.05   # px, homo_sweep_coords vs float64: the fp32 chain's own ~0.03 px
+QC_COORD_TOL = 0.01    # px, rpc_sweep_coords_qc vs float64: tests/test_geo.py's RPC gate
+CAMERA_STEPS = 3
+PIN_TREE_TRAIN, PIN_TREE_TEST = 2, 1
+FUSE_DEPTH_TOL = 1e-4  # relative, pinhole fusion GPU vs CPU on pixels both keep
+# the kernels each new path must launch (`run`'s final check)
+CAMERA_FORWARD_PATHS = ("pinhole_forward", "qc_forward", "pinhole_streaming",
+                        "cli_predict_pinhole", "cli_predict_qc")
+CAMERA_TRAIN_PATHS = ("pinhole_step", "qc_step", "cli_train_pinhole", "cli_train_qc")
+CAMERA_COSTREG_PATHS = ("pinhole_casmvs",)
+
+
+def fitted_pinhole(rpcs, width: int, height: int):
+    """Pinhole cameras fitted to each RPC of rpcs (view 0 the reference), all
+    in the reference's UTM zone: (projs (V, 4, 4) float64 in the local frame
+    (`geo.pinhole.local_proj_matrices`), the reference's E (4, 4) in the UTM
+    frame, the UTM frame, [(K, median and max fit error px) per view])."""
+    from satmvs_tpu_torch.geo import pinhole, rpc as rpclib
+    from satmvs_tpu_torch.geo.tmerc import TransverseMercator
+
+    tm = TransverseMercator.utm_for(float(rpcs[0][rpclib.LON_OFF]))
+    ks, es, fits = [], [], []
+    for rpc in rpcs:
+        k, r, t, proj_err, _ = pinhole.fit_pinhole_from_rpc(rpc, width, height, tm=tm)
+        e = np.eye(4)
+        e[:3, :3], e[:3, 3] = r, t[:, 0]
+        ks.append(k)
+        es.append(e)
+        fits.append((k, float(np.median(proj_err)), float(proj_err.max())))
+    return pinhole.local_proj_matrices(np.stack(ks), np.stack(es)), es[0], tm, fits
+
+
+def camera_z(rpc, e_ref, tm, xs, ys, heights) -> np.ndarray:
+    """Camera z (float64, host) of the reference pixels (xs, ys) at heights:
+    the inverse RPC to (lat, lon), UTM, then row 2 of the fitted E."""
+    from satmvs_tpu_torch.geo import rpc as rpclib
+
+    lat, lon = rpclib.photo_to_obj(rpc, xs, ys, heights)
+    en = tm.proj(np.stack([lat, lon], axis=-1))
+    return e_ref[2, 0] * en[:, 0] + e_ref[2, 1] * en[:, 1] + e_ref[2, 2] * heights + e_ref[2, 3]
+
+
+def pinhole_batch(width: int, height: int, seed: int = 0, device="cuda",
+                  with_gt: bool = True) -> tuple[dict, dict]:
+    """`synthetic.make_batch`'s scene (B = 1) under pinhole cameras fitted to
+    its RPCs: per-stage (1, V, 4, 4) float32 projection matrices, the depth
+    range the camera z of the reference pixel grid at the scene's lowest and
+    highest heights, the ground truth the camera z of its heights.  Returns
+    (batch, {"fits": [(K, median px, max px)], "rpcs": (V, 170)})."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.data.preprocess import build_pyramid
+    from satmvs_tpu_torch.geo import pinhole
+
+    scene = synthetic.make_scene(width, height, seed=seed, h_amp=80.0)
+    order = [2, 0, 1]  # the nadir view is the reference, as in make_batch
+    rpcs = scene["rpcs"][order]
+    projs, e_ref, tm, fits = fitted_pinhole(rpcs, width, height)
+    xs, ys = (g.ravel() for g in np.meshgrid(np.arange(width, dtype=np.float64),
+                                             np.arange(height, dtype=np.float64)))
+    z = np.concatenate([camera_z(rpcs[0], e_ref, tm, xs, ys, np.full(xs.size, h))
+                        for h in scene["h_range"]])
+    imgs = scene["images"][order]
+    imgs = (imgs - imgs.mean(axis=(1, 2), keepdims=True)) / (
+        imgs.std(axis=(1, 2), keepdims=True) + 1e-8)
+    batch = {
+        "imgs": torch.as_tensor(np.repeat(imgs[None, ..., None], 3, axis=-1).astype(np.float32),
+                                device=device),
+        "cams": tuple(torch.as_tensor(pinhole.scale_proj_matrix(projs, s)[None],
+                                      dtype=torch.float32, device=device)
+                      for s in (0.25, 0.5, 1.0)),
+        "depth_values": torch.tensor([[z.min(), z.max()]], dtype=torch.float32, device=device),
+    }
+    if with_gt:
+        gt = camera_z(rpcs[0], e_ref, tm, xs, ys,
+                      scene["gt_heights"][2].astype(np.float64).ravel())
+        pyr = build_pyramid(gt.reshape(height, width).astype(np.float32), 3)
+        batch["depth_stages"] = [torch.as_tensor(p[None], device=device) for p in pyr]
+        batch["mask_stages"] = [torch.ones_like(d) for d in batch["depth_stages"]]
+    return batch, {"fits": fits, "rpcs": rpcs}
+
+
+def write_pinhole_tree(root: str, num_train: int = 2, num_test: int = 1, width: int = 64,
+                       height: int = 64, seed: int = 0) -> str:
+    """A pinhole WHU-TLC tree <root>/open_dataset_pinhole/{train,test}/
+    {image,camera,depth}/{0,1,2}/blockNNNN.* written with the port's
+    `formats.save_camera`, `formats.save_pfm` and PNG writer.  The camera
+    text holds one focal length and no skew, so the cameras are
+    K·[I | (tx, 0, 0)] with f = 1.5625·width, the principal point at the
+    centre and baselines tx of 0, 2 and −2 m; each block is a tilted plane
+    at depths ~37-57 m (camera files: 30 to 60 m) with a smooth texture
+    drawn from its seed, each view's depth and image exact for its camera.
+    Returns root."""
+    import os
+
+    from satmvs_tpu_torch.data import formats, png
+
+    f = 1.5625 * width
+    k = np.array([[f, 0.0, width / 2], [0.0, f, height / 2], [0.0, 0.0, 1.0]])
+    xs, ys = np.meshgrid(np.arange(width, dtype=np.float64), np.arange(height, dtype=np.float64))
+    u, v = (xs - width / 2) / f, (ys - height / 2) / f
+    for split, n, s0 in (("train", num_train, 0), ("test", num_test, 1000)):
+        base = os.path.join(root, "open_dataset_pinhole", split)
+        for kind in ("image", "camera", "depth"):
+            for view in range(3):
+                os.makedirs(os.path.join(base, kind, str(view)), exist_ok=True)
+        for b in range(n):
+            rng = np.random.default_rng(seed + s0 + b)
+            z0, a, c = 45.0 + rng.uniform(-2, 2), rng.uniform(-0.5, 0.5), rng.uniform(-0.25, 0.25)
+            freq = rng.uniform(0.2, 1.2, (8, 2)) * rng.choice([-1, 1], (8, 2))
+            phase = rng.uniform(0, 2 * np.pi, 8)
+            name = f"block{b:04d}"
+            for view, tx in enumerate((0.0, 2.0, -2.0)):
+                # the plane z = z0 + a·X + c·Y in world X, Y; camera X = world X + tx
+                z = (z0 - a * tx) / (1.0 - a * u - c * v)
+                wx, wy = u * z - tx, v * z
+                tex = np.sin(wx[..., None] * freq[:, 0] + wy[..., None] * freq[:, 1] + phase)
+                img = 127.5 + 127.5 * tex.mean(-1) / np.abs(tex.mean(-1)).max()
+                png.write_png(os.path.join(base, "image", str(view), name + ".png"),
+                              np.clip(np.round(img), 0, 255).astype(np.uint8))
+                formats.save_camera(os.path.join(base, "camera", str(view), name + ".txt"), k,
+                                    np.eye(3), np.array([tx, 0.0, 0.0]), 30.0, 60.0, 30.0 / 63,
+                                    view, width, height)
+                formats.save_pfm(os.path.join(base, "depth", str(view), name + ".pfm"),
+                                 z.astype(np.float32))
+    return root
+
+
+def uniform_hyps(lo: float, hi: float, nd: int, h: int, w: int, device) -> torch.Tensor:
+    """nd planes evenly over [lo, hi], (nd, h, w) float32."""
+    planes = torch.linspace(lo, hi, nd, dtype=torch.float64).to(torch.float32)
+    return planes.reshape(nd, 1, 1).expand(nd, h, w).contiguous().to(device)
+
+
+def pinhole_oracle(src_proj, ref_proj, hyps) -> tuple[np.ndarray, np.ndarray]:
+    """homo_sweep_coords in float64 numpy on the same float32 inputs."""
+    rel = np.asarray(src_proj, np.float64) @ np.linalg.inv(np.asarray(ref_proj, np.float64))
+    d = np.asarray(hyps, np.float64)
+    _, h, w = d.shape
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    p = [(rel[c, 0] * xs + rel[c, 1] * ys + rel[c, 2]) * d + rel[c, 3] for c in range(3)]
+    return p[0] / p[2], p[1] / p[2]
+
+
+def rpc_oracle(ref_rpc, src_rpc, scale: float, hyps) -> tuple[np.ndarray, np.ndarray]:
+    """The RPC sweep in float64 on the host: the reference's inverse RPC,
+    the source's direct one, both at the stage's image scale."""
+    from satmvs_tpu_torch.geo import rpc as rpclib
+
+    d = np.asarray(hyps, np.float64)
+    _, h, w = d.shape
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    xs, ys = np.broadcast_to(xs, d.shape).ravel(), np.broadcast_to(ys, d.shape).ravel()
+    ref, src = rpclib.scale_rpc(ref_rpc, scale), rpclib.scale_rpc(src_rpc, scale)
+    lat, lon = rpclib.photo_to_obj(ref, xs, ys, d.ravel())
+    x_s, y_s = rpclib.obj_to_photo(src, lat, lon, d.ravel())
+    return x_s.reshape(d.shape), y_s.reshape(d.shape)
+
+
+def phase_camera_coords(card: str, pin: dict, pin_info: dict, qc: dict, rpc: dict) -> None:
+    """Phase 12 (a): `homo_sweep_coords` (the fitted pinhole cameras) and
+    `rpc_sweep_coords_qc` at the forward's three stage shapes, each source
+    view, uniform planes over the sweep's range: on the card against a
+    float64 oracle (PIN_COORD_TOL, QC_COORD_TOL) and against the same
+    function on the CPU (the same tolerances); each geometry's ms a forward
+    (3 stages × 2 source views) beside `rpc_sweep_coords`'s."""
+    from satmvs_tpu_torch.ops import warp
+
+    for k, (mk, med, mx) in enumerate(pin_info["fits"]):
+        print(f"[cameras] pinhole fit of view {k} ({WIDTH}x{HEIGHT}): reprojection error median "
+              f"{med:.3f} px, max {mx:.3f} px; fx {mk[0, 0]:.5g}, fy {mk[1, 1]:.5g}, skew "
+              f"{mk[0, 1]:.5g}; projection condition "
+              f"{np.linalg.cond(pin['cams'][2][0, k].double().cpu().numpy()):.3e}", flush=True)
+    jobs = {}
+    for i, (sc, nd) in enumerate(zip(STAGE_SCALES, NDEPTHS)):
+        h, w = HEIGHT // sc, WIDTH // sc
+        p_lo, p_hi = pin["depth_values"][0].tolist()
+        r_lo, r_hi = rpc["depth_values"][0].tolist()
+        p_hyp = uniform_hyps(p_lo, p_hi, nd, h, w, "cuda")
+        r_hyp = uniform_hyps(r_lo, r_hi, nd, h, w, "cuda")
+        pin_cams, qc_cams, rpc_cams = pin["cams"][i][0], qc["cams"][i][0], rpc["cams"][i][0]
+        for s in range(2):
+            jobs[("pinhole", i, s)] = (lambda c=pin_cams, s=s, hy=p_hyp, h=h, w=w:
+                                       warp.sweep_coords(c, s, hy, h, w))
+            jobs[("qc", i, s)] = (lambda c=qc_cams, s=s, hy=r_hyp, h=h, w=w:
+                                  warp.sweep_coords(c, s, hy, h, w))
+            jobs[("rpc", i, s)] = (lambda c=rpc_cams, s=s, hy=r_hyp, h=h, w=w:
+                                   warp.sweep_coords(c, s, hy, h, w))
+            for geo, tol in (("pinhole", PIN_COORD_TOL), ("qc", QC_COORD_TOL)):
+                cams, hyp = (pin_cams, p_hyp) if geo == "pinhole" else (qc_cams, r_hyp)
+                gx, gy = jobs[(geo, i, s)]()
+                cx, cy = warp.sweep_coords(cams.to("cpu"), s, hyp.cpu(), h, w)
+                if geo == "pinhole":
+                    ox, oy = pinhole_oracle(cams[s + 1].cpu(), cams[0].cpu(), hyp.cpu())
+                else:
+                    rpcs = pin_info["rpcs"]
+                    ox, oy = rpc_oracle(rpcs[0], rpcs[s + 1], 1.0 / sc, hyp.cpu())
+                gx, gy, cx, cy = (t.cpu().double().numpy() for t in (gx, gy, cx, cy))
+                oracle = max(np.abs(gx - ox).max(), np.abs(gy - oy).max())
+                cpu = max(np.abs(gx - cx).max(), np.abs(gy - cy).max())
+                cpu_oracle = max(np.abs(cx - ox).max(), np.abs(cy - oy).max())
+                print(f"[cameras] {geo} coordinates stage{i + 1} ({nd}, {h}, {w}) source {s}: "
+                      f"card vs float64 {oracle:.3e} px (CPU vs float64 {cpu_oracle:.3e}), card "
+                      f"vs CPU {cpu:.3e} px (tol {tol})", flush=True)
+                check(oracle <= tol and cpu <= tol,
+                      f"{geo} coordinates stage{i + 1} source {s}: {oracle} / {cpu} px")
+    for geo in ("pinhole", "qc", "rpc"):
+        fns = [fn for key, fn in jobs.items() if key[0] == geo]
+        ms = time_ms(lambda: [fn() for fn in fns], reps=10, warmup=2)
+        print(f"[cameras] {geo} sweep coordinates of a {HEIGHT}x{WIDTH} forward (3 stages x 2 "
+              f"source views): {ms:.3f} ms (median of 10, CUDA events) card={card}", flush=True)
+
+
+def camera_forward(card: str, what: str, model, batch, want: dict) -> tuple:
+    """A forward with exact launches `want`, finite depth inside the sweep's
+    range (stage 1's, widened by the later windows), confidence in [0, 1];
+    then its ms (CUDA events), peak memory and a profile.  Returns (output,
+    launches)."""
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == want, f"{what} forward launches {launches}")
+    lo, hi = dvals[0].tolist()
+    margin = 0.0
+    for i, (scale, nd) in enumerate(zip(STAGE_SCALES, model.ndepths), start=1):
+        if i > 1 and model.sampler == "window":
+            margin += nd / 2 * model.stage_intervals()[i - 1]
+        depth, conf = out[f"stage{i}"]["depth"], out[f"stage{i}"]["photometric_confidence"]
+        h, w = imgs.shape[2] // scale, imgs.shape[3] // scale
+        check(tuple(depth.shape) == (1, h, w) and bool(torch.isfinite(depth).all()),
+              f"{what} stage{i}: depth shape {tuple(depth.shape)} or non-finite")
+        dmin, dmax = depth.min().item(), depth.max().item()
+        slack = 1e-3 + 4 * max(abs(lo), abs(hi)) * 2.0 ** -23  # a few fp32 ulps of the depth
+        check(lo - margin - slack <= dmin and dmax <= hi + margin + slack,
+              f"{what} stage{i}: depth [{dmin}, {dmax}] outside [{lo - margin}, {hi + margin}]")
+        check(0.0 <= conf.min().item() and conf.max().item() <= 1.0 + 1e-6,
+              f"{what} stage{i}: confidence")
+        print(f"[cameras] {what} stage{i} depth [{dmin:.2f}, {dmax:.2f}] m (range {lo:.2f}.."
+              f"{hi:.2f} ± {margin:g}), conf [{conf.min().item():.4f}, "
+              f"{conf.max().item():.4f}]", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: model(imgs, cams, dvals), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[cameras] {what} forward at {imgs.shape[2]}x{imgs.shape[3]}: launches "
+          f"{({k: v for k, v in launches.items() if v})} (exact), forward_ms={ms:.2f} (median "
+          f"of 5, CUDA events, B=1, 3 views) peak_mem={peak:.2f} GiB card={card}", flush=True)
+    profile_forward(lambda: model(imgs, cams, dvals), card, what=f"one {what} forward")
+    return out, launches
+
+
+def stagewise_against(what: str, model, ref_out: dict, imgs, cams, dvals):
+    """`model`'s stages on `cams` against ref_out (the same model on other
+    cameras of the same views), each stage centred on ref_out's previous
+    depth: the mean ≤ DEPTH_TOL_MEAN and the p99 ≤ DEPTH_TOL_P99 of the
+    stage's hypothesis step; the max |Δ| in metres beside it."""
+    feats = model.features(imgs)
+    d_min, d_max = dvals[:, 0], dvals[:, -1]
+    for i, step in enumerate(stage_steps(*dvals[0].tolist(), model.stage_intervals())):
+        prev = None if i == 0 else ref_out[f"stage{i}"]["depth"]
+        got = model.stage(i, feats[i], cams[i], d_min, d_max, prev)["depth"]
+        diff = (got - ref_out[f"stage{i + 1}"]["depth"]).abs()
+        mean, p99, mx = err_quantiles(diff / step)
+        print(f"[cameras] {what} stage{i + 1} (step {step:.3f} m), same window centres: depth "
+              f"err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of step (tol mean "
+              f"{DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}); max |dh| {diff.max().item():.4f} m",
+              flush=True)
+        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+              f"{what} stage{i + 1}: depth err mean {mean}, p99 {p99} of step")
+
+
+def camera_steps(card: str, what: str, cfg, batch, default_step: dict) -> dict:
+    """CAMERA_STEPS train steps (`run_train_steps`: exact launches a step,
+    finite losses) beside phase 7's default step.  Returns the launches."""
+    *_, launches, times, losses, peak = run_train_steps(
+        cfg, batch, CAMERA_STEPS, LAUNCHES_PER_TRAIN_STEP, what, card)
+    ms = float(np.median(times))
+    print(f"[cameras] {what} train step {ms:.2f} ms (median of {CAMERA_STEPS}), peak_mem="
+          f"{peak:.2f} GiB; phase 7's default step {default_step['ms']:.2f} ms, "
+          f"{default_step['peak']:.2f} GiB ({ms / default_step['ms']:.3f}x) card={card}",
+          flush=True)
+    return launches
+
+
+def cli_against_direct(what: str, folder: str, geo_model: str, use_qc: bool, ckpt: str) -> None:
+    """The maps a predict run wrote under folder/mvs_results against a direct
+    forward of the restored model on the same pred-mode batches (cuDNN's
+    deterministic engines, as the CLI runs): the same bits."""
+    import os
+
+    from satmvs_tpu_torch.cli import restore_model
+    from satmvs_tpu_torch.data import formats
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.data.loader import Loader
+    from satmvs_tpu_torch.train import Config
+
+    torch.backends.cudnn.deterministic = True
+    model, _, _ = restore_model(Config(geo_model=geo_model, use_qc=use_qc), ckpt,
+                                torch.device("cuda"))
+    n = 0
+    ds = MVSDataset(folder, "pred", geo_model=geo_model, use_qc=use_qc)
+    for batch in Loader(ds, 1, device="cuda"):
+        want = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        view, name = batch["out_view"][0], batch["out_name"][0]
+        for sub, key in (("init", "depth"), ("prob", "photometric_confidence")):
+            got = formats.load_pfm(os.path.join(folder, "mvs_results", view, sub, f"{name}.pfm"))
+            check(np.array_equal(got, want[key][0].cpu().numpy()),
+                  f"{what} view {view} {name} {sub}: not the bits of a direct forward")
+            n += 1
+    torch.backends.cudnn.deterministic = False
+    print(f"[cameras] {what}: {n} maps the bits of a direct forward", flush=True)
+
+
+def camera_cli(card: str, rpc_tree: str) -> dict:
+    """Phase 12 (d): a pinhole tree of 3-view HEIGHT × WIDTH blocks
+    (`write_pinhole_tree`) through `cli.train --geo_model pinhole` (one
+    epoch and its test pass) and `cli.predict --geo_model pinhole`, its maps
+    the bits of a direct forward; `filter_depth_pinhole` on the predicted
+    maps and on the tree's exact depth maps, card against CPU; then
+    `cli.train --use_qc` (one epoch) and `cli.predict --use_qc` on phase 9's
+    RPC tree.  Exact launches for every run.  Returns them."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import predict as cli_predict
+    from satmvs_tpu_torch.cli import train as cli_train
+    from satmvs_tpu_torch.data import formats
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.infer.fuse import filter_depth_pinhole
+
+    launches = {}
+
+    def run(what: str, fn, argv, want: dict):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        check(got == want, f"{what}: launches {got}, want {want}")
+        print(f"[cameras] {what}: {wall:.2f} s wall, launches "
+              f"{({k: v for k, v in got.items() if v})} (exact) card={card}", flush=True)
+        return out, got
+
+    t0 = time.time()
+    root = str(WORK / "pinhole_tree")
+    write_pinhole_tree(root, PIN_TREE_TRAIN, PIN_TREE_TEST, WIDTH, HEIGHT, seed=0)
+    print(f"[cameras] pinhole tree of {PIN_TREE_TRAIN} + {PIN_TREE_TEST} blocks of 3 "
+          f"{HEIGHT}x{WIDTH} views written in {time.time() - t0:.1f} s", flush=True)
+    logdir = str(WORK / "logs_cameras")
+    workdir = os.path.join(logdir, "red", "pinhole")
+    out, launches["cli_train_pinhole"] = run(
+        "cli.train --geo_model pinhole, one epoch", cli_train.main,
+        ["--mode=train", f"--dataset_root={root}", f"--logdir={logdir}", "--geo_model",
+         "pinhole", "--epochs", "1"], launches_of(PIN_TREE_TRAIN, PIN_TREE_TEST))
+    check(out["timing"]["steps"] == [PIN_TREE_TRAIN]
+          and os.path.isfile(os.path.join(workdir, "1", "state.pt")), f"pinhole train {out}")
+    testpath = os.path.join(root, "open_dataset_pinhole", "test")
+    _, launches["cli_predict_pinhole"] = run(
+        "cli.predict --geo_model pinhole --fuse", cli_predict.main,
+        [f"--dataset_root={testpath}", f"--loadckpt={workdir}", "--geo_model", "pinhole",
+         "--fuse"], launches_of(0, 3 * PIN_TREE_TEST))
+    cli_against_direct("cli.predict --geo_model pinhole", testpath, "pinhole", False, workdir)
+
+    # fusion on the card against the CPU: the predicted maps (loose thresholds, so
+    # that a share of a random model's pixels pass) and the exact depth maps
+    ref = MVSDataset(testpath, "pred", geo_model="pinhole")[0]  # views 0, 1, 2
+    projs = ref["cams"][-1].double().numpy()
+    for what, sub, thresholds in (
+            ("predicted maps", ("mvs_results", "{v}", "init"), (4.0, 0.05)),
+            ("exact depth maps", ("depth", "{v}"), (1.0, 0.01))):
+        depths = np.stack([formats.load_pfm(os.path.join(
+            testpath, *(p.format(v=v) for p in sub), "block0000.pfm")) for v in "012"])
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            mask, fused = filter_depth_pinhole(depths, projs, *thresholds, device=dev)
+            runs[dev] = (time.perf_counter() - t1, mask, fused)
+        (t_g, m_g, f_g), (t_c, m_c, f_c) = runs["cuda"], runs["cpu"]
+        both = m_g & m_c
+        rel = float((np.abs(f_g - f_c) / np.abs(f_c))[both].max()) if both.any() else 0.0
+        print(f"[cameras] pinhole fusion of the {what} (p_thre {thresholds[0]}, rel_d_thre "
+              f"{thresholds[1]}): valid {m_g.mean():.4f} on the card, {m_c.mean():.4f} on the "
+              f"CPU (tol {FUSE_VALID_TOL}); fused depth max relative difference {rel:.3e} on "
+              f"{int(both.sum())} pixels both keep (tol {FUSE_DEPTH_TOL}); wall "
+              f"{1e3 * t_g:.1f} ms card, {1e3 * t_c:.1f} ms CPU card={card}", flush=True)
+        check(abs(m_g.mean() - m_c.mean()) <= FUSE_VALID_TOL and rel <= FUSE_DEPTH_TOL
+              and both.any(), f"pinhole fusion of the {what}")
+
+    qc_logdir = str(WORK / "logs_qc")
+    out, launches["cli_train_qc"] = run(
+        "cli.train --use_qc, one epoch", cli_train.main,
+        ["--mode=train", f"--dataset_root={rpc_tree}", f"--logdir={qc_logdir}", "--use_qc",
+         "--epochs", "1"], launches_of(TREE_TRAIN, TREE_TEST))
+    check(out["timing"]["steps"] == [TREE_TRAIN], f"QC train {out['timing']}")
+    copy = WORK / "test_qc"
+    shutil.copytree(os.path.join(rpc_tree, "open_dataset_rpc", "test"), copy,
+                    ignore=shutil.ignore_patterns("mvs_results", "height_result"))
+    qc_ckpt = os.path.join(qc_logdir, "red", "rpc")
+    _, launches["cli_predict_qc"] = run(
+        "cli.predict --use_qc", cli_predict.main,
+        [f"--dataset_root={copy}", f"--loadckpt={qc_ckpt}", "--use_qc"],
+        launches_of(0, 3 * TREE_TEST))
+    cli_against_direct("cli.predict --use_qc", str(copy), "rpc", True, qc_ckpt)
+    return launches
+
+
+def phase_cameras(card: str, rpc_tree: str, default_step: dict) -> dict:
+    """Phase 12: the pinhole and QC-form RPC camera models on the main
+    paths.  (a) coordinates (`phase_camera_coords`); (b) CascadeREDNet
+    forwards at HEIGHT × WIDTH (heads ×40) on fitted pinhole cameras and on
+    QC bundles of the same triplet, each with exact launches, ranges, ms,
+    peak memory, a profile and its plain run on the CPU at PARITY_SIZE stage
+    by stage; the QC forward against the basis-form forward at full size
+    (seeded weights without the ×40); a pinhole CascadeMVSNet forward at
+    PARITY_SIZE against its CPU run; a pinhole streaming forward (slab 8)
+    against the pinhole full-volume forward; (c) CAMERA_STEPS train steps
+    each with Config(geo_model="pinhole") and Config(use_qc=True) on the
+    default per-view sweep and one step at PARITY_SIZE against the CPU
+    (the pinhole step under PINHOLE_PARITY);
+    (d) `camera_cli`.  Returns each path's launches."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.models import CascadeREDNet
+    from satmvs_tpu_torch.train import Config
+
+    t0 = time.time()
+    pin, pin_info = pinhole_batch(WIDTH, HEIGHT, seed=0)
+    qc = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda", use_qc=True)
+    rpc = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    check(torch.equal(pin["imgs"], qc["imgs"]), "the pinhole and QC batches' images differ")
+    phase_camera_coords(card, pin, pin_info, qc, rpc)
+    launches = {}
+
+    model = build_model("cuda", "pinhole")
+    ph, pw = PARITY_SIZE
+    out, launches["pinhole_forward"] = camera_forward(card, "pinhole", model, pin,
+                                                      LAUNCHES_PER_FORWARD)
+    small, _ = pinhole_batch(pw, ph, seed=1, with_gt=False)
+    gpu_vs_cpu("[cameras]", f"pinhole at {ph}x{pw}", model(small["imgs"], small["cams"],
+                                                           small["depth_values"]),
+               build_model("cpu", "pinhole"), small["imgs"], small["cams"], small["depth_values"])
+    reset_counts()
+    launches["pinhole_streaming"] = phase_stream_vs_full(
+        card, model, (pin["imgs"], pin["cams"], pin["depth_values"]), what="pinhole")
+    del out, model
+
+    model = build_model("cuda")
+    _, launches["qc_forward"] = camera_forward(card, "QC", model, qc, LAUNCHES_PER_FORWARD)
+    small = synthetic.make_batch(1, pw, ph, seed=1, device="cuda", use_qc=True)
+    gpu_vs_cpu("[cameras]", f"QC at {ph}x{pw}", model(small["imgs"], small["cams"],
+                                                      small["depth_values"]),
+               build_model("cpu"), small["imgs"], small["cams"], small["depth_values"])
+    del model
+    plain = CascadeREDNet(ndepths=NDEPTHS, device="cuda", seed=0)
+    basis = plain(rpc["imgs"], rpc["cams"], rpc["depth_values"])
+    free = plain(qc["imgs"], qc["cams"], qc["depth_values"])
+    gaps = [(free[f"stage{i}"]["depth"] - basis[f"stage{i}"]["depth"]).abs().max().item()
+            for i in (1, 2, 3)]
+    print(f"[cameras] QC vs basis-form forward at {HEIGHT}x{WIDTH} (seeded weights, heads x1), "
+          f"free-running: max |dh| per stage {[round(g, 4) for g in gaps]} m", flush=True)
+    stagewise_against("QC vs basis-form forward", plain, basis, qc["imgs"], qc["cams"],
+                      qc["depth_values"])
+    del plain, basis, free
+
+    casmvs = build_costreg_model("casmvs", "cuda", "pinhole")
+    small, _ = pinhole_batch(pw, ph, seed=1, with_gt=False)
+    reset_counts()
+    gpu_out = casmvs(small["imgs"], small["cams"], small["depth_values"])
+    torch.cuda.synchronize()
+    launches["pinhole_casmvs"] = counts()
+    check(launches["pinhole_casmvs"] == LAUNCHES_PER_COSTREG_FORWARD,
+          f"pinhole casmvs launches {launches['pinhole_casmvs']}")
+    print(f"[cameras] pinhole CascadeMVSNet forward at {ph}x{pw}: launches "
+          f"{({k: v for k, v in launches['pinhole_casmvs'].items() if v})} (exact)", flush=True)
+    gpu_vs_cpu("[cameras]", f"pinhole casmvs at {ph}x{pw}", gpu_out,
+               build_costreg_model("casmvs", "cpu", "pinhole"), small["imgs"], small["cams"],
+               small["depth_values"])
+    del casmvs, gpu_out
+
+    pin_cfg = Config(ndepths=NDEPTHS, geo_model="pinhole")
+    launches["pinhole_step"] = camera_steps(card, "pinhole", pin_cfg, pin, default_step)
+    phase_train_parity(card, "pinhole step", gates=PINHOLE_PARITY, geo_model="pinhole",
+                       make_batch=lambda w, h: pinhole_batch(w, h, seed=1, device="cpu")[0])
+    qc_train = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda", use_qc=True)
+    launches["qc_step"] = camera_steps(card, "QC", Config(ndepths=NDEPTHS, use_qc=True),
+                                       qc_train, default_step)
+    phase_train_parity(card, "QC step", use_qc=True)
+    del pin, qc, rpc, qc_train
+
+    launches.update(camera_cli(card, rpc_tree))
+    print(f"[cameras] phase 12 took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the device was busy."""
@@ -2851,6 +3395,9 @@ def run(scene_job, tree_job) -> int:
     # phase 11
     launches.update(phase_training_sweeps(smi, tree, default_step))
 
+    # phase 12
+    launches.update(phase_cameras(smi, tree, default_step))
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches;
         # a costreg record the same wrapper in its CostRegNet form
@@ -2864,11 +3411,13 @@ def run(scene_job, tree_job) -> int:
                 f"scene_b{BATCH_TILES}" if batched else "forward")
         record["launches"] = launches[main][wrapper]
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
-                 COSTREG_PATHS if costreg else
-                 ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ())) if train else (
-                     INFERENCE_PATHS + CLI_PATHS + (
+                 COSTREG_PATHS + CAMERA_COSTREG_PATHS if costreg else
+                 ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
+                  *CAMERA_TRAIN_PATHS) if train else (
+                     INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + (
                          ("eval_step", "fused_sweep_step") if wrapper == "sweep_variance" else
-                         ("train_step", "eval_step") if wrapper in RED_FORWARD_KERNELS else ())))
+                         ("train_step", "eval_step", *CAMERA_TRAIN_PATHS)
+                         if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")
 

@@ -10,11 +10,14 @@ planes) for the red model; the CostRegNet families (--model casmvs, ucs)
 have no streaming form and take the full-volume forward with a warning, as
 the JAX script does.  --fuse filters each scene's views
 (`infer.fuse.fuse_scene_to_dsm`) into mvs_results/{name}_dsm.tif, or its
-PFM + TFW fallback without GDAL.  --color also writes colour PNGs and needs
-matplotlib.  --fused_sweep off builds the cost volumes with the per-view
-sweep (`sweep_gather`) instead of the fused `sweep_variance` kernel.  Flags
-and defaults are the JAX script's; values whose features the port lacks
-(--use_qc, pinhole, --torch_compat) raise.
+PFM + TFW fallback without GDAL; it fuses RPC scenes only, as the JAX
+script does, and with --geo_model pinhole says so and writes the maps.
+--color also writes colour PNGs and needs matplotlib.  --fused_sweep off
+builds the cost volumes with the per-view sweep (`sweep_gather`) instead
+of the fused `sweep_variance` kernel.  --geo_model pinhole reads the
+camera-text layout (camera/{v}/*.txt); --use_qc takes the RPC cameras in
+QC form.  Flags and defaults are the JAX script's; --torch_compat, whose
+feature the port lacks, raises.
 """
 
 from __future__ import annotations
@@ -138,7 +141,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         per_scene.setdefault(name, {})[view] = (depth, prob)
     print(f"prediction done in {time.time() - t0:.1f}s")
 
-    if a.fuse:
+    if a.fuse and a.geo_model != "rpc":
+        print("--fuse: fusion into a DSM covers RPC scenes only; the pinhole maps are written",
+              file=sys.stderr)
+    elif a.fuse:
         from ..infer.fuse import fuse_scene_to_dsm
 
         for name, views in per_scene.items():

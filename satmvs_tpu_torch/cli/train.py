@@ -5,8 +5,10 @@
 
 Flags and defaults are `train.Config.from_args`'s (those of the JAX
 script); values whose features the port lacks raise.  --mode=train fits
-over <dataset_root>/open_dataset_rpc/{train,test} (or dataset_root itself
-when it is a split directory) into <logdir>/<model>/<geo_model>;
+over <dataset_root>/open_dataset_<geo_model>/{train,test} (or dataset_root
+itself when it is a split directory) into <logdir>/<model>/<geo_model>;
+--geo_model pinhole reads the camera-text layout, --use_qc takes the RPC
+cameras in QC form;
 --mode=test restores the latest checkpoint there (or --loadckpt's),
 evaluates the test split and writes height_result/{name}_{view}{,_prob,_err}.pfm
 beside it (-999 in _err where the mask is off); --mode=profile takes

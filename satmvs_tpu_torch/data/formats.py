@@ -1,9 +1,10 @@
-"""File formats: PFM, RPC text, TFW, images, scene rasters, DSM rasters.
+"""File formats: PFM, RPC text, pinhole camera text, TFW, images, scene
+rasters, DSM rasters.
 
-Counterpart of `satmvs_tpu/data/formats.py` (its pinhole camera text is not
-ported).  PNG goes through the port's own codec (`data/png.py`) always;
-other rasters (TIFF) through GDAL or Pillow where one is importable, and
-raise an error naming the format where neither is.  A DSM is a GeoTIFF
+Counterpart of `satmvs_tpu/data/formats.py`.  PNG goes through the port's
+own codec (`data/png.py`) always; other rasters (TIFF) through GDAL or
+Pillow where one is importable, and raise an error naming the format where
+neither is.  A DSM is a GeoTIFF
 with GDAL, else a PFM with the same TFW sidecar.
 """
 
@@ -102,6 +103,46 @@ def save_rpc(path: str, data: np.ndarray) -> None:
                   for i in range(20)]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# pinhole camera text: the 4×4 extrinsics, then "f x0 y0", then
+# "d_min d_max d_interval" (one focal length, no skew)
+# ---------------------------------------------------------------------------
+def load_camera(path: str):
+    """Read a pinhole camera text file → (K (3, 3), E (4, 4), d_min, d_max,
+    d_interval), float64."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    e = np.array([[float(v) for v in lines[r].split(" ")] for r in range(4)])
+    f_, x0, y0 = (float(v) for v in lines[5].split(" "))
+    k = np.array([[f_, 0.0, x0], [0.0, f_, y0], [0.0, 0.0, 1.0]])
+    d_min, d_max, d_inter = (float(v) for v in lines[7].split(" "))
+    return k, e, d_min, d_max, d_inter
+
+
+def save_camera(path, k, r, t, d_min, d_max, d_interval, img_index=0, width=0, height=0):
+    """Write a pinhole camera text file of K (its K[0, 0], K[0, 2] and
+    K[1, 2]), R (3, 3), t (3,) and the depth range."""
+    e = np.concatenate([np.asarray(r), np.asarray(t).reshape(3, 1)], axis=-1)
+    lines = [" ".join(str(v) for v in row) for row in e]
+    lines += ["0 0 0 1", "", f"{k[0, 0]} {k[0, 2]} {k[1, 2]}", ""]
+    lines += [f"{d_min} {d_max} {d_interval}", f"{img_index} 0 0 0 0 {width} {height}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def load_camera_nn(path: str) -> np.ndarray:
+    """A camera text file as the pinhole dataset takes it: (2, 4, 4) float64
+    [E; K in [:3, :3] with the depth row (d_min, d_interval, 0, d_max)]."""
+    k, e, d_min, d_max, d_inter = load_camera(path)
+    cam = np.zeros((2, 4, 4), dtype=np.float64)
+    cam[0] = e
+    cam[1, :3, :3] = k
+    cam[1, 3, 0] = d_min
+    cam[1, 3, 1] = d_inter
+    cam[1, 3, 3] = d_max
+    return cam
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ reaches the consumer on its device (the GPU unless the caller asks for the
 CPU) in the layout `train.loop` and `CascadeModel.forward` take, the
 layout of `synthetic.make_batch`:
 
-  imgs (B, V, H, W, 3), cams (per-stage batched RpcWarpCams),
+  imgs (B, V, H, W, 3), cams (per-stage batched RpcWarpCams or
+  QcWarpCams, or pinhole (B, V, 4, 4) projection matrices),
   depth_values (B, 2), depth_stages / mask_stages (per stage (B, h, w);
   not in pred mode), out_view / out_name (lists of strings, on the host).
 """
@@ -52,7 +53,7 @@ def _map_tensors(batch: dict, fn) -> dict:
         if k in _ROUTING:
             out[k] = v
         elif k == "cams":
-            out[k] = tuple(c.map(fn) for c in v)
+            out[k] = tuple(fn(c) if isinstance(c, torch.Tensor) else c.map(fn) for c in v)
         elif isinstance(v, list):
             out[k] = [fn(t) for t in v]
         else:

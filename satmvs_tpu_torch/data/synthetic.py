@@ -169,24 +169,26 @@ def make_scene(width: int = 128, height: int = 128, seed: int = 0, h_amp: float 
 
 
 def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int = 0,
-               with_gt: bool = True, device=None) -> dict:
+               with_gt: bool = True, device=None, use_qc: bool = False) -> dict:
     """A batch of synthetic scenes (sample b from seed + b) on `device`
     (the GPU unless "cpu" is passed):
 
       imgs          (B, V, H, W, 3) float32, reference (nadir) view first,
                     each view normalized to zero mean and unit std
-      cams          per-stage batched RpcWarpCams, coarsest first
+      cams          per-stage batched RpcWarpCams (QcWarpCams with use_qc),
+                    coarsest first
       depth_values  (B, 2) float32 scene height range
       depth_stages  with_gt: per-stage GT heights of the reference view,
                     (B, H/4, W/4), (B, H/2, W/2), (B, H, W), coarsest first
       mask_stages   with_gt: per-stage valid masks (all ones), same shapes
     """
     dev = resolve_device(device)
+    build = warplib.build_qc_stage_cams if use_qc else warplib.build_stage_cams
     sample_cams, imgs_all, dvals_all, gt_all = [], [], [], []
     for b in range(batch_size):
         scene = make_scene(width, height, seed=seed + b, h_amp=80.0)
         order = [2, 0, 1]  # nadir view is the reference, ref-first
-        sample_cams.append(warplib.build_stage_cams(scene["rpcs"][order], 0, dev))
+        sample_cams.append(build(scene["rpcs"][order], 0, dev))
         imgs = scene["images"][order]
         imgs = (imgs - imgs.mean(axis=(1, 2), keepdims=True)) / (
             imgs.std(axis=(1, 2), keepdims=True) + 1e-8)

@@ -16,11 +16,18 @@ Two halves:
     which at a 768-px image is ±1 px (the TPU's bf16 matmul did the same at
     larger extents);
   * the host half (`photo_to_obj`, `obj_to_photo`, `renorm_affine`,
-    `scale_rpc`, `crop_rpc`, the inverse fit) is numpy float64, so absolute
-    lat/lon never reach the device.
+    `scale_rpc`, `crop_rpc`, the inverse and direct fits, the round-trip
+    check `check_rpc`) is numpy float64, so absolute lat/lon never reach
+    the device.
+
+The quaternary-cubic (QC) form packs each cubic as a symmetric (4, 4, 4)
+tensor T over x = (1, L, P, H) (`to_qc_tensor`); `qc_eval` evaluates
+Σ T[i,j,k]·x_i·x_j·x_k, on torch tensors as fp32 products and sums.
 """
 
 from __future__ import annotations
+
+from itertools import permutations
 
 import numpy as np
 import torch
@@ -212,3 +219,83 @@ def fit_inverse_rpc(rpc, xy_samples: int = 30, z_samples: int = 20) -> np.ndarra
     rpc[150] = 1.0
     rpc[151:170] = x[59:78]
     return rpc
+
+
+def refit_direct_rpc(rpc, grid: np.ndarray) -> np.ndarray:
+    """The RPC with its direct block [10:90] re-fitted by plain least
+    squares to (N, 5) [samp, line, lat, lon, hei] samples."""
+    rpc = np.asarray(rpc, dtype=np.float64).copy()
+    samp_n = (grid[:, 0] - rpc[SAMP_OFF]) / rpc[SAMP_SCALE]
+    line_n = (grid[:, 1] - rpc[LINE_OFF]) / rpc[LINE_SCALE]
+    lat_n = (grid[:, 2] - rpc[LAT_OFF]) / rpc[LAT_SCALE]
+    lon_n = (grid[:, 3] - rpc[LON_OFF]) / rpc[LON_SCALE]
+    hei_n = (grid[:, 4] - rpc[HEI_OFF]) / rpc[HEI_SCALE]
+
+    basis = poly_basis(lat_n, lon_n, hei_n)  # P = lat, L = lon
+    a, rhs = _rational_design_matrix(basis, samp_n, line_n)
+    x, *_ = np.linalg.lstsq(a, rhs, rcond=None)
+
+    rpc[SNUM] = x[0:20]
+    rpc[70] = 1.0
+    rpc[71:90] = x[20:39]
+    rpc[LNUM] = x[39:59]
+    rpc[30] = 1.0
+    rpc[31:50] = x[59:78]
+    return rpc
+
+
+def check_rpc(rpc, width: float, height: float, xy_samples: int = 20,
+              h_samples: int = 10) -> np.ndarray:
+    """Round-trip error (px) of photo → object → photo in float64 over a
+    pixel grid at h_samples heights of the RPC's range, one per sample."""
+    rpc = np.asarray(rpc, dtype=np.float64)
+    h_min, h_max = height_range(rpc)
+    x = np.linspace(0, width, xy_samples)
+    y = np.linspace(0, height, xy_samples)
+    h = np.linspace(h_min, h_max, h_samples)
+    gx, gy, gh = (g.reshape(-1) for g in np.meshgrid(x, y, h))
+    lat, lon = photo_to_obj(rpc, gx, gy, gh)
+    nx, ny = obj_to_photo(rpc, lat, lon, gh)
+    return np.hypot(nx - gx, ny - gy)
+
+
+# ---------------------------------------------------------------------------
+# quaternary-cubic (QC) form
+# ---------------------------------------------------------------------------
+# basis term → its (i, j, k) over x = (1, L, P, H), in poly_basis's order
+_QC_TERMS = ((0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 0, 3), (0, 1, 2), (0, 1, 3), (0, 2, 3),
+             (0, 1, 1), (0, 2, 2), (0, 3, 3), (1, 2, 3), (1, 1, 1), (1, 2, 2), (1, 3, 3),
+             (1, 1, 2), (2, 2, 2), (2, 3, 3), (1, 1, 3), (2, 2, 3), (3, 3, 3))
+
+
+def to_qc_tensor(c20) -> np.ndarray:
+    """The symmetric (4, 4, 4) float64 tensor T of 20 cubic coefficients
+    (poly_basis's order), with poly = Σ T[i,j,k]·x_i·x_j·x_k for
+    x = (1, L, P, H): each coefficient spread evenly over the distinct
+    permutations of its (i, j, k)."""
+    d = np.asarray(c20, dtype=np.float64)
+    if d.shape != (20,):
+        raise ValueError(f"to_qc_tensor: want 20 coefficients, got shape {d.shape}")
+    t = np.zeros((4, 4, 4), dtype=np.float64)
+    for v, ijk in zip(d, _QC_TERMS):
+        perms = set(permutations(ijk))
+        for p in perms:
+            t[p] += v / len(perms)
+    return t
+
+
+def qc_monomials(x):
+    """(..., 64) products x_i·x_j·x_k of x (..., 4), (i, j, k) in C order;
+    numpy or torch, elementwise products only."""
+    xx = x[..., :, None] * x[..., None, :]
+    return (xx[..., :, :, None] * x[..., None, None, :]).reshape(*x.shape[:-1], 64)
+
+
+def qc_eval(t, x):
+    """The QC form T (4, 4, 4) at x (..., 4) → (...).  numpy arrays in
+    float64 by einsum; torch tensors as elementwise fp32 products summed
+    over the 64 terms, never a matmul, so no TF32 setting reaches it."""
+    if isinstance(x, torch.Tensor):
+        return (qc_monomials(x) * torch.as_tensor(t, dtype=x.dtype, device=x.device)
+                .reshape(64)).sum(-1)
+    return np.einsum("...i,...j,...k,ijk->...", x, x, x, t)

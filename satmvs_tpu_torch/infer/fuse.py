@@ -1,11 +1,12 @@
 """Multi-view fusion: geometric-consistency filtering and DSM rasterization.
 
-Counterpart of `satmvs_tpu/infer/fuse.py` (RPC geometry).  The reprojection
-chain runs on the device (the GPU unless "cpu" is passed) in float32
-through the warp's normalized RPC chain (`ops.warp.rpc_transform_points`:
-elementwise products and sums, no matmul, so no TF32 setting reaches it);
-georeferencing (photo → lat/lon → UTM grid) and rasterization stay on the
-host in float64.
+Counterpart of `satmvs_tpu/infer/fuse.py`.  The reprojection chains run on
+the device (the GPU unless "cpu" is passed) in float32, as elementwise
+products and sums with no matmul, so no TF32 setting reaches them: RPC
+through the warp's normalized chain (`ops.warp.rpc_transform_points`),
+pinhole through each pair's 4×4 relative transform, formed in float64
+(`ops.warp.relative_transform`).  Georeferencing (photo → lat/lon → UTM
+grid) and rasterization stay on the host in float64; they are RPC's only.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ..device import resolve_device
 from ..geo import rpc as rpclib
 from ..geo.tmerc import TransverseMercator
 from ..ops.sampling import bilinear_sample_scalar
-from ..ops.warp import RpcWarpCams, build_rpc_warp_cams, rpc_transform_points
+from ..ops.warp import (RpcWarpCams, build_rpc_warp_cams, guard_z, relative_transform,
+                        rpc_transform_points)
 
 INVALID_DEPTH = -999.0
 
@@ -76,6 +78,70 @@ def filter_depth_rpc(depths: np.ndarray, rpcs: np.ndarray, p_ratio: float = 1.0,
         geo_count += mask.to(torch.int32)
         height_sum += reproj
     fused = height_sum / (geo_count + 1).to(torch.float32)
+    final_mask = photo_mask & (geo_count >= geo_consist_num)
+    return final_mask.cpu().numpy(), fused.cpu().numpy()
+
+
+def _project_pinhole(rel: torch.Tensor, x, y, d):
+    """Pixels (x, y) at depth d through a 4×4 relative transform rel (float32)
+    → (x', y', d') in the other view, the z division guarded (`ops.warp.guard_z`)."""
+    p = [rel[c, 0] * (x * d) + rel[c, 1] * (y * d) + rel[c, 2] * d + rel[c, 3] for c in range(3)]
+    z = guard_z(p[2])
+    return p[0] / z, p[1] / z, p[2]
+
+
+def _check_consistency_pinhole(depth_ref: torch.Tensor, depth_src: torch.Tensor,
+                               rel_rs: torch.Tensor, rel_sr: torch.Tensor, p_thre: float,
+                               rel_d_thre: float):
+    """`_check_consistency_rpc` of pinhole cameras: a ref pixel at its depth
+    goes to the src view (rel_rs = src · ref⁻¹), takes the src depth there
+    and comes back (rel_sr); it is consistent iff it lands < p_thre px
+    from where it started and the depth it comes back with differs from the
+    reference's by < rel_d_thre of it.  Returns (mask, the returned depth
+    where consistent else 0)."""
+    h, w = depth_ref.shape
+    dev = depth_ref.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev).expand(h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    x_src, y_src, _ = _project_pinhole(rel_rs, xs, ys, depth_ref)
+    sampled = bilinear_sample_scalar(depth_src, x_src, y_src, fill=INVALID_DEPTH)
+    x_re, y_re, d_re = _project_pinhole(rel_sr, x_src, y_src, sampled)
+    dist = torch.hypot(x_re - xs, y_re - ys)
+    rel_diff = (d_re - depth_ref).abs() / depth_ref.clamp(min=1e-6)
+    mask = (dist < p_thre) & (rel_diff < rel_d_thre)
+    return mask, torch.where(mask, d_re, torch.zeros_like(d_re))
+
+
+@torch.no_grad()
+def filter_depth_pinhole(depths: np.ndarray, projs: np.ndarray, p_thre: float = 1.0,
+                         rel_d_thre: float = 0.01, geo_consist_num: int = 1,
+                         prob: np.ndarray | None = None, confidence_ratio: float = 0.0,
+                         device=None):
+    """`filter_depth_rpc` of pinhole cameras: depths (V, H, W) along each
+    camera's axis, view 0 the reference; projs (V, 4, 4) projection
+    matrices K·E; the depth test relative (< rel_d_thre of the reference
+    depth).  A kept pixel's depth is the mean of the reference's and the
+    consistent views' returned depths.  Runs on `device` (the GPU unless
+    "cpu" is passed).  Returns (final_mask (H, W) bool, fused_depth (H, W)
+    float32), numpy."""
+    dev = resolve_device(device)
+    depths = np.asarray(depths, np.float32)
+    projs = torch.as_tensor(np.asarray(projs, np.float64), device=dev)
+    ref_depth = torch.from_numpy(depths[0]).to(dev)
+    if prob is not None:
+        photo_mask = torch.from_numpy(np.asarray(prob, np.float32)).to(dev) > confidence_ratio
+    else:
+        photo_mask = torch.ones_like(ref_depth, dtype=torch.bool)
+    geo_count = torch.zeros_like(ref_depth, dtype=torch.int32)
+    depth_sum = ref_depth.clone()
+    for v in range(1, depths.shape[0]):
+        mask, reproj = _check_consistency_pinhole(
+            ref_depth, torch.from_numpy(depths[v]).to(dev),
+            relative_transform(projs[v], projs[0]), relative_transform(projs[0], projs[v]),
+            p_thre, rel_d_thre)
+        geo_count += mask.to(torch.int32)
+        depth_sum += reproj
+    fused = depth_sum / (geo_count + 1).to(torch.float32)
     final_mask = photo_mask & (geo_count >= geo_consist_num)
     return final_mask.cpu().numpy(), fused.cpu().numpy()
 

@@ -24,7 +24,9 @@ from ..models.cascade import CascadeModel, build_stage_volume, stage_hypotheses
 @torch.no_grad()
 def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_values: torch.Tensor,
                           slab: int = 0) -> dict:
-    """`model`'s forward (same inputs, same outputs) with slab streaming.
+    """`model`'s forward (same inputs, same outputs) with slab streaming;
+    cams of any of the model's camera types (RPC in either form, pinhole
+    projection matrices), each slab's volume built by `build_stage_volume`.
 
     slab: planes per step.  A stage of nd planes takes k = min(slab, nd)
     planes a step when nd % k == 0, else (and with slab = 0) one plane at a

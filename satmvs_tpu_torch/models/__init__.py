@@ -2,7 +2,8 @@
 families as configurations of `CascadeModel`, with the JAX package's
 signatures and defaults, each in eval mode on `device` (the GPU unless
 "cpu" is passed) with weights drawn from numpy seed `seed`; load trained
-weights with `params.load_jax_variables`.
+weights with `params.load_jax_variables`.  geo_model is "rpc" (RPC cameras
+in either form) or "pinhole"; the camera model changes no parameter.
 
   CascadeREDNet  RED regularizer, unet features, max-prob confidence
   CascadeMVSNet  CostRegNet, fpn features, 4-plane window confidence,
@@ -20,10 +21,8 @@ MODEL_NAMES = ("red", "casmvs", "ucs")
 
 
 def _build(geo_model: str, device, seed: int, **knobs) -> CascadeModel:
-    if geo_model != "rpc":
-        raise ValueError(f"geo_model {geo_model!r}: the port supports 'rpc' only")
     dev = resolve_device(device)
-    model = CascadeModel(**knobs)
+    model = CascadeModel(geo_model=geo_model, **knobs)
     init_from_seed(model, seed)
     return model.to(dev).eval()
 

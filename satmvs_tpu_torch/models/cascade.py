@@ -1,13 +1,18 @@
-"""Coarse-to-fine cascade of the three model families under RPC geometry.
+"""Coarse-to-fine cascade of the three model families.
 
-Counterpart of `satmvs_tpu/models/cascade.py` with geo_model="rpc" and
-exact per-pixel coordinates.  The family knobs are JAX's: regularizer
-("red" or "costreg"), sampler ("window" or "uncertainty"), confidence
-("max" or "window4"), grad_method ("through" or "detach"), share_cr, lamb,
-feat_base_chs and arch_mode ("unet" or "fpn"); `models/__init__.py` sets
-them per family.  Two sweeps build each stage's cost volume, chosen as JAX
-chooses them (`satmvs_tpu/models/cascade.py:310-318`), with "training"
-meaning that autograd records a graph:
+Counterpart of `satmvs_tpu/models/cascade.py` with exact per-pixel
+coordinates, under either camera model: geo_model="rpc" takes per-stage
+`RpcWarpCams`, or `QcWarpCams` (the `use_qc` variant, recognised by its
+type as JAX recognises it), and geo_model="pinhole" takes per-stage
+(B, V, 4, 4) projection matrices.  `ops.warp.sweep_coords` picks each
+sample's coordinate chain by that type.  The family knobs are JAX's:
+regularizer ("red" or "costreg"), sampler ("window" or "uncertainty"),
+confidence ("max" or "window4"), grad_method ("through" or "detach"),
+share_cr, lamb, feat_base_chs and arch_mode ("unet" or "fpn");
+`models/__init__.py` sets them per family.  Two sweeps build each stage's
+cost volume, chosen as JAX chooses them
+(`satmvs_tpu/models/cascade.py:310-318`), with "training" meaning that
+autograd records a graph:
 
   the fused sweep: the `sweep_variance` kernel, one launch for the whole
     batch (under autograd its backward is the `sweep_variance_backward`
@@ -15,10 +20,10 @@ meaning that autograd records a graph:
     inference, and in training with train_fused_sweep=True, unless
     fused_sweep=False;
   the per-view sweep: per source view the `sweep_gather` kernel
-    (`ops.warp.rpc_warp`, backward `sweep_scatter`) and the variance of the
-    warped views, stored in volume_dtype (float32, or bfloat16 for half the
-    volume's bytes; the moments stay float32); taken in training by
-    default, and always with fused_sweep=False (which also turns
+    (`ops.warp.rpc_warp` or `homo_warp`, backward `sweep_scatter`) and the
+    variance of the warped views, stored in volume_dtype (float32, or
+    bfloat16 for half the volume's bytes; the moments stay float32); taken
+    in training by default, and always with fused_sweep=False (which also turns
     train_fused_sweep off, as in JAX).  volume_dtype acts on this path only.
 On both, the RED regularizer is the fused pipeline of the `conv_dn`,
 `red_recur`, `deconv_up` and `conv_head` kernels (`nn/red.py`; under
@@ -32,10 +37,21 @@ With grad_method="through" the gradient reaches a stage's depth through the
 next stage's hypotheses; "detach" cuts it there.  The sweep coordinates are
 always cut from the graph.
 
+Both sweeps take coordinates from any of the three chains.  JAX on the TPU
+sends pinhole cameras to the per-view sweep always
+(`satmvs_tpu/models/cascade.py:137-148`, "pinhole warp has no native-hcw
+path"): a layout limit of its Mosaic kernels, not part of the math.  The
+port's `sweep_variance` kernel samples at whatever coordinates it is given
+and computes the same variance, so a pinhole stage takes the sweep the
+knobs choose, as an RPC stage does.
+
 Input (channels-last, view 0 = reference view):
   imgs          (B, V, H, W, 3)
-  cams          per-stage tuple of batched RpcWarpCams, coarsest first
-  depth_values  (B, 2) = [h_min, h_max] scene height range
+  cams          per-stage tuple, coarsest first: batched RpcWarpCams or
+                QcWarpCams (rpc), or (B, V, 4, 4) projection matrices
+                (pinhole)
+  depth_values  (B, 2) = [d_min, d_max]: the scene's height range (rpc)
+                or depth range along the reference camera's axis (pinhole)
 Output: {"stage{i}": {"depth", "photometric_confidence"}, and "variance"
 with sampler="uncertainty"} (stage1 the coarsest) plus the final stage's
 entries at the top level.
@@ -54,7 +70,7 @@ from ..nn.red import REDRegularizer
 from ..ops import depth_range, regression
 from ..ops.cost_volume import sweep_variance_volume
 from ..ops.kernels.sweep_variance import sweep_variance_batched
-from ..ops.warp import RpcWarpCams, rpc_sweep_coords, rpc_warp
+from ..ops.warp import homo_warp, rpc_warp, sweep_coords
 
 
 def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torch.Tensor,
@@ -78,44 +94,51 @@ def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torc
     return torch.stack([depth_range.window_samples(c, nd, interval) for c in cur])
 
 
-def build_stage_volume(feats: torch.Tensor, cams: RpcWarpCams,
-                       hyps: torch.Tensor) -> torch.Tensor:
-    """(B, V, h, w, C) features + batched cameras + (B, D, h, w) hypotheses
-    → (B, D, h, w, C) variance cost volume: every sample's sweep
-    coordinates in one stack, then one `sweep_variance_batched` for the
-    batch (the fused sweep; differentiable in the features)."""
+def build_stage_volume(feats: torch.Tensor, cams, hyps: torch.Tensor) -> torch.Tensor:
+    """(B, V, h, w, C) features + batched cameras (of any of the three
+    types) + (B, D, h, w) hypotheses → (B, D, h, w, C) variance cost volume:
+    every sample's sweep coordinates (`ops.warp.sweep_coords`) in one
+    stack, then one `sweep_variance_batched` for the batch (the fused sweep;
+    differentiable in the features)."""
     b, v, sh, sw, _ = feats.shape
     per_sample = [cams[i] for i in range(b)]
-    coords = [rpc_sweep_coords(per_sample[i], s, hyps[i], sh, sw)
+    coords = [sweep_coords(per_sample[i], s, hyps[i], sh, sw)
               for i in range(b) for s in range(v - 1)]
     xs, ys = torch.stack([c[k] for k in (0, 1) for c in coords]).view(
         2, b, v - 1, *hyps.shape[1:]).unbind(0)
     return sweep_variance_batched(feats, xs, ys)
 
 
-def build_train_volume(feats: torch.Tensor, cams: RpcWarpCams, hyps: torch.Tensor,
+def build_train_volume(feats: torch.Tensor, cams, hyps: torch.Tensor,
                        volume_dtype: torch.dtype | None = None) -> torch.Tensor:
     """`build_stage_volume`'s function on the per-view sweep: per sample the
     variance over the reference view and each source view warped by
-    `rpc_warp` (one `sweep_gather` per source view, its volume stored in
-    volume_dtype; None: float32)."""
+    `rpc_warp` (either RPC form) or `homo_warp` (pinhole): one
+    `sweep_gather` per source view, its volume stored in volume_dtype
+    (None: float32)."""
     vols = []
     for i in range(feats.shape[0]):
         cams_b = cams[i]
-        vols.append(sweep_variance_volume(
-            feats[i, 0], feats[i, 1:],
-            lambda src, s: rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype)))
+        if isinstance(cams_b, torch.Tensor):
+            def warp(src, s):
+                return homo_warp(src, cams_b[s + 1], cams_b[0], hyps[i], out_dtype=volume_dtype)
+        else:
+            def warp(src, s):
+                return rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype)
+        vols.append(sweep_variance_volume(feats[i, 0], feats[i, 1:], warp))
     return torch.stack(vols)
 
 
-_KNOBS = {"regularizer": ("red", "costreg"), "sampler": ("window", "uncertainty"),
-          "confidence": ("max", "window4"), "grad_method": ("through", "detach"),
-          "arch_mode": ("unet", "fpn")}
+_KNOBS = {"geo_model": ("rpc", "pinhole"), "regularizer": ("red", "costreg"),
+          "sampler": ("window", "uncertainty"), "confidence": ("max", "window4"),
+          "grad_method": ("through", "detach"), "arch_mode": ("unet", "fpn")}
 
 
 class CascadeModel(nn.Module):
     """Three-stage cascade (1/4, 1/2, full resolution); the knobs as in the
-    module docstring, JAX's defaults (CascadeREDNet's).
+    module docstring, JAX's defaults (CascadeREDNet's).  geo_model ("rpc"
+    or "pinhole") names the cameras the model takes; cameras of the other
+    model raise.
 
     fused_red: the RED path, None (the default) or True for the fused
     pipeline, False for the scan, with or without gradients (JAX resolves
@@ -136,15 +159,16 @@ class CascadeModel(nn.Module):
                  fused_sweep: bool | None = None, volume_dtype: torch.dtype | None = None,
                  regularizer: str = "red", sampler: str = "window", confidence: str = "max",
                  grad_method: str = "through", share_cr: bool = False, lamb: float = 1.5,
-                 feat_base_chs: int = 8, arch_mode: str = "unet"):
+                 feat_base_chs: int = 8, arch_mode: str = "unet", geo_model: str = "rpc"):
         super().__init__()
         if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
             raise ValueError("the port runs three cascade stages")
-        for knob, value in (("regularizer", regularizer), ("sampler", sampler),
-                            ("confidence", confidence), ("grad_method", grad_method),
-                            ("arch_mode", arch_mode)):
+        for knob, value in (("geo_model", geo_model), ("regularizer", regularizer),
+                            ("sampler", sampler), ("confidence", confidence),
+                            ("grad_method", grad_method), ("arch_mode", arch_mode)):
             if value not in _KNOBS[knob]:
                 raise ValueError(f"{knob}={value!r}: want one of {_KNOBS[knob]}")
+        self.geo_model = geo_model
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.min_interval = min_interval
@@ -186,9 +210,12 @@ class CascadeModel(nn.Module):
                                 self.stage_intervals()[i], depth, exp_var, self.sampler,
                                 self.grad_method == "detach")
 
-    def _stage(self, i: int, feats: torch.Tensor, cams: RpcWarpCams, d_min: torch.Tensor,
+    def _stage(self, i: int, feats: torch.Tensor, cams, d_min: torch.Tensor,
                d_max: torch.Tensor, depth: torch.Tensor | None,
                exp_var: torch.Tensor | None = None, train: bool = False) -> dict:
+        if isinstance(cams, torch.Tensor) != (self.geo_model == "pinhole"):
+            raise ValueError(f"a geo_model={self.geo_model!r} model was given "
+                             f"{type(cams).__name__} cameras")
         sh, sw = feats.shape[2:4]
         hyps = self.hypotheses(i, sh, sw, d_min, d_max, depth, exp_var)
         if self.fused_sweep is not False and (self.train_fused_sweep
@@ -212,7 +239,7 @@ class CascadeModel(nn.Module):
         return out
 
     @torch.no_grad()
-    def stage(self, i: int, feats: torch.Tensor, cams: RpcWarpCams, d_min: torch.Tensor,
+    def stage(self, i: int, feats: torch.Tensor, cams, d_min: torch.Tensor,
               d_max: torch.Tensor, depth: torch.Tensor | None = None,
               exp_var: torch.Tensor | None = None) -> dict:
         """Cascade stage i (0-based) on its features (B, V, h, w, C); `depth`
@@ -221,7 +248,7 @@ class CascadeModel(nn.Module):
         sampler="uncertainty")."""
         return self._stage(i, feats, cams, d_min, d_max, depth, exp_var)
 
-    def run_cascade(self, imgs: torch.Tensor, cams: Sequence[RpcWarpCams],
+    def run_cascade(self, imgs: torch.Tensor, cams: Sequence,
                     depth_values: torch.Tensor, train: bool) -> dict:
         """The cascade under the caller's autograd mode (the module
         docstring's two paths).  train: the BatchNorms normalize with batch
@@ -237,7 +264,7 @@ class CascadeModel(nn.Module):
         outputs.update(outputs[f"stage{len(self.ndepths)}"])
         return outputs
 
-    def forward(self, imgs: torch.Tensor, cams: Sequence[RpcWarpCams],
+    def forward(self, imgs: torch.Tensor, cams: Sequence,
                 depth_values: torch.Tensor, train: bool = False) -> dict:
         """train=False: inference, without gradients.  train=True: the
         training forward (flax's train=True), differentiable."""

@@ -3,9 +3,10 @@
 Counterpart of `satmvs_tpu/train/config.py`, with the same fields, CLI
 surface and defaults, so a command line means the same in both packages.
 Values whose features the port lacks raise when set away from their
-defaults: the mesh extents (multi-GPU), use_qc, geo_model="pinhole",
-compute_dtype other than float32, and torch_compat.  All three models
-train, evaluate and predict.  volume_dtype="bfloat16" stores the per-view
+defaults: the mesh extents (multi-GPU), compute_dtype other than float32,
+and torch_compat.  All three models train, evaluate and predict, under
+either camera model (geo_model "rpc", with use_qc its QC form, or
+"pinhole").  volume_dtype="bfloat16" stores the per-view
 sweep's warped volumes in bf16 (a no-op on the fused sweep, which stores
 none); fused_sweep=False takes the per-view sweep at inference too (and
 turns train_fused_sweep off, as in JAX).  `sweep_stencil` is a tap width
@@ -24,8 +25,8 @@ import dataclasses
 from typing import Optional, Sequence
 
 # field → the value the port supports (every other value raises)
-_ONLY = {"geo_model": "rpc", "use_qc": False, "compute_dtype": "float32",
-         "torch_compat": False, "mesh_data": 1, "mesh_spatial": 1, "mesh_depth": 1}
+_ONLY = {"compute_dtype": "float32", "torch_compat": False, "mesh_data": 1, "mesh_spatial": 1,
+         "mesh_depth": 1}
 
 
 @dataclasses.dataclass
@@ -82,6 +83,8 @@ class Config:
     def __post_init__(self):
         if self.model not in ("red", "casmvs", "ucs"):
             raise ValueError(f"model={self.model!r}: want 'red', 'casmvs' or 'ucs'")
+        if self.geo_model not in ("rpc", "pinhole"):
+            raise ValueError(f"geo_model={self.geo_model!r}: want 'rpc' or 'pinhole'")
         for name, value in _ONLY.items():
             if getattr(self, name) != value:
                 raise ValueError(f"{name}={getattr(self, name)!r}: the port supports "

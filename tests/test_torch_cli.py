@@ -14,6 +14,7 @@ stage's hypothesis step, confidence within 2e-3.  The scene CLI equals
 port CLI, each in its own process, is `slow`."""
 
 import glob
+import importlib.util
 import math
 import os
 import subprocess
@@ -205,15 +206,38 @@ def test_scene_cli_is_predict_scene_and_fuses(seeded, tmp_path):
     assert path == str(tmp_path / "dsm.pfm") and valid > 0.0
 
 
-def test_clis_refuse_what_the_port_lacks(seeded, tmp_path, monkeypatch):
+def test_clis_refuse_what_the_port_lacks(seeded, jax_predictions, tmp_path, monkeypatch):
+    """What the port still lacks raises: cli.train's --compute_dtype
+    bfloat16, cli.predict's --torch_compat.  The two camera flags run: with
+    --use_qc the test mode evaluates and predict's maps are JAX's basis-form
+    predictions under the predict gates above; with --geo_model=pinhole both
+    run on a pinhole tree (tests/test_torch_pinhole.py holds them to JAX)."""
     base = [f"--dataset_root={seeded['root']}", f"--logdir={tmp_path}", "--ndepths", NDEPTHS]
-    for flag in ("--use_qc", "--geo_model=pinhole"):
-        with pytest.raises(ValueError):
-            cli_train.main(["--mode=train", *base, flag])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        cli_train.main(["--mode=train", *base, "--compute_dtype=bfloat16"])
     pbase = [f"--dataset_root={seeded['root']}", f"--loadckpt={seeded['ckpt']}"]
-    for flag in ("--use_qc", "--torch_compat"):
-        with pytest.raises(ValueError):
-            cli_predict.main([*pbase, flag])
+    with pytest.raises(ValueError, match="torch_compat"):
+        cli_predict.main([*pbase, "--torch_compat"])
+    out = cli_train.main(["--mode=test", *base, f"--loadckpt={seeded['ckpt']}", "--use_qc"])
+    assert out["epoch"] == 1 and np.isfinite(out["metrics"]["loss"])
+    out = cli_predict.main([*pbase, "--ndepths", NDEPTHS, "--use_qc"])
+    assert sorted(out["written"]) == sorted(jax_predictions)
+    for key, (want, _) in jax_predictions.items():
+        err = np.abs(formats.load_pfm(out["written"][key]) - want) / FINAL_STEP
+        assert err.mean() <= 0.01 and np.quantile(err, 0.99) <= 0.1, key
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    pin = chip_smoke.write_pinhole_tree(str(tmp_path / "pin"), 0, 1, width=32, height=32)
+    out = cli_train.main(["--mode=test", f"--dataset_root={pin}", f"--logdir={tmp_path}",
+                          "--ndepths", NDEPTHS, f"--loadckpt={seeded['ckpt']}",
+                          "--geo_model=pinhole"])
+    assert out["epoch"] == 1 and np.isfinite(out["metrics"]["loss"])
+    out = cli_predict.main([f"--dataset_root={pin}/open_dataset_pinhole/test",
+                            f"--loadckpt={seeded['ckpt']}", "--ndepths", NDEPTHS,
+                            "--geo_model=pinhole"])
+    assert len(out["written"]) == 3
+    assert all(np.isfinite(formats.load_pfm(p)).all() for p in out["written"].values())
     with pytest.raises(SystemExit, match="no checkpoint"):
         cli_predict.main([f"--dataset_root={seeded['root']}", f"--loadckpt={tmp_path}",
                           "--ndepths", NDEPTHS])

@@ -38,6 +38,16 @@ from satmvs_tpu_torch.ops.kernels import plane_conv as pc
 from satmvs_tpu_torch.params import load_jax_variables
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(shape, seed, scale=1.0):
     return (scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
 

@@ -37,6 +37,17 @@ from satmvs_tpu_torch.data import preprocess as tpre
 from satmvs_tpu_torch.data import samples as tsamples
 from satmvs_tpu_torch.data import synthetic as tsyn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CAM_FIELDS = ("ref_inv", "ref_norm", "src_fwd", "src_denorm", "renorm")
 
 

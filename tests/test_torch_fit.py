@@ -21,6 +21,17 @@ from satmvs_tpu_torch.train import Config, fit, make_optimizer
 from satmvs_tpu_torch.train import checkpoints as ckpt
 from satmvs_tpu_torch.train import metrics as tmetrics
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REFERENCE_CLI = ["--mode=train", "--model=red", "--geo_model=rpc", "--ndepths", "48,32,8",
                  "--depth_inter_r", "4,2,1", "--lrepochs", "10,12,14:2", "--min_interval", "5.0"]
 
@@ -99,8 +110,11 @@ def test_config_from_args_matches_jax():
     assert got.ndepths == (48, 32, 8) and got.lr_gamma == 0.5 and got.num_stage == 3
     assert got.fused_red is None
     assert Config.from_args(["--fused_red", "off", "--sweep_stencil", "4"]).fused_red is False
-    with pytest.raises(ValueError, match="geo_model"):
-        Config.from_args(["--geo_model", "pinhole"])
+    for argv in (["--geo_model", "pinhole"], ["--use_qc"]):
+        got, want = Config.from_args(argv), JConfig.from_args(argv)
+        assert (got.geo_model, got.use_qc) == (want.geo_model, want.use_qc)
+    with pytest.raises(ValueError, match="mesh_data"):
+        Config.from_args(["--mesh_data", "2"])
 
 
 def test_fit_checkpoints_and_resume(tmp_path):

@@ -29,6 +29,17 @@ from satmvs_tpu_torch.infer import fuse as tfuse
 from satmvs_tpu_torch.ops.sampling import bilinear_sample_scalar as tsample
 from satmvs_tpu_torch.ops.warp import build_rpc_warp_cams, rpc_transform_points
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ORDER = [2, 0, 1]  # the nadir view is the reference
 
 

@@ -26,6 +26,17 @@ from satmvs_tpu_torch.models import CascadeREDNet as TNet
 from satmvs_tpu_torch.ops.kernels.red_recur import red_recur
 from satmvs_tpu_torch.params import load_jax_variables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NDEPTHS = (8, 4, 4)
 INTERVALS = (10.0, 5.0, 2.5)  # depth_intervals_ratio (4, 2, 1) × min_interval 2.5
 SIZE = 32

@@ -24,6 +24,18 @@ from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance
 from satmvs_tpu_torch.params import load_jax_variables
 
 H, W = 32, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NDEPTHS = (8, 4, 4)
 INTERVALS = (10.0, 5.0, 2.5)  # depth_intervals_ratio (4, 2, 1) × min_interval 2.5
 
@@ -59,7 +71,7 @@ def both_runs():
         head = v["params"][f"REDRegularizer_{i}"]["ScanREDStep_0"]["Conv_0"]
         head["kernel"] = head["kernel"] * 40.0
         head["bias"] = head["bias"] * 40.0
-    want = jax.tree.map(np.asarray, jm.apply(v, *args))
+    want = jax.tree.map(np.asarray, jax.jit(jm.apply)(v, *args))
 
     tb = tsyn.make_batch(1, W, H, seed=0, device="cpu")
     tm = load_jax_variables(TNet(ndepths=NDEPTHS, device="cpu"), v)

@@ -19,6 +19,16 @@ from satmvs_tpu_torch.nn.red import REDRegularizer as TRED
 from satmvs_tpu_torch.params import load_jax_variables
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def perturbed(variables, seed=0):
     """numpy copy of a flax variables tree with norm parameters and running
     statistics replaced by seeded non-trivial values."""

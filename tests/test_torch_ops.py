@@ -23,6 +23,17 @@ from satmvs_tpu_torch.ops.kernels.sweep_variance import (
     sweep_variance_batched_reference, sweep_variance_reference)
 from satmvs_tpu_torch.ops.sampling import bilinear_sample as tbilinear
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 T = torch.from_numpy
 
 

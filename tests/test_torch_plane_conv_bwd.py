@@ -21,6 +21,17 @@ import torch
 from satmvs_tpu.ops.pallas import plane_conv as pc
 from satmvs_tpu_torch.ops.kernels import plane_conv as tpc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 D = 2
 
 

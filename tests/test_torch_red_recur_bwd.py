@@ -28,6 +28,18 @@ from satmvs_tpu_torch.ops.kernels import red_recur as trr
 from satmvs_tpu_torch.params import load_jax_variables
 
 D, H, W, CIN, C = 4, 8, 16, 4, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-4  # relative norm per cotangent, the recurrence's references
 REL_RED = 1e-3  # the whole regularizer, as the JAX scan-path gradient test
 

@@ -9,6 +9,7 @@ import functools
 import numpy as np
 import jax
 import pytest
+import torch
 
 from satmvs_tpu.data import preprocess as jpre
 from satmvs_tpu.data import synthetic as jsyn
@@ -22,6 +23,16 @@ from satmvs_tpu_torch.infer import scene as tscene
 from satmvs_tpu_torch.infer import tiling as ttiling
 from satmvs_tpu_torch.infer.predict import streaming_red_forward as tstream
 from test_torch_infer import NDEPTHS, _steps, seeded_weights
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_plan_tiles_and_stitch_match_jax():

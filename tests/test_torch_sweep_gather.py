@@ -21,6 +21,17 @@ from satmvs_tpu_torch.ops import warp as twarp
 from satmvs_tpu_torch.ops.kernels.sweep_gather import (
     sweep_gather, sweep_gather_reference, sweep_scatter, sweep_scatter_reference)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 T = torch.from_numpy
 
 

@@ -38,6 +38,18 @@ from satmvs_tpu_torch.params import load_jax_variables
 from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
 
 H, W = 32, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NDEPTHS = (8, 4, 4)
 
 
@@ -293,9 +305,19 @@ def test_train_fused_sweep_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("geo_model", "pinhole"), ("use_qc", True), ("mesh_data", 2),
-    ("mesh_spatial", 2), ("mesh_depth", 2), ("compute_dtype", "bfloat16"),
+    ("mesh_data", 2), ("mesh_spatial", 2), ("mesh_depth", 2), ("compute_dtype", "bfloat16"),
     ("torch_compat", True)])
 def test_config_refuses_what_the_port_lacks(field, value):
     with pytest.raises(ValueError, match=field):
         Config(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("geo_model", "pinhole"), ("use_qc", True)])
+def test_config_takes_the_camera_models(field, value):
+    """The two camera models the port runs construct, and the model they
+    configure is built with them."""
+    from satmvs_tpu_torch.train.loop import create_model
+
+    cfg = Config(**{field: value})
+    assert getattr(cfg, field) == value
+    assert create_model(cfg, "cpu").geo_model == cfg.geo_model

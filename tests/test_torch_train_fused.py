@@ -37,6 +37,16 @@ from test_torch_train import H, NDEPTHS, W, seeded
 LOSS, GRAD, HEAD, UPDATE, UPDATE_ALL, STATS = 1e-5, 1e-4, 1e-6, 5e-2, 1e-2, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the module's many small torch ops run beside
+    other test processes, which several threads a process would oversubscribe."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def variables():
     jm = jbuild("red", "rpc", ndepths=NDEPTHS, fused_red=False)

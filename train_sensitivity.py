@@ -2,9 +2,9 @@
 """How far rounding-level changes move the training steps that the port's
 parity checks compare, on the CPU: the numbers behind the stated gates of
 tests/test_torch_train_costreg.py and of chip_smoke.py's BF16_PARITY,
-COSTREG_PARITY and per-view bf16 forward.
+COSTREG_PARITY, CAMERA_PARITY and per-view bf16 forward.
 
-    JAX_PLATFORMS=cpu python3 train_sensitivity.py [--only jax|bf16|forward]
+    JAX_PLATFORMS=cpu python3 train_sensitivity.py [--only jax|bf16|forward|cameras]
 
   jax      JAX's own CasMVS / UCS train step (`make_train_step`) at 32×64,
            B = 1, ndepths (8, 8, 8), tests/test_torch_train_costreg.py's
@@ -16,6 +16,9 @@ COSTREG_PARITY and per-view bf16 forward.
            ndepths (16, 8, 4), seed 5, LeCun scale (chip_smoke.py's
            parity step), on the images and on the images × (1 + 1e-7·N):
            the eval-mode gradients' and the update's relative norms;
+  cameras  as bf16, for the three camera models in fp32: the RPC basis
+           form, QC (`use_qc`) and pinhole cameras fitted to the same
+           triplet (`chip_smoke.pinhole_batch`, depths ~ −1.4e5 m);
   forward  the port's per-view forward with bf16 volumes against its fp32
            default at 96×192, ndepths 64/32/8, LeCun scale, heads ×1 and
            ×40, each stage from the default's previous depth: the depth
@@ -119,41 +122,65 @@ def jax_costreg():
                       f"{gaps[2]:.2e}", flush=True)
 
 
-def port_bf16():
+def step_spread(tag: str, what: str, cfg, base: dict) -> None:
+    """The port's train step of cfg (LeCun scale, chip_smoke.py's parity
+    step) on base and on base's images × (1 + 1e-7·N(0, 1)): the relative
+    change of the eval-mode gradients and of the update, per tensor and over
+    all, the logit heads' biases left out."""
     import torch
 
     import chip_smoke as cs
-    from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.models.losses import cascade_loss
-    from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
+    from satmvs_tpu_torch.train import create_model_and_state, make_train_step
 
-    base = synthetic.make_batch(1, 192, 96, seed=1, device="cpu")
     noise = torch.from_numpy(np.random.default_rng(0).normal(size=base["imgs"].shape)
                              .astype(np.float32))
+    runs = []
+    for eps in (0.0, 1e-7):
+        batch = {**base, "imgs": base["imgs"] * (1 + eps * noise)}
+        model, state, tx = create_model_and_state(cfg, batch, 1)
+        cs.lecun_scale(model)
+        old = {k: v.detach().clone().numpy() for k, v in state.params.items()}
+        out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"], False)
+        loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], cfg.dlossw)[0]
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        state, _ = make_train_step(model, tx, cfg.dlossw)(state, batch)
+        runs.append(({n: g.numpy() for n, g in zip(names, grads)}, old,
+                     {k: v.detach().numpy() for k, v in state.params.items()}))
+    (g0, o0, p0), (g1, _, p1) = runs
+    keep = [n for n in g0 if not is_head_bias(n)]
+    per = max(np.linalg.norm(g1[n] - g0[n]) / np.linalg.norm(g0[n]) for n in keep)
+    all_ = (sum(np.linalg.norm(g1[n] - g0[n]) ** 2 for n in keep)
+            / sum(np.linalg.norm(g0[n]) ** 2 for n in keep)) ** 0.5
+    upd = update_gaps(p1, p0, o0, {"-": np.ones(1)}, {"-": np.ones(1)})
+    print(f"[{tag}] port train step, {what}, eps 1e-7: eval-mode gradients "
+          f"{per:.2e} per tensor, {all_:.2e} over all; update {upd[0]:.2e} per tensor, "
+          f"{upd[1]:.2e} over all", flush=True)
+
+
+def port_bf16():
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    base = synthetic.make_batch(1, 192, 96, seed=1, device="cpu")
     for dtype in ("float32", "bfloat16"):
-        cfg = Config(ndepths=(16, 8, 4), seed=5, volume_dtype=dtype)
-        runs = []
-        for eps in (0.0, 1e-7):
-            batch = {**base, "imgs": base["imgs"] * (1 + eps * noise)}
-            model, state, tx = create_model_and_state(cfg, batch, 1)
-            cs.lecun_scale(model)
-            old = {k: v.detach().clone().numpy() for k, v in state.params.items()}
-            out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"], False)
-            loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], cfg.dlossw)[0]
-            names = list(state.params)
-            grads = torch.autograd.grad(loss, [state.params[n] for n in names])
-            state, _ = make_train_step(model, tx, cfg.dlossw)(state, batch)
-            runs.append(({n: g.numpy() for n, g in zip(names, grads)}, old,
-                         {k: v.detach().numpy() for k, v in state.params.items()}))
-        (g0, o0, p0), (g1, _, p1) = runs
-        keep = [n for n in g0 if not is_head_bias(n)]
-        per = max(np.linalg.norm(g1[n] - g0[n]) / np.linalg.norm(g0[n]) for n in keep)
-        all_ = (sum(np.linalg.norm(g1[n] - g0[n]) ** 2 for n in keep)
-                / sum(np.linalg.norm(g0[n]) ** 2 for n in keep)) ** 0.5
-        upd = update_gaps(p1, p0, o0, {"-": np.ones(1)}, {"-": np.ones(1)})
-        print(f"[bf16] port train step, volume_dtype {dtype}, eps 1e-7: eval-mode gradients "
-              f"{per:.2e} per tensor, {all_:.2e} over all; update {upd[0]:.2e} per tensor, "
-              f"{upd[1]:.2e} over all", flush=True)
+        step_spread("bf16", f"volume_dtype {dtype}",
+                    Config(ndepths=(16, 8, 4), seed=5, volume_dtype=dtype), base)
+
+
+def port_cameras():
+    import chip_smoke as cs
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    for what, fields, base in (
+            ("RPC basis form", {}, synthetic.make_batch(1, 192, 96, seed=1, device="cpu")),
+            ("QC", {"use_qc": True},
+             synthetic.make_batch(1, 192, 96, seed=1, device="cpu", use_qc=True)),
+            ("pinhole", {"geo_model": "pinhole"},
+             cs.pinhole_batch(192, 96, seed=1, device="cpu")[0])):
+        step_spread("cameras", what, Config(ndepths=(16, 8, 4), seed=5, **fields), base)
 
 
 def port_forward():
@@ -186,11 +213,12 @@ def port_forward():
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=["jax", "bf16", "forward"])
+    p.add_argument("--only", choices=["jax", "bf16", "forward", "cameras"])
     a = p.parse_args(argv)
     os.environ.setdefault("SATMVS_PLATFORM", "cpu")
     sys.path.insert(0, str(ROOT))
-    for key, fn in (("jax", jax_costreg), ("bf16", port_bf16), ("forward", port_forward)):
+    for key, fn in (("jax", jax_costreg), ("bf16", port_bf16), ("forward", port_forward),
+                    ("cameras", port_cameras)):
         if a.only in (None, key):
             fn()
     return 0
