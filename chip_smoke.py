@@ -148,6 +148,25 @@ Phases, each reported on its own lines:
      on the predicted and the exact depth maps, card against CPU, and
      `cli.train --use_qc` and `cli.predict --use_qc` (bit for bit) on phase
      9's tree; exact launches for every run.
+  13 more than one GPU on the one card (`satmvs_tpu_torch.dist`, the data
+     axis): (a) one NCCL rank (`init_multihost` under WORLD_SIZE=1): a
+     384×768 train step through the data-parallel path against two serial
+     steps from the same weights, on cuDNN's deterministic engines (scalars
+     and running statistics the same bits; parameters too where two serial
+     steps agree, else the update within 1e-3 of the serial one: the
+     scatter sums with float atomics), and `python -m torch.distributed.run --nproc_per_node
+     1 -m satmvs_tpu_torch.cli.train --mesh_data 1` for an epoch of phase
+     9's tree; (b) two spawned ranks sharing the card over gloo (NCCL
+     refuses two ranks on one device), global B = 2 at 384×768, three train
+     steps against the serial B = 2 step on the card (loss and
+     abs_depth_error 2e-4 relative at steps 1 and 2, and at step 3 the
+     fixed gate set from dp_spread.py's runs, 1e-3), the first step's eval-mode gradients at
+     5e-4 of max |g| + 5e-3 relative, the replicas the same bits, each
+     rank's launches a step a serial B = 1 step's), step and gradient
+     all-reduce ms (two processes on one card: not a scaling number); (c)
+     the two ranks predict phase 5's scene tile-parallel (two tiles a rank a
+     chunk; exact launches per rank per chunk) against phase 5's serial
+     batch_tiles-4 maps (the same bits, or phase 5's gates with the cause).
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -156,8 +175,9 @@ numbers (each kernel's launches on each path: the full-volume forward, the
 streaming forward of phase 4, the two scene runs, the fused train and eval
 steps, the fused_red-off train steps, phase 9's train, predict and scene
 CLI runs, phase 10's two family forwards and its predict run, phase
-11's steps, CLI epoch and forwards, and phase 12's forwards, steps and CLI
-runs), the nvidia-smi line of the card,
+11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
+runs, and phase 13's data-parallel steps and tile-parallel scene), the
+nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -1093,8 +1113,9 @@ def render_scene() -> dict:
 
 def phase_scene(card: str, model, scene: dict):
     """Phase 5: predict_scene over the slab-streaming forward at batch_tiles
-    4 and 1.  Returns each run's launches and the first 4-tile chunk's
-    inputs (phase 4 takes them)."""
+    4 and 1.  Returns each run's launches, the first 4-tile chunk's inputs
+    (phase 4 takes them) and the scene with the batch_tiles-4 maps and the
+    final stage's step (phase 13 takes them)."""
     import functools
 
     from satmvs_tpu_torch.geo import rpc as rpclib
@@ -1182,7 +1203,9 @@ def phase_scene(card: str, model, scene: dict):
           f"scene B={BATCH_TILES} vs B=1: depth err mean {mean}, p99 {p99} of step")
     print(f"[scene] profile of one {BATCH_TILES}-tile chunk:", flush=True)
     profile_forward(lambda: stream(*chunks[0]), card)
-    return {f"scene_b{bt}": run[2] for bt, run in runs.items()}, chunks[0]
+    ref = {"images": images, "rpcs": rpcs, "depth": runs[BATCH_TILES][0],
+           "conf": runs[BATCH_TILES][1], "step": step}
+    return {f"scene_b{bt}": run[2] for bt, run in runs.items()}, chunks[0], ref
 
 
 def phase_stream_vs_full(card: str, model, chunk, what: str = "RPC") -> dict:
@@ -3273,6 +3296,375 @@ def phase_cameras(card: str, rpc_tree: str, default_step: dict) -> dict:
     return launches
 
 
+# phase 13: more than one GPU on the one card.  NCCL refuses two ranks on
+# one device, so (a) runs one NCCL rank in this process, and (b) and (c) two
+# ranks in spawned processes that share cuda:0 over gloo (its CUDA support
+# covers the all_reduce and broadcast the data axis uses on CUDA tensors).
+DP_RANKS, DP_STEPS = 2, 3
+# each step's loss and abs_depth_error against the serial B = 2 step, by
+# step: JAX's two-process gate (tests/test_multihost.py) for the first two;
+# the third's is fixed from dp_spread.py's six runs of this batch (seed 0)
+# on the card, about twice the largest reading (PERF.md, PR 15): the ranks
+# 4.968e-04 and the serial step on the batch with its samples swapped
+# 4.900e-04, where steps 1 and 2 read at most 1.1e-7 and 3.7e-5.  The ranks
+# sum the batch in another order than the serial step, and sweep_scatter's
+# float atomics and cuDNN's default engines round otherwise run to run;
+# RMSprop's first update, ~lr·√10·sign(g), turns rounding of the gradient
+# elements near 0 into whole steps, so the third step moves as far when
+# only the batch's order changes as between the ranks and the serial step
+DP_LOSS_TOL = (2e-4, 2e-4, 1e-3)
+# (a): the one rank's update against the serial step's (relative norm over
+# all parameters) where two serial steps are not the same bits either
+# (sweep_scatter's atomics): dp_spread.py read two serial steps 1.05e-5 to
+# 3.61e-5 apart in eight runs
+DP1_UPDATE_TOL = 1e-3
+DP_GRAD_ATOL, DP_GRAD_RTOL = 5e-4, 5e-3  # × max |g|; JAX's sharded gradients (tests/test_dist.py)
+DP_WORK = WORK / "dp"
+DP_PATHS = ("dp1_train_step", "dp_train_step")  # phase 13's train paths; "dp_scene" infers
+
+
+def state_copy(state) -> dict:
+    return {"params": {k: v.detach().cpu().clone() for k, v in state.params.items()},
+            "stats": {k: v.cpu().clone() for k, v in state.batch_stats.items()}}
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[g][k], b[g][k]) for g in ("params", "stats") for k in a[g])
+
+
+def update_spread(a: dict, b: dict, old: dict) -> float:
+    """Relative norm of the difference of two updates (new − old), over all
+    parameters."""
+    num = den = 0.0
+    for k, p in a["params"].items():
+        num += (p - b["params"][k]).norm().item() ** 2
+        den += (b["params"][k] - old[k]).norm().item() ** 2
+    return (num / den) ** 0.5
+
+
+def dp_step(cfg, batch, mesh=None) -> dict:
+    """One train step from fresh weights (cfg's seed) on `batch` (serial,
+    or this rank's share under `mesh`): its scalars, launches, the weights
+    before it ("old") and the parameters and running statistics after it."""
+    from satmvs_tpu_torch.dist import shard_batch
+    from satmvs_tpu_torch.train import create_model_and_state, make_train_step
+
+    model, state, tx = create_model_and_state(cfg, batch, 1)
+    old = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    step = make_train_step(model, tx, cfg.dlossw, mesh)
+    reset_counts()
+    state, scalars = step(state, batch if mesh is None else shard_batch(batch, mesh))
+    torch.cuda.synchronize()
+    return {"scalars": {k: v.item() for k, v in scalars.items()}, "launches": counts(),
+            "old": old, **state_copy(state)}
+
+
+def dp_one_rank(card: str, tree: str) -> dict:
+    """Phase 13 (a): a process group of one NCCL rank on the card
+    (`init_multihost` under torchrun's environment, WORLD_SIZE=1): a
+    384×768 CascadeREDNet train step (B = 1, the fused RED pipeline) through
+    the data-parallel path (`make_mesh(data=1)`) against two serial steps
+    from the same weights and batch, all on cuDNN's deterministic engines;
+    then `cli.train --mesh_data 1` for an epoch of phase 9's tree under
+    `python -m torch.distributed.run`.  Returns the data-parallel step's
+    launches."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.dist import init_multihost, make_mesh
+    from satmvs_tpu_torch.train import Config
+
+    t0 = time.time()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        check(init_multihost() == 1 and dist.get_backend() == "nccl",
+              "init_multihost under WORLD_SIZE=1: one NCCL rank")
+        mesh = make_mesh(data=1)
+        batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+        cfg = Config(ndepths=NDEPTHS)
+        for what, m in (("serial", None), ("serial again", None), ("data-parallel", mesh)):
+            runs[what] = dp_step(cfg, batch, m)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        torch.backends.cudnn.deterministic = False
+    serial, again, dp = runs["serial"], runs["serial again"], runs["data-parallel"]
+    check(dp["launches"] == LAUNCHES_PER_TRAIN_STEP, f"one NCCL rank: launches {dp['launches']}")
+    check(dp["scalars"] == serial["scalars"] == again["scalars"],
+          f"one NCCL rank: scalars {dp['scalars']} against the serial {serial['scalars']}")
+    check(all(torch.equal(dp["stats"][k], v) for k, v in serial["stats"].items()),
+          "one NCCL rank: the running statistics differ from the serial step's bits")
+    repeat, bits = same_bits(serial, again), same_bits(serial, dp)
+    old = serial["old"]
+    spread, dp_spread = update_spread(again, serial, old), update_spread(dp, serial, old)
+    print(f"[multi] (a) one NCCL rank, 384x768 train step on cuDNN's deterministic engines: "
+          f"scalars and running statistics the serial step's bits; parameters the serial step's "
+          f"bits: {bits} (a second serial step: {repeat}); update relative norm data-parallel "
+          f"vs serial {dp_spread:.3e} (tol {DP1_UPDATE_TOL} unless a second serial step is the "
+          f"same bits), serial vs serial {spread:.3e}; launches "
+          f"{({k: v for k, v in dp['launches'].items() if v})} (exact) card={card}", flush=True)
+    if repeat:
+        check(bits, "one NCCL rank: the parameters differ from the serial step's bits")
+    else:  # sweep_scatter sums with float atomics: the serial step is not repeatable either
+        check(dp_spread <= DP1_UPDATE_TOL, f"one NCCL rank: update spread {dp_spread} "
+              f"(tol {DP1_UPDATE_TOL})")
+    logdir = WORK / "dp_logs"
+    t1 = time.time()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "satmvs_tpu_torch.cli.train", "--mode=train", f"--dataset_root={tree}",
+           f"--logdir={logdir}", "--epochs", "1", "--mesh_data", "1"]
+    out = subprocess.run(cmd, cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"torchrun cli.train: exit {out.returncode}\n{out.stdout[-3000:]}"
+          f"\n{out.stderr[-3000:]}")
+    check((logdir / "red" / "rpc" / "1" / "state.pt").is_file(), "torchrun cli.train: no checkpoint")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("epoch 1 test:")]
+    check(len(lines) == 1, f"torchrun cli.train: {out.stdout[-2000:]}")
+    print(f"[multi] (a) python -m torch.distributed.run --nproc_per_node 1 -m "
+          f"satmvs_tpu_torch.cli.train --mesh_data 1, one epoch of phase 9's tree: exit 0 in "
+          f"{time.time() - t1:.1f} s, {lines[0][:160]!r}; (a) took {time.time() - t0:.1f} s",
+          flush=True)
+    return dp["launches"]
+
+
+def dp_rank(rank: int, init: str, go, scene: bool = True) -> None:
+    """Phase 13 (b) and (c) on one of DP_RANKS ranks that share cuda:0 over
+    gloo (a spawned process; phase 1 has built the kernels): DP_STEPS
+    data-parallel train steps of the global batch in DP_WORK/batch.pt
+    (each rank its sample), after the first step's eval-mode gradients,
+    then, with `scene`, the scene in DP_WORK/scene.npz tile-parallel.
+    Waits for `go` before it times anything; writes DP_WORK/rank<rank>.pt."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import functools
+
+    import torch.distributed as dist
+
+    from satmvs_tpu_torch.dist import (all_reduce_grads, init_multihost, make_mesh, replicate,
+                                       shard_batch)
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+    from satmvs_tpu_torch.infer.scene import predict_scene
+    from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
+    from satmvs_tpu_torch.train.loop import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(f"file://{init}", DP_RANKS, rank, backend="gloo", device="cuda:0")
+    try:
+        mesh = make_mesh(data=DP_RANKS, device="cuda:0")
+        # the batch this process wrote for its ranks
+        local = shard_batch(torch.load(DP_WORK / "batch.pt", weights_only=False), mesh)
+        cfg = Config(ndepths=NDEPTHS)
+        model, state, tx = create_model_and_state(cfg, local, DP_STEPS)
+        replicate(state.to_dict(), mesh)
+        step = make_train_step(model, tx, cfg.dlossw, mesh)
+        check(go.wait(600), f"rank {rank}: no start")
+        _, loss, _, grads = loss_and_grads(model, state, local, cfg.dlossw, False, mesh)
+        out = {"eval_loss": loss.item(), "eval_grads": {k: g.cpu() for k, g in grads.items()},
+               "ms": [], "scalars": [], "per_step": []}
+        reset_counts()
+        for _ in range(DP_STEPS):
+            before = counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, scalars = step(state, local)
+            end.record()
+            end.synchronize()
+            out["ms"].append(start.elapsed_time(end))
+            out["scalars"].append({k: v.item() for k, v in scalars.items()})
+            out["per_step"].append({k: v - before[k] for k, v in counts().items()})
+        out["train_launches"] = counts()
+        out.update(state_copy(state))
+        flat = list(grads.values())
+        out["allreduce_ms"] = time_ms(lambda: all_reduce_grads(flat, mesh.group), reps=10)
+        out["n_grad"] = sum(g.numel() for g in flat)
+        del model, state, tx, step, grads, flat
+        if not scene:
+            torch.save(out, DP_WORK / f"rank{rank}.pt")
+            return
+        scene = np.load(DP_WORK / "scene.npz")
+        stream = functools.partial(streaming_red_forward, build_model("cuda"), slab=SLAB)
+        per_call = []
+
+        def forward(imgs, cams, dvals):
+            before = counts()
+            res = stream(imgs, cams, dvals)
+            per_call.append({k: v - before[k] for k, v in counts().items()})
+            return res
+
+        reset_counts()
+        stats = {}
+        depth, conf = predict_scene(forward, scene["images"], scene["rpcs"], tile=TILE,
+                                    halo=HALO, batch_tiles=BATCH_TILES, stats=stats, mesh=mesh)
+        torch.cuda.synchronize()
+        out.update(scene_launches=counts(), per_chunk=per_call, scene_stats=stats, depth=depth,
+                   conf=conf)
+        torch.save(out, DP_WORK / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_serial(order: tuple = (0, 1)) -> dict:
+    """Phase 13 (b)'s reference: the serial step at B = 2 on the card from
+    the same weights, on the batch in DP_WORK/batch.pt with its samples in
+    `order`: the first step's eval-mode gradients and DP_STEPS train steps'
+    scalars and ms."""
+    from satmvs_tpu_torch.train import Config, create_model_and_state, make_train_step
+    from satmvs_tpu_torch.train.loop import loss_and_grads
+
+    batch = batch_to(torch.load(DP_WORK / "batch.pt", weights_only=False), "cuda")
+    order = list(order)
+    batch = {k: (v[order] if isinstance(v, torch.Tensor) else type(v)(c[order] for c in v))
+             for k, v in batch.items()}
+    cfg = Config(ndepths=NDEPTHS)
+    model, state, tx = create_model_and_state(cfg, batch, DP_STEPS)
+    _, loss, _, grads = loss_and_grads(model, state, batch, cfg.dlossw, False)
+    out = {"eval_loss": loss.item(), "eval_grads": {k: g.cpu() for k, g in grads.items()},
+           "scalars": [], "ms": []}
+    step = make_train_step(model, tx, cfg.dlossw)
+    for _ in range(DP_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, scalars = step(state, batch)
+        end.record()
+        end.synchronize()
+        out["ms"].append(start.elapsed_time(end))
+        out["scalars"].append({k: v.item() for k, v in scalars.items()})
+    return out
+
+
+def dp_step_errors(got: list, want: list) -> list:
+    """By step, the relative distance of got's loss and abs_depth_error
+    from want's."""
+    return [{key: abs(g[key] - w[key]) / abs(w[key]) for key in ("loss", "abs_depth_error")}
+            for g, w in zip(got, want)]
+
+
+def phase_multi_gpu(card: str, tree: str, scene_ref: dict) -> dict:
+    """Phase 13: the data axis of `satmvs_tpu_torch.dist` on the one card.
+    (a) `dp_one_rank`; (b) two ranks sharing the card over gloo, global
+    B = 2 at 384×768 (a sample a rank), DP_STEPS train steps against the
+    serial B = 2 step from the same weights (each step's loss and
+    abs_depth_error to its DP_LOSS_TOL; the first step's eval-mode gradients to
+    JAX's sharded-gradient gate; the two replicas' parameters and running
+    statistics the same bits; each rank's launches a step those of a serial
+    B = 1 step); (c) the two ranks predict phase 5's scene tile-parallel
+    (batch_tiles BATCH_TILES, two tiles a rank a chunk) against phase 5's
+    serial batch_tiles-BATCH_TILES maps `scene_ref` (exact launches per rank
+    per chunk).  Returns the launches of (a), of rank 0's steps and of rank
+    0's scene run."""
+    import multiprocessing
+    import shutil
+
+    from satmvs_tpu_torch.data import synthetic
+
+    t0 = time.time()
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    torch.save(synthetic.make_batch(DP_RANKS, WIDTH, HEIGHT, seed=0, device="cpu"),
+               DP_WORK / "batch.pt")
+    np.savez(DP_WORK / "scene.npz", images=scene_ref["images"], rpcs=scene_ref["rpcs"])
+    ctx = multiprocessing.get_context("spawn")
+    go = ctx.Event()
+    procs = [ctx.Process(target=dp_rank, args=(r, str(DP_WORK / "init"), go))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        launches = {"dp1_train_step": dp_one_rank(card, tree)}  # while the ranks start
+        serial = dp_serial()
+        go.set()
+        deadline = time.time() + 600
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), f"a rank failed: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(DP_WORK / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    r0 = ranks[0]
+    # (b)
+    failed = []
+    errors = dp_step_errors(r0["scalars"], serial["scalars"])
+    for k, (err, tol) in enumerate(zip(errors, DP_LOSS_TOL)):
+        for key, rel in err.items():
+            print(f"[multi] (b) step {k + 1} {key}: two ranks {r0['scalars'][k][key]:.6f}, "
+                  f"serial B=2 {serial['scalars'][k][key]:.6f}, {rel:.3e} relative (tol "
+                  f"{tol})", flush=True)
+            if rel > tol:
+                failed.append(f"step {k + 1} {key} {rel} relative")
+    scale = max(g.abs().max().item() for g in serial["eval_grads"].values())
+    excess = max(((g - serial["eval_grads"][n]).abs()
+                  - DP_GRAD_RTOL * serial["eval_grads"][n].abs()).max().item()
+                 for n, g in r0["eval_grads"].items())
+    print(f"[multi] (b) first step's eval-mode gradients, two ranks vs serial B=2: max "
+          f"(|Δ| − {DP_GRAD_RTOL}·|g|) {excess:.3e} = {excess / scale:.3e} of max |g| (tol "
+          f"{DP_GRAD_ATOL})", flush=True)
+    replicas = same_bits(ranks[0], ranks[1]) and ranks[0]["scalars"] == ranks[1]["scalars"]
+    print(f"[multi] (b) two ranks sharing one card over gloo, 384x768, global B=2: replicas the "
+          f"same bits after {DP_STEPS} steps: {replicas}; launches per rank per step "
+          f"{r0['per_step'][0] == LAUNCHES_PER_TRAIN_STEP and 'those of a serial B=1 step'}; "
+          f"step ms rank 0 {[round(t, 2) for t in r0['ms']]}, rank 1 "
+          f"{[round(t, 2) for t in ranks[1]['ms']]} (CUDA events; two processes on one card, "
+          f"not a scaling number); serial B=2 step ms {[round(t, 2) for t in serial['ms']]}; "
+          f"the gradient all-reduce alone ({r0['n_grad']} floats, one buffer, gloo on CUDA "
+          f"tensors) {r0['allreduce_ms']:.3f} ms (median of 10) card={card}", flush=True)
+    # (c)
+    want_chunk = chunk_launches(BATCH_TILES // DP_RANKS)
+    bits = np.array_equal(r0["depth"], scene_ref["depth"])
+    mean, p99, mx = err_quantiles(
+        torch.from_numpy(np.abs(r0["depth"] - scene_ref["depth"]) / scene_ref["step"]))
+    same = float(np.mean(r0["depth"] == scene_ref["depth"]))
+    st = r0["scene_stats"]
+    print(f"[multi] (c) the {SCENE_SIZE}x{SCENE_SIZE} scene over two ranks, "
+          f"{BATCH_TILES // DP_RANKS} tiles a rank a chunk, against phase 5's serial batch_tiles "
+          f"{BATCH_TILES}: the same bits {bits} ({same:.4f} of the pixels); depth err mean "
+          f"{mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of the final step (tol mean "
+          f"{DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}); confidence err max "
+          f"{np.abs(r0['conf'] - scene_ref['conf']).max():.3e}; launches per rank per chunk "
+          f"{({k: v for k, v in r0['per_chunk'][0].items() if v})} (want "
+          f"{({k: v for k, v in want_chunk.items() if v})}); rank 0 wall "
+          f"{st['wall_s']:.3f} s, host prep {st['host_prep_s']:.3f} s, host gather "
+          f"{st['gather_s']:.3f} s card={card}", flush=True)
+    if not bits:
+        print("[multi] (c) not the same bits: phase 5 runs FeatureNet on cuDNN's default "
+              "engines, which are not bit-reproducible run to run (phase 9), at 4 tiles a "
+              "forward against 2 here", flush=True)
+    check(not failed, f"two ranks against the serial B=2 steps: {failed}")
+    check(excess <= DP_GRAD_ATOL * scale, "two ranks: eval-mode gradients")
+    check(replicas, "two ranks: the replicas' parameters or statistics differ")
+    for r, res in enumerate(ranks):
+        check(all(c == LAUNCHES_PER_TRAIN_STEP for c in res["per_step"]),
+              f"rank {r}: launches per step {res['per_step']}")
+        n = res["scene_stats"]["n_chunks"]
+        check(len(res["per_chunk"]) == n == -(-9 // BATCH_TILES)
+              and all(c == want_chunk for c in res["per_chunk"]),
+              f"rank {r}: scene launches per chunk {res['per_chunk']}")
+        check(res["scene_stats"]["local_tiles"] == BATCH_TILES // DP_RANKS,
+              f"rank {r}: {res['scene_stats']}")
+    check(np.array_equal(r0["depth"], ranks[1]["depth"])
+          and np.array_equal(r0["conf"], ranks[1]["conf"]), "the ranks' stitched maps differ")
+    check(bits or (mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99),
+          f"tile-parallel scene: depth err mean {mean}, p99 {p99} of step")
+    launches.update(dp_train_step=r0["train_launches"], dp_scene=r0["scene_launches"])
+    print(f"[multi] phase 13 took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the device was busy."""
@@ -3367,7 +3759,7 @@ def run(scene_job, tree_job) -> int:
     print(f"[scene] {SCENE_SIZE}x{SCENE_SIZE} triplet rendered on the host (waited "
           f"{time.time() - t0:.1f} s for it after phase 3)", flush=True)
     model = build_model("cuda")
-    scene_launches, chunk = phase_scene(smi, model, scene)
+    scene_launches, chunk, scene_ref = phase_scene(smi, model, scene)
     launches.update(scene_launches)
     launches["streaming"] = phase_stream_vs_full(smi, model, chunk)
     scene_files = write_scene_files(scene, WORK / "scene")
@@ -3398,6 +3790,9 @@ def run(scene_job, tree_job) -> int:
     # phase 12
     launches.update(phase_cameras(smi, tree, default_step))
 
+    # phase 13
+    launches.update(phase_multi_gpu(smi, tree, scene_ref))
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches;
         # a costreg record the same wrapper in its CostRegNet form
@@ -3413,10 +3808,10 @@ def run(scene_job, tree_job) -> int:
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
                  COSTREG_PATHS + CAMERA_COSTREG_PATHS if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
-                  *CAMERA_TRAIN_PATHS) if train else (
-                     INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + (
+                  *CAMERA_TRAIN_PATHS, *DP_PATHS) if train else (
+                     INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",) + (
                          ("eval_step", "fused_sweep_step") if wrapper == "sweep_variance" else
-                         ("train_step", "eval_step", *CAMERA_TRAIN_PATHS)
+                         ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

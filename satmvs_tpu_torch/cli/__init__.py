@@ -3,20 +3,27 @@
 each `main(argv=None)` and runnable as `python -m satmvs_tpu_torch.cli.<name>`
 with the same flags and defaults.  They run on the GPU; SATMVS_PLATFORM=cpu
 puts them on the CPU (the JAX scripts' switch), and without a GPU they
-raise rather than continue on the CPU."""
+raise rather than continue on the CPU.  Launched by `python -m
+torch.distributed.run --nproc_per_node N`, each rank runs on its own card
+(cuda:{LOCAL_RANK}) and `train` trains data-parallel (--mesh_data N),
+`predict_scene` predicts tile-parallel."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..dist import init_multihost
 
 
 def cli_device(deterministic: bool = False) -> torch.device:
     """The device a CLI runs on: SATMVS_PLATFORM=cpu → the CPU; unset, "gpu"
-    or "cuda" → the GPU (raises without one), with its convolutions and
+    or "cuda" → the GPU (raises without one; under torchrun the rank's own
+    card), with its convolutions and
     matmuls in fp32 (PyTorch lets cuDNN's convolutions take TF32 by default,
     ~1e-3 relative off the fp32 features the port is held to) and, with
     `deterministic`, on cuDNN's deterministic engines: FeatureNet's default
@@ -32,6 +39,22 @@ def cli_device(deterministic: bool = False) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = deterministic
     return device
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """torchrun's process group for the length of a CLI run: joined on
+    `device` (nccl on a card, gloo on the CPU) when torchrun launched the
+    CLI (WORLD_SIZE set) and left at the end.  Yields the world size: 1
+    without torchrun, or the size of a group the caller joined before."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        yield dist.get_world_size() if dist.is_initialized() else 1
+        return
+    world = init_multihost(device=device)
+    try:
+        yield world
+    finally:
+        dist.destroy_process_group()
 
 
 def restore_model(cfg, directory: str, device):

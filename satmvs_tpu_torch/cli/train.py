@@ -13,6 +13,15 @@ cameras in QC form;
 evaluates the test split and writes height_result/{name}_{view}{,_prob,_err}.pfm
 beside it (-999 in _err where the mask is off); --mode=profile takes
 three train steps under torch.profiler into <logdir>/<model>/<geo_model>/profile.
+
+On N GPUs, data-parallel (each rank on its own card, trained on its share
+of every batch of --batch_size, a multiple of N; rank 0 writes the files):
+
+    python -m torch.distributed.run --nproc_per_node N -m satmvs_tpu_torch.cli.train \
+        --mode=train --mesh_data N --batch_size N ...
+
+--mesh_data must equal the ranks launched (`dist.make_mesh` refuses
+other counts); test and profile run on one rank.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import cli_device, restore_model
+from . import cli_device, process_group, restore_model
 
 
 def _splits(cfg) -> tuple[str, str]:
@@ -42,12 +51,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     (latest pass), "train_data": the train dataset's (every sample read)};
     test → {"metrics", "epoch", "out_dir", "eval_s"}; profile →
     {"profile_dir"}."""
-    from ..data.dataset import find_dataset
-    from ..data.loader import Loader
-    from ..train import Config, fit
+    from ..train import Config
 
     cfg = Config.from_args(argv)
     device = cli_device(deterministic=cfg.mode == "test")  # test writes maps
+    with process_group(device) as world:
+        return _run(cfg, device, world)
+
+
+def _run(cfg, device, world: int) -> dict:
+    import torch.distributed as dist
+
+    from ..data.dataset import find_dataset
+    from ..data.loader import Loader
+    from ..dist import make_mesh
+    from ..train import fit
+
+    if world > 1 and cfg.mode != "train":
+        raise ValueError(f"--mode={cfg.mode} runs on one rank, not {world}")
     workdir = os.path.join(cfg.logdir, cfg.model, cfg.geo_model)
     os.makedirs(workdir, exist_ok=True)
     trainpath, testpath = _splits(cfg)
@@ -61,7 +82,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         tl = Loader(make(trainpath, "train"), cfg.batch_size, shuffle=True, seed=cfg.seed,
                     device=device)
         el = Loader(make(testpath, "test"), cfg.batch_size, device=device)
-        _, _, timing = fit(cfg, tl, el, workdir)
+        mesh = make_mesh(cfg.mesh_data) if dist.is_initialized() else None
+        _, _, timing = fit(cfg, tl, el, workdir, mesh=mesh)
         return {"timing": timing, "train_loader": tl.timing, "test_loader": el.timing,
                 "train_data": tl.dataset.timing}
     if cfg.mode == "test":

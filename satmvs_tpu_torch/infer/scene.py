@@ -1,14 +1,20 @@
 """Whole-scene prediction: tile the scene, predict every tile, stitch.
 
-Counterpart of `satmvs_tpu/infer/scene.py` (one device; no mesh).
-`predict_scene` plans overlapping tiles (`infer/tiling.py`), crops every
+Counterpart of `satmvs_tpu/infer/scene.py`, on one GPU or tile-parallel
+over the ranks of a mesh's data axis.  `predict_scene` plans overlapping tiles (`infer/tiling.py`), crops every
 view around each reference tile and shifts that view's RPC by its own crop
 (`geo.rpc.crop_rpc`), runs the tile forward on `batch_tiles` tiles at once,
 and stitches the interiors into scene-sized height and confidence maps.
 
+Tile-parallel (a `dist.Mesh` of N data ranks, JAX's `shard_map` form of
+`scripts/predict_scene.py:157-170`): every rank walks the same chunks,
+runs its own N-th of each chunk's tiles through the forward, and the
+chunk's maps are gathered on the host over the mesh's gloo group, so every
+rank returns the whole stitched scene.
+
 Host and device overlap: kernels are queued asynchronously, so the loop
 prepares and queues chunk i+1 while the card runs chunk i, and only then
-reads chunk i back.  Inputs reach the card through pinned memory with
+reads chunk i back (on each rank).  Inputs reach the card through pinned memory with
 non-blocking copies, so queueing a chunk never waits for the card.
 """
 
@@ -22,6 +28,7 @@ import torch
 
 from ..data.preprocess import center_image
 from ..device import resolve_device
+from ..dist import host_gather
 from ..geo import rpc as rpclib
 from ..ops import warp as warplib
 from . import tiling
@@ -63,6 +70,7 @@ def predict_scene(
     stats: Optional[dict] = None,
     norm: str = "tile",
     device=None,
+    mesh=None,
 ):
     """A whole scene's reference-view height map, by tiles.
 
@@ -75,18 +83,27 @@ def predict_scene(
     tile, halo: interior tile size and overlap (multiples of 32).
     depth_range: (h_min, h_max); by default the reference RPC's.
     batch_tiles: tiles per forward; a ragged last chunk is padded with
-      repeats of its last tile, whose outputs are dropped.
+      repeats of its last tile, whose outputs are dropped.  Under a mesh it
+      is rounded up to a multiple of the data extent N, and each rank runs
+      batch_tiles/N of them (the mesh's rank r the r-th contiguous share).
     stats: filled with wall, host-prep and readback seconds, the tile and
-      chunk counts and each chunk's seconds (the first includes any warm-up).
+      chunk counts and each chunk's seconds (the first includes any
+      warm-up), all this rank's; under a mesh also the rank, the data
+      extent, the tiles a forward on this rank and the seconds spent in the
+      host gather.
     norm: "tile" normalizes every crop by its own statistics
       (`center_image`, the reference's per-block behaviour); "scene" by
       per-view statistics of the whole scene, so neighbouring tiles see the
       same radiometry.
-    device: where the inputs go; the GPU unless "cpu" is passed.
+    device: where the inputs go; the GPU unless "cpu" is passed (under a
+      mesh, by default the mesh's device).
+    mesh: a `dist.Mesh` for tile parallelism over its data axis (None or a
+      mesh without a group: this process alone).
 
     Returns (depth (H, W) float32, confidence (H, W) float32).
     """
-    dev = resolve_device(device)
+    group = None if mesh is None else mesh.group
+    dev = resolve_device(mesh.device if device is None and group is not None else device)
     if norm not in ("tile", "scene"):
         raise ValueError(f"norm must be 'tile' or 'scene', got {norm!r}")
     images = np.asarray(images, np.float32)
@@ -126,6 +143,9 @@ def predict_scene(
         imgs_t = np.stack(imgs_t)[order]
         return imgs_t, warplib.build_stage_cams(np.stack(rpcs_t)[order], 0, device="cpu")
 
+    ranks, rank = (1, 0) if group is None else (mesh.shape["data"], mesh.rank)
+    batch_tiles = -(-batch_tiles // ranks) * ranks  # a multiple of the data extent
+    local = batch_tiles // ranks
     # tiles of one shape share a forward shape: run them `batch_tiles` at a time
     groups: dict[tuple[int, int], list[int]] = {}
     for idx, t in enumerate(tiles):
@@ -137,14 +157,17 @@ def predict_scene(
     conf_outs: list = [None] * len(tiles)
     done = 0
     t_wall0 = time.perf_counter()
-    t_prep = t_read = 0.0
+    t_prep = t_read = t_gather = 0.0
 
     def dispatch(chunk):
-        """Host prep and the queued forward of one chunk (outputs not read)."""
+        """Host prep and the queued forward of this rank's share of one
+        chunk (outputs not read)."""
         nonlocal t_prep
         t0 = time.perf_counter()
-        ins = [tile_inputs(tiles[k]) for k in chunk]
-        ins = ins + [ins[-1]] * (batch_tiles - len(chunk))  # pad: reuse the last inputs
+        padded = chunk + [chunk[-1]] * (batch_tiles - len(chunk))  # pad: repeat the last tile
+        mine = padded[rank * local:(rank + 1) * local]
+        built = {k: tile_inputs(tiles[k]) for k in dict.fromkeys(mine)}
+        ins = [built[k] for k in mine]
         imgs_b = upload(torch.from_numpy(np.stack([im for im, _ in ins])))
         cams_b = tuple(warplib.stack_cams([c[s] for _, c in ins]).map(upload)
                        for s in range(len(ins[0][1])))
@@ -153,10 +176,15 @@ def predict_scene(
         return forward(imgs_b, cams_b, dvals_b)
 
     def collect(chunk, out):
-        nonlocal done, t_read
+        nonlocal done, t_read, t_gather
         t0 = time.perf_counter()
         depth_b = out["depth"].float().cpu().numpy()
         conf_b = out["photometric_confidence"].float().cpu().numpy()
+        if group is not None:
+            t1 = time.perf_counter()
+            both = host_gather(np.stack([depth_b, conf_b]), mesh.host_group)
+            depth_b, conf_b = np.concatenate(both, axis=1)
+            t_gather += time.perf_counter() - t1
         for j, k in enumerate(chunk):
             depth_outs[k] = depth_b[j]
             conf_outs[k] = conf_b[j]
@@ -184,6 +212,8 @@ def predict_scene(
         stats.update(wall_s=time.perf_counter() - t_wall0, host_prep_s=t_prep,
                      readback_s=t_read, n_tiles=len(tiles), n_chunks=len(chunks),
                      chunk_s=chunk_marks)
+        if group is not None:
+            stats.update(rank=rank, ranks=ranks, local_tiles=local, gather_s=t_gather)
     depth = tiling.stitch(tiles, depth_outs, scene_h, scene_w)
     conf = tiling.stitch(tiles, conf_outs, scene_h, scene_w)
     return depth, conf

@@ -19,27 +19,43 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..dist.collectives import all_reduce_sum
+
 
 class BatchNorm(nn.BatchNorm2d):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over the channels of
     NCHW or NCDHW tensors.
 
     train=False normalizes with the running statistics.  train=True
-    normalizes with the batch's mean and biased variance E[x²] − E[x]²
+    normalizes with the batch's mean Σx/n and biased variance Σx²/n − mean²
     (clipped at 0, flax's fast variance) and moves the running statistics
     0.1 of the way to them, the variance biased too: torch's BatchNorm2d
     moves them to the unbiased variance, which would drift from flax's
     `batch_stats` at every step.  The running statistics are buffers
     updated in place, outside autograd.
+
+    Under a data group (`group`, set by `sync_batch_norm`) the sums Σx, Σx²
+    and the count n are those of the global batch, summed over the ranks
+    with a differentiable all-reduce, as JAX's GSPMD computes the moments of
+    a sharded batch; every rank then moves its running statistics
+    identically.  Without one, the same formula runs on this rank's batch.
     """
+
+    group = None  # a process group: train-mode moments over the global batch
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
         dims = (0, *range(2, x.ndim))
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        c = x.shape[1]
+        sums = torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                          x.new_full((1,), x.numel() // c)])
+        if self.group is not None:
+            sums = all_reduce_sum(sums, self.group)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -47,6 +63,16 @@ class BatchNorm(nn.BatchNorm2d):
         per_channel = (-1,) + (1,) * (x.ndim - 2)
         return ((x - mean.view(per_channel)) * mul.view(per_channel)
                 + self.bias.view(per_channel))
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Every `BatchNorm` of `module` takes its train-mode moments over the
+    ranks of `group` (None: over this rank's batch alone).  Returns
+    `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 def _check_dims(block: str, dims: int):

@@ -1,5 +1,6 @@
 """Training: config, the train and eval steps, the epoch loop, metrics,
-checkpoints, logging.  Counterpart of `satmvs_tpu/train/` (one device)."""
+checkpoints, logging.  Counterpart of `satmvs_tpu/train/`, on one GPU or
+data-parallel over several (`dist`)."""
 
 from .config import Config  # noqa: F401
 from .loop import (  # noqa: F401

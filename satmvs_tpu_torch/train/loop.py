@@ -1,7 +1,14 @@
 """Training and evaluation: the train and eval steps, RMSprop with an LR
 stepped at epoch boundaries, the epoch loop with logging and checkpoints.
 
-Counterpart of `satmvs_tpu/train/loop.py` on one device (no mesh).  JAX's
+Counterpart of `satmvs_tpu/train/loop.py`, on one GPU or data-parallel
+over the ranks of a mesh's data axis (`dist`, JAX's mesh path
+`satmvs_tpu/train/loop.py:203-265`): every rank holds the whole state,
+replicated from rank 0, runs the step on its share of each global batch
+with BatchNorm's moments, the loss's mask counts and the metrics taken
+over the global batch, and sums the gradients over the ranks before the
+update, so the replicas stay identical and the step is JAX's step on the
+global batch.  A mesh of one rank gives the serial step's bits.  JAX's
 functional state becomes tensors updated in place: a `TrainState` holds the
 model's own parameter and running-statistic tensors by name, the
 optimizer's state and the step count; `train_step(state, batch)` updates
@@ -23,8 +30,10 @@ from typing import Callable, Optional
 
 import torch
 
+from ..dist import all_reduce_grads, all_reduce_sum, make_mesh, replicate, shard_batch
 from ..models import build_model
 from ..models.losses import cascade_loss
+from ..nn.blocks import sync_batch_norm
 from ..params import load_jax_variables
 from . import checkpoints as ckpt_lib
 from . import metrics as metrics_lib
@@ -152,60 +161,136 @@ def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int
     return model, state_of(model, tx), tx
 
 
-def make_train_step(model, tx: RMSprop, dlossw) -> Callable:
+def _group(mesh):
+    return None if mesh is None else mesh.group
+
+
+def _global(values, group) -> list[torch.Tensor]:
+    """Detached scalars summed over the group (as they are without one)."""
+    stacked = torch.stack([v.detach() for v in values])
+    return list((stacked if group is None else all_reduce_sum(stacked, group)).unbind())
+
+
+def loss_and_grads(model, state: TrainState, batch: dict, dlossw, train: bool = True,
+                   mesh=None):
+    """The differentiable forward (train-mode BatchNorm with train; without,
+    the eval-mode gradients the parity checks compare), the loss and its
+    gradient in every parameter.  Under a mesh, batch is this rank's share
+    and the gradients, summed over the data group, are those of the global
+    batch's loss.  Returns (outputs, loss, depth_loss, {name: gradient}):
+    loss and depth_loss are the global batch's, detached."""
+    names = list(state.params)
+    group = _group(mesh)
+    with torch.enable_grad():
+        out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"], train)
+        loss, depth_loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"],
+                                        dlossw, group)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+    if group is not None:
+        grads = all_reduce_grads(grads, group)
+    loss, depth_loss = _global([loss, depth_loss], group)
+    return out, loss, depth_loss, dict(zip(names, grads))
+
+
+def make_train_step(model, tx: RMSprop, dlossw, mesh=None) -> Callable:
     """(state, batch) → (state, scalars): the train-mode forward, the loss,
     its gradient, one optimizer update; scalars are device tensors (loss,
-    depth_loss and the final stage's abs_depth_error)."""
+    depth_loss and the final stage's abs_depth_error).  Under a mesh (one
+    of `dist.make_mesh`) the batch is this rank's share (`dist.shard_batch`),
+    the model's BatchNorms take their moments over the data group, the
+    gradients are summed over it before the update, and the scalars are
+    the global batch's."""
     dlossw = tuple(dlossw)
+    group = _group(mesh)
+    sync_batch_norm(model, group)
 
     def train_step(state: TrainState, batch: dict):
-        names = list(state.params)
-        with torch.enable_grad():
-            out = model(batch["imgs"], batch["cams"], batch["depth_values"], train=True)
-            loss, depth_loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"],
-                                            dlossw)
-            grads = torch.autograd.grad(loss, [state.params[n] for n in names])
-        tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        out, loss, depth_loss, grads = loss_and_grads(model, state, batch, dlossw, True, mesh)
+        tx.update(grads, state.opt_state, state.params)
         state.step += 1
         final = out["depth"].detach()
-        scalars = {"loss": loss.detach(), "depth_loss": depth_loss.detach(),
+        scalars = {"loss": loss, "depth_loss": depth_loss,
                    "abs_depth_error": metrics_lib.abs_depth_error(
-                       final, batch["depth_stages"][-1], batch["mask_stages"][-1] > 0.5)}
+                       final, batch["depth_stages"][-1], batch["mask_stages"][-1] > 0.5,
+                       group=group)}
         return state, scalars
 
     return train_step
 
 
-def make_eval_step(model, dlossw, min_interval: float) -> Callable:
+def make_eval_step(model, dlossw, min_interval: float, mesh=None) -> Callable:
     """(state, batch) → (scalars, final depth, final confidence), inference
-    mode (the model holds the state's tensors)."""
+    mode (the model holds the state's tensors).  Under a mesh the batch is
+    this rank's share, the maps are this share's and the scalars the global
+    batch's."""
     dlossw = tuple(dlossw)
+    group = _group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
         out = model(batch["imgs"], batch["cams"], batch["depth_values"], train=False)
-        loss, depth_loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], dlossw)
+        loss, depth_loss = _global(cascade_loss(out, batch["depth_stages"],
+                                                batch["mask_stages"], dlossw, group), group)
         final = out["depth"]
         scalars = {"loss": loss, "depth_loss": depth_loss}
         scalars.update(metrics_lib.standard_metrics(final, batch["depth_stages"][-1],
-                                                    batch["mask_stages"][-1], min_interval))
+                                                    batch["mask_stages"][-1], min_interval,
+                                                    group))
         return scalars, final, out["photometric_confidence"]
 
     return eval_step
 
 
+def _check_mesh(cfg: Config) -> None:
+    """JAX's refusals of a mesh, in JAX's order and words
+    (`satmvs_tpu/train/loop.py:212-229`); the first two wait for ROADMAP
+    A10b (Config refuses those extents today)."""
+    if cfg.mesh_depth > 1 and cfg.model == "red":
+        raise ValueError("depth-slab sharding (--mesh_depth) applies to the 3-D conv "
+                         "regularizers (casmvs/ucs); the RED recurrence scans depth "
+                         "sequentially on-chip by design")
+    if cfg.mesh_depth > 1 and cfg.mesh_spatial > 1:
+        raise ValueError("combined depth+spatial sharding of the same cost volume "
+                         "miscomputes gradients through XLA GSPMD's strided-conv backward; "
+                         "use --mesh_depth or --mesh_spatial, not both")
+    if cfg.batch_size % cfg.mesh_data:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by mesh_data {cfg.mesh_data}")
+
+
 def fit(cfg: Config, train_loader, test_loader, workdir: str,
-        log_fn: Optional[Callable[[str], None]] = print, variables: Optional[dict] = None):
+        log_fn: Optional[Callable[[str], None]] = print, variables: Optional[dict] = None,
+        mesh=None):
     """A training run: epochs of train steps and a test pass each, the
     per-epoch record `train_record.txt`, `metrics.jsonl`, a checkpoint every
     `save_freq` epochs; with cfg.resume it continues after the latest one.
     Loaders are re-iterable sequences of batches.  Returns (model, state,
     timing): timing lists the epochs run and, per epoch, its steps and the
     seconds of its train steps and of its test pass, the card synchronized
-    at both ends."""
+    at both ends.
+
+    Data-parallel when cfg.mesh_data > 1 (the mesh of that many ranks, made
+    here; every rank of the process group calls fit) or when a `mesh` is
+    passed (its data extent cfg.mesh_data).  Every rank iterates the same
+    loaders (same seed, so the same order) and trains on its share of each
+    global batch (`dist.shard_batch`; a batch the ranks do not divide
+    raises); the state is replicated from rank 0; only rank 0 logs and
+    writes the record files, images and checkpoints, and the ranks wait for
+    each other after a save; a resume restores on every rank."""
+    if mesh is not None or cfg.mesh_data * cfg.mesh_spatial * cfg.mesh_depth > 1:
+        _check_mesh(cfg)
+        if mesh is None:
+            mesh = make_mesh(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_depth)
+        if mesh.shape["data"] != cfg.mesh_data:
+            raise ValueError(f"a mesh of {mesh.shape['data']} data ranks for mesh_data "
+                             f"{cfg.mesh_data}")
     steps_per_epoch = max(len(train_loader), 1)
     first = next(iter(train_loader))
-    model, state, tx = create_model_and_state(cfg, first, steps_per_epoch, variables)
+    shard = (lambda b: b) if mesh is None else (lambda b: shard_batch(b, mesh))
+    model, state, tx = create_model_and_state(cfg, shard(first), steps_per_epoch, variables)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        replicate(state.to_dict(), mesh)
+        log_fn = log_fn if writer else None
 
     start_epoch = 1
     if cfg.resume:
@@ -215,17 +300,21 @@ def fit(cfg: Config, train_loader, test_loader, workdir: str,
             if log_fn:
                 log_fn(f"resumed from epoch {ep}")
 
-    train_step = make_train_step(model, tx, cfg.dlossw)
-    eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval)
-    logger = MetricLogger(workdir)
-    keeper = ckpt_lib.CheckpointKeeper(workdir)
+    train_step = make_train_step(model, tx, cfg.dlossw, mesh)
+    eval_step = make_eval_step(model, cfg.dlossw, cfg.min_interval, mesh)
+    logger = MetricLogger(workdir) if writer else None
+    keeper = ckpt_lib.CheckpointKeeper(workdir) if writer else None
     timing = {"epochs": [], "train_s": [], "steps": [], "test_s": []}
     try:
         _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_step,
-                    eval_step, logger, keeper, steps_per_epoch, start_epoch, timing)
+                    eval_step, logger, keeper, steps_per_epoch, start_epoch, timing, shard,
+                    mesh)
     finally:
-        keeper.close()
-        logger.close()
+        if writer:
+            keeper.close()
+            logger.close()
+    if mesh is not None:
+        mesh.barrier()  # every checkpoint committed before any rank returns
     return model, state, timing
 
 
@@ -237,14 +326,15 @@ def _clock(state) -> float:
 
 
 def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_step,
-                eval_step, logger, keeper, steps_per_epoch, start_epoch, timing):
+                eval_step, logger, keeper, steps_per_epoch, start_epoch, timing, shard, mesh):
+    writer = logger is not None
     for epoch in range(start_epoch, cfg.epochs + 1):
         t_train, steps = _clock(state), 0
         for it, batch in enumerate(train_loader):
             t0 = time.time()
-            state, scalars = train_step(state, batch)
+            state, scalars = train_step(state, shard(batch))
             gstep = (epoch - 1) * steps_per_epoch + it
-            if gstep % cfg.summary_freq == 0:
+            if writer and gstep % cfg.summary_freq == 0:
                 scal = {k: float(v) for k, v in scalars.items()}
                 logger.scalars("train", scal, gstep)
                 if log_fn:
@@ -257,12 +347,13 @@ def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_st
         timing["steps"].append(steps)
 
         meter = metrics_lib.DictAverageMeter()
-        logged_images = False
+        logged_images = not writer
         for batch in test_loader:
+            batch = shard(batch)
             scalars, depth_est, _conf = eval_step(state, batch)
             meter.update({k: float(v) for k, v in scalars.items()})
             if not logged_images:
-                # once per test pass, the first sample
+                # once per test pass, the first sample (rank 0's share holds it)
                 step_i = epoch * steps_per_epoch
                 de = depth_est[0].cpu().numpy()
                 gt = batch["depth_stages"][-1][0].cpu().numpy()
@@ -276,11 +367,15 @@ def _fit_epochs(cfg, train_loader, test_loader, workdir, log_fn, state, train_st
                 logged_images = True
         means = meter.mean()
         timing["test_s"].append(_clock(state) - t_test)
-        logger.scalars("fulltest", means, epoch * steps_per_epoch)
-        if log_fn:
-            log_fn(f"epoch {epoch} test: {means}")
-        with open(os.path.join(workdir, "train_record.txt"), "a") as f:
-            f.write(f"{epoch} {means}\n")
+        if writer:
+            logger.scalars("fulltest", means, epoch * steps_per_epoch)
+            if log_fn:
+                log_fn(f"epoch {epoch} test: {means}")
+            with open(os.path.join(workdir, "train_record.txt"), "a") as f:
+                f.write(f"{epoch} {means}\n")
 
         if epoch % cfg.save_freq == 0:
-            keeper.save(epoch, state)
+            if writer:
+                keeper.save(epoch, state)
+            if mesh is not None:
+                mesh.barrier()

@@ -113,8 +113,9 @@ def test_config_from_args_matches_jax():
     for argv in (["--geo_model", "pinhole"], ["--use_qc"]):
         got, want = Config.from_args(argv), JConfig.from_args(argv)
         assert (got.geo_model, got.use_qc) == (want.geo_model, want.use_qc)
-    with pytest.raises(ValueError, match="mesh_data"):
-        Config.from_args(["--mesh_data", "2"])
+    assert Config.from_args(["--mesh_data", "2"]).mesh_data == 2
+    with pytest.raises(ValueError, match="mesh_spatial.*A10b"):
+        Config.from_args(["--mesh_spatial", "2"])
 
 
 def test_fit_checkpoints_and_resume(tmp_path):

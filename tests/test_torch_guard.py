@@ -1,5 +1,6 @@
 """The port stands alone: no module of satmvs_tpu_torch/ (its training
-modules included), and not chip_smoke.py, imports JAX, flax, optax, orbax
+modules included), and none of the scripts that run it on the card
+(chip_smoke.py, kernel_ab.py, dp_spread.py), imports JAX, flax, optax, orbax
 or the JAX package; its entry points run on the GPU unless the caller asks
 for the CPU."""
 
@@ -27,7 +28,8 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "satmvs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "satmvs_tpu_torch").rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "kernel_ab.py", "dp_spread.py")]
     assert len(files) > 10
     train = {p.name for p in files if p.parent.name == "train"}
     assert {"config.py", "loop.py", "metrics.py", "checkpoints.py", "logging.py"} <= train
