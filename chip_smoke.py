@@ -3661,7 +3661,331 @@ def phase_multi_gpu(card: str, tree: str, scene_ref: dict) -> dict:
     check(bits or (mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99),
           f"tile-parallel scene: depth err mean {mean}, p99 {p99} of step")
     launches.update(dp_train_step=r0["train_launches"], dp_scene=r0["scene_launches"])
+    launches.update(phase_sharded(card))
     print(f"[multi] phase 13 took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ---- phase 13 (d): the spatial and depth axes (`dist.halo`, the sharded
+# cost volumes of `models.cascade`) on two gloo ranks that share cuda:0, at
+# the main path's 384×768 and ndepths (64, 32, 8), B = 1 (data extent 1:
+# both ranks hold the batch and split each sharded stage's volume)
+SHARD_RUNS = (("casmvs", "depth"), ("ucs", "depth"), ("casmvs", "spatial"), ("red", "spatial"))
+SHARD_RANKS, SHARD_STEPS = 2, 3
+SHARD_WORK = WORK / "shard"
+# each train step's loss and abs_depth_error against the serial step's, by
+# step: step 1 at JAX's sharded-loss gate; steps 2 and 3 fixed from
+# `dp_spread.py --shard`'s six runs of this batch (seed 0) on the card,
+# about twice the largest reading (PERF.md, §6).  The CostRegNet
+# families read at most 2.70e-03 and 1.32e-02 (the ranks) and 1.93e-03 and
+# 1.23e-02 (the serial run against itself: cuDNN's default engines and the
+# scatter's atomics round otherwise run to run, and RMSprop's first update
+# and the train-mode BatchNorms turn that into whole steps); RED at most
+# 2.1e-05 and 5.5e-05, under phase 13 (b)'s gates, which it keeps
+SHARD_LOSS_TOL = {"casmvs": (2e-4, 6e-3, 3e-2), "ucs": (2e-4, 6e-3, 3e-2),
+                  "red": DP_LOSS_TOL}
+# the eval step's maps against the serial eval step's, per stage: phase 10's
+# depth gates in hypothesis steps and its confidence gates
+SHARD_LAUNCHES_TRAIN = {"casmvs": LAUNCHES_PER_COSTREG_TRAIN_STEP,
+                        "ucs": LAUNCHES_PER_COSTREG_TRAIN_STEP, "red": LAUNCHES_PER_TRAIN_STEP}
+SHARD_LAUNCHES_EVAL = {"casmvs": LAUNCHES_PER_COSTREG_FORWARD,
+                       "ucs": LAUNCHES_PER_COSTREG_FORWARD, "red": LAUNCHES_PER_EVAL_STEP}
+SHARD_STEP_PATHS = tuple(f"shard_{m}_{a}_step" for m, a in SHARD_RUNS)
+SHARD_EVAL_PATHS = tuple(f"shard_{m}_{a}_eval" for m, a in SHARD_RUNS)
+SHARD_RED_PATHS = ("shard_red_spatial_step", "shard_red_spatial_eval")
+
+
+def shard_config(model: str, axis=None):
+    """The run's Config: the model's JAX CLI defaults, ndepths (64, 32, 8),
+    mesh_spatial or mesh_depth 2 on `axis` (None: serial)."""
+    from satmvs_tpu_torch.train import Config
+
+    extents = {} if axis is None else {f"mesh_{axis}": SHARD_RANKS}
+    return Config(model=model, ndepths=NDEPTHS, **extents)
+
+
+def shard_run(model: str, axis, batch: dict, mesh=None, exchanges: bool = False) -> dict:
+    """One model from the config's seed at LeCun scale on `batch` (serial, or
+    this rank's share under `mesh`): the eval-mode loss and gradients, the eval step
+    (its scalars, maps and launches), then SHARD_STEPS train steps (scalars,
+    ms by CUDA events, launches, peak memory; with `exchanges` the
+    exchanges' all-reduces a step and their ms by CUDA events)."""
+    from satmvs_tpu_torch.dist import exchange_stats, replicate, shard_batch
+    from satmvs_tpu_torch.train import create_model_and_state, make_eval_step, make_train_step
+    from satmvs_tpu_torch.train.loop import loss_and_grads
+
+    cfg = shard_config(model, None if mesh is None else axis)
+    local = batch if mesh is None else shard_batch(batch, mesh)
+    net, state, tx = create_model_and_state(cfg, local, SHARD_STEPS, mesh=mesh)
+    lecun_scale(net)  # the CPU tests' scale: at He scale the cascade amplifies rounding
+    if mesh is not None:
+        replicate(state.to_dict(), mesh)
+    _, loss, _, grads = loss_and_grads(net, state, local, cfg.dlossw, False, mesh)
+    out = {"eval_loss": loss.item(), "eval_grads": {k: g.cpu() for k, g in grads.items()},
+           "partition": net.volume_partition, "ms": [], "scalars": [], "per_step": [],
+           "halo": []}
+    del grads
+    reset_counts()
+    scalars, _, _ = make_eval_step(net, cfg.dlossw, cfg.min_interval, mesh)(state, local)
+    with torch.no_grad():
+        maps = net(local["imgs"], local["cams"], local["depth_values"])
+    torch.cuda.synchronize()
+    out["eval_launches"] = {k: v // 2 for k, v in counts().items()}  # the step, then a forward
+    out["eval_scalars"] = {k: v.item() for k, v in scalars.items()}
+    out["maps"] = {f"stage{i}": {k: maps[f"stage{i}"][k].cpu()
+                                 for k in ("depth", "photometric_confidence")}
+                   for i in range(1, 4)}
+    del maps
+    step = make_train_step(net, tx, cfg.dlossw, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(SHARD_STEPS):
+        before = counts()
+        exchange_stats.reset(timed=exchanges)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, scalars = step(state, local)
+        end.record()
+        end.synchronize()
+        out["ms"].append(start.elapsed_time(end))
+        out["scalars"].append({k: v.item() for k, v in scalars.items()})
+        out["per_step"].append({k: v - before[k] for k, v in counts().items()})
+        out["halo"].append({**exchange_stats.counts, "ms": exchange_stats.ms()})
+    exchange_stats.reset()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["train_launches"] = counts()
+    out["params"] = {k: v.detach().cpu() for k, v in state.params.items()}
+    return out
+
+
+def shard_rank(rank: int, init: str, go) -> None:
+    """Phase 13 (d) on one of SHARD_RANKS ranks that share cuda:0 over gloo
+    (a spawned process): every SHARD_RUNS run on the batch in
+    SHARD_WORK/batch.pt under its mesh; waits for `go`; writes
+    SHARD_WORK/rank<rank>.pt."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from satmvs_tpu_torch.dist import init_multihost, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(f"file://{init}", SHARD_RANKS, rank, backend="gloo", device="cuda:0")
+    try:
+        batch = torch.load(SHARD_WORK / "batch.pt", weights_only=False)
+        check(go.wait(900), f"rank {rank}: no start")
+        out = {}
+        for model, axis in SHARD_RUNS:
+            shape = (1, SHARD_RANKS, 1) if axis == "spatial" else (1, 1, SHARD_RANKS)
+            mesh = make_mesh(*shape, device="cuda:0")
+            out[f"{model}_{axis}"] = shard_run(model, axis, batch, mesh, exchanges=True)
+            torch.cuda.empty_cache()
+        torch.save(out, SHARD_WORK / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_ranks(init: str, go) -> list:
+    """SHARD_RANKS spawned `shard_rank` processes; returns their results
+    once `go` is set by the caller and they end."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, init, go)) for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def shard_join(procs) -> list:
+    try:
+        deadline = time.time() + 900
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), f"a shard rank failed: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    return [torch.load(SHARD_WORK / f"rank{r}.pt", weights_only=False)
+            for r in range(SHARD_RANKS)]
+
+
+# the band scatter against its plain version: its float atomics sum up to
+# 4·D = 64 products an element in an order that changes from run to run
+# (sweep_gather.cu), within 2·(4·D − 1)·2⁻²⁴ of the sum of their magnitudes
+SCATTER_BAND_TOL = 1e-4
+
+
+def band_kernel_checks(card: str) -> None:
+    """The sweep kernels on a rank's band of reference rows (the source
+    views whole; `Hs` > H in the kernels) at the main path's stage 3 (192
+    of 384 rows, 768 wide, 64 hypotheses, C 8) against their plain versions:
+    the fused sweep (sweep_variance_batched, row0 192) and its backward,
+    the per-view gather and its scatter."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    gen = torch.Generator("cuda").manual_seed(16)
+    h, w, c, d, row0 = HEIGHT, WIDTH, FEAT_CH[2], 16, HEIGHT // 2
+    hb = h - row0
+    feats = torch.rand((1, 3, h, w, c), generator=gen, device="cuda")
+    ys0 = torch.arange(row0, h, device="cuda", dtype=torch.float32).view(1, 1, 1, hb, 1)
+    xs0 = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, 1, 1, w)
+    shift = torch.rand((1, 2, d, hb, w), generator=gen, device="cuda") * 40 - 20
+    xs = (xs0 + shift).contiguous()
+    ys = (ys0 + 0.7 * shift + 3.0).contiguous()
+    ref_band = feats[:, 0, row0:]
+    errs = {}
+
+    def err(got, want) -> float:
+        return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+    with torch.no_grad():
+        got = sv.sweep_variance_batched(feats, xs, ys, row0)
+        want = sv.sweep_variance_reference(ref_band[0], feats[0, 1:], xs[0], ys[0])[None]
+        errs["sweep_variance"] = err(got, want)
+        g = torch.rand_like(got)
+        gs, dref = sv._cotangents(ref_band, feats[:, 1:], 3 * h * w * c, xs, ys, g)
+        wgs, wdref = sv._backward_reference(ref_band, feats[:, 1:], xs, ys, g)
+        errs["sweep_variance_backward"] = max(err(gs, wgs), err(dref, wdref))
+        src = feats[0, 1].contiguous()
+        got = sg.sweep_gather(src, xs[0, 0], ys[0, 0])
+        want = sg.sweep_gather_reference(src, xs[0, 0], ys[0, 0])
+        errs["sweep_gather"] = err(got, want)
+        gv = torch.rand_like(got)
+        got = sg.sweep_scatter(gv, xs[0, 0], ys[0, 0], h)
+        want = sg.sweep_scatter_reference(gv, xs[0, 0], ys[0, 0], h, w)
+        errs["sweep_scatter"] = err(got, want)
+    torch.cuda.synchronize()
+    print(f"[multi] (d) the sweep kernels on a band of rows {row0}..{h - 1} of {h} (sources "
+          f"whole), {d} planes, {w} wide, C {c}, against their plain versions: max |Δ| / "
+          f"max(1, max |plain|) " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {KERNEL_TOL}; the scatter's atomics {SCATTER_BAND_TOL}) card={card}",
+          flush=True)
+    for k, v in errs.items():
+        check(v <= (SCATTER_BAND_TOL if k == "sweep_scatter" else KERNEL_TOL),
+              f"band {k}: {v}")
+
+
+
+def shard_compare(tag: str, model: str, got: dict, want: dict, lo: float, hi: float,
+                  intervals) -> list:
+    """The failures of a rank's run against the serial run: the eval-mode
+    loss (2e-4) and gradients (JAX's gate), the eval step's scalars (1e-5)
+    and maps (phase 10's gates), each train step's loss and abs_depth_error
+    (SHARD_LOSS_TOL), the launches."""
+    failed = []
+    rel = abs(got["eval_loss"] - want["eval_loss"]) / abs(want["eval_loss"])
+    scale = max(g.abs().max().item() for g in want["eval_grads"].values())
+    excess = max(((g - want["eval_grads"][n]).abs() - DP_GRAD_RTOL * want["eval_grads"][n].abs())
+                 .max().item() for n, g in got["eval_grads"].items())
+    print(f"[multi] (d) {tag}: eval-mode loss {got['eval_loss']:.6f} vs serial "
+          f"{want['eval_loss']:.6f}, {rel:.3e} relative (tol 2e-4); gradients max (|Δ| − "
+          f"{DP_GRAD_RTOL}·|g|) {excess / scale:.3e} of max |g| (tol {DP_GRAD_ATOL})", flush=True)
+    if rel > 2e-4 or excess > DP_GRAD_ATOL * scale:
+        failed.append(f"{tag}: eval-mode loss {rel} or gradients {excess / scale}")
+    worst = max(abs(got["eval_scalars"][k] - w) / max(abs(w), 1.0)
+                for k, w in want["eval_scalars"].items() if "acc" not in k or k == "abs_depth_acc")
+    steps = stage_steps(lo, hi, intervals)
+    parts = []
+    for i in range(1, 4):
+        g, w = got["maps"][f"stage{i}"], want["maps"][f"stage{i}"]
+        dm, dp, _ = err_quantiles((g["depth"] - w["depth"]).abs() / steps[i - 1])
+        cm, cp, _ = err_quantiles((g["photometric_confidence"]
+                                   - w["photometric_confidence"]).abs())
+        parts.append(f"stage{i} depth mean {dm:.3e} p99 {dp:.3e} of a step, conf mean "
+                     f"{cm:.3e} p99 {cp:.3e}")
+        if dm > DEPTH_TOL_MEAN or dp > DEPTH_TOL_P99 or cm > CONF_TOL_MEAN or cp > CONF_TOL_P99:
+            failed.append(f"{tag}: eval stage{i} depth {dm}/{dp} conf {cm}/{cp}")
+    print(f"[multi] (d) {tag}: eval step loss/abs_depth_acc within {worst:.3e} (tol 1e-5); "
+          + "; ".join(parts) + f" (tol depth {DEPTH_TOL_MEAN}/{DEPTH_TOL_P99}, conf "
+          f"{CONF_TOL_MEAN}/{CONF_TOL_P99})", flush=True)
+    if worst > 1e-5:
+        failed.append(f"{tag}: eval step scalars {worst}")
+    for k, (err, tol) in enumerate(zip(dp_step_errors(got["scalars"], want["scalars"]),
+                                       SHARD_LOSS_TOL[model])):
+        print(f"[multi] (d) {tag} step {k + 1}: loss {err['loss']:.3e}, abs_depth_error "
+              f"{err['abs_depth_error']:.3e} relative to the serial step (tol {tol})", flush=True)
+        if max(err.values()) > tol:
+            failed.append(f"{tag} step {k + 1}: {err}")
+    if got["eval_launches"] != SHARD_LAUNCHES_EVAL[model]:
+        failed.append(f"{tag}: eval launches {got['eval_launches']}")
+    if any(c != SHARD_LAUNCHES_TRAIN[model] for c in got["per_step"]):
+        failed.append(f"{tag}: step launches {got['per_step']}")
+    return failed
+
+
+def phase_sharded(card: str) -> dict:
+    """Phase 13 (d): for each SHARD_RUNS run, two ranks that share the card
+    over gloo (`shard_rank`) against the serial run from the same weights
+    on the same batch (`shard_run`): the eval-mode loss and gradients at
+    JAX's gates, the eval step (packed CostRegNet on slabs, fused sweep on
+    a slab or band; RED after the row gather) at phase 10's gates, three
+    train steps at SHARD_LOSS_TOL, exact launches per rank (the serial
+    step's), step ms, the exchanges a step and their ms, peak memory a rank
+    against the serial step's.  Returns rank 0's launches by path."""
+    import shutil
+
+    from satmvs_tpu_torch.data import synthetic
+
+    t0 = time.time()
+    shutil.rmtree(SHARD_WORK, ignore_errors=True)
+    SHARD_WORK.mkdir(parents=True)
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cpu")
+    torch.save(batch, SHARD_WORK / "batch.pt")
+    import multiprocessing
+
+    go = multiprocessing.get_context("spawn").Event()
+    procs = shard_ranks(str(SHARD_WORK / "init"), go)
+    try:
+        band_kernel_checks(card)
+        serial = {}
+        for model, axis in SHARD_RUNS:
+            serial[(model, axis)] = shard_run(model, None, batch_to(batch, "cuda"))
+            torch.cuda.empty_cache()
+        go.set()
+        ranks = shard_join(procs)
+    finally:
+        go.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    lo, hi = batch["depth_values"][0].tolist()
+    failed, launches = [], {}
+    for model, axis in SHARD_RUNS:
+        key, want = f"{model}_{axis}", serial[(model, axis)]
+        r0, r1 = ranks[0][key], ranks[1][key]
+        tag = f"{model} mesh_{axis} {SHARD_RANKS}"
+        intervals = [r * 2.5 for r in (4.0, 2.0, 1.0)]
+        failed += shard_compare(tag, model, r0, want, lo, hi, intervals)
+        if r0["scalars"] != r1["scalars"] or any(not torch.equal(v, r1["params"][k])
+                                                 for k, v in r0["params"].items()):
+            failed.append(f"{tag}: the two ranks' replicas differ")
+        halo = r0["halo"][-1]
+        vol = {i + 1: (NDEPTHS[i] * (HEIGHT // s) * (WIDTH // s) * FEAT_CH[i] * 4 / 2**20)
+               for i, s in enumerate(STAGE_SCALES)}
+        print(f"[multi] (d) {tag}: sharded stages "
+              f"{[i + 1 for i, spec in enumerate(r0['partition']) if spec[1] or spec[2]]}; "
+              f"step ms rank 0 {[round(t, 2) for t in r0['ms']]}, rank 1 "
+              f"{[round(t, 2) for t in r1['ms']]} (CUDA events; two processes on one card, not "
+              f"a scaling number), serial {[round(t, 2) for t in want['ms']]}; exchanges a step "
+              f"(all-reduces) halo {halo['halo']}, gather {halo['gather']}, max {halo['max']}, "
+              f"{halo['ms']:.2f} ms of the step by CUDA events (steps "
+              f"{[round(x['ms'], 2) for x in r0['halo']]}); peak memory rank 0 "
+              f"{r0['peak_gib']:.3f} GiB, rank 1 {r1['peak_gib']:.3f} GiB, serial "
+              f"{want['peak_gib']:.3f} GiB; whole stage volumes (MiB, fp32) "
+              f"{ {k: round(v, 1) for k, v in vol.items()} }; launches a rank a step "
+              f"{r0['per_step'][0] == SHARD_LAUNCHES_TRAIN[model] and 'the serial step' + chr(39) + 's'}"
+              f" card={card}", flush=True)
+        launches[f"shard_{key}_step"] = r0["train_launches"]
+        launches[f"shard_{key}_eval"] = r0["eval_launches"]
+    check(not failed, f"phase 13 (d): {failed}")
+    print(f"[multi] (d) took {time.time() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -3805,13 +4129,18 @@ def run(scene_job, tree_job) -> int:
                 "casmvs" if costreg else "train_step" if train else
                 f"scene_b{BATCH_TILES}" if batched else "forward")
         record["launches"] = launches[main][wrapper]
+        shard_costreg = tuple(p for p in SHARD_EVAL_PATHS if p not in SHARD_RED_PATHS)
+        shard_train = (SHARD_STEP_PATHS if wrapper in ("sweep_gather", "sweep_scatter") else
+                       SHARD_RED_PATHS[:1])
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
-                 COSTREG_PATHS + CAMERA_COSTREG_PATHS if costreg else
+                 COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
-                  *CAMERA_TRAIN_PATHS, *DP_PATHS) if train else (
+                  *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train) if train else (
                      INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",) + (
-                         ("eval_step", "fused_sweep_step") if wrapper == "sweep_variance" else
-                         ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS)
+                         ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS)
+                         if wrapper == "sweep_variance" else
+                         ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS,
+                          *SHARD_RED_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

@@ -20,8 +20,16 @@ of every batch of --batch_size, a multiple of N; rank 0 writes the files):
     python -m torch.distributed.run --nproc_per_node N -m satmvs_tpu_torch.cli.train \
         --mode=train --mesh_data N --batch_size N ...
 
---mesh_data must equal the ranks launched (`dist.make_mesh` refuses
-other counts); test and profile run on one rank.
+or with each stage's cost volume cut into depth slabs (--model casmvs or
+ucs) or bands of rows over the ranks of a batch share, as JAX's trainer:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m satmvs_tpu_torch.cli.train \
+        --mode=train --model casmvs --mesh_depth 2 ...
+    python -m torch.distributed.run --nproc_per_node 2 -m satmvs_tpu_torch.cli.train \
+        --mode=train --mesh_spatial 2 ...
+
+--mesh_data × --mesh_spatial × --mesh_depth must equal the ranks launched
+(`dist.make_mesh` refuses other counts); test and profile run on one rank.
 """
 
 from __future__ import annotations
@@ -82,7 +90,8 @@ def _run(cfg, device, world: int) -> dict:
         tl = Loader(make(trainpath, "train"), cfg.batch_size, shuffle=True, seed=cfg.seed,
                     device=device)
         el = Loader(make(testpath, "test"), cfg.batch_size, device=device)
-        mesh = make_mesh(cfg.mesh_data) if dist.is_initialized() else None
+        mesh = (make_mesh(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_depth)
+                if dist.is_initialized() else None)
         _, _, timing = fit(cfg, tl, el, workdir, mesh=mesh)
         return {"timing": timing, "train_loader": tl.timing, "test_loader": el.timing,
                 "train_data": tl.dataset.timing}

@@ -9,7 +9,8 @@
 //                         :558, pallas_call :576), its adjoint in the custom
 //                         VJP of `sweep_gather` (:636-681).
 //
-// For src (H, W, C) and sample coordinates xs, ys (D, H, W):
+// For src (Hs, W, C) and sample coordinates xs, ys (D, H, W) (H = Hs, or a
+// band of reference rows under height sharding):
 //
 //   gather   out[d, i, j, :] = bilinear sample of src at (xs[d, i, j], ys[d, i, j])
 //   scatter  dsrc[y, x, :]   = Σ over (d, i, j) and the corners (y, x) of that
@@ -79,7 +80,8 @@ using bilinear::store_streaming;
 template <int VEC, typename Out>
 __global__ void __launch_bounds__(256) sweep_gather_kernel(
     const float* __restrict__ src, const float* __restrict__ xs,
-    const float* __restrict__ ys, Out* __restrict__ out, int D, int H, int W, int C, int P) {
+    const float* __restrict__ ys, Out* __restrict__ out, int D, int H, int W, int C, int P,
+    int Hs) {
   const int groups = C / VEC;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= W * groups) return;
@@ -91,18 +93,18 @@ __global__ void __launch_bounds__(256) sweep_gather_kernel(
   int64_t pix = d0 * plane + (int64_t)blockIdx.y * W + j;
   int d = d0;
   for (; d + 1 < d1; d += 2, pix += 2 * plane) {
-    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), H, W);
-    const bilinear::Taps t1(__ldg(xs + pix + plane), __ldg(ys + pix + plane), H, W);
+    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), Hs, W);
+    const bilinear::Taps t1(__ldg(xs + pix + plane), __ldg(ys + pix + plane), Hs, W);
     float o0[VEC], o1[VEC];
-    bilinear::sample<VEC>(src + c0, t0, H, W, C, o0);
-    bilinear::sample<VEC>(src + c0, t1, H, W, C, o1);
+    bilinear::sample<VEC>(src + c0, t0, Hs, W, C, o0);
+    bilinear::sample<VEC>(src + c0, t1, Hs, W, C, o1);
     store_streaming<VEC>(out + pix * C + c0, o0);
     store_streaming<VEC>(out + (pix + plane) * C + c0, o1);
   }
   if (d < d1) {
-    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), H, W);
+    const bilinear::Taps t0(__ldg(xs + pix), __ldg(ys + pix), Hs, W);
     float o0[VEC];
-    bilinear::sample<VEC>(src + c0, t0, H, W, C, o0);
+    bilinear::sample<VEC>(src + c0, t0, Hs, W, C, o0);
     store_streaming<VEC>(out + pix * C + c0, o0);
   }
 }
@@ -140,7 +142,8 @@ __device__ __forceinline__ void flush_corners(float* __restrict__ dsrc, int cx, 
 template <int VEC, typename In>
 __global__ void __launch_bounds__(256) sweep_scatter_kernel(
     const In* __restrict__ g, const float* __restrict__ xs,
-    const float* __restrict__ ys, float* __restrict__ dsrc, int D, int H, int W, int C, int P) {
+    const float* __restrict__ ys, float* __restrict__ dsrc, int D, int H, int W, int C, int P,
+    int Hs) {
   const int groups = C / VEC;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= W * groups) return;
@@ -158,9 +161,9 @@ __global__ void __launch_bounds__(256) sweep_scatter_kernel(
   int cx = 0, cy = 0;
   bool open = false;
   for (int d = d0; d < d1; ++d, pix += plane) {
-    const bilinear::Taps taps(__ldg(xs + pix), __ldg(ys + pix), H, W);
+    const bilinear::Taps taps(__ldg(xs + pix), __ldg(ys + pix), Hs, W);
     if (open && (taps.x0 != cx || taps.y0 != cy))
-      flush_corners<VEC>(dsrc, cx, cy, H, W, C, c0, acc);
+      flush_corners<VEC>(dsrc, cx, cy, Hs, W, C, c0, acc);
     cx = taps.x0;
     cy = taps.y0;
     open = true;
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(256) sweep_scatter_kernel(
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[k][i] += __fmul_rn(taps.w[k], v[i]);
   }
-  if (open) flush_corners<VEC>(dsrc, cx, cy, H, W, C, c0, acc);
+  if (open) flush_corners<VEC>(dsrc, cx, cy, Hs, W, C, c0, acc);
 }
 
 constexpr int kThreads = 256;
@@ -179,9 +182,9 @@ constexpr int kThreads = 256;
 // The grid of both kernels, (W·groups / kThreads, H, chunks of `planes`
 // planes); false when the arguments are invalid.  A grid without blocks
 // means there is no work.
-bool sweep_grid(int D, int H, int W, int C, int vec, int planes, dim3& grid) {
+bool sweep_grid(int D, int H, int W, int C, int vec, int planes, int Hs, dim3& grid) {
   if ((vec != 1 && vec != 4) || C % vec != 0 || planes < 1 || D < 0 || H < 0 || W < 0 ||
-      H > 65535)
+      H > 65535 || Hs < 0)
     return false;
   const int64_t row_threads = (int64_t)W * (C / vec);
   const int64_t chunks = ((int64_t)D + planes - 1) / planes;
@@ -192,64 +195,72 @@ bool sweep_grid(int D, int H, int W, int C, int vec, int planes, dim3& grid) {
 
 template <typename Out>
 int gather(const float* src, const float* xs, const float* ys, Out* out, int D, int H, int W,
-           int C, int vec, int planes, void* stream) {
+           int C, int vec, int planes, int Hs, void* stream) {
   dim3 grid;
-  if (!sweep_grid(D, H, W, C, vec, planes, grid)) return (int)cudaErrorInvalidValue;
+  if (!sweep_grid(D, H, W, C, vec, planes, Hs, grid)) return (int)cudaErrorInvalidValue;
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    sweep_gather_kernel<4, Out><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes);
+    sweep_gather_kernel<4, Out><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes,
+                                                           Hs);
   } else {
-    sweep_gather_kernel<1, Out><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes);
+    sweep_gather_kernel<1, Out><<<grid, kThreads, 0, st>>>(src, xs, ys, out, D, H, W, C, planes,
+                                                           Hs);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename In>
 int scatter(const In* g, const float* xs, const float* ys, float* dsrc, int D, int H, int W,
-            int C, int vec, int planes, void* stream) {
+            int C, int vec, int planes, int Hs, void* stream) {
   dim3 grid;
-  if (!sweep_grid(D, H, W, C, vec, planes, grid)) return (int)cudaErrorInvalidValue;
+  if (!sweep_grid(D, H, W, C, vec, planes, Hs, grid)) return (int)cudaErrorInvalidValue;
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    sweep_scatter_kernel<4, In><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes);
+    sweep_scatter_kernel<4, In><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes,
+                                                           Hs);
   } else {
-    sweep_scatter_kernel<1, In><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes);
+    sweep_scatter_kernel<1, In><<<grid, kThreads, 0, st>>>(g, xs, ys, dsrc, D, H, W, C, planes,
+                                                           Hs);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out (D, H, W, C) = bilinear samples of src (H, W, C) at xs, ys (D, H, W).
-// Each thread walks `planes` consecutive planes (≥ 1).  Launches on
-// `stream`; vec is 4 (C % 4 == 0, all pointers 16-byte aligned) or 1.
-// Returns cudaGetLastError() (0 = launched).
+// out (D, H, W, C) = bilinear samples of src (Hs, W, C) at xs, ys (D, H, W):
+// the sample grid may be a band of H of the source's Hs rows (a rank's
+// rows under height sharding; Hs = H otherwise), the coordinates are the
+// source's own.  Each thread walks `planes` consecutive planes (≥ 1).
+// Launches on `stream`; vec is 4 (C % 4 == 0, all pointers 16-byte
+// aligned) or 1.  Returns cudaGetLastError() (0 = launched).
 extern "C" int sweep_gather_f32(const float* src, const float* xs, const float* ys, float* out,
-                                int D, int H, int W, int C, int vec, int planes, void* stream) {
-  return gather(src, xs, ys, out, D, H, W, C, vec, planes, stream);
+                                int D, int H, int W, int C, int vec, int planes, int Hs,
+                                void* stream) {
+  return gather(src, xs, ys, out, D, H, W, C, vec, planes, Hs, stream);
 }
 
 // The same with a bfloat16 out (its 16 bits): the taps summed in float,
 // rounded once at the store to nearest even.
 extern "C" int sweep_gather_bf16(const float* src, const float* xs, const float* ys,
                                  unsigned short* out, int D, int H, int W, int C, int vec,
-                                 int planes, void* stream) {
-  return gather(src, xs, ys, out, D, H, W, C, vec, planes, stream);
+                                 int planes, int Hs, void* stream) {
+  return gather(src, xs, ys, out, D, H, W, C, vec, planes, Hs, stream);
 }
 
-// dsrc (H, W, C) += the transpose of the gather applied to g (D, H, W, C);
+// dsrc (Hs, W, C) += the transpose of the gather applied to g (D, H, W, C);
 // the caller zeroes dsrc.  Same launch contract.
 extern "C" int sweep_scatter_f32(const float* g, const float* xs, const float* ys, float* dsrc,
-                                 int D, int H, int W, int C, int vec, int planes, void* stream) {
-  return scatter(g, xs, ys, dsrc, D, H, W, C, vec, planes, stream);
+                                 int D, int H, int W, int C, int vec, int planes, int Hs,
+                                 void* stream) {
+  return scatter(g, xs, ys, dsrc, D, H, W, C, vec, planes, Hs, stream);
 }
 
 // The same with a bfloat16 g (its 16 bits), widened exactly at the read;
 // the sums and dsrc stay float.
 extern "C" int sweep_scatter_bf16(const unsigned short* g, const float* xs, const float* ys,
                                   float* dsrc, int D, int H, int W, int C, int vec, int planes,
-                                  void* stream) {
-  return scatter(g, xs, ys, dsrc, D, H, W, C, vec, planes, stream);
+                                  int Hs, void* stream) {
+  return scatter(g, xs, ys, dsrc, D, H, W, C, vec, planes, Hs, stream);
 }

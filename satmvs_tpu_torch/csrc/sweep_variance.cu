@@ -11,6 +11,11 @@
 //   out[b, d, y, x, :] = (Σ_s w_s² + ref²)/V − ((Σ_s w_s + ref)/V)²   (B, D, H, W, C)
 //   w_s = bilinear sample of srcs[s] at (xs[s, d, y, x], ys[s, d, y, x])
 //
+// The output grid may also be a band of H of the source maps' Hs rows (a
+// rank's reference rows under height sharding): ref then points at the
+// band's first row, the coordinates are the sources' own and their taps
+// are bounded by Hs (Hs = H otherwise).
+//
 // with the taps of bilinear.cuh (the zero-padding, per-corner-validity
 // contract of ops/sampling.bilinear_sample, the same corners and weights as
 // the training gather and its scatter).  The per-view warped volumes are
@@ -120,7 +125,7 @@ template <int VEC, int G, int S>
 __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, float* __restrict__ out, int D,
-    int H, int W, int C, int K, int tx, int ty) {
+    int H, int W, int C, int K, int tx, int ty, int Hs) {
   constexpr int N = VEC * G;  // channels a thread owns
   const Site at(N, D, H, W, C, K, tx, ty);
   if (!at.ok) return;
@@ -132,7 +137,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
   const int64_t view = (int64_t)D * hw;  // coordinates of one view to the next
   const int64_t coord0 = ((int64_t)b * S * D + d0) * hw + p;  // view 0, plane d0
   const float* src = srcs + b * feat_bstride + lane * VEC;
-  const int map = H * W * C;  // floats of one view's map
+  const int map = Hs * W * C;  // floats of one source view's map
 
   float r[N];
 #pragma unroll
@@ -158,7 +163,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
   for (int d = d0; d < d1; ++d, ci += hw, o += hw * C) {
     bilinear::Taps t[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) t[s] = bilinear::Taps(nx[s], ny[s], H, W);
+    for (int s = 0; s < S; ++s) t[s] = bilinear::Taps(nx[s], ny[s], Hs, W);
     if (d + 1 < d1) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -169,7 +174,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_kernel(
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       if (t[s].x0 != cx[s] || t[s].y0 != cy[s])
-        load_corners<VEC, G>(src + (int64_t)s * map, t[s], H, W, C, step, cv[s]);
+        load_corners<VEC, G>(src + (int64_t)s * map, t[s], Hs, W, C, step, cv[s]);
       cx[s] = t[s].x0;
       cy[s] = t[s].y0;
     }
@@ -262,7 +267,7 @@ template <int VEC>
 __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, float* __restrict__ out, int S,
-    int D, int H, int W, int C, int K, int tx, int ty) {
+    int D, int H, int W, int C, int K, int tx, int ty, int Hs) {
   const Site at(VEC, D, H, W, C, K, tx, ty);
   if (!at.ok) return;
   const int step = at.lanes * VEC;
@@ -270,7 +275,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
   const int64_t p = (int64_t)at.y * W + at.x;
   const int64_t view = (int64_t)D * hw;
   const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
-  const int map = H * W * C;
+  const int map = Hs * W * C;
   float r[VEC];
   bilinear::load_vec<VEC>(ref + at.b * feat_bstride + p * C + at.lane * VEC, r);
   const float inv = __frcp_rn((float)(S + 1));
@@ -284,10 +289,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
       const float* g = src + (int64_t)s0 * map;
       const int64_t gi = ci + s0 * view;
       switch (S - s0) {
-        case 1: add_views<VEC, 1>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
-        case 2: add_views<VEC, 2>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
-        case 3: add_views<VEC, 3>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq); break;
-        default: add_views<VEC, 4>(g, xs, ys, gi, view, map, H, W, C, step, sum, sq);
+        case 1: add_views<VEC, 1>(g, xs, ys, gi, view, map, Hs, W, C, step, sum, sq); break;
+        case 2: add_views<VEC, 2>(g, xs, ys, gi, view, map, Hs, W, C, step, sum, sq); break;
+        case 3: add_views<VEC, 3>(g, xs, ys, gi, view, map, Hs, W, C, step, sum, sq); break;
+        default: add_views<VEC, 4>(g, xs, ys, gi, view, map, Hs, W, C, step, sum, sq);
       }
     }
     float v[VEC];
@@ -364,7 +369,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_kernel
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
     float* __restrict__ gs, float* __restrict__ dref, int D, int H, int W, int C, int tx,
-    int ty) {
+    int ty, int Hs) {
   const Site at(VEC, D, H, W, C, D, tx, ty);
   if (!at.ok) return;
   const int step = at.lanes * VEC;
@@ -374,7 +379,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_kernel
   const int64_t view = (int64_t)D * hw;  // coordinates of one view to the next
   const int64_t vol = view * C;          // floats of one (D, H, W, C) volume
   const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
-  const int map = H * W * C;
+  const int map = Hs * W * C;
   float r[VEC], acc[VEC];
   bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
 #pragma unroll
@@ -385,7 +390,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_kernel
   float* gsp = gs + (int64_t)at.b * S * vol + pc;
   for (int d = 0; d < D; ++d, ci += hw, gp += hw * C, gsp += hw * C) {
     float w[S][VEC], gv[VEC], sum[VEC], m[VEC];
-    sample_views<VEC, S>(src, xs, ys, ci, view, map, H, W, C, step, w);
+    sample_views<VEC, S>(src, xs, ys, ci, view, map, Hs, W, C, step, w);
     bilinear::load_vec<VEC>(gp, gv);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -438,7 +443,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_groups
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
     float* __restrict__ gs, float* __restrict__ dref, int S, int D, int H, int W, int C, int tx,
-    int ty) {
+    int ty, int Hs) {
   const Site at(VEC, D, H, W, C, D, tx, ty);
   if (!at.ok) return;
   const int step = at.lanes * VEC;
@@ -448,7 +453,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_groups
   const int64_t view = (int64_t)D * hw;
   const int64_t vol = view * C;
   const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
-  const int map = H * W * C;
+  const int map = Hs * W * C;
   float r[VEC], acc[VEC];
   bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
 #pragma unroll
@@ -470,13 +475,13 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_groups
 #pragma unroll
     for (int j = 0; j < VEC; ++j) sum[j] = r[j];
     for (int s0 = 0; s0 < S; s0 += 4) {
-      SWEEP_GROUP(sum_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map, H, W,
+      SWEEP_GROUP(sum_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map, Hs, W,
                   C, step, sum)
     }
     mean_and_ref_term<VEC>(r, sum, gv, nv, scale, m, acc);
     for (int s0 = 0; s0 < S; s0 += 4) {
       SWEEP_GROUP(cotangent_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map,
-                  H, W, C, step, m, gv, scale, gsp + s0 * vol, vol)
+                  Hs, W, C, step, m, gv, scale, gsp + s0 * vol, vol)
     }
   }
 #undef SWEEP_GROUP
@@ -487,10 +492,10 @@ template <int VEC>
 void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float* ref,
                      const float* srcs, int64_t feat_bstride, const float* xs, const float* ys,
                      const float* g, float* gs, float* dref, int D, int H, int W, int C, int tx,
-                     int ty) {
+                     int ty, int Hs) {
 #define SWEEP_BWD(NS)                                                                    \
   sweep_variance_backward_kernel<VEC, NS><<<grid, threads, 0, st>>>(                     \
-      ref, srcs, feat_bstride, xs, ys, g, gs, dref, D, H, W, C, tx, ty)
+      ref, srcs, feat_bstride, xs, ys, g, gs, dref, D, H, W, C, tx, ty, Hs)
   switch (S) {
     case 1: SWEEP_BWD(1); break;
     case 2: SWEEP_BWD(2); break;
@@ -498,7 +503,7 @@ void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float
     case 4: SWEEP_BWD(4); break;
     default:
       sweep_variance_backward_groups_kernel<VEC><<<grid, threads, 0, st>>>(
-          ref, srcs, feat_bstride, xs, ys, g, gs, dref, S, D, H, W, C, tx, ty);
+          ref, srcs, feat_bstride, xs, ys, g, gs, dref, S, D, H, W, C, tx, ty, Hs);
   }
 #undef SWEEP_BWD
 }
@@ -506,9 +511,9 @@ void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float
 template <int VEC, int G, int S>
 void launch(dim3 grid, int threads, cudaStream_t st, const float* ref, const float* srcs,
             int64_t feat_bstride, const float* xs, const float* ys, float* out, int D, int H,
-            int W, int C, int K, int tx, int ty) {
+            int W, int C, int K, int tx, int ty, int Hs) {
   sweep_variance_kernel<VEC, G, S><<<grid, threads, 0, st>>>(ref, srcs, feat_bstride, xs, ys,
-                                                            out, D, H, W, C, K, tx, ty);
+                                                            out, D, H, W, C, K, tx, ty, Hs);
 }
 
 // The instance for S source views: sweep_variance_kernel up to four
@@ -517,17 +522,18 @@ void launch(dim3 grid, int threads, cudaStream_t st, const float* ref, const flo
 template <int VEC, int G>
 bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* ref,
                   const float* srcs, int64_t feat_bstride, const float* xs, const float* ys,
-                  float* out, int D, int H, int W, int C, int K, int tx, int ty) {
+                  float* out, int D, int H, int W, int C, int K, int tx, int ty, int Hs) {
 #define SWEEP_LAUNCH(NS)                                                                     \
   launch<VEC, G, NS>(grid, threads, st, ref, srcs, feat_bstride, xs, ys, out, D, H, W, C, K, \
-                     tx, ty)
+                     tx, ty, Hs)
   if (S == 1) { SWEEP_LAUNCH(1); return true; }
   if (S == 2) { SWEEP_LAUNCH(2); return true; }
   if constexpr (G == 1) {
     if (S == 3) { SWEEP_LAUNCH(3); return true; }
     if (S == 4) { SWEEP_LAUNCH(4); return true; }
     sweep_variance_groups_kernel<VEC><<<grid, threads, 0, st>>>(ref, srcs, feat_bstride, xs, ys,
-                                                                out, S, D, H, W, C, K, tx, ty);
+                                                                out, S, D, H, W, C, K, tx, ty,
+                                                                Hs);
     return true;
   }
 #undef SWEEP_LAUNCH
@@ -537,8 +543,8 @@ bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* r
 }  // namespace
 
 // out (B, D, H, W, C) from sample b's reference map ref + b·feat_bstride
-// (H, W, C), its S source maps srcs + b·feat_bstride (S, H, W, C) and xs,
-// ys (B, S, D, H, W), under the plan (vec, groups G, planes K, tile tx ×
+// (H, W, C, rows W·C floats apart), its S source maps srcs + b·feat_bstride
+// (S, Hs, W, C) and xs, ys (B, S, D, H, W), under the plan (vec, groups G, planes K, tile tx ×
 // ty) of `sweep_variance_plan`.  Launches on `stream`; vec is 4 (C % 4 ==
 // 0, ref, srcs, out and feat_bstride 16-byte aligned) or 1; (vec, G) one of
 // (4, 1), (4, 2) (S ≤ 2), (1, 1); S ≥ 1.  Returns cudaGetLastError()
@@ -546,14 +552,14 @@ bool launch_views(int S, dim3 grid, int threads, cudaStream_t st, const float* r
 extern "C" int sweep_variance_f32(const float* ref, const float* srcs, long long feat_bstride,
                                   const float* xs, const float* ys, float* out, int B, int S,
                                   int D, int H, int W, int C, int vec, int groups, int planes,
-                                  int tx, int ty, void* stream) {
+                                  int tx, int ty, int Hs, void* stream) {
   if ((vec != 1 && vec != 4) || (groups != 1 && (vec != 4 || groups != 2)) || C < 1 ||
       C % (vec * groups) != 0 || planes < 1 || tx < 1 || ty < 1 || B < 0 || S < 1 ||
-      D < 0 || H < 0 || W < 0)
+      D < 0 || H < 0 || W < 0 || Hs < H)
     return (int)cudaErrorInvalidValue;
   const int64_t threads = (int64_t)(C / (vec * groups)) * tx * ty;
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
-  if ((int64_t)(H + 2) * (W + 2) * C > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if ((int64_t)(Hs + 2) * (W + 2) * C > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if ((int64_t)B * D * H * W == 0) return 0;
   const int64_t tiles = (int64_t)((H + ty - 1) / ty) * ((W + tx - 1) / tx);
   const int64_t chunks = ((int64_t)D + planes - 1) / planes;
@@ -563,17 +569,18 @@ extern "C" int sweep_variance_f32(const float* ref, const float* srcs, long long
   const int n = (int)threads;
   const bool ok =
       vec == 1   ? launch_views<1, 1>(S, grid, n, st, ref, srcs, feat_bstride, xs, ys, out, D, H,
-                                      W, C, planes, tx, ty)
+                                      W, C, planes, tx, ty, Hs)
       : groups == 1 ? launch_views<4, 1>(S, grid, n, st, ref, srcs, feat_bstride, xs, ys, out, D,
-                                         H, W, C, planes, tx, ty)
+                                         H, W, C, planes, tx, ty, Hs)
                     : launch_views<4, 2>(S, grid, n, st, ref, srcs, feat_bstride, xs, ys, out, D,
-                                         H, W, C, planes, tx, ty);
+                                         H, W, C, planes, tx, ty, Hs);
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 // The backward's cotangents from the forward's operands (ref, srcs,
 // feat_bstride, xs, ys as sweep_variance_f32 takes them) and the volume's
-// cotangent g (B, D, H, W, C): gs (B, S, D, H, W, C), each source view's
+// cotangent g (B, D, H, W, C) (Hs the source maps' rows, as there): gs
+// (B, S, D, H, W, C), each source view's
 // cotangent volume, and dref (B, H, W, C), the reference's, under the tile
 // (vec, tx × ty) of `sweep_variance_backward_plan` (one group of vec
 // channels a thread, all D planes).  Launches on `stream`; vec is 4 (C % 4
@@ -584,13 +591,13 @@ extern "C" int sweep_variance_backward_f32(const float* ref, const float* srcs,
                                            long long feat_bstride, const float* xs,
                                            const float* ys, const float* g, float* gs,
                                            float* dref, int B, int S, int D, int H, int W, int C,
-                                           int vec, int tx, int ty, void* stream) {
+                                           int vec, int tx, int ty, int Hs, void* stream) {
   if ((vec != 1 && vec != 4) || C < 1 || C % vec != 0 || tx < 1 || ty < 1 || B < 0 || S < 1 ||
-      D < 0 || H < 0 || W < 0)
+      D < 0 || H < 0 || W < 0 || Hs < H)
     return (int)cudaErrorInvalidValue;
   const int64_t threads = (int64_t)(C / vec) * tx * ty;
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
-  if ((int64_t)(H + 2) * (W + 2) * C > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if ((int64_t)(Hs + 2) * (W + 2) * C > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if ((int64_t)B * H * W == 0) return 0;
   const int64_t tiles = (int64_t)((H + ty - 1) / ty) * ((W + tx - 1) / tx);
   if (tiles > 0x7fffffff || B > 65535) return (int)cudaErrorInvalidValue;
@@ -598,10 +605,10 @@ extern "C" int sweep_variance_backward_f32(const float* ref, const float* srcs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
     launch_backward<4>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
-                       D, H, W, C, tx, ty);
+                       D, H, W, C, tx, ty, Hs);
   } else {
     launch_backward<1>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
-                       D, H, W, C, tx, ty);
+                       D, H, W, C, tx, ty, Hs);
   }
   return (int)cudaGetLastError();
 }

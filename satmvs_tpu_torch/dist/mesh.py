@@ -7,20 +7,27 @@ torch.distributed.run --nproc_per_node N` starts them (or a test or
 `chip_smoke.py` spawns them), `init_multihost` joins the process group, and
 `make_mesh` lays the ranks out on the axes.
 
-Mesh axes, as in JAX:
+Mesh axes, as in JAX (rank r sits at (r // (S·P), (r // P) % S, r % P)
+of a data × spatial (S) × depth (P) mesh, JAX's
+`np.array(devices).reshape(data, spatial, depth)`):
   data     batch-parallel: each rank runs the single-GPU path on its share
            of the batch (or of a scene chunk's tiles); BatchNorm's batch
            moments, the loss's mask counts, the metrics and the gradients
-           are summed over the data group (`nn.blocks.BatchNorm`,
+           are summed over the ranks (`nn.blocks.BatchNorm`,
            `models.losses`, `train.metrics`, `train.loop`)
-  spatial  height sharding of images and cost volumes
-  depth    depth-slab sharding of the CostRegNet's cost volumes
-Only the data axis runs here.  The other two need hand-written halo
-exchanges through the 3-D convolutions (XLA's GSPMD inserts them in JAX):
-ROADMAP A10b.  `make_mesh` refuses them; `volume_spec` and
-`stage_volume_specs` are here, with axis-name tuples in place of
-PartitionSpecs, so that their extent guards carry over, and JAX's
-`constrain` (a sharding constraint) waits for A10b.
+  spatial  height sharding of the cascade's stage cost volumes in training:
+           each rank of a spatial group builds and regularizes a band of
+           each sharded stage's rows
+  depth    depth-slab sharding of the CostRegNet's stage cost volumes in
+           training: each rank of a depth group a slab of the hypotheses
+Where JAX states a sharding constraint on each stage's volume and GSPMD
+inserts the halo exchanges, the port builds a rank's share itself and
+exchanges the halos of its 3-D convolutions by hand (`dist.halo`,
+`models.cascade`).  A stage shards where `stage_volume_specs` (JAX's
+guarded specs, axis-name tuples in place of PartitionSpecs) names an axis;
+`slab_bounds` cuts it at multiples of 8 planes or rows.  `Mesh` holds a
+process group for each axis and the world, the "volume" group of a
+sharded stage.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import dataclasses
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -79,12 +87,15 @@ class Mesh:
     """The ranks laid out on the axes.
 
     shape: {"data", "spatial", "depth"} extents, as JAX's `Mesh.shape`.
-    rank: this process's place on the data axis.
+    rank: this process's rank in the mesh (its place is `coords`).
     world_size: the ranks of the world.
     device: this rank's device (None: tensors stay where they are).
-    group: the process group of the mesh's ranks (None: one process, no
-      collectives, the serial path).
+    group: the process group of the mesh's ranks, the "volume" group
+      (None: one process, no collectives, the serial path).
     host_group: a gloo group over the same ranks, for host arrays.
+    data_group, spatial_group, depth_group: the ranks that differ from this
+      one only along that axis (None where the axis has extent 1; the data
+      group is `group` on a mesh of the data axis alone).
     """
     shape: dict
     rank: int
@@ -92,6 +103,29 @@ class Mesh:
     device: Optional[torch.device] = None
     group: object = None
     host_group: object = None
+    data_group: object = None
+    spatial_group: object = None
+    depth_group: object = None
+
+    @property
+    def coords(self) -> tuple[int, int, int]:
+        """(data, spatial, depth) index of this rank, JAX's layout."""
+        s, p = self.shape["spatial"], self.shape["depth"]
+        return self.rank // (s * p), (self.rank // p) % s, self.rank % p
+
+    def axis_group(self, axis: str):
+        """The process group of `axis` ("data", "spatial" or "depth")."""
+        return {"data": self.data_group, "spatial": self.spatial_group,
+                "depth": self.depth_group}[axis]
+
+    def shard(self, axis: str, extent: int):
+        """This rank's `dist.halo.Shard` of an axis ("spatial" or "depth")
+        of `extent` planes or rows (`slab_bounds`)."""
+        from .halo import Shard
+
+        index = self.coords[1 if axis == "spatial" else 2]
+        return Shard(axis, self.axis_group(axis), index,
+                     slab_bounds(extent, self.shape[axis]), extent)
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (a no-op without a group)."""
@@ -101,25 +135,22 @@ class Mesh:
 
 def make_mesh(data: int = 1, spatial: int = 1, depth: int = 1,
               world_size: Optional[int] = None, device=None) -> Mesh:
-    """The mesh of data·spatial·depth ranks.  The world is the process
-    group's (1 without one) unless `world_size` says otherwise, as in a
-    test of the shapes.  Raises ValueError when the mesh needs more ranks
-    than the world has, as JAX's does, or, under a process group, fewer
-    (every rank holds a share), and NotImplementedError for spatial or
-    depth > 1 (ROADMAP A10b).  Every rank calls it.  `device` is the
-    rank's: by default the current card under nccl and the CPU under gloo
-    (ranks that share a card over gloo pass it); without a process group
-    None."""
+    """The mesh of data·spatial·depth ranks, laid out as JAX lays out its
+    devices.  The world is the process group's (1 without one) unless
+    `world_size` says otherwise, as in a test of the shapes.  Raises
+    ValueError when the mesh needs more ranks than the world has, as JAX's
+    does, or, under a process group, fewer (every rank holds a share).
+    Every rank calls it (it creates the axes' process groups, every rank
+    all of them in one order: the data groups, the spatial groups, the
+    depth groups).  `device` is the rank's: by default the current card
+    under nccl and the CPU under gloo (ranks that share a card over gloo
+    pass it); without a process group None."""
     initialized = dist.is_available() and dist.is_initialized()
     world = world_size if world_size is not None else (
         dist.get_world_size() if initialized else 1)
     need = data * spatial * depth
     if need > world:
         raise ValueError(f"need {need} devices, have {world}")
-    if spatial > 1 or depth > 1:
-        raise NotImplementedError(
-            f"mesh spatial={spatial}, depth={depth}: the port shards the data axis only; "
-            "spatial and depth-slab sharding are ROADMAP A10b")
     shape = {"data": data, "spatial": spatial, "depth": depth}
     if not initialized:
         return Mesh(shape, 0, world, None if device is None else torch.device(device))
@@ -132,7 +163,26 @@ def make_mesh(data: int = 1, spatial: int = 1, depth: int = 1,
                   torch.device("cpu"))
     group = dist.group.WORLD
     host_group = group if backend == "gloo" else dist.new_group(backend="gloo")
-    return Mesh(shape, dist.get_rank(), world, torch.device(device), group, host_group)
+    rank = dist.get_rank()
+    axes = _axis_groups(shape, rank) if need > data else {"data_group": group}
+    return Mesh(shape, rank, world, torch.device(device), group, host_group, **axes)
+
+
+def _axis_groups(shape: dict, rank: int) -> dict:
+    """The data, spatial and depth groups of `rank` (None where an axis has
+    extent 1): every rank creates every group, in one order."""
+    extents = [shape[axis] for axis in ("data", "spatial", "depth")]
+    grid = np.arange(int(np.prod(extents))).reshape(extents)  # JAX's layout
+    out = {}
+    for i, axis in enumerate(("data", "spatial", "depth")):
+        mine = None
+        if extents[i] > 1:
+            for members in np.moveaxis(grid, i, -1).reshape(-1, extents[i]).tolist():
+                group = dist.new_group(members)
+                if rank in members:
+                    mine = group
+        out[f"{axis}_group"] = mine
+    return out
 
 
 def batch_spec() -> tuple:
@@ -141,16 +191,18 @@ def batch_spec() -> tuple:
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
-    """This rank's contiguous share of every leading axis of a batch: the
-    images, depth_values, depth_stages, mask_stages, every stage's cameras
-    (RPC or QC bundles, pinhole tensors) and the per-sample names, moved to
-    the mesh's device.  A batch the data extent does not divide raises, as
-    JAX's device_put does."""
+    """This rank's contiguous share of every leading axis of a batch (the
+    share of its place on the data axis: the ranks of a spatial or depth
+    group hold the same share): the images, depth_values, depth_stages,
+    mask_stages, every stage's cameras (RPC or QC bundles, pinhole tensors)
+    and the per-sample names, moved to the mesh's device.  A batch the data
+    extent does not divide raises, as JAX's device_put does."""
     n = mesh.shape["data"]
     b = batch["imgs"].shape[0]
     if b % n:
         raise ValueError(f"a batch of {b} does not divide over the {n} ranks of the data axis")
-    share = slice(mesh.rank * (b // n), (mesh.rank + 1) * (b // n))
+    d = mesh.coords[0]
+    share = slice(d * (b // n), (d + 1) * (b // n))
 
     def move(t):
         return t if mesh.device is None else t.to(mesh.device)
@@ -228,3 +280,20 @@ def stage_volume_specs(ndepths, spatial: bool = False, depth_shards: int = 1,
          None,
          None)
         for i, nd in enumerate(ndepths))
+
+
+SLAB_UNIT = 8  # 2^levels of the CostRegNet's stride-2 pyramid: each level keeps its parity
+
+
+def slab_bounds(extent: int, shards: int, unit: int = SLAB_UNIT) -> tuple:
+    """Every rank's [lo, hi) of an axis of `extent` cut into `shards` slabs
+    at multiples of `unit` planes or rows, as even as those allow (a slab
+    may be a unit shorter than another; the last ends at the extent).
+    Raises when the extent holds fewer units than shards, which the guard
+    of `stage_volume_specs` rules out."""
+    units = -(-extent // unit)
+    if units < shards:
+        raise ValueError(f"an extent of {extent} does not cut into {shards} slabs of "
+                         f"multiples of {unit}")
+    cuts = [min(unit * (k * units // shards), extent) for k in range(shards + 1)]
+    return tuple(zip(cuts[:-1], cuts[1:]))

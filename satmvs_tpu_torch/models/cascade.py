@@ -37,6 +37,26 @@ With grad_method="through" the gradient reaches a stage's depth through the
 next stage's hypotheses; "detach" cuts it there.  The sweep coordinates are
 always cut from the graph.
 
+Sharded cost volumes (`volume_partition`, JAX's field of the same name,
+and `mesh`; set by `train.loop` under a mesh with a spatial or depth axis):
+a per-stage tuple of axis names from `dist.stage_volume_specs`.  Where a
+stage names "depth", each rank of the mesh's depth group takes its slab of
+the hypotheses (`dist.mesh.slab_bounds`), builds that slab of the volume
+and regularizes it with halo exchanges (`nn/costreg.py`); the softmax, the
+regression and the confidence sum over the group (`ops/regression.py`).
+Where it names "spatial", each rank of the spatial group builds the
+volume of a band of reference rows (the sweep reads any source row, so the
+features stay whole) and the CostRegNet regularizes the band with row
+halos; the stage's maps are then gathered over the group
+(`dist.halo.slab_gather`, differentiable), since the next stage's
+hypotheses read them across band edges.  RED gathers the banded volume
+before its pipeline instead and runs whole on each rank (the ConvGRU would
+need fresh row halos at every plane of one cooperative launch, and
+GroupNorm(1) normalizes whole planes: XLA's answer around a Pallas call it
+cannot partition).  Stages without a sharded axis run alike on every rank.
+A sharding constraint changes no value in JAX, and a rank's share here
+changes none either: every rank gets the maps of the serial forward.
+
 Both sweeps take coordinates from any of the three chains.  JAX on the TPU
 sends pinhole cameras to the per-view sweep always
 (`satmvs_tpu/models/cascade.py:137-148`, "pinhole warp has no native-hcw
@@ -64,6 +84,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..dist.halo import slab_gather
 from ..nn.costreg import CostRegNet
 from ..nn.featurenet import FeatureNet
 from ..nn.red import REDRegularizer
@@ -94,38 +115,43 @@ def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torc
     return torch.stack([depth_range.window_samples(c, nd, interval) for c in cur])
 
 
-def build_stage_volume(feats: torch.Tensor, cams, hyps: torch.Tensor) -> torch.Tensor:
+def build_stage_volume(feats: torch.Tensor, cams, hyps: torch.Tensor,
+                       row0: int = 0) -> torch.Tensor:
     """(B, V, h, w, C) features + batched cameras (of any of the three
-    types) + (B, D, h, w) hypotheses → (B, D, h, w, C) variance cost volume:
-    every sample's sweep coordinates (`ops.warp.sweep_coords`) in one
-    stack, then one `sweep_variance_batched` for the batch (the fused sweep;
-    differentiable in the features)."""
-    b, v, sh, sw, _ = feats.shape
+    types) + (B, D, h', w) hypotheses of the reference rows row0 .. row0 +
+    h' − 1 (all h rows, or a rank's band) → (B, D, h', w, C) variance cost
+    volume: every sample's sweep coordinates (`ops.warp.sweep_coords`) in
+    one stack, then one `sweep_variance_batched` for the batch (the fused
+    sweep; differentiable in the features)."""
+    b, v, _, sw, _ = feats.shape
+    hb = hyps.shape[2]
     per_sample = [cams[i] for i in range(b)]
-    coords = [sweep_coords(per_sample[i], s, hyps[i], sh, sw)
+    coords = [sweep_coords(per_sample[i], s, hyps[i], hb, sw, row0)
               for i in range(b) for s in range(v - 1)]
     xs, ys = torch.stack([c[k] for k in (0, 1) for c in coords]).view(
         2, b, v - 1, *hyps.shape[1:]).unbind(0)
-    return sweep_variance_batched(feats, xs, ys)
+    return sweep_variance_batched(feats, xs, ys, row0)
 
 
 def build_train_volume(feats: torch.Tensor, cams, hyps: torch.Tensor,
-                       volume_dtype: torch.dtype | None = None) -> torch.Tensor:
+                       volume_dtype: torch.dtype | None = None, row0: int = 0) -> torch.Tensor:
     """`build_stage_volume`'s function on the per-view sweep: per sample the
     variance over the reference view and each source view warped by
     `rpc_warp` (either RPC form) or `homo_warp` (pinhole): one
     `sweep_gather` per source view, its volume stored in volume_dtype
-    (None: float32)."""
+    (None: float32); a band of rows as there."""
     vols = []
+    hb = hyps.shape[2]
     for i in range(feats.shape[0]):
         cams_b = cams[i]
         if isinstance(cams_b, torch.Tensor):
             def warp(src, s):
-                return homo_warp(src, cams_b[s + 1], cams_b[0], hyps[i], out_dtype=volume_dtype)
+                return homo_warp(src, cams_b[s + 1], cams_b[0], hyps[i], out_dtype=volume_dtype,
+                                 row0=row0)
         else:
             def warp(src, s):
-                return rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype)
-        vols.append(sweep_variance_volume(feats[i, 0], feats[i, 1:], warp))
+                return rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype, row0=row0)
+        vols.append(sweep_variance_volume(feats[i, 0, row0:row0 + hb], feats[i, 1:], warp))
     return torch.stack(vols)
 
 
@@ -149,7 +175,10 @@ class CascadeModel(nn.Module):
     docstring says.  share_cr=True (one regularizer for every stage)
     raises: the stages' features have 4b, 2b and b channels, which one
     regularizer's first convolution cannot take (JAX's fails the same way,
-    on the parameter's shape).
+    on the parameter's shape).  volume_partition and mesh: the sharded
+    cost volumes of the module docstring (None: every stage whole); a
+    "depth" stage of the RED regularizer raises, as JAX's trainer refuses
+    it.
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
@@ -159,7 +188,8 @@ class CascadeModel(nn.Module):
                  fused_sweep: bool | None = None, volume_dtype: torch.dtype | None = None,
                  regularizer: str = "red", sampler: str = "window", confidence: str = "max",
                  grad_method: str = "through", share_cr: bool = False, lamb: float = 1.5,
-                 feat_base_chs: int = 8, arch_mode: str = "unet", geo_model: str = "rpc"):
+                 feat_base_chs: int = 8, arch_mode: str = "unet", geo_model: str = "rpc",
+                 volume_partition=None, mesh=None):
         super().__init__()
         if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
             raise ValueError("the port runs three cascade stages")
@@ -188,6 +218,34 @@ class CascadeModel(nn.Module):
         reg = REDRegularizer if regularizer == "red" else CostRegNet
         self.regs = nn.ModuleList(
             reg(c, cr) for c, cr in zip(self.feature.out_channels, cr_base_chs))
+        self.partition(volume_partition, mesh)
+
+    def partition(self, volume_partition, mesh) -> None:
+        """Set the sharded cost volumes (module docstring): a per-stage
+        tuple of volume axis-name tuples (`dist.stage_volume_specs`) or
+        None, and the mesh whose groups split them."""
+        if volume_partition is not None:
+            volume_partition = tuple(tuple(spec) for spec in volume_partition)
+            if len(volume_partition) != len(self.ndepths):
+                raise ValueError(f"volume_partition: {len(volume_partition)} specs for "
+                                 f"{len(self.ndepths)} stages")
+            if self.regularizer == "red" and any(spec[1] for spec in volume_partition):
+                raise ValueError("depth-slab sharding applies to the 3-D conv regularizers "
+                                 "(casmvs/ucs); the RED recurrence scans depth sequentially")
+        self.volume_partition, self.mesh = volume_partition, mesh
+
+    def stage_shard(self, i: int, height: int):
+        """Stage i's `dist.halo.Shard` on this rank (its volume's extent
+        along the sharded axis: ndepths[i] planes or `height` rows), or
+        None when the stage is whole."""
+        if self.volume_partition is None or self.mesh is None:
+            return None
+        _, depth, spatial, *_ = self.volume_partition[i]
+        if depth:
+            return self.mesh.shard("depth", self.ndepths[i])
+        if spatial:
+            return self.mesh.shard("spatial", height)
+        return None
 
     def stage_intervals(self) -> list[float]:
         """Hypothesis interval of each stage (m), before the window stretch."""
@@ -218,24 +276,35 @@ class CascadeModel(nn.Module):
                              f"{type(cams).__name__} cameras")
         sh, sw = feats.shape[2:4]
         hyps = self.hypotheses(i, sh, sw, d_min, d_max, depth, exp_var)
+        shard = self.stage_shard(i, sh)
+        row0, whole = 0, hyps
+        if shard is not None:  # this rank's slab of hypothesis planes or band of rows
+            hyps = (hyps[:, shard.lo:shard.hi] if shard.axis == "depth" else
+                    hyps[:, :, shard.lo:shard.hi])
+            row0 = shard.lo if shard.axis == "spatial" else 0
         if self.fused_sweep is not False and (self.train_fused_sweep
                                               or not torch.is_grad_enabled()):
-            volume = build_stage_volume(feats, cams, hyps)
+            volume = build_stage_volume(feats, cams, hyps, row0)
         else:
-            volume = build_train_volume(feats, cams, hyps, self.volume_dtype)
+            volume = build_train_volume(feats, cams, hyps, self.volume_dtype, row0)
         if self.regularizer == "red":
+            if shard is not None:  # the whole volume on every rank (module docstring)
+                volume, hyps, shard = slab_gather(volume, 2, shard), whole, None
             logits = self.regs[i](volume, self.fused_red is not False)
         else:
-            logits = self.regs[i](volume, train)
-        prob = torch.softmax(logits, dim=1)
-        depth = regression.depth_regression(prob, hyps)
+            logits = self.regs[i](volume, train, shard)
+        dshard = shard if shard is not None and shard.axis == "depth" else None
+        prob = regression.softmax_depth(logits, dshard)
+        depth = regression.depth_regression(prob, hyps, dshard)
         if self.confidence == "window4":
-            conf = regression.window_prob_confidence(prob, 4)
+            conf = regression.window_prob_confidence(prob, 4, dshard)
         else:
-            conf = regression.max_prob_confidence(prob)
+            conf = regression.max_prob_confidence(prob, dshard)
         out = {"depth": depth, "photometric_confidence": conf}
         if self.sampler == "uncertainty":
-            out["variance"] = regression.expected_variance(prob, hyps, depth, self.lamb)
+            out["variance"] = regression.expected_variance(prob, hyps, depth, self.lamb, dshard)
+        if shard is not None and shard.axis == "spatial":  # every rank the whole maps
+            out = {k: slab_gather(v, 1, shard) for k, v in out.items()}
         return out
 
     @torch.no_grad()

@@ -11,6 +11,15 @@ blocks are `F.conv3d` / `F.conv_transpose3d`: JAX's `Conv3DVia2D` and
 2-D convolutions (a TPU layout choice).  As in flax, the blocks with a
 BatchNorm take a `train` argument: the module's own train()/eval() mode is
 not read.
+
+The 3-D blocks also take a slab of a sharded cost volume (`shard`, a
+`dist.halo.Shard` of the depth or the height axis): the convolution joins
+the neighbour ranks' halo planes or rows along that axis
+(`dist.halo.halo_exchange`, zeros past the global ends) and pads nothing
+there itself, so every rank computes its slab of the whole volume's
+output: a stride-1 conv takes a halo each side, a stride-2 conv one before
+(its slab starts at an even index), a stride-2 transposed conv one after.
+Its BatchNorm takes the moments over the ranks its `group` names.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..dist.collectives import all_reduce_sum
+from ..dist.halo import halo_exchange
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -34,11 +44,13 @@ class BatchNorm(nn.BatchNorm2d):
     `batch_stats` at every step.  The running statistics are buffers
     updated in place, outside autograd.
 
-    Under a data group (`group`, set by `sync_batch_norm`) the sums Σx, Σx²
-    and the count n are those of the global batch, summed over the ranks
-    with a differentiable all-reduce, as JAX's GSPMD computes the moments of
-    a sharded batch; every rank then moves its running statistics
-    identically.  Without one, the same formula runs on this rank's batch.
+    Under a group (`group`, set by `sync_batch_norm`: the data group, or
+    the whole mesh for a CostRegNet whose volume is sharded) the sums Σx,
+    Σx² and the count n are those of the global batch (and volume), summed
+    over the ranks with a differentiable all-reduce, as JAX's GSPMD computes
+    the moments of a sharded batch; every rank then moves its running
+    statistics identically.  Without one, the same formula runs on this
+    rank's batch.
     """
 
     group = None  # a process group: train-mode moments over the global batch
@@ -80,6 +92,34 @@ def _check_dims(block: str, dims: int):
         raise ValueError(f"{block}: dims must be 2 or 3, got {dims}")
 
 
+def _slab_dim(shard) -> int:
+    """The NCDHW dimension of a shard's axis."""
+    return 2 if shard.axis == "depth" else 3
+
+
+def conv3d_slab(conv: nn.Conv3d, x: torch.Tensor, shard) -> torch.Tensor:
+    """A 3×3×3 pad-1 Conv3d (stride 1 or 2) of this rank's slab x (NCDHW)
+    of a volume sharded along shard.axis: the halos joined, no padding on
+    that axis → this rank's slab of the whole volume's output."""
+    dim = _slab_dim(shard)
+    stride = conv.stride[dim - 2]
+    x = halo_exchange(x, dim, shard, 1, 1 if stride == 1 else 0)
+    pad = [1, 1, 1]
+    pad[dim - 2] = 0
+    return F.conv3d(x, conv.weight, conv.bias, conv.stride, tuple(pad))
+
+
+def conv_transpose3d_slab(conv: nn.ConvTranspose3d, x: torch.Tensor, shard) -> torch.Tensor:
+    """The k=3, s=2, p=1, op=1 ConvTranspose3d of this rank's slab x: the
+    next rank's first plane (or row) joined on, the output cut to twice the
+    slab."""
+    dim = _slab_dim(shard)
+    n = x.shape[dim]
+    y = F.conv_transpose3d(halo_exchange(x, dim, shard, 0, 1), conv.weight, conv.bias,
+                           conv.stride, conv.padding, conv.output_padding)
+    return y.narrow(dim, 0, 2 * n)
+
+
 class ConvBlock(nn.Module):
     """Conv → (BatchNorm) → ReLU, 2-D (Conv2d) or 3-D (Conv3d, dims=3).
     norm: "bn" | "none"; the conv has a bias iff there is no norm, unless
@@ -98,8 +138,10 @@ class ConvBlock(nn.Module):
                          padding=kernel_size // 2, bias=bias)
         self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
+        """shard: x is this rank's slab of a sharded volume (3-D blocks;
+        module docstring)."""
+        x = self.conv(x) if shard is None else conv3d_slab(self.conv, x, shard)
         return F.relu(x if self.bn is None else self.bn(x, train))
 
 
@@ -127,8 +169,9 @@ class DeconvBlock(nn.Module):
         self.conv = deconv(in_channels, features, 3, 2, padding=1, output_padding=1, bias=bias)
         self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
+        """shard: x is this rank's slab of a sharded volume (3-D blocks)."""
+        x = self.conv(x) if shard is None else conv_transpose3d_slab(self.conv, x, shard)
         return F.relu(x if self.bn is None else self.bn(x, train))
 
 

@@ -32,6 +32,17 @@ compute the same function:
 JAX's row packing, `split_cols` / `merge_cols` and the VMEM feasibility caps
 (`packed_costreg_feasible`) are TPU layout workarounds and are not ported:
 any shape the contract takes runs packed.
+
+Both paths also take this rank's slab of a volume sharded along D or H
+(`shard`, a `dist.halo.Shard`; JAX's GSPMD partitions the same network
+under a sharding constraint): each convolution joins its neighbours' halo
+planes or rows (`dist.halo.halo_exchange`) and pads zeros only at the
+global ends.  On the conv3d path that is `nn.blocks.conv3d_slab`; on the
+packed path a depth halo is one more plane in the batch of planes a tap
+takes, and a height halo joins rows to every plane, the kernel's output
+rows that its own zero padding at the slab's edge produced cut off (two
+rows before a stride-2 tap, so its rows keep the global parity).  The
+launches per forward stay those of the whole volume.
 """
 
 from __future__ import annotations
@@ -41,8 +52,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..dist.halo import halo_exchange
 from ..ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
-from .blocks import BatchNorm, ConvBlock, DeconvBlock
+from .blocks import BatchNorm, ConvBlock, DeconvBlock, conv3d_slab
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm's default
 
@@ -95,6 +107,15 @@ def c3d_s2(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     return _bias_relu(t1, bias)
 
 
+def _d3dT_taps(x: torch.Tensor, wt3: torch.Tensor) -> torch.Tensor:
+    b = x.shape[0]
+    xp = _planes(x)
+    u0, even, odd = (deconv_up(xp, wt3[:, :, k], relu=False) for k in range(3))
+    u0, even, odd = (t.view(b, -1, *t.shape[1:]) for t in (u0, even, odd))
+    odd[:, :-1] += u0[:, 1:]  # JAX's o1 + o2, added the other way round (exact)
+    return torch.stack([even, odd], dim=2).view(b, -1, *even.shape[2:])
+
+
 def d3dT(x: torch.Tensor, wt3: torch.Tensor, bias: torch.Tensor,
          skip: torch.Tensor) -> torch.Tensor:
     """ConvTranspose3d(k=3, s=2, p=1, op=1) of x (B, D, h, w, Cin) with wt3
@@ -102,11 +123,53 @@ def d3dT(x: torch.Tensor, wt3: torch.Tensor, bias: torch.Tensor,
     Cout): three `deconv_up` calls without their ReLU, the even output planes
     from tap 1, the odd ones from tap 0 on the next input plane (zero past
     the last) plus tap 2."""
+    return _bias_relu(_d3dT_taps(x, wt3), bias) + skip
+
+
+# ---- the packed taps on a slab (module docstring): the same launches, the
+# same sums in the same order as on the whole volume
+
+def c3d_s1_slab(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor | None, shard,
+                relu: bool = True) -> torch.Tensor:
+    """`c3d_s1` of this rank's slab x of a volume sharded along D or H."""
+    if shard.axis == "spatial":
+        y = c3d_s1(halo_exchange(x, 2, shard, 1, 1), w3, None)[:, :, 1:-1]
+        return y if bias is None else _bias_relu(y, bias, relu)
     b = x.shape[0]
-    xp = _planes(x)
-    u0, even, odd = (deconv_up(xp, wt3[:, :, k], relu=False) for k in range(3))
-    u0, even, odd = (t.view(b, -1, *t.shape[1:]) for t in (u0, even, odd))
-    odd[:, :-1] += u0[:, 1:]  # JAX's o1 + o2, added the other way round (exact)
+    zb = w3.new_zeros(w3.shape[0])
+    xh = halo_exchange(x, 1, shard, 1, 1)
+    t0, t1, t2 = (conv_head(_planes(src), w3[:, :, k], zb)
+                  for k, src in enumerate((xh[:, :-2], x, xh[:, 2:])))
+    t0, t1, t2 = (t.view(b, -1, *t.shape[1:]) for t in (t0, t1, t2))
+    y = t1 + t0 + t2
+    return y if bias is None else _bias_relu(y, bias, relu)
+
+
+def c3d_s2_slab(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor, shard) -> torch.Tensor:
+    """`c3d_s2` of this rank's slab x (starting at an even plane or row)."""
+    if shard.axis == "spatial":
+        return c3d_s2(halo_exchange(x, 2, shard, 2, 0), w3, bias)[:, :, 1:]
+    b, n = x.shape[:2]
+    xh = halo_exchange(x, 1, shard, 1, 0)  # the odd plane before the slab first
+    srcs = (xh[:, 0:n:2], x[:, 0::2], x[:, 1::2])
+    t0, t1, t2 = (conv_dn(_planes(src), w3[:, :, k], relu=False) for k, src in enumerate(srcs))
+    t0, t1, t2 = (t.view(b, -1, *t.shape[1:]) for t in (t0, t1, t2))
+    return _bias_relu(t1 + t0 + t2, bias)
+
+
+def d3dT_slab(x: torch.Tensor, wt3: torch.Tensor, bias: torch.Tensor, skip: torch.Tensor,
+              shard) -> torch.Tensor:
+    """`d3dT` of this rank's slab x; skip is the slab of the output."""
+    if shard.axis == "spatial":
+        n = x.shape[2]
+        y = _d3dT_taps(halo_exchange(x, 2, shard, 0, 1), wt3)[:, :, :2 * n]
+        return _bias_relu(y, bias) + skip
+    b = x.shape[0]
+    xh = halo_exchange(x, 1, shard, 0, 1)  # the next rank's first plane last
+    even, odd, u0 = (deconv_up(_planes(src), wt3[:, :, k], relu=False)
+                     for k, src in ((1, x), (2, x), (0, xh[:, 1:])))
+    even, odd, u0 = (t.view(b, -1, *t.shape[1:]) for t in (even, odd, u0))
+    odd += u0
     y = torch.stack([even, odd], dim=2).view(b, -1, *even.shape[2:])
     return _bias_relu(y, bias) + skip
 
@@ -136,32 +199,38 @@ class CostRegNet(nn.Module):
                                       DeconvBlock(2 * b, b, dims=3)])
         self.head = nn.Conv3d(b, 1, 3, padding=1, bias=False)
 
-    def forward(self, volume: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if volume.ndim != 5 or any(n % 8 for n in volume.shape[1:4]):
+    def forward(self, volume: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
+        """shard: volume is this rank's slab of a volume sharded along D or H
+        (module docstring); the logits are the slab's."""
+        extent = list(volume.shape[1:4])
+        if shard is not None:
+            extent[0 if shard.axis == "depth" else 1] = shard.extent
+        if volume.ndim != 5 or any(n % 8 for n in extent):
             raise ValueError(f"CostRegNet: want a (B, D, H, W, C) volume with D, H and W "
-                             f"divisible by 8, got {tuple(volume.shape)}")
+                             f"divisible by 8, got {tuple(volume.shape)} (whole {extent})")
         records = torch.is_grad_enabled() and (
             volume.requires_grad or any(p.requires_grad for p in self.parameters()))
         if self.fused is not False and not train and not records:
-            return self.packed(volume)
-        return self.conv3d(volume, train)
+            return self.packed(volume, shard)
+        return self.conv3d(volume, train, shard)
 
-    def conv3d(self, volume: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def conv3d(self, volume: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
         """The conv3d path (JAX's XLA path): differentiable; train=True
         normalizes with batch statistics and moves the running ones."""
         x = volume.permute(0, 4, 1, 2, 3)
         c = self.convs
-        conv0 = c[0](x, train)
-        conv2 = c[2](c[1](conv0, train), train)
-        conv4 = c[4](c[3](conv2, train), train)
-        x = c[6](c[5](conv4, train), train)
-        x = conv4 + self.deconvs[0](x, train)
-        x = conv2 + self.deconvs[1](x, train)
-        x = conv0 + self.deconvs[2](x, train)
-        return self.head(x)[:, 0].float()
+        conv0 = c[0](x, train, shard)
+        conv2 = c[2](c[1](conv0, train, shard), train, shard)
+        conv4 = c[4](c[3](conv2, train, shard), train, shard)
+        x = c[6](c[5](conv4, train, shard), train, shard)
+        x = conv4 + self.deconvs[0](x, train, shard)
+        x = conv2 + self.deconvs[1](x, train, shard)
+        x = conv0 + self.deconvs[2](x, train, shard)
+        head = self.head(x) if shard is None else conv3d_slab(self.head, x, shard)
+        return head[:, 0].float()
 
     @torch.no_grad()
-    def packed(self, volume: torch.Tensor) -> torch.Tensor:
+    def packed(self, volume: torch.Tensor, shard=None) -> torch.Tensor:
         """The packed path (module docstring), running statistics folded in."""
 
         def conv_w(block):
@@ -172,13 +241,25 @@ class CostRegNet(nn.Module):
             sc, bias = _bn_fold(block.bn)
             return block.conv.weight * sc[None, :, None, None, None], bias
 
+        if shard is None:
+            s1, s2, up = c3d_s1, c3d_s2, d3dT
+        else:
+            def s1(x, w3, bias):
+                return c3d_s1_slab(x, w3, bias, shard)
+
+            def s2(x, w3, bias):
+                return c3d_s2_slab(x, w3, bias, shard)
+
+            def up(x, wt3, bias, skip):
+                return d3dT_slab(x, wt3, bias, skip, shard)
+
         c = self.convs
         x = volume.float().contiguous()
-        conv0 = c3d_s1(x, *conv_w(c[0]))
-        conv2 = c3d_s1(c3d_s2(conv0, *conv_w(c[1])), *conv_w(c[2]))
-        conv4 = c3d_s1(c3d_s2(conv2, *conv_w(c[3])), *conv_w(c[4]))
-        x = c3d_s1(c3d_s2(conv4, *conv_w(c[5])), *conv_w(c[6]))
-        x = d3dT(x, *deconv_w(self.deconvs[0]), conv4)
-        x = d3dT(x, *deconv_w(self.deconvs[1]), conv2)
-        x = d3dT(x, *deconv_w(self.deconvs[2]), conv0)
-        return c3d_s1(x, self.head.weight.float(), None)[..., 0]
+        conv0 = s1(x, *conv_w(c[0]))
+        conv2 = s1(s2(conv0, *conv_w(c[1])), *conv_w(c[2]))
+        conv4 = s1(s2(conv2, *conv_w(c[3])), *conv_w(c[4]))
+        x = s1(s2(conv4, *conv_w(c[5])), *conv_w(c[6]))
+        x = up(x, *deconv_w(self.deconvs[0]), conv4)
+        x = up(x, *deconv_w(self.deconvs[1]), conv2)
+        x = up(x, *deconv_w(self.deconvs[2]), conv0)
+        return s1(x, self.head.weight.float(), None)[..., 0]

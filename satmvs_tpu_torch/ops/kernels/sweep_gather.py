@@ -54,7 +54,7 @@ def sweep_scatter_reference(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                             height: int, width: int) -> torch.Tensor:
     """Plain version of the transpose: g (D, H', W', C), fp32 or bf16 (widened
     to fp32), scattered into the (height, width, C) fp32 source at the taps
-    of the samples (xs, ys) (D, H', W')."""
+    of the samples (xs, ys) (D, H', W'); H' may be a band of the height rows."""
     c = g.shape[-1]
     x, y = xs.reshape(-1), ys.reshape(-1)
     gf = g.reshape(-1, c).to(torch.float32)
@@ -111,11 +111,13 @@ def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
     return -(-d // -(-d // per))
 
 
-def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, *extra: int):
+def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, planes: int,
+            hs: int | None = None):
     """Runs the kernel `name` (its instance for the volume's dtype: out's for
     the gather, values' for the scatter) on CUDA tensors (contiguous; float4
-    access when C and every pointer allow it) on the current stream, with
-    `extra` ints after vec; raises on a CUDA error."""
+    access when C and every pointer allow it) on the current stream, each
+    thread walking `planes` planes, the source map of `hs` rows (by default
+    the samples' h); raises on a CUDA error."""
     for key, t in (("values", values), ("xs", xs), ("ys", ys)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
@@ -124,8 +126,8 @@ def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, *ext
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         volume = out if name == "sweep_gather" else values
-        rc = _c_fn(f"{name}_{_SUFFIX[volume.dtype]}", 5 + len(extra))(*ptrs, d, h, w, c, vec,
-                                                                      *extra, stream)
+        rc = _c_fn(f"{name}_{_SUFFIX[volume.dtype]}", 7)(*ptrs, d, h, w, c, vec, planes,
+                                                         h if hs is None else hs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -140,36 +142,42 @@ def _count(fn, dtype: torch.dtype) -> None:
 def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
             out_dtype: torch.dtype) -> torch.Tensor:
     _check("sweep_gather", src, xs, ys)
-    if src.ndim != 3 or tuple(src.shape[:2]) != tuple(xs.shape[1:]):
-        raise ValueError(f"sweep_gather: want src (H, W, C) and xs/ys (D, H, W), got "
-                         f"{tuple(src.shape)} and {tuple(xs.shape)}")
+    if src.ndim != 3 or src.shape[1] != xs.shape[2] or xs.shape[1] > src.shape[0]:
+        raise ValueError(f"sweep_gather: want src (H, W, C) and xs/ys (D, H', W) with H' ≤ H, "
+                         f"got {tuple(src.shape)} and {tuple(xs.shape)}")
     if src.device.type == "cpu":
         return sweep_gather_reference(src, xs, ys, out_dtype)
     d, h, w = xs.shape
     c = src.shape[-1]
     out = torch.empty((d, h, w, c), dtype=out_dtype, device=src.device)
-    _launch("sweep_gather", src, xs, ys, out, d, h, w, c, GATHER_PLANES)
+    _launch("sweep_gather", src, xs, ys, out, d, h, w, c, GATHER_PLANES, src.shape[0])
     _count(sweep_gather, out_dtype)
     return out
 
 
-def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                  height: int | None = None) -> torch.Tensor:
     """The transpose of `sweep_gather` at (xs, ys): g (D, H, W, C) float32
     or bfloat16 (widened exactly at the read), xs/ys (D, H, W) float32 → the
-    source's cotangent (H, W, C) float32.  CUDA tensors go to
-    the kernel (inputs contiguous; runs of planes summed in registers, then
-    atomics, so the order of each element's sum changes from run to run),
-    CPU tensors to `sweep_scatter_reference`."""
+    source's cotangent (height, W, C) float32 (height: the source's rows, by
+    default H; more when the samples are a band of them).  CUDA tensors go
+    to the kernel (inputs contiguous; runs of planes summed in registers,
+    then atomics, so the order of each element's sum changes from run to
+    run), CPU tensors to `sweep_scatter_reference`."""
     _check("sweep_scatter", g, xs, ys, tuple(_SUFFIX))
     if g.ndim != 4 or tuple(g.shape[:3]) != tuple(xs.shape):
         raise ValueError(f"sweep_scatter: want g {tuple(xs.shape)} + (C,), got {tuple(g.shape)}")
     d, h, w, c = g.shape
+    hs = h if height is None else height
+    if hs < h:
+        raise ValueError(f"sweep_scatter: a source of {hs} rows for samples of {h}")
     if g.device.type == "cpu":
-        return sweep_scatter_reference(g, xs, ys, h, w)
-    dsrc = torch.zeros((h, w, c), dtype=torch.float32, device=g.device)
+        return sweep_scatter_reference(g, xs, ys, hs, w)
+    dsrc = torch.zeros((hs, w, c), dtype=torch.float32, device=g.device)
     groups = c // 4 if c % 4 == 0 else c
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, scatter_planes(d, h, w, groups, sms))
+    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, scatter_planes(d, h, w, groups, sms),
+            hs)
     _count(sweep_scatter, g.dtype)
     return dsrc
 
@@ -181,12 +189,14 @@ class _SweepGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, xs, ys, out_dtype):
         ctx.save_for_backward(xs, ys)
+        ctx.height = src.shape[0]
         return _gather(src, xs, ys, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         xs, ys = ctx.saved_tensors
-        dsrc = sweep_scatter(g.contiguous(), xs, ys) if ctx.needs_input_grad[0] else None
+        dsrc = (sweep_scatter(g.contiguous(), xs, ys, ctx.height) if ctx.needs_input_grad[0]
+                else None)
         return dsrc, None, None, None
 
 
@@ -194,8 +204,9 @@ def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                  out_dtype=None) -> torch.Tensor:
     """Bilinear samples of one source view at the plane-sweep coordinates.
 
-    src (H, W, C) float32, xs/ys (D, H, W) float32 on one device →
-    (D, H, W, C) in out_dtype (None or torch.float32: fp32; torch.bfloat16:
+    src (H, W, C) float32, xs/ys (D, H', W) float32 on one device, H' = H
+    or a band of H' ≤ H reference rows (height sharding) →
+    (D, H', W, C) in out_dtype (None or torch.float32: fp32; torch.bfloat16:
     the fp32 sample rounded once to nearest even), zero outside the image;
     differentiable in src (backward: `sweep_scatter` of the cotangent, in
     the output's dtype), not in the coordinates.  CUDA tensors go to the

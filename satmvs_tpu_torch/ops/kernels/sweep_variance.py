@@ -71,16 +71,22 @@ def sweep_variance_backward_reference(feats: torch.Tensor, xs: torch.Tensor, ys:
     source view's cotangent volume g·((2/V)(w_s − m)), and dref (B, H, W, C),
     Σ_d g·((2/V)(ref − m)).  `_vjp` transposes gs into the
     source views' cotangents with `sweep_scatter_reference`."""
-    v = feats.shape[1]
+    return _backward_reference(feats[:, 0], feats[:, 1:], xs, ys, g)
+
+
+def _backward_reference(ref, srcs, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """`sweep_variance_backward_reference` of ref (B, H', W, C) and srcs
+    (B, S, H, W, C), H' ≤ H (a band of reference rows)."""
+    v = srcs.shape[1] + 1
     scale = 2.0 / v
     gs, dref = [], []
-    for f, x, y, gb in zip(feats, xs, ys, g):
-        warped = [bilinear_sample(f[s + 1], x[s], y[s]) for s in range(v - 1)]
-        mean = f[0][None]
+    for r, f, x, y, gb in zip(ref, srcs, xs, ys, g):
+        warped = [bilinear_sample(f[s], x[s], y[s]) for s in range(v - 1)]
+        mean = r[None]
         for w in warped:
             mean = mean + w
         mean = mean / v
-        dref.append(torch.sum(gb * (scale * (f[0][None] - mean)), dim=0))
+        dref.append(torch.sum(gb * (scale * (r[None] - mean)), dim=0))
         gs.append(torch.stack([gb * (scale * (w - mean)) for w in warped]))
     return torch.stack(gs), torch.stack(dref)
 
@@ -164,15 +170,16 @@ def _c_fn():
     fn = build.load("sweep_variance").sweep_variance_f32
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(ref, srcs, bstride: int, xs, ys, out, plan: dict | None = None):
     """sweep_variance_f32 for sample b's maps at ref + b·bstride and
-    srcs + b·bstride (floats), xs/ys (B, S, D, H, W) into out (B, D, H, W, C),
-    under `plan` or `sweep_variance_plan`'s; counts the launch."""
+    srcs + b·bstride (floats; srcs (B, S, Hs, W, C), ref H rows of W·C
+    floats, H ≤ Hs), xs/ys (B, S, D, H, W) into out (B, D, H, W, C), under
+    `plan` or `sweep_variance_plan`'s; counts the launch."""
     b, n_src, d, h, w = xs.shape
     c = out.shape[-1]
     if out.numel() == 0:
@@ -186,7 +193,7 @@ def _launch(ref, srcs, bstride: int, xs, ys, out, plan: dict | None = None):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _c_fn()(ref.data_ptr(), srcs.data_ptr(), bstride, xs.data_ptr(), ys.data_ptr(),
                      out.data_ptr(), b, n_src, d, h, w, c, plan["vec"], plan["groups"],
-                     plan["planes"], plan["tx"], plan["ty"], stream)
+                     plan["planes"], plan["tx"], plan["ty"], srcs.shape[-3], stream)
     if rc != 0:
         raise RuntimeError(f"sweep_variance kernel launch failed: CUDA error {rc}")
     sweep_variance.launches += 1
@@ -211,7 +218,7 @@ def sweep_variance_backward_plan(b: int, s: int, d: int, h: int, w: int, c: int,
 def _c_bwd():
     fn = build.load("sweep_variance").sweep_variance_backward_f32
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -232,7 +239,7 @@ def _cotangents(ref, srcs, bstride: int, xs, ys, g):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _c_bwd()(ref.data_ptr(), srcs.data_ptr(), bstride, xs.data_ptr(), ys.data_ptr(),
                       g.data_ptr(), gs.data_ptr(), dref.data_ptr(), b, n_src, d, h, w, c,
-                      plan["vec"], plan["tx"], plan["ty"], stream)
+                      plan["vec"], plan["tx"], plan["ty"], srcs.shape[-3], stream)
     if rc != 0:
         raise RuntimeError(f"sweep_variance_backward kernel launch failed: CUDA error {rc}")
     sweep_variance_backward.launches += 1
@@ -240,8 +247,9 @@ def _cotangents(ref, srcs, bstride: int, xs, ys, g):
 
 
 def _check(ref, srcs, xs, ys, batched: bool):
-    """ref (H, W, C), srcs (S, H, W, C), xs/ys (S, D, H, W), each with a
-    leading B when batched; all float32 on one device."""
+    """ref (H', W, C), srcs (S, H, W, C), xs/ys (S, D, H', W), each with a
+    leading B when batched, H' = H or a band of H' < H reference rows; all
+    float32 on one device."""
     name = "sweep_variance_batched" if batched else "sweep_variance"
     lead = 1 if batched else 0
     for what, t in (("ref", ref), ("srcs", srcs), ("xs", xs), ("ys", ys)):
@@ -255,7 +263,8 @@ def _check(ref, srcs, xs, ys, batched: bool):
                          f"{tuple(ref.shape)}, {tuple(srcs.shape)}, {tuple(xs.shape)}")
     *bs, h, w, c = ref.shape
     n_src, d = xs.shape[lead], xs.shape[lead + 1]
-    if tuple(srcs.shape) != (*bs, n_src, h, w, c):
+    hs = srcs.shape[-3]
+    if tuple(srcs.shape) != (*bs, n_src, hs, w, c) or hs < h:
         raise ValueError(f"{name}: source views {tuple(srcs.shape)} != {(*bs, n_src, h, w, c)}")
     if tuple(xs.shape) != (*bs, n_src, d, h, w) or ys.shape != xs.shape:
         raise ValueError(f"{name}: xs {tuple(xs.shape)} / ys {tuple(ys.shape)} "
@@ -281,11 +290,11 @@ def _vjp(ref, srcs, bstride: int, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor
     (the kernel, or for CPU tensors its plain version), then each source
     view's volume scattered into its cotangent by `sweep_scatter`."""
     if g.device.type == "cpu":
-        feats = torch.cat([ref[:, None], srcs], dim=1)
-        gs, dref = sweep_variance_backward_reference(feats, xs, ys, g)
+        gs, dref = _backward_reference(ref, srcs, xs, ys, g)
     else:
         gs, dref = _cotangents(ref, srcs, bstride, xs, ys, g)
-    dsrcs = torch.stack([torch.stack([sweep_scatter(gs[b, s], xs[b, s], ys[b, s])
+    hs = srcs.shape[2]
+    dsrcs = torch.stack([torch.stack([sweep_scatter(gs[b, s], xs[b, s], ys[b, s], hs)
                                       for s in range(xs.shape[1])])
                          for b in range(xs.shape[0])])
     return dref, dsrcs
@@ -333,34 +342,43 @@ def sweep_variance(ref: torch.Tensor, srcs: torch.Tensor, xs: torch.Tensor,
 
 
 def _batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-             plan: dict | None = None) -> torch.Tensor:
+             plan: dict | None = None, row0: int = 0) -> torch.Tensor:
     """sweep_variance_batched's forward on contiguous CUDA operands, under
     `plan` (one of `sweep_variance_plan_options`) or `sweep_variance_plan`'s;
     no graph."""
     b, v, h, w, c = feats.shape
-    out = torch.empty((b, xs.shape[2], h, w, c), dtype=torch.float32, device=feats.device)
-    _launch(feats, feats[:, 1:], v * h * w * c, xs, ys, out, plan)
+    hb = xs.shape[3]
+    out = torch.empty((b, xs.shape[2], hb, w, c), dtype=torch.float32, device=feats.device)
+    _launch(feats[:, 0, row0:row0 + hb], feats[:, 1:], v * h * w * c, xs, ys, out, plan)
     return out
 
 
-def sweep_variance_batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+def sweep_variance_batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                           row0: int = 0) -> torch.Tensor:
     """`sweep_variance` of every sample of a batch, in one launch.
 
-    feats (B, V, H, W, C), view 0 the reference; xs/ys (B, V − 1, D, H, W);
-    all float32 on one device → (B, D, H, W, C) float32, each sample
-    `sweep_variance(feats[b, 0], feats[b, 1:], xs[b], ys[b])` bit for bit,
-    differentiable in feats (one `sweep_variance_backward` launch for the
-    batch, then the scatters).  CUDA tensors (contiguous) go to the CUDA
-    kernel; CPU tensors to `sweep_variance_batched_reference`.
+    feats (B, V, H, W, C), view 0 the reference; xs/ys (B, V − 1, D, H', W)
+    for the reference rows row0 .. row0 + H' − 1 (all H rows by default; a
+    band of them is a rank's share under height sharding); all float32 on
+    one device → (B, D, H', W, C) float32, each sample
+    `sweep_variance(feats[b, 0], feats[b, 1:], xs[b], ys[b])` bit for bit
+    (on the band, its rows), differentiable in feats (one
+    `sweep_variance_backward` launch for the batch, then the scatters).
+    CUDA tensors (contiguous) go to the CUDA kernel; CPU tensors to
+    `sweep_variance_batched_reference`.
     """
     if feats.ndim != 5:
         raise ValueError(f"sweep_variance_batched: want feats (B, V, H, W, C), got "
                          f"{tuple(feats.shape)}")
-    _check(feats[:, 0], feats[:, 1:], xs, ys, batched=True)
+    b, v, h, w, c = feats.shape
+    hb = xs.shape[3] if xs.ndim == 5 else h
+    if not 0 <= row0 <= h - hb:
+        raise ValueError(f"sweep_variance_batched: rows {row0} .. {row0 + hb - 1} of {h}")
+    ref = feats[:, 0, row0:row0 + hb]
+    _check(ref, feats[:, 1:], xs, ys, batched=True)
     if feats.device.type != "cpu":
         _cuda_operands("sweep_variance_batched", feats=feats, xs=xs, ys=ys)
-    b, v, h, w, c = feats.shape
-    return _SweepVariance.apply(feats[:, 0], feats[:, 1:], xs, ys, v * h * w * c)
+    return _SweepVariance.apply(ref, feats[:, 1:], xs, ys, v * h * w * c)
 
 
 def sweep_variance_backward(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,

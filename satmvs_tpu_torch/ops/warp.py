@@ -183,9 +183,10 @@ def rpc_transform_points(cams: RpcWarpCams, src_index: int, x, y, h):
     return samp_n * dn[0, 0] + dn[0, 1], line_n * dn[1, 0] + dn[1, 1]
 
 
-def _sweep_grid(depth_values: torch.Tensor, height: int, width: int):
-    """(xs, ys, hyps), each (D, H, W) float32: the reference pixel grid and
-    the hypotheses ((D, H, W) or (D,)) broadcast over it."""
+def _sweep_grid(depth_values: torch.Tensor, height: int, width: int, row0: int = 0):
+    """(xs, ys, hyps), each (D, H, W) float32: the reference pixel grid of
+    rows row0 .. row0 + H − 1 and the hypotheses ((D, H, W) or (D,))
+    broadcast over it."""
     d = depth_values.shape[0]
     dev = depth_values.device
     hyp = depth_values.to(torch.float32)
@@ -193,20 +194,22 @@ def _sweep_grid(depth_values: torch.Tensor, height: int, width: int):
         hyp = hyp.reshape(d, 1, 1)
     hyp = hyp.expand(d, height, width)
     xs = torch.arange(width, dtype=torch.float32, device=dev).expand(d, height, width)
-    ys = torch.arange(height, dtype=torch.float32, device=dev).reshape(height, 1).expand(
-        d, height, width)
+    ys = torch.arange(row0, row0 + height, dtype=torch.float32, device=dev).reshape(
+        height, 1).expand(d, height, width)
     return xs, ys, hyp
 
 
 @torch.no_grad()
 def rpc_sweep_coords(cams: RpcWarpCams, src_index: int, depth_values: torch.Tensor,
-                     height: int, width: int):
+                     height: int, width: int, row0: int = 0):
     """Source-view pixel coordinates of the RPC plane sweep.
 
-    depth_values: (D, H, W) or (D,) height hypotheses in metres.
-    Returns (x_src, y_src), each (D, H, W) float32, exact per pixel.
+    depth_values: (D, H, W) or (D,) height hypotheses in metres, for the
+    reference rows row0 .. row0 + H − 1 (a band of them under height
+    sharding).  Returns (x_src, y_src), each (D, H, W) float32, exact per
+    pixel.
     """
-    return rpc_transform_points(cams, src_index, *_sweep_grid(depth_values, height, width))
+    return rpc_transform_points(cams, src_index, *_sweep_grid(depth_values, height, width, row0))
 
 
 def _qc_pair(qc4: torch.Tensor, p, l, h):
@@ -221,10 +224,10 @@ def _qc_pair(qc4: torch.Tensor, p, l, h):
 
 @torch.no_grad()
 def rpc_sweep_coords_qc(cams: QcWarpCams, src_index: int, depth_values: torch.Tensor,
-                        height: int, width: int):
+                        height: int, width: int, row0: int = 0):
     """`rpc_sweep_coords` of QC-form cameras (the `use_qc` variant): the same
     chain, each rational polynomial summed over its (4, 4, 4) tensor."""
-    xs, ys, hyp = _sweep_grid(depth_values, height, width)
+    xs, ys, hyp = _sweep_grid(depth_values, height, width, row0)
     rn = cams.ref_norm
     xn = (xs - rn[0, 0]) * rn[0, 1]
     yn = (ys - rn[1, 0]) * rn[1, 1]
@@ -258,41 +261,44 @@ def guard_z(z: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def homo_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
-                      depth_values: torch.Tensor, height: int, width: int):
+                      depth_values: torch.Tensor, height: int, width: int, row0: int = 0):
     """Source-view pixel coordinates of the pinhole homography sweep:
     p ~ rel[:3, :3]·(x, y, 1)·d + rel[:3, 3] with rel = src_proj · ref_proj⁻¹
     (`relative_transform`).  src_proj, ref_proj (4, 4); depth_values
-    (D, H, W) or (D,) depth hypotheses.  Returns (x_src, y_src), each
-    (D, H, W) float32; the 3×3 product is written out in fp32
-    multiply-adds."""
+    (D, H, W) or (D,) depth hypotheses of the reference rows row0 .. row0 +
+    H − 1.  Returns (x_src, y_src), each (D, H, W) float32; the 3×3 product
+    is written out in fp32 multiply-adds."""
     rel = relative_transform(src_proj, ref_proj)
     d = depth_values.shape[0]
     hyp = depth_values.to(torch.float32)
     hyp = (hyp.reshape(d, 1, 1) if hyp.ndim == 1 else hyp).expand(d, height, width)
     dev = depth_values.device
     xs = torch.arange(width, dtype=torch.float32, device=dev).expand(height, width)
-    ys = torch.arange(height, dtype=torch.float32, device=dev).reshape(height, 1).expand(
-        height, width)
+    ys = torch.arange(row0, row0 + height, dtype=torch.float32, device=dev).reshape(
+        height, 1).expand(height, width)
     p = [(xs * rel[c, 0] + ys * rel[c, 1] + rel[c, 2]) * hyp + rel[c, 3] for c in range(3)]
     z = guard_z(p[2])
     return p[0] / z, p[1] / z
 
 
-def sweep_coords(cams, src_index: int, depth_values: torch.Tensor, height: int, width: int):
+def sweep_coords(cams, src_index: int, depth_values: torch.Tensor, height: int, width: int,
+                 row0: int = 0):
     """One sample's sweep coordinates for source view src_index under its
-    cameras: `rpc_sweep_coords` for `RpcWarpCams`, `rpc_sweep_coords_qc`
-    for `QcWarpCams`, `homo_sweep_coords` for pinhole (V, 4, 4) projection
+    cameras, for the reference rows row0 .. row0 + height − 1:
+    `rpc_sweep_coords` for `RpcWarpCams`, `rpc_sweep_coords_qc` for
+    `QcWarpCams`, `homo_sweep_coords` for pinhole (V, 4, 4) projection
     matrices (view 0 the reference)."""
     if isinstance(cams, torch.Tensor):
-        return homo_sweep_coords(cams[src_index + 1], cams[0], depth_values, height, width)
+        return homo_sweep_coords(cams[src_index + 1], cams[0], depth_values, height, width,
+                                 row0)
     if isinstance(cams, QcWarpCams):
-        return rpc_sweep_coords_qc(cams, src_index, depth_values, height, width)
-    return rpc_sweep_coords(cams, src_index, depth_values, height, width)
+        return rpc_sweep_coords_qc(cams, src_index, depth_values, height, width, row0)
+    return rpc_sweep_coords(cams, src_index, depth_values, height, width, row0)
 
 
 def rpc_warp(src_feat: torch.Tensor, cams: RpcWarpCams | QcWarpCams, src_index: int,
              depth_values: torch.Tensor, convention: str = "exact",
-             out_dtype=None) -> torch.Tensor:
+             out_dtype=None, row0: int = 0) -> torch.Tensor:
     """RPC plane-sweep warp of one source view: src_feat (H, W, C) sampled at
     the sweep coordinates of `depth_values` ((D, H, W) or (D,) heights) →
     (D, H, W, C), differentiable in src_feat; the coordinates carry no
@@ -305,24 +311,30 @@ def rpc_warp(src_feat: torch.Tensor, cams: RpcWarpCams | QcWarpCams, src_index: 
     in float32 and rounded once, and the backward reads the bf16 cotangent
     into the float32 scatter).  convention="torch" (the reference's
     grid_sample stretch) is not ported and raises.  Unbatched `cams`, of
-    either RPC form.
+    either RPC form.  With (D, H', W) hypotheses the warp covers the
+    reference rows row0 .. row0 + H' − 1 (a rank's band under height
+    sharding) and reads the source whole → (D, H', W, C).
     """
     if convention != "exact":
         raise ValueError(f"rpc_warp: convention {convention!r} is not ported (torch_compat)")
     h, w, _ = src_feat.shape
-    xs, ys = sweep_coords(cams, src_index, depth_values, h, w)
+    if depth_values.ndim == 3:
+        h = depth_values.shape[1]
+    xs, ys = sweep_coords(cams, src_index, depth_values, h, w, row0)
     return sweep_gather(src_feat, xs.contiguous(), ys.contiguous(), out_dtype)
 
 
 def homo_warp(src_feat: torch.Tensor, src_proj: torch.Tensor, ref_proj: torch.Tensor,
               depth_values: torch.Tensor, convention: str = "exact",
-              out_dtype=None) -> torch.Tensor:
+              out_dtype=None, row0: int = 0) -> torch.Tensor:
     """Pinhole plane-sweep warp of one source view: src_feat (H, W, C)
     sampled at the homography sweep's coordinates (`homo_sweep_coords`) →
     (D, H, W, C) by the `sweep_gather` kernel, differentiable in src_feat;
-    out_dtype and convention as in `rpc_warp`."""
+    out_dtype, convention and a band of rows (row0) as in `rpc_warp`."""
     if convention != "exact":
         raise ValueError(f"homo_warp: convention {convention!r} is not ported (torch_compat)")
     h, w, _ = src_feat.shape
-    xs, ys = homo_sweep_coords(src_proj, ref_proj, depth_values, h, w)
+    if depth_values.ndim == 3:
+        h = depth_values.shape[1]
+    xs, ys = homo_sweep_coords(src_proj, ref_proj, depth_values, h, w, row0)
     return sweep_gather(src_feat, xs.contiguous(), ys.contiguous(), out_dtype)

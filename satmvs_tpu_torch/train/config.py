@@ -3,9 +3,10 @@
 Counterpart of `satmvs_tpu/train/config.py`, with the same fields, CLI
 surface and defaults, so a command line means the same in both packages.
 Values whose features the port lacks raise when set away from their
-defaults: compute_dtype other than float32, torch_compat, and the spatial
-and depth mesh extents (ROADMAP A10b).  mesh_data trains data-parallel
-over that many ranks (`dist`, `train.loop.fit`).  All three models train, evaluate and predict, under
+defaults: compute_dtype other than float32 and torch_compat.  mesh_data,
+mesh_spatial and mesh_depth lay out that many ranks on JAX's three mesh
+axes (`dist`, `train.loop.fit`): data-parallel, height-sharded and
+depth-slab-sharded cost volumes.  All three models train, evaluate and predict, under
 either camera model (geo_model "rpc", with use_qc its QC form, or
 "pinhole").  volume_dtype="bfloat16" stores the per-view
 sweep's warped volumes in bf16 (a no-op on the fused sweep, which stores
@@ -25,9 +26,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-# field → the value the port supports (every other value raises); the
-# spatial and depth mesh axes need halo exchanges through the 3-D convs
-_ONLY = {"compute_dtype": "float32", "torch_compat": False, "mesh_spatial": 1, "mesh_depth": 1}
+# field → the value the port supports (every other value raises)
+_ONLY = {"compute_dtype": "float32", "torch_compat": False}
 
 
 @dataclasses.dataclass
@@ -88,12 +88,11 @@ class Config:
             raise ValueError(f"geo_model={self.geo_model!r}: want 'rpc' or 'pinhole'")
         for name, value in _ONLY.items():
             if getattr(self, name) != value:
-                later = (" (spatial and depth-slab sharding are ROADMAP A10b)"
-                         if name.startswith("mesh_") else "")
                 raise ValueError(f"{name}={getattr(self, name)!r}: the port supports "
-                                 f"{name}={value!r} only{later}")
-        if self.mesh_data < 1:
-            raise ValueError(f"mesh_data={self.mesh_data!r}: want a rank count ≥ 1")
+                                 f"{name}={value!r} only")
+        for name in ("mesh_data", "mesh_spatial", "mesh_depth"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)!r}: want a rank count ≥ 1")
         if self.volume_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"volume_dtype={self.volume_dtype!r}: want 'float32' or 'bfloat16'")
 

@@ -1,14 +1,23 @@
 """Training and evaluation: the train and eval steps, RMSprop with an LR
 stepped at epoch boundaries, the epoch loop with logging and checkpoints.
 
-Counterpart of `satmvs_tpu/train/loop.py`, on one GPU or data-parallel
-over the ranks of a mesh's data axis (`dist`, JAX's mesh path
-`satmvs_tpu/train/loop.py:203-265`): every rank holds the whole state,
-replicated from rank 0, runs the step on its share of each global batch
-with BatchNorm's moments, the loss's mask counts and the metrics taken
-over the global batch, and sums the gradients over the ranks before the
-update, so the replicas stay identical and the step is JAX's step on the
-global batch.  A mesh of one rank gives the serial step's bits.  JAX's
+Counterpart of `satmvs_tpu/train/loop.py`, on one GPU or over the ranks of
+a mesh (`dist`, JAX's mesh path `satmvs_tpu/train/loop.py:203-265`): every
+rank holds the whole state, replicated from rank 0, runs the step on its
+data-axis share of each global batch with BatchNorm's moments, the loss's
+mask counts and the metrics taken over the global batch, and sums the
+gradients over the ranks before the update, so the replicas stay identical
+and the step is JAX's step on the global batch.  Under a spatial or depth
+axis the ranks of a group share a batch and split each sharded stage's
+cost volume (`models.cascade`, JAX's `volume_partition` from
+`stage_volume_specs` with the height of the first batch): a map that every
+rank of a group computes alike enters each rank's loss at 1/G of its
+weight, which the mask count over the whole mesh gives (`models.losses`),
+so the ranks' losses and gradients still sum to the serial ones; the
+FeatureNet's BatchNorms take their moments over the data group (their
+input is alike on a group's ranks), a sharded stage's CostRegNet over the
+whole mesh (each rank holds another slab).  A mesh of one rank gives the
+serial step's bits.  JAX's
 functional state becomes tensors updated in place: a `TrainState` holds the
 model's own parameter and running-statistic tensors by name, the
 optimizer's state and the step count; `train_step(state, batch)` updates
@@ -30,7 +39,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..dist import all_reduce_grads, all_reduce_sum, make_mesh, replicate, shard_batch
+from ..dist import (all_reduce_grads, all_reduce_sum, make_mesh, replicate, shard_batch,
+                    stage_volume_specs)
 from ..models import build_model
 from ..models.losses import cascade_loss
 from ..nn.blocks import sync_batch_norm
@@ -146,23 +156,54 @@ def state_of(model, tx: RMSprop) -> TrainState:
     return TrainState(params, batch_stats, tx.init(params), 0)
 
 
+def partition_model(model, mesh, height: int) -> None:
+    """Under a mesh with a spatial or depth axis, set the model's sharded
+    cost volumes as JAX's `fit` sets them (`satmvs_tpu/train/loop.py:
+    230-242`): `stage_volume_specs` of the model's ndepths with the mesh's
+    extents and the image `height` (the guards shard a stage only where
+    every level of the strided pyramid keeps ≥ shards·8 planes or rows)."""
+    if mesh is None or (mesh.shape["spatial"] == 1 and mesh.shape["depth"] == 1):
+        return
+    specs = stage_volume_specs(model.ndepths, spatial=mesh.shape["spatial"] > 1,
+                               depth_shards=mesh.shape["depth"],
+                               spatial_shards=mesh.shape["spatial"], height=height)
+    model.partition(specs, mesh)
+
+
 def create_model_and_state(cfg: Config, sample_batch: dict, steps_per_epoch: int,
-                           variables: Optional[dict] = None):
+                           variables: Optional[dict] = None, mesh=None):
     """The configured model on the sample batch's device (`create_model`),
     its TrainState and optimizer, for training.  cfg.fused_red None and True
     take the fused RED pipeline, False its scan path.  train_fused_sweep is
     read from the environment once, here, as the JAX package reads it
     (SATMVS_TRAIN_FUSED_SWEEP=1: train on the fused sweep).  The CostRegNet
     families (model "casmvs", "ucs") train their CostRegNet as 3-D
-    convolutions with train-mode BatchNorm."""
+    convolutions with train-mode BatchNorm.  Under a `mesh` with a spatial
+    or depth axis the model's volumes are sharded (`partition_model`, the
+    height the sample batch's)."""
     model = create_model(cfg, sample_batch["imgs"].device, variables,
                          train_fused_sweep=os.environ.get("SATMVS_TRAIN_FUSED_SWEEP") == "1")
+    if mesh is not None:
+        partition_model(model, mesh, int(sample_batch["imgs"].shape[2]))
     tx = make_optimizer(cfg, steps_per_epoch)
     return model, state_of(model, tx), tx
 
 
 def _group(mesh):
     return None if mesh is None else mesh.group
+
+
+def sync_norms(model, mesh) -> None:
+    """Every BatchNorm of the model takes its train-mode moments over the
+    mesh's data group, those of a sharded stage's regularizer over the
+    whole mesh (each rank holds another slab of its volume); without a
+    mesh, over this rank's batch."""
+    sync_batch_norm(model, None if mesh is None else mesh.data_group)
+    if mesh is None or getattr(model, "volume_partition", None) is None:
+        return
+    for reg, (_, depth, spatial, *_) in zip(model.regs, model.volume_partition):
+        if depth or spatial:
+            sync_batch_norm(reg, mesh.group)
 
 
 def _global(values, group) -> list[torch.Tensor]:
@@ -176,7 +217,7 @@ def loss_and_grads(model, state: TrainState, batch: dict, dlossw, train: bool = 
     """The differentiable forward (train-mode BatchNorm with train; without,
     the eval-mode gradients the parity checks compare), the loss and its
     gradient in every parameter.  Under a mesh, batch is this rank's share
-    and the gradients, summed over the data group, are those of the global
+    and the gradients, summed over the mesh, are those of the global
     batch's loss.  Returns (outputs, loss, depth_loss, {name: gradient}):
     loss and depth_loss are the global batch's, detached."""
     names = list(state.params)
@@ -197,12 +238,12 @@ def make_train_step(model, tx: RMSprop, dlossw, mesh=None) -> Callable:
     its gradient, one optimizer update; scalars are device tensors (loss,
     depth_loss and the final stage's abs_depth_error).  Under a mesh (one
     of `dist.make_mesh`) the batch is this rank's share (`dist.shard_batch`),
-    the model's BatchNorms take their moments over the data group, the
-    gradients are summed over it before the update, and the scalars are
-    the global batch's."""
+    the model's BatchNorms take their moments as `sync_norms` says, the
+    gradients are summed over the mesh before the update, and the scalars
+    are the global batch's."""
     dlossw = tuple(dlossw)
     group = _group(mesh)
-    sync_batch_norm(model, group)
+    sync_norms(model, mesh)
 
     def train_step(state: TrainState, batch: dict):
         out, loss, depth_loss, grads = loss_and_grads(model, state, batch, dlossw, True, mesh)
@@ -243,8 +284,7 @@ def make_eval_step(model, dlossw, min_interval: float, mesh=None) -> Callable:
 
 def _check_mesh(cfg: Config) -> None:
     """JAX's refusals of a mesh, in JAX's order and words
-    (`satmvs_tpu/train/loop.py:212-229`); the first two wait for ROADMAP
-    A10b (Config refuses those extents today)."""
+    (`satmvs_tpu/train/loop.py:212-229`)."""
     if cfg.mesh_depth > 1 and cfg.model == "red":
         raise ValueError("depth-slab sharding (--mesh_depth) applies to the 3-D conv "
                          "regularizers (casmvs/ucs); the RED recurrence scans depth "
@@ -268,25 +308,29 @@ def fit(cfg: Config, train_loader, test_loader, workdir: str,
     seconds of its train steps and of its test pass, the card synchronized
     at both ends.
 
-    Data-parallel when cfg.mesh_data > 1 (the mesh of that many ranks, made
-    here; every rank of the process group calls fit) or when a `mesh` is
-    passed (its data extent cfg.mesh_data).  Every rank iterates the same
-    loaders (same seed, so the same order) and trains on its share of each
-    global batch (`dist.shard_batch`; a batch the ranks do not divide
-    raises); the state is replicated from rank 0; only rank 0 logs and
-    writes the record files, images and checkpoints, and the ranks wait for
-    each other after a save; a resume restores on every rank."""
+    Over a mesh when cfg.mesh_data, mesh_spatial or mesh_depth is above 1
+    (the mesh of their product of ranks, made here; every rank of the
+    process group calls fit) or when a `mesh` is passed (its extents
+    cfg's).  Every rank iterates the same loaders (same seed, so the same
+    order) and trains on its data-axis share of each global batch
+    (`dist.shard_batch`; a batch the data ranks do not divide raises), its
+    slabs of the sharded stages' volumes under a spatial or depth axis
+    (`partition_model`, the height the first batch's, as JAX's fit takes
+    it); the state is replicated from rank 0; only rank 0 logs and writes
+    the record files, images and checkpoints, and the ranks wait for each
+    other after a save; a resume restores on every rank."""
     if mesh is not None or cfg.mesh_data * cfg.mesh_spatial * cfg.mesh_depth > 1:
         _check_mesh(cfg)
         if mesh is None:
             mesh = make_mesh(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_depth)
-        if mesh.shape["data"] != cfg.mesh_data:
-            raise ValueError(f"a mesh of {mesh.shape['data']} data ranks for mesh_data "
-                             f"{cfg.mesh_data}")
+        want = {"data": cfg.mesh_data, "spatial": cfg.mesh_spatial, "depth": cfg.mesh_depth}
+        if mesh.shape != want:
+            raise ValueError(f"a mesh of {mesh.shape} for the config's {want}")
     steps_per_epoch = max(len(train_loader), 1)
     first = next(iter(train_loader))
     shard = (lambda b: b) if mesh is None else (lambda b: shard_batch(b, mesh))
-    model, state, tx = create_model_and_state(cfg, shard(first), steps_per_epoch, variables)
+    model, state, tx = create_model_and_state(cfg, shard(first), steps_per_epoch, variables,
+                                              mesh)
     writer = mesh is None or mesh.rank == 0
     if mesh is not None:
         replicate(state.to_dict(), mesh)

@@ -15,8 +15,9 @@ a FileStore under the test's temporary directory.  What they hold:
     step, a batch whose halves hold different mask counts, `fit`, and the
     tile-parallel scene at JAX's gates (tests/test_scene.py);
   - view-sharded variance moments against JAX's serial volume;
-  - the mesh's shapes, refusals and volume specs against JAX's, and
-    `shard_batch`.
+  - the mesh's shapes, rank layout, refusals and volume specs against
+    JAX's, and `shard_batch`.  The spatial and depth axes are
+    tests/test_torch_dist_shard.py's.
 
 The serial port is held to JAX's `make_train_step` by tests/test_torch_train.py
 and tests/test_torch_train_costreg.py.  The gates of the train steps: the
@@ -134,24 +135,26 @@ def _assert_grads_close(got: dict, want: dict):
 
 
 def test_make_mesh_matches_jax():
-    """Shapes and refusals against JAX's make_mesh on the 8 virtual CPU
-    devices: the port lays out the same data extents, refuses the same
-    oversized meshes (ValueError), and refuses spatial and depth extents
-    naming ROADMAP A10b; without a process group the world is one rank."""
+    """Shapes, rank layout and refusals against JAX's make_mesh on the 8
+    virtual CPU devices: the port lays out the same extents, rank r at the
+    place of device r in JAX's (data, spatial, depth) array, and refuses
+    the same oversized meshes (ValueError); without a process group the
+    world is one rank and there are no groups."""
     for data, spatial, depth in ((1, 1, 1), (2, 1, 1), (4, 1, 1), (8, 1, 1), (2, 4, 1),
-                                 (2, 1, 4), (16, 16, 1), (9, 1, 1)):
+                                 (2, 1, 4), (1, 2, 1), (1, 1, 2), (2, 2, 2), (16, 16, 1),
+                                 (9, 1, 1)):
         try:
-            want = dict(jmake_mesh(data=data, spatial=spatial, depth=depth).shape)
+            jmesh = jmake_mesh(data=data, spatial=spatial, depth=depth)
         except ValueError:
             with pytest.raises(ValueError, match="devices"):
                 make_mesh(data, spatial, depth, world_size=8)
             continue
-        if spatial > 1 or depth > 1:
-            with pytest.raises(NotImplementedError, match="A10b"):
-                make_mesh(data, spatial, depth, world_size=8)
-            continue
         mesh = make_mesh(data, spatial, depth, world_size=8)
-        assert mesh.shape == want and mesh.rank == 0 and mesh.group is None
+        assert mesh.shape == dict(jmesh.shape) and mesh.rank == 0 and mesh.group is None
+        ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+        for r in range(data * spatial * depth):
+            place = Mesh(mesh.shape, r, data * spatial * depth).coords
+            assert ids[place] == ids.reshape(-1)[r], (data, spatial, depth, r)
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         make_mesh(data=2)
     assert make_mesh().shape == {"data": 1, "spatial": 1, "depth": 1}
@@ -212,14 +215,14 @@ def test_shard_batch_cuts_every_leading_axis():
 
 
 def test_config_takes_mesh_data_and_refuses_a10b():
-    """mesh_data is accepted; the spatial and depth extents raise, naming
-    ROADMAP A10b; a data extent below 1 raises."""
+    """The three mesh extents are accepted (the spatial and depth axes,
+    ROADMAP A10b, run since); an extent below 1 raises."""
     assert Config(mesh_data=4, batch_size=4).mesh_data == 4
     for field in ("mesh_spatial", "mesh_depth"):
-        with pytest.raises(ValueError, match=f"{field}=2.*A10b"):
-            Config(**{field: 2})
-    with pytest.raises(ValueError, match="mesh_data"):
-        Config(mesh_data=0)
+        assert getattr(Config(**{field: 2}), field) == 2
+    for field in ("mesh_data", "mesh_spatial", "mesh_depth"):
+        with pytest.raises(ValueError, match=field):
+            Config(**{field: 0})
 
 
 def test_fit_refuses_what_jax_refuses(tmp_path):

@@ -114,8 +114,8 @@ def test_config_from_args_matches_jax():
         got, want = Config.from_args(argv), JConfig.from_args(argv)
         assert (got.geo_model, got.use_qc) == (want.geo_model, want.use_qc)
     assert Config.from_args(["--mesh_data", "2"]).mesh_data == 2
-    with pytest.raises(ValueError, match="mesh_spatial.*A10b"):
-        Config.from_args(["--mesh_spatial", "2"])
+    got = Config.from_args(["--mesh_spatial", "2", "--mesh_depth", "4"])
+    assert (got.mesh_spatial, got.mesh_depth) == (2, 4)
 
 
 def test_fit_checkpoints_and_resume(tmp_path):

@@ -606,6 +606,38 @@ def test_cuda_sweep_scatter_runs_of_planes(c, planes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row0,hb,c", [(0, 8, 8), (8, 8, 6), (5, 11, 16)])
+def test_cuda_sweep_kernels_on_a_band_of_rows(row0, hb, c):
+    """A rank's band of reference rows under height sharding (rows row0 ..
+    row0 + hb − 1 of 16; the source views whole): the gather and its
+    scatter into the whole source, the fused sweep and its backward's
+    cotangents against their plain versions (1e-5 × max(1, max |plain|);
+    the scatter within its float-atomics bound)."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    _cuda()
+    d, h, w = 5, 16, 20
+    src, xs, ys, g = _sweep_case(d, h, w, c, 3.0, 70 + row0)
+    xs, ys, g = (t[:, :hb].contiguous() for t in (xs, ys, g))
+    _close(sg.sweep_gather(src, xs, ys), sg.sweep_gather_reference(src, xs, ys), "gather")
+    bound = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(g.abs(), xs, ys, h, w)
+    err = (sg.sweep_scatter(g, xs, ys, h) - sg.sweep_scatter_reference(g, xs, ys, h, w)).abs()
+    assert bool((err <= bound + 1e-30).all()), err.max().item()
+    feats = _rand((1, 3, h, w, c), 80 + row0)
+    xs2 = torch.stack([xs, xs.flip(0)])[None].contiguous()
+    ys2 = torch.stack([ys, ys.flip(0)])[None].contiguous()
+    ref = feats[:, 0, row0:row0 + hb]
+    _close(sv.sweep_variance_batched(feats, xs2, ys2, row0),
+           sv.sweep_variance_reference(ref[0], feats[0, 1:], xs2[0], ys2[0])[None], "sweep")
+    gv = _rand((1, d, hb, w, c), 90 + row0)
+    gs, dref = sv._cotangents(ref, feats[:, 1:], 3 * h * w * c, xs2, ys2, gv)
+    wgs, wdref = sv._backward_reference(ref, feats[:, 1:], xs2, ys2, gv)
+    _close(gs, wgs, "cotangents")
+    _close(dref, wdref, "reference cotangent")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,planes", [(8, 8), (6, 3), (16, 5), (32, 2)])
 def test_cuda_sweep_gather_runs_of_planes(c, planes):
     """Gather threads that walk several planes, two at a time and an odd

@@ -305,7 +305,7 @@ def test_train_fused_sweep_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_data", 0), ("mesh_spatial", 2), ("mesh_depth", 2), ("compute_dtype", "bfloat16"),
+    ("mesh_data", 0), ("mesh_spatial", 0), ("mesh_depth", 0), ("compute_dtype", "bfloat16"),
     ("torch_compat", True)])
 def test_config_refuses_what_the_port_lacks(field, value):
     with pytest.raises(ValueError, match=field):
