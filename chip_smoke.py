@@ -167,6 +167,22 @@ Phases, each reported on its own lines:
      the two ranks predict phase 5's scene tile-parallel (two tiles a rank a
      chunk; exact launches per rank per chunk) against phase 5's serial
      batch_tiles-4 maps (the same bits, or phase 5's gates with the cause).
+  14 the model's remaining knobs: (a) coarse-grid sweep coordinates
+     (`coords="coarse"`) at the forward's three stage shapes against the
+     exact chain and a float64 oracle (0.02 px) and against the CPU, their
+     ms a forward beside the exact chain's, a coarse-coordinate forward
+     (exact launches) stage by stage against the exact forward, within
+     what a 0.02 px shift of the source views moves it; (b) `compute_dtype` bf16: CascadeREDNet and
+     CascadeMVSNet forwards (exact launches) and three train steps each,
+     ms and peak memory beside fp32's, one step at 96×192 against its CPU
+     run (gates from `train_sensitivity.py --only compute_bf16`); (c)
+     `remat`: three steps each for RED (its forward kernels twice a step)
+     and CasMVS, the update against the step without, peak memory beside
+     phase 7's; (d) a synthetic reference checkpoint through
+     `cli.convert_ckpt`, then `cli.predict --torch_compat`, full volume and
+     `--streaming --slab 8`, on phase 9's test split (exact launches, the
+     maps the bits of direct forwards), the torch_compat forward on the
+     card against the CPU and streaming against its full volume.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -176,8 +192,9 @@ streaming forward of phase 4, the two scene runs, the fused train and eval
 steps, the fused_red-off train steps, phase 9's train, predict and scene
 CLI runs, phase 10's two family forwards and its predict run, phase
 11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
-runs, and phase 13's data-parallel steps and tile-parallel scene), the
-nvidia-smi line of the card,
+runs, phase 13's data-parallel steps and tile-parallel scene, and phase
+14's knob forwards, steps and predict runs), the nvidia-smi line of the
+card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -905,12 +922,13 @@ def kernel_wrappers() -> dict:
     return out
 
 
-def build_model(device, geo_model: str = "rpc"):
-    """CascadeREDNet (RPC or pinhole, ndepths 64/32/8) from seed 0, heads ×40
-    (a peaked softmax, so depth parity is not trivial)."""
+def build_model(device, geo_model: str = "rpc", **knobs):
+    """CascadeREDNet (RPC or pinhole, ndepths 64/32/8, further
+    `CascadeModel` knobs) from seed 0, heads ×40 (a peaked softmax, so
+    depth parity is not trivial)."""
     from satmvs_tpu_torch.models import CascadeREDNet
 
-    model = CascadeREDNet(geo_model=geo_model, ndepths=NDEPTHS, device=device, seed=0)
+    model = CascadeREDNet(geo_model=geo_model, ndepths=NDEPTHS, device=device, seed=0, **knobs)
     with torch.no_grad():
         for reg in model.regs:
             reg.step.head.weight.mul_(40.0)
@@ -1745,10 +1763,10 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
     make_batch(width, height) (a CPU batch; by default
     `synthetic.make_batch(1, w, h, seed=1, use_qc=...)` with cfg's use_qc),
     with fused_sweep the train step on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP);
-    `gates` overrides the eval-mode gradients' ("grad" per tensor,
-    "grad_all"), the train step's loss ("step_loss"), update ("update" per
-    tensor, None: not gated; "update_all") and statistics ("stats")
-    gates."""
+    `gates` overrides the eval-mode loss's ("loss") and gradients' ("grad"
+    per tensor, None: not gated; "grad_all"), the train step's loss
+    ("step_loss"), update ("update" per tensor, None: not gated;
+    "update_all") and statistics ("stats") gates."""
     import os
 
     from satmvs_tpu_torch.data import synthetic
@@ -1760,7 +1778,8 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
     cfg = Config(**{"ndepths": PARITY_NDEPTHS, "seed": 5, **fields})
     cpu_batch = (make_batch(w, h) if make_batch else
                  synthetic.make_batch(1, w, h, seed=1, device="cpu", use_qc=cfg.use_qc))
-    gate = {"step_loss": PARITY_LOSS, "update": PARITY_UPDATE, "update_all": PARITY_UPDATE_ALL,
+    gate = {"loss": PARITY_LOSS, "step_loss": PARITY_LOSS, "update": PARITY_UPDATE,
+            "update_all": PARITY_UPDATE_ALL,
             "stats": PARITY_STATS, "grad": PARITY_GRAD, "grad_all": PARITY_GRAD_ALL,
             **(gates or {})}
     runs = {}
@@ -1785,7 +1804,7 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
     gpu, cpu = runs["cuda"], runs["cpu"]
     for name in ("loss", "step_loss"):
         rel = abs(gpu[name] - cpu[name]) / abs(cpu[name])
-        tol = PARITY_LOSS if name == "loss" else gate["step_loss"]
+        tol = gate[name]
         print(f"[train] {what} GPU vs CPU {h}x{w} ndepths {tuple(cfg.ndepths)}: {name} "
               f"{gpu[name]:.6f} vs "
               f"{cpu[name]:.6f}, {rel:.3e} relative (tol {tol})", flush=True)
@@ -1820,7 +1839,8 @@ def phase_train_parity(card: str, what: str = "fused step", fused_sweep: bool = 
           f"largest element (tol {PARITY_HEAD}); update relative norm max {upd:.3e} per tensor "
           f"(tol {gate['update']}), {total:.3e} over all (tol {gate['update_all']}); running "
           f"statistics {stats:.3e} (tol {gate['stats']}); {time.time() - t0:.1f} s", flush=True)
-    check(worst <= gate["grad"] and g_total <= gate["grad_all"] and head <= PARITY_HEAD,
+    check((gate["grad"] is None or worst <= gate["grad"]) and g_total <= gate["grad_all"]
+          and head <= PARITY_HEAD,
           f"{what} parity: eval-mode gradients")
     check((gate["update"] is None or upd <= gate["update"]) and total <= gate["update_all"],
           f"{what} parity: the update")
@@ -1873,12 +1893,12 @@ def train_step_split(model, state, tx, batch, cfg, card: str):
 
 
 def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str,
-                    fused_sweep: bool = False):
+                    fused_sweep: bool = False, remat: bool = False):
     """n_steps train steps of a fresh model from cfg on batch (with
     fused_sweep on the fused sweep: SATMVS_TRAIN_FUSED_SWEEP=1 while the
-    model is built), each checked for exact launches and finite scalars;
-    returns (model, state, tx, step function, launches in all, step ms,
-    losses, peak GiB)."""
+    model is built; with remat its regularizers checkpointed), each checked
+    for exact launches and finite scalars; returns (model, state, tx, step
+    function, launches in all, step ms, losses, peak GiB)."""
     import os
 
     from satmvs_tpu_torch.train import create_model_and_state, make_train_step
@@ -1889,6 +1909,7 @@ def run_train_steps(cfg, batch, n_steps: int, want: dict, what: str, card: str,
     finally:
         del os.environ["SATMVS_TRAIN_FUSED_SWEEP"]
     check(model.train_fused_sweep == fused_sweep, f"{what}: train_fused_sweep")
+    model.remat = remat
     train_step = make_train_step(model, tx, cfg.dlossw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2524,8 +2545,9 @@ COSTREG_PATHS = (*COSTREG_FAMILIES, "cli_predict_ucs")
 COSTREG_BLOCK_TOL = 1e-4         # composed taps vs cuDNN's conv3d, × max(1, max |cuDNN|)
 
 
-def build_costreg_model(name: str, device, geo_model: str = "rpc"):
-    """CascadeMVSNet or UCSNet (ndepths 64/32/8) from seed 0 at flax's
+def build_costreg_model(name: str, device, geo_model: str = "rpc", **knobs):
+    """CascadeMVSNet or UCSNet (ndepths 64/32/8, further `CascadeModel`
+    knobs) from seed 0 at flax's
     LeCun scale, its norms and BatchNorm statistics drawn from seed 1
     (scale 1 ± 0.2, shift and mean ± 0.1, var in [0.5, 1.5]: the BN fold is
     far from the identity), the CostRegNet heads × COSTREG_HEAD_GAIN; drawn
@@ -2533,7 +2555,8 @@ def build_costreg_model(name: str, device, geo_model: str = "rpc"):
     from satmvs_tpu_torch.models import build_model
     from satmvs_tpu_torch.nn.blocks import BatchNorm
 
-    model = lecun_scale(build_model(name, geo_model, ndepths=NDEPTHS, device="cpu", seed=0))
+    model = lecun_scale(build_model(name, geo_model, ndepths=NDEPTHS, device="cpu", seed=0,
+                                    **knobs))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for m in model.modules():
@@ -3012,11 +3035,12 @@ def phase_camera_coords(card: str, pin: dict, pin_info: dict, qc: dict, rpc: dic
               f"source views): {ms:.3f} ms (median of 10, CUDA events) card={card}", flush=True)
 
 
-def camera_forward(card: str, what: str, model, batch, want: dict) -> tuple:
+def camera_forward(card: str, what: str, model, batch, want: dict, tag: str = "[cameras]",
+                   profile: bool = True) -> tuple:
     """A forward with exact launches `want`, finite depth inside the sweep's
     range (stage 1's, widened by the later windows), confidence in [0, 1];
-    then its ms (CUDA events), peak memory and a profile.  Returns (output,
-    launches)."""
+    then its ms (CUDA events), peak memory and (profile) a profile; lines
+    under `tag`.  Returns (output, launches)."""
     imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
     torch.cuda.synchronize()
     reset_counts()
@@ -3039,25 +3063,28 @@ def camera_forward(card: str, what: str, model, batch, want: dict) -> tuple:
               f"{what} stage{i}: depth [{dmin}, {dmax}] outside [{lo - margin}, {hi + margin}]")
         check(0.0 <= conf.min().item() and conf.max().item() <= 1.0 + 1e-6,
               f"{what} stage{i}: confidence")
-        print(f"[cameras] {what} stage{i} depth [{dmin:.2f}, {dmax:.2f}] m (range {lo:.2f}.."
+        print(f"{tag} {what} stage{i} depth [{dmin:.2f}, {dmax:.2f}] m (range {lo:.2f}.."
               f"{hi:.2f} ± {margin:g}), conf [{conf.min().item():.4f}, "
               f"{conf.max().item():.4f}]", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: model(imgs, cams, dvals), reps=5, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[cameras] {what} forward at {imgs.shape[2]}x{imgs.shape[3]}: launches "
+    print(f"{tag} {what} forward at {imgs.shape[2]}x{imgs.shape[3]}: launches "
           f"{({k: v for k, v in launches.items() if v})} (exact), forward_ms={ms:.2f} (median "
           f"of 5, CUDA events, B=1, 3 views) peak_mem={peak:.2f} GiB card={card}", flush=True)
-    profile_forward(lambda: model(imgs, cams, dvals), card, what=f"one {what} forward")
+    if profile:
+        profile_forward(lambda: model(imgs, cams, dvals), card, what=f"one {what} forward")
     return out, launches
 
 
-def stagewise_against(what: str, model, ref_out: dict, imgs, cams, dvals):
+def stagewise_against(what: str, model, ref_out: dict, imgs, cams, dvals,
+                      tag: str = "[cameras]"):
     """`model`'s stages on `cams` against ref_out (the same model on other
-    cameras of the same views), each stage centred on ref_out's previous
-    depth: the mean ≤ DEPTH_TOL_MEAN and the p99 ≤ DEPTH_TOL_P99 of the
-    stage's hypothesis step; the max |Δ| in metres beside it."""
+    cameras of the same views, or with other knobs), each stage centred on
+    ref_out's previous depth: the mean ≤ DEPTH_TOL_MEAN and the p99 ≤
+    DEPTH_TOL_P99 of the stage's hypothesis step; the max |Δ| in metres
+    beside it."""
     feats = model.features(imgs)
     d_min, d_max = dvals[:, 0], dvals[:, -1]
     for i, step in enumerate(stage_steps(*dvals[0].tolist(), model.stage_intervals())):
@@ -3065,7 +3092,7 @@ def stagewise_against(what: str, model, ref_out: dict, imgs, cams, dvals):
         got = model.stage(i, feats[i], cams[i], d_min, d_max, prev)["depth"]
         diff = (got - ref_out[f"stage{i + 1}"]["depth"]).abs()
         mean, p99, mx = err_quantiles(diff / step)
-        print(f"[cameras] {what} stage{i + 1} (step {step:.3f} m), same window centres: depth "
+        print(f"{tag} {what} stage{i + 1} (step {step:.3f} m), same window centres: depth "
               f"err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of step (tol mean "
               f"{DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}); max |dh| {diff.max().item():.4f} m",
               flush=True)
@@ -3086,10 +3113,14 @@ def camera_steps(card: str, what: str, cfg, batch, default_step: dict) -> dict:
     return launches
 
 
-def cli_against_direct(what: str, folder: str, geo_model: str, use_qc: bool, ckpt: str) -> None:
+def cli_against_direct(what: str, folder: str, geo_model: str, use_qc: bool, ckpt: str,
+                       slab: int | None = None, **fields) -> None:
     """The maps a predict run wrote under folder/mvs_results against a direct
-    forward of the restored model on the same pred-mode batches (cuDNN's
+    forward of the restored model (Config(geo_model, use_qc, **fields); with
+    `slab` its streaming forward) on the same pred-mode batches (cuDNN's
     deterministic engines, as the CLI runs): the same bits."""
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+
     import os
 
     from satmvs_tpu_torch.cli import restore_model
@@ -3099,12 +3130,14 @@ def cli_against_direct(what: str, folder: str, geo_model: str, use_qc: bool, ckp
     from satmvs_tpu_torch.train import Config
 
     torch.backends.cudnn.deterministic = True
-    model, _, _ = restore_model(Config(geo_model=geo_model, use_qc=use_qc), ckpt,
+    model, _, _ = restore_model(Config(geo_model=geo_model, use_qc=use_qc, **fields), ckpt,
                                 torch.device("cuda"))
     n = 0
     ds = MVSDataset(folder, "pred", geo_model=geo_model, use_qc=use_qc)
+    forward = model if slab is None else (
+        lambda *a: streaming_red_forward(model, *a, slab=slab))
     for batch in Loader(ds, 1, device="cuda"):
-        want = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        want = forward(batch["imgs"], batch["cams"], batch["depth_values"])
         view, name = batch["out_view"][0], batch["out_name"][0]
         for sub, key in (("init", "depth"), ("prob", "photometric_confidence")):
             got = formats.load_pfm(os.path.join(folder, "mvs_results", view, sub, f"{name}.pfm"))
@@ -3112,7 +3145,7 @@ def cli_against_direct(what: str, folder: str, geo_model: str, use_qc: bool, ckp
                   f"{what} view {view} {name} {sub}: not the bits of a direct forward")
             n += 1
     torch.backends.cudnn.deterministic = False
-    print(f"[cameras] {what}: {n} maps the bits of a direct forward", flush=True)
+    print(f"[checks] {what}: {n} maps the bits of a direct forward", flush=True)
 
 
 def camera_cli(card: str, rpc_tree: str) -> dict:
@@ -3989,6 +4022,443 @@ def phase_sharded(card: str) -> dict:
     return launches
 
 
+# ---- phase 14: the model's remaining knobs (coarse-grid sweep coordinates,
+# bf16 compute_dtype, remat, torch_compat) and reference checkpoints
+COARSE_TOL = 0.02        # px, coarse vs the exact chain and vs float64 (BASELINE.md:47)
+COARSE_CPU_TOL = 1e-3    # px, coarse coordinates on the card vs the CPU
+KNOB_STEPS = 3
+# the bf16 step at PARITY_SIZE, GPU vs CPU: cuDNN's and the CPU's bf16
+# convolutions round a few outputs apart, as a perturbation of the inputs
+# far below a bf16 ulp does.  On the CPU the compute_dtype bf16 step moves
+# under images × (1 + 1e-4·N) (`train_sensitivity.py --only compute_bf16`)
+# by 5.24e-4 of its loss, 0.185 of its eval-mode gradients and 0.586 of
+# its update over all (1.09 and 1.18 per tensor), and 2.02e-2 of its
+# running statistics (the fp32 step: 4.31e-5, 1.76e-2, 0.175, 2.46e-3).
+# Gates about 2.5× those; per tensor not gated: the update gate says only
+# that the bf16 step is that noisy, the loss and statistics gates bind
+COMPUTE_BF16_PARITY = {"loss": 1.5e-3, "step_loss": 1.5e-3, "grad": None, "grad_all": 0.5,
+                       "update": None, "update_all": 1.5, "stats": 5e-2}
+# per train step with remat on the fused RED pipeline: the backward
+# recomputes each stage's regularizer, so its forward kernels launch twice
+LAUNCHES_PER_REMAT_STEP = {**LAUNCHES_PER_TRAIN_STEP,
+                           **{k: 2 * LAUNCHES_PER_FORWARD[k] for k in RED_FORWARD_KERNELS}}
+# a bf16 CostRegNet runs cuDNN's conv3d, no plane-conv kernel
+LAUNCHES_PER_BF16_COSTREG_FORWARD = {**{k: 0 for k in LAUNCHES_PER_FORWARD},
+                                     "sweep_variance": 3}
+KNOB_FORWARD_PATHS = ("coarse_forward", "compute_bf16_forward", "compat_predict",
+                      "compat_streaming")
+KNOB_TRAIN_PATHS = ("compute_bf16_step", "remat_step")
+KNOB_SWEEP_PATHS = ("compute_bf16_casmvs_step", "remat_casmvs_step")  # the sweep pair only
+
+
+def flax_variables(model) -> dict:
+    """The port model's weights as a flax variables tree (numpy), the names
+    of `params.load_jax_variables` read the other way."""
+    from satmvs_tpu_torch.params import _children
+
+    def walk(m):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d,
+                          torch.nn.ConvTranspose3d)):
+            w = m.weight.detach().cpu().numpy()
+            p = {"kernel": w.transpose(*range(2, w.ndim), 1, 0)}
+            if m.bias is not None:
+                p["bias"] = m.bias.detach().cpu().numpy()
+            return p, {}
+        if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.GroupNorm)):
+            p = {"scale": m.weight.detach().cpu().numpy(), "bias": m.bias.detach().cpu().numpy()}
+            s = ({"mean": m.running_mean.cpu().numpy(), "var": m.running_var.cpu().numpy()}
+                 if isinstance(m, torch.nn.BatchNorm2d) else {})
+            return p, s
+        params, stats = {}, {}
+        for name, child in _children(m).items():
+            params[name], s = walk(child)
+            if s:
+                stats[name] = s
+        return params, stats
+
+    params, stats = walk(model)
+    return {"params": params, "batch_stats": stats}
+
+
+def reference_state_dict(variables: dict, family: str) -> dict:
+    """The reference SatMVS state dict ("module."-prefixed torch tensors, the
+    reference's module names) that `train.convert` turns into `variables`:
+    every layout rule of the converter inverted (a synthetic reference
+    checkpoint)."""
+    sd = {}
+
+    def torch_w(kernel) -> np.ndarray:  # a flax kernel (*k, A, B) → (B, A, *k)
+        k = np.asarray(kernel)
+        return k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
+
+    def put(name, value):
+        sd[f"module.{name}"] = torch.from_numpy(np.ascontiguousarray(value))
+
+    def conv(prefix, tree):
+        put(f"{prefix}.weight", torch_w(tree["kernel"]))
+        if "bias" in tree:
+            put(f"{prefix}.bias", tree["bias"])
+
+    def norm(prefix, tree, stats=None):
+        put(f"{prefix}.weight", tree["scale"])
+        put(f"{prefix}.bias", tree["bias"])
+        if stats is not None:
+            put(f"{prefix}.running_mean", stats["mean"])
+            put(f"{prefix}.running_var", stats["var"])
+            sd[f"module.{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    def block(prefix, p, s, conv_name="Conv_0"):
+        conv(f"{prefix}.conv", p[conv_name])
+        if "BatchNorm_0" in p:
+            norm(f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+    def gru(prefix, p):
+        wx = np.asarray(p["Conv_x"]["kernel"])
+        ch = p["Conv_c"]["kernel"].shape[-1]
+        gate = np.concatenate([wx[..., :2 * ch], p["Conv_h"]["kernel"]], axis=2)
+        out = np.concatenate([wx[..., 2 * ch:], p["Conv_c"]["kernel"]], axis=2)
+        conv(f"{prefix}.gate_conv", {"kernel": gate, "bias": p["Conv_h"]["bias"]})
+        conv(f"{prefix}.output_conv", {"kernel": out, "bias": p["Conv_c"]["bias"]})
+        for k, name in enumerate(("reset_gate_norm", "update_gate_norm", "output_norm")):
+            norm(f"{prefix}.{name}", p[f"GroupNorm_{k}"])
+
+    params, stats = variables["params"], variables["batch_stats"]
+    fp, fs = params["FeatureNet_0"], stats["FeatureNet_0"]
+    feat = "feature_extraction" if family == "ucs" else "feature"
+    encoder = ("conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2", "conv2.0", "conv2.1",
+               "conv2.2")
+    for i, name in enumerate(encoder):
+        block(f"{feat}.{name}", fp[f"ConvBlock_{i}"], fs[f"ConvBlock_{i}"])
+    heads = (("out1", "inner1", "out2", "inner2", "out3") if family == "casmvs" else
+             ("out1", "out2", "out3"))
+    for i, name in enumerate(heads):
+        conv(f"{feat}.{name}", fp[f"Conv_{i}"])
+    if family != "casmvs":
+        for i in (0, 1):
+            fuse_p, fuse_s = fp[f"DeconvFuse_{i}"], fs[f"DeconvFuse_{i}"]
+            block(f"{feat}.deconv{i + 1}.deconv", fuse_p["DeconvBlock_0"],
+                  fuse_s["DeconvBlock_0"], "ConvTranspose_0")
+            block(f"{feat}.deconv{i + 1}.conv", fuse_p["ConvBlock_0"], fuse_s["ConvBlock_0"])
+    for i in range(3):
+        pre = f"cost_regularization.{i}"
+        if family == "red":
+            p = params[f"REDRegularizer_{i}"]["ScanREDStep_0"]
+            for k in range(3):
+                conv(f"{pre}.conv{k + 1}.conv", p[f"ConvBlock_{k}"]["Conv_0"])
+            for k, (cell, up) in enumerate((("conv_gru4", "upconv3"), ("conv_gru3", "upconv2"),
+                                            ("conv_gru2", "upconv1"), ("conv_gru1", None))):
+                gru(f"{pre}.{cell}", p[f"ConvGRUCell_{k}"])
+                if up:
+                    conv(f"{pre}.{up}.conv", p[f"DeconvBlock_{k}"]["ConvTranspose_0"])
+            # the head, a stride-1 ConvTranspose2d: the flipped, (I, O)-swapped conv
+            w = torch_w(p["Conv_0"]["kernel"]).transpose(1, 0, 2, 3)[:, :, ::-1, ::-1]
+            put(f"{pre}.upconv2d.weight", w)
+            put(f"{pre}.upconv2d.bias", p["Conv_0"]["bias"])
+        else:
+            p, s = params[f"CostRegNet_{i}"], stats[f"CostRegNet_{i}"]
+            for k in range(7):
+                block(f"{pre}.conv{k}", p[f"ConvBlock_{k}"], s[f"ConvBlock_{k}"])
+            for k, name in enumerate(("conv7", "conv9", "conv11")):
+                block(f"{pre}.{name}", p[f"DeconvBlock_{k}"], s[f"DeconvBlock_{k}"],
+                      "ConvTranspose_0")
+            conv(f"{pre}.prob", p["Conv_0"])
+    return sd
+
+
+def knob_coords(card: str, batch: dict, rpcs) -> None:
+    """Phase 14 (a), coordinates: `rpc_sweep_coords_coarse` (through
+    `ops.warp.sweep_coords(coords="coarse")`) at the forward's three stage
+    shapes, each source view, as the model takes it (stage 1 uniform planes
+    over the scene range, evaluated per plane; stages 2-3 windows around
+    the ground truth, the quadratic height fit; stage 1 by that fit too,
+    JAX's path, for the record): against the exact chain and a float64
+    oracle (COARSE_TOL) and against the CPU (COARSE_CPU_TOL); the coarse
+    and exact coordinates' ms a forward."""
+    from satmvs_tpu_torch.ops import warp
+    from satmvs_tpu_torch.ops.depth_range import window_samples
+
+    lo, hi = batch["depth_values"][0].tolist()
+    jobs = {}
+    for i, (sc, nd, iv) in enumerate(zip(STAGE_SCALES, NDEPTHS, STAGE_INTERVALS)):
+        h, w = HEIGHT // sc, WIDTH // sc
+        hyp = (uniform_hyps(lo, hi, nd, h, w, "cuda") if i == 0 else
+               window_samples(batch["depth_stages"][i][0], nd, iv).contiguous())
+        cams = batch["cams"][i][0]
+        window = hyp[:, 0, 0] if i == 0 else None  # the model's first-stage planes
+        for s in range(2):
+            for kind, win in (("coarse", window), ("exact", None)):
+                jobs[(kind, i, s)] = (lambda c=cams, s=s, hy=hyp, h=h, w=w, k=kind, win=win:
+                                      warp.sweep_coords(c, s, hy, h, w, coords=k, window=win))
+            ex, ey = jobs[("exact", i, s)]()
+            ox, oy = rpc_oracle(rpcs[0], rpcs[s + 1], 1.0 / sc, hyp.cpu())
+            for path, win in (("per plane" if i == 0 else "quadratic fit", window),
+                              *((("quadratic fit (JAX's)", None),) if i == 0 else ())):
+                gx, gy = warp.sweep_coords(cams, s, hyp, h, w, coords="coarse", window=win)
+                cx, cy = warp.sweep_coords(cams.to("cpu"), s, hyp.cpu(), h, w, coords="coarse",
+                                           window=None if win is None else win.cpu())
+                to_exact = torch.hypot(gx - ex, gy - ey).max().item()
+                gx, gy, cx, cy = (t.cpu().double().numpy() for t in (gx, gy, cx, cy))
+                oracle = max(np.abs(gx - ox).max(), np.abs(gy - oy).max())
+                cpu = max(np.abs(gx - cx).max(), np.abs(gy - cy).max())
+                print(f"[knobs] coarse coordinates stage{i + 1} ({nd}, {h}, {w}) source {s}, "
+                      f"{path}: vs the exact chain {to_exact:.3e} px, vs float64 {oracle:.3e} px "
+                      f"(tol {COARSE_TOL}); card vs CPU {cpu:.3e} px (tol {COARSE_CPU_TOL})",
+                      flush=True)
+                check(to_exact <= COARSE_TOL and oracle <= COARSE_TOL and cpu <= COARSE_CPU_TOL,
+                      f"coarse coordinates stage{i + 1} source {s} {path}: {to_exact} / "
+                      f"{oracle} / {cpu}")
+    ms = {}
+    for kind in ("exact", "coarse"):
+        fns = [fn for key, fn in jobs.items() if key[0] == kind]
+        ms[kind] = time_ms(lambda: [fn() for fn in fns], reps=10, warmup=2)
+    print(f"[knobs] RPC sweep coordinates of a {HEIGHT}x{WIDTH} forward (3 stages x 2 source "
+          f"views): coarse {ms['coarse']:.3f} ms, exact {ms['exact']:.3f} ms "
+          f"({ms['coarse'] / ms['exact']:.3f}x; median of 10, CUDA events) card={card}",
+          flush=True)
+
+
+def coarse_against_shift(model, exact: dict, batch: dict) -> None:
+    """Phase 14 (a): the coarse-coordinate stages against `exact` (the same
+    model's exact-coordinate forward), each centred on exact's previous
+    depth, beside the same model's exact stages under source views shifted
+    by COARSE_TOL px (each source RPC's sample and line offsets moved by
+    COARSE_TOL/√2): the coarse stage's depth error, mean and p99 in steps,
+    at most the shifted stage's.  The gate is a geometry error's effect,
+    not the depth gates: a random-weight cascade's flat softmax over a
+    stage's planes turns thousandths of a pixel into percents of a step."""
+    import dataclasses
+
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    feats = model.features(imgs)
+    d_min, d_max = dvals[:, 0], dvals[:, -1]
+    for i, step in enumerate(stage_steps(*dvals[0].tolist(), model.stage_intervals())):
+        prev = None if i == 0 else exact[f"stage{i}"]["depth"]
+        ref = exact[f"stage{i + 1}"]["depth"]
+        offset = torch.zeros_like(cams[i].src_denorm)
+        offset[..., 1] = COARSE_TOL / 2 ** 0.5
+        shifted = dataclasses.replace(cams[i], src_denorm=cams[i].src_denorm + offset)
+        model.coords = "coarse"
+        got = model.stage(i, feats[i], cams[i], d_min, d_max, prev)["depth"]
+        model.coords = "exact"
+        moved = model.stage(i, feats[i], shifted, d_min, d_max, prev)["depth"]
+        mean, p99, mx = err_quantiles((got - ref).abs() / step)
+        s_mean, s_p99, s_mx = err_quantiles((moved - ref).abs() / step)
+        print(f"[knobs] coarse vs exact coordinates stage{i + 1} (step {step:.3f} m), same window "
+              f"centres: depth err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} of step; the "
+              f"exact chain under a {COARSE_TOL} px shift of the source views: mean "
+              f"{s_mean:.3e}, p99 {s_p99:.3e}, max {s_mx:.3e} (the gates)", flush=True)
+        check(mean <= s_mean and p99 <= s_p99,
+              f"coarse stage{i + 1}: depth err mean {mean}, p99 {p99} of step past a "
+              f"{COARSE_TOL} px shift's {s_mean}, {s_p99}")
+    model.coords = "coarse"
+
+
+def knob_timed(model, batch) -> tuple[float, float]:
+    """A forward's ms (median of 5, CUDA events) and peak GiB."""
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: model(imgs, cams, dvals), reps=5, warmup=1)
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def knob_steps(card: str, what: str, cfg, batch, want: dict, ref: dict,
+               remat: bool = False) -> tuple[dict, dict]:
+    """KNOB_STEPS train steps (`run_train_steps`: exact launches a step,
+    finite losses) beside a reference step (ref: its ms and peak GiB).
+    Returns (the launches, {"ms", "peak"})."""
+    *_, launches, times, _, peak = run_train_steps(cfg, batch, KNOB_STEPS, want, what, card,
+                                                   remat=remat)
+    ms = float(np.median(times))
+    print(f"[knobs] {what} train step {ms:.2f} ms (median of {KNOB_STEPS}), peak_mem={peak:.3f} "
+          f"GiB; {ref['what']} {ref['ms']:.2f} ms, {ref['peak']:.3f} GiB "
+          f"({ms / ref['ms']:.3f}x, {peak - ref['peak']:+.3f} GiB) card={card}", flush=True)
+    return launches, {"ms": ms, "peak": peak}
+
+
+def remat_update(what: str, cfg, batch) -> None:
+    """One step with remat against one without, from the same weights and
+    batch, on cuDNN's deterministic engines (the CostRegNet's conv3d
+    gradients on the default ones move a CasMVS update by ~1e-2 run to
+    run): the update within DP1_UPDATE_TOL over all parameters (the
+    scatter's float atomics keep two serial steps from the same bits) and
+    the running statistics within it of each tensor's largest value."""
+    from satmvs_tpu_torch.train import create_model_and_state, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for remat in (False, True):
+        model, state, tx = create_model_and_state(cfg, batch, 1)
+        model.remat = remat
+        old = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        state, _ = make_train_step(model, tx, cfg.dlossw)(state, batch)
+        runs.append(state_copy(state))
+    torch.backends.cudnn.deterministic = False
+    spread = update_spread(runs[1], runs[0], old)
+    stats = max((runs[1]["stats"][k] - v).abs().max().item() / v.abs().max().item()
+                for k, v in runs[0]["stats"].items())
+    print(f"[knobs] {what}: remat step vs the step without, update {spread:.3e} over all (tol "
+          f"{DP1_UPDATE_TOL}), running statistics {stats:.3e} of each tensor's largest value "
+          f"(tol {DP1_UPDATE_TOL})", flush=True)
+    check(spread <= DP1_UPDATE_TOL and stats <= DP1_UPDATE_TOL, f"{what}: remat update")
+
+
+def knob_compat(card: str, tree: str) -> dict:
+    """Phase 14 (d): a synthetic reference checkpoint of phase 3's seeded
+    CascadeREDNet (`reference_state_dict`) through `cli.convert_ckpt`
+    (the restored weights the model's bits), then `cli.predict
+    --torch_compat`, full volume and `--streaming --slab 8`, on a copy of
+    phase 9's test split: exact launches, the maps the bits of a direct
+    torch_compat forward, the streamed maps against the full volume's at
+    the depth gates; the torch_compat forward on the card against the CPU
+    at PARITY_SIZE stage by stage, and its streaming forward against its
+    full volume on phase 3's batch (`phase_stream_vs_full`).  Returns the
+    two predict runs' launches."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import convert_ckpt as cli_convert
+    from satmvs_tpu_torch.cli import predict as cli_predict
+    from satmvs_tpu_torch.cli import restore_model
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    model = build_model("cpu")
+    src = WORK / "reference" / "model_000015.ckpt"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"epoch": 15, "model": reference_state_dict(flax_variables(model), "red")}, src)
+    ckpt = str(WORK / "converted")
+    t0 = time.perf_counter()
+    cli_convert.main([f"--src={src}", f"--out={ckpt}", "--epoch", "15"])
+    restored, _, _ = restore_model(Config(), ckpt, torch.device("cpu"))
+    want = model.state_dict()
+    check(all(torch.equal(v, want[k]) for k, v in restored.state_dict().items()),
+          "the converted checkpoint is not the model's weights")
+    print(f"[knobs] cli.convert_ckpt: {len(want)} tensors of a synthetic reference checkpoint "
+          f"restored bit for bit ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    copy = WORK / "test_compat"
+    shutil.copytree(os.path.join(tree, "open_dataset_rpc", "test"), copy,
+                    ignore=shutil.ignore_patterns("mvs_results", "height_result"))
+    launches = {}
+    for key, slab, want_l in (
+            ("compat_predict", None, launches_of(0, 3 * TREE_TEST)),
+            ("compat_streaming", SLAB,
+             {k: 3 * TREE_TEST * v for k, v in chunk_launches(1).items()})):
+        extra = [] if slab is None else ["--streaming", "--slab", str(slab)]
+        what = " ".join(["cli.predict --torch_compat", *extra])
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_predict.main([f"--dataset_root={copy}", f"--loadckpt={ckpt}", "--torch_compat",
+                                *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[key] = counts()
+        check(launches[key] == want_l, f"{key}: launches {launches[key]}")
+        print(f"[knobs] {what}: {wall:.2f} s wall, "
+              f"{len(out['written'])} maps, launches "
+              f"{({k: v for k, v in launches[key].items() if v})} (exact) card={card}",
+              flush=True)
+        cli_against_direct(what, str(copy), "rpc", False, ckpt, slab=slab, torch_compat=True)
+    ph, pw = PARITY_SIZE
+    small = synthetic.make_batch(1, pw, ph, seed=1, device="cuda", with_gt=False)
+    gpu = build_model("cuda", torch_compat=True)
+    gpu_vs_cpu("[knobs]", f"torch_compat at {ph}x{pw}",
+               gpu(small["imgs"], small["cams"], small["depth_values"]),
+               build_model("cpu", torch_compat=True), small["imgs"], small["cams"],
+               small["depth_values"])
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda", with_gt=False)
+    reset_counts()
+    phase_stream_vs_full(card, gpu, (batch["imgs"], batch["cams"], batch["depth_values"]),
+                         what="torch_compat")
+    return launches
+
+
+def phase_knobs(card: str, tree: str, default_step: dict) -> dict:
+    """Phase 14: the model's remaining knobs on the main paths.  (a) coarse
+    coordinates (`knob_coords`), a coarse-coordinate CascadeREDNet forward
+    at HEIGHT × WIDTH (seeded weights, heads ×1; exact launches, ms, peak
+    memory) stage by stage against the exact forward
+    (`coarse_against_shift`); (b)
+    compute_dtype bf16: CascadeREDNet and CasMVS forwards (exact launches:
+    the fused RED pipeline stays fp32, a bf16 CostRegNet runs cuDNN's
+    conv3d) and KNOB_STEPS train steps each, ms and peak memory beside
+    fp32's, one step at PARITY_SIZE against the CPU (COMPUTE_BF16_PARITY);
+    (c) remat: KNOB_STEPS steps each for RED (its forward kernels twice a
+    step) and CasMVS beside the steps without, one step's update against
+    the step without (`remat_update`); (d) `knob_compat`.  Returns each
+    path's launches."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.models import CascadeREDNet
+    from satmvs_tpu_torch.train import Config
+
+    t0 = time.time()
+    launches = {}
+    scene = synthetic.make_scene(WIDTH, HEIGHT, seed=0, h_amp=80.0)
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    knob_coords(card, batch, scene["rpcs"][[2, 0, 1]])
+    model = CascadeREDNet(ndepths=NDEPTHS, device="cuda", seed=0)
+    exact = model(batch["imgs"], batch["cams"], batch["depth_values"])
+    model.coords = "coarse"
+    _, launches["coarse_forward"] = camera_forward(card, "coarse-coordinate", model, batch,
+                                                   LAUNCHES_PER_FORWARD, tag="[knobs]",
+                                                   profile=False)
+    coarse_against_shift(model, exact, batch)
+    model.coords = "exact"
+    fp32 = knob_timed(model, batch)
+    del model, exact
+
+    bf16 = build_model("cuda", compute_dtype=torch.bfloat16)
+    _, launches["compute_bf16_forward"] = camera_forward(
+        card, "bf16 compute_dtype", bf16, batch, LAUNCHES_PER_FORWARD, tag="[knobs]",
+        profile=False)
+    ms, peak = knob_timed(bf16, batch)
+    print(f"[knobs] CascadeREDNet forward: bf16 {ms:.2f} ms, {peak:.3f} GiB; fp32 "
+          f"{fp32[0]:.2f} ms, {fp32[1]:.3f} GiB ({ms / fp32[0]:.3f}x) card={card}", flush=True)
+    del bf16
+    mvs = {dt: build_costreg_model("casmvs", "cuda", compute_dtype=dt)
+           for dt in (None, torch.bfloat16)}
+    reset_counts()
+    mvs[torch.bfloat16](batch["imgs"], batch["cams"], batch["depth_values"])
+    torch.cuda.synchronize()
+    launches["compute_bf16_casmvs"] = counts()
+    check(launches["compute_bf16_casmvs"] == LAUNCHES_PER_BF16_COSTREG_FORWARD,
+          f"bf16 casmvs launches {launches['compute_bf16_casmvs']}")
+    (b_ms, b_peak), (f_ms, f_peak) = (knob_timed(mvs[dt], batch)
+                                      for dt in (torch.bfloat16, None))
+    print(f"[knobs] CascadeMVSNet forward: bf16 {b_ms:.2f} ms, {b_peak:.3f} GiB (launches "
+          f"{({k: v for k, v in launches['compute_bf16_casmvs'].items() if v})}, exact: cuDNN's "
+          f"bf16 conv3d); fp32 {f_ms:.2f} ms, {f_peak:.3f} GiB (the packed plane convs) "
+          f"card={card}", flush=True)
+    del mvs
+    red_ref = {"what": "phase 7's default step", **default_step}
+    launches["compute_bf16_step"], _ = knob_steps(card, "bf16 compute_dtype", Config(
+        ndepths=NDEPTHS, compute_dtype="bfloat16"), batch, LAUNCHES_PER_TRAIN_STEP, red_ref)
+    _, mvs_step = knob_steps(card, "CasMVS fp32", Config(ndepths=NDEPTHS, model="casmvs"), batch,
+                             LAUNCHES_PER_COSTREG_TRAIN_STEP, red_ref)
+    mvs_ref = {"what": "the CasMVS fp32 step", **mvs_step}
+    launches["compute_bf16_casmvs_step"], _ = knob_steps(
+        card, "CasMVS bf16 compute_dtype", Config(ndepths=NDEPTHS, model="casmvs",
+                                                  compute_dtype="bfloat16"), batch,
+        LAUNCHES_PER_COSTREG_TRAIN_STEP, mvs_ref)
+    phase_train_parity(card, "compute_dtype bf16 step", gates=COMPUTE_BF16_PARITY,
+                       compute_dtype="bfloat16")
+
+    launches["remat_step"], _ = knob_steps(card, "remat", Config(ndepths=NDEPTHS), batch,
+                                           LAUNCHES_PER_REMAT_STEP, red_ref, remat=True)
+    launches["remat_casmvs_step"], _ = knob_steps(
+        card, "CasMVS remat", Config(ndepths=NDEPTHS, model="casmvs"), batch,
+        LAUNCHES_PER_COSTREG_TRAIN_STEP, mvs_ref, remat=True)
+    for what, cfg in (("RED", Config(ndepths=NDEPTHS)),
+                      ("CasMVS", Config(ndepths=NDEPTHS, model="casmvs"))):
+        remat_update(what, cfg, batch)
+    del batch
+
+    launches.update(knob_compat(card, tree))
+    print(f"[knobs] phase 14 took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the device was busy."""
@@ -4117,6 +4587,11 @@ def run(scene_job, tree_job) -> int:
     # phase 13
     launches.update(phase_multi_gpu(smi, tree, scene_ref))
 
+    # phase 14
+    knobs = phase_knobs(smi, tree, default_step)
+    check(not set(knobs) & set(launches), f"phase 14 reuses path names: {sorted(knobs)}")
+    launches.update(knobs)
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches;
         # a costreg record the same wrapper in its CostRegNet form
@@ -4135,12 +4610,16 @@ def run(scene_job, tree_job) -> int:
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
                  COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
-                  *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train) if train else (
-                     INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",) + (
-                         ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS)
+                  *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train, *KNOB_TRAIN_PATHS,
+                  *(KNOB_SWEEP_PATHS if wrapper in ("sweep_gather", "sweep_scatter") else ()))
+                 if train else (
+                     INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",)
+                     + KNOB_FORWARD_PATHS + (
+                         ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS,
+                          "compute_bf16_casmvs")
                          if wrapper == "sweep_variance" else
                          ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS,
-                          *SHARD_RED_PATHS)
+                          *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

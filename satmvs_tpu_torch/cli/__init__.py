@@ -1,6 +1,7 @@
 """Command-line twins of the JAX package's scripts: `train` (scripts/train.py),
-`predict` (scripts/predict.py) and `predict_scene` (scripts/predict_scene.py),
-each `main(argv=None)` and runnable as `python -m satmvs_tpu_torch.cli.<name>`
+`predict` (scripts/predict.py), `predict_scene` (scripts/predict_scene.py)
+and `convert_ckpt` (scripts/convert_ckpt.py, on the CPU), each
+`main(argv=None)` and runnable as `python -m satmvs_tpu_torch.cli.<name>`
 with the same flags and defaults.  They run on the GPU; SATMVS_PLATFORM=cpu
 puts them on the CPU (the JAX scripts' switch), and without a GPU they
 raise rather than continue on the CPU.  Launched by `python -m

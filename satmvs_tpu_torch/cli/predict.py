@@ -16,8 +16,10 @@ script does, and with --geo_model pinhole says so and writes the maps.
 builds the cost volumes with the per-view sweep (`sweep_gather`) instead
 of the fused `sweep_variance` kernel.  --geo_model pinhole reads the
 camera-text layout (camera/{v}/*.txt); --use_qc takes the RPC cameras in
-QC form.  Flags and defaults are the JAX script's; --torch_compat, whose
-feature the port lacks, raises.
+QC form.  --torch_compat samples and draws hypotheses as the reference
+does (`models.cascade`'s torch_compat), for a checkpoint converted from it
+(`cli.convert_ckpt`); with --streaming too.  Flags and defaults are the
+JAX script's.
 """
 
 from __future__ import annotations

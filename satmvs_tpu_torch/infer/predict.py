@@ -18,15 +18,26 @@ from __future__ import annotations
 
 import torch
 
-from ..models.cascade import CascadeModel, build_stage_volume, stage_hypotheses
+from ..models.cascade import CascadeModel, build_stage_volume
 
 
 @torch.no_grad()
 def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_values: torch.Tensor,
-                          slab: int = 0) -> dict:
+                          slab: int = 0, coords: str | None = None) -> dict:
     """`model`'s forward (same inputs, same outputs) with slab streaming;
     cams of any of the model's camera types (RPC in either form, pinhole
-    projection matrices), each slab's volume built by `build_stage_volume`.
+    projection matrices), each slab's volume built by `build_stage_volume`
+    under the model's knobs: its torch_compat (the reference's sampling and
+    window chain, as `satmvs_tpu/infer/predict.py:120-130,177,207`) and its
+    compute_dtype (FeatureNet; the RED pipeline is float32 either way).
+
+    coords: "exact" or "coarse" sweep coordinates (None: the model's).
+    With coarse coordinates the first stage's planes are evaluated exactly
+    per plane, as in the full volume, and each later slab's hypotheses
+    centre their own quadratic height fit, as each of JAX's slab calls of
+    `build_stage_volume` does, so the streamed maps differ from the
+    full-volume forward's by up to the coarse grid's error (≤ 0.02 px of
+    sampling position), not bit for bit.
 
     slab: planes per step.  A stage of nd planes takes k = min(slab, nd)
     planes a step when nd % k == 0, else (and with slab = 0) one plane at a
@@ -37,13 +48,14 @@ def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_v
     if model.regularizer != "red":
         raise ValueError(f"streaming_red_forward: a {model.regularizer!r} model has no "
                          f"slab-streaming form; run its full-volume forward")
+    coords = model.coords if coords is None else coords
     d_min, d_max = depth_values[:, 0], depth_values[:, -1]
     outputs = {}
     depth = None
     for i, feats in enumerate(model.features(imgs)):
         b, _, sh, sw, _ = feats.shape
         nd = model.ndepths[i]
-        hyps = stage_hypotheses(nd, sh, sw, d_min, d_max, model.stage_intervals()[i], depth)
+        hyps = model.hypotheses(i, sh, sw, d_min, d_max, depth, None)
         k = min(slab, nd) if slab else 1
         if nd % k:
             k = 1
@@ -53,7 +65,8 @@ def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_v
         states = None
         for j in range(0, nd, k):
             hyp = hyps[:, j:j + k]
-            volume = build_stage_volume(feats, cams[i], hyp)
+            window = hyp[:, :, 0, 0] if depth is None and coords == "coarse" else None
+            volume = build_stage_volume(feats, cams[i], hyp, 0, coords, model.convention, window)
             logits, states = model.regs[i].pipeline(volume, states)
             new_m = torch.maximum(m, logits.amax(dim=1))
             rescale = torch.exp(m - new_m)

@@ -31,19 +31,21 @@ def CascadeREDNet(geo_model: str = "rpc", min_interval: float = 2.5,
                   ndepths=(64, 32, 8), depth_intervals_ratio=(4.0, 2.0, 1.0),
                   cr_base_chs=(8, 8, 8), fused_red: bool | None = None,
                   train_fused_sweep: bool = False, fused_sweep: bool | None = None,
-                  volume_dtype=None, volume_partition=None, mesh=None, device=None,
-                  seed: int = 0) -> CascadeModel:
+                  volume_dtype=None, volume_partition=None, mesh=None, coords: str = "exact",
+                  compute_dtype=None, remat: bool = False, torch_compat: bool = False,
+                  device=None, seed: int = 0) -> CascadeModel:
     """CascadeREDNet.  `fused_red`, `train_fused_sweep`, `fused_sweep`,
-    `volume_dtype`, `volume_partition` and `mesh` are `CascadeModel`'s (the
-    JAX package's environment overrides of fused_red and fused_sweep are not
-    ported)."""
+    `volume_dtype`, `volume_partition`, `mesh`, `coords`, `compute_dtype`,
+    `remat` and `torch_compat` are `CascadeModel`'s (the JAX package's
+    environment overrides of fused_red and fused_sweep are not ported)."""
     return _build(geo_model, device, seed, ndepths=tuple(ndepths),
                   depth_intervals_ratio=tuple(depth_intervals_ratio), min_interval=min_interval,
                   cr_base_chs=tuple(cr_base_chs), fused_red=fused_red,
                   train_fused_sweep=train_fused_sweep, fused_sweep=fused_sweep,
                   volume_dtype=volume_dtype, volume_partition=volume_partition, mesh=mesh,
-                  arch_mode="unet", regularizer="red", sampler="window", confidence="max",
-                  grad_method="through")
+                  coords=coords, compute_dtype=compute_dtype, remat=remat,
+                  torch_compat=torch_compat, arch_mode="unet", regularizer="red",
+                  sampler="window", confidence="max", grad_method="through")
 
 
 def CascadeMVSNet(geo_model: str = "rpc", min_interval: float = 2.5, ndepths=(64, 32, 8),
@@ -51,7 +53,8 @@ def CascadeMVSNet(geo_model: str = "rpc", min_interval: float = 2.5, ndepths=(64
                   share_cr: bool = False, grad_method: str = "detach", arch_mode: str = "fpn",
                   device=None, seed: int = 0, **kw) -> CascadeModel:
     """CascadeMVSNet; `kw` are further `CascadeModel` knobs (train_fused_sweep,
-    fused_sweep, volume_dtype, fused_red, volume_partition, mesh)."""
+    fused_sweep, volume_dtype, fused_red, volume_partition, mesh, coords,
+    compute_dtype, remat, torch_compat)."""
     return _build(geo_model, device, seed, min_interval=min_interval, ndepths=tuple(ndepths),
                   depth_intervals_ratio=tuple(depth_intervals_ratio),
                   cr_base_chs=tuple(cr_base_chs), arch_mode=arch_mode,
@@ -63,7 +66,8 @@ def UCSNet(geo_model: str = "rpc", lamb: float = 1.5, ndepths=(64, 32, 8),
            cr_base_chs=(8, 8, 8), feat_base_chs: int = 8, grad_method: str = "detach",
            device=None, seed: int = 0, **kw) -> CascadeModel:
     """UCSNet; `kw` are further `CascadeModel` knobs (train_fused_sweep,
-    fused_sweep, volume_dtype, fused_red, volume_partition, mesh)."""
+    fused_sweep, volume_dtype, fused_red, volume_partition, mesh, coords,
+    compute_dtype, remat, torch_compat)."""
     return _build(geo_model, device, seed, ndepths=tuple(ndepths),
                   cr_base_chs=tuple(cr_base_chs), feat_base_chs=feat_base_chs,
                   arch_mode="unet", regularizer="costreg", sampler="uncertainty",

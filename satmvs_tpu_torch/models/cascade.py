@@ -57,6 +57,44 @@ cannot partition).  Stages without a sharded axis run alike on every rank.
 A sharding constraint changes no value in JAX, and a rank's share here
 changes none either: every rank gets the maps of the serial forward.
 
+Four knobs of JAX's `CascadeModel` (`satmvs_tpu/models/cascade.py:
+241-253,320-332`, the `torch_compat` chain at 273-292):
+
+  coords ("exact", the default, or "coarse"): the RPC basis cameras'
+    sweep coordinates exact per pixel, or on the coarse grid of
+    `ops/coarse_coords.py` (JAX's default on its accelerator; ≤ 0.02 px
+    from exact).  QC and pinhole cameras take their exact chain either
+    way.  The first stage's uniform planes go to the coarse chain as one
+    height each, which it evaluates exactly per plane (JAX hands them to
+    its per-pixel quadratic fit over the whole height range: 4.7e-3 and
+    1.0e-2 px from exact on the two source views at 384×768 where per
+    plane is 8.2e-4 and 1.7e-3, measured on an H100); under a band or slab
+    of a sharded stage the coarse fit is centred on the whole stage's
+    hypotheses, so the ranks' coordinates are the serial run's.  As in
+    JAX, no `Config` field or CLI flag.
+  compute_dtype (None or torch.float32, or torch.bfloat16): the compute
+    dtype of FeatureNet's convolutions, the RED scan path's encoder,
+    decoder and head, and the CostRegNet's 3-D convolutions (`nn/`); the
+    parameters, BatchNorm, the fused RED pipeline and every CUDA kernel,
+    the variance moments and the geometry stay float32.  Under bf16 the
+    CostRegNet takes its conv3d path (cuDNN) also at inference.
+  remat: each stage's regularizer runs under `torch.utils.checkpoint`
+    (non-reentrant) when autograd records: its activations are recomputed
+    in the backward instead of kept.  The recompute leaves the BatchNorms'
+    running statistics alone, so a train step moves them once.  JAX's
+    remat calls `mdl(v)`, and `REDRegularizer.__call__` defaults to
+    fused=False (`satmvs_tpu/nn/red.py:329`), so JAX's remat also sends
+    RED to its scan path; that is a path choice, not another function,
+    and the port checkpoints whichever RED path fused_red picks (the fused
+    pipeline and its backward kernels by default).  A train step under a
+    mesh refuses it (`train.loop.make_train_step`).
+  torch_compat: the reference's numerics for converted checkpoints
+    (`train/convert.py`): both sweeps sample where the reference's
+    grid_sample reads (`ops.sampling.torch_grid_coords`, stretched by the
+    source map's own height), and the window sampler takes the reference's
+    chain (`stage_hypotheses(full=)`); grad_method's detach holds there
+    too.
+
 Both sweeps take coordinates from any of the three chains.  JAX on the TPU
 sends pinhole cameras to the per-view sweep always
 (`satmvs_tpu/models/cascade.py:137-148`, "pinhole warp has no native-hcw
@@ -79,35 +117,53 @@ entries at the top level.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..dist.halo import slab_gather
+from ..nn.blocks import frozen_running_stats
 from ..nn.costreg import CostRegNet
 from ..nn.featurenet import FeatureNet
 from ..nn.red import REDRegularizer
 from ..ops import depth_range, regression
 from ..ops.cost_volume import sweep_variance_volume
 from ..ops.kernels.sweep_variance import sweep_variance_batched
-from ..ops.warp import homo_warp, rpc_warp, sweep_coords
+from ..ops.warp import COORDS, homo_warp, rpc_warp, sample_coords
 
 
 def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torch.Tensor,
                      interval: float, depth: torch.Tensor | None = None,
                      exp_var: torch.Tensor | None = None, sampler: str = "window",
-                     detach: bool = False) -> torch.Tensor:
+                     detach: bool = False, full: tuple[int, int] | None = None) -> torch.Tensor:
     """Height hypotheses (B, D, sh, sw) of one stage: a uniform sweep of the
     scene range at the first stage (depth None), else a per-pixel window
     around the previous stage's depth (B, h, w) upsampled to (sh, sw): of
     ±(nd/2)·interval (sampler "window"), or of ± the previous stage's
     upsampled spread exp_var (B, h, w) clamped to the scene range
-    ("uncertainty", UCSNet).  detach: no gradient through depth and exp_var."""
+    ("uncertainty", UCSNet).  detach: no gradient through depth and exp_var.
+
+    full: the image's (H, W) for the reference's window chain (the
+    torch_compat mode, `satmvs_tpu/models/cascade.py:273-292`): the previous
+    depth upsampled to full resolution, the window taken there, and the
+    hypotheses brought down to (sh, sw) by a linear resize with half-pixel
+    centres and no antialiasing (jax.image.resize "trilinear" with D kept),
+    which slightly smooths them against the direct window.  The window
+    sampler only; None: the direct window."""
     if depth is None:
         return torch.stack([depth_range.uniform_samples(lo, hi, nd, sh, sw)
                             for lo, hi in zip(d_min, d_max)])
-    cur = depth_range.upsample_map(depth.detach() if detach else depth, sh, sw)
+    depth = depth.detach() if detach else depth
+    if full is not None and sampler == "window":
+        cur = depth_range.upsample_map(depth, *full)
+        hyps = torch.stack([depth_range.window_samples(c, nd, interval) for c in cur])
+        return F.interpolate(hyps, size=(sh, sw), mode="bilinear", align_corners=False,
+                             antialias=False)
+    cur = depth_range.upsample_map(depth, sh, sw)
     if sampler == "uncertainty":
         ev = depth_range.upsample_map(exp_var.detach() if detach else exp_var, sh, sw)
         return torch.stack([depth_range.uncertainty_samples(c, e, nd, lo, hi)
@@ -115,44 +171,69 @@ def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torc
     return torch.stack([depth_range.window_samples(c, nd, interval) for c in cur])
 
 
-def build_stage_volume(feats: torch.Tensor, cams, hyps: torch.Tensor,
-                       row0: int = 0) -> torch.Tensor:
+def _stage_coords(feats: torch.Tensor, cams, hyps: torch.Tensor, row0: int, coords: str,
+                  convention: str, window: torch.Tensor | None):
+    """xs, ys (B, S, D, h', w) of every sample and source view, as the sweep
+    kernels sample them (`ops.warp.sample_coords`)."""
+    b, v, h, w, _ = feats.shape
+    hb = hyps.shape[2]
+    cs = [sample_coords(cams[i], s, hyps[i], hb, w, (h, w), row0, coords, convention,
+                        None if window is None else window[i])
+          for i in range(b) for s in range(v - 1)]
+    return torch.stack([c[k] for k in (0, 1) for c in cs]).view(
+        2, b, v - 1, *hyps.shape[1:]).unbind(0)
+
+
+def build_stage_volume(feats: torch.Tensor, cams, hyps: torch.Tensor, row0: int = 0,
+                       coords: str = "exact", convention: str = "exact",
+                       window: torch.Tensor | None = None) -> torch.Tensor:
     """(B, V, h, w, C) features + batched cameras (of any of the three
     types) + (B, D, h', w) hypotheses of the reference rows row0 .. row0 +
     h' − 1 (all h rows, or a rank's band) → (B, D, h', w, C) variance cost
-    volume: every sample's sweep coordinates (`ops.warp.sweep_coords`) in
-    one stack, then one `sweep_variance_batched` for the batch (the fused
-    sweep; differentiable in the features)."""
-    b, v, _, sw, _ = feats.shape
-    hb = hyps.shape[2]
-    per_sample = [cams[i] for i in range(b)]
-    coords = [sweep_coords(per_sample[i], s, hyps[i], hb, sw, row0)
-              for i in range(b) for s in range(v - 1)]
-    xs, ys = torch.stack([c[k] for k in (0, 1) for c in coords]).view(
-        2, b, v - 1, *hyps.shape[1:]).unbind(0)
+    volume: every sample's sweep coordinates (`ops.warp.sample_coords`:
+    coords "exact" or "coarse", convention "exact" or "torch"; window
+    (B, D, h, w), the whole stage's hypotheses a coarse fit is centred on
+    when hyps are a band or slab of them, or (B, D) heights when hyps are
+    planes of one height each) in one stack, then one
+    `sweep_variance_batched` for the batch (the fused sweep;
+    differentiable in the features)."""
+    xs, ys = _stage_coords(feats, cams, hyps, row0, coords, convention, window)
     return sweep_variance_batched(feats, xs, ys, row0)
 
 
 def build_train_volume(feats: torch.Tensor, cams, hyps: torch.Tensor,
-                       volume_dtype: torch.dtype | None = None, row0: int = 0) -> torch.Tensor:
+                       volume_dtype: torch.dtype | None = None, row0: int = 0,
+                       coords: str = "exact", convention: str = "exact",
+                       window: torch.Tensor | None = None) -> torch.Tensor:
     """`build_stage_volume`'s function on the per-view sweep: per sample the
     variance over the reference view and each source view warped by
     `rpc_warp` (either RPC form) or `homo_warp` (pinhole): one
     `sweep_gather` per source view, its volume stored in volume_dtype
-    (None: float32); a band of rows as there."""
+    (None: float32); a band of rows, coords, convention and window as
+    there."""
     vols = []
     hb = hyps.shape[2]
     for i in range(feats.shape[0]):
         cams_b = cams[i]
         if isinstance(cams_b, torch.Tensor):
             def warp(src, s):
-                return homo_warp(src, cams_b[s + 1], cams_b[0], hyps[i], out_dtype=volume_dtype,
-                                 row0=row0)
+                return homo_warp(src, cams_b[s + 1], cams_b[0], hyps[i], convention,
+                                 volume_dtype, row0)
         else:
+            win = None if window is None else window[i]
+
             def warp(src, s):
-                return rpc_warp(src, cams_b, s, hyps[i], out_dtype=volume_dtype, row0=row0)
+                return rpc_warp(src, cams_b, s, hyps[i], convention, volume_dtype, row0, coords,
+                                win)
         vols.append(sweep_variance_volume(feats[i, 0, row0:row0 + hb], feats[i, 1:], warp))
     return torch.stack(vols)
+
+
+def _remat_contexts():
+    """The forward runs as it is; its recompute in the backward leaves the
+    BatchNorms' running statistics alone, so a train-mode step moves them
+    once, as flax's `nn.remat` does."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 _KNOBS = {"geo_model": ("rpc", "pinhole"), "regularizer": ("red", "costreg"),
@@ -178,7 +259,9 @@ class CascadeModel(nn.Module):
     on the parameter's shape).  volume_partition and mesh: the sharded
     cost volumes of the module docstring (None: every stage whole); a
     "depth" stage of the RED regularizer raises, as JAX's trainer refuses
-    it.
+    it.  coords, compute_dtype, remat and torch_compat: the module
+    docstring's four knobs (defaults: exact coordinates, float32, no
+    remat, native sampling).
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
@@ -189,7 +272,9 @@ class CascadeModel(nn.Module):
                  regularizer: str = "red", sampler: str = "window", confidence: str = "max",
                  grad_method: str = "through", share_cr: bool = False, lamb: float = 1.5,
                  feat_base_chs: int = 8, arch_mode: str = "unet", geo_model: str = "rpc",
-                 volume_partition=None, mesh=None):
+                 volume_partition=None, mesh=None, coords: str = "exact",
+                 compute_dtype: torch.dtype | None = None, remat: bool = False,
+                 torch_compat: bool = False):
         super().__init__()
         if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
             raise ValueError("the port runs three cascade stages")
@@ -214,10 +299,17 @@ class CascadeModel(nn.Module):
         if share_cr:
             raise ValueError("share_cr=True: one regularizer cannot take the stages' "
                              "4b, 2b and b feature channels")
-        self.feature = FeatureNet(feat_base_chs, arch_mode)
-        reg = REDRegularizer if regularizer == "red" else CostRegNet
+        if coords not in COORDS:
+            raise ValueError(f"coords={coords!r}: want one of {COORDS}")
+        if compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype={compute_dtype!r}: want None, torch.float32 or "
+                             f"torch.bfloat16")
+        self.coords, self.remat, self.torch_compat = coords, remat, torch_compat
+        self.compute_dtype = dt = None if compute_dtype == torch.float32 else compute_dtype
+        self.feature = FeatureNet(feat_base_chs, arch_mode, dt)
         self.regs = nn.ModuleList(
-            reg(c, cr) for c, cr in zip(self.feature.out_channels, cr_base_chs))
+            REDRegularizer(c, cr, dt) if regularizer == "red" else CostRegNet(c, cr, dtype=dt)
+            for c, cr in zip(self.feature.out_channels, cr_base_chs))
         self.partition(volume_partition, mesh)
 
     def partition(self, volume_partition, mesh) -> None:
@@ -263,10 +355,19 @@ class CascadeModel(nn.Module):
 
     def hypotheses(self, i: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torch.Tensor,
                    depth: torch.Tensor | None, exp_var: torch.Tensor | None) -> torch.Tensor:
-        """Stage i's hypotheses (`stage_hypotheses` under this model's knobs)."""
+        """Stage i's hypotheses (`stage_hypotheses` under this model's knobs;
+        with torch_compat the reference's window chain at the image's size,
+        the stage's times its scale 4, 2 or 1)."""
+        scale = (4, 2, 1)[i]
         return stage_hypotheses(self.ndepths[i], sh, sw, d_min, d_max,
                                 self.stage_intervals()[i], depth, exp_var, self.sampler,
-                                self.grad_method == "detach")
+                                self.grad_method == "detach",
+                                (sh * scale, sw * scale) if self.torch_compat else None)
+
+    @property
+    def convention(self) -> str:
+        """The sweeps' sampling convention: "torch" under torch_compat."""
+        return "torch" if self.torch_compat else "exact"
 
     def _stage(self, i: int, feats: torch.Tensor, cams, d_min: torch.Tensor,
                d_max: torch.Tensor, depth: torch.Tensor | None,
@@ -282,17 +383,30 @@ class CascadeModel(nn.Module):
             hyps = (hyps[:, shard.lo:shard.hi] if shard.axis == "depth" else
                     hyps[:, :, shard.lo:shard.hi])
             row0 = shard.lo if shard.axis == "spatial" else 0
+        window = None  # coarse: the first stage's planes, else the whole stage's window
+        if self.coords == "coarse":
+            window = hyps[:, :, 0, 0] if depth is None else whole
         if self.fused_sweep is not False and (self.train_fused_sweep
                                               or not torch.is_grad_enabled()):
-            volume = build_stage_volume(feats, cams, hyps, row0)
+            volume = build_stage_volume(feats, cams, hyps, row0, self.coords, self.convention,
+                                        window)
         else:
-            volume = build_train_volume(feats, cams, hyps, self.volume_dtype, row0)
+            volume = build_train_volume(feats, cams, hyps, self.volume_dtype, row0, self.coords,
+                                        self.convention, window)
         if self.regularizer == "red":
             if shard is not None:  # the whole volume on every rank (module docstring)
                 volume, hyps, shard = slab_gather(volume, 2, shard), whole, None
-            logits = self.regs[i](volume, self.fused_red is not False)
+
+            def regularize(v):
+                return self.regs[i](v, self.fused_red is not False)
         else:
-            logits = self.regs[i](volume, train, shard)
+            def regularize(v):
+                return self.regs[i](v, train, shard)
+        if self.remat and torch.is_grad_enabled():
+            logits = checkpoint(regularize, volume, use_reentrant=False,
+                                preserve_rng_state=False, context_fn=_remat_contexts)
+        else:
+            logits = regularize(volume)
         dshard = shard if shard is not None and shard.axis == "depth" else None
         prob = regression.softmax_depth(logits, dshard)
         depth = regression.depth_regression(prob, hyps, dshard)

@@ -20,9 +20,22 @@ there itself, so every rank computes its slab of the whole volume's
 output: a stride-1 conv takes a halo each side, a stride-2 conv one before
 (its slab starts at an even index), a stride-2 transposed conv one after.
 Its BatchNorm takes the moments over the ranks its `group` names.
+
+A compute dtype (`dtype`, JAX's `compute_dtype`: None for float32, or
+torch.bfloat16) works as flax's `promote_dtype` (`satmvs_tpu/nn/blocks.py:
+58-61`, `conv_in`): each convolution casts its input, kernel and bias to it
+and returns its output in it; the parameters stay float32.  BatchNorm
+normalizes in float32 and returns float32, as flax's does against its
+float32 scale, so a block with a norm hands on float32.
+
+Train-mode BatchNorms move their running statistics once per forward;
+inside `frozen_running_stats` they normalize as usual and leave them alone
+(the recompute of a checkpointed forward, `models.cascade`'s remat).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -54,8 +67,10 @@ class BatchNorm(nn.BatchNorm2d):
     """
 
     group = None  # a process group: train-mode moments over the global batch
+    frozen = 0    # > 0: train mode leaves the running statistics alone
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
@@ -68,13 +83,51 @@ class BatchNorm(nn.BatchNorm2d):
         n = sums[2 * c]
         mean = sums[:c] / n
         var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+        if not BatchNorm.frozen:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         per_channel = (-1,) + (1,) * (x.ndim - 2)
         return ((x - mean.view(per_channel)) * mul.view(per_channel)
                 + self.bias.view(per_channel))
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within the block, train-mode BatchNorms leave their running statistics
+    as they are (the module docstring)."""
+    BatchNorm.frozen += 1
+    try:
+        yield
+    finally:
+        BatchNorm.frozen -= 1
+
+
+def conv_in(conv: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """conv(x) computed in `dtype` (module docstring): the input and kernel
+    cast to it, the convolution's output in it, then its bias (cast too)
+    added in it, as flax adds it after the convolution; the gradients reach
+    the float32 parameters through the casts.  dtype None: conv(x) as it
+    is."""
+    if dtype is None:
+        return conv(x)
+    x, w, b = _cast(conv, x, dtype)
+    if isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        fn = F.conv_transpose2d if isinstance(conv, nn.ConvTranspose2d) else F.conv_transpose3d
+        y = fn(x, w, None, conv.stride, conv.padding, conv.output_padding, conv.groups,
+               conv.dilation)
+    else:
+        y = conv._conv_forward(x, w, None)
+    return y if b is None else y + b.view(-1, *(1,) * (y.ndim - 2))
+
+
+def _cast(conv: nn.Module, x: torch.Tensor, dtype):
+    """(x, weight, bias) in dtype (None: as they are)."""
+    if dtype is None:
+        return x, conv.weight, conv.bias
+    return (x.to(dtype), conv.weight.to(dtype),
+            None if conv.bias is None else conv.bias.to(dtype))
 
 
 def sync_batch_norm(module: nn.Module, group) -> nn.Module:
@@ -97,37 +150,40 @@ def _slab_dim(shard) -> int:
     return 2 if shard.axis == "depth" else 3
 
 
-def conv3d_slab(conv: nn.Conv3d, x: torch.Tensor, shard) -> torch.Tensor:
+def conv3d_slab(conv: nn.Conv3d, x: torch.Tensor, shard, dtype=None) -> torch.Tensor:
     """A 3×3×3 pad-1 Conv3d (stride 1 or 2) of this rank's slab x (NCDHW)
     of a volume sharded along shard.axis: the halos joined, no padding on
-    that axis → this rank's slab of the whole volume's output."""
+    that axis → this rank's slab of the whole volume's output (computed in
+    dtype, as `conv_in`)."""
     dim = _slab_dim(shard)
     stride = conv.stride[dim - 2]
-    x = halo_exchange(x, dim, shard, 1, 1 if stride == 1 else 0)
+    x, w, b = _cast(conv, halo_exchange(x, dim, shard, 1, 1 if stride == 1 else 0), dtype)
     pad = [1, 1, 1]
     pad[dim - 2] = 0
-    return F.conv3d(x, conv.weight, conv.bias, conv.stride, tuple(pad))
+    return F.conv3d(x, w, b, conv.stride, tuple(pad))
 
 
-def conv_transpose3d_slab(conv: nn.ConvTranspose3d, x: torch.Tensor, shard) -> torch.Tensor:
+def conv_transpose3d_slab(conv: nn.ConvTranspose3d, x: torch.Tensor, shard,
+                          dtype=None) -> torch.Tensor:
     """The k=3, s=2, p=1, op=1 ConvTranspose3d of this rank's slab x: the
     next rank's first plane (or row) joined on, the output cut to twice the
-    slab."""
+    slab (computed in dtype, as `conv_in`)."""
     dim = _slab_dim(shard)
     n = x.shape[dim]
-    y = F.conv_transpose3d(halo_exchange(x, dim, shard, 0, 1), conv.weight, conv.bias,
-                           conv.stride, conv.padding, conv.output_padding)
+    x, w, b = _cast(conv, halo_exchange(x, dim, shard, 0, 1), dtype)
+    y = F.conv_transpose3d(x, w, b, conv.stride, conv.padding, conv.output_padding)
     return y.narrow(dim, 0, 2 * n)
 
 
 class ConvBlock(nn.Module):
     """Conv → (BatchNorm) → ReLU, 2-D (Conv2d) or 3-D (Conv3d, dims=3).
     norm: "bn" | "none"; the conv has a bias iff there is no norm, unless
-    `use_bias` says otherwise."""
+    `use_bias` says otherwise; dtype: the conv's compute dtype (module
+    docstring)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, norm: str = "bn", use_bias: bool | None = None,
-                 dims: int = 2):
+                 dims: int = 2, dtype=None):
         super().__init__()
         if norm not in ("bn", "none"):
             raise ValueError(f"ConvBlock: unsupported norm {norm!r}")
@@ -137,11 +193,13 @@ class ConvBlock(nn.Module):
         self.conv = conv(in_channels, features, kernel_size, stride,
                          padding=kernel_size // 2, bias=bias)
         self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
         """shard: x is this rank's slab of a sharded volume (3-D blocks;
         module docstring)."""
-        x = self.conv(x) if shard is None else conv3d_slab(self.conv, x, shard)
+        x = (conv_in(self.conv, x, self.dtype) if shard is None else
+             conv3d_slab(self.conv, x, shard, self.dtype))
         return F.relu(x if self.bn is None else self.bn(x, train))
 
 
@@ -159,7 +217,7 @@ class DeconvBlock(nn.Module):
     """
 
     def __init__(self, in_channels: int, features: int, norm: str = "bn",
-                 use_bias: bool | None = None, dims: int = 2):
+                 use_bias: bool | None = None, dims: int = 2, dtype=None):
         super().__init__()
         if norm not in ("bn", "none"):
             raise ValueError(f"DeconvBlock: unsupported norm {norm!r}")
@@ -168,10 +226,12 @@ class DeconvBlock(nn.Module):
         deconv = nn.ConvTranspose2d if dims == 2 else nn.ConvTranspose3d
         self.conv = deconv(in_channels, features, 3, 2, padding=1, output_padding=1, bias=bias)
         self.bn = BatchNorm(features, eps=1e-5) if norm == "bn" else None
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
         """shard: x is this rank's slab of a sharded volume (3-D blocks)."""
-        x = self.conv(x) if shard is None else conv_transpose3d_slab(self.conv, x, shard)
+        x = (conv_in(self.conv, x, self.dtype) if shard is None else
+             conv_transpose3d_slab(self.conv, x, shard, self.dtype))
         return F.relu(x if self.bn is None else self.bn(x, train))
 
 
@@ -218,10 +278,10 @@ class ConvGRUCell(nn.Module):
 class DeconvFuse(nn.Module):
     """The unet decoder step: upsample x, concatenate the skip, conv."""
 
-    def __init__(self, in_channels: int, skip_channels: int, features: int):
+    def __init__(self, in_channels: int, skip_channels: int, features: int, dtype=None):
         super().__init__()
-        self.deconv = DeconvBlock(in_channels, features, norm="bn")
-        self.conv = ConvBlock(features + skip_channels, features, 3, norm="bn")
+        self.deconv = DeconvBlock(in_channels, features, norm="bn", dtype=dtype)
+        self.conv = ConvBlock(features + skip_channels, features, 3, norm="bn", dtype=dtype)
 
     def forward(self, x_skip: torch.Tensor, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.conv(torch.cat([self.deconv(x, train), x_skip], dim=1), train)

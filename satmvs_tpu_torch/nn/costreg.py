@@ -33,6 +33,14 @@ JAX's row packing, `split_cols` / `merge_cols` and the VMEM feasibility caps
 (`packed_costreg_feasible`) are TPU layout workarounds and are not ported:
 any shape the contract takes runs packed.
 
+A compute dtype (`dtype`, JAX's `compute_dtype`, `satmvs_tpu/nn/costreg.py:
+175-197`) reaches the conv3d path's blocks: each 3-D conv and transposed
+conv computes in it (cuDNN in bf16 on the card), BatchNorm in float32, the
+head in float32 as JAX's.  The packed forms are the port's own kernels for
+what JAX computes as XLA convolutions, and they stay float32, so under a
+compute dtype the CostRegNet always takes the conv3d path, as JAX runs
+its bf16 XLA convolutions there.
+
 Both paths also take this rank's slab of a volume sharded along D or H
 (`shard`, a `dist.halo.Shard`; JAX's GSPMD partitions the same network
 under a sharding constraint): each convolution joins its neighbours' halo
@@ -178,25 +186,31 @@ class CostRegNet(nn.Module):
     """(B, D, H, W, C) variance volume → (B, D, H, W) float32 logits.
 
     fused: None (the default) or True run the packed path when no gradient
-    is recorded and train is False, on every device (JAX resolves None by
-    its backend, `satmvs_tpu/nn/costreg.py:176-186`; the port's kernels run
-    on every device); False always runs the conv3d path."""
+    is recorded, train is False and there is no compute dtype, on every
+    device (JAX resolves None by its backend, `satmvs_tpu/nn/costreg.py:
+    176-186`; the port's kernels run on every device); False always runs
+    the conv3d path.  dtype: the conv3d path's compute dtype (module
+    docstring)."""
 
     def __init__(self, in_channels: int, base_channels: int = 8,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, dtype=None):
         super().__init__()
         b = base_channels
         self.base_channels = b
-        self.fused = fused
+        self.fused, self.dtype = fused, dtype
+
+        def block(cin, cout, stride=1):
+            return ConvBlock(cin, cout, stride=stride, dims=3, dtype=dtype)
+
+        def up(cin, cout):
+            return DeconvBlock(cin, cout, dims=3, dtype=dtype)
+
         # flax's creation order: ConvBlock_0..6, DeconvBlock_0..2, Conv_0
         self.convs = nn.ModuleList([
-            ConvBlock(in_channels, b, dims=3), ConvBlock(b, 2 * b, stride=2, dims=3),
-            ConvBlock(2 * b, 2 * b, dims=3), ConvBlock(2 * b, 4 * b, stride=2, dims=3),
-            ConvBlock(4 * b, 4 * b, dims=3), ConvBlock(4 * b, 8 * b, stride=2, dims=3),
-            ConvBlock(8 * b, 8 * b, dims=3)])
-        self.deconvs = nn.ModuleList([DeconvBlock(8 * b, 4 * b, dims=3),
-                                      DeconvBlock(4 * b, 2 * b, dims=3),
-                                      DeconvBlock(2 * b, b, dims=3)])
+            block(in_channels, b), block(b, 2 * b, 2), block(2 * b, 2 * b),
+            block(2 * b, 4 * b, 2), block(4 * b, 4 * b), block(4 * b, 8 * b, 2),
+            block(8 * b, 8 * b)])
+        self.deconvs = nn.ModuleList([up(8 * b, 4 * b), up(4 * b, 2 * b), up(2 * b, b)])
         self.head = nn.Conv3d(b, 1, 3, padding=1, bias=False)
 
     def forward(self, volume: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
@@ -210,7 +224,7 @@ class CostRegNet(nn.Module):
                              f"divisible by 8, got {tuple(volume.shape)} (whole {extent})")
         records = torch.is_grad_enabled() and (
             volume.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if self.fused is not False and not train and not records:
+        if self.fused is not False and self.dtype is None and not train and not records:
             return self.packed(volume, shard)
         return self.conv3d(volume, train, shard)
 

@@ -34,6 +34,16 @@ on the card, differentiable everywhere): the encoder over all B·D planes at
 once, the four cells' input convolutions likewise, then plane by plane the
 recurrences and the in-plane decoder, interleaved coarse → fine from zero
 states.  H and W must be divisible by 8.
+
+A compute dtype (`dtype`, JAX's `compute_dtype`) reaches the scan path as
+JAX carries it (`satmvs_tpu/nn/red.py:60-75`, run through
+`satmvs_tpu/nn/blocks.py:290-318`): the encoder convs, the decoder deconvs
+and the head compute in it; the cells run float32, their input half too,
+since JAX's scan calls the cells' concat form, whose bf16 input promotes
+to float32 against the float32 state (the x-half's declared dtype acts
+only at flax's init); the logits come back float32.  The fused pipeline
+stays float32 whatever the dtype, as JAX keeps its Pallas kernels
+(`satmvs_tpu/nn/red.py:199-204`).
 """
 
 from __future__ import annotations
@@ -43,25 +53,33 @@ import torch.nn as nn
 
 from ..ops.kernels.plane_conv import conv_dn, conv_head, deconv_up
 from ..ops.kernels.red_recur import red_recur
-from .blocks import ConvBlock, ConvGRUCell, DeconvBlock
+from .blocks import ConvBlock, ConvGRUCell, DeconvBlock, conv_in
 
 
 class REDStep(nn.Module):
     """The layers of RED regularization (the flax `ScanREDStep_0`): the
     encoder convs, the four ConvGRU cells, the decoder deconvs and the head."""
 
-    def __init__(self, in_channels: int, base_channels: int = 8):
+    def __init__(self, in_channels: int, base_channels: int = 8, dtype=None):
         super().__init__()
         b = base_channels
-        self.enc1 = ConvBlock(in_channels, 2 * b, 3, stride=2, norm="none", use_bias=False)
-        self.enc2 = ConvBlock(2 * b, 4 * b, 3, stride=2, norm="none", use_bias=False)
-        self.enc3 = ConvBlock(4 * b, 8 * b, 3, stride=2, norm="none", use_bias=False)
+        self.dtype = dtype
+
+        def enc(cin, cout):
+            return ConvBlock(cin, cout, 3, stride=2, norm="none", use_bias=False, dtype=dtype)
+
+        def dec(cin, cout):
+            return DeconvBlock(cin, cout, norm="none", use_bias=False, dtype=dtype)
+
+        self.enc1 = enc(in_channels, 2 * b)
+        self.enc2 = enc(2 * b, 4 * b)
+        self.enc3 = enc(4 * b, 8 * b)
         self.gru4 = ConvGRUCell(8 * b, 8 * b)
-        self.up3 = DeconvBlock(8 * b, 4 * b, norm="none", use_bias=False)
+        self.up3 = dec(8 * b, 4 * b)
         self.gru3 = ConvGRUCell(4 * b, 4 * b)
-        self.up2 = DeconvBlock(4 * b, 2 * b, norm="none", use_bias=False)
+        self.up2 = dec(4 * b, 2 * b)
         self.gru2 = ConvGRUCell(2 * b, 2 * b)
-        self.up1 = DeconvBlock(2 * b, b, norm="none", use_bias=False)
+        self.up1 = dec(2 * b, b)
         self.gru1 = ConvGRUCell(in_channels, b)
         self.head = nn.Conv2d(b, 1, 3, padding=1, bias=True)
 
@@ -72,11 +90,12 @@ class REDStep(nn.Module):
 
 
 class REDRegularizer(nn.Module):
-    """(B, D, H, W, C) variance volume → (B, D, H, W) float32 logits."""
+    """(B, D, H, W, C) variance volume → (B, D, H, W) float32 logits; dtype:
+    the scan path's compute dtype (module docstring)."""
 
-    def __init__(self, in_channels: int, base_channels: int = 8):
+    def __init__(self, in_channels: int, base_channels: int = 8, dtype=None):
         super().__init__()
-        self.step = REDStep(in_channels, base_channels)
+        self.step = REDStep(in_channels, base_channels, dtype)
 
     def pipeline(self, volume: torch.Tensor, h0s=None):
         """(B, D, H, W, C) volume, start states h0s (None for zeros, or one
@@ -110,7 +129,7 @@ class REDRegularizer(nn.Module):
         c1 = s.enc1(neg)
         c2 = s.enc2(c1)
         c3 = s.enc3(c2)
-        xcs = [cell.x_contrib(x).reshape(b, d, 3 * cell.features, *x.shape[2:])
+        xcs = [cell.x_contrib(x.float()).reshape(b, d, 3 * cell.features, *x.shape[2:])
                for cell, x in zip(s.grus, (neg, c1, c2, c3))]
         states = [x.new_zeros((b, cell.features, *x.shape[3:]))
                   for cell, x in zip(s.grus, xcs)]
@@ -124,9 +143,9 @@ class REDRegularizer(nn.Module):
             s2 = s.gru2.recur(xcs[1][:, k], s2)
             u1 = s.up1(u2 + s2)
             s1 = s.gru1.recur(xcs[0][:, k], s1)
-            logits.append(s.head(u1 + s1)[:, 0])
+            logits.append(conv_in(s.head, u1 + s1, s.dtype)[:, 0])
             states = [s1, s2, s3, s4]
-        return torch.stack(logits, dim=1)
+        return torch.stack(logits, dim=1).float()
 
     def forward(self, volume: torch.Tensor, fused: bool = True) -> torch.Tensor:
         """(B, D, H, W, C) volume → (B, D, H, W) logits: the fused pipeline,

@@ -4,6 +4,8 @@ Counterpart of `satmvs_tpu/ops/sampling.py`.  Samples are taken at exact
 pixel coordinates (x = 0 is the centre of the first column).  Each of the
 four corners is valid on its own: an out-of-image corner contributes zero,
 the others keep their weights (grid_sample's padding_mode='zeros').
+`torch_grid_coords` maps exact coordinates to the reference's stretched
+ones (the `torch_compat` mode).
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ def bilinear_sample(feat: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
         + corner(y1i, x1i, wy * wx)
     )
     return out.reshape(*shape, c)
+
+
+def torch_grid_coords(x: torch.Tensor, y: torch.Tensor, height: int, width: int):
+    """Exact pixel coordinates → the positions the reference samples: it
+    normalizes by (W − 1)/2 and calls grid_sample(align_corners=False),
+    which reads the input at x·W/(W − 1) − 0.5 (`satmvs_tpu/ops/sampling.py:
+    67-78`).  height and width are the sampled (source) map's.  The
+    `torch_compat` mode's sampling, so converted reference checkpoints see
+    the geometry they were trained under."""
+    return (x * (width / (width - 1.0)) - 0.5, y * (height / (height - 1.0)) - 0.5)
 
 
 def bilinear_sample_scalar(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

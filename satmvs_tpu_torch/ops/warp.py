@@ -1,7 +1,9 @@
 """Plane-sweep geometry under the RPC camera (basis and QC forms) and the
 pinhole camera.
 
-Counterpart of `satmvs_tpu/ops/warp.py` with exact per-pixel coordinates.
+Counterpart of `satmvs_tpu/ops/warp.py`: exact per-pixel coordinates by
+default, the coarse grid of `ops/coarse_coords.py` on request
+(coords="coarse", RPC basis cameras only, as in JAX).
 Geometry carries no gradient, and none of it is a matmul: every product is
 an elementwise fp32 product, so no TF32 setting of the caller reaches it.
 
@@ -19,9 +21,11 @@ relative transform src · ref⁻¹ in float64 on the tensor's device, casts it
 to float32, and maps each pixel with a 3×3 product written out in
 multiply-adds.
 
-`sweep_coords` picks the chain by the cameras' type.  `rpc_warp` and
-`homo_warp` are the per-view training warps: coordinates as above, then
-the `sweep_gather` kernel, differentiable in the source features.
+`sweep_coords` picks the chain by the cameras' type; `sample_coords` adds
+the reference's grid_sample stretch under convention="torch" (the
+`torch_compat` mode).  `rpc_warp` and `homo_warp` are the per-view
+training warps: coordinates as above, then the `sweep_gather` kernel,
+differentiable in the source features.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..geo import rpc as rpclib
 from .kernels.sweep_gather import sweep_gather
+from .sampling import torch_grid_coords
 
 
 class _Bundle:
@@ -281,46 +286,79 @@ def homo_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     return p[0] / z, p[1] / z
 
 
+COORDS = ("exact", "coarse")
+CONVENTIONS = ("exact", "torch")
+
+
+def _check_choice(what: str, value: str, choices: tuple) -> None:
+    if value not in choices:
+        raise ValueError(f"{what}={value!r}: want one of {choices}")
+
+
 def sweep_coords(cams, src_index: int, depth_values: torch.Tensor, height: int, width: int,
-                 row0: int = 0):
+                 row0: int = 0, coords: str = "exact", window: torch.Tensor | None = None):
     """One sample's sweep coordinates for source view src_index under its
     cameras, for the reference rows row0 .. row0 + height − 1:
-    `rpc_sweep_coords` for `RpcWarpCams`, `rpc_sweep_coords_qc` for
-    `QcWarpCams`, `homo_sweep_coords` for pinhole (V, 4, 4) projection
-    matrices (view 0 the reference)."""
+    `rpc_sweep_coords` for `RpcWarpCams` (`ops.coarse_coords.
+    rpc_sweep_coords_coarse` with coords="coarse", window its fit's
+    hypotheses), `rpc_sweep_coords_qc` for `QcWarpCams`, `homo_sweep_coords`
+    for pinhole (V, 4, 4) projection matrices (view 0 the reference).  As
+    in JAX (`satmvs_tpu/ops/warp.py:189-194`), QC and pinhole cameras take
+    their exact chain whatever coords says."""
+    _check_choice("coords", coords, COORDS)
     if isinstance(cams, torch.Tensor):
         return homo_sweep_coords(cams[src_index + 1], cams[0], depth_values, height, width,
                                  row0)
     if isinstance(cams, QcWarpCams):
         return rpc_sweep_coords_qc(cams, src_index, depth_values, height, width, row0)
+    if coords == "coarse":
+        from .coarse_coords import rpc_sweep_coords_coarse
+
+        return rpc_sweep_coords_coarse(cams, src_index, depth_values, height, width,
+                                       row0=row0, window=window)
     return rpc_sweep_coords(cams, src_index, depth_values, height, width, row0)
+
+
+def sample_coords(cams, src_index: int, depth_values: torch.Tensor, height: int, width: int,
+                  src_hw: tuple[int, int], row0: int = 0, coords: str = "exact",
+                  convention: str = "exact", window: torch.Tensor | None = None):
+    """`sweep_coords`, then under convention="torch" the reference's
+    grid_sample stretch (`ops.sampling.torch_grid_coords`) of a source map
+    of src_hw = (rows, columns): the positions a sweep kernel samples."""
+    _check_choice("convention", convention, CONVENTIONS)
+    xs, ys = sweep_coords(cams, src_index, depth_values, height, width, row0, coords, window)
+    if convention == "torch":
+        xs, ys = torch_grid_coords(xs, ys, *src_hw)
+    return xs, ys
 
 
 def rpc_warp(src_feat: torch.Tensor, cams: RpcWarpCams | QcWarpCams, src_index: int,
              depth_values: torch.Tensor, convention: str = "exact",
-             out_dtype=None, row0: int = 0) -> torch.Tensor:
+             out_dtype=None, row0: int = 0, coords: str = "exact",
+             window: torch.Tensor | None = None) -> torch.Tensor:
     """RPC plane-sweep warp of one source view: src_feat (H, W, C) sampled at
     the sweep coordinates of `depth_values` ((D, H, W) or (D,) heights) →
     (D, H, W, C), differentiable in src_feat; the coordinates carry no
     gradient.
 
-    Counterpart of `satmvs_tpu/ops/warp.py:rpc_warp` with coords="exact";
-    its `method`, `coords` and `stencil` choose among TPU implementations and
-    have none here.  out_dtype: the warped volume's storage dtype (None:
-    float32; torch.bfloat16 halves the volume's bytes: the sample is taken
-    in float32 and rounded once, and the backward reads the bf16 cotangent
-    into the float32 scatter).  convention="torch" (the reference's
-    grid_sample stretch) is not ported and raises.  Unbatched `cams`, of
-    either RPC form.  With (D, H', W) hypotheses the warp covers the
-    reference rows row0 .. row0 + H' − 1 (a rank's band under height
-    sharding) and reads the source whole → (D, H', W, C).
+    Counterpart of `satmvs_tpu/ops/warp.py:rpc_warp`; its `method` and
+    `stencil` choose among TPU implementations and have none here.
+    coords: "exact" (the default) or "coarse" (`ops.coarse_coords`; window
+    as there).  convention: "exact" samples at the projected pixel, "torch"
+    where the reference's grid_sample reads (`ops.sampling.
+    torch_grid_coords`, stretched by the source map's own height and
+    width).  out_dtype: the warped volume's storage dtype (None: float32;
+    torch.bfloat16 halves the volume's bytes: the sample is taken in
+    float32 and rounded once, and the backward reads the bf16 cotangent
+    into the float32 scatter).  Unbatched `cams`, of either RPC form.  With
+    (D, H', W) hypotheses the warp covers the reference rows row0 .. row0 +
+    H' − 1 (a rank's band under height sharding) and reads the source whole
+    → (D, H', W, C).
     """
-    if convention != "exact":
-        raise ValueError(f"rpc_warp: convention {convention!r} is not ported (torch_compat)")
     h, w, _ = src_feat.shape
-    if depth_values.ndim == 3:
-        h = depth_values.shape[1]
-    xs, ys = sweep_coords(cams, src_index, depth_values, h, w, row0)
+    hb = depth_values.shape[1] if depth_values.ndim == 3 else h
+    xs, ys = sample_coords(cams, src_index, depth_values, hb, w, (h, w), row0, coords,
+                           convention, window)
     return sweep_gather(src_feat, xs.contiguous(), ys.contiguous(), out_dtype)
 
 
@@ -331,10 +369,10 @@ def homo_warp(src_feat: torch.Tensor, src_proj: torch.Tensor, ref_proj: torch.Te
     sampled at the homography sweep's coordinates (`homo_sweep_coords`) →
     (D, H, W, C) by the `sweep_gather` kernel, differentiable in src_feat;
     out_dtype, convention and a band of rows (row0) as in `rpc_warp`."""
-    if convention != "exact":
-        raise ValueError(f"homo_warp: convention {convention!r} is not ported (torch_compat)")
+    _check_choice("convention", convention, CONVENTIONS)
     h, w, _ = src_feat.shape
-    if depth_values.ndim == 3:
-        h = depth_values.shape[1]
-    xs, ys = homo_sweep_coords(src_proj, ref_proj, depth_values, h, w, row0)
+    hb = depth_values.shape[1] if depth_values.ndim == 3 else h
+    xs, ys = homo_sweep_coords(src_proj, ref_proj, depth_values, hb, w, row0)
+    if convention == "torch":
+        xs, ys = torch_grid_coords(xs, ys, h, w)
     return sweep_gather(src_feat, xs.contiguous(), ys.contiguous(), out_dtype)

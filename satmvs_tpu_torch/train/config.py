@@ -2,8 +2,10 @@
 
 Counterpart of `satmvs_tpu/train/config.py`, with the same fields, CLI
 surface and defaults, so a command line means the same in both packages.
-Values whose features the port lacks raise when set away from their
-defaults: compute_dtype other than float32 and torch_compat.  mesh_data,
+compute_dtype="bfloat16" computes the convolutions of FeatureNet, the RED
+scan path and the CostRegNet in bf16 (`models.cascade`); torch_compat=True
+samples and draws hypotheses as the reference does, for checkpoints
+converted from it (`train.convert`, `cli.convert_ckpt`).  mesh_data,
 mesh_spatial and mesh_depth lay out that many ranks on JAX's three mesh
 axes (`dist`, `train.loop.fit`): data-parallel, height-sharded and
 depth-slab-sharded cost volumes.  All three models train, evaluate and predict, under
@@ -25,10 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
-
-# field → the value the port supports (every other value raises)
-_ONLY = {"compute_dtype": "float32", "torch_compat": False}
-
 
 @dataclasses.dataclass
 class Config:
@@ -57,9 +55,9 @@ class Config:
     dlossw: Sequence[float] = (0.5, 1.0, 2.0)
     cr_base_chs: Sequence[int] = (8, 8, 8)
     sweep_stencil: int = 0                   # TPU tap width: accepted, no effect
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"           # float32 | bfloat16: the conv stacks
     volume_dtype: str = "float32"            # float32 | bfloat16: the per-view sweep's volumes
-    torch_compat: bool = False
+    torch_compat: bool = False               # the reference's sampling (converted ckpts)
     fused_red: Optional[bool] = None         # None = auto: the fused pipeline (see above)
     fused_sweep: Optional[bool] = None       # None/True: the sweep_variance kernel at inference;
                                              # False: the per-view sweep everywhere
@@ -86,15 +84,13 @@ class Config:
             raise ValueError(f"model={self.model!r}: want 'red', 'casmvs' or 'ucs'")
         if self.geo_model not in ("rpc", "pinhole"):
             raise ValueError(f"geo_model={self.geo_model!r}: want 'rpc' or 'pinhole'")
-        for name, value in _ONLY.items():
-            if getattr(self, name) != value:
-                raise ValueError(f"{name}={getattr(self, name)!r}: the port supports "
-                                 f"{name}={value!r} only")
         for name in ("mesh_data", "mesh_spatial", "mesh_depth"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name}={getattr(self, name)!r}: want a rank count ≥ 1")
-        if self.volume_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"volume_dtype={self.volume_dtype!r}: want 'float32' or 'bfloat16'")
+        for name in ("compute_dtype", "volume_dtype"):
+            if getattr(self, name) not in ("float32", "bfloat16"):
+                raise ValueError(f"{name}={getattr(self, name)!r}: want 'float32' or "
+                                 f"'bfloat16'")
 
     @property
     def num_stage(self) -> int:

@@ -127,10 +127,16 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> RMSprop:
     return RMSprop(cfg.lr, boundaries, cfg.wd)
 
 
+def _dtype(name: str):
+    """A Config dtype name → the model's dtype knob (None: float32)."""
+    return torch.bfloat16 if name == "bfloat16" else None
+
+
 def create_model(cfg: Config, device, variables: Optional[dict] = None,
                  train_fused_sweep: bool = False):
     """The configured model on `device`, in eval mode, with cfg's fused_red,
-    fused_sweep and volume_dtype and the given train_fused_sweep.  Weights:
+    fused_sweep, volume_dtype, compute_dtype and torch_compat and the given
+    train_fused_sweep (as `satmvs_tpu/train/loop.py:92-94`).  Weights:
     numpy-seeded from cfg.seed (`params.init_from_seed`; not the JAX
     package's PRNG draws), or a flax variables tree `variables` loaded with
     `params.load_jax_variables`.  As in JAX, CascadeREDNet and CascadeMVSNet
@@ -140,7 +146,8 @@ def create_model(cfg: Config, device, variables: Optional[dict] = None,
     model = build_model(cfg.model, cfg.geo_model, ndepths=tuple(cfg.ndepths),
                         cr_base_chs=tuple(cfg.cr_base_chs), fused_red=cfg.fused_red,
                         fused_sweep=cfg.fused_sweep, train_fused_sweep=train_fused_sweep,
-                        volume_dtype=torch.bfloat16 if cfg.volume_dtype == "bfloat16" else None,
+                        volume_dtype=_dtype(cfg.volume_dtype),
+                        compute_dtype=_dtype(cfg.compute_dtype), torch_compat=cfg.torch_compat,
                         device=device, seed=cfg.seed, **spacing)
     if variables is not None:
         load_jax_variables(model, variables)
@@ -241,6 +248,9 @@ def make_train_step(model, tx: RMSprop, dlossw, mesh=None) -> Callable:
     the model's BatchNorms take their moments as `sync_norms` says, the
     gradients are summed over the mesh before the update, and the scalars
     are the global batch's."""
+    if mesh is not None and getattr(model, "remat", False):
+        raise ValueError("remat under a mesh is not ported: a checkpointed regularizer "
+                         "would redo its collectives in the backward")
     dlossw = tuple(dlossw)
     group = _group(mesh)
     sync_norms(model, mesh)

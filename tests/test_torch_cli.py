@@ -207,17 +207,22 @@ def test_scene_cli_is_predict_scene_and_fuses(seeded, tmp_path):
 
 
 def test_clis_refuse_what_the_port_lacks(seeded, jax_predictions, tmp_path, monkeypatch):
-    """What the port still lacks raises: cli.train's --compute_dtype
-    bfloat16, cli.predict's --torch_compat.  The two camera flags run: with
-    --use_qc the test mode evaluates and predict's maps are JAX's basis-form
-    predictions under the predict gates above; with --geo_model=pinhole both
-    run on a pinhole tree (tests/test_torch_pinhole.py holds them to JAX)."""
+    """The flags the port once refused run: cli.train --compute_dtype
+    bfloat16 trains a step (finite loss, a checkpoint) and cli.predict
+    --torch_compat writes its maps (tests/test_torch_knobs.py and
+    tests/test_torch_convert.py hold both to JAX).  The two camera flags
+    run: with --use_qc the test mode evaluates and predict's maps are JAX's
+    basis-form predictions under the predict gates above; with
+    --geo_model=pinhole both run on a pinhole tree
+    (tests/test_torch_pinhole.py holds them to JAX)."""
     base = [f"--dataset_root={seeded['root']}", f"--logdir={tmp_path}", "--ndepths", NDEPTHS]
-    with pytest.raises(ValueError, match="compute_dtype"):
-        cli_train.main(["--mode=train", *base, "--compute_dtype=bfloat16"])
+    out = cli_train.main(["--mode=train", *base, "--compute_dtype=bfloat16", "--epochs", "1"])
+    assert out["timing"]["epochs"] == [1] and out["timing"]["steps"][0] >= 1
+    assert os.path.isfile(os.path.join(str(tmp_path), "red", "rpc", "1", "state.pt"))
     pbase = [f"--dataset_root={seeded['root']}", f"--loadckpt={seeded['ckpt']}"]
-    with pytest.raises(ValueError, match="torch_compat"):
-        cli_predict.main([*pbase, "--torch_compat"])
+    out = cli_predict.main([*pbase, "--ndepths", NDEPTHS, "--torch_compat"])
+    assert sorted(out["written"]) == sorted(jax_predictions)
+    assert all(np.isfinite(formats.load_pfm(p)).all() for p in out["written"].values())
     out = cli_train.main(["--mode=test", *base, f"--loadckpt={seeded['ckpt']}", "--use_qc"])
     assert out["epoch"] == 1 and np.isfinite(out["metrics"]["loss"])
     out = cli_predict.main([*pbase, "--ndepths", NDEPTHS, "--use_qc"])

@@ -174,8 +174,11 @@ def test_rpc_warp_matches_jax():
         got = twarp.rpc_warp(T(src), tcams, s, hyp_t)
         _report(f"rpc_warp view {s}", got.detach(), want, 2e-4)
         assert not got.requires_grad
-    with pytest.raises(ValueError, match="torch"):
-        twarp.rpc_warp(T(src), tcams, 0, T(hyps), convention="torch")
+    for s in range(2):  # the reference's grid_sample stretch (torch_compat)
+        want = jwarp.rpc_warp(jnp.asarray(src), cams, s, jnp.asarray(hyps), method="xla",
+                              coords="exact", convention="torch")
+        _report(f"rpc_warp convention=torch view {s}",
+                twarp.rpc_warp(T(src), tcams, s, T(hyps), convention="torch"), want, 2e-4)
     for s in range(2):  # bf16 volumes: the same samples, each rounded once
         want = jwarp.rpc_warp(jnp.asarray(src), cams, s, jnp.asarray(hyps), method="xla",
                               coords="exact", out_dtype=jnp.bfloat16)

@@ -305,11 +305,24 @@ def test_train_fused_sweep_raises():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_data", 0), ("mesh_spatial", 0), ("mesh_depth", 0), ("compute_dtype", "bfloat16"),
-    ("torch_compat", True)])
+    ("mesh_data", 0), ("mesh_spatial", 0), ("mesh_depth", 0)])
 def test_config_refuses_what_the_port_lacks(field, value):
     with pytest.raises(ValueError, match=field):
         Config(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,knob,want", [
+    ("compute_dtype", "bfloat16", "compute_dtype", torch.bfloat16),
+    ("torch_compat", True, "torch_compat", True)])
+def test_config_takes_the_model_knobs(field, value, knob, want):
+    """The two knobs the port once refused construct, and the model they
+    configure is built with them (tests/test_torch_knobs.py holds them to
+    JAX)."""
+    from satmvs_tpu_torch.train.loop import create_model
+
+    cfg = Config(**{field: value})
+    assert getattr(cfg, field) == value
+    assert getattr(create_model(cfg, "cpu"), knob) == want
 
 
 @pytest.mark.parametrize("field,value", [("geo_model", "pinhole"), ("use_qc", True)])

@@ -2,9 +2,11 @@
 """How far rounding-level changes move the training steps that the port's
 parity checks compare, on the CPU: the numbers behind the stated gates of
 tests/test_torch_train_costreg.py and of chip_smoke.py's BF16_PARITY,
-COSTREG_PARITY, CAMERA_PARITY and per-view bf16 forward.
+COSTREG_PARITY, CAMERA_PARITY, COMPUTE_BF16_PARITY and per-view bf16
+forward.
 
-    JAX_PLATFORMS=cpu python3 train_sensitivity.py [--only jax|bf16|forward|cameras]
+    JAX_PLATFORMS=cpu python3 train_sensitivity.py \
+        [--only jax|bf16|forward|cameras|compute_bf16]
 
   jax      JAX's own CasMVS / UCS train step (`make_train_step`) at 32×64,
            B = 1, ndepths (8, 8, 8), tests/test_torch_train_costreg.py's
@@ -19,6 +21,11 @@ COSTREG_PARITY, CAMERA_PARITY and per-view bf16 forward.
   cameras  as bf16, for the three camera models in fp32: the RPC basis
            form, QC (`use_qc`) and pinhole cameras fitted to the same
            triplet (`chip_smoke.pinhole_batch`, depths ~ −1.4e5 m);
+  compute_bf16  as bf16, with compute_dtype bfloat16 (FeatureNet's convs
+           in bf16; the fused RED pipeline stays fp32) and in fp32, under
+           perturbations of 1e-7 and 1e-4 (a 1e-7 change of an fp32 image
+           rarely flips a bf16 rounding; 1e-4 is still far below a bf16
+           ulp, 2⁻⁸);
   forward  the port's per-view forward with bf16 volumes against its fp32
            default at 96×192, ndepths 64/32/8, LeCun scale, heads ×1 and
            ×40, each stage from the default's previous depth: the depth
@@ -122,11 +129,12 @@ def jax_costreg():
                       f"{gaps[2]:.2e}", flush=True)
 
 
-def step_spread(tag: str, what: str, cfg, base: dict) -> None:
+def step_spread(tag: str, what: str, cfg, base: dict, eps: float = 1e-7) -> None:
     """The port's train step of cfg (LeCun scale, chip_smoke.py's parity
-    step) on base and on base's images × (1 + 1e-7·N(0, 1)): the relative
-    change of the eval-mode gradients and of the update, per tensor and over
-    all, the logit heads' biases left out."""
+    step) on base and on base's images × (1 + eps·N(0, 1)): the relative
+    change of the loss, of the eval-mode gradients and of the update, per
+    tensor and over all, the logit heads' biases left out, and of the
+    running statistics."""
     import torch
 
     import chip_smoke as cs
@@ -136,8 +144,8 @@ def step_spread(tag: str, what: str, cfg, base: dict) -> None:
     noise = torch.from_numpy(np.random.default_rng(0).normal(size=base["imgs"].shape)
                              .astype(np.float32))
     runs = []
-    for eps in (0.0, 1e-7):
-        batch = {**base, "imgs": base["imgs"] * (1 + eps * noise)}
+    for e in (0.0, eps):
+        batch = {**base, "imgs": base["imgs"] * (1 + e * noise)}
         model, state, tx = create_model_and_state(cfg, batch, 1)
         cs.lecun_scale(model)
         old = {k: v.detach().clone().numpy() for k, v in state.params.items()}
@@ -145,18 +153,21 @@ def step_spread(tag: str, what: str, cfg, base: dict) -> None:
         loss = cascade_loss(out, batch["depth_stages"], batch["mask_stages"], cfg.dlossw)[0]
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
-        state, _ = make_train_step(model, tx, cfg.dlossw)(state, batch)
+        state, scalars = make_train_step(model, tx, cfg.dlossw)(state, batch)
         runs.append(({n: g.numpy() for n, g in zip(names, grads)}, old,
-                     {k: v.detach().numpy() for k, v in state.params.items()}))
-    (g0, o0, p0), (g1, _, p1) = runs
+                     {k: v.detach().numpy() for k, v in state.params.items()},
+                     scalars["loss"].item(),
+                     {k: v.detach().numpy() for k, v in state.batch_stats.items()}))
+    (g0, o0, p0, l0, s0), (g1, _, p1, l1, s1) = runs
     keep = [n for n in g0 if not is_head_bias(n)]
     per = max(np.linalg.norm(g1[n] - g0[n]) / np.linalg.norm(g0[n]) for n in keep)
     all_ = (sum(np.linalg.norm(g1[n] - g0[n]) ** 2 for n in keep)
             / sum(np.linalg.norm(g0[n]) ** 2 for n in keep)) ** 0.5
-    upd = update_gaps(p1, p0, o0, {"-": np.ones(1)}, {"-": np.ones(1)})
-    print(f"[{tag}] port train step, {what}, eps 1e-7: eval-mode gradients "
-          f"{per:.2e} per tensor, {all_:.2e} over all; update {upd[0]:.2e} per tensor, "
-          f"{upd[1]:.2e} over all", flush=True)
+    upd = update_gaps(p1, p0, o0, s1, s0)
+    print(f"[{tag}] port train step, {what}, eps {eps:g}: loss {abs(l1 - l0) / abs(l0):.2e} "
+          f"relative; eval-mode gradients {per:.2e} per tensor, {all_:.2e} over all; update "
+          f"{upd[0]:.2e} per tensor, {upd[1]:.2e} over all; running statistics {upd[2]:.2e}",
+          flush=True)
 
 
 def port_bf16():
@@ -167,6 +178,17 @@ def port_bf16():
     for dtype in ("float32", "bfloat16"):
         step_spread("bf16", f"volume_dtype {dtype}",
                     Config(ndepths=(16, 8, 4), seed=5, volume_dtype=dtype), base)
+
+
+def port_compute_bf16():
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    base = synthetic.make_batch(1, 192, 96, seed=1, device="cpu")
+    for dtype in ("float32", "bfloat16"):
+        for eps in (1e-7, 1e-4):
+            step_spread("compute_bf16", f"compute_dtype {dtype}",
+                        Config(ndepths=(16, 8, 4), seed=5, compute_dtype=dtype), base, eps)
 
 
 def port_cameras():
@@ -213,12 +235,12 @@ def port_forward():
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=["jax", "bf16", "forward", "cameras"])
+    p.add_argument("--only", choices=["jax", "bf16", "forward", "cameras", "compute_bf16"])
     a = p.parse_args(argv)
     os.environ.setdefault("SATMVS_PLATFORM", "cpu")
     sys.path.insert(0, str(ROOT))
     for key, fn in (("jax", jax_costreg), ("bf16", port_bf16), ("forward", port_forward),
-                    ("cameras", port_cameras)):
+                    ("cameras", port_cameras), ("compute_bf16", port_compute_bf16)):
         if a.only in (None, key):
             fn()
     return 0
