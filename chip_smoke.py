@@ -183,6 +183,23 @@ Phases, each reported on its own lines:
      `--streaming --slab 8`, on phase 9's test split (exact launches, the
      maps the bits of direct forwards), the torch_compat forward on the
      card against the CPU and streaming against its full volume.
+  15 host I/O and the tools: (a) the native host library
+     (`satmvs_tpu_torch/native`) must build here; on a 5120² image its PFM
+     write and read give numpy's bytes and values and its center_image the
+     float64 normalization within 1e-5, host ms beside numpy's; (b)
+     `cli.synthetic_e2e` at its defaults (16 + 4 scenes of 128², 12 epochs):
+     exact launches per train step (phase 7's) and per forward, finite
+     losses, the trained test MAE at most a quarter of the untrained
+     model's, its JSON line beside the JAX package's recorded run; (c)
+     `cli.fusion_sweep` over phase 9's per-view scene maps with the scene's
+     ground truth, card against CPU (phase 9's fusion gates); (d)
+     `cli.profile_forward` of the forward and of a train step: pools that
+     sum to the total, the hand-written pools not empty, the device total
+     within 10 % of phases 3 and 7's profiles, exact launches; (e)
+     `cli.collectives_report` (`data` and `data_spatial` on 2 ranks, `depth`
+     on 4, gloo ranks sharing the card): exact launches of every rank's
+     step, the gradient all-reduce 4 bytes a parameter, the counts of each
+     kind of collective the model's layers predict.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -192,9 +209,10 @@ streaming forward of phase 4, the two scene runs, the fused train and eval
 steps, the fused_red-off train steps, phase 9's train, predict and scene
 CLI runs, phase 10's two family forwards and its predict run, phase
 11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
-runs, phase 13's data-parallel steps and tile-parallel scene, and phase
-14's knob forwards, steps and predict runs), the nvidia-smi line of the
-card,
+runs, phase 13's data-parallel steps and tile-parallel scene, phase
+14's knob forwards, steps and predict runs, and phase 15's e2e steps and
+forwards, profiled calls and each collectives mesh's rank 0), the
+nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -901,27 +919,6 @@ FP32_SWEEP_PATHS = {"sweep_gather": ("casmvs_train_step", "ucs_train_step", "cli
                                       "fused_sweep_step")}
 
 
-def kernel_wrappers() -> dict:
-    """name → (wrapper, the attribute that counts its launches): the sweep
-    pair's fp32 and bf16 instances count apart."""
-    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
-    from satmvs_tpu_torch.ops.kernels import red_recur as rr
-    from satmvs_tpu_torch.ops.kernels.sweep_gather import sweep_gather, sweep_scatter
-    from satmvs_tpu_torch.ops.kernels.sweep_variance import (sweep_variance,
-                                                             sweep_variance_backward)
-
-    fns = {"sweep_variance": sweep_variance, "conv_dn": pc.conv_dn, "red_recur": rr.red_recur,
-           "deconv_up": pc.deconv_up, "conv_head": pc.conv_head, "sweep_gather": sweep_gather,
-           "sweep_scatter": sweep_scatter, "conv_dn_backward": pc.conv_dn_backward,
-           "red_recur_backward": rr.red_recur_backward,
-           "deconv_up_backward": pc.deconv_up_backward,
-           "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3,
-           "sweep_variance_backward": sweep_variance_backward}
-    out = {k: (f, "launches") for k, f in fns.items()}
-    out.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in ("sweep_gather", "sweep_scatter")})
-    return out
-
-
 def build_model(device, geo_model: str = "rpc", **knobs):
     """CascadeREDNet (RPC or pinhole, ndepths 64/32/8, further
     `CascadeModel` knobs) from seed 0, heads ×40 (a peaked softmax, so
@@ -937,11 +934,17 @@ def build_model(device, geo_model: str = "rpc", **knobs):
 
 
 def counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_wrappers().items()}
+    """Each kernel wrapper's launches so far (the sweep pair's fp32 and bf16
+    instances apart)."""
+    from satmvs_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
 def reset_counts():
-    for fn, attr in kernel_wrappers().values():
+    from satmvs_tpu_torch.ops.kernels import wrappers
+
+    for fn, attr in wrappers().values():
         setattr(fn, attr, 0)
 
 
@@ -1220,7 +1223,8 @@ def phase_scene(card: str, model, scene: dict):
     check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
           f"scene B={BATCH_TILES} vs B=1: depth err mean {mean}, p99 {p99} of step")
     print(f"[scene] profile of one {BATCH_TILES}-tile chunk:", flush=True)
-    profile_forward(lambda: stream(*chunks[0]), card)
+    profile_forward(lambda: stream(*chunks[0]), card,
+                    what=f"one {BATCH_TILES}-tile streaming chunk")
     ref = {"images": images, "rpcs": rpcs, "depth": runs[BATCH_TILES][0],
            "conf": runs[BATCH_TILES][1], "step": step}
     return {f"scene_b{bt}": run[2] for bt, run in runs.items()}, chunks[0], ref
@@ -4459,29 +4463,353 @@ def phase_knobs(card: str, tree: str, default_step: dict) -> dict:
     return launches
 
 
-def profile_forward(fn, card: str, top: int = 8, what: str = "one forward"):
-    """Device time by kernel over one call of fn (torch.profiler), and the
-    share of its wall time the device was busy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# phase 15: host I/O and the tools.  (a) the native host library on a ZY-3
+# scene's 5120² image against the numpy paths; (b) `cli.synthetic_e2e` at
+# its defaults; (c) `cli.fusion_sweep` over phase 9's per-view scene maps,
+# card against CPU; (d) `cli.profile_forward` of a forward and a train step
+# against phases 3 and 7's profiles; (e) `cli.collectives_report` on gloo
+# ranks sharing the card
+NATIVE_SIZE = 5120          # a ZY-3 scene's side
+# native center_image (float64 moments) against the float64 normalization:
+# JAX's 1e-5.  Numpy's float32 path is no reference at this size: its sums
+# over 26 M values drift ~3e-2 from the float64 result (printed beside it)
+NATIVE_CENTER_TOL = 1e-5
+E2E_LEARNS = 0.25           # the trained test MAE at most this share of the untrained model's
+# the JAX package's run at the e2e defaults on its TPU (BASELINE.md:273-278),
+# printed beside the port's, not a gate
+JAX_E2E = {"test_mae_m": 1.29, "fused_mae_m": 1.23, "fusion_valid_frac": 0.953}
+E2E_DEFAULTS = {"scenes": 16, "test_scenes": 4, "epochs": 12}
+SWEEP_GRID = ("--p_ratio", "1", "2", "4", "--d_ratio", "2.5", "7.5", "--geo_consist", "1", "2",
+              "--confidence", "0.1")
+PROFILE_TOL = 0.10          # the profile CLI's device total against phases 3 and 7's
+PROFILE_ITERS = 3
+COLLECTIVE_RUNS = (("data", 2), ("data_spatial", 2), ("depth", 4))
+TOOL_TRAIN_PATHS = ("e2e_step", "profile_train", "collectives_data", "collectives_data_spatial")
+TOOL_FORWARD_PATHS = ("e2e_forward", "profile_forward")
+TOOL_SWEEP_PATHS = ("collectives_depth",)  # CasMVS: the sweep pair only
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def host_ms(fn, reps: int = 3) -> tuple[float, object]:
+    """Median host ms of reps calls of fn, and its last result."""
+    times = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies): an operator's own entry
-    # repeats the device time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    n_kernels = sum(e.count for e in events)
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), out
+
+
+def native_io(card: str) -> None:
+    """Phase 15 (a): the native library must be built here; PFM write and
+    read and center_image on a 5120² image, native against numpy: the same
+    bytes and arrays; center_image within NATIVE_CENTER_TOL of the float64
+    normalization, numpy's distance from it printed; host ms each."""
+    import shutil
+
+    from satmvs_tpu_torch import native
+    from satmvs_tpu_torch.data import formats, preprocess
+
+    check(native.available(), "the native host library did not build on this machine")
+    real = native.available
+    rng = np.random.default_rng(0)
+    height = rng.normal(400.0, 60.0, (NATIVE_SIZE, NATIVE_SIZE)).astype(np.float32)
+    img = rng.uniform(0.0, 255.0, (NATIVE_SIZE, NATIVE_SIZE, 3)).astype(np.float32)
+    folder = WORK / "native"
+    folder.mkdir(parents=True, exist_ok=True)
+    ms, out = {}, {}
+    for path in ("native", "numpy"):
+        native.available = real if path == "native" else (lambda: False)
+        try:
+            pfm = str(folder / f"{path}.pfm")
+            ms[("write", path)], _ = host_ms(lambda: formats.save_pfm(pfm, height))
+            ms[("read", path)], out[("read", path)] = host_ms(lambda: formats.load_pfm(pfm))
+            ms[("center", path)], out[("center", path)] = host_ms(
+                lambda: preprocess.center_image(img))
+        finally:
+            native.available = real
+    same_file = (folder / "native.pfm").read_bytes() == (folder / "numpy.pfm").read_bytes()
+    check(same_file, "native and numpy PFM files differ")
+    for path in ("native", "numpy"):
+        check(np.array_equal(out[("read", path)], height), f"{path} PFM read: other values")
+    x = img.astype(np.float64)
+    exact = (x - x.mean(axis=(0, 1))) / (x.std(axis=(0, 1)) + 1e-8)
+    del x
+    err = {path: float(np.abs(out[("center", path)] - exact).max()) for path in ("native", "numpy")}
+    center_err = float(np.abs(out[("center", "native")] - out[("center", "numpy")]).max())
+    check(err["native"] <= NATIVE_CENTER_TOL, f"native center_image {err['native']:.3e} from "
+          "the float64 normalization")
+    print(f"[tools] native library {native.library_path().name} available: host ms on a "
+          f"{NATIVE_SIZE}² image, native / numpy (median of 3): PFM write "
+          f"{ms[('write', 'native')]:.1f} / {ms[('write', 'numpy')]:.1f}, PFM read "
+          f"{ms[('read', 'native')]:.1f} / {ms[('read', 'numpy')]:.1f} (same bytes and values), "
+          f"center_image of {NATIVE_SIZE}²×3 {ms[('center', 'native')]:.1f} / "
+          f"{ms[('center', 'numpy')]:.1f}, max |Δ| from the float64 normalization "
+          f"{err['native']:.3e} / {err['numpy']:.3e} (native's tol {NATIVE_CENTER_TOL:g}), "
+          f"native from numpy {center_err:.3e}; host time card={card}", flush=True)
+    shutil.rmtree(folder, ignore_errors=True)
+
+
+def e2e_run(card: str) -> dict:
+    """Phase 15 (b): `cli.synthetic_e2e` at its defaults: exact launches per
+    train step (phase 7's list) and per evaluation or prediction forward,
+    finite losses, and a test MAE at most E2E_LEARNS of the untrained
+    model's on the same split.  Returns the launches of its train steps and
+    of its forwards."""
+    from satmvs_tpu_torch.cli import synthetic_e2e
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.data.loader import Loader
+    from satmvs_tpu_torch.train import create_model, loop
+
+    per_step, losses = [], []
+    make_train_step = loop.make_train_step
+
+    def counted_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def run_step(state, batch):
+            before = counts()
+            state, scalars = step(state, batch)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+            losses.append(scalars["loss"].detach())
+            return state, scalars
+        return run_step
+
+    workdir = WORK / "e2e"
+    loop.make_train_step = counted_step
+    reset_counts()
+    t0 = time.time()
+    try:
+        res = synthetic_e2e.main(["--workdir", str(workdir)])
+    finally:
+        loop.make_train_step = make_train_step
+    wall = time.time() - t0
+    total = counts()
+    n = E2E_DEFAULTS
+    check(len(per_step) == n["scenes"] * n["epochs"], f"e2e: {len(per_step)} train steps")
+    check(all(p == LAUNCHES_PER_TRAIN_STEP for p in per_step),
+          f"e2e train step launches {[p for p in per_step if p != LAUNCHES_PER_TRAIN_STEP][:1]}")
+    step_launches = {k: len(per_step) * v for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+    forwards = n["test_scenes"] * (n["epochs"] + 1) + 3  # fit's test passes, the final one, 3 views
+    fwd_launches = {k: total[k] - step_launches[k] for k in total}
+    check(fwd_launches == {k: forwards * v for k, v in LAUNCHES_PER_FORWARD.items()},
+          f"e2e forwards' launches {fwd_launches} for {forwards} forwards")
+    loss = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(loss).all()), "e2e: a non-finite train loss")
+
+    args = synthetic_e2e._parser().parse_args([])
+    cfg = synthetic_e2e.e2e_config(args)
+    test = Loader(MVSDataset(str(workdir / "test"), "test", 3, 2), 1, device="cuda")
+    untrained = synthetic_e2e.evaluate(create_model(cfg, "cuda"), cfg, test)["abs_depth_acc"]
+    line = {k: res[k] for k in ("test_mae_m", "acc_1.0m", "acc_2.5m", "acc_7.5m",
+                                "acc_3interval", "fused_mae_m", "fusion_valid_frac",
+                                "train_seconds", "epochs", "scenes")}
+    print(f"[tools] e2e line: {json.dumps(line)}", flush=True)
+    print(f"[tools] e2e: wall {wall:.1f} s (generation {res['gen_seconds']:.1f} s, fit "
+          f"{res['train_seconds']} s: {sum(res['timing']['steps'])} steps in "
+          f"{sum(res['timing']['train_s']):.1f} s, test passes "
+          f"{sum(res['timing']['test_s']):.1f} s); launches per step exact "
+          f"({len(per_step)} steps), {forwards} forwards exact; loss {loss[0]:.3f} -> "
+          f"{loss[-1]:.3f} (mean of the last epoch's {loss[-n['scenes']:].mean():.3f}) "
+          f"card={card}", flush=True)
+    beyond = {k: res[k] for k, v in JAX_E2E.items()
+              if (res[k] < v / 2 if k == "fusion_valid_frac" else res[k] > 2 * v)}
+    print(f"[tools] e2e: test MAE {res['test_mae_m']} m against the untrained model's "
+          f"{untrained:.3f} m (gate ≤ {E2E_LEARNS:g}×); the JAX package's recorded run at these "
+          f"defaults (BASELINE.md, on its TPU): test MAE {JAX_E2E['test_mae_m']} m, fused "
+          f"{JAX_E2E['fused_mae_m']} m at {100 * JAX_E2E['fusion_valid_frac']:.1f} % valid; "
+          f"beyond twice JAX's: {beyond or 'none'}", flush=True)
+    check(res["test_mae_m"] <= E2E_LEARNS * untrained,
+          f"e2e: test MAE {res['test_mae_m']} m against the untrained {untrained:.3f} m")
+    return {"e2e_step": step_launches, "e2e_forward": fwd_launches}
+
+
+def fusion_sweep_run(card: str, scene_files, gt_path: str) -> None:
+    """Phase 15 (c): `cli.fusion_sweep` over phase 9's per-view maps of the
+    scene (`cli.predict_scene --dsm`) with its ground truth, on the card and
+    on the CPU: per setting the valid share within FUSE_VALID_TOL and the
+    MAE within FUSE_DSM_TOL (phase 9's fusion gates)."""
+    import os
+    from unittest import mock
+
+    from satmvs_tpu_torch.cli import fusion_sweep
+
+    order = (2, 0, 1)
+    args = ["--views", *(str(WORK / f"scene_height_view{v}.pfm") for v in order),
+            "--rpcs", *(scene_files[1][v] for v in order),
+            "--prob", str(WORK / "scene_height_prob.pfm"), "--gt", gt_path, *SWEEP_GRID]
+    t0 = time.perf_counter()
+    gpu = fusion_sweep.main(args)
+    t_gpu = time.perf_counter() - t0
+    with mock.patch.dict(os.environ, {"SATMVS_PLATFORM": "cpu"}):
+        t0 = time.perf_counter()
+        cpu = fusion_sweep.main(args)
+        t_cpu = time.perf_counter() - t0
+    check(len(gpu) == len(cpu) == 3 * 2 * 2, f"fusion_sweep rows {len(gpu)} / {len(cpu)}")
+    dv = max(abs(g["valid_pct"] - c["valid_pct"]) for g, c in zip(gpu, cpu))
+    dm = max(abs(g["mae_m"] - c["mae_m"]) for g, c in zip(gpu, cpu))
+    check(dv <= 100 * FUSE_VALID_TOL and dm <= FUSE_DSM_TOL,
+          f"fusion_sweep card vs CPU: valid {dv} pp, MAE {dm} m")
+    best = min(gpu, key=lambda r: r["mae_m"])
+    print(f"[tools] fusion_sweep over {len(gpu)} settings of the {SCENE_SIZE}² scene's maps: "
+          f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s (host clock); card vs CPU valid ≤ {dv:.2f} pp "
+          f"(tol {100 * FUSE_VALID_TOL:g}), MAE ≤ {dm:.4f} m (tol {FUSE_DSM_TOL:g}); lowest MAE "
+          f"{json.dumps(best)}; valid {min(r['valid_pct'] for r in gpu)}-"
+          f"{max(r['valid_pct'] for r in gpu)} % card={card}", flush=True)
+
+
+def profile_run(card: str) -> dict:
+    """Phase 15 (d): `cli.profile_forward` of the flagship forward and of a
+    train step: its pools sum to its total, the hand-written pools are not
+    empty, the total within PROFILE_TOL of phases 3 and 7's profiles, exact
+    launches (a warm-up call and PROFILE_ITERS)."""
+    from satmvs_tpu_torch.cli import profile_forward as cli
+
+    launches = {}
+    for path, train, ref, per_call in (
+            ("profile_forward", False, "one forward", LAUNCHES_PER_FORWARD),
+            ("profile_train", True, "one fused train step", LAUNCHES_PER_TRAIN_STEP)):
+        reset_counts()
+        res = cli.main(["--iters", str(PROFILE_ITERS), "--trace_dir", str(WORK / path),
+                        *(["--train"] if train else [])])
+        launches[path] = counts()
+        want = {k: (PROFILE_ITERS + 1) * v for k, v in per_call.items()}
+        check(launches[path] == want, f"{path}: launches {launches[path]}")
+        pools = res["pools"]
+        check(abs(sum(ms for ms, _ in pools.values()) - res["total_ms"]) <= 1e-6 * res["total_ms"],
+              f"{path}: pools do not sum to the total")
+        check(pools[cli.SWEEP_POOL][0] > 0 and pools[cli.RED_POOL][0] > 0,
+              f"{path}: a hand-written pool is empty: {pools}")
+        rel = abs(res["total_ms"] - PROFILED[ref]) / PROFILED[ref]
+        print(f"[tools] profile_forward{' --train' if train else ''}: device "
+              f"{res['total_ms']:.3f} ms a call against {PROFILED[ref]:.3f} ms in {ref}'s "
+              f"profile ({rel:.4f} apart, tol {PROFILE_TOL:g}); wall {res['wall_ms']:.2f} ms; "
+              + ", ".join(f"{p} {ms:.3f} ms" for p, (ms, _) in pools.items())
+              + f" card={card}", flush=True)
+        check(rel <= PROFILE_TOL, f"{path}: device total {res['total_ms']} vs {PROFILED[ref]}")
+    return launches
+
+
+def collective_counts(record: dict, model) -> dict:
+    """The counts of a rank's step by issuer, from the model's layers: each
+    BatchNorm whose moments span ranks (FeatureNet's under a data axis
+    above 1, a sharded stage's regularizer's) forward and backward; a loss
+    mask count a stage, a loss sum, a metric sum, one gradient all-reduce;
+    per sharded stage a slab gather (RED, rows) or a halo per 3-D conv and
+    a group max (the CostRegNets, planes), forward and backward."""
+    from satmvs_tpu_torch.nn.blocks import BatchNorm
+
+    sharded = [i for i, spec in enumerate(record["volume_partition"]) if spec[1] or spec[2]]
+    bn = (sum(isinstance(m, BatchNorm) for m in model.feature.modules())
+          if record["mesh"]["data"] > 1 else 0)
+    bn += sum(isinstance(m, BatchNorm) for i in sharded for m in model.regs[i].modules())
+    convs = sum(isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d))
+                for i in sharded for m in model.regs[i].modules())
+    red = record["model"] == "red"
+    want = {"gradients": 1, "batchnorm moments": bn, "batchnorm moments (backward)": bn,
+            "loss mask counts": len(model.ndepths), "loss sums": 1, "metric sums": 1,
+            "slab gather": len(sharded) if red else 0,
+            "slab gather (backward)": len(sharded) if red else 0,
+            "halo exchange": 0 if red else convs, "halo exchange (backward)": 0 if red else convs,
+            "group max": 0 if red else len(sharded)}
+    return want
+
+
+def collectives_run(card: str) -> dict:
+    """Phase 15 (e): `cli.collectives_report` at its defaults (RED,
+    384×768, ndepths 64/32/8) on gloo ranks sharing the card: `data` and
+    `data_spatial` on 2 ranks, `depth` (CasMVS) on 4, the three worlds at
+    once.  Every rank's step launches exactly a step's kernels and records
+    the inventory of rank 0; the gradient all-reduce is 4 bytes a
+    parameter; the counts follow `collective_counts`.  Returns rank 0's
+    launches per mesh."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from satmvs_tpu_torch.cli import collectives_report
+    from satmvs_tpu_torch.train import Config, create_model
+
+    t0 = time.time()
+    # the ranks render their batches at once: a core each
+    one_thread = {var: "1" for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                       "MKL_NUM_THREADS")}
+    with mock.patch.dict(os.environ, one_thread), ThreadPoolExecutor(len(COLLECTIVE_RUNS)) as pool:
+        jobs = [pool.submit(collectives_report.collect, ["--devices", str(n), "--mesh", mesh])
+                for mesh, n in COLLECTIVE_RUNS]
+        worlds = [job.result() for job in jobs]
+    wall = time.time() - t0
+    launches = {}
+    for (mesh, devices), (args, ranks) in zip(COLLECTIVE_RUNS, worlds):
+        collectives_report.print_report(args, ranks)
+        want_launches = (LAUNCHES_PER_TRAIN_STEP if args.model == "red" else
+                         LAUNCHES_PER_COSTREG_TRAIN_STEP)
+        for r in ranks:
+            got = {k: r["launches"].get(k, 0) for k in want_launches}
+            check(got == want_launches, f"collectives {mesh} rank {r['rank']}: launches {got}")
+            check(np.isfinite(r["loss"]), f"collectives {mesh} rank {r['rank']}: loss {r['loss']}")
+        r0 = ranks[0]
+        rows = {row["issuer"]: row for row in r0["inventory"]}
+        check(rows["gradients"]["bytes"] == 4 * r0["params"],
+              f"collectives {mesh}: gradient bytes {rows['gradients']['bytes']}")
+        model = create_model(Config(model=args.model, ndepths=NDEPTHS), "cpu")
+        want = collective_counts(r0, model)
+        got = {k: rows[k]["count"] if k in rows else 0 for k in want}
+        check(got == want, f"collectives {mesh}: counts {got}, want {want}")
+        key = ("op", "issuer", "count", "bytes")
+        inv = [[tuple(row[k] for k in key) for row in r["inventory"]] for r in ranks]
+        check(all(i == inv[0] for i in inv), f"collectives {mesh}: the ranks' inventories differ")
+        total = sum(row["bytes"] for row in rows.values())
+        useful = sum(row["useful_bytes"] for row in rows.values())
+        sharded = [i + 1 for i, spec in enumerate(r0["volume_partition"]) if spec[1] or spec[2]]
+        print(f"[tools] collectives {mesh} on {devices} gloo ranks sharing the card: "
+              f"{args.model}, sharded stages {sharded}, "
+              f"{sum(row['count'] for row in rows.values())} collectives a step, "
+              f"{total} bytes ({useful} useful), gradients {rows['gradients']['bytes']} = 4 × "
+              f"{r0['params']} parameters; counts {got} (exact); each rank's step launched "
+              f"exactly a step's kernels card={card}", flush=True)
+        launches[f"collectives_{mesh}"] = {k: r0["launches"].get(k, 0) for k in counts()}
+    print(f"[tools] the three collectives worlds ({sum(n for _, n in COLLECTIVE_RUNS)} ranks "
+          f"at once) took {wall:.1f} s", flush=True)
+    return launches
+
+
+def phase_tools(card: str, scene_files, gt_path: str) -> dict:
+    """Phase 15: (a)-(e) above; returns the launches of the new paths."""
+    t0, launches, took = time.time(), {}, {}
+    for part, run_part in (("a", lambda: native_io(card)), ("b", lambda: e2e_run(card)),
+                           ("c", lambda: fusion_sweep_run(card, scene_files, gt_path)),
+                           ("d", lambda: profile_run(card)), ("e", lambda: collectives_run(card))):
+        t1 = time.time()
+        launches.update(run_part() or {})
+        took[part] = round(time.time() - t1, 1)
+    print(f"[tools] phase 15 took {time.time() - t0:.1f} s ({took} s by part)", flush=True)
+    return launches
+
+
+# device totals of the profiles phase 15 (d) holds the profile CLI to
+PROFILED = {}
+
+
+def profile_forward(fn, card: str, top: int = 8, what: str = "one forward") -> dict:
+    """Device time by kernel over one call of fn (torch.profiler), the share
+    of its wall time the device was busy and the cost map's pools: the
+    profile CLI's own trace and aggregation (`cli.profile_forward`).
+    Returns its aggregate with "wall_ms"; the total is kept in PROFILED
+    under `what`."""
+    from satmvs_tpu_torch.cli.profile_forward import aggregate, trace_calls
+
+    prof, wall_us = trace_calls(fn, 1)
+    res = aggregate(prof, top=top)
+    busy_us = 1e3 * res["total_ms"]
     print(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms (profiler on), device busy "
-          f"{busy_us / 1e3:.2f} ms = {busy_us / wall_us:.3f} of wall, {n_kernels} device "
+          f"{busy_us / 1e3:.2f} ms = {busy_us / wall_us:.3f} of wall, {res['count']:.0f} device "
           f"kernels/copies card={card}", flush=True)
-    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
+    for name, ms, n in res["top"]:
+        print(f"[profile]   {ms:8.3f} ms  x{n:<5.0f} {name[:90]}", flush=True)
+    print("[profile]   pools: " + ", ".join(f"{pool} {ms:.3f} ms x{n:.0f}"
+                                            for pool, (ms, n) in res["pools"].items()), flush=True)
+    PROFILED[what] = res["total_ms"]
+    return {**res, "wall_ms": wall_us / 1e3}
 
 
 def main() -> int:
@@ -4557,6 +4885,8 @@ def run(scene_job, tree_job) -> int:
     launches.update(scene_launches)
     launches["streaming"] = phase_stream_vs_full(smi, model, chunk)
     scene_files = write_scene_files(scene, WORK / "scene")
+    scene_gt = str(WORK / "scene" / "gt_view2.npy")  # phase 15 (c) scores the fusion with it
+    np.save(scene_gt, scene["gt_heights"][2])
     del model, chunk, scene
 
     # phase 7
@@ -4592,6 +4922,11 @@ def run(scene_job, tree_job) -> int:
     check(not set(knobs) & set(launches), f"phase 14 reuses path names: {sorted(knobs)}")
     launches.update(knobs)
 
+    # phase 15
+    tools = phase_tools(smi, scene_files, scene_gt)
+    check(not set(tools) & set(launches), f"phase 15 reuses path names: {sorted(tools)}")
+    launches.update(tools)
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches;
         # a costreg record the same wrapper in its CostRegNet form
@@ -4611,15 +4946,17 @@ def run(scene_job, tree_job) -> int:
                  COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
                   *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train, *KNOB_TRAIN_PATHS,
-                  *(KNOB_SWEEP_PATHS if wrapper in ("sweep_gather", "sweep_scatter") else ()))
+                  *TOOL_TRAIN_PATHS,
+                  *(KNOB_SWEEP_PATHS + TOOL_SWEEP_PATHS
+                    if wrapper in ("sweep_gather", "sweep_scatter") else ()))
                  if train else (
                      INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",)
-                     + KNOB_FORWARD_PATHS + (
+                     + KNOB_FORWARD_PATHS + TOOL_FORWARD_PATHS + (
                          ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS,
                           "compute_bf16_casmvs")
                          if wrapper == "sweep_variance" else
                          ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS,
-                          *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS)
+                          *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS, *TOOL_TRAIN_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

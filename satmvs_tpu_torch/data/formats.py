@@ -23,7 +23,15 @@ from . import png
 # PFM
 # ---------------------------------------------------------------------------
 def load_pfm(path: str) -> np.ndarray:
-    """Read a PFM file → (H, W) or (H, W, 3) float32, top row first."""
+    """Read a PFM file → (H, W) or (H, W, 3) float32, top row first.  The
+    native decoder (`native.pfm_read`) reads it where the library is built,
+    as the JAX package's does."""
+    from .. import native
+
+    if native.available():
+        out = native.pfm_read(path)
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         header = f.readline().decode("latin-1").rstrip()
         if header == "PF":
@@ -45,13 +53,20 @@ def load_pfm(path: str) -> np.ndarray:
 
 
 def save_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
-    """Write an (H, W), (H, W, 1) or (H, W, 3) float32 image as PFM."""
+    """Write an (H, W), (H, W, 1) or (H, W, 3) float32 image as PFM.  Where
+    the native library is built it writes the file (`native.pfm_write`) as
+    the JAX package's does: little endian with scale −1.0 whatever `scale`
+    is passed.  The numpy path writes ±`scale` by the array's byte order."""
     image = np.asarray(image)
     if image.dtype.name != "float32":
         raise ValueError("PFM image dtype must be float32")
     color = image.ndim == 3 and image.shape[2] == 3
     if not (color or image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 1)):
         raise ValueError("image must be HxW, HxWx1, or HxWx3")
+    from .. import native
+
+    if native.available() and native.pfm_write(path, image):
+        return
     endian = image.dtype.byteorder
     if endian == "<" or (endian == "=" and sys.byteorder == "little"):
         scale = -scale

@@ -1,5 +1,6 @@
 """Image and ground-truth preprocessing.  Counterpart of
-`satmvs_tpu/data/preprocess.py` (numpy paths).  The colour jitter draws
+`satmvs_tpu/data/preprocess.py`; `center_image` takes the native library
+where it is built, as JAX's does.  The colour jitter draws
 from an explicit `np.random.Generator` with the JAX package's calls in its
 order, so a train-mode sample is the JAX package's."""
 
@@ -12,7 +13,15 @@ import numpy as np
 
 def center_image(img: np.ndarray) -> np.ndarray:
     """Per-image, per-channel mean/std normalization over the spatial axes
-    (H, W[, C]) → float32."""
+    (H, W[, C]) → float32.  The native library (`native.center_image`,
+    float64 moments) where it is built, else numpy's float32 moments: the
+    two differ by a few 1e-6."""
+    from .. import native
+
+    if native.available():
+        out = native.center_image(img)
+        if out is not None:
+            return out
     img = np.asarray(img, dtype=np.float32)
     mean = img.mean(axis=(0, 1), keepdims=True)
     var = img.var(axis=(0, 1), keepdims=True)

@@ -29,6 +29,7 @@ from satmvs_tpu.data import preprocess as jpre
 from satmvs_tpu.data import samples as jsamples
 from satmvs_tpu import native
 from satmvs_tpu.data import synthetic as jsyn
+from satmvs_tpu_torch import native as tnative
 from satmvs_tpu_torch.data import dataset as tds
 from satmvs_tpu_torch.data import formats as tfmt
 from satmvs_tpu_torch.data import loader as tld
@@ -53,11 +54,13 @@ CAM_FIELDS = ("ref_inv", "ref_norm", "src_fwd", "src_denorm", "renorm")
 
 @pytest.fixture(autouse=True)
 def _jax_numpy_center_image(monkeypatch):
-    """JAX's datasets normalize images on its numpy path, the port's
-    arithmetic (its native library, where one is built, sums the moments in
-    float64: ~3e-6 apart on a view whose contrast the jitter shrank; the
-    port's center_image is held to both in tests/test_torch_scene.py)."""
+    """Both packages' datasets normalize images on their numpy paths: like
+    with like (the native libraries, where they are built, sum the moments
+    in float64: ~3e-6 from numpy on a view whose contrast the jitter
+    shrank).  `test_dataset_samples_match_jax_natively` turns both
+    libraries on and holds the samples to JAX's bit for bit."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -254,6 +257,22 @@ def test_dataset_samples_match_jax(jax_tree, mode):
         _assert_sample_matches(got, want)
         if mode != "pred":
             assert [d.shape for d in got["depth_stages"]] == [(8, 8), (16, 16), (32, 32)]
+
+
+@pytest.mark.skipif(not (tnative.available() and native.available()),
+                    reason="native library unavailable (no g++?)")
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_dataset_samples_match_jax_natively(jax_tree, mode, monkeypatch):
+    """Both native libraries on (PFM reads and center_image in C++): the
+    images are JAX's bit for bit, the rest as on the numpy path."""
+    monkeypatch.setattr(native, "available", lambda: True)
+    monkeypatch.setattr(tnative, "available", lambda: True)
+    tset = tds.MVSDataset(jax_tree, mode, 3, 2, seed=7)
+    jset = jds.MVSDataset(jax_tree, mode, 3, 2, seed=7)
+    for i in range(len(tset)):
+        got, want = tset[i], jset[i]
+        np.testing.assert_array_equal(got["imgs"], want["imgs"])
+        _assert_sample_matches(got, want)
 
 
 def test_dataset_crops_to_multiples_of_32_with_shifted_cameras(tmp_path):

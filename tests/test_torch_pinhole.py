@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from satmvs_tpu import native
+from satmvs_tpu_torch import native as tnative
 from satmvs_tpu.data import dataset as jds
 from satmvs_tpu.data import samples as jsamples
 from satmvs_tpu.geo import pinhole as jpin
@@ -67,9 +68,10 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _jax_numpy_center_image(monkeypatch):
-    """JAX's datasets normalize images on its numpy path, the port's
-    arithmetic (see tests/test_torch_data.py)."""
+    """Both packages' datasets normalize images on their numpy paths
+    (see tests/test_torch_data.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _toy_projs(w=W, h=H):

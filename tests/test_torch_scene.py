@@ -63,24 +63,29 @@ def test_crop_rpc_matches_jax():
 
 
 def test_center_image_matches_jax(monkeypatch):
-    """Against JAX's numpy path 1e-6 on unit-variance outputs (the same
-    float32 arithmetic); against its default, which takes the native C++
-    library where one is built, 1e-5 (that library sums in another order)."""
-    from satmvs_tpu import native
+    """Like with like: the port's numpy path against JAX's numpy path to
+    1e-6 on unit-variance outputs (the same float32 arithmetic), and, where
+    the native libraries are built, the port's native path against JAX's
+    bit for bit (the same C++ arithmetic, float64 moments)."""
+    from satmvs_tpu import native as jnative
+    from satmvs_tpu_torch import native as tnative
 
+    both_native = tnative.available() and jnative.available()
     rng = np.random.default_rng(1)
     for shape in ((64, 48), (64, 48, 3)):
         img = rng.uniform(40.0, 230.0, shape).astype(np.float32)
-        got = tpre.center_image(img)
-        default = jpre.center_image(img)
+        if both_native:
+            got, want = tpre.center_image(img), jpre.center_image(img)
+            assert got.dtype == np.float32 and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
         with monkeypatch.context() as m:
-            m.setattr(native, "available", lambda: False)
-            want = jpre.center_image(img)
-        assert got.dtype == np.float32 and got.shape == want.shape == default.shape
-        print(f"[parity] center_image {shape}: {np.abs(got - want).max():.2e} (tol 1e-6), "
-              f"vs default {np.abs(got - default).max():.2e} (tol 1e-5)")
+            m.setattr(jnative, "available", lambda: False)
+            m.setattr(tnative, "available", lambda: False)
+            got, want = tpre.center_image(img), jpre.center_image(img)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        print(f"[parity] center_image {shape}: numpy paths {np.abs(got - want).max():.2e} "
+              f"(tol 1e-6), native paths bit for bit: {both_native}")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-        np.testing.assert_allclose(got, default, rtol=0, atol=1e-5)
 
 
 def test_source_window_matches_jax():
