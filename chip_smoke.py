@@ -91,23 +91,23 @@ Phases, each reported on its own lines:
      cuDNN's default and deterministic engines, the fusion, ms per scene
      tile).
 
-  10 the CostRegNet families (CascadeMVSNet, UCSNet; the packed CostRegNet on
-     the plane convs in their CostRegNet forms): each form (conv_dn and
-     deconv_up without ReLU, conv_head with up to 64 output channels and a
-     zero bias) against its plain version at each of the 33 call shapes of
-     a 384×768 forward, with its plan, the same bits in a second run, a
-     call on two elements' planes the bits of the two B = 1 calls, kernel,
-     plain, bound and F.conv2d / F.conv_transpose2d times; each 3-D block's
-     three taps composed against cuDNN's conv3d / conv_transpose3d on the
-     BN-folded kernel, both timed; each family at 384×768, B = 1, 3 views,
-     ndepths 64/32/8 with non-trivial BatchNorm statistics: exact launches
-     per forward (3 sweep_variance, 27 conv_dn, 27 deconv_up, 45 conv_head,
-     no red_recur), ranges, forward time, peak memory, a profile, stage 1's
-     CostRegNet at B = 2 against B = 1 bit for bit, and the same model's
-     plain run on the CPU at 96×192 stage by stage (depth, the window
-     confidence, UCSNet's variance); `cli.predict --model ucs` from a port
-     checkpoint on phase 9's test split, its maps a direct forward bit for
-     bit.
+  10 the CostRegNet families (CascadeMVSNet, UCSNet; the packed CostRegNet
+     on the whole-block kernels conv3d_block and deconv3d_block): each
+     kernel against its plain version at each of the 33 3-D blocks of a
+     384×768 forward, the same bits in a second run, a B = 2 call each
+     element the bits of its B = 1 call, kernel ms (events), device ms
+     (profiler), bound, plain ms and cuDNN's conv3d / conv_transpose3d on
+     the BN-folded kernel; beside each, the block composed of the plane
+     convs' per-tap CostRegNet forms as the port ran it before (the "was"
+     figure), held to the plain block and timed; each family at 384×768, B = 1, 3
+     views, ndepths 64/32/8 with non-trivial BatchNorm statistics: exact
+     launches per forward (3 sweep_variance, 24 conv3d_block, 9
+     deconv3d_block, no plane conv, no red_recur), ranges, forward time,
+     peak memory, a profile, stage 1's CostRegNet at B = 2 against B = 1 bit
+     for bit, and the same model's plain run on the CPU at 96×192 stage by
+     stage (depth, the window confidence, UCSNet's variance);
+     `cli.predict --model ucs` from a port checkpoint on phase 9's test
+     split, its maps a direct forward bit for bit.
   11 the training sweeps at 384×768, B = 1, Config() (the fused RED
      pipeline): three train steps on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP;
      exact launches per step: 3 sweep_variance, 3 sweep_variance_backward,
@@ -233,6 +233,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
+# H100 SXM TF32 tensor cores (495 TFLOP/s dense) over the three TF32
+# products of a 3×TF32 split: the fp32 rate of the conv3d_block kernels
+TF32X3_FLOPS_PER_S = 495e12 / 3
 HEIGHT, WIDTH = 384, 768    # bench.py's flagship patch
 NDEPTHS = (64, 32, 8)
 STAGE_SCALES = (4, 2, 1)
@@ -307,12 +310,13 @@ def device_ms(fn, kernel, calls: int) -> float:
     """Device time per call of the kernels that `kernel` picks (a substring
     of the profiler's kernel name, or a predicate on it) over `calls` calls
     of fn under torch.profiler, after one warm-up call; a capture that holds
-    none of them is taken again, twice at most.  Late in a long run the
-    profiler has recorded no kernel on the card in three captures (seen in
-    phases 10 and 11, never in phase 8); then the time is CUDA events around
-    `calls` calls launched back to back (`loop_ms`: every kernel fn
-    launches, the card's time without the host's launch latency), and a
-    line says so."""
+    fewer than `calls` of them (each call launches one at least) is taken
+    again, twice at most.  Late in a long run the profiler has recorded no
+    kernel on the card in three captures (seen in phases 10 and 11, never in
+    phase 8), or only some of a capture's launches (seen in phase 10); then
+    the time is CUDA events around `calls` calls
+    launched back to back (`loop_ms`: every kernel fn launches, the card's
+    time without the host's launch latency), and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,14 +328,14 @@ def device_ms(fn, kernel, calls: int) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and pick(e.key))
-        if us > 0:
-            return us / 1e3 / calls
+        picked = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and pick(e.key)]
+        if sum(e.count for e in picked) >= calls:
+            return sum(e.self_device_time_total for e in picked) / 1e3 / calls
     ms = loop_ms(fn, calls)
-    print(f"[profile] the profiler recorded no {getattr(kernel, '__name__', kernel)} kernel in "
-          f"three captures: {ms:.4f} ms a call by CUDA events, {calls} calls back to back",
-          flush=True)
+    print(f"[profile] the profiler recorded fewer than {calls} "
+          f"{getattr(kernel, '__name__', kernel)} kernels in three captures: {ms:.4f} ms a "
+          f"call by CUDA events, {calls} calls back to back", flush=True)
     return ms
 
 
@@ -340,10 +344,11 @@ def conv3x3_kernel_name(key: str) -> bool:
     return "conv3x3_kernel" in key and "deconv" not in key
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time for the work: bytes over the HBM rate or fp32 operations
-    over the fp32 rate, whichever is larger, and which one that is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time for the work: bytes over the HBM rate or operations over
+    `rate` (the fp32 rate of the arithmetic the kernel runs), whichever is
+    larger, and which one that is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -385,14 +390,16 @@ class KernelReport:
         self.by = {"bytes": 0.0, "operations": 0.0}
 
     def case(self, label: str, kernel, plain, tol, nbytes: float, flops: float,
-             library=None, timed: bool = True, count: int = 1, exact=None):
+             library=None, timed: bool = True, count: int = 1, exact=None,
+             rate: float = FP32_FLOPS_PER_S):
         """tol(plain result): the abs error allowed, a number or one per
         element (a tuple of such functions, one per output, for a kernel
         with several outputs); library: one PyTorch call that computes the
         same function, timed as a yardstick; count: calls of this shape on
         the path, which the sums weigh by; exact: what the kernel is held to
         where that is not the plain version's fp32 result (the plain version
-        in float64), and then tol's argument."""
+        in float64), and then tol's argument; rate: the bound's operations
+        rate (`bound_ms`)."""
         name = self.rec["name"]
         got, want = kernel(), (exact or plain)()
         torch.cuda.synchronize()
@@ -416,7 +423,7 @@ class KernelReport:
             return None
         k_ms, p_ms = time_ms(kernel, reps=10), time_ms(plain, reps=5, warmup=1)
         l_ms = time_ms(library, reps=10) if library is not None else None
-        b_ms, by = bound_ms(nbytes, flops)
+        b_ms, by = bound_ms(nbytes, flops, rate)
         self.rec["ms"] += count * k_ms
         self.rec["plain_ms"] += count * p_ms
         self.rec["bound_ms"] += count * b_ms
@@ -649,11 +656,13 @@ COSTREG_BASE = 8  # cr_base_chs (8, 8, 8) of CascadeMVSNet and UCSNet
 def costreg_blocks(b: int = 1):
     """(stage, block, op, N, H, W, Cin, Cout) of the 33 3-D blocks of a
     384×768 CostRegNet forward of B = b elements (both families: feature
-    channels 32/16/8), each three plane-conv calls, one per depth tap, on
-    the N = b·D' planes the block reads: ConvBlock_0..6 (the stride-1 ones
-    conv_head with a zero bias, the stride-2 ones conv_dn without ReLU, on
-    D/2 even or odd planes), DeconvBlock_0..2 (deconv_up without ReLU or
-    skip) and the 1-channel head (conv_head)."""
+    channels 32/16/8), as the per-tap plane-conv forms composed them
+    see each (three calls, one per depth tap, on the N = b·D' planes the
+    block reads): ConvBlock_0..6 (the stride-1 ones conv_head with a zero
+    bias, the stride-2 ones conv_dn without ReLU, on D/2 even or odd planes
+    of H × W), DeconvBlock_0..2 (deconv_up without ReLU or skip) and the
+    1-channel head (conv_head).  Phase 10 runs each as one conv3d_block or
+    deconv3d_block call (`block_work`)."""
     c = COSTREG_BASE
     out = []
     for stage, d, h, w, cin in red_shapes():
@@ -873,7 +882,7 @@ LAUNCHES_PER_FORWARD = {"sweep_variance": 3, "conv_dn": 9, "red_recur": 12, "dec
                         "conv_head": 3, "sweep_gather": 0, "sweep_scatter": 0,
                         **{k: 0 for k in BACKWARD_KERNELS}, "wgrad3x3": 0,
                         "sweep_variance_backward": 0, "sweep_gather_bf16": 0,
-                        "sweep_scatter_bf16": 0}
+                        "sweep_scatter_bf16": 0, "conv3d_block": 0, "deconv3d_block": 0}
 # per train step at B = 1 on the fused RED pipeline (Config() defaults): the
 # training sweep pair once per stage and source view instead of
 # sweep_variance, the RED kernels as in a forward and each one's backward
@@ -891,7 +900,7 @@ LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather"
 # per stage one sweep_variance forward, one sweep_variance_backward and a
 # sweep_scatter per source view, no sweep_gather; with bf16 volumes the
 # sweep pair's bf16 instances; CasMVS / UCS the fp32 sweep pair only (their
-# CostRegNet trains as cuDNN's conv3d, no plane-conv kernel); per-view
+# CostRegNet trains as cuDNN's conv3d, no CostRegNet kernel); per-view
 # inference forwards a gather per stage and source view instead of
 # sweep_variance
 LAUNCHES_PER_FUSED_SWEEP_STEP = {**LAUNCHES_PER_TRAIN_STEP, "sweep_variance": 3,
@@ -2537,16 +2546,16 @@ def phase_from_disk(card: str, root: str, scene_files) -> dict:
 
 # phase 10: the CostRegNet families (CascadeMVSNet, UCSNet) at inference.
 # Per forward at B = 1: sweep_variance once per stage; per stage's packed
-# CostRegNet conv_head 15 (four stride-1 blocks and the head, three depth
-# taps each), conv_dn 9 and deconv_up 9 (three blocks, three taps); no
-# red_recur
+# CostRegNet one launch per 3-D block: conv3d_block 8 (seven ConvBlocks and
+# the head) and deconv3d_block 3; no plane conv, no red_recur
 COSTREG_FAMILIES = ("casmvs", "ucs")
 COSTREG_HEAD_GAIN = 10.0         # the logit heads ×10: a window confidence spread over [0, 1]
 COSTREG_PARITY_HW = (96, 192)    # GPU vs CPU at this patch (the CPU's 3-D convs are slow)
 LAUNCHES_PER_COSTREG_FORWARD = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 3,
-                                "conv_dn": 27, "deconv_up": 27, "conv_head": 45}
+                                "conv3d_block": 24, "deconv3d_block": 9}
+COSTREG_KERNELS = ("conv3d_block", "deconv3d_block")
 COSTREG_PATHS = (*COSTREG_FAMILIES, "cli_predict_ucs")
-COSTREG_BLOCK_TOL = 1e-4         # composed taps vs cuDNN's conv3d, × max(1, max |cuDNN|)
+COSTREG_BLOCK_TOL = 1e-4         # composed taps vs the plain block, × max(1, max |plain|)
 
 
 def build_costreg_model(name: str, device, geo_model: str = "rpc", **knobs):
@@ -2575,127 +2584,153 @@ def build_costreg_model(name: str, device, geo_model: str = "rpc", **knobs):
     return model.to(device)
 
 
+def block_work(op: str, n: int, h: int, w: int, ci: int, co: int,
+               b: int = 1) -> tuple[float, float]:
+    """Bytes (input, weights, bias and the transposed block's skip read once,
+    the output written once) and flops (the taps inside the volume) of one
+    3-D block of `costreg_blocks` at B = b: the stride-1 blocks (op
+    conv_head) read (n, h, w) planes, the stride-2 ones (conv_dn) 2n planes
+    of h × w, the transposed ones (deconv_up) write (2n, 2h, 2w)."""
+    if op == "deconv_up":
+        d_in, out, taps = n, 8 * n * h * w, (3 * n - 1) * (3 * h - 1) * (3 * w - 1)
+    elif op == "conv_dn":
+        d_in, out = 2 * n, n * (h // 2) * (w // 2)
+        taps = conv_taps(2 * n, n, 2) * conv_taps(h, h // 2, 2) * conv_taps(w, w // 2, 2)
+    else:
+        d_in, out = n, n * h * w
+        taps = conv_taps(n, n, 1) * conv_taps(h, h, 1) * conv_taps(w, w, 1)
+    reads_skip = 2 if op == "deconv_up" else 1
+    words = b * d_in * h * w * ci + 27 * ci * co + co + b * out * co * reads_skip
+    return 4.0 * words, 2.0 * b * taps * ci * co
+
+
+def composed_taps(op: str, x, w3, bias, skip=None):
+    """A 3-D block as the packed CostRegNet composed it before the block
+    kernels, phase 10's "was" figure: three per-depth-tap calls of the plane
+    convs' CostRegNet forms (conv_head with a zero bias, conv_dn or
+    deconv_up with relu off) on the B·D planes, the taps summed t0 + t1 +
+    t2, then bias and ReLU (none without a bias: the head) and the skip as
+    torch ops."""
+    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+
+    b = x.shape[0]
+
+    def planes(t):
+        return t.reshape(-1, *t.shape[2:]).contiguous()
+
+    def per(t):
+        return t.view(b, -1, *t.shape[1:])
+
+    if op == "deconv_up":
+        u0, even, odd = (per(pc.deconv_up(planes(x), w3[:, :, k], relu=False)) for k in range(3))
+        odd[:, :-1] += u0[:, 1:]
+        y = torch.stack([even, odd], dim=2).view(b, -1, *even.shape[2:])
+    elif op == "conv_dn":
+        even, odd = planes(x[:, 0::2]), planes(x[:, 1::2])
+        t0, y, t2 = (per(pc.conv_dn(src, w3[:, :, k], relu=False))
+                     for k, src in enumerate((odd, even, odd)))
+        y[:, 1:] += t0[:, :-1]
+        y += t2
+    else:
+        zb = w3.new_zeros(w3.shape[0])
+        t0, y, t2 = (per(pc.conv_head(planes(x), w3[:, :, k], zb)) for k in range(3))
+        y[:, 1:] += t0[:, :-1]
+        y[:, :-1] += t2[:, 1:]
+    if bias is not None:
+        y = torch.relu(y + bias)
+    return y if skip is None else y + skip
+
+
 def phase_costreg_kernels(card: str) -> list[dict]:
-    """Phase 10, kernels: the CostRegNet forms at each of the 33 call shapes
-    of a 384×768 forward (each three calls a forward, one per depth tap)
-    against their plain versions (KERNEL_TOL), with the plan and the same
-    bits in a second run, a call on two elements' planes the bits of the
-    two B = 1 calls, kernel, plain, bound and library (F.conv2d /
-    F.conv_transpose2d) times; then each 3-D block composed of its three
-    taps (with the tap sums, bias, ReLU, skip) against cuDNN's F.conv3d /
-    F.conv_transpose3d on the BN-folded kernel, both timed."""
+    """Phase 10, kernels: conv3d_block and deconv3d_block at each of the 33
+    3-D blocks of a 384×768 forward (`costreg_blocks`: seven ConvBlocks,
+    three DeconvBlocks and the head per stage) against their plain versions
+    (KERNEL_TOL), the same bits in a second run, a B = 2 call each
+    element the bits of its B = 1 call; kernel ms (events), device ms
+    (profiler), bound (bytes or operations at the 3×TF32 rate), plain ms and
+    cuDNN's F.conv3d / F.conv_transpose3d on the BN-folded kernel (TF32 off).
+    Beside each, the block composed of the plane convs' per-tap forms as
+    the port ran it before these kernels, held to the plain block
+    (COSTREG_BLOCK_TOL) and timed: the "was" figure."""
     import torch.nn.functional as F
 
-    from satmvs_tpu_torch.nn import costreg as cr
-    from satmvs_tpu_torch.ops.kernels import plane_conv as pc
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
 
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device="cuda")
 
-    def nchw(t):
-        return t.permute(0, 3, 1, 2)
-
-    src = "satmvs_tpu_torch/csrc/plane_conv.cu"
-    reps = {"conv_dn": KernelReport("conv_dn_costreg", src,
-                                    "satmvs_tpu/ops/pallas/plane_conv.py:382", card),
-            "deconv_up": KernelReport("deconv_up_costreg", src,
-                                      "satmvs_tpu/ops/pallas/plane_conv.py:569", card),
-            "conv_head": KernelReport("conv_head_costreg", src,
-                                      "satmvs_tpu/ops/pallas/plane_conv.py:730", card)}
-    device = {op: [0.0, 0.0] for op in reps}  # kernel, library device ms a forward
-    for (stage, block, op, n, h, w, ci, co), call in zip(costreg_blocks(1), costreg_calls(1)):
-        label = f"{stage} {block} {(n, h, w, ci)}->{co}"
-        x, x2 = randn(n, h, w, ci), randn(n, h, w, ci)
-        scale = (1.0 / (9 * ci)) ** 0.5
-        if op == "deconv_up":
-            wt = randn(ci, co, 3, 3, scale=scale)
-            kernel = lambda t=x: pc.deconv_up(t, wt, relu=False)  # noqa: E731
-            plain = lambda: pc.deconv_up_reference(x, wt, relu=False)  # noqa: E731
-            library = lambda: F.conv_transpose2d(nchw(x), wt, stride=2, padding=1,  # noqa: E731
-                                                 output_padding=1)
-        elif op == "conv_dn":
-            wt = randn(co, ci, 3, 3, scale=scale)
-            kernel = lambda t=x: pc.conv_dn(t, wt, relu=False)  # noqa: E731
-            plain = lambda: pc.conv_dn_reference(x, wt, relu=False)  # noqa: E731
-            library = lambda: F.conv2d(nchw(x), wt, stride=2, padding=1)  # noqa: E731
-        else:
-            wt, zb = randn(co, ci, 3, 3, scale=scale), torch.zeros(co, device="cuda")
-            kernel = lambda t=x: pc.conv_head(t, wt, zb)  # noqa: E731
-            plain = lambda: pc.conv_head_reference(x, wt, zb)  # noqa: E731
-            library = lambda: F.conv2d(nchw(x), wt, zb, padding=1)  # noqa: E731
-        work_op = "deconv_up costreg" if op == "deconv_up" else op  # no skip to read
-        pick = (lambda key: "deconv3x3" in key) if op == "deconv_up" else conv3x3_kernel_name
-        with torch.no_grad():
-            reps[op].case(label, kernel, plain, rel_tol, *plane_work(work_op, *call[2:]),
-                          library, count=3)
-            plane_same_bits(reps[op].rec["name"], label, kernel, call[2:])
-            k_dev, l_dev = device_ms(kernel, pick, 5), device_ms(library, lambda key: True, 5)
-            device[op][0] += 3 * k_dev
-            device[op][1] += 3 * l_dev
-            print(f"[costreg] {reps[op].rec['name']} {label}: device time {k_dev:.4f} ms, "
-                  f"the library call's {l_dev:.4f} ms card={card}", flush=True)
-            both, one, other = kernel(torch.cat([x, x2])), kernel(x), kernel(x2)
-            same = torch.equal(both[:n], one) and torch.equal(both[n:], other)
-            print(f"[costreg] {reps[op].rec['name']} {label}: a call on B = 2 elements' "
-                  f"{2 * n} planes the bits of the two B = 1 calls: {same}", flush=True)
-            check(same, f"{op} {label}: B = 2 differs from B = 1")
-        del x, x2, both, one, other
-    for op, rep in reps.items():
-        r, calls = rep.rec, 3 * sum(1 for block in costreg_blocks(1) if block[2] == op)
-        print(f"[costreg] {r['name']} per forward ({calls} calls): events {r['ms']:.4f} ms, "
-              f"device time {device[op][0]:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; the library call (F.conv2d "
-              f"/ F.conv_transpose2d) events {r['library_ms']:.4f} ms, device time "
-              f"{device[op][1]:.4f} ms card={card}", flush=True)
-
-    # each 3-D block: its three taps composed as the packed CostRegNet runs
-    # them, against cuDNN's 3-D convolution on the BN-folded kernel
-    totals = {op: [0.0, 0.0, 0] for op in reps}
+    src = "satmvs_tpu_torch/csrc/conv3d_block.cu"
+    reps = {"conv3d_block": KernelReport("conv3d_block", src,
+                                         "satmvs_tpu/ops/pallas/plane_conv.py:738,394", card),
+            "deconv3d_block": KernelReport("deconv3d_block", src,
+                                           "satmvs_tpu/ops/pallas/plane_conv.py:582", card)}
+    extra = {k: {"device": 0.0, "library_device": 0.0, "composed": 0.0, "blocks": 0}
+             for k in reps}
     for stage, block, op, n, h, w, ci, co in costreg_blocks(1):
         d_in = 2 * n if op == "conv_dn" else n  # a stride-2 block reads every plane
-        vol = randn(1, d_in, h, w, ci).abs()
+        x, x2 = randn(1, d_in, h, w, ci).abs(), randn(1, d_in, h, w, ci).abs()
         scale = (1.0 / (27 * ci)) ** 0.5
-        bias = randn(co, scale=0.1)
-        x5 = vol.permute(0, 4, 1, 2, 3)
+        bias = None if block == "Conv_0" else randn(co, scale=0.1)
         if op == "deconv_up":
-            wt3 = randn(ci, co, 3, 3, 3, scale=scale)
-            skip = randn(1, 2 * n, 2 * h, 2 * w, co)
-            composed = lambda: cr.d3dT(vol, wt3, bias, skip)  # noqa: E731
-            cudnn = lambda: (F.relu(F.conv_transpose3d(  # noqa: E731
-                x5, wt3, bias, stride=2, padding=1, output_padding=1)).permute(0, 2, 3, 4, 1)
-                + skip)
+            name, wt = "deconv3d_block", randn(ci, co, 3, 3, 3, scale=scale)
+            skip, skip2 = randn(1, 2 * n, 2 * h, 2 * w, co), randn(1, 2 * n, 2 * h, 2 * w, co)
+            kernel = lambda t=x, s=skip: cb.deconv3d_block(t, wt, bias, s)  # noqa: E731
+            plain = lambda: cb.deconv3d_block_reference(x, wt, bias, skip)  # noqa: E731
+            library = lambda: F.conv_transpose3d(  # noqa: E731
+                x.permute(0, 4, 1, 2, 3), wt, bias, stride=2, padding=1, output_padding=1)
+            composed = lambda: composed_taps(op, x, wt, bias, skip)  # noqa: E731
+            both = lambda: kernel(torch.cat([x, x2]), torch.cat([skip, skip2]))  # noqa: E731
+            other = lambda: kernel(x2, skip2)  # noqa: E731
         else:
-            w3 = randn(co, ci, 3, 3, 3, scale=scale)
-            stride = 2 if op == "conv_dn" else 1
-            if block == "Conv_0":
-                composed = lambda: cr.c3d_s1(vol, w3, None)  # noqa: E731
-                cudnn = lambda: F.conv3d(x5, w3, padding=1).permute(0, 2, 3, 4, 1)  # noqa: E731
-            else:
-                composed = ((lambda: cr.c3d_s2(vol, w3, bias)) if stride == 2
-                            else (lambda: cr.c3d_s1(vol, w3, bias)))
-                cudnn = lambda: F.relu(F.conv3d(x5, w3, bias, stride=stride,  # noqa: E731
-                                                padding=1)).permute(0, 2, 3, 4, 1)
+            name, wt = "conv3d_block", randn(co, ci, 3, 3, 3, scale=scale)
+            stride, relu = (2 if op == "conv_dn" else 1), bias is not None
+            kernel = lambda t=x: cb.conv3d_block(t, wt, bias, stride, relu)  # noqa: E731
+            plain = lambda: cb.conv3d_block_reference(x, wt, bias, stride, relu)  # noqa: E731
+            library = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, bias,  # noqa: E731
+                                       stride=stride, padding=1)
+            composed = lambda: composed_taps(op, x, wt, bias)  # noqa: E731
+            both = lambda: kernel(torch.cat([x, x2]))  # noqa: E731
+            other = lambda: kernel(x2)  # noqa: E731
+        label = f"{stage} {block} {tuple(x.shape)}->{co}"
+        rep, ex = reps[name], extra[name]
         with torch.no_grad():
-            got, want = composed(), cudnn()
-            err = (got - want).abs().max().item()
+            rep.case(label, kernel, plain, rel_tol, *block_work(op, n, h, w, ci, co), library,
+                     rate=TF32X3_FLOPS_PER_S)
+            one = kernel()
+            same = torch.equal(kernel(), one)
+            pair = both()
+            b2 = torch.equal(pair[:1], one) and torch.equal(pair[1:], other())
+            print(f"[costreg] {name} {label}: same bits in a second run: {same}; a B = 2 call "
+                  f"each element the bits of its B = 1 call: {b2}", flush=True)
+            check(same, f"{name} {label}: a second run differs")
+            check(b2, f"{name} {label}: B = 2 differs from B = 1")
+            k_dev = device_ms(kernel, "conv3d_block_kernel", 5)
+            l_dev = device_ms(library, lambda key: True, 5)
+            was, want = composed(), plain()
+            err = (was - want).abs().max().item()
             tol = COSTREG_BLOCK_TOL * max(1.0, want.abs().max().item())
-            check(got.shape == want.shape and err <= tol,
-                  f"{stage} {block}: composed taps vs conv3d err {err} > {tol}")
-            c_ms, l_ms = time_ms(composed, reps=10), time_ms(cudnn, reps=10)
-        totals[op][0] += c_ms
-        totals[op][1] += l_ms
-        totals[op][2] += 1
-        print(f"[costreg] 3-D block {stage} {block} {tuple(vol.shape)}->{co}: composed taps "
-              f"{c_ms:.4f} ms, cuDNN {'conv_transpose3d' if op == 'deconv_up' else 'conv3d'} "
-              f"{l_ms:.4f} ms, max abs err {err:.3e} (tol {tol:.3e}) card={card}", flush=True)
-        del vol, x5, got, want
-    for op, (c_ms, l_ms, nb) in totals.items():
-        print(f"[costreg] {op} blocks of a forward's CostRegNets ({nb}): composed taps "
-              f"{c_ms:.4f} ms, cuDNN's 3-D convolution {l_ms:.4f} ms ({c_ms / l_ms:.2f}×) "
-              f"card={card}", flush=True)
-    return [reps[op].record() for op in ("conv_dn", "deconv_up", "conv_head")]
+            check(was.shape == want.shape and err <= tol,
+                  f"{stage} {block}: composed taps vs the plain block err {err} > {tol}")
+            c_ms = time_ms(composed, reps=10)
+        ex["device"] += k_dev
+        ex["library_device"] += l_dev
+        ex["composed"] += c_ms
+        ex["blocks"] += 1
+        print(f"[costreg] {name} {label}: device time {k_dev:.4f} ms, cuDNN's "
+              f"{l_dev:.4f} ms; was (composed per-tap forms) {c_ms:.4f} ms, max abs err "
+              f"{err:.3e} to the plain block (tol {tol:.3e}) card={card}", flush=True)
+        del x, x2, one, pair, was, want
+    for name, rep in reps.items():
+        r, ex = rep.rec, extra[name]
+        print(f"[costreg] {name} per forward ({ex['blocks']} launches): events {r['ms']:.4f} ms, "
+              f"device time {ex['device']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({max(rep.by, key=rep.by.get)}; operations at {TF32X3_FLOPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s, 3×TF32); plain {r['plain_ms']:.4f} ms; cuDNN events "
+              f"{r['library_ms']:.4f} ms, device time {ex['library_device']:.4f} ms; was "
+              f"(the composed per-tap forms) {ex['composed']:.4f} ms card={card}", flush=True)
+    return [rep.record() for rep in reps.values()]
 
 
 def costreg_forward(card: str, name: str) -> dict:
@@ -4046,7 +4081,7 @@ COMPUTE_BF16_PARITY = {"loss": 1.5e-3, "step_loss": 1.5e-3, "grad": None, "grad_
 # recomputes each stage's regularizer, so its forward kernels launch twice
 LAUNCHES_PER_REMAT_STEP = {**LAUNCHES_PER_TRAIN_STEP,
                            **{k: 2 * LAUNCHES_PER_FORWARD[k] for k in RED_FORWARD_KERNELS}}
-# a bf16 CostRegNet runs cuDNN's conv3d, no plane-conv kernel
+# a bf16 CostRegNet runs cuDNN's conv3d, no plane-conv or conv3d_block kernel
 LAUNCHES_PER_BF16_COSTREG_FORWARD = {**{k: 0 for k in LAUNCHES_PER_FORWARD},
                                      "sweep_variance": 3}
 KNOB_FORWARD_PATHS = ("coarse_forward", "compute_bf16_forward", "compat_predict",
@@ -4432,7 +4467,7 @@ def phase_knobs(card: str, tree: str, default_step: dict) -> dict:
                                       for dt in (torch.bfloat16, None))
     print(f"[knobs] CascadeMVSNet forward: bf16 {b_ms:.2f} ms, {b_peak:.3f} GiB (launches "
           f"{({k: v for k, v in launches['compute_bf16_casmvs'].items() if v})}, exact: cuDNN's "
-          f"bf16 conv3d); fp32 {f_ms:.2f} ms, {f_peak:.3f} GiB (the packed plane convs) "
+          f"bf16 conv3d); fp32 {f_ms:.2f} ms, {f_peak:.3f} GiB (the conv3d_block kernels) "
           f"card={card}", flush=True)
     del mvs
     red_ref = {"what": "phase 7's default step", **default_step}
@@ -4849,7 +4884,7 @@ def run(scene_job, tree_job) -> int:
         build.load(name)
     print(f"[build] {len(logs)} of {len(build.sources())} kernel sources compiled "
           f"in {time.time() - t0:.1f} s", flush=True)
-    spills = {}  # plane-conv and sweep instance → bytes of spill stores
+    spills = {}  # plane-conv, sweep and conv3d_block instance → bytes of spill stores
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -4860,11 +4895,12 @@ def run(scene_job, tree_job) -> int:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel",
                                         "sweep_variance_kernel",
-                                        "sweep_variance_groups_kernel")):
+                                        "sweep_variance_groups_kernel",
+                                        "conv3d_block_kernel")):
                 spills[kernel] = int(m.group(1))
     if spills:  # built in this run: these instances must not spill
         print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel, "
-              f"sweep_variance_kernel and sweep_variance_groups_kernel, "
+              f"sweep_variance_kernel, sweep_variance_groups_kernel and conv3d_block_kernel, "
               f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
 
@@ -4928,11 +4964,10 @@ def run(scene_job, tree_job) -> int:
     launches.update(tools)
 
     for record in records:
-        # a batched record is the same wrapper, read on the path that batches;
-        # a costreg record the same wrapper in its CostRegNet form
+        # a batched record is the same wrapper, read on the path that batches
         batched = record["name"].endswith("_batched")
-        costreg = record["name"].endswith("_costreg")
-        wrapper = record["name"].removesuffix("_batched").removesuffix("_costreg")
+        wrapper = record["name"].removesuffix("_batched")
+        costreg = wrapper in COSTREG_KERNELS
         record["launches_by_path"] = {path: n[wrapper] for path, n in launches.items()}
         train = wrapper in TRAIN_KERNELS
         main = (SWEEP_TRAIN_PATHS[wrapper][0] if wrapper in SWEEP_TRAIN_PATHS else

@@ -13,9 +13,10 @@ the events are the CUDA kernels, copies and memsets (their own device
 time); under SATMVS_PLATFORM=cpu they are the operators' own CPU time.
 The cost map's pools replace the JAX script's XLA pools with the port's
 (`bucket`): the hand-written sweep kernels (`sweep_variance*`,
-`sweep_gather*`, `sweep_scatter*`), the hand-written RED and plane-conv
-kernels (`red_recur*`, `conv3x3_kernel`, `deconv3x3_s2_kernel`, and
-`wgrad3x3`'s `wgrad_partial_kernel` / `wgrad_reduce_kernel`), cuDNN /
+`sweep_gather*`, `sweep_scatter*`), the hand-written regularizer kernels
+(`red_recur*`, `conv3x3_kernel`, `deconv3x3_s2_kernel`, `wgrad3x3`'s
+`wgrad_partial_kernel` / `wgrad_reduce_kernel`, and the CostRegNet's
+`conv3d_block_kernel`), cuDNN /
 cuBLAS convolutions and GEMMs (oneDNN's on the CPU), copies and relayout,
 and the rest (elementwise, reductions).  On the CPU the port's kernels run
 their plain versions, whose time falls in the other pools.
@@ -37,7 +38,7 @@ import torch
 from . import cli_device
 
 SWEEP_POOL = "hand-written: sweep kernels"
-RED_POOL = "hand-written: RED and plane-conv kernels"
+RED_POOL = "hand-written: regularizer kernels"
 LIBRARY_POOL = "cuDNN / cuBLAS convs and GEMMs"
 COPY_POOL = "copies / relayout"
 OTHER_POOL = "elementwise / reductions / other"
@@ -46,7 +47,7 @@ POOLS = (SWEEP_POOL, RED_POOL, LIBRARY_POOL, COPY_POOL, OTHER_POOL)
 # the kernels of satmvs_tpu_torch/csrc by their names on the card
 _SWEEP = re.compile(r"\b(sweep_variance|sweep_gather|sweep_scatter)\w*")
 _RED = re.compile(r"\b(red_recur\w*|conv3x3_kernel|deconv3x3_s2_kernel|wgrad3x3\w*|"
-                  r"wgrad_partial_kernel|wgrad_reduce_kernel)\b")
+                  r"wgrad_partial_kernel|wgrad_reduce_kernel|conv3d_block_kernel)\b")
 _COPY = re.compile(r"CatArrayBatchedCopy|copy_|[Mm]emcpy|[Mm]emset|[Tt]ranspose|aten::cat\b|"
                    r"aten::(permute|contiguous|clone|stack)\b")
 _LIBRARY = re.compile(r"cudnn|cublas|cutlass|xmma|gemm|implicit_convolve|convolve|conv2d|"

@@ -11,6 +11,7 @@ def wrappers() -> dict:
     (`<name>_bf16`)."""
     from . import plane_conv as pc
     from . import red_recur as rr
+    from .conv3d_block import conv3d_block, deconv3d_block
     from .sweep_gather import sweep_gather, sweep_scatter
     from .sweep_variance import sweep_variance, sweep_variance_backward
 
@@ -20,7 +21,8 @@ def wrappers() -> dict:
            "red_recur_backward": rr.red_recur_backward,
            "deconv_up_backward": pc.deconv_up_backward,
            "conv_head_backward": pc.conv_head_backward, "wgrad3x3": pc.wgrad3x3,
-           "sweep_variance_backward": sweep_variance_backward}
+           "sweep_variance_backward": sweep_variance_backward, "conv3d_block": conv3d_block,
+           "deconv3d_block": deconv3d_block}
     out = {k: (f, "launches") for k, f in fns.items()}
     out.update({f"{k}_bf16": (fns[k], "launches_bf16") for k in ("sweep_gather", "sweep_scatter")})
     return out

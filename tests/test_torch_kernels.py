@@ -1,10 +1,12 @@
 """The kernel wrappers (sweep_variance and sweep_variance_batched and their
 backward sweep_variance_backward, conv_dn, deconv_up, conv_head, red_recur,
-sweep_gather and sweep_scatter in fp32 and bf16, and the backwards of
-conv_dn, deconv_up, conv_head and red_recur): CPU tensors take the plain
+sweep_gather and sweep_scatter in fp32 and bf16, the backwards of conv_dn,
+deconv_up, conv_head and red_recur, and the CostRegNet's whole-block
+conv3d_block and deconv3d_block): CPU tensors take the plain
 version, CUDA tensors the CUDA kernel (tests marked `cuda` need a GPU and
-nvcc and skip without them), every wrapper carries an autograd graph on
-both, and the modules import without nvcc."""
+nvcc and skip without them), every wrapper but the forward-only
+CostRegNet forms carries an autograd graph on both, and the modules import
+without nvcc."""
 
 import os
 import subprocess
@@ -62,6 +64,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path, monkeypatch):
             "satmvs_tpu_torch.ops.kernels.plane_conv, "
             "satmvs_tpu_torch.ops.kernels.red_recur, "
             "satmvs_tpu_torch.ops.kernels.sweep_gather, "
+            "satmvs_tpu_torch.ops.kernels.conv3d_block, "
             "satmvs_tpu_torch.models.cascade, satmvs_tpu_torch.infer.scene, "
             "satmvs_tpu_torch.infer.predict, satmvs_tpu_torch.train")
     subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
@@ -69,7 +72,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
-    assert {"sweep_variance", "plane_conv", "red_recur", "sweep_gather"} <= set(build.sources())
+    assert {"sweep_variance", "plane_conv", "red_recur", "sweep_gather",
+            "conv3d_block"} <= set(build.sources())
 
 
 @pytest.mark.cuda
@@ -676,9 +680,11 @@ def _all_wrappers():
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+    from satmvs_tpu_torch.ops.kernels.conv3d_block import conv3d_block, deconv3d_block
     from satmvs_tpu_torch.ops.kernels.sweep_variance import sweep_variance_backward
 
-    fns = {"sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
+    fns = {"conv3d_block": conv3d_block, "deconv3d_block": deconv3d_block,
+           "sweep_gather": sg.sweep_gather, "sweep_scatter": sg.sweep_scatter,
            "sweep_variance": sweep_variance, "sweep_variance_backward": sweep_variance_backward,
            "conv_dn": pc.conv_dn, "red_recur": rr.red_recur, "deconv_up": pc.deconv_up,
            "conv_head": pc.conv_head, "conv_dn_backward": pc.conv_dn_backward,
@@ -939,15 +945,20 @@ def test_cuda_plane_convs_under_every_plan(n, h, w, cin, cout):
             assert torch.equal(got, base), f"deconv{what} {o}: other bits than the plan's"
 
 
-def _costreg_calls(stage: int):
-    """`chip_smoke.costreg_calls(1)` of one stage: the packed CostRegNet's
-    eleven call shapes of a 384×768 forward."""
+def _chip_smoke():
+    """chip_smoke.py, loaded by path."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    return cs.costreg_calls(1)[11 * (stage - 1):11 * stage]
+    return cs
+
+
+def _costreg_calls(stage: int):
+    """`chip_smoke.costreg_calls(1)` of one stage: the per-tap CostRegNet
+    forms' eleven call shapes of a 384×768 forward."""
+    return _chip_smoke().costreg_calls(1)[11 * (stage - 1):11 * stage]
 
 
 @pytest.mark.cuda
@@ -1003,11 +1014,13 @@ def test_cuda_costreg_forms_at_every_call(stage):
 
 @pytest.mark.cuda
 def test_cuda_costreg_network_packed():
-    """CostRegNet's packed path on the card: the kernels' launches per
-    forward (conv_head 15, conv_dn 9, deconv_up 9, whatever B is), within
-    1e-4 × max(1, max |logit|) of the plain versions' run on the CPU, and
-    an element of a B = 2 volume the bits of its B = 1 forward."""
+    """CostRegNet's packed path on the card: one kernel launch per 3-D block
+    (conv3d_block 8, deconv3d_block 3 per forward, whatever B is; no plane
+    conv), within 1e-4 × max(1, max |logit|) of the plain versions' run on
+    the CPU, and an element of a B = 2 volume the bits of its B = 1
+    forward."""
     from satmvs_tpu_torch.nn.costreg import CostRegNet
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
     from satmvs_tpu_torch.params import init_from_seed
 
@@ -1021,15 +1034,146 @@ def test_cuda_costreg_network_packed():
     vol = _rand((2, 16, 24, 40, 16), 130).abs()
     want = net(vol[:1].cpu())
     net.cuda()
-    before = (pc.conv_head.launches, pc.conv_dn.launches, pc.deconv_up.launches)
+    wrappers = (cb.conv3d_block, cb.deconv3d_block, pc.conv_head, pc.conv_dn, pc.deconv_up)
+    before = [f.launches for f in wrappers]
     with torch.no_grad():
         both = net(vol)
         one = net(vol[:1])
-    after = (pc.conv_head.launches, pc.conv_dn.launches, pc.deconv_up.launches)
-    assert [a - b for a, b in zip(after, before)] == [30, 18, 18]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [16, 6, 0, 0, 0]
     assert torch.equal(both[:1], one)
     err = (one.cpu() - want).abs().max().item()
     assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+def _block_case(op, n, h, w, ci, co, head, seed, b=1):
+    """A 3-D block of `costreg_blocks` on the card: (kernel(x[, skip]),
+    plain(x[, skip]), x, a second input, the skip pair or None)."""
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
+
+    d_in = 2 * n if op == "conv_dn" else n
+    x, x2 = (_rand((b, d_in, h, w, ci), seed + k).abs() for k in (0, 1))
+    scale = (1.0 / (27 * ci)) ** 0.5
+    bias = None if head else _rand((co,), seed + 2, 0.1)
+    if op == "deconv_up":
+        wt = _rand((ci, co, 3, 3, 3), seed + 3, scale)
+        skips = tuple(_rand((b, 2 * n, 2 * h, 2 * w, co), seed + k) for k in (4, 5))
+        return (lambda t, s: cb.deconv3d_block(t, wt, bias, s),
+                lambda t, s: cb.deconv3d_block_reference(t, wt, bias, s), x, x2, skips)
+    wt = _rand((co, ci, 3, 3, 3), seed + 3, scale)
+    stride = 2 if op == "conv_dn" else 1
+    return (lambda t: cb.conv3d_block(t, wt, bias, stride, not head),
+            lambda t: cb.conv3d_block_reference(t, wt, bias, stride, not head), x, x2, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_cuda_conv3d_block_at_every_block_shape(stage):
+    """conv3d_block and deconv3d_block at a stage's eleven 3-D blocks of a
+    384×768 CostRegNet forward (`chip_smoke.costreg_blocks`): within 1e-5 ×
+    max(1, max |plain|) of the plain version, the same bits in a second
+    run, and a B = 2 call each element the bits of its B = 1 call."""
+    _cuda()
+    blocks = _chip_smoke().costreg_blocks(1)[11 * (stage - 1):11 * stage]
+    with torch.no_grad():
+        for _, block, op, n, h, w, ci, co in blocks:
+            kernel, plain, x, x2, skips = _block_case(op, n, h, w, ci, co, block == "Conv_0",
+                                                      140)
+            extra = (lambda k: (skips[k],)) if skips else (lambda k: ())
+            got = kernel(x, *extra(0))
+            _close(got, plain(x, *extra(0)), block)
+            assert torch.equal(kernel(x, *extra(0)), got), f"{block}: a second run differs"
+            pair = kernel(torch.cat([x, x2]), *((torch.cat(skips),) if skips else ()))
+            assert torch.equal(pair[:1], got), f"{block}: B = 2 element 0 differs from B = 1"
+            assert torch.equal(pair[1:], kernel(x2, *extra(1))), f"{block}: B = 2 element 1"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,h,w,cin,cout,op", [
+    (3, 5, 9, 21, 5, 1, "conv_head"), (1, 4, 7, 17, 12, 24, "conv_dn"),
+    (2, 3, 8, 16, 64, 64, "conv_head"), (1, 2, 5, 33, 8, 3, "deconv_up"),
+    (2, 2, 9, 18, 6, 40, "deconv_up"), (1, 6, 11, 5, 16, 16, "conv_dn"),
+    (1, 3, 6, 10, 8, 1, "deconv_up")])
+def test_cuda_conv3d_block_across_tile_edges(n, d, h, w, cin, cout, op):
+    """Shapes off the main path: odd extents that cut 8 × 16 tiles, Cin not
+    a multiple of 4 (single-channel copies) or 8, Cout of 1 (the FMA
+    instance), 3, 24 and 40 (padded to 8, 32 and 64), N > 1, the convs with
+    and without bias and ReLU;
+    the plain version's tolerance and the same bits twice."""
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
+
+    _cuda()
+    x = _rand((n, d, h, w, cin), 150)
+    bias = _rand((cout,), 151, 0.1)
+    with torch.no_grad():
+        if op == "deconv_up":
+            wt = _rand((cin, cout, 3, 3, 3), 152, 0.2)
+            skip = _rand((n, 2 * d, 2 * h, 2 * w, cout), 153)
+            got = cb.deconv3d_block(x, wt, bias, skip)
+            _close(got, cb.deconv3d_block_reference(x, wt, bias, skip), op)
+            assert torch.equal(cb.deconv3d_block(x, wt, bias, skip), got)
+            return
+        wt = _rand((cout, cin, 3, 3, 3), 152, 0.2)
+        stride = 2 if op == "conv_dn" else 1
+        for b, relu in ((None, False), (bias, True)):
+            got = cb.conv3d_block(x, wt, b, stride, relu)
+            _close(got, cb.conv3d_block_reference(x, wt, b, stride, relu), f"{op} {relu}")
+            assert torch.equal(cb.conv3d_block(x, wt, b, stride, relu), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["s1", "s2", "deconv"])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_cuda_conv3d_block_slab_bits_match_the_whole_volume(kind, dim):
+    """A D-slab (dim 1) or H-band (dim 2) with its halo joined (zeros past
+    the volume) and no zero pad on that axis gives the bits of the matching
+    slice of the whole-volume call: each output's sum runs in one fixed
+    order whatever the slab."""
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
+
+    _cuda()
+    x = _rand((2, 16, 24, 40, 16), 160).abs()
+    bias = _rand((32,), 161, 0.1)
+
+    def halo(lo, hi, before, after):
+        n = x.shape[dim]
+        parts = [x.narrow(dim, i, 1) if 0 <= i < n else torch.zeros_like(x.narrow(dim, 0, 1))
+                 for i in range(lo - before, hi + after)]
+        return torch.cat(parts, dim).contiguous()
+
+    with torch.no_grad():
+        if kind == "deconv":
+            wt = _rand((16, 32, 3, 3, 3), 162, 0.1)
+            skip = _rand((2, 32, 48, 80, 32), 163)
+            whole = cb.deconv3d_block(x, wt, bias, skip)
+        else:
+            stride = 1 if kind == "s1" else 2
+            wt = _rand((32, 16, 3, 3, 3), 162, 0.1)
+            whole = cb.conv3d_block(x, wt, bias, stride, True)
+        for lo, hi in ((0, 8), (8, 16)):
+            if kind == "deconv":
+                back = [1, 1, 1]
+                back[dim - 1] = 0
+                got = cb.deconv3d_block(halo(lo, hi, 0, 1), wt, bias,
+                                        skip.narrow(dim, 2 * lo, 2 * (hi - lo)).contiguous(),
+                                        back=tuple(back))
+                want = whole.narrow(dim, 2 * lo, 2 * (hi - lo))
+            else:
+                pads = list(cb.PAD1)
+                pads[dim - 1] = (0, 0)
+                got = cb.conv3d_block(halo(lo, hi, 1, 2 - stride), wt, bias, stride, True,
+                                      tuple(pads))
+                want = whole.narrow(dim, lo // stride, (hi - lo) // stride)
+            assert torch.equal(got, want), f"{kind} slab {lo}:{hi} along {dim}"
+
+
+@pytest.mark.cuda
+def test_cuda_conv3d_block_refuses_more_than_64_output_channels():
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
+
+    _cuda()
+    x = _rand((1, 2, 4, 4, 8), 170)
+    with pytest.raises(ValueError, match="64"):
+        cb.conv3d_block(x, _rand((65, 8, 3, 3, 3), 171))
 
 
 @pytest.mark.cuda

@@ -153,7 +153,9 @@ PORT_KERNELS = {
         "void red_recur_kernel<8>(float const*, float*)", "red_recur_bwd_kernel",
         "void conv3x3_kernel<2, 4, 0, 8>(float const*, float*)",
         "void deconv3x3_s2_kernel<2, 8, 1>(float const*, float*)",
-        "wgrad_partial_kernel", "void wgrad_reduce_kernel(float const*, float*, int)"],
+        "wgrad_partial_kernel", "void wgrad_reduce_kernel(float const*, float*, int)",
+        "void (anonymous namespace)::conv3d_block_kernel<false, 1, 8, 4>((anonymous "
+        "namespace)::Args)"],
     profile_forward.LIBRARY_POOL: [
         "sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nchw_tilesize128x128x16",
         "void cudnn::cnn::conv2d_grouped_direct_kernel<false, true, false, false>(...)",
