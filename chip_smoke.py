@@ -200,6 +200,27 @@ Phases, each reported on its own lines:
      on 4, gloo ranks sharing the card): exact launches of every rank's
      step, the gradient all-reduce 4 bytes a parameter, the counts of each
      kind of collective the model's layers predict.
+  16 widths past the defaults, and remat under a mesh: (a) red_recur at
+     state widths 2, 6 and 10 (run padded to a multiple of 4) at each
+     stage's first cell of a 384×768 forward, zero and seeded start
+     states, batched (B = 4, a scene chunk's slab) and its backward,
+     against the plain versions at phases 2 and 8's tolerances, the same
+     bits twice, kernel / plain / bound ms and the forward at the padded
+     width beside it; the default widths' launch plans checked unchanged;
+     (b) CascadeREDNet at `cr_base_chs` (6, 6, 6): a 384×768 forward
+     (exact launches) and three train steps, their ms and peak memory
+     beside the default width's, GPU vs CPU at 96×192 (the forward, a
+     streamed chunk of two tiles, one train step at phase 7's gates); (c)
+     conv3d_block and deconv3d_block at the blocks past 64 channels of base
+     widths 12 and 16 (Cout 96-128, Cin up to 128) against their plain
+     versions and cuDNN's conv3d, one launch a block; CascadeMVSNet and
+     UCSNet at `cr_base_chs` (16, 16, 16): forwards with exact launches (24
+     conv3d_block, 9 deconv3d_block), ms and peak memory beside the default
+     width's, GPU vs CPU at 96×192; (d) remat on two gloo ranks sharing the
+     card, CasMVS under mesh_depth 2 and RED under mesh_spatial 2: a step
+     against the same mesh's step without remat (loss, update, running
+     statistics), the regularizers run again in the backward, exact
+     launches, step ms and peak memory a rank.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -210,8 +231,9 @@ steps, the fused_red-off train steps, phase 9's train, predict and scene
 CLI runs, phase 10's two family forwards and its predict run, phase
 11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
 runs, phase 13's data-parallel steps and tile-parallel scene, phase
-14's knob forwards, steps and predict runs, and phase 15's e2e steps and
-forwards, profiled calls and each collectives mesh's rank 0), the
+14's knob forwards, steps and predict runs, phase 15's e2e steps and
+forwards, profiled calls and each collectives mesh's rank 0, and phase 16's
+forwards, streamed chunk, steps and rank 0's remat steps), the
 nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
@@ -609,14 +631,15 @@ def red_scales(cin: int):
     return ((1, cin, b), (2, 2 * b, 2 * b), (4, 4 * b, 4 * b), (8, 8 * b, 8 * b))
 
 
-def plane_calls():
+def plane_calls(base: int = RED_BASE):
     """(label, op, stride, transposed, N, H, W, Cin, Cout, gated) of the 21
     plane convs of a 384×768 forward (conv_dn ×9, deconv_up ×9, conv_head
-    ×3) and the 21 dx of a train step's backwards, as the kernels see them:
+    ×3) and the 21 dx of a train step's backwards at RED base width `base`,
+    as the kernels see them:
     a dx takes the cotangent as its input (conv_dn's dx is a gated
     transposed conv, deconv_up's a gated stride-2 conv, conv_head's a
     stride-1 conv from one channel)."""
-    b = RED_BASE
+    b = base
     calls = []
     for stage, d, h, w, cin in red_shapes():
         for k, (s, ci, co) in enumerate(((1, cin, 2 * b), (2, 2 * b, 4 * b), (4, 4 * b, 8 * b))):
@@ -653,17 +676,17 @@ def plane_work(op: str, stride: int, transposed: bool, n: int, h: int, w: int, c
 COSTREG_BASE = 8  # cr_base_chs (8, 8, 8) of CascadeMVSNet and UCSNet
 
 
-def costreg_blocks(b: int = 1):
+def costreg_blocks(b: int = 1, base: int = COSTREG_BASE):
     """(stage, block, op, N, H, W, Cin, Cout) of the 33 3-D blocks of a
-    384×768 CostRegNet forward of B = b elements (both families: feature
-    channels 32/16/8), as the per-tap plane-conv forms composed them
+    384×768 CostRegNet forward of B = b elements at base width `base` (both
+    families: feature channels 32/16/8), as the per-tap plane-conv forms composed them
     see each (three calls, one per depth tap, on the N = b·D' planes the
     block reads): ConvBlock_0..6 (the stride-1 ones conv_head with a zero
     bias, the stride-2 ones conv_dn without ReLU, on D/2 even or odd planes
     of H × W), DeconvBlock_0..2 (deconv_up without ReLU or skip) and the
     1-channel head (conv_head).  Phase 10 runs each as one conv3d_block or
     deconv3d_block call (`block_work`)."""
-    c = COSTREG_BASE
+    c = base
     out = []
     for stage, d, h, w, cin in red_shapes():
         chans = (cin, c, 2 * c, 2 * c, 4 * c, 4 * c, 8 * c, 8 * c)
@@ -4821,6 +4844,486 @@ def phase_tools(card: str, scene_files, gt_path: str) -> dict:
     return launches
 
 
+# ---- phase 16: the widths the JAX package takes past the default ones, and
+# remat under a mesh
+WIDTH_STATES = (2, 6, 10)   # ConvGRU state widths that are not a multiple of 4
+NARROW_RED = (6, 6, 6)      # cr_base_chs of the narrow CascadeREDNet: first cells of 6 channels
+WIDE_COSTREG = (16, 16, 16)  # cr_base_chs of the wide CostRegNets: 3-D blocks of 128 channels
+WIDE_BLOCK_BASES = (12, 16)  # the 3-D blocks past 64 channels at these base widths
+WIDTH_STEPS = 3
+WIDTH_HW = (96, 192)        # GPU vs CPU, and the streamed chunk's tiles
+REMAT_MESH_RUNS = (("casmvs", "depth"), ("red", "spatial"))
+REMAT_WORK = WORK / "remat"
+# sha256 (first 16 hex digits) of `default_plans(264)`: red_recur's launch
+# plans at the default widths on an H100 (264 resident blocks), as the
+# plans were before the kernels took widths that are not a multiple of 4
+DEFAULT_PLAN_DIGEST = "d86fa01d6a690ceb"
+WIDTH_FORWARD_PATHS = ("narrow_red_forward", "narrow_red_stream")
+WIDTH_TRAIN_PATHS = ("narrow_red_step", "remat_red_spatial")
+WIDTH_COSTREG_PATHS = ("wide_casmvs", "wide_ucs")
+WIDTH_SWEEP_PATHS = ("remat_casmvs_depth",)  # CasMVS training: the sweep pair only
+
+
+def default_plans(resident: int) -> list:
+    """red_recur's forward and backward plans at the 12 recurrences of a
+    384×768 forward (B = 1 and 2) and the forward's at the 12 of a 4-tile
+    scene chunk (B = 4), the default base width 8."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    plans = []
+    for _, _, h, w, cin in red_shapes():
+        for s, ci, c in red_scales(cin):
+            for b in (1, 2):
+                plans.append(["fwd", b, h // s, w // s, ci, c,
+                              rr.red_recur_plan(b, h // s, w // s, ci, c, resident)])
+                plans.append(["bwd", b, h // s, w // s, ci, c,
+                              rr.red_recur_bwd_plan(b, h // s, w // s, ci, c, resident)])
+    for scale, cin in zip(STAGE_SCALES, FEAT_CH):
+        for s, ci, c in red_scales(cin):
+            hh = TILE_HW // scale // s
+            plans.append(["fwd", 4, hh, hh, ci, c, rr.red_recur_plan(4, hh, hh, ci, c, resident)])
+    return plans
+
+
+def width_recur_kernels(card: str) -> None:
+    """Phase 16 (a): red_recur at state widths WIDTH_STATES (run padded to a
+    multiple of 4) at the first cell of each stage of a 384×768 forward
+    (Cin the stage's features), from a zero start state, seeded at stage
+    3, batched (B = 4, a scene chunk's stage-1 slab, each element seeded),
+    and its backward at each stage: against the plain versions at phases 2
+    and 8's tolerances, the same bits in a second run; kernel, plain and
+    bound ms, and the forward beside the same calls at the padded width
+    (what the pads cost).  The default widths' plans are checked to be
+    what they were (DEFAULT_PLAN_DIGEST)."""
+    import hashlib
+
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    resident = rr.resident()
+    digest = hashlib.sha256(json.dumps(default_plans(resident), sort_keys=True).encode())
+    same = digest.hexdigest()[:16] == DEFAULT_PLAN_DIGEST
+    print(f"[widths] red_recur plans at the default widths ({resident} resident blocks): "
+          f"digest {digest.hexdigest()[:16]}, as before ({DEFAULT_PLAN_DIGEST}): {same}",
+          flush=True)
+    check(resident != 264 or same, "the default widths' red_recur plans changed")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    src = "satmvs_tpu_torch/csrc/red_recur.cu"
+    for c in WIDTH_STATES:
+        c4 = rr.padded_width(c)
+        fwd = KernelReport("red_recur", src, "satmvs_tpu/ops/pallas/red_recur.py:259", card)
+        bwd = KernelReport("red_recur_backward", src, "satmvs_tpu/ops/pallas/red_recur.py:755",
+                           card)
+        padded_ms = 0.0
+        for stage, d, h, w, cin in red_shapes():
+            cell, cell4 = red_cell(cin, c, 100 + c, randn), red_cell(cin, c4, 100 + c, randn)
+            x = randn(d, h, w, cin)
+            cases = [("", None)] + ([(" h0", torch.tanh(randn(h, w, c)))]
+                                    if stage == "stage3" else [])
+            for tag, h0 in cases:
+                label = f"C={c} {stage} scale1{tag} {(d, h, w, cin)}->{c}"
+                with torch.no_grad():
+                    fwd.case(label, lambda: rr.red_recur(x, cell, h0),
+                             lambda: rr.red_recur_reference(x, cell, h0),
+                             lambda want: RED_RECUR_TOL, *recur_work(x, c, cell),
+                             timed=h0 is None)
+                    recur_same_bits(rr, label, x, cell, h0)
+                    if h0 is None:
+                        padded_ms += time_ms(lambda: rr.red_recur(x, cell4), reps=10)
+            with torch.no_grad():
+                out = rr.red_recur(x[None], cell)
+            g = randn(*out.shape)
+            nbytes, flops = recur_work(x, c, cell)
+            label = f"C={c} {stage} scale1 backward {(d, h, w, cin)}->{c}"
+
+            def flat(res):
+                return (res[0], *res[1])
+
+            bwd.case(label, lambda: flat(rr.red_recur_backward(x[None], out, g, cell)),
+                     lambda: flat(rr.red_recur_backward_reference(x[None], out, g, cell)),
+                     lambda want: RED_BWD_TOL * max(1.0, want.abs().max().item()),
+                     2 * nbytes + 4 * out.numel(), 3 * flops)
+            a, b = (flat(rr.red_recur_backward(x[None], out, g, cell)) for _ in range(2))
+            check(all(torch.equal(u, v) for u, v in zip(a, b)),
+                  f"red_recur_backward {label}: a second run differs")
+            del out, g, a, b
+        # the batched form: a 4-tile chunk's stage-1 slab, each tile from its own state
+        hh = TILE_HW // STAGE_SCALES[0]
+        cell = red_cell(FEAT_CH[0], c, 110 + c, randn)
+        xb = randn(BATCH_TILES, SLAB, hh, hh, FEAT_CH[0])
+        h0 = torch.tanh(randn(BATCH_TILES, hh, hh, c))
+        label = f"C={c} stage1 scale1 B={BATCH_TILES} {(SLAB, hh, hh, FEAT_CH[0])}->{c} h0"
+        with torch.no_grad():
+            fwd.case(label, lambda: rr.red_recur(xb, cell, h0),
+                     lambda: rr.red_recur_reference(xb, cell, h0), lambda want: RED_RECUR_TOL,
+                     *recur_work(xb, c, cell), timed=False)
+            recur_same_bits(rr, label, xb, cell, h0)
+            got = rr.red_recur(xb, cell, h0)
+            err = max((got[e] - rr.red_recur(xb[e], cell, h0[e])).abs().max().item()
+                      for e in range(BATCH_TILES))
+        check(err <= RED_RECUR_TOL, f"red_recur {label}: B vs B = 1 max abs err {err}")
+        f, bk = fwd.record(), bwd.record()
+        print(f"[widths] red_recur C={c} (run at {c4}) over the three stages' first cells: "
+              f"forward {f['ms']:.4f} ms (at C={c4}: {padded_ms:.4f} ms), plain "
+              f"{f['plain_ms']:.4f}, bound {f['bound_ms']:.4f} ({f['bound_by']}), max abs err "
+              f"{f['max_abs_err']:.3e} (tol {RED_RECUR_TOL}); backward {bk['ms']:.4f} ms, plain "
+              f"{bk['plain_ms']:.4f}, bound {bk['bound_ms']:.4f} ({bk['bound_by']}), max abs "
+              f"err {bk['max_abs_err']:.3e} (tol {RED_BWD_TOL} × max(1, |plain|)); batched "
+              f"B={BATCH_TILES} each element vs its B = 1 call {err:.3e} card={card}",
+              flush=True)
+
+
+def width_stream(card: str, model, cpu_model, batch) -> dict:
+    """Phase 16 (b), a streamed chunk: `streaming_red_forward` (slab 8) of
+    the batch's tiles on the card, exact launches, then stage by stage
+    against the same model's plain full-volume stages on the CPU, each
+    centred on the card's previous-stage depth (the depth gates)."""
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    bt = imgs.shape[0]
+    reset_counts()
+    with torch.no_grad():
+        stream = streaming_red_forward(model, imgs, cams, dvals, slab=SLAB)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == chunk_launches(bt), f"narrow streaming launches {launches}")
+    cams_cpu, dv_cpu = [c.to("cpu") for c in cams], dvals.cpu()
+    feats = cpu_model.features(imgs.cpu())
+    for i, step in enumerate(stage_steps(*dv_cpu[0].tolist(), cpu_model.stage_intervals())):
+        prev = None if i == 0 else stream[f"stage{i}"]["depth"].cpu()
+        ref = cpu_model.stage(i, feats[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev)
+        got = stream[f"stage{i + 1}"]["depth"].cpu()
+        mean, p99, mx = err_quantiles((got - ref["depth"]).abs() / step)
+        print(f"[widths] RED b={NARROW_RED[0]} streamed chunk (B={bt}, slab {SLAB}) on the card "
+              f"vs the CPU's plain stages, stage{i + 1}: depth err mean {mean:.3e}, p99 "
+              f"{p99:.3e}, max {mx:.3e} of step (tol {DEPTH_TOL_MEAN}, {DEPTH_TOL_P99})",
+              flush=True)
+        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+              f"narrow streaming stage{i + 1}: depth err mean {mean}, p99 {p99}")
+    return launches
+
+
+def narrow_red(card: str, default_step: dict) -> dict:
+    """Phase 16 (b): CascadeREDNet at cr_base_chs NARROW_RED: a 384×768
+    forward (exact launches, ranges) and its ms and peak memory beside the
+    default width's; GPU vs CPU at WIDTH_HW; a streamed chunk of two
+    WIDTH_HW tiles against the CPU; WIDTH_STEPS train steps at 384×768
+    (exact launches) beside phase 7's; one step at 96×192 against the CPU
+    (phase 7's gates).  Returns the launches of each path."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.train import Config
+
+    model = build_model("cuda", cr_base_chs=NARROW_RED)
+    check(all(reg.step.gru1.features == NARROW_RED[0] for reg in model.regs),
+          "narrow RED: the first cells' width")
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = {"narrow_red_forward": counts()}
+    check(launches["narrow_red_forward"] == LAUNCHES_PER_FORWARD,
+          f"narrow RED forward launches {launches['narrow_red_forward']}")
+    depth = out["depth"]
+    lo, hi = dvals[0].tolist()
+    margin = sum(nd / 2 * iv for nd, iv in zip(NDEPTHS[1:], model.stage_intervals()[1:]))
+    check(bool(torch.isfinite(depth).all()) and lo - margin - 1e-3 <= depth.min().item()
+          and depth.max().item() <= hi + margin + 1e-3, "narrow RED forward: depth range")
+    del out, depth
+    ms, peak = knob_timed(model, batch)
+    ms8, peak8 = knob_timed(build_model("cuda"), batch)
+    print(f"[widths] RED b={NARROW_RED[0]} forward at {HEIGHT}x{WIDTH}: launches a forward's "
+          f"(exact); {ms:.2f} ms, peak_mem={peak:.3f} GiB; b={RED_BASE} in this phase {ms8:.2f} "
+          f"ms, {peak8:.3f} GiB ({ms / ms8:.3f}x) card={card}", flush=True)
+    h, w = WIDTH_HW
+    cpu_model = build_model("cpu", cr_base_chs=NARROW_RED)
+    small = synthetic.make_batch(1, w, h, seed=1, device="cuda")
+    with torch.no_grad():
+        gpu_out = model(small["imgs"], small["cams"], small["depth_values"])
+    gpu_vs_cpu("[widths]", f"RED b={NARROW_RED[0]} at {h}x{w}", gpu_out, cpu_model,
+               small["imgs"], small["cams"], small["depth_values"])
+    launches["narrow_red_stream"] = width_stream(
+        card, model, cpu_model, synthetic.make_batch(2, w, h, seed=2, device="cuda"))
+    del model, cpu_model
+    cfg = Config(ndepths=NDEPTHS, cr_base_chs=NARROW_RED)
+    *_, step_launches, times, _, step_peak = run_train_steps(
+        cfg, batch, WIDTH_STEPS, LAUNCHES_PER_TRAIN_STEP, f"RED b={NARROW_RED[0]}", card)
+    launches["narrow_red_step"] = step_launches
+    step_ms = float(np.median(times))
+    print(f"[widths] RED b={NARROW_RED[0]} train step {step_ms:.2f} ms (median of "
+          f"{WIDTH_STEPS}), peak_mem={step_peak:.3f} GiB; phase 7's b={RED_BASE} step "
+          f"{default_step['ms']:.2f} ms, {default_step['peak']:.3f} GiB "
+          f"({step_ms / default_step['ms']:.3f}x) card={card}", flush=True)
+    phase_train_parity(card, f"RED b={NARROW_RED[0]} step", cr_base_chs=NARROW_RED)
+    return launches
+
+
+def wide_blocks(card: str) -> None:
+    """Phase 16 (c): conv3d_block and deconv3d_block at the 3-D blocks of a
+    384×768 CostRegNet forward that read or write more than 64 channels at
+    base widths WIDE_BLOCK_BASES (ConvBlock_5, ConvBlock_6, DeconvBlock_0 of
+    each stage): against their plain versions (KERNEL_TOL), one launch a
+    block, the same bits twice, kernel, bound, plain and cuDNN ms."""
+    import torch.nn.functional as F
+
+    from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    src = "satmvs_tpu_torch/csrc/conv3d_block.cu"
+    for base in WIDE_BLOCK_BASES:
+        reps = {"conv3d_block": KernelReport("conv3d_block", src,
+                                             "satmvs_tpu/ops/pallas/plane_conv.py:738,394", card),
+                "deconv3d_block": KernelReport("deconv3d_block", src,
+                                               "satmvs_tpu/ops/pallas/plane_conv.py:582", card)}
+        for stage, block, op, n, h, w, ci, co in costreg_blocks(1, base):
+            if max(ci, co) <= 64:
+                continue
+            d_in = 2 * n if op == "conv_dn" else n
+            x = randn(1, d_in, h, w, ci).abs()
+            scale, bias = (1.0 / (27 * ci)) ** 0.5, randn(co, scale=0.1)
+            if op == "deconv_up":
+                name, wt = "deconv3d_block", randn(ci, co, 3, 3, 3, scale=scale)
+                skip = randn(1, 2 * n, 2 * h, 2 * w, co)
+                kernel = lambda: cb.deconv3d_block(x, wt, bias, skip)  # noqa: E731
+                plain = lambda: cb.deconv3d_block_reference(x, wt, bias, skip)  # noqa: E731
+                library = lambda: F.conv_transpose3d(  # noqa: E731
+                    x.permute(0, 4, 1, 2, 3), wt, bias, stride=2, padding=1, output_padding=1)
+            else:
+                name, wt = "conv3d_block", randn(co, ci, 3, 3, 3, scale=scale)
+                stride = 2 if op == "conv_dn" else 1
+                kernel = lambda: cb.conv3d_block(x, wt, bias, stride, True)  # noqa: E731
+                plain = lambda: cb.conv3d_block_reference(x, wt, bias, stride, True)  # noqa: E731
+                library = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, bias,  # noqa: E731
+                                           stride=stride, padding=1)
+            label = f"b={base} {stage} {block} {tuple(x.shape)}->{co}"
+            wrapper = cb.deconv3d_block if op == "deconv_up" else cb.conv3d_block
+            with torch.no_grad():
+                before = wrapper.launches
+                one = kernel()
+                check(wrapper.launches == before + 1, f"{name} {label}: launches")
+                check(torch.equal(kernel(), one), f"{name} {label}: a second run differs")
+                reps[name].case(label, kernel, plain, rel_tol,
+                                *block_work(op, n, h, w, ci, co), library,
+                                rate=TF32X3_FLOPS_PER_S)
+            del x, one
+        for name, rep in reps.items():
+            r = rep.rec
+            print(f"[widths] {name} at base {base}, its blocks past 64 channels: kernel "
+                  f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({max(rep.by, key=rep.by.get)}), plain {r['plain_ms']:.4f} ms, cuDNN "
+                  f"{r['library_ms']:.4f} ms, max abs err {r['max_abs_err']:.3e}, one launch a "
+                  f"block, the same bits twice card={card}", flush=True)
+
+
+def wide_costreg(card: str, name: str) -> dict:
+    """Phase 16 (c), one family at cr_base_chs WIDE_COSTREG: a 384×768
+    forward (exact launches: 24 conv3d_block, 9 deconv3d_block), ranges,
+    its ms and peak memory beside the default width's, and GPU vs CPU at
+    WIDTH_HW (phase 10's gates).  Returns the forward's launches."""
+    from satmvs_tpu_torch.data import synthetic
+
+    model = build_costreg_model(name, "cuda", cr_base_chs=WIDE_COSTREG)
+    check(model.regs[0].convs[6].conv.weight.shape[0] == 8 * WIDE_COSTREG[0],
+          f"wide {name}: the deepest block's width")
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == LAUNCHES_PER_COSTREG_FORWARD, f"wide {name} forward launches {launches}")
+    for i in range(1, 4):
+        stage = out[f"stage{i}"]
+        check(all(bool(torch.isfinite(v).all()) for v in stage.values()),
+              f"wide {name} stage{i}: non-finite output")
+        conf = stage["photometric_confidence"]
+        check(0.0 <= conf.min().item() and conf.max().item() <= 1.0 + 1e-6,
+              f"wide {name} stage{i}: confidence range")
+    del out
+    ms, peak = knob_timed(model, batch)
+    ms8, peak8 = knob_timed(build_costreg_model(name, "cuda"), batch)
+    print(f"[widths] {name} b={WIDE_COSTREG[0]} forward at {HEIGHT}x{WIDTH}: launches "
+          f"{({k: v for k, v in launches.items() if v})} (exact); {ms:.2f} ms, peak_mem="
+          f"{peak:.3f} GiB; b={COSTREG_BASE} in this phase {ms8:.2f} ms, {peak8:.3f} GiB "
+          f"({ms / ms8:.3f}x) card={card}", flush=True)
+    h, w = WIDTH_HW
+    small = synthetic.make_batch(1, w, h, seed=1, device="cuda")
+    with torch.no_grad():
+        gpu_out = model(small["imgs"], small["cams"], small["depth_values"])
+    gpu_vs_cpu("[widths]", f"{name} b={WIDE_COSTREG[0]} at {h}x{w}", gpu_out,
+               build_costreg_model(name, "cpu", cr_base_chs=WIDE_COSTREG), small["imgs"],
+               small["cams"], small["depth_values"])
+    return launches
+
+
+def remat_mesh_run(model: str, axis: str, batch: dict, mesh, remat: bool) -> dict:
+    """Two train steps of `shard_config(model, axis)` from the config's seed
+    at LeCun scale under `mesh` (this rank's share of batch), with remat or
+    without, on cuDNN's deterministic engines.  Of the first: scalars, the
+    old and new parameters and statistics, the launches, the regularizers'
+    forwards (the recompute's included) and its ms; of the second (past a
+    process's first checkpointed recompute, which costs seconds once, on
+    the CPU too) its ms and peak memory."""
+    from satmvs_tpu_torch.dist import replicate, shard_batch
+    from satmvs_tpu_torch.train import create_model_and_state, make_train_step
+
+    cfg = shard_config(model, axis)
+    local = shard_batch(batch, mesh)
+    net, state, tx = create_model_and_state(cfg, local, 1, mesh=mesh)
+    lecun_scale(net)
+    net.remat = remat
+    replicate(state.to_dict(), mesh)
+    old = state_copy(state)["params"]
+    calls = []
+    for reg in net.regs:
+        reg.register_forward_pre_hook(lambda *a: calls.append(1))
+    step = make_train_step(net, tx, cfg.dlossw, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for k in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, scalars = step(state, local)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if k == 0:
+            first = {"scalars": {k: v.item() for k, v in scalars.items()}, "old": old,
+                     **state_copy(state), "launches": counts(), "reg_calls": len(calls)}
+    return {**first, "ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def remat_rank(rank: int, init: str) -> None:
+    """Phase 16 (d) on one of two ranks that share cuda:0 over gloo (a
+    spawned process): each REMAT_MESH_RUNS run without remat and with it on
+    the batch in REMAT_WORK/batch.pt; writes REMAT_WORK/rank<rank>.pt."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from satmvs_tpu_torch.dist import init_multihost, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_multihost(f"file://{init}", SHARD_RANKS, rank, backend="gloo", device="cuda:0")
+    try:
+        batch = torch.load(REMAT_WORK / "batch.pt", weights_only=False)
+        out = {}
+        for model, axis in REMAT_MESH_RUNS:
+            shape = (1, SHARD_RANKS, 1) if axis == "spatial" else (1, 1, SHARD_RANKS)
+            mesh = make_mesh(*shape, device="cuda:0")
+            for remat in (False, True):
+                out[(model, axis, remat)] = remat_mesh_run(model, axis, batch, mesh, remat)
+                torch.cuda.empty_cache()
+        torch.save(out, REMAT_WORK / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def remat_mesh(card: str) -> dict:
+    """Phase 16 (d): remat on two gloo ranks sharing the card, CasMVS under
+    mesh_depth 2 (the CostRegNet's train-mode BatchNorms over the mesh and
+    its depth halos inside the checkpoint) and RED under mesh_spatial 2
+    (the fused pipeline after its row gather), each one 384×768 step
+    against the same mesh without remat: the loss (the forward is the
+    same: 1e-6 relative), the update and the running statistics within
+    DP1_UPDATE_TOL (the scatter's float atomics), the regularizers run
+    again in the backward, exact launches a rank (RED's forward kernels
+    twice), the replicas the same bits; a second step's ms and peak memory
+    a rank.
+    Returns rank 0's remat launches by path."""
+    import multiprocessing
+    import shutil
+
+    from satmvs_tpu_torch.data import synthetic
+
+    shutil.rmtree(REMAT_WORK, ignore_errors=True)
+    REMAT_WORK.mkdir(parents=True)
+    torch.save(synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cpu"),
+               REMAT_WORK / "batch.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=remat_rank, args=(r, str(REMAT_WORK / "init")))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.time() + 600
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"a remat rank failed: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(REMAT_WORK / f"rank{r}.pt", weights_only=False)
+             for r in range(SHARD_RANKS)]
+    launches = {}
+    remat_launches = {"red": LAUNCHES_PER_REMAT_STEP, "casmvs": LAUNCHES_PER_COSTREG_TRAIN_STEP}
+    for model, axis in REMAT_MESH_RUNS:
+        for r, rank in enumerate(ranks):
+            plain, remat = rank[(model, axis, False)], rank[(model, axis, True)]
+            tag = f"{model} mesh_{axis} {SHARD_RANKS} rank {r}"
+            loss = abs(remat["scalars"]["loss"] - plain["scalars"]["loss"]) / abs(
+                plain["scalars"]["loss"])
+            spread = update_spread(remat, plain, plain["old"])
+            stats = max((remat["stats"][k] - v).abs().max().item() / v.abs().max().item()
+                        for k, v in plain["stats"].items())
+            bits = all(torch.equal(remat["params"][k], v) for k, v in plain["params"].items())
+            print(f"[widths] remat {tag}: loss {loss:.3e} relative to the step without (tol "
+                  f"1e-6), update {spread:.3e} over all (tol {DP1_UPDATE_TOL}; the same bits: "
+                  f"{bits}), running statistics {stats:.3e} (tol {DP1_UPDATE_TOL}); "
+                  f"regularizer forwards {remat['reg_calls']} against {plain['reg_calls']}; "
+                  f"second step {remat['ms'][1]:.2f} ms against {plain['ms'][1]:.2f} "
+                  f"({remat['ms'][1] / plain['ms'][1]:.3f}x; first {remat['ms'][0]:.2f} against "
+                  f"{plain['ms'][0]:.2f}; CUDA events, two processes on one card); its peak_mem "
+                  f"{remat['peak_gib']:.3f} GiB against {plain['peak_gib']:.3f} GiB "
+                  f"({remat['peak_gib'] - plain['peak_gib']:+.3f}) card={card}", flush=True)
+            check(loss <= 1e-6 and spread <= DP1_UPDATE_TOL and stats <= DP1_UPDATE_TOL,
+                  f"remat {tag}: against the step without")
+            check(remat["reg_calls"] == 2 * plain["reg_calls"] > 0,
+                  f"remat {tag}: the regularizers ran {remat['reg_calls']} times")
+            check(plain["launches"] == SHARD_LAUNCHES_TRAIN[model]
+                  and remat["launches"] == remat_launches[model],
+                  f"remat {tag}: launches {plain['launches']}, {remat['launches']}")
+        r0, r1 = (rank[(model, axis, True)] for rank in ranks)
+        check(r0["scalars"] == r1["scalars"]
+              and all(torch.equal(v, r1["params"][k]) for k, v in r0["params"].items()),
+              f"remat {model} mesh_{axis}: the replicas differ")
+        launches[f"remat_{model}_{axis}"] = r0["launches"]
+    return launches
+
+
+def phase_widths(card: str, default_step: dict) -> dict:
+    """Phase 16: (a)-(d) above; returns the launches of the new paths."""
+    t0, launches, took = time.time(), {}, {}
+    parts = (("a", lambda: width_recur_kernels(card)),
+             ("b", lambda: narrow_red(card, default_step)),
+             ("c", lambda: (wide_blocks(card),
+                            {f"wide_{n}": wide_costreg(card, n) for n in COSTREG_FAMILIES})[1]),
+             ("d", lambda: remat_mesh(card)))
+    for part, run_part in parts:
+        t1 = time.time()
+        launches.update(run_part() or {})
+        torch.cuda.empty_cache()
+        took[part] = round(time.time() - t1, 1)
+    print(f"[widths] phase 16 took {time.time() - t0:.1f} s ({took} s by part)", flush=True)
+    return launches
+
+
 # device totals of the profiles phase 15 (d) holds the profile CLI to
 PROFILED = {}
 
@@ -4963,6 +5466,11 @@ def run(scene_job, tree_job) -> int:
     check(not set(tools) & set(launches), f"phase 15 reuses path names: {sorted(tools)}")
     launches.update(tools)
 
+    # phase 16
+    widths = phase_widths(smi, default_step)
+    check(not set(widths) & set(launches), f"phase 16 reuses path names: {sorted(widths)}")
+    launches.update(widths)
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches
         batched = record["name"].endswith("_batched")
@@ -4978,20 +5486,22 @@ def run(scene_job, tree_job) -> int:
         shard_train = (SHARD_STEP_PATHS if wrapper in ("sweep_gather", "sweep_scatter") else
                        SHARD_RED_PATHS[:1])
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
-                 COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg if costreg else
+                 COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg + WIDTH_COSTREG_PATHS
+                 if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
                   *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train, *KNOB_TRAIN_PATHS,
-                  *TOOL_TRAIN_PATHS,
-                  *(KNOB_SWEEP_PATHS + TOOL_SWEEP_PATHS
+                  *TOOL_TRAIN_PATHS, *WIDTH_TRAIN_PATHS,
+                  *(KNOB_SWEEP_PATHS + TOOL_SWEEP_PATHS + WIDTH_SWEEP_PATHS
                     if wrapper in ("sweep_gather", "sweep_scatter") else ()))
                  if train else (
                      INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",)
-                     + KNOB_FORWARD_PATHS + TOOL_FORWARD_PATHS + (
+                     + KNOB_FORWARD_PATHS + TOOL_FORWARD_PATHS + WIDTH_FORWARD_PATHS + (
                          ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS,
-                          "compute_bf16_casmvs")
+                          "compute_bf16_casmvs", *WIDTH_COSTREG_PATHS)
                          if wrapper == "sweep_variance" else
                          ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS,
-                          *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS, *TOOL_TRAIN_PATHS)
+                          *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS, *TOOL_TRAIN_PATHS,
+                          *WIDTH_TRAIN_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

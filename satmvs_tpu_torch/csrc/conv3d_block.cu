@@ -24,12 +24,14 @@
 //     launch runs all of them, even and odd planes alike.
 //
 // Layout: x (N, D, H, W, Cin) channels-last float32; weights prepared by the
-// wrapper (ops/kernels/conv3d_block.py) as (27, Cin8, NT): tap (kd, kh, kw)
-// of the forward kernel, Cin rounded up to 8 and Cout up to NT ∈ {8, 16,
-// 32, 64} with zeros; bias (Cout) or null; skip shaped as out or null.
+// wrapper (ops/kernels/conv3d_block.py) as (27, Cin8, slabs·NT): tap (kd,
+// kh, kw) of the forward kernel, Cin rounded up to 8 and Cout up to NT ∈
+// {8, 16, 32, 64} with zeros, or past 64 channels to slabs of NT = 64; bias
+// (Cout) or null; skip shaped as out or null.
 //
 // What bounds it on this card.  A block does 27·Cin·Cout multiply-adds per
-// output voxel against 4·(Cin + Cout) bytes (Cin = 8-64, Cout = 1-64): the
+// output voxel against 4·(Cin + Cout) bytes (Cin = 8-64, Cout = 1-64 at the
+// default widths; 8b channels at base width b): the
 // wide full-resolution blocks (8 → 8 channels, the 8 → 1 head) are bound by
 // bytes, the 16-64-channel ones by arithmetic.  The arithmetic is fp32 to
 // the repository's rule (TF32 is off in every reference), done on the
@@ -45,7 +47,10 @@
 //     warps along N for NT = 64; a warp holds every n8 fragment of its
 //     columns.  B (the batch) is folded into the grid: a block owns one
 //     tile of one element's plane, so an element's output never depends on
-//     the others.
+//     the others.  Past 64 output channels the grid's second axis is the
+//     slab of 64 channels a block computes, its own columns of the weights
+//     and of the channels-last output: one launch still runs the whole
+//     block, each slab re-reading the tile's input window (from L2).
 //   * The K loop runs over stages (depth tap, chunk of CK = 8 input
 //     channels).  A stage stages with cp.async, zeros outside the volume (a
 //     zero source size), the input window its tile reads on that plane, (TH
@@ -183,6 +188,9 @@ __global__ void __launch_bounds__(NTile<NT>::threads, 1) conv3d_block_kernel(con
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
+  // the slab of output channels: its first channel, and the weights' row length
+  const int co0 = (int)blockIdx.y * NT;
+  const int wcols = (int)gridDim.y * Nt::cols;
 
   // the tile: ((element · planes + plane) · rt + row tile) · ct + column tile [· 8 + class]
   unsigned b = blockIdx.x;
@@ -228,7 +236,7 @@ __global__ void __launch_bounds__(NTile<NT>::threads, 1) conv3d_block_kernel(con
       const int jh = tap / nw, jw = tap - jh * nw;
       const int kh = TRANS ? tap_k(ah, jh) : jh, kw = TRANS ? tap_k(aw, jw) : jw;
       const float* src =
-          p.w + ((size_t)((kd * 3 + kh) * 3 + kw) * p.cin8 + cc * CK + k) * Nt::cols + 4 * q;
+          p.w + ((size_t)((kd * 3 + kh) * 3 + kw) * p.cin8 + cc * CK + k) * wcols + co0 + 4 * q;
       cp_async16(wsm + (tap * CK + k) * Nt::ldb + 4 * q, src, true);
     }
     cp_async_commit();
@@ -344,7 +352,7 @@ __global__ void __launch_bounds__(NTile<NT>::threads, 1) conv3d_block_kernel(con
       const size_t vox = (((size_t)n * Do + od) * Ho + oh) * Wo + ow;
 #pragma unroll
       for (int f = 0; f < Nt::frags; ++f) {
-        const int co = wn * Nt::warp_n + f * 8 + 2 * t;
+        const int co = co0 + wn * Nt::warp_n + f * 8 + 2 * t;
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (co + e < p.Cout) store(vox * p.Cout + co + e, co + e, acc[mi][f][2 * hf + e]);
@@ -354,7 +362,7 @@ __global__ void __launch_bounds__(NTile<NT>::threads, 1) conv3d_block_kernel(con
 }
 
 template <bool TRANS, int S, int NT, int VEC>
-cudaError_t launch(const Args& a, int N, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int N, int slabs, cudaStream_t stream) {
   constexpr int smem = smem_bytes<TRANS, S, NT>();
   static_assert(smem <= MAX_SMEM, "a stage ring must fit a block's shared memory");
   const auto kernel = conv3d_block_kernel<TRANS, S, NT, VEC>;
@@ -362,15 +370,16 @@ cudaError_t launch(const Args& a, int N, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)N * a.Do * a.rt * a.ct * (TRANS ? 8 : 1);
-  if (blocks < 1 || blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, NTile<NT>::threads, smem, stream>>>(a);
+  if (blocks < 1 || blocks >= (1LL << 31) || slabs < 1 || slabs > 65535)
+    return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)blocks, slabs), NTile<NT>::threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <bool TRANS, int S>
 cudaError_t dispatch(Args a, int N, void* stream) {
   if (N < 1 || a.Di < 1 || a.Hi < 1 || a.Wi < 1 || a.Cin < 1 || a.Do < 1 || a.Ho < 1 ||
-      a.Wo < 1 || a.Cout < 1 || a.Cout > 64)
+      a.Wo < 1 || a.Cout < 1)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(a.w) % 16) return cudaErrorMisalignedAddress;
   a.cin8 = (a.Cin + CK - 1) / CK * CK;
@@ -378,9 +387,10 @@ cudaError_t dispatch(Args a, int N, void* stream) {
   a.ct = (a.Wo + TW - 1) / TW;
   const bool vec = a.Cin % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   const int nt = a.Cout == 1 ? 1 : a.Cout <= 8 ? 8 : a.Cout <= 16 ? 16 : a.Cout <= 32 ? 32 : 64;
+  const int slabs = (a.Cout + nt - 1) / nt;  // past 64 channels, slabs of 64
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CONV3D_NT(NT) \
-  return vec ? launch<TRANS, S, NT, 4>(a, N, st) : launch<TRANS, S, NT, 1>(a, N, st)
+  return vec ? launch<TRANS, S, NT, 4>(a, N, slabs, st) : launch<TRANS, S, NT, 1>(a, N, slabs, st)
   switch (nt) {
     case 1: CONV3D_NT(1);
     case 8: CONV3D_NT(8);
@@ -393,10 +403,10 @@ cudaError_t dispatch(Args a, int N, void* stream) {
 
 }  // namespace
 
-// 3×3×3 conv of x (N, Di, Hi, Wi, Cin) with w (27, Cin8, NT) (see the
-// header), stride 1 or 2: output voxel o reads input o·stride − p + k along
-// each axis (p = pd, ph, pw ∈ {0, 1}, zero outside x) → out (N, Do, Ho, Wo,
-// Cout), Cout ≤ 64, + bias (or null), ReLU when relu != 0, + skip (or null).
+// 3×3×3 conv of x (N, Di, Hi, Wi, Cin) with w (27, Cin8, slabs·NT) (see
+// the header), stride 1 or 2: output voxel o reads input o·stride − p + k
+// along each axis (p = pd, ph, pw ∈ {0, 1}, zero outside x) → out (N, Do,
+// Ho, Wo, Cout), + bias (or null), ReLU when relu != 0, + skip (or null).
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int conv3d_block_f32(const float* x, const float* w, const float* bias,
                                 const float* skip, float* out, int N, int Di, int Hi, int Wi,
@@ -411,11 +421,11 @@ extern "C" int conv3d_block_f32(const float* x, const float* w, const float* bia
 }
 
 // ConvTranspose3d(k=3, s=2, p=1, op=1) of x (N, Di, Hi, Wi, Cin) with w (27,
-// Cin8, NT) (the ConvTranspose3d weight (Cin, Cout, kd, kh, kw) in the
-// header's layout), as a gather over the input positions m < (Dm, Hm, Wm)
-// (each Di or Di − 1: a last plane, row or column that is the next slab's
-// halo is read but not an m) → out (N, 2Dm, 2Hm, 2Wm, Cout), Cout ≤ 64, +
-// bias (or null), ReLU, + skip (or null).  Launches on `stream`; returns
+// Cin8, slabs·NT) (the ConvTranspose3d weight (Cin, Cout, kd, kh, kw) in
+// the header's layout), as a gather over the input positions m < (Dm, Hm,
+// Wm) (each Di or Di − 1: a last plane, row or column that is the next
+// slab's halo is read but not an m) → out (N, 2Dm, 2Hm, 2Wm, Cout), + bias
+// (or null), ReLU, + skip (or null).  Launches on `stream`; returns
 // cudaGetLastError() (0 = launched).
 extern "C" int deconv3d_block_f32(const float* x, const float* w, const float* bias,
                                   const float* skip, float* out, int N, int Di, int Hi, int Wi,

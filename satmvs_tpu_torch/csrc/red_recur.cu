@@ -79,6 +79,17 @@
 // the kernel (G, Y, out, the partial sums) is read with plain loads or
 // cp.async, never through the non-coherent read-only path.
 //
+// Widths that are not a multiple of 4.  The kernels move C in float4
+// groups, so a state of Cn channels runs at C = 4⌈Cn/4⌉: the wrapper pads
+// the start state, the cotangent and the weights with zeros (zero gate and
+// candidate outputs for the pad channels, zero rows for the pad state
+// inputs, zero GroupNorm scale and shift).  A pad channel's raw gates and
+// candidate are then exactly 0, which adds nothing to the sums of g and
+// g²; r = u = σ(0) and y = tanh(0) = 0 keep its state at 0 plane after
+// plane, and every transpose sum weighs it by a zero scale.  Only the
+// count changes: the statistics and the transposes' means divide by
+// H·W·Cn, the real values of a plane.  At Cn = C nothing differs.
+//
 // The backward, `red_recur_bwd_kernel`, replaces two more TPU kernels with
 // one: the reverse-plane adjoint `_red_recur_bwd_pallas` (:755, pallas_call
 // :802, kernel `_red_recur_bwd_kernel` :421) and its slab-streamed twin
@@ -237,6 +248,7 @@ struct FwdArgs {
   const float* gn;  // (6, C)
   ConvPlan cv[2];   // the gates, the candidate
   int B, D, H, W, Cin, C;
+  int Cn;           // the real state channels, C − 3 .. C (the statistics' count)
 };
 
 struct BwdArgs {
@@ -266,6 +278,7 @@ struct BwdArgs {
                       //                wb's for g ≥ 2C; ce = C + Cin rounded up to 4
   ConvPlan cv[4];     // the gates, the candidate, convᵀ Wc, convᵀ [Wh | Wx]
   int B, D, H, W, Cin, C;
+  int Cn;             // the real state channels, C − 3 .. C (the statistics' count)
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -596,7 +609,7 @@ __global__ void __launch_bounds__(BT, 2) red_recur_kernel(FwdArgs a) {
   const int C = a.C, Cin = a.Cin, W = a.W, H = a.H;
   const int P = H * W;
   const int plane = P * C;
-  const double inv_n = 1.0 / ((double)P * C);
+  const double inv_n = 1.0 / ((double)P * a.Cn);  // over the real channels alone
   const int bpe = gridDim.x / a.B;
   const int b = blockIdx.x / bpe;
   const int kb = blockIdx.x - b * bpe;  // this block among element b's
@@ -692,7 +705,7 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
   const int C = a.C, C2 = 2 * C, Cin = a.Cin, W = a.W, H = a.H;
   const int P = H * W;
   const int plane = P * C;
-  const double inv_n = 1.0 / ((double)P * C);
+  const double inv_n = 1.0 / ((double)P * a.Cn);  // over the real channels alone
   const int bpe = gridDim.x / a.B;
   const int b = blockIdx.x / bpe;
   const int kb = blockIdx.x - b * bpe;  // this block among element b's
@@ -929,11 +942,12 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-// The shapes both kernels take: 4 ≤ C ≤ 4·BT with C % 4 == 0, a grid of B
-// equal groups, and every plane index of (3C + Cin) channels within 32 bits.
-bool valid_shape(int B, int H, int W, int Cin, int C, int blocks) {
-  return C >= 4 && C % 4 == 0 && C / 4 <= BT && Cin >= 1 && B >= 1 && blocks >= B &&
-         blocks % B == 0 && (int64_t)H * W * (3 * C + Cin) < ((int64_t)1 << 31);
+// The shapes both kernels take: 4 ≤ C ≤ 4·BT with C % 4 == 0 and C − 4 <
+// Cn ≤ C real channels, a grid of B equal groups, and every plane index of
+// (3C + Cin) channels within 32 bits.
+bool valid_shape(int B, int H, int W, int Cin, int C, int Cn, int blocks) {
+  return C >= 4 && C % 4 == 0 && C / 4 <= BT && Cn > C - 4 && Cn <= C && Cin >= 1 && B >= 1 &&
+         blocks >= B && blocks % B == 0 && (int64_t)H * W * (3 * C + Cin) < ((int64_t)1 << 31);
 }
 
 // Reads n convs' (px, wr, wc, wk, ck) from plan into cv; false for one the
@@ -1008,15 +1022,16 @@ extern "C" int red_recur_resident() {
 // 2C), yraw (B, H, W, C) and part (2, blocks, 4).  plan holds (px, wr, wc, wk,
 // ck) of the gates' and the candidate's convs (see ConvPlan;
 // ops/kernels/red_recur.py `red_recur_plan`).  C must be a multiple of 4 and
-// at most 4·BT, every float pointer but x's 16-byte aligned.  Returns
+// at most 4·BT; Cn of its channels are real (the header's padded widths),
+// the rest pads.  Every float pointer but x's 16-byte aligned.  Returns
 // cudaGetLastError()-style codes (0 = launched).
 extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float* graw,
                              float* yraw, double* part, const float* wa, const float* ba,
                              const float* wb, const float* bb, const float* gn, const int* plan,
-                             int B, int D, int H, int W, int Cin, int C, int blocks,
+                             int B, int D, int H, int W, int Cin, int C, int Cn, int blocks,
                              void* stream) {
-  FwdArgs args{x, h0, out, graw, yraw, part, wa, ba, wb, bb, gn, {}, B, D, H, W, Cin, C};
-  if (!valid_shape(B, H, W, Cin, C, blocks) || !read_plans(plan, 2, NRAW, args.cv))
+  FwdArgs args{x, h0, out, graw, yraw, part, wa, ba, wb, bb, gn, {}, B, D, H, W, Cin, C, Cn};
+  if (!valid_shape(B, H, W, Cin, C, Cn, blocks) || !read_plans(plan, 2, NRAW, args.cv))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {h0, out, graw, yraw, part, wa, ba, wb, bb, gn};
   for (const void* p : ptrs)
@@ -1032,18 +1047,20 @@ extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float*
 // for the caller's weight cotangents, and dgn (6, C).  plan holds (px, wr, wc,
 // wk, ck) of the four convs (see ConvPlan; ops/kernels/red_recur.py
 // `red_recur_bwd_plan`).  dh must hold zeros.  C must be a multiple of 4 and
-// at most 4·BT, every float pointer but x's and dx's 16-byte aligned.
-// Returns cudaGetLastError()-style codes (0 = launched).
+// at most 4·BT, Cn of its channels real; every float pointer but x's and
+// dx's 16-byte aligned.  Returns cudaGetLastError()-style codes (0 =
+// launched).
 extern "C" int red_recur_bwd_f32(const float* x, const float* h0, const float* out,
                                  const float* gout, float* dx, float* dg, float* dyl, float* m,
                                  float* graw, float* yraw, float* dh, float* draw, double* part,
                                  double* gnpart, float* dgn, const float* wa, const float* ba,
                                  const float* wb, const float* bb, const float* gn,
                                  const float* wcT, const float* weT, const int* plan, int B,
-                                 int D, int H, int W, int Cin, int C, int blocks, void* stream) {
+                                 int D, int H, int W, int Cin, int C, int Cn, int blocks,
+                                 void* stream) {
   BwdArgs args{x,  h0, out, gout, dx, dg, dyl, m,  graw, yraw, dh, draw, part, gnpart, dgn,
-               wa, ba, wb,  bb,   gn, wcT, weT, {}, B,    D,    H,  W,    Cin,  C};
-  if (!valid_shape(B, H, W, Cin, C, blocks) || !read_plans(plan, 4, NRAW, args.cv))
+               wa, ba, wb,  bb,   gn, wcT, weT, {}, B,    D,    H,  W,    Cin,  C,   Cn};
+  if (!valid_shape(B, H, W, Cin, C, Cn, blocks) || !read_plans(plan, 4, NRAW, args.cv))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {h0, out, gout, dg, dyl, m, graw, yraw, dh, draw, part, gnpart,
                         wa, ba, wb, bb, gn, wcT, weT};

@@ -86,8 +86,18 @@ Four knobs of JAX's `CascadeModel` (`satmvs_tpu/models/cascade.py:
     fused=False (`satmvs_tpu/nn/red.py:329`), so JAX's remat also sends
     RED to its scan path; that is a path choice, not another function,
     and the port checkpoints whichever RED path fused_red picks (the fused
-    pipeline and its backward kernels by default).  A train step under a
-    mesh refuses it (`train.loop.make_train_step`).
+    pipeline and its backward kernels by default), under a mesh as without
+    one.  Under a mesh the regularizer holds collectives (the BatchNorms'
+    group moments, the halo exchanges of a sharded stage; RED's row gather
+    and the depth group's regression sums stay outside the checkpoint), so
+    every rank must issue the recompute's in the same order, and the order
+    is fixed, not left to autograd's scheduling: the recompute runs the
+    whole regularizer (no early stop, whatever each rank saved) at once, in
+    its forward's program order, and a stage's regularizer enters the
+    backward only after the next stage's has left it (`_after`: the next
+    stage's volume depends on this stage's depth in the graph, with no
+    value and no gradient).  The gradients and running statistics are the
+    bits of the step without remat, on a mesh as serially.
   torch_compat: the reference's numerics for converted checkpoints
     (`train/convert.py`): both sweeps sample where the reference's
     grid_sample reads (`ops.sampling.torch_grid_coords`, stretched by the
@@ -123,7 +133,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..dist.halo import slab_gather
 from ..nn.blocks import frozen_running_stats
@@ -234,6 +244,27 @@ def _remat_contexts():
     BatchNorms' running statistics alone, so a train-mode step moves them
     once, as flax's `nn.remat` does."""
     return contextlib.nullcontext(), frozen_running_stats()
+
+
+class _After(torch.autograd.Function):
+    """x as it is, its graph node depending on `before` with no value and no
+    gradient: the backward reaches `before` only after x's cotangent is
+    complete."""
+
+    @staticmethod
+    def forward(ctx, x, before):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _after(x: torch.Tensor, before: torch.Tensor | None) -> torch.Tensor:
+    """x, ordered in the backward before `before` (when it has a graph)."""
+    if before is None or not before.requires_grad:
+        return x
+    return _After.apply(x, before)
 
 
 _KNOBS = {"geo_model": ("rpc", "pinhole"), "regularizer": ("red", "costreg"),
@@ -403,8 +434,10 @@ class CascadeModel(nn.Module):
             def regularize(v):
                 return self.regs[i](v, train, shard)
         if self.remat and torch.is_grad_enabled():
-            logits = checkpoint(regularize, volume, use_reentrant=False,
-                                preserve_rng_state=False, context_fn=_remat_contexts)
+            # recomputed whole, after the next stage's regularizer (module docstring)
+            with set_checkpoint_early_stop(False):
+                logits = checkpoint(regularize, _after(volume, depth), use_reentrant=False,
+                                    preserve_rng_state=False, context_fn=_remat_contexts)
         else:
             logits = regularize(volume)
         dshard = shard if shard is not None and shard.axis == "depth" else None

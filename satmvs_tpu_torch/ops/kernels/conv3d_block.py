@@ -12,7 +12,9 @@ Replace the packed CostRegNet's per-depth-tap composition (JAX
   deconv3d_block  ConvTranspose3d(k=3, s=2, p=1, op=1), + bias, ReLU, + skip:
                   JAX's `d3dT` (:134) over `deconv_up` (:569) with relu off
 
-with one launch per block for all B·D planes.  Activations are channels-last
+with one launch per block for all B·D planes, at any number of input and
+output channels (past 64 output channels each block of the grid computes a
+slab of 64 of them).  Activations are channels-last
 (N, D, H, W, C) float32; weights are the port's `nn.Conv3d` (Cout, Cin, 3, 3,
 3) and `nn.ConvTranspose3d` (Cin, Cout, 3, 3, 3) parameters with the
 BatchNorm folded in by the caller (`nn/costreg.py`).  The CUDA source is
@@ -47,7 +49,7 @@ from . import build
 
 PAD1 = ((1, 1), (1, 1), (1, 1))  # a whole volume: pad 1 on every axis
 BACK1 = (1, 1, 1)
-MAX_COUT = 64
+SLAB = 64  # output channels a block of the kernel computes at most
 
 
 def conv3d_block_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -74,19 +76,20 @@ def deconv3d_block_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.
     return F.relu(y[:, :, :d, :h, :w]).permute(0, 2, 3, 4, 1) + skip
 
 
-def _nt(cout: int) -> int:
-    """Output channels the kernel computes: Cout rounded up to 8, 16, 32 or 64."""
-    return next(n for n in (8, 16, 32, 64) if cout <= n)
+def _padded_cout(cout: int) -> int:
+    """Output channels the kernel computes: Cout rounded up to NT = 8, 16, 32
+    or 64, and past 64 to slabs of 64."""
+    return next((n for n in (8, 16, 32) if cout <= n), -(-cout // SLAB) * SLAB)
 
 
 def prepared_weight(weight: torch.Tensor, transposed: bool) -> torch.Tensor:
-    """The kernel's weight layout (27, Cin8, NT): tap (kd, kh, kw), input
-    channel, output channel, zero-padded to a multiple of 8 input channels
-    and NT output channels."""
+    """The kernel's weight layout (27, Cin8, slabs·NT): tap (kd, kh, kw),
+    input channel, output channel, zero-padded to a multiple of 8 input
+    channels and `_padded_cout` output channels."""
     w = weight.permute(2, 3, 4, 0, 1) if transposed else weight.permute(2, 3, 4, 1, 0)
     cin, cout = w.shape[3:]
     w = w.reshape(27, cin, cout)
-    return F.pad(w, (0, _nt(cout) - cout, 0, -(-cin // 8) * 8 - cin)).contiguous()
+    return F.pad(w, (0, _padded_cout(cout) - cout, 0, -(-cin // 8) * 8 - cin)).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,13 +128,6 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, bias, skip, out, *ints)
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _cuda_operands(name: str, x, bias, cout: int):
-    if cout > MAX_COUT:
-        raise ValueError(f"{name}: the kernel takes at most {MAX_COUT} output channels, "
-                         f"got {cout}")
-    return x.contiguous(), None if bias is None else bias.contiguous()
-
-
 def conv3d_block(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
                  stride: int = 1, relu: bool = False, pads=PAD1) -> torch.Tensor:
     """3×3×3 conv, stride 1 or 2, of x (N, D, H, W, Cin) zero-padded by pads
@@ -147,7 +143,7 @@ def conv3d_block(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
                          f"{pads}")
     if x.device.type == "cpu":
         return conv3d_block_reference(x, weight, bias, stride, relu, pads)
-    x, bias = _cuda_operands("conv3d_block", x, bias, cout)
+    x, bias = x.contiguous(), None if bias is None else bias.contiguous()
     n, *dhw, _ = x.shape
     outer = [(e + a + b - 3) // stride + 1 for e, (a, b) in zip(dhw, pads)]
     if min(outer) < 1:
@@ -178,7 +174,7 @@ def deconv3d_block(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(skip.shape)} do not give {want}")
     if x.device.type == "cpu":
         return deconv3d_block_reference(x, weight, bias, skip, back)
-    x, bias = _cuda_operands("deconv3d_block", x, bias, cout)
+    x, bias = x.contiguous(), None if bias is None else bias.contiguous()
     out = torch.empty(want, dtype=torch.float32, device=x.device)
     _launch("deconv3d_block_f32", x, prepared_weight(weight, True), bias, skip.contiguous(),
             out, x.shape[0], *x.shape[1:4], cin, *m, cout)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -199,9 +200,10 @@ def plane_conv_plan_options(stride: int, transposed: bool, cin: int, cout: int,
     == 0 (else 1), co_t 8 (1 for Cout = 1, so nothing is padded), slabs of
     the output rounded up to co_t (at most 64) and its halves and quarters,
     tx of 8, 16 or 32 with a warp inside one thread row, thread rows ty to
-    fill up to 256 or 128 threads, chunks of the whole input or 32, 16, 8
-    or 4 channels, within the shared memory that lets two blocks share an
-    SM."""
+    fill up to 256 or 128 threads in whole warps (a slab of 3 or 6 groups
+    of co_t channels takes fewer rows), chunks of the whole input or 32,
+    16, 8 or 4 channels, within the shared memory that lets two blocks
+    share an SM."""
     vec = 4 if cin % 4 == 0 else 1
     co_t = 1 if cout == 1 else 8
     full = min(PLANE_MAX_SLAB, -(-cout // co_t) * co_t)
@@ -214,8 +216,9 @@ def plane_conv_plan_options(stride: int, transposed: bool, cin: int, cout: int,
         for tx in (32, 16, 8):
             if lcn * tx < 32 or lcn * tx > PLANE_MAX_THREADS:
                 continue
-            for ty in sorted({PLANE_MAX_THREADS // (lcn * tx), 128 // (lcn * tx)} - {0},
-                             reverse=True):
+            whole = 32 // math.gcd(lcn * tx, 32)  # thread rows that make whole warps
+            for ty in sorted({cap // (lcn * tx) // whole * whole
+                              for cap in (PLANE_MAX_THREADS, 128)} - {0}, reverse=True):
                 threads = lcn * tx * ty
                 chunks = {c for c in (cin_v, 32, 16, 8, 4) if c <= cin_v and c % vec == 0}
                 for ck in sorted(chunks, reverse=True):

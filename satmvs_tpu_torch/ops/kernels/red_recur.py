@@ -28,6 +28,16 @@ Both kernels run under a launch plan computed here in Python
 (`red_recur_bwd_plan`; the forward's `red_recur_plan` takes its first two
 convs and its blocks, so the adjoint recomputes the forward's gates and
 candidate in the same order).
+
+The kernels take any state width 1 ≤ C ≤ 1024, as JAX's kernels and scan
+do.  They move C in float4 groups, so a C that is not a multiple of 4
+runs at C4 = 4⌈C/4⌉ (`padded_width`): the start state, the output's
+cotangent and the weights are padded with zeros (`cell_kernel_args(cell,
+C4)`), the kernels count H·W·C real values in each GroupNorm statistic,
+and the outputs are cut back to C.  That costs, per call, a copy of the
+(B, D, H, W, C) states out of the padded output in the forward; in the
+backward a padded copy of the states and of their cotangent, and
+weight reductions over C4 channels.  At C % 4 == 0 none of it runs.
 """
 
 from __future__ import annotations
@@ -99,7 +109,27 @@ def red_recur_backward_reference(x: torch.Tensor, out: torch.Tensor, g: torch.Te
     return dx, tuple(dps)
 
 
-def cell_kernel_args(cell: ConvGRUCell) -> tuple[torch.Tensor, ...]:
+def padded_width(c: int) -> int:
+    """The state width the kernels run a C-channel cell at: C rounded up to 4."""
+    return -(-c // 4) * 4
+
+
+def _pad_groups(t: torch.Tensor, c: int, c4: int) -> torch.Tensor:
+    """t's last axis, groups of c channels, each zero-padded to c4."""
+    if c4 == c:
+        return t
+    groups = t.reshape(*t.shape[:-1], -1, c)
+    return F.pad(groups, (0, c4 - c)).reshape(*t.shape[:-1], -1).contiguous()
+
+
+def _unpad_groups(t: torch.Tensor, c: int, c4: int) -> torch.Tensor:
+    """`_pad_groups` undone: each group of c4 channels cut back to c."""
+    if c4 == c:
+        return t
+    return t.reshape(*t.shape[:-1], -1, c4)[..., :c].reshape(*t.shape[:-1], -1)
+
+
+def cell_kernel_args(cell: ConvGRUCell, width: int | None = None) -> tuple[torch.Tensor, ...]:
     """A ConvGRUCell's convs and norms as the kernel's arguments (wa, ba, wb, bb, gn):
 
       wa (9, Cin + C, 2C)  gates conv over [x | h]: conv_x's first 2C outputs and conv_h
@@ -107,18 +137,26 @@ def cell_kernel_args(cell: ConvGRUCell) -> tuple[torch.Tensor, ...]:
       wb (9, Cin + C, C)   candidate conv over [x | r·h]: conv_x's last C outputs and conv_c
       bb (C,)              conv_c's bias
       gn (6, C)            GroupNorm [r scale, r shift, u scale, u shift, y scale, y shift]
+
+    width: run the cell at this many state channels (`padded_width`): every
+    group of C channels above, inputs and outputs, is zero-padded to it.
     """
     c = cell.features
+    c4 = c if width is None else width
     wx = cell.conv_x.weight.detach()  # (3C, Cin, 3, 3)
 
     def taps(w):  # (Cout, Cin', 3, 3) → (9, Cin', Cout)
         return w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0]).contiguous()
 
-    wa = taps(torch.cat([wx[:2 * c], cell.conv_h.weight.detach()], dim=1))
-    wb = taps(torch.cat([wx[2 * c:], cell.conv_c.weight.detach()], dim=1))
+    def pad(w):  # the state's input rows, then each group of C outputs
+        return _pad_groups(F.pad(w, (0, 0, 0, c4 - c)), c, c4)
+
+    wa = pad(taps(torch.cat([wx[:2 * c], cell.conv_h.weight.detach()], dim=1)))
+    wb = pad(taps(torch.cat([wx[2 * c:], cell.conv_c.weight.detach()], dim=1)))
     gn = torch.stack([t.detach() for norm in (cell.gn_r, cell.gn_u, cell.gn_y)
                       for t in (norm.weight, norm.bias)])
-    return wa, cell.conv_h.bias.detach(), wb, cell.conv_c.bias.detach(), gn
+    return (wa, _pad_groups(cell.conv_h.bias.detach(), c, c4), wb,
+            _pad_groups(cell.conv_c.bias.detach(), c, c4), _pad_groups(gn, c, c4))
 
 
 def cell_backward_weights(wa: torch.Tensor, wb: torch.Tensor,
@@ -166,10 +204,10 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
     lib.red_recur_f32.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int)]
-                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.red_recur_f32.restype = ctypes.c_int
     lib.red_recur_bwd_f32.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.POINTER(ctypes.c_int)]
-                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.red_recur_bwd_f32.restype = ctypes.c_int
     return lib
 
@@ -267,10 +305,12 @@ def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) 
     share: an element's results do not depend on the B it is batched with
     (the GroupNorm sums aside, float64 partials over other blocks).  Pure
     Python, cached (do not modify what it returns); raises ValueError for
-    what the kernels cannot run."""
-    if c < 4 or c % 4 or c // 4 > RED_BWD_THREADS:
-        raise ValueError(f"red_recur: the kernels take C % 4 == 0, 4 ≤ C ≤ "
-                         f"{4 * RED_BWD_THREADS}, got C = {c}")
+    what the kernels cannot run.  A C that is not a multiple of 4 is
+    planned at `padded_width(C)`, the width the kernels run it at."""
+    if not 1 <= c <= 4 * RED_BWD_THREADS:
+        raise ValueError(f"red_recur: the kernels take 1 ≤ C ≤ {4 * RED_BWD_THREADS}, "
+                         f"got C = {c}")
+    c = padded_width(c)  # the width the kernels run at
     if min(b, h, w, cin) < 1:
         raise ValueError(f"red_recur: empty operand B {b}, {h}×{w}, Cin {cin}")
     if h * w * (3 * c + cin) >= 2 ** 31:
@@ -310,11 +350,13 @@ def _plan_ints(plan: dict):
 
 
 def _start_state(x: torch.Tensor, c: int, h0: torch.Tensor | None) -> torch.Tensor:
+    """The kernels' start state (B, H, W, padded_width(C)): zeros for None."""
     b, _, h, w, _ = x.shape
     if h0 is None:
-        h0 = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+        return torch.zeros((b, h, w, padded_width(c)), dtype=torch.float32, device=x.device)
     if not h0.is_contiguous():
         raise ValueError("red_recur: h0 must be contiguous")
+    h0 = _pad_groups(h0, c, padded_width(c))
     if h0.data_ptr() % 16:
         raise ValueError("red_recur: h0 must be 16-byte aligned")
     return h0
@@ -327,33 +369,38 @@ def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None,
     other plans)."""
     b, d, h, w, cin = x.shape
     c = cell.features
+    c4 = padded_width(c)
     if not x.is_contiguous():
         raise ValueError("red_recur: x must be contiguous")
-    if plan is None:  # refuses C % 4, 32-bit overflow and more elements than fit
+    if plan is None:  # refuses C > 1024, 32-bit overflow and more elements than fit
         with torch.cuda.device(x.device):
             plan = red_recur_plan(b, h, w, cin, c, resident())
     h0 = _start_state(x, c, h0)
     lib = _lib()
-    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
+    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell, c4))
     new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
                                                           device=x.device)
-    out = new(b, d, h, w, c)
-    graw, yraw = new(b, h, w, 2 * c), new(b, h, w, c)
+    out = new(b, d, h, w, c4)
+    graw, yraw = new(b, h, w, 2 * c4), new(b, h, w, c4)
     part = new(2, plan["blocks"], 4, dtype=torch.float64)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.red_recur_f32(*(t.data_ptr() for t in (x, h0, out, graw, yraw, part, wa, ba, wb,
                                                         bb, gn)),
-                               _plan_ints(plan), b, d, h, w, cin, c, plan["blocks"], stream)
+                               _plan_ints(plan), b, d, h, w, cin, c4, c, plan["blocks"], stream)
     if rc != 0:
         raise RuntimeError(f"red_recur kernel launch failed: CUDA error {rc}")
     red_recur.launches += 1
-    return out
+    return out if c4 == c else out[..., :c].contiguous()
 
 
 def _param_grads(cell: ConvGRUCell, dwa, dba, dwb, dbb, dgn) -> tuple[torch.Tensor, ...]:
-    """The kernel-layout cotangents as those of `cell.parameters()`, in order."""
+    """The kernel-layout cotangents (at `padded_width(C)` channels) as those
+    of `cell.parameters()`, in order."""
     cin, c = cell.conv_x.in_channels, cell.features
+    c4 = padded_width(c)
+    dwa, dba, dwb, dbb, dgn = (_unpad_groups(t, c, c4) for t in (dwa, dba, dwb, dbb, dgn))
+    dwa, dwb = dwa[:, :, :cin + c], dwb[:, :, :cin + c]  # the state's pad rows
     dwx = torch_weight(torch.cat([dwa[:, :, :cin], dwb[:, :, :cin]], dim=3))
     grads = {"conv_x.weight": dwx, "conv_h.weight": torch_weight(dwa[:, :, cin:]),
              "conv_h.bias": dba, "conv_c.weight": torch_weight(dwb[:, :, cin:]),
@@ -380,33 +427,35 @@ def resident() -> int:
 
 def _adjoint(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell: ConvGRUCell,
              h0: torch.Tensor, plan: dict | None = None) -> tuple[torch.Tensor, ...]:
-    """The adjoint kernel alone on CUDA tensors (not counted): dx, the
-    per-plane cotangents dg (B, D, H, W, 2C) and dyl (B, D, H, W, C), the
-    recomputed r·h m (B, D, H, W, C) and dgn (6, C).  `plan` replaces
-    `red_recur_bwd_plan`'s (to time other plans)."""
+    """The adjoint kernel alone on CUDA tensors (not counted), out, g and h0
+    at the kernels' width C4 = `padded_width(C)`: dx, the per-plane
+    cotangents dg (B, D, H, W, 2C4) and dyl (B, D, H, W, C4), the
+    recomputed r·h m (B, D, H, W, C4) and dgn (6, C4), pads included.
+    `plan` replaces `red_recur_bwd_plan`'s (to time other plans)."""
     b, d, h, w, cin = x.shape
     c = cell.features
+    c4 = padded_width(c)
     lib = _lib()
-    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell))
+    wa, ba, wb, bb, gn = (t.contiguous() for t in cell_kernel_args(cell, c4))
     wcT, weT = cell_backward_weights(wa, wb, cin)
     new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype,  # noqa: E731
                                                           device=x.device)
     dx = new(b, d, h, w, cin)
-    dg, dyl, m = new(b, d, h, w, 2 * c), new(b, d, h, w, c), new(b, d, h, w, c)
-    graw, yraw, draw = new(2, b, h, w, 2 * c), new(b, h, w, c), new(3, b, h, w, c)
-    dh = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
-    dgn = new(6, c)
+    dg, dyl, m = new(b, d, h, w, 2 * c4), new(b, d, h, w, c4), new(b, d, h, w, c4)
+    graw, yraw, draw = new(2, b, h, w, 2 * c4), new(b, h, w, c4), new(3, b, h, w, c4)
+    dh = torch.zeros((b, h, w, c4), dtype=torch.float32, device=x.device)
+    dgn = new(6, c4)
     with torch.cuda.device(x.device):
         if plan is None:
             plan = red_recur_bwd_plan(b, h, w, cin, c, resident())
         blocks = plan["blocks"]
         part = new(4, blocks, 4, dtype=torch.float64)
-        gnpart = new(blocks, 6, c, dtype=torch.float64)
+        gnpart = new(blocks, 6, c4, dtype=torch.float64)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.red_recur_bwd_f32(
             *(t.data_ptr() for t in (x, h0, out, g, dx, dg, dyl, m, graw, yraw, dh, draw, part,
                                      gnpart, dgn, wa, ba, wb, bb, gn, wcT, weT)),
-            _plan_ints(plan), b, d, h, w, cin, c, blocks, stream)
+            _plan_ints(plan), b, d, h, w, cin, c4, c, blocks, stream)
     if rc != 0:
         raise RuntimeError(f"red_recur backward kernel launch failed: CUDA error {rc}")
     return dx, dg, dyl, m, dgn
@@ -419,18 +468,19 @@ def red_recur_backward(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, cell
     `out` and the output's cotangent g; h0 is the start state the forward
     took (None for zeros; it gets no cotangent).  CUDA tensors go to the
     adjoint kernel and the weight reductions, counted in
-    `red_recur_backward.launches` (C % 4 == 0; x, out, g and h0 contiguous);
-    CPU tensors to `red_recur_backward_reference`."""
+    `red_recur_backward.launches` (x, out, g and h0 contiguous; a C that is
+    not a multiple of 4 padded as the module docstring says); CPU tensors
+    to `red_recur_backward_reference`."""
     if x.device.type == "cpu":
         return red_recur_backward_reference(x, out, g, cell, h0)
     b, d, h, w, cin = x.shape
     c = cell.features
-    if c % 4:
-        raise ValueError(f"red_recur backward: the kernel takes C % 4 == 0, got C = {c}")
+    c4 = padded_width(c)
     for name, t in (("x", x), ("out", out), ("g", g)):
         if not t.is_contiguous():
             raise ValueError(f"red_recur backward: {name} must be contiguous")
     h0 = _start_state(x, c, h0)
+    out, g = _pad_groups(out, c, c4), _pad_groups(g, c, c4)
     dx, dg, dyl, m, dgn = _adjoint(x, out, g, cell, h0)
     # weight and bias cotangents over all B·D planes: gates over [x | h_prev],
     # candidate over [x | r·h_prev]
@@ -468,8 +518,8 @@ def red_recur(x: torch.Tensor, cell: ConvGRUCell,
     or None → (B, D, H, W, C), B independent recurrences in one launch.
     Chaining: red_recur(x)[k:] equals red_recur(x[k:], cell,
     red_recur(x[:k], cell)[-1]) (per element when batched).  CUDA tensors go
-    to the kernel (x and h0 contiguous, C % 4 == 0; a grid the card cannot
-    hold raises), CPU tensors to `red_recur_reference`.  Differentiable in x
+    to the kernel (x and h0 contiguous, 1 ≤ C ≤ 1024; a grid the card
+    cannot hold raises), CPU tensors to `red_recur_reference`.  Differentiable in x
     and the cell's parameters (backward `red_recur_backward`); an h0 that
     requires a gradient raises where autograd records, as the seeded JAX
     forms have no VJP.

@@ -248,9 +248,6 @@ def make_train_step(model, tx: RMSprop, dlossw, mesh=None) -> Callable:
     the model's BatchNorms take their moments as `sync_norms` says, the
     gradients are summed over the mesh before the update, and the scalars
     are the global batch's."""
-    if mesh is not None and getattr(model, "remat", False):
-        raise ValueError("remat under a mesh is not ported: a checkpointed regularizer "
-                         "would redo its collectives in the backward")
     dlossw = tuple(dlossw)
     group = _group(mesh)
     sync_norms(model, mesh)

@@ -63,13 +63,15 @@ def lecun(model):
 
 
 def model_and_state(model: str, batch: dict, variables=None, mesh=None, ndepths=NDEPTHS,
-                    lr: float = 1e-3):
+                    lr: float = 1e-3, remat: bool = False):
     """The model from SEED at LeCun scale, or from a flax variables tree;
-    its volumes sharded as the mesh says."""
+    its volumes sharded as the mesh says; with remat, each stage's
+    regularizer recomputed in the backward."""
     from satmvs_tpu_torch.train import create_model_and_state
 
     cfg = config(model, ndepths, lr=lr)
     net, state, tx = create_model_and_state(cfg, batch, 1, variables, mesh)
+    net.remat = remat
     if variables is None:
         lecun(net)
     return cfg, net, state, tx
@@ -80,20 +82,24 @@ def snapshot(tensors: dict) -> dict:
 
 
 def train_run(model: str, batch: dict, mesh=None, variables=None, ndepths=NDEPTHS,
-              lr: float = 1e-3) -> dict:
+              lr: float = 1e-3, remat: bool = False) -> dict:
     """Eval-mode gradients of the fresh model, then STEPS train steps:
     their scalars, the running statistics after the first step, the
     parameters and statistics after the last.  Under a mesh `batch` is the
     global batch and the rank takes its share.  `variables`: the weights
-    of a flax variables tree."""
+    of a flax variables tree; remat: `model_and_state`'s."""
     from satmvs_tpu_torch.dist import shard_batch
     from satmvs_tpu_torch.train.loop import loss_and_grads, make_train_step
 
     local = batch if mesh is None else shard_batch(batch, mesh)
-    cfg, net, state, tx = model_and_state(model, local, variables, mesh, ndepths, lr)
+    cfg, net, state, tx = model_and_state(model, local, variables, mesh, ndepths, lr, remat)
+    calls = []  # the regularizers' forwards, their recomputes included
+    for reg in net.regs:
+        reg.register_forward_pre_hook(lambda *a: calls.append(1))
     step = make_train_step(net, tx, cfg.dlossw, mesh)  # sets the BatchNorms' group
     _, loss, _, grads = loss_and_grads(net, state, local, cfg.dlossw, False, mesh)
-    out = {"eval_loss": loss.item(), "eval_grads": snapshot(grads), "scalars": []}
+    out = {"eval_loss": loss.item(), "eval_grads": snapshot(grads), "scalars": [],
+           "reg_calls": calls}
     for k in range(STEPS):
         state, scalars = step(state, local)
         out["scalars"].append({n: v.item() for n, v in scalars.items()})
@@ -251,6 +257,8 @@ SHARD_GRADS = {"casmvs_d2": ("casmvs", (1, 1, 2)), "ucs_d2": ("ucs", (1, 1, 2)),
 # `reorder_spread`)
 SHARD_STEPS = {"casmvs_dp2_d2": ("casmvs", (2, 1, 2), SHARD_HW, (16, 8, 8), 1e-4),
                "red_dp2_s2": ("red", (2, 2, 1), HW, NDEPTHS, 1e-3)}
+# the same steps with each stage's regularizer recomputed in the backward
+REMAT_STEPS = {f"{job}_remat": job for job in SHARD_STEPS}
 SHARD_EVALS = {"eval_casmvs_d2": ("casmvs", (1, 1, 2)), "eval_casmvs_s2": ("casmvs", (1, 2, 1)),
                "eval_ucs_d2": ("ucs", (1, 1, 2)), "eval_red_s2": ("red", (1, 2, 1))}
 
@@ -280,14 +288,15 @@ def grads_run(model: str, shape, path: str) -> dict:
             "partition": net.volume_partition}
 
 
-def steps_run(job: str, serial: bool = False) -> dict:
+def steps_run(job: str, serial: bool = False, remat: bool = False) -> dict:
     """`train_run` (eval-mode gradients, STEPS train steps) of SHARD_STEPS'
-    `job`, under its mesh (serial: at B = 2 in one process)."""
+    `job`, under its mesh (serial: at B = 2 in one process), with remat or
+    without."""
     from satmvs_tpu_torch.dist import make_mesh
 
     model, shape, hw, ndepths, lr = SHARD_STEPS[job]
     return train_run(model, shard_batch_global(hw), None if serial else make_mesh(*shape),
-                     ndepths=ndepths, lr=lr)
+                     ndepths=ndepths, lr=lr, remat=remat)
 
 
 def reorder_spread(model: str, hw=SHARD_HW, ndepths=(16, 8, 8), lr: float = 1e-3,
@@ -398,6 +407,7 @@ JOBS = {
     "ops_depth": lambda mesh: ops_run("depth"),
     "ops_spatial": lambda mesh: ops_run("spatial"),
     **{job: (lambda mesh, j=job: steps_run(j)) for job in SHARD_STEPS},
+    **{job: (lambda mesh, j=base: steps_run(j, remat=True)) for job, base in REMAT_STEPS.items()},
     **{job: (lambda mesh, m=m, sh=sh: shard_eval_run(m, sh))
        for job, (m, sh) in SHARD_EVALS.items()},
 }

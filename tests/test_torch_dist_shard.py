@@ -30,6 +30,9 @@ What they hold, after JAX's own tests/test_dist.py:
     its 3e-4 gate (the ranks read 2.98e-4, their depth loss 3.50e-4); at
     1e-4, 8.4e-8 to 2.9e-5, so this check runs there.  RED's moves 1.2e-5
     at 1e-3;
+  - the same two steps with remat (each stage's regularizer recomputed in
+    the backward, its collectives issued again) against the steps without,
+    bit for bit;
   - the eval step, the packed CostRegNet on slabs and the fused sweep on a
     band or slab, against the serial eval step;
   - `fit` under Config(mesh_depth=2), and its refusals in JAX's words.
@@ -54,7 +57,8 @@ import _torch_dist_ranks as ranks
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = {2: ["ops_depth", "ops_spatial", "casmvs_d2", "ucs_d2", "casmvs_s2", "red_s2",
               "eval_casmvs_d2", "eval_ucs_d2", "eval_casmvs_s2", "eval_red_s2", "fit_shard"],
-          4: ["casmvs_d4", "ucs_d4", "casmvs_dp2_d2", "red_dp2_s2"]}
+          4: ["casmvs_d4", "ucs_d4", "casmvs_dp2_d2", "red_dp2_s2", "casmvs_dp2_d2_remat",
+              "red_dp2_s2_remat"]}
 STEP_GATES = {"red": {"loss": 2e-4, "stats": 1e-5}, "casmvs": {"loss": 3e-4, "stats": 1e-4}}
 RANK_TIMEOUT_S = 300
 
@@ -337,6 +341,25 @@ def test_train_mode_steps_match_serial(runs, job):
         for group in ("params", "stats"):
             assert all(torch.equal(rank[group][k], v) for k, v in r0[group].items()), group
         assert rank["scalars"] == r0["scalars"]
+
+
+@pytest.mark.parametrize("job", ["casmvs_dp2_d2", "red_dp2_s2"])
+def test_remat_steps_under_a_mesh_equal_the_steps_without(runs, job):
+    """remat under data 2 × depth 2 (CasMVS: the CostRegNet's train-mode
+    BatchNorms over the whole mesh and its depth halos inside the
+    checkpoint) and data 2 × spatial 2 (RED, fused pipeline, after its row
+    gather): each stage's regularizer runs again in every backward, and on
+    every rank the eval-mode loss and gradients, both steps' scalars, the
+    running statistics after the first step (they move once) and the
+    parameters and statistics after the second are the bits of the same
+    job without remat."""
+    got, _, _ = runs
+    for plain, remat in zip(_job(got, job), _job(got, f"{job}_remat")):
+        assert len(remat["reg_calls"]) == 2 * len(plain["reg_calls"]) > 0
+        assert remat["eval_loss"] == plain["eval_loss"]
+        assert remat["scalars"] == plain["scalars"]
+        for group in ("eval_grads", "stats_1", "params", "stats"):
+            assert all(torch.equal(remat[group][k], v) for k, v in plain[group].items()), group
 
 
 @pytest.mark.parametrize("job", ["eval_casmvs_d2", "eval_ucs_d2", "eval_casmvs_s2",

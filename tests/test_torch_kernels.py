@@ -214,9 +214,11 @@ def _close(got, want, what):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 16), (2, 7, 9, 6, 5),
-                                            (2, 12, 6, 32, 64)])
+                                            (2, 12, 6, 32, 64), (2, 12, 20, 12, 24),
+                                            (2, 8, 10, 20, 40)])
 def test_cuda_conv_dn_matches_plain_version(n, h, w, cin, cout):
-    """Even and odd sizes, Cin and Cout with and without C % 4 == 0."""
+    """Even and odd sizes, Cin and Cout with and without C % 4 == 0, slabs
+    of 3 and 5 groups of 8 channels (`cr_base_chs` 6 and 10)."""
     from satmvs_tpu_torch.ops.kernels.plane_conv import conv_dn, conv_dn_reference
 
     _cuda()
@@ -229,7 +231,9 @@ def test_cuda_conv_dn_matches_plain_version(n, h, w, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,cout,skip", [(3, 8, 12, 16, 8, True), (2, 5, 7, 6, 3, False),
-                                                 (1, 3, 6, 64, 32, True)])
+                                                 (1, 3, 6, 64, 32, True),
+                                                 (2, 6, 10, 48, 24, True),
+                                                 (1, 4, 6, 80, 40, False)])
 def test_cuda_deconv_up_matches_plain_version(n, h, w, cin, cout, skip):
     """Transposed conv with the torch-exact index map, odd edges included,
     with and without the fused skip add."""
@@ -261,11 +265,14 @@ def test_cuda_conv_head_matches_plain_version(n, h, w, cin, cout):
 @pytest.mark.parametrize("d,h,w,cin,c,seeded", [(5, 16, 24, 8, 8, False), (4, 7, 9, 6, 4, True),
                                                 (3, 6, 12, 64, 64, True),
                                                 (3, 10, 36, 12, 12, True),
-                                                (2, 9, 20, 24, 24, False)])
+                                                (2, 9, 20, 24, 24, False),
+                                                (4, 9, 20, 6, 6, True), (3, 8, 12, 5, 2, False),
+                                                (3, 7, 16, 10, 10, True), (2, 5, 7, 3, 1, True)])
 def test_cuda_red_recur_matches_plain_version(d, h, w, cin, c, seeded):
     """Odd sizes, Cin % 4 != 0, C = 64, C = 12 and 24 (the cells
-    `cr_base_chs` 12 gives), zero and seeded start states: 1e-4 on states in
-    (−1, 1) (GroupNorm statistics in float64 against torch's fp32)."""
+    `cr_base_chs` 12 gives), C = 6, 2, 10 and 1 (run padded to a multiple
+    of 4), zero and seeded start states: 1e-4 on states in (−1, 1)
+    (GroupNorm statistics in float64 against torch's fp32)."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
     from satmvs_tpu_torch.ops.kernels.red_recur import red_recur, red_recur_reference
 
@@ -300,7 +307,8 @@ def _red_cell(cin, c, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,h,w,cin,c", [(3, 4, 7, 9, 6, 4), (2, 3, 6, 12, 64, 64),
-                                           (4, 5, 16, 24, 8, 8)])
+                                           (4, 5, 16, 24, 8, 8), (2, 3, 8, 12, 6, 6),
+                                           (3, 2, 9, 11, 5, 10)])
 def test_cuda_batched_red_recur_matches_plain_version(b, d, h, w, cin, c):
     """B elements in one launch, each from its own seeded h0, against the
     plain version applied to each element: 1e-4 on states in (−1, 1)."""
@@ -365,7 +373,8 @@ def test_cuda_red_recur_under_every_plan(b, d, h, w, cin, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,h,w,cin,c", [(4, 3, 12, 24, 64, 64), (4, 2, 56, 56, 8, 8)])
+@pytest.mark.parametrize("b,d,h,w,cin,c", [(4, 3, 12, 24, 64, 64), (4, 2, 56, 56, 8, 8),
+                                           (2, 3, 24, 40, 6, 6)])
 def test_cuda_red_recur_same_bits_in_a_second_run(b, d, h, w, cin, c):
     """B = 4 seeded elements at a coarse and a wide shape: a second launch
     gives the same bits (statistics in a fixed order, no atomics)."""
@@ -775,7 +784,7 @@ def _rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 16, 24, 8, 16), (2, 8, 6, 6, 5),
-                                            (2, 12, 8, 32, 64)])
+                                            (2, 12, 8, 32, 64), (2, 8, 12, 24, 48)])
 def test_cuda_conv_dn_backward_matches_plain_version(n, h, w, cin, cout):
     """dx (the gated transposed conv) and dweight (the two-pass reduction)
     against the plain backward on the card: 1e-5 × max(1, max |plain|) each,
@@ -797,7 +806,7 @@ def test_cuda_conv_dn_backward_matches_plain_version(n, h, w, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 8, 12, 16, 8), (2, 5, 7, 6, 3),
-                                            (1, 3, 6, 64, 32)])
+                                            (1, 3, 6, 64, 32), (2, 6, 10, 48, 24)])
 def test_cuda_deconv_up_backward_matches_plain_version(n, h, w, cin, cout):
     """dx (the gated stride-2 conv) and dweight, odd sizes included, with
     pre-activations pushed to ±1e-7 on a share of the outputs so the mask
@@ -1167,13 +1176,48 @@ def test_cuda_conv3d_block_slab_bits_match_the_whole_volume(kind, dim):
 
 
 @pytest.mark.cuda
-def test_cuda_conv3d_block_refuses_more_than_64_output_channels():
+@pytest.mark.parametrize("n,d,h,w,cin,cout,op", [
+    (1, 4, 12, 24, 128, 128, "conv_head"), (2, 3, 8, 16, 64, 128, "conv_dn"),
+    (1, 4, 6, 20, 128, 96, "conv_head"), (1, 4, 6, 12, 128, 64, "deconv_up"),
+    (2, 3, 5, 9, 96, 80, "deconv_up"), (1, 3, 7, 17, 8, 200, "conv_head")])
+def test_cuda_conv3d_block_past_64_output_channels(n, d, h, w, cin, cout, op):
+    """Output and input channels past 64, as CostRegNet's deepest blocks at
+    base width 16 have them (128 → 128, 64 → 128, the 128 → 64 transposed
+    block), a last slab part-filled (96, 80, 200): one launch a block, the
+    plain version's tolerance, the same bits twice, and each slab of 64
+    channels the bits of a call with only its weights (a slab's sums do not
+    depend on the others)."""
     from satmvs_tpu_torch.ops.kernels import conv3d_block as cb
 
     _cuda()
-    x = _rand((1, 2, 4, 4, 8), 170)
-    with pytest.raises(ValueError, match="64"):
-        cb.conv3d_block(x, _rand((65, 8, 3, 3, 3), 171))
+    x = _rand((n, d, h, w, cin), 170)
+    bias = _rand((cout,), 171, 0.1)
+    scale = (1.0 / (27 * cin)) ** 0.5
+    with torch.no_grad():
+        if op == "deconv_up":
+            wt = _rand((cin, cout, 3, 3, 3), 172, scale)
+            skip = _rand((n, 2 * d, 2 * h, 2 * w, cout), 173)
+            run = lambda wt, b, s: cb.deconv3d_block(x, wt, b, s)  # noqa: E731
+            plain = cb.deconv3d_block_reference(x, wt, bias, skip)
+            cut = lambda lo, hi: (wt[:, lo:hi], bias[lo:hi],  # noqa: E731
+                                  skip[..., lo:hi].contiguous())
+            args = (wt, bias, skip)
+        else:
+            wt = _rand((cout, cin, 3, 3, 3), 172, scale)
+            stride = 2 if op == "conv_dn" else 1
+            run = lambda wt, b: cb.conv3d_block(x, wt, b, stride, True)  # noqa: E731
+            plain = cb.conv3d_block_reference(x, wt, bias, stride, True)
+            cut = lambda lo, hi: (wt[lo:hi], bias[lo:hi])  # noqa: E731
+            args = (wt, bias)
+        wrapper = cb.deconv3d_block if op == "deconv_up" else cb.conv3d_block
+        before = wrapper.launches
+        got = run(*args)
+        assert wrapper.launches == before + 1
+        _close(got, plain, op)
+        assert torch.equal(run(*args), got)
+        for lo in range(0, cout, 64):
+            hi = min(lo + 64, cout)
+            assert torch.equal(run(*cut(lo, hi)), got[..., lo:hi]), (lo, hi)
 
 
 @pytest.mark.cuda
@@ -1183,15 +1227,19 @@ def test_cuda_conv3d_block_refuses_more_than_64_output_channels():
                                                   (2, 3, 12, 24, 64, 64, True),
                                                   (2, 2, 32, 160, 16, 8, True),
                                                   (1, 3, 10, 36, 12, 12, True),
-                                                  (2, 2, 9, 20, 24, 24, False)])
+                                                  (2, 2, 9, 20, 24, 24, False),
+                                                  (2, 3, 9, 20, 6, 6, True),
+                                                  (1, 3, 8, 12, 5, 2, False),
+                                                  (2, 2, 7, 16, 10, 10, True)])
 def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seeded):
     """The adjoint kernel and its weight reductions against the plain
     reverse-plane backward on the card, on states in (−1, 1): dx and every
     parameter's cotangent to a relative norm of 1e-4 (GroupNorm statistics
     in float64 against torch's fp32 moments), and the same bits in a second
     run (no atomics).  Shapes: a coarse plane at C = 64 and a wide one at
-    C = 8 (stage 1 scale 8 and stage 3 in small), and C = 12 and 24, the
-    cells `cr_base_chs` 12 gives."""
+    C = 8 (stage 1 scale 8 and stage 3 in small), C = 12 and 24, the
+    cells `cr_base_chs` 12 gives, and C = 6, 2 and 10, run padded to a
+    multiple of 4."""
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
 
     _cuda()

@@ -338,14 +338,33 @@ def test_remat_step_equals_the_step_without(model, fused_red):
                    if n.startswith("regs."))
 
 
-def test_remat_refuses_a_mesh():
-    """A train step with remat under a mesh raises (ROADMAP's limits that
-    raise)."""
+def test_remat_refuses_a_mesh(tmp_path):
+    """No longer refused: a train step with remat under a mesh runs, its
+    recompute issuing the regularizer's collectives again in a fixed
+    order (models/cascade.py).  On a mesh of one rank (gloo, in this
+    process) `make_train_step` takes a remat model and its step is the bits
+    of the step without remat; the meshes of several ranks are
+    tests/test_torch_dist_shard.py's."""
+    import torch.distributed as dist
+
+    from satmvs_tpu_torch.dist import init_multihost, make_mesh
+
     tb = tsyn.make_batch(1, W, H, seed=0, device="cpu")
-    model, _, tx = create_model_and_state(Config(ndepths=NDEPTHS), tb, 2)
-    model.remat = True
-    with pytest.raises(ValueError, match="remat"):
-        make_train_step(model, tx, (0.5, 1.0, 2.0), mesh=object())
+    init_multihost(f"file://{tmp_path / 'init'}", 1, 0, device="cpu")
+    try:
+        mesh = make_mesh(data=1)
+        runs = []
+        for remat in (False, True):
+            model, state, tx = create_model_and_state(Config(ndepths=NDEPTHS, seed=3), tb, 2,
+                                                      mesh=mesh)
+            model.remat = remat
+            runs.append(make_train_step(model, tx, (0.5, 1.0, 2.0), mesh=mesh)(state, tb))
+    finally:
+        dist.destroy_process_group()
+    (s0, sc0), (s1, sc1) = runs
+    assert all(torch.equal(sc0[k], sc1[k]) for k in sc0)
+    assert all(torch.equal(s0.params[k], s1.params[k]) for k in s0.params)
+    assert all(torch.equal(s0.batch_stats[k], s1.batch_stats[k]) for k in s0.batch_stats)
 
 
 @pytest.mark.slow

@@ -82,26 +82,31 @@ def seeded_variables(model, args, seed: int) -> dict:
         lambda p, s: np.asarray(draw(p, s), np.float32), shapes)
 
 
-@pytest.fixture(scope="module", params=sorted(FAMILIES))
-def family(request):
-    """One family's JAX apply and the port's forward on the same batch."""
-    name = request.param
+def _family_run(name: str, cr_base_chs=(8, 8, 8)) -> dict:
+    """One family's JAX apply and the port's forward on the same batch, the
+    CostRegNets at base widths cr_base_chs."""
     jcls, tcls = FAMILIES[name]
     jb = jsyn.make_batch(1, W, H, seed=0, with_gt=False)
-    jm = jcls(geo_model="rpc", ndepths=NDEPTHS)
+    jm = jcls(geo_model="rpc", ndepths=NDEPTHS, cr_base_chs=cr_base_chs)
     args = (jnp.asarray(jb["imgs"]), jb["cams"], jnp.asarray(jb["depth_values"]))
     variables = seeded_variables(jm, args, seed=3)
     want = jax.tree.map(np.asarray, jax.jit(lambda v, *a: jm.apply(v, *a, train=False))(
         variables, *args))
 
     tb = tsyn.make_batch(1, W, H, seed=0, device="cpu")
-    tm = load_jax_variables(tcls(ndepths=NDEPTHS, device="cpu"), variables)
+    tm = load_jax_variables(tcls(ndepths=NDEPTHS, cr_base_chs=cr_base_chs, device="cpu"),
+                            variables)
     wrappers = (sweep_variance, conv_dn, red_recur, deconv_up, conv_head)
     launches = [fn.launches for fn in wrappers]
     got = tm(tb["imgs"], tb["cams"], tb["depth_values"])
     assert [fn.launches for fn in wrappers] == launches  # CPU tensors: the plain versions
     return {"name": name, "want": want, "got": got, "dv": jb["depth_values"][0],
             "variables": variables, "model": tm}
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def family(request):
+    return _family_run(request.param)
 
 
 def _steps(fam, i: int) -> np.ndarray:
@@ -136,6 +141,21 @@ def test_family_depth_matches_jax(family):
         assert err.mean() <= 0.01 and np.quantile(err, 0.99) <= 0.1, f"stage{i}"
     np.testing.assert_array_equal(family["got"]["depth"].numpy(),
                                   family["got"]["stage3"]["depth"].numpy())
+
+
+def test_casmvs_at_base_width_16_matches_jax():
+    """CascadeMVSNet with `cr_base_chs` (16, 16, 16): its deepest 3-D blocks
+    have 128 output channels and the first transposed block reads 128 (the
+    card's block kernels split them into slabs of 64).  The depth and
+    confidence gates of the two tests above, against JAX at the same
+    widths."""
+    fam = _family_run("casmvs", (16, 16, 16))
+    assert fam["model"].regs[0].convs[6].conv.weight.shape[0] == 128
+    test_family_depth_matches_jax(fam)
+    for i in (1, 2, 3):
+        np.testing.assert_allclose(fam["got"][f"stage{i}"]["photometric_confidence"].numpy(),
+                                   fam["want"][f"stage{i}"]["photometric_confidence"], rtol=0,
+                                   atol=2e-3, err_msg=f"stage{i}")
 
 
 def test_family_confidence_and_variance_match_jax(family):

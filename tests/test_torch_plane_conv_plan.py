@@ -129,6 +129,18 @@ def test_plan_at_every_call_of_a_train_step(half):
         assert pc._plane_resident(plan) * plan["threads"] >= 32 * pc.PLANE_WARPS, (call, plan)
 
 
+@pytest.mark.parametrize("base", [6, 10, 12, 2])
+def test_plan_at_every_call_of_other_base_widths(base):
+    """The 42 calls of a train step at RED base widths the JAX package
+    takes past the default 8 (`--cr_base_chs`): slabs of 3, 5 or 6 groups of
+    8 channels (24, 40, 48) take thread rows that make whole warps, and the
+    plans cover every output once."""
+    calls = [c[2:] for c in _chip_smoke().plane_calls(base)]
+    assert len(calls) == 42
+    for call in calls:
+        _check_plan(*call)
+
+
 @pytest.mark.parametrize("b", [1, 2])
 def test_plan_at_every_costreg_call(b):
     """The packed CostRegNet's calls at B = 1 and 2 (B·D planes in one

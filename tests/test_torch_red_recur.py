@@ -2,7 +2,9 @@
 against the JAX package's Pallas kernels (ops/pallas/red_recur.py: red_recur,
 red_recur_from, red_recur_from_packed_batched) in interpret mode, and the port's REDRegularizer against the
 JAX REDRegularizer's fused pipeline, on the CPU.  Inputs and weights come from
-numpy seeds; weights are bridged by satmvs_tpu_torch/params.py."""
+numpy seeds; weights are bridged by satmvs_tpu_torch/params.py.  The cell
+runs at a state width of 8 and of 6 (not a multiple of 4: the widths of
+`--cr_base_chs 6,6,6`, which the card's kernels run padded to 8)."""
 
 import numpy as np
 import jax
@@ -19,7 +21,7 @@ from satmvs_tpu_torch.nn.red import REDRegularizer as TRED
 from satmvs_tpu_torch.ops.kernels.red_recur import cell_kernel_args, red_recur
 from satmvs_tpu_torch.params import load_jax_variables
 
-D, H, W, CIN, C = 5, 8, 12, 6, 8
+D, H, W, CIN = 5, 8, 12, 6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -36,10 +38,11 @@ def _rand(shape, seed, scale=1.0, shift=0.0):
     return (shift + scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def cell():
+@pytest.fixture(scope="module", params=[8, 6], ids=lambda c: f"C{c}")
+def cell(request):
     """Flax-layout cell weights (HWIO kernels, GroupNorm rows r, u, y) and
-    the port's ConvGRUCell loaded from them."""
+    the port's ConvGRUCell loaded from them, at state width C."""
+    C = request.param
     p = {"wx": _rand((3, 3, CIN, 3 * C), 0, 0.2), "wh": _rand((3, 3, C, 2 * C), 1, 0.2),
          "bh": _rand((2 * C,), 2, 0.1), "wc": _rand((3, 3, C, C), 3, 0.2),
          "bc": _rand((C,), 4, 0.1), "gn": _rand((6, C), 5, 0.3, 0.5)}
@@ -78,7 +81,7 @@ def test_red_recur_matches_pallas(cell, x):
 def test_red_recur_seeded_matches_pallas(cell, x):
     """Seeded start state h0 (red_recur_from): 1e-5."""
     jargs, tcell = cell
-    h0 = np.tanh(_rand((H, W, C), 7))
+    h0 = np.tanh(_rand((H, W, tcell.features), 7))
     want = np.asarray(jax_red_recur_from(jnp.asarray(h0), jnp.asarray(x), *jargs,
                                          interpret=True))
     with torch.no_grad():
@@ -93,7 +96,7 @@ def test_batched_red_recur_matches_pallas(cell, seeded):
     own row packing: 1e-5 on states in (−1, 1)."""
     jargs, tcell = cell
     xb = _rand((2, D, H, W, CIN), 12)
-    h0 = np.tanh(_rand((2, H, W, C), 13)) if seeded else None
+    h0 = np.tanh(_rand((2, H, W, tcell.features), 13)) if seeded else None
     xp = jnp.stack([_pack(jnp.asarray(e)) for e in xb])
     h0p = None if h0 is None else jnp.stack([_pack(jnp.asarray(e)[None])[0] for e in h0])
     outp = red_recur_from_packed_batched(h0p, xp, *jargs, H, W, interpret=True)
@@ -108,7 +111,7 @@ def test_batched_red_recur_is_per_element(cell):
     alone with its own h0 (exactly: the plain version is that loop)."""
     _, tcell = cell
     xb = torch.from_numpy(_rand((3, D, H, W, CIN), 14))
-    h0 = torch.from_numpy(np.tanh(_rand((3, H, W, C), 15)))
+    h0 = torch.from_numpy(np.tanh(_rand((3, H, W, tcell.features), 15)))
     with torch.no_grad():
         got = red_recur(xb, tcell, h0)
         for b in range(3):
@@ -135,6 +138,7 @@ def test_cell_kernel_args_layout(cell):
     """The kernel's concat-conv weights hold conv_x's gate and candidate
     halves over conv_h / conv_c, tap-major, output channels fastest."""
     jargs, tcell = cell
+    C = tcell.features
     wx, wh, bh, wc, bc, gn = (np.asarray(a) for a in jargs)
     wa, ba, wb, bb, g = (t.numpy() for t in cell_kernel_args(tcell))
     assert wa.shape == (9, CIN + C, 2 * C) and wb.shape == (9, CIN + C, C)
@@ -153,7 +157,7 @@ def test_red_recur_rejects_what_the_kernel_does_not_take(cell, x):
     with pytest.raises(ValueError):
         red_recur(xt[..., :3], tcell)
     with pytest.raises(ValueError):
-        red_recur(xt, tcell, torch.zeros((H, W, C + 1)))
+        red_recur(xt, tcell, torch.zeros((H, W, tcell.features + 1)))
 
 
 def test_red_regularizer_matches_jax_fused_pipeline():

@@ -9,8 +9,9 @@ torch autograd through `red_recur_reference`; then the port's fused
 scan path and, marked slow (a compile of minutes), on its fused Pallas path.
 
 Inputs and weights come from numpy seeds (kernels at flax's LeCun scale),
-bridged by satmvs_tpu_torch/params.py.  Cotangents are compared as a relative
-norm per tensor, ‖got − want‖ / ‖want‖ (the gradients sum over planes and
+bridged by satmvs_tpu_torch/params.py.  The cell runs at a state width of 4
+and of 6 (not a multiple of 4: the card's kernels run it padded to 8).
+Cotangents are compared as a relative norm per tensor, ‖got − want‖ / ‖want‖ (the gradients sum over planes and
 pixels in other orders); `-s` prints the measured values."""
 
 import numpy as np
@@ -27,7 +28,7 @@ from satmvs_tpu_torch.nn.red import REDRegularizer as TRED
 from satmvs_tpu_torch.ops.kernels import red_recur as trr
 from satmvs_tpu_torch.params import load_jax_variables
 
-D, H, W, CIN, C = 4, 8, 16, 4, 4
+D, H, W, CIN = 4, 8, 16, 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,10 +49,11 @@ def _rand(shape, seed, scale=1.0, shift=0.0):
     return (shift + scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def cell():
+@pytest.fixture(scope="module", params=[4, 6], ids=lambda c: f"C{c}")
+def cell(request):
     """Flax-layout cell weights (HWIO kernels at LeCun scale, GroupNorm rows
-    r, u, y) and the port's ConvGRUCell loaded from them."""
+    r, u, y) and the port's ConvGRUCell loaded from them, at state width C."""
+    C = request.param
     p = {"wx": _rand((3, 3, CIN, 3 * C), 0, (9 * CIN) ** -0.5),
          "wh": _rand((3, 3, C, 2 * C), 1, (9 * C) ** -0.5), "bh": _rand((2 * C,), 2, 0.1),
          "wc": _rand((3, 3, C, C), 3, (9 * C) ** -0.5), "bc": _rand((C,), 4, 0.1),
@@ -73,7 +75,7 @@ def case(cell):
     cotangents), the parameter cotangents in JAX's (wx, wh, bh, wc, bc, gn)
     layout, and the forward states."""
     _, tcell = cell
-    x, g = _rand((D, H, W, CIN), 6), _rand((D, H, W, C), 7)
+    x, g = _rand((D, H, W, CIN), 6), _rand((D, H, W, tcell.features), 7)
     xt = torch.from_numpy(x).requires_grad_(True)
     out = trr.red_recur(xt, tcell)
     grads = torch.autograd.grad(out, [xt, *tcell.parameters()], torch.from_numpy(g))
@@ -136,7 +138,7 @@ def test_batched_backward_sums_the_elements(cell):
     """B = 2 in one call: dx per element and the parameter cotangents the
     sum of the per-element calls' (1e-6 relative: the same arithmetic)."""
     _, tcell = cell
-    x, g = _rand((2, 3, H, W, CIN), 8), _rand((2, 3, H, W, C), 9)
+    x, g = _rand((2, 3, H, W, CIN), 8), _rand((2, 3, H, W, tcell.features), 9)
     xt = torch.from_numpy(x)
     with torch.no_grad():
         out = trr.red_recur(xt, tcell)
@@ -155,7 +157,7 @@ def test_seeded_start_state_with_a_gradient_raises(cell):
     it runs, and x still gets its gradient."""
     _, tcell = cell
     xt = torch.from_numpy(_rand((3, H, W, CIN), 10)).requires_grad_(True)
-    h0 = torch.from_numpy(np.tanh(_rand((H, W, C), 11))).requires_grad_(True)
+    h0 = torch.from_numpy(np.tanh(_rand((H, W, tcell.features), 11))).requires_grad_(True)
     with pytest.raises(RuntimeError, match="h0"):
         trr.red_recur(xt, tcell, h0)
     out = trr.red_recur(xt, tcell, h0.detach())

@@ -62,7 +62,9 @@ def _chunk_shapes():
 
 
 def _check_convs(convs, h, w, cin, c):
-    """Each conv's plan: 8 warps, coverage, and its shared-memory buffers."""
+    """Each conv's plan: 8 warps, coverage, and its shared-memory buffers,
+    at the width the kernels run a C-channel cell at."""
+    c = rr.padded_width(c)
     couts = (2 * c, c, c, c + cin)
     for conv, cout, nraw in zip(convs, couts, rr._NRAW):
         px, wr, wc, wk, ck = (conv[k] for k in ("px", "wr", "wc", "wk", "ck"))
@@ -97,7 +99,7 @@ def _check_plan(b, h, w, cin, c, resident):
     # an element's sums are taken in the order it would take alone
     assert _sum_order(plan) == _sum_order(rr.red_recur_bwd_plan(1, h, w, cin, c, resident))
     # the own-pixel passes cover the plane, four channels a thread
-    lanes = rr.RED_BWD_THREADS // (c // 4)
+    lanes = rr.RED_BWD_THREADS // (rr.padded_width(c) // 4)
     assert lanes >= 1 and per * lanes >= min(h * w, per * lanes)
     return plan
 
@@ -125,8 +127,8 @@ def test_plan_at_the_card_tests_shapes(resident):
 
 
 def test_plan_refuses_what_the_kernel_cannot_run():
-    for c in (6, 0, 2, 4 * rr.RED_BWD_THREADS + 4):
-        with pytest.raises(ValueError):
+    for c in (0, 4 * rr.RED_BWD_THREADS + 1, 4 * rr.RED_BWD_THREADS + 4):
+        with pytest.raises(ValueError, match="1 ≤ C ≤ 1024"):
             rr.red_recur_bwd_plan(1, 8, 8, 4, c, RESIDENT)
     with pytest.raises(ValueError, match="cooperative grid"):
         rr.red_recur_bwd_plan(300, 8, 8, 4, 8, RESIDENT)
@@ -170,6 +172,60 @@ def test_transposed_weights_give_the_convs_vjps(cin, c):
     torch.testing.assert_close(got[..., c:c + cin], dx + dx2, rtol=1e-12, atol=1e-12)
     assert (got[..., c + cin:] == 0).all()
     torch.testing.assert_close(_conv(dyl, wcT), dm, rtol=1e-12, atol=1e-12)
+
+
+def _kernel_planes(x, wa, ba, wb, bb, gn, c):
+    """The kernels' recurrence over the planes of x (D, H, W, Cin) from a
+    zero state, written out at the weights' width C4 with c real channels:
+    GroupNorm(1) statistics as one pass of sums over every channel (a pad
+    channel's raw values are 0) divided by the H·W·c real values."""
+    c4 = wb.shape[-1]
+    n = x.shape[1] * x.shape[2] * c
+
+    def norm(v, k):
+        mean = v.sum() / n
+        inv = torch.rsqrt((v * v).sum() / n - mean * mean + 1e-5)
+        return (v - mean) * inv * gn[2 * k] + gn[2 * k + 1]
+
+    h = x.new_zeros((*x.shape[1:3], c4))
+    outs = []
+    for xd in x:
+        g = _conv(torch.cat([xd, h], -1), wa) + ba
+        r, u = torch.sigmoid(norm(g[..., :c4], 0)), torch.sigmoid(norm(g[..., c4:], 1))
+        y = torch.tanh(norm(_conv(torch.cat([xd, r * h], -1), wb) + bb, 2))
+        h = u * h + (1 - u) * y
+        outs.append(h)
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("cin,c", [(5, 6), (3, 2), (4, 1)])
+def test_padded_cell_computes_the_cell(cin, c):
+    """The kernels' padded arguments (`cell_kernel_args(cell, C4)`) run the
+    cell: written out at C4 with the statistics over the c real channels,
+    the states are the plain recurrence's (1e-12 in float64) and the pad
+    channels stay exactly 0; their cotangents, cut back by `_param_grads`
+    from the kernels' layout, are autograd's through the plain version."""
+    cell = init_from_seed(ConvGRUCell(cin, c), 5).double()
+    with torch.no_grad():
+        for norm in (cell.gn_r, cell.gn_u, cell.gn_y):
+            norm.weight.add_(0.3)
+            norm.bias.add_(0.1)
+    c4 = rr.padded_width(c)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 7, cin)))
+    g = torch.from_numpy(rng.normal(size=(3, 5, 7, c)))
+    args = [t.clone().requires_grad_(True) for t in rr.cell_kernel_args(cell, c4)]
+    got = _kernel_planes(x, *args, c)
+    want = rr.red_recur_reference(x, cell)
+    torch.testing.assert_close(got[..., :c], want, rtol=0, atol=1e-12)
+    assert (got[..., c:] == 0).all()
+    dwa, dba, dwb, dbb, dgn = torch.autograd.grad((got[..., :c] * g).sum(), args)
+    dps = rr._param_grads(cell, dwa.reshape(3, 3, *dwa.shape[1:]), dba,
+                          dwb.reshape(3, 3, *dwb.shape[1:]), dbb, dgn)
+    wants = torch.autograd.grad((rr.red_recur_reference(x, cell) * g).sum(),
+                                list(cell.parameters()))
+    for (name, _), a, e in zip(cell.named_parameters(), dps, wants):
+        torch.testing.assert_close(a, e, rtol=0, atol=1e-12, msg=name)
 
 
 @pytest.mark.parametrize("d,h,w,c,vec", [(64, 96, 192, 32, 4), (32, 192, 384, 16, 4),
@@ -247,10 +303,25 @@ def test_forward_plan_at_the_card_tests_shapes(resident):
         _check_forward_plan(b, h, w, cin, c, resident)
 
 
+@pytest.mark.parametrize("c", [6, 2, 10, 1])
+def test_plans_take_widths_that_are_not_a_multiple_of_4(c):
+    """A width C that is not a multiple of 4 runs at C rounded up to 4: its
+    forward and backward plans are that width's, cover it and fit their
+    buffers, and an element of a B = 4 scene chunk or a B = 2 step sums in
+    the order of its B = 1 launch."""
+    c4 = rr.padded_width(c)
+    assert c4 % 4 == 0 and c <= c4 < c + 4
+    for b, h, w, cin in ((1, 8, 8, 4), (4, 112, 112, 16), (2, 96, 192, 8), (1, 384, 768, 8)):
+        plan = _check_forward_plan(b, h, w, cin, c, RESIDENT)
+        assert plan == rr.red_recur_plan(b, h, w, cin, c4, RESIDENT)
+        assert _sum_order(plan) == _sum_order(rr.red_recur_plan(1, h, w, cin, c, RESIDENT))
+        assert _check_plan(b, h, w, cin, c, RESIDENT) == rr.red_recur_bwd_plan(
+            b, h, w, cin, c4, RESIDENT)
+
+
 def test_forward_plan_refuses_what_the_kernel_cannot_run():
-    for c in (6, 2, 10):
-        with pytest.raises(ValueError, match="C % 4"):
-            rr.red_recur_plan(1, 8, 8, 4, c, RESIDENT)
+    with pytest.raises(ValueError, match="1 ≤ C ≤ 1024, got C = 1025"):
+        rr.red_recur_plan(1, 8, 8, 4, 1025, RESIDENT)
     with pytest.raises(ValueError, match="32-bit"):
         rr.red_recur_plan(1, 4096, 8192, 64, 64, RESIDENT)
     with pytest.raises(ValueError, match="cooperative grid"):
