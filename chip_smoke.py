@@ -221,6 +221,20 @@ Phases, each reported on its own lines:
      against the same mesh's step without remat (loss, update, running
      statistics), the regularizers run again in the backward, exact
      launches, step ms and peak memory a rank.
+  17 the one-stage cascade (ndepths (64,), `--ndepths 64`): (a) each family
+     at 384×768 on phase 3's triplet: exact launches (RED 1 sweep_variance,
+     3 conv_dn, 4 red_recur, 3 deconv_up, 1 conv_head; CasMVS / UCS 1
+     sweep_variance, 8 conv3d_block, 3 deconv3d_block), stage 1's maps at
+     the top level, ranges, the same model's plain run on the CPU (depth
+     mean and p99 of a step, confidence), ms and peak memory beside the
+     three-stage forward's; RED's streamed forward at slab 8 (exact
+     launches, 8 slabs of stage 1's kernels) against it; (b) one RED
+     forward and backward at 96×192 with stage-scale ground truth, card
+     against CPU at phase 7's gates, exact launches; (c) `cli.predict
+     --ndepths 64` on phase 9's test split (exact launches, 96×192 maps the
+     bits of a direct forward); (d) the refusals, raised on the card as on
+     the CPU: two stages, the one-stage train and eval steps, the one-stage
+     scene.
 
 The 1152² scene and phase 9's tree are rendered on the host in two worker
 processes started before phase 1, so they overlap phases 1-3 (phase 9
@@ -232,8 +246,9 @@ CLI runs, phase 10's two family forwards and its predict run, phase
 11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
 runs, phase 13's data-parallel steps and tile-parallel scene, phase
 14's knob forwards, steps and predict runs, phase 15's e2e steps and
-forwards, profiled calls and each collectives mesh's rank 0, and phase 16's
-forwards, streamed chunk, steps and rank 0's remat steps), the
+forwards, profiled calls and each collectives mesh's rank 0, phase 16's
+forwards, streamed chunk, steps and rank 0's remat steps, and phase 17's
+forwards, streamed forward, differentiable check and predict run), the
 nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
@@ -951,13 +966,13 @@ FP32_SWEEP_PATHS = {"sweep_gather": ("casmvs_train_step", "ucs_train_step", "cli
                                       "fused_sweep_step")}
 
 
-def build_model(device, geo_model: str = "rpc", **knobs):
-    """CascadeREDNet (RPC or pinhole, ndepths 64/32/8, further
+def build_model(device, geo_model: str = "rpc", ndepths=NDEPTHS, **knobs):
+    """CascadeREDNet (RPC or pinhole, ndepths 64/32/8 unless given, further
     `CascadeModel` knobs) from seed 0, heads ×40 (a peaked softmax, so
     depth parity is not trivial)."""
     from satmvs_tpu_torch.models import CascadeREDNet
 
-    model = CascadeREDNet(geo_model=geo_model, ndepths=NDEPTHS, device=device, seed=0, **knobs)
+    model = CascadeREDNet(geo_model=geo_model, ndepths=ndepths, device=device, seed=0, **knobs)
     with torch.no_grad():
         for reg in model.regs:
             reg.step.head.weight.mul_(40.0)
@@ -992,7 +1007,8 @@ def err_quantiles(err: torch.Tensor) -> tuple[float, float, float]:
     return err.mean().item(), torch.quantile(err, 0.99).item(), err.max().item()
 
 
-def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals):
+def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals,
+               gate_conf: bool = False):
     """The same model's plain run on the CPU against a GPU forward's output,
     stage by stage: each CPU stage centres its window on the GPU's
     previous-stage depth (and, for UCSNet, takes its spread), so a stage is
@@ -1001,7 +1017,7 @@ def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals)
     the free-running CPU cascade is reported beside it, not gated.  For the
     4-plane window confidence of the CostRegNet families also the
     confidence (CONF_TOL_MEAN, CONF_TOL_P99) and UCSNet's variance (the
-    depth gates, in steps)."""
+    depth gates, in steps); with gate_conf the max-prob confidence too."""
     cams_cpu = [c.to("cpu") for c in cams]
     dv_cpu = dvals.cpu()
     feats_cpu = cpu_model.features(imgs.cpu())
@@ -1034,9 +1050,10 @@ def gpu_vs_cpu(tag: str, what: str, gpu_out: dict, cpu_model, imgs, cams, dvals)
               f"{free_err.max().item():.3e} of step", flush=True)
         check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
               f"{what} stage{i + 1}: GPU vs CPU depth err mean {mean}, p99 {p99} of step")
-        if cpu_model.confidence == "window4":
+        if cpu_model.confidence == "window4" or gate_conf:
             c_mean, c_p99 = cerr.mean().item(), torch.quantile(cerr.flatten(), 0.99).item()
-            line = (f"{tag} GPU vs CPU plain, {what} stage{i + 1}: window confidence err mean "
+            kind = "window" if cpu_model.confidence == "window4" else "max-prob"
+            line = (f"{tag} GPU vs CPU plain, {what} stage{i + 1}: {kind} confidence err mean "
                     f"{c_mean:.3e}, p99 {c_p99:.3e} (tol {CONF_TOL_MEAN}, {CONF_TOL_P99}), share "
                     f"> 1e-3 {(cerr > 1e-3).float().mean().item():.3e}")
             check(c_mean <= CONF_TOL_MEAN and c_p99 <= CONF_TOL_P99,
@@ -2581,9 +2598,9 @@ COSTREG_PATHS = (*COSTREG_FAMILIES, "cli_predict_ucs")
 COSTREG_BLOCK_TOL = 1e-4         # composed taps vs the plain block, × max(1, max |plain|)
 
 
-def build_costreg_model(name: str, device, geo_model: str = "rpc", **knobs):
-    """CascadeMVSNet or UCSNet (ndepths 64/32/8, further `CascadeModel`
-    knobs) from seed 0 at flax's
+def build_costreg_model(name: str, device, geo_model: str = "rpc", ndepths=NDEPTHS, **knobs):
+    """CascadeMVSNet or UCSNet (ndepths 64/32/8 unless given, further
+    `CascadeModel` knobs) from seed 0 at flax's
     LeCun scale, its norms and BatchNorm statistics drawn from seed 1
     (scale 1 ± 0.2, shift and mean ± 0.1, var in [0.5, 1.5]: the BN fold is
     far from the identity), the CostRegNet heads × COSTREG_HEAD_GAIN; drawn
@@ -2591,7 +2608,7 @@ def build_costreg_model(name: str, device, geo_model: str = "rpc", **knobs):
     from satmvs_tpu_torch.models import build_model
     from satmvs_tpu_torch.nn.blocks import BatchNorm
 
-    model = lecun_scale(build_model(name, geo_model, ndepths=NDEPTHS, device="cpu", seed=0,
+    model = lecun_scale(build_model(name, geo_model, ndepths=ndepths, device="cpu", seed=0,
                                     **knobs))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -4146,7 +4163,8 @@ def reference_state_dict(variables: dict, family: str) -> dict:
     """The reference SatMVS state dict ("module."-prefixed torch tensors, the
     reference's module names) that `train.convert` turns into `variables`:
     every layout rule of the converter inverted (a synthetic reference
-    checkpoint)."""
+    checkpoint), of a three-stage or a one-stage tree (the decoder's heads
+    and the regularizers the tree holds)."""
     sd = {}
 
     def torch_w(kernel) -> np.ndarray:  # a flax kernel (*k, A, B) → (B, A, *k)
@@ -4194,14 +4212,17 @@ def reference_state_dict(variables: dict, family: str) -> dict:
     heads = (("out1", "inner1", "out2", "inner2", "out3") if family == "casmvs" else
              ("out1", "out2", "out3"))
     for i, name in enumerate(heads):
-        conv(f"{feat}.{name}", fp[f"Conv_{i}"])
+        if f"Conv_{i}" in fp:
+            conv(f"{feat}.{name}", fp[f"Conv_{i}"])
     if family != "casmvs":
         for i in (0, 1):
+            if f"DeconvFuse_{i}" not in fp:
+                continue
             fuse_p, fuse_s = fp[f"DeconvFuse_{i}"], fs[f"DeconvFuse_{i}"]
             block(f"{feat}.deconv{i + 1}.deconv", fuse_p["DeconvBlock_0"],
                   fuse_s["DeconvBlock_0"], "ConvTranspose_0")
             block(f"{feat}.deconv{i + 1}.conv", fuse_p["ConvBlock_0"], fuse_s["ConvBlock_0"])
-    for i in range(3):
+    for i in range(sum(k.startswith(("REDRegularizer_", "CostRegNet_")) for k in params)):
         pre = f"cost_regularization.{i}"
         if family == "red":
             p = params[f"REDRegularizer_{i}"]["ScanREDStep_0"]
@@ -5324,6 +5345,277 @@ def phase_widths(card: str, default_step: dict) -> dict:
     return launches
 
 
+# ---- phase 17: the one-stage cascade (`--ndepths 64`): stage 1 alone, at 1/4
+# resolution, the top-level maps stage 1's; its kernels run as in stage 1 of
+# a three-stage forward.  Training, evaluation and the scene refuse it, as
+# JAX fails there (`models/losses.py`, `infer/scene.py`).
+ONE_STAGE = (64,)
+ONE_STAGE_GRAD_HW = (96, 192)  # the differentiable check, card against CPU
+ONE_STAGE_SCENE = 128          # the scene refusal: four 64² tiles
+LAUNCHES_PER_ONE_STAGE_FORWARD = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 1,
+                                  "conv_dn": 3, "red_recur": 4, "deconv_up": 3, "conv_head": 1}
+LAUNCHES_PER_ONE_STAGE_COSTREG = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_variance": 1,
+                                  "conv3d_block": 8, "deconv3d_block": 3}
+# streamed at slab 8: each of the 8 slabs a forward's stage-1 kernels
+LAUNCHES_PER_ONE_STAGE_STREAM = {k: ONE_STAGE[0] // SLAB * n
+                                 for k, n in LAUNCHES_PER_ONE_STAGE_FORWARD.items()}
+# forward and backward under autograd: the per-view sweep (2 source views),
+# the RED kernels, their backward kernels and 3 + 3 + 1 + 8 weight reductions
+LAUNCHES_PER_ONE_STAGE_GRAD = {**LAUNCHES_PER_ONE_STAGE_FORWARD, "sweep_variance": 0,
+                               "sweep_gather": 2, "sweep_scatter": 2, "conv_dn_backward": 3,
+                               "red_recur_backward": 4, "deconv_up_backward": 3,
+                               "conv_head_backward": 1, "wgrad3x3": 15}
+ONE_STAGE_FORWARD_PATHS = ("one_stage_red", "one_stage_stream", "one_stage_cli")
+ONE_STAGE_COSTREG_PATHS = ("one_stage_casmvs", "one_stage_ucs")
+ONE_STAGE_TRAIN_PATHS = ("one_stage_grad",)
+
+
+def one_stage_forward(card: str, name: str, batch: dict, batch3: dict) -> dict:
+    """Phase 17 (a), one family at ndepths ONE_STAGE on phase 3's triplet
+    (`batch`; `batch3` the same with three stages' cameras): exact launches,
+    the outputs' keys, shape and range, the plain run on the CPU (depth and
+    confidence gates), its ms and peak memory beside the three-stage
+    forward's in this phase; for RED also the streamed forward at slab 8
+    (exact launches) against it.  Returns the launches of each path."""
+    from satmvs_tpu_torch.infer.predict import streaming_red_forward
+
+    def family(device, ndepths):
+        return (build_model(device, ndepths=ndepths) if name == "red" else
+                build_costreg_model(name, device, ndepths=ndepths))
+
+    model = family("cuda", ONE_STAGE)
+    imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
+    want = LAUNCHES_PER_ONE_STAGE_FORWARD if name == "red" else LAUNCHES_PER_ONE_STAGE_COSTREG
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model(imgs, cams, dvals)
+    torch.cuda.synchronize()
+    launches = {f"one_stage_{name}": counts()}
+    check(launches[f"one_stage_{name}"] == want,
+          f"one-stage {name} forward launches {launches[f'one_stage_{name}']}")
+    keys = ["depth", "photometric_confidence", "stage1"] + (["variance"] if name == "ucs" else [])
+    check(sorted(out) == sorted(keys), f"one-stage {name} outputs {sorted(out)}")
+    depth, conf = out["depth"], out["photometric_confidence"]
+    lo, hi = dvals[0].tolist()
+    check(tuple(depth.shape) == (1, HEIGHT // 4, WIDTH // 4) and bool(torch.isfinite(depth).all())
+          and torch.equal(depth, out["stage1"]["depth"]), f"one-stage {name} depth")
+    dmin, dmax = depth.min().item(), depth.max().item()
+    cmin, cmax = conf.min().item(), conf.max().item()
+    check(lo - 1e-3 <= dmin and dmax <= hi + 1e-3 and 0.0 <= cmin and cmax <= 1.0 + 1e-6,
+          f"one-stage {name}: depth [{dmin}, {dmax}], confidence [{cmin}, {cmax}]")
+    print(f"[one stage] {name} forward at {HEIGHT}x{WIDTH}, ndepths {ONE_STAGE}: launches "
+          f"{({k: v for k, v in want.items() if v})} (exact), depth {tuple(depth.shape)} in "
+          f"[{dmin:.2f}, {dmax:.2f}] m (range {lo:.0f}..{hi:.0f}), conf [{cmin:.4f}, "
+          f"{cmax:.4f}]", flush=True)
+    t0 = time.time()
+    gpu_vs_cpu("[one stage]", f"{name} at {HEIGHT}x{WIDTH}", out, family("cpu", ONE_STAGE), imgs,
+               cams, dvals, gate_conf=True)
+    print(f"[one stage] {name} CPU plain run took {time.time() - t0:.1f} s", flush=True)
+    if name == "red":
+        torch.cuda.synchronize()
+        reset_counts()
+        stream = streaming_red_forward(model, imgs, cams, dvals, slab=SLAB)
+        torch.cuda.synchronize()
+        launches["one_stage_stream"] = counts()
+        check(launches["one_stage_stream"] == LAUNCHES_PER_ONE_STAGE_STREAM,
+              f"one-stage streaming launches {launches['one_stage_stream']}")
+        step = (hi - lo) / (ONE_STAGE[0] - 1)
+        mean, p99, mx = err_quantiles((stream["depth"] - depth).abs() / step)
+        cerr = (stream["photometric_confidence"] - conf).abs().max().item()
+        print(f"[one stage] red streamed at slab {SLAB}: launches "
+              f"{({k: v for k, v in LAUNCHES_PER_ONE_STAGE_STREAM.items() if v})} (exact); "
+              f"against the full volume depth err mean {mean:.3e}, p99 {p99:.3e}, max {mx:.3e} "
+              f"of step (tol mean {DEPTH_TOL_MEAN}, p99 {DEPTH_TOL_P99}), conf err max "
+              f"{cerr:.3e}", flush=True)
+        check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
+              f"one-stage streaming vs full: depth err mean {mean}, p99 {p99} of step")
+        s_ms = time_ms(lambda: streaming_red_forward(model, imgs, cams, dvals, slab=SLAB),
+                       reps=5, warmup=1)
+        print(f"[one stage] red streamed forward {s_ms:.2f} ms (median of 5, CUDA events) "
+              f"card={card}", flush=True)
+        del stream
+    del out, depth, conf
+    ms1, peak1 = knob_timed(model, batch)
+    del model
+    ms3, peak3 = knob_timed(family("cuda", NDEPTHS), batch3)
+    print(f"[one stage] {name} forward at {HEIGHT}x{WIDTH}: ndepths {ONE_STAGE} {ms1:.2f} ms, "
+          f"peak_mem={peak1:.3f} GiB; ndepths {NDEPTHS} in this phase {ms3:.2f} ms, "
+          f"{peak3:.3f} GiB ({ms1 / ms3:.3f}x) card={card}", flush=True)
+    return launches
+
+
+def one_stage_grad(card: str) -> dict:
+    """Phase 17 (b): CascadeREDNet at ndepths ONE_STAGE, one differentiable
+    forward (eval mode) and its backward at ONE_STAGE_GRAD_HW on the card and
+    on the CPU from the same weights (seed 5, LeCun scale) and batch, with
+    stage-scale ground truth (the full-resolution map at every fourth
+    pixel): the loss and eval-mode gradients at phase 7's gates, exact
+    launches on the card.  Returns them."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.models import CascadeREDNet
+    from satmvs_tpu_torch.models.losses import cascade_loss
+
+    h, w = ONE_STAGE_GRAD_HW
+    cpu_batch = synthetic.make_batch(1, w, h, seed=1, device="cpu", num_stage=1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        batch = batch_to(cpu_batch, dev)
+        model = lecun_scale(CascadeREDNet(ndepths=ONE_STAGE, device=dev, seed=5))
+        params = dict(model.named_parameters())
+        gt = batch["depth_stages"][0][:, ::4, ::4]
+
+        def loss_and_grads():
+            with torch.enable_grad():
+                out = model.run_cascade(batch["imgs"], batch["cams"], batch["depth_values"],
+                                        False)
+                loss = cascade_loss(out, [gt], [torch.ones_like(gt)])[0]
+                return loss, torch.autograd.grad(loss, list(params.values()))
+
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
+        loss, grads = loss_and_grads()
+        runs[dev] = {"loss": loss.item(), "grads": {n: g.cpu() for n, g in zip(params, grads)}}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = counts()
+            ms = time_ms(loss_and_grads, reps=3, warmup=1)
+    check(launches == LAUNCHES_PER_ONE_STAGE_GRAD, f"one-stage RED gradient launches {launches}")
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    scale = max(g.abs().max().item() for g in cpu["grads"].values())
+    worst, head, num, den, worst_name = 0.0, 0.0, 0.0, 0.0, ""
+    for n, g in gpu["grads"].items():
+        diff = (g - cpu["grads"][n]).norm().item()
+        if n.endswith("head.bias"):
+            head = max(head, diff / scale)
+        else:
+            worst, worst_name = max((worst, worst_name), (diff / cpu["grads"][n].norm().item(), n))
+            num += diff ** 2
+            den += cpu["grads"][n].norm().item() ** 2
+    total = (num / den) ** 0.5
+    print(f"[one stage] RED forward + backward at {h}x{w}, ndepths {ONE_STAGE}, stage-scale ground "
+          f"truth: launches {({k: v for k, v in launches.items() if v})} (exact); {ms:.2f} ms "
+          f"(median of 3, CUDA events) card={card}", flush=True)
+    print(f"[one stage] GPU vs CPU: loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, {rel:.3e} "
+          f"relative (tol {PARITY_LOSS}); eval-mode gradients max relative norm {worst:.3e} over "
+          f"{len(gpu['grads'])} tensors ({worst_name}; tol {PARITY_GRAD}), {total:.3e} over all "
+          f"(tol {PARITY_GRAD_ALL}), head biases {head:.3e} of the largest element (tol "
+          f"{PARITY_HEAD})", flush=True)
+    check(rel <= PARITY_LOSS, f"one-stage RED loss {rel} relative")
+    check(worst <= PARITY_GRAD and total <= PARITY_GRAD_ALL and head <= PARITY_HEAD,
+          "one-stage RED eval-mode gradients")
+    return launches
+
+
+def one_stage_cli(card: str, tree: str) -> dict:
+    """Phase 17 (c): `cli.predict --ndepths 64` from a one-stage port
+    checkpoint of `build_model(ndepths=ONE_STAGE)` on a copy of phase 9's
+    test split: exact launches (a one-stage forward for each view), maps at
+    1/4 resolution, the bits of a direct forward of the restored model.
+    Returns its launches."""
+    import os
+    import shutil
+
+    from satmvs_tpu_torch.cli import predict as cli_predict
+    from satmvs_tpu_torch.cli import restore_model
+    from satmvs_tpu_torch.data import formats
+    from satmvs_tpu_torch.data.dataset import MVSDataset
+    from satmvs_tpu_torch.data.loader import Loader
+    from satmvs_tpu_torch.train import Config
+    from satmvs_tpu_torch.train.checkpoints import save_checkpoint
+    from satmvs_tpu_torch.train.loop import make_optimizer, state_of
+
+    cfg = Config(ndepths=ONE_STAGE)
+    ckpt = WORK / "one_stage_ckpt"
+    save_checkpoint(str(ckpt), 1, state_of(build_model("cuda", ndepths=ONE_STAGE),
+                                           make_optimizer(cfg, 1)))
+    copy = WORK / "test_one_stage"
+    shutil.copytree(os.path.join(tree, "open_dataset_rpc", "test"), copy,
+                    ignore=shutil.ignore_patterns("mvs_results", "height_result"))
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_predict.main([f"--dataset_root={copy}", f"--loadckpt={ckpt}", "--ndepths", "64"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = {k: 3 * TREE_TEST * v for k, v in LAUNCHES_PER_ONE_STAGE_FORWARD.items()}
+    check(launches == want, f"cli.predict --ndepths 64: launches {launches}")
+    model, _, _ = restore_model(cfg, str(ckpt), torch.device("cuda"))
+    n_maps = 0
+    for batch in Loader(MVSDataset(str(copy), "pred", num_stage=1), 1, device="cuda"):
+        ref = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        view, block = batch["out_view"][0], batch["out_name"][0]
+        for sub, key in (("init", "depth"), ("prob", "photometric_confidence")):
+            got = formats.load_pfm(str(copy / "mvs_results" / view / sub / f"{block}.pfm"))
+            check(got.shape == (HEIGHT // 4, WIDTH // 4) and
+                  np.array_equal(got, ref[key][0].cpu().numpy()),
+                  f"cli.predict --ndepths 64 {view} {block} {sub}: not a direct forward")
+            n_maps += 1
+    print(f"[one stage] cli.predict --ndepths 64: {wall:.2f} s wall, forwards "
+          f"{[round(1e3 * t, 2) for t in out['forward_s']]} ms, launches "
+          f"{({k: v for k, v in launches.items() if v})} (exact); {n_maps} maps of "
+          f"{HEIGHT // 4}x{WIDTH // 4}, the bits of a direct forward card={card}", flush=True)
+    return launches
+
+
+def refused(what: str, fn, words: str) -> None:
+    """fn() must raise ValueError naming `words` (phase 17's refusals)."""
+    try:
+        fn()
+    except ValueError as e:
+        check(words in str(e), f"{what}: refused without naming {words!r}: {e}")
+        print(f"[one stage] {what} refused on the card: {str(e)[:160]}", flush=True)
+        return
+    raise RuntimeError(f"check failed: {what} ran where JAX fails")
+
+
+def one_stage_refusals() -> None:
+    """Phase 17 (d): on the card, as on the CPU (`tests/test_torch_one_stage.py`):
+    two stages, the one-stage train and eval steps on the dataset's
+    full-resolution ground truth, and `predict_scene` at one stage."""
+    from satmvs_tpu_torch.data import synthetic
+    from satmvs_tpu_torch.infer.scene import predict_scene
+    from satmvs_tpu_torch.train import (Config, create_model_and_state, make_eval_step,
+                                        make_train_step)
+
+    refused("ndepths (64, 32)", lambda: build_model("cuda", ndepths=(64, 32)), "STAGE_SCALES")
+    h, w = ONE_STAGE_GRAD_HW
+    batch = synthetic.make_batch(1, w, h, seed=1, device="cuda", num_stage=1)
+    cfg = Config(ndepths=ONE_STAGE)
+    model, state, tx = create_model_and_state(cfg, batch, 1)
+    refused("the one-stage train step", lambda: make_train_step(model, tx, cfg.dlossw)(
+        state, batch), "build_pyramid")
+    refused("the one-stage eval step", lambda: make_eval_step(model, cfg.dlossw, cfg.min_interval)(
+        state, batch), "build_pyramid")
+    scene = synthetic.make_scene(ONE_STAGE_SCENE, ONE_STAGE_SCENE, seed=2, h_amp=40.0)
+    order = [2, 0, 1]
+    refused("predict_scene(num_stage=1)", lambda: predict_scene(
+        model, scene["images"][order], scene["rpcs"][order], tile=64, halo=0, device="cuda",
+        num_stage=1), "1/4 of the tile")
+
+
+def phase_one_stage(card: str, tree: str) -> dict:
+    """Phase 17: (a)-(d) above; returns the launches of the new paths."""
+    from satmvs_tpu_torch.data import synthetic
+
+    t0, launches, took = time.time(), {}, {}
+    batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda", num_stage=1)
+    batch3 = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
+    parts = (("a", lambda: {k: v for name in ("red", *COSTREG_FAMILIES)
+                            for k, v in one_stage_forward(card, name, batch, batch3).items()}),
+             ("b", lambda: {"one_stage_grad": one_stage_grad(card)}),
+             ("c", lambda: {"one_stage_cli": one_stage_cli(card, tree)}),
+             ("d", one_stage_refusals))
+    for part, run_part in parts:
+        t1 = time.time()
+        launches.update(run_part() or {})
+        torch.cuda.empty_cache()
+        took[part] = round(time.time() - t1, 1)
+    print(f"[one stage] phase 17 took {time.time() - t0:.1f} s ({took} s by part)", flush=True)
+    return launches
+
+
 # device totals of the profiles phase 15 (d) holds the profile CLI to
 PROFILED = {}
 
@@ -5471,6 +5763,11 @@ def run(scene_job, tree_job) -> int:
     check(not set(widths) & set(launches), f"phase 16 reuses path names: {sorted(widths)}")
     launches.update(widths)
 
+    # phase 17
+    one_stage = phase_one_stage(smi, tree)
+    check(not set(one_stage) & set(launches), f"phase 17 reuses path names: {sorted(one_stage)}")
+    launches.update(one_stage)
+
     for record in records:
         # a batched record is the same wrapper, read on the path that batches
         batched = record["name"].endswith("_batched")
@@ -5487,21 +5784,22 @@ def run(scene_job, tree_job) -> int:
                        SHARD_RED_PATHS[:1])
         paths = (SWEEP_TRAIN_PATHS[wrapper] if wrapper in SWEEP_TRAIN_PATHS else
                  COSTREG_PATHS + CAMERA_COSTREG_PATHS + shard_costreg + WIDTH_COSTREG_PATHS
-                 if costreg else
+                 + ONE_STAGE_COSTREG_PATHS if costreg else
                  ("train_step", "cli_train", *FP32_SWEEP_PATHS.get(wrapper, ()),
                   *CAMERA_TRAIN_PATHS, *DP_PATHS, *shard_train, *KNOB_TRAIN_PATHS,
-                  *TOOL_TRAIN_PATHS, *WIDTH_TRAIN_PATHS,
+                  *TOOL_TRAIN_PATHS, *WIDTH_TRAIN_PATHS, *ONE_STAGE_TRAIN_PATHS,
                   *(KNOB_SWEEP_PATHS + TOOL_SWEEP_PATHS + WIDTH_SWEEP_PATHS
                     if wrapper in ("sweep_gather", "sweep_scatter") else ()))
                  if train else (
                      INFERENCE_PATHS + CLI_PATHS + CAMERA_FORWARD_PATHS + ("dp_scene",)
-                     + KNOB_FORWARD_PATHS + TOOL_FORWARD_PATHS + WIDTH_FORWARD_PATHS + (
+                     + KNOB_FORWARD_PATHS + TOOL_FORWARD_PATHS + WIDTH_FORWARD_PATHS
+                     + ONE_STAGE_FORWARD_PATHS + (
                          ("eval_step", "fused_sweep_step", *SHARD_EVAL_PATHS,
-                          "compute_bf16_casmvs", *WIDTH_COSTREG_PATHS)
+                          "compute_bf16_casmvs", *WIDTH_COSTREG_PATHS, *ONE_STAGE_COSTREG_PATHS)
                          if wrapper == "sweep_variance" else
                          ("train_step", "eval_step", *CAMERA_TRAIN_PATHS, *DP_PATHS,
                           *SHARD_RED_PATHS, *KNOB_TRAIN_PATHS, *TOOL_TRAIN_PATHS,
-                          *WIDTH_TRAIN_PATHS)
+                          *WIDTH_TRAIN_PATHS, *ONE_STAGE_TRAIN_PATHS)
                          if wrapper in RED_FORWARD_KERNELS else ())))
         check(all(launches[p][wrapper] > 0 for p in paths),
               f"{record['name']} never launched on a path: {record['launches_by_path']}")

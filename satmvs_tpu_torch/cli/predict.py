@@ -18,8 +18,10 @@ of the fused `sweep_variance` kernel.  --geo_model pinhole reads the
 camera-text layout (camera/{v}/*.txt); --use_qc takes the RPC cameras in
 QC form.  --torch_compat samples and draws hypotheses as the reference
 does (`models.cascade`'s torch_compat), for a checkpoint converted from it
-(`cli.convert_ckpt`); with --streaming too.  Flags and defaults are the
-JAX script's.
+(`cli.convert_ckpt`); with --streaming too.  A one-stage cascade
+(--ndepths 64) writes its 1/4-resolution maps, and --fuse fuses them with
+the full-resolution RPCs, as the JAX script does.  Flags and defaults are
+the JAX script's.
 """
 
 from __future__ import annotations

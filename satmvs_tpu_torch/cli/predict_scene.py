@@ -15,7 +15,9 @@ writes the height map and its _prob map; --dsm also predicts every other
 view as the reference, writes each view's map (<out>_view{v}.pfm) and
 fuses them into a DSM.
 --batch_tiles is the tiles a forward (0: one a rank).  Flags and defaults
-are the JAX script's.
+are the JAX script's.  A one-stage cascade (--ndepths 64) raises after the
+first chunk: its maps are at 1/4 of the tile, which the stitch cannot
+place (JAX's script fails at the stitch).
 
 On N GPUs, tile-parallel (each rank on its own card runs its share of
 every chunk's tiles; rank 0 writes the maps and the DSM):
@@ -110,7 +112,8 @@ def _run(a, device, world: int) -> dict:
 
     batch_tiles = a.batch_tiles or world
     run = functools.partial(predict_scene, forward, images, rpcs, tile=a.tile, halo=a.halo,
-                            batch_tiles=batch_tiles, norm=a.norm, device=device, mesh=mesh)
+                            batch_tiles=batch_tiles, norm=a.norm, device=device, mesh=mesh,
+                            num_stage=cfg.num_stage)
     t0 = time.time()
     stats: dict = {}
     progress = (lambda i, n: print(f"tile {i}/{n}", end="\r")) if writer else None

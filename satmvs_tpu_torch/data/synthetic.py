@@ -169,9 +169,12 @@ def make_scene(width: int = 128, height: int = 128, seed: int = 0, h_amp: float 
 
 
 def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int = 0,
-               with_gt: bool = True, device=None, use_qc: bool = False) -> dict:
+               with_gt: bool = True, device=None, use_qc: bool = False,
+               num_stage: int = 3) -> dict:
     """A batch of synthetic scenes (sample b from seed + b) on `device`
-    (the GPU unless "cpu" is passed):
+    (the GPU unless "cpu" is passed), for a cascade of num_stage stages
+    (3, or 1: the first of each per-stage list below alone, its ground
+    truth at full resolution as JAX's `build_pyramid` gives it):
 
       imgs          (B, V, H, W, 3) float32, reference (nadir) view first,
                     each view normalized to zero mean and unit std
@@ -188,7 +191,7 @@ def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int
     for b in range(batch_size):
         scene = make_scene(width, height, seed=seed + b, h_amp=80.0)
         order = [2, 0, 1]  # nadir view is the reference, ref-first
-        sample_cams.append(build(scene["rpcs"][order], 0, dev))
+        sample_cams.append(build(scene["rpcs"][order], 0, dev, num_stage))
         imgs = scene["images"][order]
         imgs = (imgs - imgs.mean(axis=(1, 2), keepdims=True)) / (
             imgs.std(axis=(1, 2), keepdims=True) + 1e-8)
@@ -197,13 +200,14 @@ def make_batch(batch_size: int = 1, width: int = 64, height: int = 64, seed: int
         gt_all.append(scene["gt_heights"][2])
     batch = {
         "imgs": torch.as_tensor(np.stack(imgs_all), device=dev),
-        "cams": tuple(warplib.stack_cams([c[i] for c in sample_cams]) for i in range(3)),
+        "cams": tuple(warplib.stack_cams([c[i] for c in sample_cams])
+                      for i in range(num_stage)),
         "depth_values": torch.as_tensor(np.stack(dvals_all), device=dev),
     }
     if with_gt:
-        pyrs = [build_pyramid(g, 3) for g in gt_all]
+        pyrs = [build_pyramid(g, num_stage) for g in gt_all]
         batch["depth_stages"] = [torch.as_tensor(np.stack([p[i] for p in pyrs]), device=dev)
-                                 for i in range(3)]
+                                 for i in range(num_stage)]
         batch["mask_stages"] = [torch.ones_like(d) for d in batch["depth_stages"]]
     return batch
 

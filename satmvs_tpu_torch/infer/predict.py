@@ -43,11 +43,16 @@ def streaming_red_forward(model: CascadeModel, imgs: torch.Tensor, cams, depth_v
     planes a step when nd % k == 0, else (and with slab = 0) one plane at a
     time; every step runs the same kernels.  Load trained weights into
     `model` with `params.load_jax_variables` (the flax `ScanREDStep_0` trees
-    of every stage map onto `model.regs`).
+    of every stage map onto `model.regs`).  One stage or three, as the
+    model has; regularizers that do not match its ndepths raise, as JAX's
+    checkpoint check does (`satmvs_tpu/infer/predict.py:96-99`).
     """
     if model.regularizer != "red":
         raise ValueError(f"streaming_red_forward: a {model.regularizer!r} model has no "
                          f"slab-streaming form; run its full-volume forward")
+    if len(model.regs) != len(model.ndepths):
+        raise ValueError(f"the model has {len(model.regs)} RED stages, its ndepths "
+                         f"{model.ndepths} ask {len(model.ndepths)}")
     coords = model.coords if coords is None else coords
     d_min, d_max = depth_values[:, 0], depth_values[:, -1]
     outputs = {}

@@ -71,6 +71,7 @@ def predict_scene(
     norm: str = "tile",
     device=None,
     mesh=None,
+    num_stage: int = 3,
 ):
     """A whole scene's reference-view height map, by tiles.
 
@@ -99,6 +100,11 @@ def predict_scene(
       mesh, by default the mesh's device).
     mesh: a `dist.Mesh` for tile parallelism over its data axis (None or a
       mesh without a group: this process alone).
+    num_stage: the cascade stages whose cameras each tile gets (JAX's
+      keyword).  The stitch places maps of the tile's size only, so a
+      forward whose maps are smaller (a one-stage cascade's final stage is
+      at 1/4 of the tile) raises ValueError when its first chunk is read
+      back, where JAX fails at the stitch.
 
     Returns (depth (H, W) float32, confidence (H, W) float32).
     """
@@ -141,7 +147,8 @@ def predict_scene(
                 imgs_t.append(center_image(crop))
             rpcs_t.append(rpclib.crop_rpc(rpcs[view], start_w=col0, start_h=row0))
         imgs_t = np.stack(imgs_t)[order]
-        return imgs_t, warplib.build_stage_cams(np.stack(rpcs_t)[order], 0, device="cpu")
+        return imgs_t, warplib.build_stage_cams(np.stack(rpcs_t)[order], 0, device="cpu",
+                                                num_stage=num_stage)
 
     ranks, rank = (1, 0) if group is None else (mesh.shape["data"], mesh.rank)
     batch_tiles = -(-batch_tiles // ranks) * ranks  # a multiple of the data extent
@@ -178,6 +185,12 @@ def predict_scene(
     def collect(chunk, out):
         nonlocal done, t_read, t_gather
         t0 = time.perf_counter()
+        t = tiles[chunk[0]]
+        if tuple(out["depth"].shape[1:]) != (t.height, t.width):
+            raise ValueError(f"the forward's maps are {tuple(out['depth'].shape[1:])} for "
+                             f"{t.height}x{t.width} tiles: the stitch places maps of the "
+                             f"tile's size only (a one-stage cascade's final stage is at "
+                             f"1/4 of the tile)")
         depth_b = out["depth"].float().cpu().numpy()
         conf_b = out["photometric_confidence"].float().cpu().numpy()
         if group is not None:

@@ -145,6 +145,9 @@ from ..ops.cost_volume import sweep_variance_volume
 from ..ops.kernels.sweep_variance import sweep_variance_batched
 from ..ops.warp import COORDS, homo_warp, rpc_warp, sample_coords
 
+# each stage's downscale of the image, by stage count (JAX's, `satmvs_tpu/models/cascade.py:40`)
+STAGE_SCALES = {3: (4, 2, 1), 2: (4, 1), 1: (4,)}
+
 
 def stage_hypotheses(nd: int, sh: int, sw: int, d_min: torch.Tensor, d_max: torch.Tensor,
                      interval: float, depth: torch.Tensor | None = None,
@@ -273,8 +276,14 @@ _KNOBS = {"geo_model": ("rpc", "pinhole"), "regularizer": ("red", "costreg"),
 
 
 class CascadeModel(nn.Module):
-    """Three-stage cascade (1/4, 1/2, full resolution); the knobs as in the
-    module docstring, JAX's defaults (CascadeREDNet's).  geo_model ("rpc"
+    """The cascade of len(ndepths) stages, as JAX counts them: three (1/4,
+    1/2 and full resolution), or one (1/4 alone; the top-level maps are
+    stage 1's); two raise in FeatureNet (JAX fails on the shapes), before
+    any weight is built.  depth_intervals_ratio and
+    cr_base_chs give one entry a stage and may be longer: JAX indexes them
+    by stage, so its CLI defaults serve `--ndepths 64`; a shorter one
+    raises.  The knobs as in the module docstring, JAX's defaults
+    (CascadeREDNet's).  geo_model ("rpc"
     or "pinhole") names the cameras the model takes; cameras of the other
     model raise.
 
@@ -307,8 +316,12 @@ class CascadeModel(nn.Module):
                  compute_dtype: torch.dtype | None = None, remat: bool = False,
                  torch_compat: bool = False):
         super().__init__()
-        if not len(ndepths) == len(depth_intervals_ratio) == len(cr_base_chs) == 3:
-            raise ValueError("the port runs three cascade stages")
+        num_stage = len(ndepths)
+        for knob, values in (("depth_intervals_ratio", depth_intervals_ratio),
+                             ("cr_base_chs", cr_base_chs)):
+            if len(values) < num_stage:
+                raise ValueError(f"{knob}={tuple(values)}: {len(values)} entries for "
+                                 f"{num_stage} stages (ndepths={tuple(ndepths)})")
         for knob, value in (("geo_model", geo_model), ("regularizer", regularizer),
                             ("sampler", sampler), ("confidence", confidence),
                             ("grad_method", grad_method), ("arch_mode", arch_mode)):
@@ -316,7 +329,7 @@ class CascadeModel(nn.Module):
                 raise ValueError(f"{knob}={value!r}: want one of {_KNOBS[knob]}")
         self.geo_model = geo_model
         self.ndepths = tuple(ndepths)
-        self.depth_intervals_ratio = tuple(depth_intervals_ratio)
+        self.depth_intervals_ratio = tuple(depth_intervals_ratio[:num_stage])
         self.min_interval = min_interval
         self.fused_red = fused_red
         self.train_fused_sweep = train_fused_sweep
@@ -337,7 +350,7 @@ class CascadeModel(nn.Module):
                              f"torch.bfloat16")
         self.coords, self.remat, self.torch_compat = coords, remat, torch_compat
         self.compute_dtype = dt = None if compute_dtype == torch.float32 else compute_dtype
-        self.feature = FeatureNet(feat_base_chs, arch_mode, dt)
+        self.feature = FeatureNet(feat_base_chs, arch_mode, dt, num_stage)
         self.regs = nn.ModuleList(
             REDRegularizer(c, cr, dt) if regularizer == "red" else CostRegNet(c, cr, dtype=dt)
             for c, cr in zip(self.feature.out_channels, cr_base_chs))
@@ -388,8 +401,8 @@ class CascadeModel(nn.Module):
                    depth: torch.Tensor | None, exp_var: torch.Tensor | None) -> torch.Tensor:
         """Stage i's hypotheses (`stage_hypotheses` under this model's knobs;
         with torch_compat the reference's window chain at the image's size,
-        the stage's times its scale 4, 2 or 1)."""
-        scale = (4, 2, 1)[i]
+        the stage's times its scale: 4, 2 or 1 of three stages, 4 of one)."""
+        scale = STAGE_SCALES[len(self.ndepths)][i]
         return stage_hypotheses(self.ndepths[i], sh, sw, d_min, d_max,
                                 self.stage_intervals()[i], depth, exp_var, self.sampler,
                                 self.grad_method == "detach",

@@ -9,6 +9,13 @@ it).  The ranks' losses then sum to JAX's loss of the global batch, and so
 do their gradients; an average of per-rank means would be another loss
 wherever the ranks hold different mask counts.  Without a group the same
 formula runs on the whole batch.
+
+A stage whose estimate and ground truth differ in shape raises: JAX fails
+there on the broadcast (`satmvs_tpu/models/losses.py:40-41`), which it
+reaches at one stage, whose map is at 1/4 resolution while the dataset's
+pyramid (`data.preprocess.build_pyramid`, steps of 2^(num_stage − 1 − i))
+gives full-resolution ground truth.  So the train and eval steps, `fit`
+and `cli.train` refuse a one-stage cascade where JAX's fail.
 """
 
 from __future__ import annotations
@@ -48,6 +55,12 @@ def cascade_loss(outputs: Mapping[str, Mapping[str, torch.Tensor]],
     depth_loss = 0.0
     for i, (gt, mask) in enumerate(zip(depth_gt_stages, mask_stages)):
         est = outputs[f"stage{i + 1}"]["depth"]
+        if est.shape != gt.shape:
+            raise ValueError(
+                f"stage{i + 1}: estimate {tuple(est.shape)} against ground truth "
+                f"{tuple(gt.shape)}; at one stage the ground-truth pyramid (build_pyramid) "
+                f"is at full resolution while stage 1 is at 1/4, and JAX fails on these "
+                f"shapes too")
         depth_loss = masked_mean(smooth_l1(est, gt), mask > 0.5, group)
         total = total + (dlossw[i] if dlossw is not None else 1.0) * depth_loss
     return total, depth_loss

@@ -44,7 +44,9 @@ def _children(module: nn.Module) -> dict[str, nn.Module]:
     if isinstance(module, FeatureNet):
         blocks = [*module.conv0, *module.conv1, *module.conv2]
         out = {f"ConvBlock_{i}": m for i, m in enumerate(blocks)}
-        if module.arch_mode == "fpn":
+        if module.num_stage == 1:  # the encoder and the 1/4-resolution head alone
+            out["Conv_0"] = module.out1
+        elif module.arch_mode == "fpn":
             out.update({"Conv_0": module.out1, "Conv_1": module.inner1, "Conv_2": module.out2,
                         "Conv_3": module.inner2, "Conv_4": module.out3})
         else:
