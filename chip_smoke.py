@@ -71,8 +71,8 @@ Phases, each reported on its own lines:
      step time, peak memory and losses (finite, falling); one eval step (a
      forward's kernels) and its time; one step split into forward, backward
      and update, and each stage's RED alone, fused and scan; a profile of
-     one step; two steps with fused_red off (the sweep pair only) and a
-     profile of one; and one fused step at 96×192, ndepths (16, 8, 4)
+     one step; two steps with fused_red off (the sweep pair only); and one
+     fused step at 96×192, ndepths (16, 8, 4)
      against the same step on the CPU (loss, eval-mode gradients, the update
      and the running statistics);
   9  from disk: a WHU-TLC tree of 3 train and 1 test blocks of 3 384×768
@@ -220,7 +220,16 @@ Phases, each reported on its own lines:
      card, CasMVS under mesh_depth 2 and RED under mesh_spatial 2: a step
      against the same mesh's step without remat (loss, update, running
      statistics), the regularizers run again in the backward, exact
-     launches, step ms and peak memory a rank.
+     launches, step ms and peak memory a rank; (e) past 1024 state
+     channels, where a thread of the ConvGRU kernels' own-pixel passes
+     walks more than one group of four channels: red_recur and its
+     backward at the deepest cell of `cr_base_chs` (129, 8, 8) (D 64,
+     12×24, Cin 1032 → C 1032) from a zero and a seeded start state and at
+     Cn = 1030 (run at 1032), at C = 2056 on a small plane and batched (B =
+     4, a scene chunk's deepest cell), against the plain versions at
+     phases 2 and 8's tolerances, the same bits twice, each element against
+     its B = 1 call, kernel / plain / bound ms; CascadeREDNet at
+     `cr_base_chs` (129, 8, 8) as (b) does at (6, 6, 6).
   17 the one-stage cascade (ndepths (64,), `--ndepths 64`): (a) each family
      at 384×768 on phase 3's triplet: exact launches (RED 1 sweep_variance,
      3 conv_dn, 4 red_recur, 3 deconv_up, 1 conv_head; CasMVS / UCS 1
@@ -236,19 +245,23 @@ Phases, each reported on its own lines:
      the CPU: two stages, the one-stage train and eval steps, the one-stage
      scene.
 
-The 1152² scene and phase 9's tree are rendered on the host in two worker
-processes started before phase 1, so they overlap phases 1-3 (phase 9
-writes under build/chip_smoke/).  Ends with a JSON line of per-kernel
-numbers (each kernel's launches on each path: the full-volume forward, the
-streaming forward of phase 4, the two scene runs, the fused train and eval
-steps, the fused_red-off train steps, phase 9's train, predict and scene
-CLI runs, phase 10's two family forwards and its predict run, phase
-11's steps, CLI epoch and forwards, phase 12's forwards, steps and CLI
-runs, phase 13's data-parallel steps and tile-parallel scene, phase
-14's knob forwards, steps and predict runs, phase 15's e2e steps and
-forwards, profiled calls and each collectives mesh's rank 0, phase 16's
-forwards, streamed chunk, steps and rank 0's remat steps, and phase 17's
-forwards, streamed forward, differentiable check and predict run), the
+The 1152² scene and phase 9's tree are rendered on the host in worker
+processes started before phase 1, and phase 3's three 384×768 scenes in
+workers started after it (its nvcc processes want the cores), so they
+overlap phases 1-3 (phase 9 writes under build/chip_smoke/); every later
+batch of the same scene reuses its render (`memo_scenes`).  Each
+phase, or group of phases, prints the seconds it took.  Ends with a JSON
+line of per-kernel numbers (each kernel's launches on each path: the
+full-volume forward, the streaming forward of phase 4, the two scene runs,
+the fused train and eval steps, the fused_red-off train steps, phase 9's
+train, predict and scene CLI runs, phase 10's two family forwards and its
+predict run, phase 11's steps, CLI epoch and forwards, phase 12's
+forwards, steps and CLI runs, phase 13's data-parallel steps and
+tile-parallel scene, phase 14's knob forwards, steps and predict runs,
+phase 15's e2e steps and forwards, profiled calls and each collectives
+mesh's rank 0, phase 16's forwards, streamed chunks and steps of (b) and
+(e) and rank 0's remat steps, and phase 17's forwards, streamed forward,
+differentiable check and predict run), the
 nvidia-smi line of the card,
 and {"ok": true, "device": ...} as the last line.  Any failed check raises,
 and the script exits non-zero without those last lines.  Without a CUDA
@@ -428,7 +441,7 @@ class KernelReport:
 
     def case(self, label: str, kernel, plain, tol, nbytes: float, flops: float,
              library=None, timed: bool = True, count: int = 1, exact=None,
-             rate: float = FP32_FLOPS_PER_S):
+             rate: float = FP32_FLOPS_PER_S, reps: int = 10):
         """tol(plain result): the abs error allowed, a number or one per
         element (a tuple of such functions, one per output, for a kernel
         with several outputs); library: one PyTorch call that computes the
@@ -436,7 +449,9 @@ class KernelReport:
         the path, which the sums weigh by; exact: what the kernel is held to
         where that is not the plain version's fp32 result (the plain version
         in float64), and then tol's argument; rate: the bound's operations
-        rate (`bound_ms`)."""
+        rate (`bound_ms`); reps: the kernel's and the library call's timed
+        calls (the plain version's half as many), fewer for calls that take
+        seconds."""
         name = self.rec["name"]
         got, want = kernel(), (exact or plain)()
         torch.cuda.synchronize()
@@ -458,8 +473,9 @@ class KernelReport:
         del got, want, pairs
         if not timed:
             return None
-        k_ms, p_ms = time_ms(kernel, reps=10), time_ms(plain, reps=5, warmup=1)
-        l_ms = time_ms(library, reps=10) if library is not None else None
+        k_ms = time_ms(kernel, reps=reps, warmup=min(3, reps))
+        p_ms = time_ms(plain, reps=max(reps // 2, 1), warmup=1)
+        l_ms = time_ms(library, reps=reps, warmup=min(3, reps)) if library is not None else None
         b_ms, by = bound_ms(nbytes, flops, rate)
         self.rec["ms"] += count * k_ms
         self.rec["plain_ms"] += count * p_ms
@@ -1172,13 +1188,41 @@ def chunk_launches(bt: int) -> dict:
             "red_recur": 4 * n, "deconv_up": 3 * n, "conv_head": n}
 
 
-def render_scene() -> dict:
-    """The 1152² synthetic triplet (host numpy, seeded); runs in a worker
-    process, so it puts the repository on its own import path."""
+def render_scene(key: tuple = (SCENE_SIZE, SCENE_SIZE, 0, 80.0)) -> dict:
+    """The synthetic triplet `synthetic.make_scene(*key)` (host numpy,
+    seeded; by default the 1152² scene); runs in a worker process, so it
+    puts the repository on its own import path."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from satmvs_tpu_torch.data import synthetic
 
-    return synthetic.make_scene(SCENE_SIZE, SCENE_SIZE, seed=0, h_amp=80.0)
+    return synthetic.make_scene(*key)
+
+
+# the scenes the workers render ahead (make_scene's width, height, seed,
+# h_amp): phase 3's three 384×768 batches, seed 0 the batch of most phases
+AHEAD_SCENES = tuple((WIDTH, HEIGHT, s, 80.0) for s in SEEDS)
+
+
+def memo_scenes(jobs: dict) -> None:
+    """`synthetic.make_scene` memoized in this process, each key rendered
+    once (taken from `jobs`, key → a worker's Future, where one renders
+    it), every call given its own copies of the arrays.  The phases build
+    the same seeded scenes again and again (the 384×768 scene of seed 0
+    some twenty times, ~15 s of host time each): the batches are the same
+    bits, rendered once.  Spawned ranks and CLI subprocesses render their
+    own."""
+    from satmvs_tpu_torch.data import synthetic
+
+    render, scenes = synthetic.make_scene, {}
+
+    def make_scene(width: int = 128, height: int = 128, seed: int = 0,
+                   h_amp: float = 120.0) -> dict:
+        key = (width, height, seed, h_amp)
+        if key not in scenes:
+            scenes[key] = jobs.pop(key).result() if key in jobs else render(*key)
+        return {k: v.copy() for k, v in scenes[key].items()}
+
+    synthetic.make_scene = make_scene
 
 
 def phase_scene(card: str, model, scene: dict):
@@ -2029,11 +2073,8 @@ def phase_train(card: str) -> tuple[dict, dict]:
     del model, state, tx, train_step, eval_step
     # the fused_red=off path stays driven: fewer steps, its own launches
     scan_cfg = Config(ndepths=NDEPTHS, fused_red=False)
-    _, scan_state, _, scan_step, scan_launches, _, _, _ = run_train_steps(
+    *_, scan_launches, _, _, _ = run_train_steps(
         scan_cfg, batch, SCAN_STEPS, LAUNCHES_PER_SCAN_STEP, "scan (fused_red off)", card)
-    profile_forward(lambda: scan_step(scan_state, batch), card, top=6,
-                    what="one scan (fused_red off) train step")
-    del scan_state, scan_step
     phase_train_parity(card)
     return {"train_step": train_launches, "eval_step": eval_launches,
             "scan_train_step": scan_launches}, default_step
@@ -4873,14 +4914,34 @@ WIDE_COSTREG = (16, 16, 16)  # cr_base_chs of the wide CostRegNets: 3-D blocks o
 WIDE_BLOCK_BASES = (12, 16)  # the 3-D blocks past 64 channels at these base widths
 WIDTH_STEPS = 3
 WIDTH_HW = (96, 192)        # GPU vs CPU, and the streamed chunk's tiles
+# cr_base_chs of the wide CascadeREDNet: stage 1's cells of 129, 258, 516 and
+# 1032 state channels (run at 132, 260, 516, 1032), past the 4·256 where a
+# thread of the ConvGRU kernels' own-pixel passes walks more than one group
+WIDE_RED = (129, 8, 8)
+# red_recur past 1024 state channels, (label, B, D, h, w, Cin, C, seeded,
+# timed): the wide forward's deepest cell (stage 1, scale 8), from a zero
+# and a seeded start state and at Cn = 1030 (run padded to 1032); C = 2056,
+# where some threads walk three groups, on a small plane; and a 4-tile scene
+# chunk's deepest cell (448² tiles, an 8-plane slab)
+WIDE_RECUR_CASES = (
+    ("deepest cell", 1, NDEPTHS[0], HEIGHT // 32, WIDTH // 32, 8 * WIDE_RED[0],
+     8 * WIDE_RED[0], False, True),
+    ("deepest cell", 1, NDEPTHS[0], HEIGHT // 32, WIDTH // 32, 8 * WIDE_RED[0],
+     8 * WIDE_RED[0], True, False),
+    ("deepest cell", 1, NDEPTHS[0], HEIGHT // 32, WIDTH // 32, 8 * WIDE_RED[0], 1030, False,
+     False),
+    ("three groups a thread", 1, 8, 6, 12, 64, 2056, True, True),
+    ("scene chunk", BATCH_TILES, SLAB, TILE_HW // 32, TILE_HW // 32, 8 * WIDE_RED[0],
+     8 * WIDE_RED[0], True, True))
 REMAT_MESH_RUNS = (("casmvs", "depth"), ("red", "spatial"))
 REMAT_WORK = WORK / "remat"
 # sha256 (first 16 hex digits) of `default_plans(264)`: red_recur's launch
 # plans at the default widths on an H100 (264 resident blocks), as the
 # plans were before the kernels took widths that are not a multiple of 4
 DEFAULT_PLAN_DIGEST = "d86fa01d6a690ceb"
-WIDTH_FORWARD_PATHS = ("narrow_red_forward", "narrow_red_stream")
-WIDTH_TRAIN_PATHS = ("narrow_red_step", "remat_red_spatial")
+WIDTH_FORWARD_PATHS = ("narrow_red_forward", "narrow_red_stream", "wide_red_forward",
+                       "wide_red_stream")
+WIDTH_TRAIN_PATHS = ("narrow_red_step", "remat_red_spatial", "wide_red_step")
 WIDTH_COSTREG_PATHS = ("wide_casmvs", "wide_ucs")
 WIDTH_SWEEP_PATHS = ("remat_casmvs_depth",)  # CasMVS training: the sweep pair only
 
@@ -4997,10 +5058,10 @@ def width_recur_kernels(card: str) -> None:
               flush=True)
 
 
-def width_stream(card: str, model, cpu_model, batch) -> dict:
-    """Phase 16 (b), a streamed chunk: `streaming_red_forward` (slab 8) of
-    the batch's tiles on the card, exact launches, then stage by stage
-    against the same model's plain full-volume stages on the CPU, each
+def width_stream(card: str, model, cpu_model, batch, what: str) -> dict:
+    """Phase 16 (b) and (e), a streamed chunk of `what`: `streaming_red_forward`
+    (slab 8) of the batch's tiles on the card, exact launches, then stage by
+    stage against the same model's plain full-volume stages on the CPU, each
     centred on the card's previous-stage depth (the depth gates)."""
     from satmvs_tpu_torch.infer.predict import streaming_red_forward
 
@@ -5011,7 +5072,7 @@ def width_stream(card: str, model, cpu_model, batch) -> dict:
         stream = streaming_red_forward(model, imgs, cams, dvals, slab=SLAB)
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == chunk_launches(bt), f"narrow streaming launches {launches}")
+    check(launches == chunk_launches(bt), f"{what} streaming launches {launches}")
     cams_cpu, dv_cpu = [c.to("cpu") for c in cams], dvals.cpu()
     feats = cpu_model.features(imgs.cpu())
     for i, step in enumerate(stage_steps(*dv_cpu[0].tolist(), cpu_model.stage_intervals())):
@@ -5019,69 +5080,133 @@ def width_stream(card: str, model, cpu_model, batch) -> dict:
         ref = cpu_model.stage(i, feats[i], cams_cpu[i], dv_cpu[:, 0], dv_cpu[:, -1], prev)
         got = stream[f"stage{i + 1}"]["depth"].cpu()
         mean, p99, mx = err_quantiles((got - ref["depth"]).abs() / step)
-        print(f"[widths] RED b={NARROW_RED[0]} streamed chunk (B={bt}, slab {SLAB}) on the card "
+        print(f"[widths] {what} streamed chunk (B={bt}, slab {SLAB}) on the card "
               f"vs the CPU's plain stages, stage{i + 1}: depth err mean {mean:.3e}, p99 "
               f"{p99:.3e}, max {mx:.3e} of step (tol {DEPTH_TOL_MEAN}, {DEPTH_TOL_P99})",
               flush=True)
         check(mean <= DEPTH_TOL_MEAN and p99 <= DEPTH_TOL_P99,
-              f"narrow streaming stage{i + 1}: depth err mean {mean}, p99 {p99}")
+              f"{what} streaming stage{i + 1}: depth err mean {mean}, p99 {p99}")
     return launches
 
 
-def narrow_red(card: str, default_step: dict) -> dict:
-    """Phase 16 (b): CascadeREDNet at cr_base_chs NARROW_RED: a 384×768
-    forward (exact launches, ranges) and its ms and peak memory beside the
-    default width's; GPU vs CPU at WIDTH_HW; a streamed chunk of two
-    WIDTH_HW tiles against the CPU; WIDTH_STEPS train steps at 384×768
+def red_at_width(card: str, default_step: dict, base_chs: tuple, name: str) -> dict:
+    """Phase 16 (b) and (e): CascadeREDNet at cr_base_chs `base_chs`: a
+    384×768 forward (exact launches, ranges) and its ms and peak memory
+    beside the default width's; GPU vs CPU at WIDTH_HW; a streamed chunk of
+    two WIDTH_HW tiles against the CPU; WIDTH_STEPS train steps at 384×768
     (exact launches) beside phase 7's; one step at 96×192 against the CPU
-    (phase 7's gates).  Returns the launches of each path."""
+    (phase 7's gates).  Returns the launches of each path, named
+    `<name>_red_forward`, `_stream` and `_step`."""
     from satmvs_tpu_torch.data import synthetic
     from satmvs_tpu_torch.train import Config
 
-    model = build_model("cuda", cr_base_chs=NARROW_RED)
-    check(all(reg.step.gru1.features == NARROW_RED[0] for reg in model.regs),
-          "narrow RED: the first cells' width")
+    what = f"RED b={base_chs[0]}"
+    model = build_model("cuda", cr_base_chs=base_chs)
+    check(all(reg.step.gru1.features == b for reg, b in zip(model.regs, base_chs)),
+          f"{what}: the first cells' widths")
     batch = synthetic.make_batch(1, WIDTH, HEIGHT, seed=0, device="cuda")
     imgs, cams, dvals = batch["imgs"], batch["cams"], batch["depth_values"]
     torch.cuda.synchronize()
     reset_counts()
     out = model(imgs, cams, dvals)
     torch.cuda.synchronize()
-    launches = {"narrow_red_forward": counts()}
-    check(launches["narrow_red_forward"] == LAUNCHES_PER_FORWARD,
-          f"narrow RED forward launches {launches['narrow_red_forward']}")
+    launches = {f"{name}_red_forward": counts()}
+    check(launches[f"{name}_red_forward"] == LAUNCHES_PER_FORWARD,
+          f"{what} forward launches {launches[f'{name}_red_forward']}")
     depth = out["depth"]
     lo, hi = dvals[0].tolist()
     margin = sum(nd / 2 * iv for nd, iv in zip(NDEPTHS[1:], model.stage_intervals()[1:]))
     check(bool(torch.isfinite(depth).all()) and lo - margin - 1e-3 <= depth.min().item()
-          and depth.max().item() <= hi + margin + 1e-3, "narrow RED forward: depth range")
+          and depth.max().item() <= hi + margin + 1e-3, f"{what} forward: depth range")
     del out, depth
     ms, peak = knob_timed(model, batch)
     ms8, peak8 = knob_timed(build_model("cuda"), batch)
-    print(f"[widths] RED b={NARROW_RED[0]} forward at {HEIGHT}x{WIDTH}: launches a forward's "
+    print(f"[widths] {what} forward at {HEIGHT}x{WIDTH}: launches a forward's "
           f"(exact); {ms:.2f} ms, peak_mem={peak:.3f} GiB; b={RED_BASE} in this phase {ms8:.2f} "
           f"ms, {peak8:.3f} GiB ({ms / ms8:.3f}x) card={card}", flush=True)
     h, w = WIDTH_HW
-    cpu_model = build_model("cpu", cr_base_chs=NARROW_RED)
+    cpu_model = build_model("cpu", cr_base_chs=base_chs)
     small = synthetic.make_batch(1, w, h, seed=1, device="cuda")
     with torch.no_grad():
         gpu_out = model(small["imgs"], small["cams"], small["depth_values"])
-    gpu_vs_cpu("[widths]", f"RED b={NARROW_RED[0]} at {h}x{w}", gpu_out, cpu_model,
+    gpu_vs_cpu("[widths]", f"{what} at {h}x{w}", gpu_out, cpu_model,
                small["imgs"], small["cams"], small["depth_values"])
-    launches["narrow_red_stream"] = width_stream(
-        card, model, cpu_model, synthetic.make_batch(2, w, h, seed=2, device="cuda"))
+    launches[f"{name}_red_stream"] = width_stream(
+        card, model, cpu_model, synthetic.make_batch(2, w, h, seed=2, device="cuda"), what)
     del model, cpu_model
-    cfg = Config(ndepths=NDEPTHS, cr_base_chs=NARROW_RED)
+    cfg = Config(ndepths=NDEPTHS, cr_base_chs=base_chs)
     *_, step_launches, times, _, step_peak = run_train_steps(
-        cfg, batch, WIDTH_STEPS, LAUNCHES_PER_TRAIN_STEP, f"RED b={NARROW_RED[0]}", card)
-    launches["narrow_red_step"] = step_launches
+        cfg, batch, WIDTH_STEPS, LAUNCHES_PER_TRAIN_STEP, what, card)
+    launches[f"{name}_red_step"] = step_launches
     step_ms = float(np.median(times))
-    print(f"[widths] RED b={NARROW_RED[0]} train step {step_ms:.2f} ms (median of "
+    print(f"[widths] {what} train step {step_ms:.2f} ms (median of "
           f"{WIDTH_STEPS}), peak_mem={step_peak:.3f} GiB; phase 7's b={RED_BASE} step "
           f"{default_step['ms']:.2f} ms, {default_step['peak']:.3f} GiB "
           f"({step_ms / default_step['ms']:.3f}x) card={card}", flush=True)
-    phase_train_parity(card, f"RED b={NARROW_RED[0]} step", cr_base_chs=NARROW_RED)
+    phase_train_parity(card, f"{what} step", cr_base_chs=base_chs)
     return launches
+
+
+def wide_recur_kernels(card: str) -> None:
+    """Phase 16 (e), the kernels: red_recur and its backward at
+    WIDE_RECUR_CASES, past the 4·256 state channels where a thread of the
+    kernels' own-pixel passes walks more than one group of four channels
+    (and keeps the GroupNorm parameter sums of its later groups in device
+    memory): against the plain versions at phases 2 and 8's tolerances,
+    the same bits in a second run, each element of the batched call against
+    its B = 1 call; the plans; kernel, plain and bound ms of the timed
+    cases."""
+    from satmvs_tpu_torch.ops.kernels import red_recur as rr
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def flat(res):
+        return (res[0], *res[1])
+
+    src = "satmvs_tpu_torch/csrc/red_recur.cu"
+    for label, b, d, h, w, cin, c, seeded, timed in WIDE_RECUR_CASES:
+        fwd = KernelReport("red_recur", src, "satmvs_tpu/ops/pallas/red_recur.py:259", card)
+        bwd = KernelReport("red_recur_backward", src, "satmvs_tpu/ops/pallas/red_recur.py:755",
+                           card)
+        cell = red_cell(cin, c, 120 + c, randn)
+        x = randn(b, d, h, w, cin)
+        h0 = torch.tanh(randn(b, h, w, c)) if seeded else None
+        tag = f"C={c} {label} B={b} {(d, h, w, cin)}->{c}{' h0' if seeded else ''}"
+        nbytes, flops = recur_work(x, c, cell)
+        with torch.no_grad():
+            fwd.case(tag, lambda: rr.red_recur(x, cell, h0),
+                     lambda: rr.red_recur_reference(x, cell, h0), lambda want: RED_RECUR_TOL,
+                     nbytes, flops, timed=timed, reps=3)
+            recur_same_bits(rr, tag, x, cell, h0)
+            out = rr.red_recur(x, cell, h0)
+            err = max((out[e] - rr.red_recur(x[e], cell, None if h0 is None else h0[e]))
+                      .abs().max().item() for e in range(b)) if b > 1 else 0.0
+        check(err <= RED_RECUR_TOL, f"red_recur {tag}: B vs B = 1 max abs err {err}")
+        g = randn(*out.shape)
+        bwd.case(tag + " backward", lambda: flat(rr.red_recur_backward(x, out, g, cell, h0)),
+                 lambda: flat(rr.red_recur_backward_reference(x, out, g, cell, h0)),
+                 lambda want: RED_BWD_TOL * max(1.0, want.abs().max().item()),
+                 2 * nbytes + 4 * out.numel(), 3 * flops, timed=timed, reps=2)
+        one, two = (flat(rr.red_recur_backward(x, out, g, cell, h0)) for _ in range(2))
+        check(all(torch.equal(u, v) for u, v in zip(one, two)),
+              f"red_recur_backward {tag}: a second run differs")
+        plan = rr.red_recur_bwd_plan(b, h, w, cin, c, rr.resident())
+        f, bk = fwd.record(), bwd.record()
+        times = (f"forward {f['ms']:.4f} ms, plain {f['plain_ms']:.4f}, bound "
+                 f"{f['bound_ms']:.4f} ({f['bound_by']}); backward {bk['ms']:.4f} ms, plain "
+                 f"{bk['plain_ms']:.4f}, bound {bk['bound_ms']:.4f} ({bk['bound_by']}); "
+                 if timed else "")
+        print(f"[widths] (e) red_recur {tag} (run at {rr.padded_width(c)}, "
+              f"{rr.own_pixel_lanes(c)} pixel a block pass, {plan['per_element']} blocks an "
+              f"element): {times}max abs err forward {f['max_abs_err']:.3e} (tol "
+              f"{RED_RECUR_TOL}), backward {bk['max_abs_err']:.3e} (tol {RED_BWD_TOL} × max(1, "
+              f"|plain|)); the same bits twice; each element vs its B = 1 call {err:.3e} "
+              f"card={card}", flush=True)
+        del cell, x, h0, out, g, one, two
+        torch.cuda.empty_cache()
 
 
 def wide_blocks(card: str) -> None:
@@ -5329,13 +5454,15 @@ def remat_mesh(card: str) -> dict:
 
 
 def phase_widths(card: str, default_step: dict) -> dict:
-    """Phase 16: (a)-(d) above; returns the launches of the new paths."""
+    """Phase 16: (a)-(e) above; returns the launches of the new paths."""
     t0, launches, took = time.time(), {}, {}
     parts = (("a", lambda: width_recur_kernels(card)),
-             ("b", lambda: narrow_red(card, default_step)),
+             ("b", lambda: red_at_width(card, default_step, NARROW_RED, "narrow")),
              ("c", lambda: (wide_blocks(card),
                             {f"wide_{n}": wide_costreg(card, n) for n in COSTREG_FAMILIES})[1]),
-             ("d", lambda: remat_mesh(card)))
+             ("d", lambda: remat_mesh(card)),
+             ("e", lambda: (wide_recur_kernels(card),
+                            red_at_width(card, default_step, WIDE_RED, "wide"))[1]))
     for part, run_part in parts:
         t1 = time.time()
         launches.update(run_part() or {})
@@ -5651,16 +5778,25 @@ def main() -> int:
     import shutil
 
     shutil.rmtree(WORK, ignore_errors=True)
-    # the workers render the scene and phase 9's tree while phases 1-3 run;
-    # leaving the block stops them
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return run(pool.submit(render_scene), pool.submit(render_tree, str(WORK / "whu_tlc")))
+    # the workers render phase 3's batches, the scene and phase 9's tree
+    # while phases 1-3 run; leaving the block stops them
+    with ProcessPoolExecutor(2 + len(AHEAD_SCENES),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return run(pool.submit(render_scene), pool.submit(render_tree, str(WORK / "whu_tlc")),
+                   lambda: {key: pool.submit(render_scene, key) for key in AHEAD_SCENES})
 
 
-def run(scene_job, tree_job) -> int:
+def took(tag: str, phase: str, t0: float) -> None:
+    """Prints the seconds since t0 that a phase took."""
+    print(f"{tag} phase {phase} took {time.time() - t0:.1f} s", flush=True)
+
+
+def run(scene_job, tree_job, render_ahead) -> int:
     from satmvs_tpu_torch.ops.kernels import build
 
     # phase 0
+    ahead = {}  # filled after phase 1, whose nvcc processes want the cores
+    memo_scenes(ahead)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5698,13 +5834,31 @@ def run(scene_job, tree_job) -> int:
               f"sweep_variance_kernel, sweep_variance_groups_kernel and conv3d_block_kernel, "
               f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
+    took("[build]", "1", t0)
+    ahead.update(render_ahead())
 
-    # phases 2, 2b, 6, 11 (c), 8 and 3
+    # phases 2, 2c, 2b, 6, 11 (c), 8 and 3
+    t0 = time.time()
     sweep, dn, rec, up, head = phase_sweep(smi), *phase_red_kernels(smi)
+    took("[kernels]", "2", t0)
+    t0 = time.time()
     phase_many_views(smi)
-    records = [*sweep, dn, rec, phase_batched_red(smi), up, head, *phase_sweep_gather(smi),
-               *phase_sweep_train_kernels(smi), *phase_red_backward(smi)]
+    took("[views]", "2c", t0)
+    t0 = time.time()
+    records = [*sweep, dn, rec, phase_batched_red(smi), up, head]
+    took("[batched]", "2b", t0)
+    t0 = time.time()
+    records += phase_sweep_gather(smi)
+    took("[kernels]", "6", t0)
+    t0 = time.time()
+    records += phase_sweep_train_kernels(smi)
+    took("[sweeps]", "11 (c)", t0)
+    t0 = time.time()
+    records += phase_red_backward(smi)
+    took("[kernels]", "8", t0)
+    t0 = time.time()
     launches = {"forward": phase_slice(smi)}
+    took("[slice]", "3", t0)
 
     # phase 5, then phase 4 on phase 5's first chunk
     t0 = time.time()
@@ -5719,10 +5873,13 @@ def run(scene_job, tree_job) -> int:
     scene_gt = str(WORK / "scene" / "gt_view2.npy")  # phase 15 (c) scores the fusion with it
     np.save(scene_gt, scene["gt_heights"][2])
     del model, chunk, scene
+    took("[scene]", "5 and 4", t0)
 
     # phase 7
+    t0 = time.time()
     train_launches, default_step = phase_train(smi)
     launches.update(train_launches)
+    took("[train]", "7", t0)
 
     # phase 9
     t0 = time.time()
@@ -5730,6 +5887,7 @@ def run(scene_job, tree_job) -> int:
     print(f"[disk] {TREE_TRAIN} + {TREE_TEST} blocks of 3 {HEIGHT}x{WIDTH} views written "
           f"(waited {time.time() - t0:.1f} s for them after phase 7)", flush=True)
     launches.update(phase_from_disk(smi, tree, scene_files))
+    took("[disk]", "9", t0)
 
     # phase 10
     t0 = time.time()

@@ -20,6 +20,9 @@ per shape:
   weight reductions): CUDA events, median of --reps calls; and the adjoint
   kernel `red_recur_bwd_kernel` alone, its device time per call under
   torch.profiler, which reads any tree, whatever its Python API;
+  both with "digest", the first 16 hex digits of the sha256 of the
+  outputs' bytes (the states; dx and every parameter's cotangent), so two
+  trees that compute the same bits print the same digests;
   sweep_gather (row 2) at both source views of each stage: its error
   against its plain version, and its time and that of grid_sample
   (bilinear, zero padding) on the same data, each over calls launched
@@ -66,6 +69,16 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def sweep_plans(rr, cs, base: dict, run, couts, reps: int) -> dict:
@@ -310,7 +323,8 @@ def main() -> int:
                 dev = cs.device_ms(lambda: rr.red_recur(x, cell, h0), "red_recur_kernel", args.reps)
                 row = "row5" if b > 1 else "row4"
                 rec = {**tag, "kernel": "red_recur", "row": row, "shape": label,
-                       "bdhwc": [b, d, h, w, ci, c], "ms": ms, "device_ms": dev, "calls": calls}
+                       "bdhwc": [b, d, h, w, ci, c], "ms": ms, "device_ms": dev, "calls": calls,
+                       "digest": digest(rr.red_recur(x, cell, h0))}
                 if b > 1:
                     totals["row5_chunk_ms"] += calls * ms
                     totals["row5_chunk_device_ms"] += calls * dev
@@ -335,8 +349,10 @@ def main() -> int:
                 row6 = cs.time_ms(lambda: rr.red_recur_backward(x, out, g, cell), reps=args.reps)
                 adj = cs.device_ms(lambda: rr.red_recur_backward(x, out, g, cell),
                                 "red_recur_bwd_kernel", args.reps)
+                dx, dps = rr.red_recur_backward(x, out, g, cell)
                 rec = {**tag, "kernel": "red_recur_backward", "shape": f"{stage} scale{s}",
-                       "dhwc": [d, h // s, w // s, ci, c], "row6_ms": row6, "adjoint_ms": adj}
+                       "dhwc": [d, h // s, w // s, ci, c], "row6_ms": row6, "adjoint_ms": adj,
+                       "digest": digest(dx, *dps)}
                 if args.sweep:
                     h0 = torch.zeros((1, h // s, w // s, c), device="cuda")
                     base = rr.red_recur_bwd_plan(1, h // s, w // s, ci, c, rr.resident())

@@ -498,17 +498,17 @@ __global__ void __launch_bounds__(THREADS, 2) deconv3x3_s2_kernel(
 // (x, y) owns the output tile of every tap × ca ∈ [ca0, ca0 + ca_t) × cb ∈
 // [cb0, cb0 + cb_t) (blockIdx.y = ca tile · n_cb_tiles + cb tile) and walks
 // pixel tiles [x·tpb, (x + 1)·tpb) in order.  Per tile it stages into shared
-// memory the B strip (tp × cb_t, bmask applied, zero past the row's end) and
-// the A window those pixels read (3 rows × (S·tp + 2) columns × ca_t, zero
-// outside the image, amask and the concat resolved as it is staged).  Thread
-// (lane, dy, ca4, cb4) holds a 3 × 4 × 4 register tile (dx, 4 ca, 4 cb) and
-// runs outer products over pixels lane, lane + lanes, … of the tile: per
-// pixel three float4 reads of A and one of B for 48 FMAs.  The thread with
-// dy = 1, ca4 = 0 of a block of the first ca tile also sums B' (the bias, an
-// A row of ones).  Each thread's fp32 sums run over at most `run` tiles
-// (~10³ pixels), then are added into its own float64 row of `part` (row
-// x·lanes + lane; written at the first flush, so no zeroing): fixed order,
-// no atomics.
+// memory the B strip (tp × cb_t, bmask applied, zero past the row's end and
+// past CB) and the A window those pixels read (3 rows × (S·tp + 2) columns ×
+// ca_t, zero outside the image, amask and the concat resolved as it is
+// staged).  Thread (lane, dy, ca4, cb4) holds a 3 × 4 × 4 register tile (dx,
+// 4 ca, 4 cb) and runs outer products over pixels lane, lane + lanes, … of
+// the tile: per pixel three float4 reads of A and one of B for 48 FMAs.  The
+// thread with dy = 1, ca4 = 0 of a block of the first ca tile also sums B'
+// (the bias, an A row of ones).  Each thread's fp32 sums run over at most
+// `run` tiles (~10³ pixels), then are added into its own float64 row of
+// `part` (row x·lanes + lane; written at the first flush, so no zeroing):
+// fixed order, no atomics.
 template <bool VA>
 __device__ __forceinline__ float4 load_a4(const float* __restrict__ a1,
                                           const float* __restrict__ a2,
@@ -553,7 +553,11 @@ __device__ __forceinline__ float4 load_b4(const float* __restrict__ b,
                                           const float* __restrict__ bmask, int64_t p, int CB,
                                           int cb) {
   float t[4];
-  if constexpr (VB) {  // CB % 4 == 0
+  if constexpr (VB) {  // CB % 4 == 0: the group lies in the row or past CB
+    // a last cb tile may reach past CB (CB = 264 in tiles of 32): those
+    // groups are zeros, not the next pixel's channels or, at B's last pixel,
+    // memory past its end
+    if (cb >= CB) return make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 v = __ldg(reinterpret_cast<const float4*>(b + p * CB + cb));
     t[0] = v.x; t[1] = v.y; t[2] = v.z; t[3] = v.w;
     if (bmask != nullptr) {

@@ -46,7 +46,10 @@
 //      with the per-block sums of the candidate;
 //   C. the candidate statistics, then the blend into out[d] at the block's
 //      own pixels (the next plane reads its neighbours there as halo; after
-//      the last plane no sync is needed).
+//      the last plane no sync is needed).  A thread takes a pixel lane and a
+//      group of four channels, npl = BT / (C/4) pixels a block pass; past
+//      C = 4·BT a block takes one pixel at a time and each thread walks the
+//      groups t, t + BT, ... (`OwnMap`), so any width runs.
 // The state needs no buffer of its own: plane d reads h from out[d − 1] (or
 // h0) and writes out[d], so a halo read and a blend write never touch the same
 // array.  The x-side convs carry no state and run inside A and B with the
@@ -89,6 +92,15 @@
 // plane, and every transpose sum weighs it by a zero scale.  Only the
 // count changes: the statistics and the transposes' means divide by
 // H·W·Cn, the real values of a plane.  At Cn = C nothing differs.
+//
+// Any width.  Nothing in the convs depends on C beyond its tiles and
+// slabs; only the own-pixel passes map a block's threads onto channels.
+// Each kernel has two instances (`OwnMap<WIDE>`): up to C = 4·BT = 1024 the
+// narrow one runs them as they always have (one group of four channels a
+// thread, every sum in the same order as before); past it the wide one has
+// a thread walk two or more groups in turn, each over the same pixels, its
+// sums running over the groups in that order.  Shared memory is the same
+// at every width.
 //
 // The backward, `red_recur_bwd_kernel`, replaces two more TPU kernels with
 // one: the reverse-plane adjoint `_red_recur_bwd_pallas` (:755, pallas_call
@@ -159,9 +171,11 @@
 // (B, D, H, W, 3C) and the recomputed r·h (B, D, H, W, C), and the wrapper
 // reduces them with plane_conv.cu's weight kernel (fixed order) after the
 // loop.  The six GroupNorm parameter cotangents (6·C values) are summed in
-// each thread's own shared-memory slots (a thread keeps one group of four
-// channels in the elementwise passes) and reduced once at the end in a fixed
-// order.  No atomics: every result is the same in every run.
+// slots of the thread that owns the channel (a thread keeps the same groups
+// of four channels in the elementwise passes: one group in shared memory up
+// to C = 4·BT, later ones in per-block device memory) and reduced once at
+// the end in a fixed order.  No atomics: every result is the same in every
+// run.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -232,6 +246,30 @@ constexpr int BWD_SMEM = FWD_SMEM + GACC * BT * 4;
 // channels.
 struct ConvPlan {
   int px, wr, wc, wk, ck;
+};
+
+// The own-pixel passes' map of a block's threads over gc = C/4 groups of
+// four channels, npl pixels a block pass: thread t takes pixel lane lp =
+// t / gc (none when lp ≥ npl) and the groups g0 = t − lp·gc, g0 + BT,
+// g0 + 2·BT, ... below gc.  At C ≤ 4·BT (WIDE false) that is npl = BT / gc
+// lanes of one group a thread; past it (WIDE) a block takes one pixel at a
+// time and thread t walks the groups t, t + BT, ...  Each kernel has an
+// instance of either kind, so at C ≤ 4·BT there is no loop over groups.
+template <bool WIDE>
+struct OwnMap {
+  int gc, npl, lp, g0;
+  __device__ explicit OwnMap(int C)
+      : gc(C / 4), npl(WIDE ? 1 : BT / gc), lp(threadIdx.x / gc), g0(threadIdx.x - lp * gc) {}
+  __device__ bool lane() const { return lp < npl; }
+  // body(grp, 4·grp) for each of this thread's groups grp
+  template <typename Body>
+  __device__ void each_group(Body body) const {
+    if constexpr (WIDE) {
+      for (int grp = g0; grp < gc; grp += BT) body(grp, 4 * grp);
+    } else {
+      body(g0, 4 * g0);
+    }
+  }
 };
 
 struct FwdArgs {
@@ -599,6 +637,7 @@ __device__ __forceinline__ void candidate_pass(const ConvPlan& pl, int H, int W,
 //   B. r, u statistics; the raw candidate into Y, m staged (candidate_pass)
 //   C. y statistics; own pixels: out[d] = u·h + (1 − u)·y
 // with a grid.sync() after each, but none after the last plane's C.
+template <bool WIDE>
 __global__ void __launch_bounds__(BT, 2) red_recur_kernel(FwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
@@ -639,30 +678,32 @@ __global__ void __launch_bounds__(BT, 2) red_recur_kernel(FwdArgs a) {
     }
     grid.sync();
 
-    {  // C. y statistics; the blend at the block's own pixels, thread → (pixel
-       // lane, group of four channels)
+    {  // C. y statistics; the blend at the block's own pixels (`OwnMap`)
       elem_stats(elem(1), bpe, inv_n, 1, 0, red, tot, stats + 4);
-      const int gc = C / 4, npl = BT / gc;
-      const int lp = threadIdx.x / gc, c0 = (threadIdx.x - lp * gc) * 4;
+      const OwnMap<WIDE> own(C);
       const float* h = d == 0 ? a.h0 + e1 : a.out + ed - plane;
       const float* G = a.graw + 2 * e1;
       const float* Y = a.yraw + e1;
       float* hn = a.out + ed;
-      if (lp < npl) {
-        for (int p = kb * npl + lp; p < P; p += bpe * npl) {
-          float gu[4], yr[4], hh[4], o[4];
-          unpack4(ld4(G + p * 2 * C + C + c0), gu);
-          unpack4(ld4(Y + p * C + c0), yr);
-          unpack4(ld4(h + p * C + c0), hh);
+      if (own.lane()) {
+        own.each_group([&](int, int c0) {
+          for (int p = kb * own.npl + own.lp; p < P; p += bpe * own.npl) {
+            float gu[4], yr[4], hh[4], o[4];
+            unpack4(ld4(G + p * 2 * C + C + c0), gu);
+            unpack4(ld4(Y + p * C + c0), yr);
+            unpack4(ld4(h + p * C + c0), hh);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int c = c0 + k;
-            const float u = gate_u(gu[k], stats, __ldg(a.gn + 2 * C + c), __ldg(a.gn + 3 * C + c));
-            const float y = cand_y(yr[k], stats, __ldg(a.gn + 4 * C + c), __ldg(a.gn + 5 * C + c));
-            o[k] = u * hh[k] + (1.f - u) * y;
+            for (int k = 0; k < 4; ++k) {
+              const int c = c0 + k;
+              const float u =
+                  gate_u(gu[k], stats, __ldg(a.gn + 2 * C + c), __ldg(a.gn + 3 * C + c));
+              const float y =
+                  cand_y(yr[k], stats, __ldg(a.gn + 4 * C + c), __ldg(a.gn + 5 * C + c));
+              o[k] = u * hh[k] + (1.f - u) * y;
+            }
+            st4(hn + p * C + c0, o);
           }
-          st4(hn + p * C + c0, o);
-        }
+        });
       }
     }
     if (d + 1 < a.D) grid.sync();
@@ -688,12 +729,15 @@ __global__ void __launch_bounds__(BT, 2) red_recur_kernel(FwdArgs a) {
 // that plane's A reads x, out and h0 and writes G[(d − 1) & 1] and the first
 // per-block sums, none of which E reads; its B writes Y and m[d − 1] after
 // a sync.  The GroupNorm parameter cotangents Σ do·ŷ, Σ do (C), Σ du·û,
-// Σ du (C) and Σ dr·r̂, Σ dr (E) accumulate in each thread's own slots (a
-// thread keeps the same four channels in every own-pixel pass) and are
-// reduced once at the end in a fixed order.  The weight and bias cotangents
-// are left to the caller: dg, dyl and m keep every plane's values for it.
-// Each phase derives its pointers from the arguments, so few stay live
-// across the plane loop.
+// Σ du (C) and Σ dr·r̂, Σ dr (E) accumulate in slots of the thread that owns
+// the channel (`OwnMap`: a thread keeps the same groups of four channels in
+// every own-pixel pass): its first group's in shared memory, any later
+// group's (C > 4·BT) in the block's row of gnpart, so shared memory does
+// not grow with C.  They are reduced once at the end in a fixed order.  The
+// weight and bias cotangents are left to the caller: dg, dyl and m keep
+// every plane's values for it.  Each phase derives its pointers from the
+// arguments, so few stay live across the plane loop.
+template <bool WIDE>
 __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
@@ -709,23 +753,39 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
   const int bpe = gridDim.x / a.B;
   const int b = blockIdx.x / bpe;
   const int kb = blockIdx.x - b * bpe;  // this block among element b's
-  // own-pixel passes: thread → (pixel lane, group of four channels)
-  const int gc = C / 4, npl = BT / gc;
-  const int lp = threadIdx.x / gc, c0 = (threadIdx.x - lp * gc) * 4;
-  const bool own_lane = lp < npl;
-  const int p_first = kb * npl + lp, p_step = bpe * npl;
+  const OwnMap<WIDE> own(C);  // the own-pixel passes' map
+  const bool own_lane = own.lane();
+  const int p_first = kb * own.npl + own.lp, p_step = bpe * own.npl;
   const int64_t e1 = (int64_t)b * plane;  // element b in the (B, H, W, C) arrays
   // the per-block sums of pass k, and element b's first block's
   auto part = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + blockIdx.x); };
   auto elem = [&](int k) { return a.part + 4 * ((int64_t)k * gridDim.x + (int64_t)b * bpe); };
   const float* gn = a.gn;
-  // slot (q·4 + k)·BT + thread: Σ dr·r̂, Σ dr, Σ du·û, Σ du, Σ do·ŷ, Σ do (q = 0 .. 5)
-  // of this thread's channel c0 + k
+  // The GroupNorm parameter sums Σ dr·r̂, Σ dr, Σ du·û, Σ du, Σ do·ŷ, Σ do
+  // (q = 0 .. 5) of channel c = 4·grp + k of one of this thread's groups:
+  // the first group's in shared slot (q·4 + k)·BT + thread, a later one's
+  // (C > 4·BT) in this block's row of gnpart at q·C + c, as a double that
+  // holds the float sum (the row's pointer derived at each use, so none
+  // stays live across the convs)
   float* gsl = gsm + threadIdx.x;
+  auto row = [&]() { return a.gnpart + (int64_t)blockIdx.x * 6 * C; };
+  auto slot = [&](int grp, int q, int k) -> float {
+    return !WIDE || grp < BT ? gsl[(q * 4 + k) * BT] : (float)row()[q * C + 4 * grp + k];
+  };
+  auto set_slot = [&](int grp, int q, int k, float v) {
+    if (!WIDE || grp < BT)
+      gsl[(q * 4 + k) * BT] = v;
+    else
+      row()[q * C + 4 * grp + k] = v;
+  };
   for (int i = 0; i < GACC; ++i) gsl[i * BT] = 0.f;
-  // GroupNorm scale and shift of norm q (r, u, y) for this thread's channel c0 + k
-  auto gam = [&](int q, int k) { return __ldg(gn + 2 * q * C + c0 + k); };
-  auto bet = [&](int q, int k) { return __ldg(gn + (2 * q + 1) * C + c0 + k); };
+  if (WIDE && own_lane)
+    for (int grp = own.g0 + BT; grp < own.gc; grp += BT)
+      for (int i = 0; i < GACC; ++i) set_slot(grp, i / 4, i % 4, 0.f);
+  // GroupNorm scale and shift of norm q (r, u, y) for channel c0 + k (summed
+  // in this order: the narrow instance then needs no spill, as before)
+  auto gam = [&](int q, int c0, int k) { return __ldg(gn + 2 * q * C + c0 + k); };
+  auto bet = [&](int q, int c0, int k) { return __ldg(gn + (2 * q + 1) * C + c0 + k); };
   auto none = [](int, int, float) {};
 
   for (int d = a.D - 1; d >= 0; --d) {
@@ -757,48 +817,50 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
       float* DU = DO + (int64_t)a.B * plane;
       double s[4] = {0.0, 0.0, 0.0, 0.0};
       if (own_lane) {
-        float ga[4][4];  // Σ du·û, Σ du, Σ do·ŷ, Σ do
+        own.each_group([&](int grp, int c0) {
+          float ga[4][4];  // Σ du·û, Σ du, Σ do·ŷ, Σ do
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) ga[q][k] = gsl[((2 + q) * 4 + k) * BT];
-        for (int p = p_first; p < P; p += p_step) {
-          float gu[4], yr[4], hh[4], dhv[4], gv[4], dov[4], duv[4];
-          unpack4(ld4(G + p * C2 + C + c0), gu);
-          unpack4(ld4(Y + p * C + c0), yr);
-          unpack4(ld4(h + p * C + c0), hh);
-          unpack4(ld4(DH + p * C + c0), dhv);
-          unpack4(ld4(gd + p * C + c0), gv);
+            for (int k = 0; k < 4; ++k) ga[q][k] = slot(grp, 2 + q, k);
+          for (int p = p_first; p < P; p += p_step) {
+            float gu[4], yr[4], hh[4], dhv[4], gv[4], dov[4], duv[4];
+            unpack4(ld4(G + p * C2 + C + c0), gu);
+            unpack4(ld4(Y + p * C + c0), yr);
+            unpack4(ld4(h + p * C + c0), hh);
+            unpack4(ld4(DH + p * C + c0), dhv);
+            unpack4(ld4(gd + p * C + c0), gv);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float uh = (gu[k] - stats[2]) * stats[3];
-            const float u = gate_u(gu[k], stats, gam(1, k), bet(1, k));
-            const float yh = (yr[k] - stats[4]) * stats[5];
-            const float y = cand_y(yr[k], stats, gam(2, k), bet(2, k));
-            const float dht = dhv[k] + gv[k];
-            const float dov_ = dht * (1.f - u) * (1.f - y * y);
-            const float duv_ = dht * (hh[k] - y) * u * (1.f - u);
-            dov[k] = dov_;
-            duv[k] = duv_;
-            dhv[k] = dht * u;
-            ga[0][k] += duv_ * uh;
-            ga[1][k] += duv_;
-            ga[2][k] += dov_ * yh;
-            ga[3][k] += dov_;
-            const double dyg = (double)dov_ * gam(2, k), dug = (double)duv_ * gam(1, k);
-            s[0] += dyg;
-            s[1] += dyg * yh;
-            s[2] += dug;
-            s[3] += dug * uh;
+            for (int k = 0; k < 4; ++k) {
+              const float uh = (gu[k] - stats[2]) * stats[3];
+              const float u = gate_u(gu[k], stats, gam(1, c0, k), bet(1, c0, k));
+              const float yh = (yr[k] - stats[4]) * stats[5];
+              const float y = cand_y(yr[k], stats, gam(2, c0, k), bet(2, c0, k));
+              const float dht = dhv[k] + gv[k];
+              const float dov_ = dht * (1.f - u) * (1.f - y * y);
+              const float duv_ = dht * (hh[k] - y) * u * (1.f - u);
+              dov[k] = dov_;
+              duv[k] = duv_;
+              dhv[k] = dht * u;
+              ga[0][k] += duv_ * uh;
+              ga[1][k] += duv_;
+              ga[2][k] += dov_ * yh;
+              ga[3][k] += dov_;
+              const double dyg = (double)dov_ * gam(2, c0, k), dug = (double)duv_ * gam(1, c0, k);
+              s[0] += dyg;
+              s[1] += dyg * yh;
+              s[2] += dug;
+              s[3] += dug * uh;
+            }
+            st4(DH + p * C + c0, dhv);
+            st4(DO + p * C + c0, dov);
+            st4(DU + p * C + c0, duv);
           }
-          st4(DH + p * C + c0, dhv);
-          st4(DO + p * C + c0, dov);
-          st4(DU + p * C + c0, duv);
-        }
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) gsl[((2 + q) * 4 + k) * BT] = ga[q][k];
+            for (int k = 0; k < 4; ++k) set_slot(grp, 2 + q, k, ga[q][k]);
+        });
       }
       block_sums(s, red, part(2));
     }
@@ -889,45 +951,50 @@ __global__ void __launch_bounds__(BT, 2) red_recur_bwd_kernel(BwdArgs a) {
       // reductions; GN_r's parameter sums
       if (own_lane) {
         float* DG = a.dg + ((int64_t)b * a.D + d) * P * C2;
-        float ga[2][4];  // Σ dr·r̂, Σ dr
+        own.each_group([&](int grp, int c0) {
+          float ga[2][4];  // Σ dr·r̂, Σ dr
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) ga[q][k] = gsl[(q * 4 + k) * BT];
-        for (int p = p_first; p < P; p += p_step) {
-          float gr[4], gu[4], drv[4], duv[4], dgr[4], dgu[4];
-          unpack4(ld4(G + p * C2 + c0), gr);
-          unpack4(ld4(G + p * C2 + C + c0), gu);
-          unpack4(ld4(DR + p * C + c0), drv);
-          unpack4(ld4(DU + p * C + c0), duv);
+            for (int k = 0; k < 4; ++k) ga[q][k] = slot(grp, q, k);
+          for (int p = p_first; p < P; p += p_step) {
+            float gr[4], gu[4], drv[4], duv[4], dgr[4], dgu[4];
+            unpack4(ld4(G + p * C2 + c0), gr);
+            unpack4(ld4(G + p * C2 + C + c0), gu);
+            unpack4(ld4(DR + p * C + c0), drv);
+            unpack4(ld4(DU + p * C + c0), duv);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float rh = (gr[k] - stats[0]) * stats[1];
-            const float uh = (gu[k] - stats[2]) * stats[3];
-            ga[0][k] += drv[k] * rh;
-            ga[1][k] += drv[k];
-            dgr[k] = (drv[k] * gam(0, k) - stats[10] - rh * stats[11]) * stats[1];
-            dgu[k] = (duv[k] * gam(1, k) - stats[8] - uh * stats[9]) * stats[3];
+            for (int k = 0; k < 4; ++k) {
+              const float rh = (gr[k] - stats[0]) * stats[1];
+              const float uh = (gu[k] - stats[2]) * stats[3];
+              ga[0][k] += drv[k] * rh;
+              ga[1][k] += drv[k];
+              dgr[k] = (drv[k] * gam(0, c0, k) - stats[10] - rh * stats[11]) * stats[1];
+              dgu[k] = (duv[k] * gam(1, c0, k) - stats[8] - uh * stats[9]) * stats[3];
+            }
+            st4(DG + p * C2 + c0, dgr);
+            st4(DG + p * C2 + C + c0, dgu);
           }
-          st4(DG + p * C2 + c0, dgr);
-          st4(DG + p * C2 + C + c0, dgu);
-        }
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) gsl[(q * 4 + k) * BT] = ga[q][k];
+            for (int k = 0; k < 4; ++k) set_slot(grp, q, k, ga[q][k]);
+        });
       }
     }
   }
 
-  // the GroupNorm parameter cotangents: each block's threads in order, then
-  // (after the sync) the blocks in order
+  // the GroupNorm parameter cotangents: each block's threads in order (the
+  // lanes that share a group; a group past the first of its thread has one
+  // lane and its sums already in place), then (after the sync) the blocks in
+  // order
   __syncthreads();
   for (int i = threadIdx.x; i < 6 * C; i += BT) {
     const int q = i / C, c = i - q * C, grp = c / 4, k = c - 4 * grp;
+    if (WIDE && grp >= BT) continue;
     double t = 0.0;
-    for (int l = 0; l < npl; ++l) t += gsm[(q * 4 + k) * BT + l * gc + grp];
-    a.gnpart[(int64_t)blockIdx.x * 6 * C + i] = t;
+    for (int l = 0; l < own.npl; ++l) t += gsm[(q * 4 + k) * BT + l * own.gc + grp];
+    row()[i] = t;
   }
   grid.sync();
   if (blockIdx.x == 0) {
@@ -942,12 +1009,13 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-// The shapes both kernels take: 4 ≤ C ≤ 4·BT with C % 4 == 0 and C − 4 <
-// Cn ≤ C real channels, a grid of B equal groups, and every plane index of
-// (3C + Cin) channels within 32 bits.
+// The shapes both kernels take: C ≥ 4 with C % 4 == 0 (any width: past
+// 4·BT the own-pixel passes walk more groups a thread, `OwnMap`) and
+// C − 4 < Cn ≤ C real channels, a grid of B equal groups, and every plane
+// index of (3C + Cin) channels within 32 bits.
 bool valid_shape(int B, int H, int W, int Cin, int C, int Cn, int blocks) {
-  return C >= 4 && C % 4 == 0 && C / 4 <= BT && Cn > C - 4 && Cn <= C && Cin >= 1 && B >= 1 &&
-         blocks >= B && blocks % B == 0 && (int64_t)H * W * (3 * C + Cin) < ((int64_t)1 << 31);
+  return C >= 4 && C % 4 == 0 && Cn > C - 4 && Cn <= C && Cin >= 1 && B >= 1 && blocks >= B &&
+         blocks % B == 0 && (int64_t)H * W * (3 * C + Cin) < ((int64_t)1 << 31);
 }
 
 // Reads n convs' (px, wr, wc, wk, ck) from plan into cv; false for one the
@@ -1008,12 +1076,20 @@ extern "C" int red_recur_smem() { return FWD_SMEM; }
 extern "C" int red_recur_bwd_smem() { return BWD_SMEM; }
 
 // Blocks that the current device holds at once of the forward kernel and of
-// the backward kernel, whichever is fewer (both plans take it, so the two
-// kernels split a plane alike), or a negative CUDA error code.
+// the backward kernel, whichever is fewer over both instances of each (both
+// plans take it, so the two kernels split a plane alike), or a negative
+// CUDA error code.
 extern "C" int red_recur_resident() {
-  const int f = resident_blocks(red_recur_kernel, FWD_SMEM);
-  const int b = resident_blocks(red_recur_bwd_kernel, BWD_SMEM);
-  return f < 0 ? f : b < 0 ? b : f < b ? f : b;
+  const int n[4] = {resident_blocks(red_recur_kernel<false>, FWD_SMEM),
+                    resident_blocks(red_recur_kernel<true>, FWD_SMEM),
+                    resident_blocks(red_recur_bwd_kernel<false>, BWD_SMEM),
+                    resident_blocks(red_recur_bwd_kernel<true>, BWD_SMEM)};
+  int least = n[0];
+  for (int v : n) {
+    if (v < 0) return v;
+    least = v < least ? v : least;
+  }
+  return least;
 }
 
 // Runs the recurrence of B elements over all D planes in one cooperative
@@ -1021,9 +1097,9 @@ extern "C" int red_recur_resident() {
 // `stream`: out (B, D, H, W, C) from x and h0, with the scratch graw (B, H, W,
 // 2C), yraw (B, H, W, C) and part (2, blocks, 4).  plan holds (px, wr, wc, wk,
 // ck) of the gates' and the candidate's convs (see ConvPlan;
-// ops/kernels/red_recur.py `red_recur_plan`).  C must be a multiple of 4 and
-// at most 4·BT; Cn of its channels are real (the header's padded widths),
-// the rest pads.  Every float pointer but x's 16-byte aligned.  Returns
+// ops/kernels/red_recur.py `red_recur_plan`).  C must be a multiple of 4; Cn
+// of its channels are real (the header's padded widths), the rest pads.
+// Every float pointer but x's 16-byte aligned.  Returns
 // cudaGetLastError()-style codes (0 = launched).
 extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float* graw,
                              float* yraw, double* part, const float* wa, const float* ba,
@@ -1037,7 +1113,8 @@ extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float*
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (D == 0) return 0;
-  return coop_launch(red_recur_kernel, args, blocks, FWD_SMEM, stream);
+  return C > 4 * BT ? coop_launch(red_recur_kernel<true>, args, blocks, FWD_SMEM, stream)
+                    : coop_launch(red_recur_kernel<false>, args, blocks, FWD_SMEM, stream);
 }
 
 // The reverse-plane adjoint of red_recur_f32 over B elements in one
@@ -1046,9 +1123,9 @@ extern "C" int red_recur_f32(const float* x, const float* h0, float* out, float*
 // (B, D, H, W, 2C) and dyl (B, D, H, W, C), the recomputed m (B, D, H, W, C)
 // for the caller's weight cotangents, and dgn (6, C).  plan holds (px, wr, wc,
 // wk, ck) of the four convs (see ConvPlan; ops/kernels/red_recur.py
-// `red_recur_bwd_plan`).  dh must hold zeros.  C must be a multiple of 4 and
-// at most 4·BT, Cn of its channels real; every float pointer but x's and
-// dx's 16-byte aligned.  Returns cudaGetLastError()-style codes (0 =
+// `red_recur_bwd_plan`).  dh must hold zeros.  C must be a multiple of 4, Cn
+// of its channels real; every float pointer but x's and dx's 16-byte
+// aligned.  Returns cudaGetLastError()-style codes (0 =
 // launched).
 extern "C" int red_recur_bwd_f32(const float* x, const float* h0, const float* out,
                                  const float* gout, float* dx, float* dg, float* dyl, float* m,
@@ -1067,5 +1144,6 @@ extern "C" int red_recur_bwd_f32(const float* x, const float* h0, const float* o
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
   if (D == 0) return 0;
-  return coop_launch(red_recur_bwd_kernel, args, blocks, BWD_SMEM, stream);
+  return C > 4 * BT ? coop_launch(red_recur_bwd_kernel<true>, args, blocks, BWD_SMEM, stream)
+                    : coop_launch(red_recur_bwd_kernel<false>, args, blocks, BWD_SMEM, stream);
 }

@@ -29,9 +29,11 @@ Both kernels run under a launch plan computed here in Python
 convs and its blocks, so the adjoint recomputes the forward's gates and
 candidate in the same order).
 
-The kernels take any state width 1 ≤ C ≤ 1024, as JAX's kernels and scan
-do.  They move C in float4 groups, so a C that is not a multiple of 4
-runs at C4 = 4⌈C/4⌉ (`padded_width`): the start state, the output's
+The kernels take any state width C ≥ 1, as JAX's kernels and scan do
+(past 1024 channels, `--cr_base_chs` above 128, their own-pixel passes
+walk more than one group of four channels a thread: `own_pixel_lanes`).
+They move C in float4 groups, so a C that is not a multiple of 4 runs at
+C4 = 4⌈C/4⌉ (`padded_width`): the start state, the output's
 cotangent and the weights are padded with zeros (`cell_kernel_args(cell,
 C4)`), the kernels count H·W·C real values in each GroupNorm statistic,
 and the outputs are cut back to C.  That costs, per call, a copy of the
@@ -293,6 +295,15 @@ def _conv_plan(h: int, w: int, cin: int, cout: int, cap: int, nraw: int, map_cos
     return best[1]
 
 
+def own_pixel_lanes(c: int) -> int:
+    """Pixels a block takes at once in the kernels' own-pixel passes (the
+    blend, the adjoint's elementwise passes) at state width c: one a lane
+    of C4/4 threads, each thread one group of four channels, while the
+    groups fit the block's threads; past 4·RED_BWD_THREADS channels one, its
+    threads walking the groups t, t + RED_BWD_THREADS, ... (csrc `OwnMap`)."""
+    return max(RED_BWD_THREADS // (padded_width(c) // 4), 1)
+
+
 @functools.lru_cache(maxsize=256)
 def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) -> dict:
     """The backward kernel's launch for B elements of (h, w) planes, cin
@@ -307,9 +318,8 @@ def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) 
     Python, cached (do not modify what it returns); raises ValueError for
     what the kernels cannot run.  A C that is not a multiple of 4 is
     planned at `padded_width(C)`, the width the kernels run it at."""
-    if not 1 <= c <= 4 * RED_BWD_THREADS:
-        raise ValueError(f"red_recur: the kernels take 1 ≤ C ≤ {4 * RED_BWD_THREADS}, "
-                         f"got C = {c}")
+    if c < 1:
+        raise ValueError(f"red_recur: the kernels take C ≥ 1, got C = {c}")
     c = padded_width(c)  # the width the kernels run at
     if min(b, h, w, cin) < 1:
         raise ValueError(f"red_recur: empty operand B {b}, {h}×{w}, Cin {cin}")
@@ -325,7 +335,7 @@ def red_recur_bwd_plan(b: int, h: int, w: int, cin: int, c: int, resident: int) 
     for (ci, co), nraw, cost in zip(shapes, _NRAW, _MAP_COST):
         alone = _conv_plan(h, w, ci, co, resident, nraw, cost)
         convs.append(_conv_plan(h, w, ci, co, cap, nraw, cost, (alone["wk"], alone["ck"])))
-    own = -(-h * w // (RED_BWD_THREADS // (c // 4)))  # blocks the own-pixel passes fill
+    own = -(-h * w // own_pixel_lanes(c))  # blocks the own-pixel passes fill
     per = min(cap, max(own, *(p["items"] for p in convs)))
     return {"blocks": b * per, "per_element": per, "convs": convs}
 
@@ -372,7 +382,7 @@ def _launch(x: torch.Tensor, cell: ConvGRUCell, h0: torch.Tensor | None,
     c4 = padded_width(c)
     if not x.is_contiguous():
         raise ValueError("red_recur: x must be contiguous")
-    if plan is None:  # refuses C > 1024, 32-bit overflow and more elements than fit
+    if plan is None:  # refuses 32-bit overflow and more elements than fit
         with torch.cuda.device(x.device):
             plan = red_recur_plan(b, h, w, cin, c, resident())
     h0 = _start_state(x, c, h0)
@@ -518,8 +528,8 @@ def red_recur(x: torch.Tensor, cell: ConvGRUCell,
     or None → (B, D, H, W, C), B independent recurrences in one launch.
     Chaining: red_recur(x)[k:] equals red_recur(x[k:], cell,
     red_recur(x[:k], cell)[-1]) (per element when batched).  CUDA tensors go
-    to the kernel (x and h0 contiguous, 1 ≤ C ≤ 1024; a grid the card
-    cannot hold raises), CPU tensors to `red_recur_reference`.  Differentiable in x
+    to the kernel (x and h0 contiguous, any C ≥ 1; a grid the card cannot
+    hold raises), CPU tensors to `red_recur_reference`.  Differentiable in x
     and the cell's parameters (backward `red_recur_backward`); an h0 that
     requires a gradient raises where autograd records, as the seeded JAX
     forms have no VJP.

@@ -267,12 +267,17 @@ def test_cuda_conv_head_matches_plain_version(n, h, w, cin, cout):
                                                 (3, 10, 36, 12, 12, True),
                                                 (2, 9, 20, 24, 24, False),
                                                 (4, 9, 20, 6, 6, True), (3, 8, 12, 5, 2, False),
-                                                (3, 7, 16, 10, 10, True), (2, 5, 7, 3, 1, True)])
+                                                (3, 7, 16, 10, 10, True), (2, 5, 7, 3, 1, True),
+                                                (3, 6, 10, 20, 1032, True),
+                                                (2, 5, 7, 9, 1030, False),
+                                                (2, 4, 6, 12, 2056, True)])
 def test_cuda_red_recur_matches_plain_version(d, h, w, cin, c, seeded):
     """Odd sizes, Cin % 4 != 0, C = 64, C = 12 and 24 (the cells
     `cr_base_chs` 12 gives), C = 6, 2, 10 and 1 (run padded to a multiple
-    of 4), zero and seeded start states: 1e-4 on states in (−1, 1)
-    (GroupNorm statistics in float64 against torch's fp32)."""
+    of 4), C = 1032, 1030 (run at 1032) and 2056, past the 1024 channels
+    where a thread of the own-pixel passes walks more than one group, zero
+    and seeded start states: 1e-4 on states in (−1, 1) (GroupNorm
+    statistics in float64 against torch's fp32)."""
     from satmvs_tpu_torch.nn.blocks import ConvGRUCell
     from satmvs_tpu_torch.ops.kernels.red_recur import red_recur, red_recur_reference
 
@@ -1230,7 +1235,10 @@ def test_cuda_conv3d_block_past_64_output_channels(n, d, h, w, cin, cout, op):
                                                   (2, 2, 9, 20, 24, 24, False),
                                                   (2, 3, 9, 20, 6, 6, True),
                                                   (1, 3, 8, 12, 5, 2, False),
-                                                  (2, 2, 7, 16, 10, 10, True)])
+                                                  (2, 2, 7, 16, 10, 10, True),
+                                                  (1, 3, 6, 10, 20, 1032, True),
+                                                  (1, 2, 5, 7, 9, 1030, False),
+                                                  (2, 2, 4, 6, 12, 2056, False)])
 def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seeded):
     """The adjoint kernel and its weight reductions against the plain
     reverse-plane backward on the card, on states in (−1, 1): dx and every
@@ -1238,8 +1246,10 @@ def test_cuda_red_recur_backward_matches_plain_version(b, d, h, w, cin, c, seede
     in float64 against torch's fp32 moments), and the same bits in a second
     run (no atomics).  Shapes: a coarse plane at C = 64 and a wide one at
     C = 8 (stage 1 scale 8 and stage 3 in small), C = 12 and 24, the
-    cells `cr_base_chs` 12 gives, and C = 6, 2 and 10, run padded to a
-    multiple of 4."""
+    cells `cr_base_chs` 12 gives, C = 6, 2 and 10, run padded to a
+    multiple of 4, and C = 1032, 1030 and 2056, past 1024 channels (the
+    GroupNorm parameter sums of a thread's later groups in device
+    memory)."""
     from satmvs_tpu_torch.ops.kernels import red_recur as rr
 
     _cuda()
@@ -1322,14 +1332,19 @@ def test_cuda_red_autograd_runs_the_backward_kernels():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["concat_bias", "bmask_s2", "amask_s2", "odd"])
+@pytest.mark.parametrize("case", ["concat_bias", "bmask_s2", "amask_s2", "odd", "past_tile"])
 def test_cuda_wgrad3x3_reduces_a_training_plane(case):
     """The weight reduction at stage 3 of a 384×768 train step (8 planes,
     2.4 M pixels of B), with masks, the concat and the bias, against
     `wgrad3x3_reference` in float64: each element to 1e-6 × Σ |terms| of its
     sum (chip_smoke.py's REDUCE_TOL), a bound under 1e-2 of the largest
     value, and the same bits in a second run.  "odd": CA and CB not
-    multiples of 4 (the scalar loads) at a smaller size."""
+    multiples of 4 (the scalar loads) at a smaller size.  "past_tile": the
+    gates of `cr_base_chs` 129's first cell (32 planes of 96×192, [x | h]
+    32 + 132 channels, CB = 264 in tiles of 32, so the last tile reaches
+    past CB): its float4 loads stop at CB, where they once read past the end
+    of B (CUDA error 700: B is a whole number of the allocator's 2 MiB
+    pages)."""
     from satmvs_tpu_torch.ops.kernels import plane_conv as pc
 
     _cuda()
@@ -1339,6 +1354,11 @@ def test_cuda_wgrad3x3_reduces_a_training_plane(case):
         a1, b, s = _rand((n, h, w, 8), 80), _rand((n, h, w, 16), 81) + 0.5, 1
         kw = {"a2": _rand((n, h, w, 8), 82), "bias": True}
         a_abs = {"a2": kw["a2"].abs()}
+    elif case == "past_tile":
+        a1, b, s = _rand((32, 96, 192, 32), 92), _rand((32, 96, 192, 264), 93) + 0.5, 1
+        kw = {"a2": _rand((32, 96, 192, 132), 94), "bias": True}
+        a_abs = {"a2": kw["a2"].abs()}
+        assert pc.wgrad3x3_plan(32, 96, 192, 164, 264, 1)["cb_t"] == 32
     elif case == "bmask_s2":  # conv_dn's: B is the cotangent, masked by y
         a1, b, s = _rand((n, h, w, 8), 83), _rand((n, h // 2, w // 2, 16), 84), 2
         kw = {"bmask": _rand((n, h // 2, w // 2, 16), 85)}

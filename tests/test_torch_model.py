@@ -61,13 +61,31 @@ def _perturbed(variables, seed=0):
     return walk(jax.tree.map(np.asarray, dict(variables)))
 
 
-def _runs(cr_base_chs=(8, 8, 8)):
+def _from_shapes(jm, args, seed=1):
+    """jm's variables from their shapes alone (`jax.eval_shape`: no compile
+    of the init, which takes tens of seconds at wide regularizers): kernels
+    at LeCun scale from a numpy seed, every other leaf zeros for
+    `_perturbed` to set."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        if path[-1].key != "kernel":
+            return np.zeros(s.shape, np.float32)
+        return rng.standard_normal(s.shape, np.float32) * np.float32(np.prod(s.shape[:-1]) ** -0.5)
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, jax.eval_shape(jm.init, jax.random.PRNGKey(0), *args))
+
+
+def _runs(cr_base_chs=(8, 8, 8), from_shapes=False):
     """JAX's and the port's forward on one batch and the same weights, the
-    regularizers at base widths cr_base_chs."""
+    regularizers at base widths cr_base_chs (the weights JAX's init's, or
+    with from_shapes `_from_shapes`')."""
     jb = jsyn.make_batch(1, W, H, seed=0, with_gt=False)
     jm = JNet(geo_model="rpc", ndepths=NDEPTHS, fused_red=False, cr_base_chs=cr_base_chs)
     args = (jnp.asarray(jb["imgs"]), jb["cams"], jnp.asarray(jb["depth_values"]))
-    v = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(0), *args))
+    init = _from_shapes(jm, args) if from_shapes else jax.jit(jm.init)(jax.random.PRNGKey(0), *args)
+    v = _perturbed(init)
     for i in range(3):
         head = v["params"][f"REDRegularizer_{i}"]["ScanREDStep_0"]["Conv_0"]
         head["kernel"] = head["kernel"] * 40.0
@@ -128,6 +146,25 @@ def test_slice_at_state_width_6_matches_jax():
               f"confidence p99 {np.quantile(cerr, 0.99):.2e}, max {cerr.max():.2e} (tol 2e-3)")
         assert err.mean() <= 0.01 and np.quantile(err, 0.99) <= 0.01, f"stage{i}"
         assert np.quantile(cerr, 0.99) <= 2e-3, f"stage{i}"
+
+
+def test_slice_at_base_width_129_matches_jax():
+    """`cr_base_chs` (129, 8, 8): stage 1's cells have 129, 258, 516 and
+    1032 state channels (the card runs them at 132, 260, 516 and 1032; the
+    last is past the 1024 where a thread of the ConvGRU kernels' own-pixel
+    passes walks more than one group of channels), against JAX's model at
+    the same widths: depth within 1 % of each stage's step and confidence
+    within 2e-3, the gates above."""
+    want, got, dv = _runs((129, 8, 8), from_shapes=True)
+    steps = [(dv[1] - dv[0]) / (NDEPTHS[0] - 1)]
+    steps += [nd * iv / (nd - 1) for nd, iv in zip(NDEPTHS[1:], INTERVALS[1:])]
+    for i, step in enumerate(steps, start=1):
+        err = np.abs(got[f"stage{i}"]["depth"].numpy() - want[f"stage{i}"]["depth"]) / step
+        cerr = np.abs(got[f"stage{i}"]["photometric_confidence"].numpy()
+                      - want[f"stage{i}"]["photometric_confidence"])
+        print(f"[parity] base width 129 stage{i}: depth max {err.max():.2e} of step (tol "
+              f"0.01); confidence max {cerr.max():.2e} (tol 2e-3)")
+        assert err.max() < 0.01 and cerr.max() <= 2e-3, f"stage{i}"
 
 
 def test_slice_confidence_matches_jax(both_runs):

@@ -28,11 +28,13 @@ ROOT = Path(__file__).resolve().parents[1]
 RESIDENT = 2 * 132  # an H100: 132 SMs, two backward blocks an SM
 CARD_SHAPES = [  # (B, H, W, Cin, C) of the `cuda` backward tests
     (1, 16, 24, 8, 8), (2, 7, 9, 6, 4), (1, 6, 12, 64, 64), (2, 12, 24, 64, 64),
-    (2, 32, 160, 16, 8), (1, 10, 36, 12, 12), (2, 9, 20, 24, 24)]
+    (2, 32, 160, 16, 8), (1, 10, 36, 12, 12), (2, 9, 20, 24, 24), (1, 6, 10, 20, 1032),
+    (1, 5, 7, 9, 1030), (2, 4, 6, 12, 2056)]
 FWD_CARD_SHAPES = [  # (B, H, W, Cin, C) of the `cuda` forward tests
     (1, 16, 24, 8, 8), (1, 7, 9, 6, 4), (1, 6, 12, 64, 64), (1, 10, 36, 12, 12),
     (1, 9, 20, 24, 24), (3, 7, 9, 6, 4), (2, 6, 12, 64, 64), (4, 16, 24, 8, 8),
-    (4, 20, 28, 16, 16), (2, 8, 8, 4, 4), (2, 32, 160, 16, 8), (4, 12, 24, 64, 64)]
+    (4, 20, 28, 16, 16), (2, 8, 8, 4, 4), (2, 32, 160, 16, 8), (4, 12, 24, 64, 64),
+    (1, 6, 10, 20, 1032), (1, 5, 7, 9, 1030), (1, 4, 6, 12, 2056)]
 
 
 def _chip_smoke():
@@ -99,7 +101,7 @@ def _check_plan(b, h, w, cin, c, resident):
     # an element's sums are taken in the order it would take alone
     assert _sum_order(plan) == _sum_order(rr.red_recur_bwd_plan(1, h, w, cin, c, resident))
     # the own-pixel passes cover the plane, four channels a thread
-    lanes = rr.RED_BWD_THREADS // (rr.padded_width(c) // 4)
+    lanes = rr.own_pixel_lanes(c)
     assert lanes >= 1 and per * lanes >= min(h * w, per * lanes)
     return plan
 
@@ -114,7 +116,7 @@ def test_plan_at_every_call_of_a_train_step(b):
     assert 2 * (rr.RED_BWD_SMEM + 1024) <= 233472  # two blocks an SM (1 KB reserved each)
     for h, w, cin, c in _train_shapes():
         plan = _check_plan(b, h, w, cin, c, RESIDENT)
-        own = -(-h * w // (rr.RED_BWD_THREADS // (c // 4)))
+        own = -(-h * w // rr.own_pixel_lanes(c))
         most = max(own, *(p["items"] for p in plan["convs"]))
         assert plan["per_element"] == min(RESIDENT // b, most), (h, w, plan)
         assert plan["per_element"] >= 64 // b, (h, w, plan["per_element"])
@@ -127,9 +129,14 @@ def test_plan_at_the_card_tests_shapes(resident):
 
 
 def test_plan_refuses_what_the_kernel_cannot_run():
-    for c in (0, 4 * rr.RED_BWD_THREADS + 1, 4 * rr.RED_BWD_THREADS + 4):
-        with pytest.raises(ValueError, match="1 ≤ C ≤ 1024"):
-            rr.red_recur_bwd_plan(1, 8, 8, 4, c, RESIDENT)
+    """An empty state, a grid past the card, 32-bit overflow and an empty
+    operand raise; widths past 4·256 channels, once refused, are planned
+    (the own-pixel passes walk more than one group a thread)."""
+    with pytest.raises(ValueError, match="C ≥ 1, got C = 0"):
+        rr.red_recur_bwd_plan(1, 8, 8, 4, 0, RESIDENT)
+    for c in (4 * rr.RED_BWD_THREADS + 1, 4 * rr.RED_BWD_THREADS + 4):
+        _check_plan(1, 8, 8, 4, c, RESIDENT)
+        _check_own_pixels(rr.red_recur_bwd_plan(1, 8, 8, 4, c, RESIDENT), 1, 8, 8, c)
     with pytest.raises(ValueError, match="cooperative grid"):
         rr.red_recur_bwd_plan(300, 8, 8, 4, 8, RESIDENT)
     with pytest.raises(ValueError, match="32-bit"):
@@ -320,11 +327,88 @@ def test_plans_take_widths_that_are_not_a_multiple_of_4(c):
 
 
 def test_forward_plan_refuses_what_the_kernel_cannot_run():
-    with pytest.raises(ValueError, match="1 ≤ C ≤ 1024, got C = 1025"):
-        rr.red_recur_plan(1, 8, 8, 4, 1025, RESIDENT)
+    """As the backward's plan: C = 0, 32-bit overflow and grids past the
+    card raise; C = 1025 and 1029, once refused, are planned at 1028 and
+    1032."""
+    with pytest.raises(ValueError, match="C ≥ 1, got C = 0"):
+        rr.red_recur_plan(1, 8, 8, 4, 0, RESIDENT)
+    for c in (1025, 1029):
+        plan = _check_forward_plan(1, 8, 8, 4, c, RESIDENT)
+        assert plan == rr.red_recur_plan(1, 8, 8, 4, rr.padded_width(c), RESIDENT)
     with pytest.raises(ValueError, match="32-bit"):
         rr.red_recur_plan(1, 4096, 8192, 64, 64, RESIDENT)
     with pytest.raises(ValueError, match="cooperative grid"):
         rr.red_recur_plan(RESIDENT + 1, 8, 8, 4, 8, RESIDENT)
     with pytest.raises(ValueError, match="cooperative grid"):
         rr.red_recur_plan(20000, 1, 4, 4, 4, RESIDENT)
+
+
+def _check_own_pixels(plan, b, h, w, c):
+    """The kernels' own-pixel passes (csrc `OwnMap`) written out over the
+    plan's grid: thread t of element block kb takes lane lp = t // gc (gc =
+    C4/4 groups of four channels, npl = `own_pixel_lanes` lanes) and the
+    groups t − lp·gc, then + 256 … below gc, pixels kb·npl + lp, then +
+    per·npl …; every (pixel, group) of each element once.  The GroupNorm
+    parameter slots: the final sum over l < npl of group g's slot l·gc + g
+    reads exactly the lanes that own g (a thread's first group, in shared
+    memory), and a group past a thread's first (C4 > 1024, one lane) has
+    one owner."""
+    bt, c4 = rr.RED_BWD_THREADS, rr.padded_width(c)
+    gc, npl, per, p_cnt = c4 // 4, rr.own_pixel_lanes(c), plan["per_element"], h * w
+    assert npl == (bt // gc if gc <= bt else 1)
+    t = np.arange(bt)
+    lp, g0 = t // gc, t - (t // gc) * gc
+    lanes = lp < npl
+    owners = {}  # group → the (lane, thread) that own it
+    for tid in t[lanes]:
+        for g in range(g0[tid], gc, bt):
+            owners.setdefault(g, []).append((lp[tid], tid))
+    assert sorted(owners) == list(range(gc))
+    for g, who in owners.items():
+        if g < bt:  # summed from the shared slots l·gc + g, l < npl
+            assert sorted(tid for _, tid in who) == [l * gc + g for l in range(npl)]
+        else:
+            assert npl == 1 and who == [(0, g % bt)]
+    count = np.zeros((p_cnt, gc), dtype=np.int64)
+    for kb in range(per):
+        for lane in range(npl):
+            px = np.arange(kb * npl + lane, p_cnt, per * npl)
+            gs = [g for g, who in owners.items() if any(l == lane for l, _ in who)]
+            count[np.ix_(px, gs)] += 1
+    assert (count == 1).all(), (c, per, npl)
+
+
+# (B, H, W, Cin, C) past 1024 state channels: stage 1's cells of a 384×768
+# forward at cr_base_chs (129, 8, 8) (run at 132, 260, 516 and 1032), the
+# deepest at 1025, 1030 and 1032, C = 2056 (three groups for some threads)
+# on a small plane, and a 4-tile scene chunk's deepest cell (448² tiles)
+WIDE_SHAPES = [(1, 96, 192, 32, 129), (1, 48, 96, 258, 258), (1, 24, 48, 516, 516),
+               (1, 12, 24, 1032, 1025), (1, 12, 24, 1032, 1030), (1, 12, 24, 1032, 1032),
+               (1, 6, 10, 64, 2056), (4, 14, 14, 1032, 1032)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,c", WIDE_SHAPES)
+def test_plans_past_1024_channels(b, h, w, cin, c):
+    """Past 1024 state channels both plans cover every pixel and channel
+    (tiles, slabs and the own-pixel passes), fit their buffers, sum each
+    element in the order of its B = 1 launch and size the grid from the
+    own-pixel passes' one pixel a block."""
+    plan = _check_forward_plan(b, h, w, cin, c, RESIDENT)
+    bwd = _check_plan(b, h, w, cin, c, RESIDENT)
+    assert _sum_order(plan) == _sum_order(rr.red_recur_plan(1, h, w, cin, c, RESIDENT))
+    most = max(-(-h * w // rr.own_pixel_lanes(c)), *(p["items"] for p in bwd["convs"]))
+    assert bwd["per_element"] == min(RESIDENT // b, most)
+    _check_own_pixels(bwd, b, h, w, c)
+
+
+def test_default_widths_plans_are_pinned():
+    """red_recur's plans at the default base width (the 12 recurrences of a
+    384×768 forward at B = 1 and 2, both kernels, and of a 4-tile chunk)
+    hash to the digest chip_smoke.py holds the card's plans to, the one
+    they had before the kernels took widths past 1024."""
+    import hashlib
+    import json
+
+    cs = _chip_smoke()
+    digest = hashlib.sha256(json.dumps(cs.default_plans(RESIDENT), sort_keys=True).encode())
+    assert digest.hexdigest()[:16] == cs.DEFAULT_PLAN_DIGEST == "d86fa01d6a690ceb"

@@ -173,13 +173,14 @@ def test_red_scan_and_its_gradient_match_jax():
         torch.testing.assert_close(tm(tv), logits.detach(), rtol=0, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def train_step_runs():
+def _step_runs(cr_base_chs=(8, 8, 8), fused_red=False):
     """One train step of each package from the same weights and batch, and
-    each one's eval-mode loss and gradients."""
+    each one's eval-mode loss and gradients, the regularizers at base widths
+    cr_base_chs (JAX on its scan path, the port on its fused pipeline when
+    fused_red)."""
     jb = numeric_batch(jsyn.make_batch(1, W, H, seed=0))
-    jcfg = JConfig(ndepths=NDEPTHS, fused_red=False)
-    jm = jbuild("red", "rpc", ndepths=NDEPTHS, fused_red=False)
+    jcfg = JConfig(ndepths=NDEPTHS, fused_red=False, cr_base_chs=cr_base_chs)
+    jm = jbuild("red", "rpc", ndepths=NDEPTHS, fused_red=False, cr_base_chs=cr_base_chs)
     args = (jb["imgs"], jb["cams"], jb["depth_values"])
     v = seeded(jax.eval_shape(functools.partial(jm.init, train=False),
                               jax.random.PRNGKey(0), *args), 6)
@@ -195,7 +196,7 @@ def train_step_runs():
     jnew, jscalars = jmake_train_step(jm, jtx, tuple(jcfg.dlossw))(jstate, jb)
 
     tb = tsyn.make_batch(1, W, H, seed=0, device="cpu")
-    cfg = Config(ndepths=NDEPTHS, fused_red=False)
+    cfg = Config(ndepths=NDEPTHS, fused_red=fused_red, cr_base_chs=cr_base_chs)
     model, state, tx = create_model_and_state(cfg, tb, 2, variables=v)
     out = model.run_cascade(tb["imgs"], tb["cams"], tb["depth_values"], False)
     loss = cascade_loss(out, tb["depth_stages"], tb["mask_stages"], cfg.dlossw)[0]
@@ -208,16 +209,35 @@ def train_step_runs():
             "scalars": {k: float(x) for k, x in scalars.items()}}
 
 
-def test_train_step_loss_matches_jax(train_step_runs):
-    """Eval-mode loss and the train step's loss, depth_loss and
-    abs_depth_error: 1e-5 relative."""
-    r = train_step_runs
+@pytest.fixture(scope="module")
+def train_step_runs():
+    return _step_runs()
+
+
+def _check_losses(r, what="train step"):
     pairs = [("eval loss", r["loss"], r["jloss"])] + [
         (k, r["scalars"][k], r["jscalars"][k]) for k in ("loss", "depth_loss", "abs_depth_error")]
     for name, got, want in pairs:
-        print(f"[parity] train step {name}: {got:.6f} vs {want:.6f}, "
+        print(f"[parity] {what} {name}: {got:.6f} vs {want:.6f}, "
               f"{abs(got - want) / abs(want):.2e} relative (tol 1e-5)")
         assert abs(got - want) <= 1e-5 * abs(want), name
+
+
+def test_train_step_loss_matches_jax(train_step_runs):
+    """Eval-mode loss and the train step's loss, depth_loss and
+    abs_depth_error: 1e-5 relative."""
+    _check_losses(train_step_runs)
+
+
+@pytest.mark.slow
+def test_train_step_loss_at_base_width_129_matches_jax():
+    """`cr_base_chs` (129, 8, 8), stage 1's deepest cell 1032 channels
+    (past the 1024 where the card's ConvGRU kernels walk more than one
+    group a thread), the port on its fused pipeline (on the CPU its plain
+    versions) against JAX's scan path: the eval-mode loss and the train
+    step's loss, depth_loss and abs_depth_error, 1e-5 relative.  Slow: JAX's
+    jit of the step at these widths takes most of a minute."""
+    _check_losses(_step_runs((129, 8, 8), fused_red=None), "train step at base 129")
 
 
 def test_eval_mode_gradients_match_jax(train_step_runs):
