@@ -7,9 +7,10 @@ Phases, each reported on its own lines:
   0  setup: TF32 off for matmuls and cuDNN, the card's name and power limit;
   1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a),
      each kernel instance's registers and spills; no instance of the plane
-     convs or of the sweep (sweep_variance_kernel, and
-     sweep_variance_groups_kernel for more than four source views) may
-     spill;
+     convs, of the sweep (sweep_variance_kernel, and
+     sweep_variance_groups_kernel for more than four source views) or of
+     the bf16 sweep pair (sweep_gather_bf16_kernel,
+     sweep_scatter_bf16_kernel) may spill;
   2  each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it (sweep_variance at the forward's
      coordinates: stage 1 uniform, stages 2-3 windows around a seeded
@@ -118,7 +119,9 @@ Phases, each reported on its own lines:
      (sweep_variance_backward, the bf16 gather and scatter; run beside
      phase 6) against its plain version at the train step's shapes, kernel ms by events, device
      ms by torch.profiler, bound, plain ms, the same bits twice where no
-     atomics are involved; three CascadeMVSNet and three UCSNet train steps
+     atomics are involved; the bf16 scatter's blocks outside their
+     shared-memory window at each shape, the wrappers' host time a call,
+     and the pair's figures before its redesign beside them ("was"); three CascadeMVSNet and three UCSNet train steps
      (the sweep pair only: their CostRegNet trains as cuDNN's conv3d), their
      step ms, peak memory and one step at 96×192 against the CPU, and a
      `cli.train --mode=train --model ucs` epoch on phase 9's tree; and the
@@ -2094,6 +2097,32 @@ def bf16_tol(want) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8) + rel_tol(want.float())
 
 
+# the bf16 pair's figures before its redesign (PERF.md rows "2, bf16" and
+# "3, bf16", as the port first ran them on an H100 80GB HBM3 at 700 W),
+# summed over a train step's six views: CUDA events and profiler device ms
+BF16_PAIR_WAS = {"gather": (0.8261, 0.3719), "scatter": (1.4335, 0.9498)}
+
+
+def bf16_kernel(wrapper: str):
+    """A profiler-key filter for the bf16 instance of the sweep pair's
+    `wrapper` kernel under either design: `sweep_<x>_bf16_kernel` or the
+    earlier fp32 template's `sweep_<x>_kernel<4, unsigned short>`."""
+    return lambda k: wrapper in k and ("bf16" in k or "unsigned short" in k)
+
+
+def launch_host_ms(fn, calls: int = 20) -> float:
+    """Median host time of one call of fn (its wrapper and launch), each
+    after a synchronize, so the launch finds the queue empty."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(times))
+
+
 def sweep_backward_work(feats, xs, ys) -> tuple[float, float]:
     """Bytes (the volume's cotangent read once, the S cotangent volumes and
     the reference's cotangent written once, coordinates and features read
@@ -2115,9 +2144,12 @@ def phase_sweep_train_kernels(card: str) -> list[dict]:
     the three stage shapes of a 384×768 train step: sweep_variance_backward
     on the forward's coordinates (B = 1, S = 2; gs and dref, the same bits in
     a second run), the bf16 gather (`bf16_tol`, the same bits twice) and the bf16 scatter (the
-    summation bound of phase 6; its run-to-run difference) on phase 6's
-    cases; kernel ms by events, device ms by torch.profiler, bound and plain
-    ms.  No single PyTorch call computes any of the three (library null)."""
+    summation bound of phase 6; its run-to-run difference; the share of its
+    blocks outside their shared-memory window) on phase 6's cases; kernel
+    ms by events, device ms by torch.profiler (`bf16_kernel`), the
+    wrappers' host ms a call, bound and plain ms, and BF16_PAIR_WAS beside
+    the step's sums.  No single PyTorch call computes any of the three
+    (library null)."""
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
     from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
 
@@ -2155,7 +2187,8 @@ def phase_sweep_train_kernels(card: str) -> list[dict]:
     def bf16_bytes(d, h, w, c):
         return 2 * d * h * w * c + 8 * d * h * w + 4 * h * w * c
 
-    dev = [0.0, 0.0]
+    dev, host = [0.0, 0.0], [0.0, 0.0]
+    blocks = [0, 0]
     for label, src, xs, ys, g in gather_cases():
         timed = label != "off-image"
         d, h, w = xs.shape
@@ -2170,26 +2203,43 @@ def phase_sweep_train_kernels(card: str) -> list[dict]:
         gb = g.to(torch.bfloat16)
         mag = sg.sweep_scatter_reference(gb.abs(), xs, ys, h, w).max().item()
         tol = 2 * (4 * d - 1) * 2.0 ** -24 * mag
+        before = sg.window_blocks("cuda").clone()
+        one = sg.sweep_scatter(gb, xs, ys)
+        n, out = (sg.window_blocks("cuda") - before).tolist()
+        del one
         scatter.case(label, lambda: sg.sweep_scatter(gb, xs, ys),
                      lambda: sg.sweep_scatter_reference(gb, xs, ys, h, w), lambda want: tol,
                      bf16_bytes(d, h, w, c), flops, timed=timed)
         again = (sg.sweep_scatter(gb, xs, ys) - sg.sweep_scatter(gb, xs, ys)).abs().max().item()
         check(again <= tol, f"sweep_scatter_bf16 {label}: run-to-run {again} > {tol}")
+        plan = sg.scatter_window_plan(d, h, w, c, sms=torch.cuda.get_device_properties(
+            0).multi_processor_count)
         line = (f"[sweeps] bf16 pair {label}: gather same bits twice {same}; scatter run-to-run "
-                f"{again:.3e} (bound {tol:.3e})")
+                f"{again:.3e} (bound {tol:.3e}); scatter blocks outside their window {out} of "
+                f"{n} ({out / max(n, 1):.4f}; tile {plan['ty']}x{plan['tx']}, "
+                f"{plan['planes']} planes, {plan['cg']} channels a block)")
         if timed:
+            blocks[0] += n
+            blocks[1] += out
             gd = device_ms(lambda: sg.sweep_gather(src, xs, ys, torch.bfloat16),
-                           lambda k: "sweep_gather_kernel" in k and "unsigned short" in k, 5)
-            sd = device_ms(lambda: sg.sweep_scatter(gb, xs, ys),
-                           lambda k: "sweep_scatter_kernel" in k and "unsigned short" in k, 5)
+                           bf16_kernel("sweep_gather"), 5)
+            sd = device_ms(lambda: sg.sweep_scatter(gb, xs, ys), bf16_kernel("sweep_scatter"), 5)
+            gh = launch_host_ms(lambda: sg.sweep_gather(src, xs, ys, torch.bfloat16))
+            sh = launch_host_ms(lambda: sg.sweep_scatter(gb, xs, ys))
             dev[0] += gd
             dev[1] += sd
-            line += f"; device gather {gd:.4f} ms, scatter {sd:.4f} ms (profiler)"
+            host[0] += gh
+            host[1] += sh
+            line += (f"; device gather {gd:.4f} ms, scatter {sd:.4f} ms (profiler); host a call "
+                     f"gather {gh:.4f} ms, scatter {sh:.4f} ms")
         print(f"{line} card={card}", flush=True)
-    print(f"[sweeps] bf16 pair over a train step's six views: device gather {dev[0]:.4f} ms, "
-          f"scatter {dev[1]:.4f} ms; events gather {gather.rec['ms']:.4f}, scatter "
-          f"{scatter.rec['ms']:.4f} ms; bounds {gather.rec['bound_ms']:.4f}, "
-          f"{scatter.rec['bound_ms']:.4f} ms card={card}", flush=True)
+    print(f"[sweeps] bf16 pair over a train step's six views: device gather {dev[0]:.4f} ms "
+          f"(was {BF16_PAIR_WAS['gather'][1]}), scatter {dev[1]:.4f} ms (was "
+          f"{BF16_PAIR_WAS['scatter'][1]}); events gather {gather.rec['ms']:.4f} (was "
+          f"{BF16_PAIR_WAS['gather'][0]}), scatter {scatter.rec['ms']:.4f} ms (was "
+          f"{BF16_PAIR_WAS['scatter'][0]}); host gather {host[0]:.4f}, scatter {host[1]:.4f} ms; "
+          f"bounds {gather.rec['bound_ms']:.4f}, {scatter.rec['bound_ms']:.4f} ms; scatter "
+          f"blocks outside their window {blocks[1]} of {blocks[0]} card={card}", flush=True)
     return [backward.record(), gather.record(), scatter.record()]
 
 
@@ -5827,11 +5877,13 @@ def run(scene_job, tree_job, render_ahead) -> int:
             if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel",
                                         "sweep_variance_kernel",
                                         "sweep_variance_groups_kernel",
-                                        "conv3d_block_kernel")):
+                                        "conv3d_block_kernel", "sweep_gather_bf16_kernel",
+                                        "sweep_scatter_bf16_kernel")):
                 spills[kernel] = int(m.group(1))
     if spills:  # built in this run: these instances must not spill
         print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel, "
-              f"sweep_variance_kernel, sweep_variance_groups_kernel and conv3d_block_kernel, "
+              f"sweep_variance_kernel, sweep_variance_groups_kernel, conv3d_block_kernel, "
+              f"sweep_gather_bf16_kernel and sweep_scatter_bf16_kernel, "
               f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
     took("[build]", "1", t0)

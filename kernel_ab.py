@@ -28,6 +28,14 @@ per shape:
   (bilinear, zero padding) on the same data, each over calls launched
   back to back (chip_smoke.loop_ms) and as the device time of the kernels
   under torch.profiler (a call this short is near the host's launch time);
+  at the same shapes the fp32 sweep_scatter (row 3), the bf16 gather
+  (row "2, bf16", with the `digest` of its output) and the bf16 scatter
+  (row "3, bf16", its error against its plain version and its run-to-run
+  difference, each beside the summation bound, and where the tree has
+  them the blocks outside its shared-memory window): back to back, device
+  time of the kernels under torch.profiler by names that read either
+  tree's design (chip_smoke.bf16_kernel), and the wrapper's host time a
+  call (chip_smoke.launch_host_ms);
   plane_conv (rows 8, 10, 12 and the dx of rows 9, 11, 13) at the 21
   forward and 21 dx calls of `chip_smoke.plane_calls()`: CUDA events
   (median of --reps calls of the wrapper a user calls; a dx through the
@@ -51,7 +59,9 @@ take a plan, whose gather takes planes a thread and whose plane convs take
 a `plane_conv_plan`) it also times the forward and the adjoint at each
 train-step shape with each conv's plan replaced in turn by every other
 (px, wr, wc, wk, ck), the others kept, and prints the best; the gather at
-1, 2, 4 and 8 planes a thread; each plane conv under every option of
+1, 2, 4 and 8 planes a thread, the bf16 gather at 2, 4, 8 and 16, and the
+bf16 scatter under window plans of 2 to 32 planes a block and budgets of
+6144 and SCATTER_WINDOW ints (where the tree has `scatter_window_plan`); each plane conv under every option of
 `plane_conv_plan_options` (slab, tile, threads, chunk), back to back; and
 the sweep under every option of `sweep_variance_plan_options`.  The
 last line sums the shapes.  Exits non-zero without a CUDA device.
@@ -77,7 +87,8 @@ def digest(*tensors) -> str:
 
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -257,6 +268,54 @@ def time_sweep(cs, args, tag: dict, totals: dict):
         del run
 
 
+def time_sweep_pair(cs, sg, args, src, xs, ys, g) -> list[dict]:
+    """The fp32 scatter and the bf16 pair at one shape (module docstring):
+    one record each."""
+    d, h, w = xs.shape
+    c = src.shape[-1]
+    gb = g.to(torch.bfloat16)
+    tol = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(
+        gb.abs(), xs, ys, h, w).max().item()
+    recs = []
+    for kernel, fn, pick in (
+            ("sweep_scatter", lambda: sg.sweep_scatter(g, xs, ys),
+             lambda k: "sweep_scatter_kernel" in k and "unsigned short" not in k),
+            ("sweep_gather_bf16", lambda: sg.sweep_gather(src, xs, ys, torch.bfloat16),
+             cs.bf16_kernel("sweep_gather")),
+            ("sweep_scatter_bf16", lambda: sg.sweep_scatter(gb, xs, ys),
+             cs.bf16_kernel("sweep_scatter"))):
+        rec = {"kernel": kernel, "ms": cs.loop_ms(fn, 2 * args.reps),
+               "device_ms": cs.device_ms(fn, pick, args.reps), "host_ms": cs.launch_host_ms(fn)}
+        if kernel == "sweep_gather_bf16":
+            rec["digest"] = digest(fn())
+            want = sg.sweep_gather_reference(src, xs, ys, torch.bfloat16).float()
+            rec["max_abs_err"] = (fn().float() - want).abs().max().item()
+            if args.sweep:
+                out = torch.empty((d, h, w, c), dtype=torch.bfloat16, device="cuda")
+                rec["planes_ms"] = {p: cs.loop_ms(lambda: sg._launch(
+                    "sweep_gather", src, xs, ys, out, d, h, w, c, p), 2 * args.reps)
+                    for p in (2, 4, 8, 16)}
+        elif kernel == "sweep_scatter_bf16":
+            rec["bound"] = tol
+            rec["max_abs_err"] = (fn() - sg.sweep_scatter_reference(
+                gb, xs, ys, h, w)).abs().max().item()
+            rec["run_to_run"] = (fn() - fn()).abs().max().item()
+            if hasattr(sg, "window_blocks"):
+                before = sg.window_blocks("cuda").clone()
+                fn()
+                rec["blocks"], rec["outside"] = (sg.window_blocks("cuda") - before).tolist()
+            if args.sweep and hasattr(sg, "scatter_window_plan"):
+                dsrc = torch.zeros((h, w, c), device="cuda")
+                rec["plans_ms"] = {
+                    f"{p} planes, {b} ints": cs.loop_ms(lambda: sg._launch_window(
+                        gb, xs, ys, dsrc, sg.scatter_window_plan(d, h, w, c, planes=p,
+                                                                 budget=b), h),
+                        2 * args.reps)
+                    for p in (2, 4, 8, 16, 32) if p <= d for b in (6144, sg.SCATTER_WINDOW)}
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose port is timed")
@@ -396,7 +455,8 @@ def main() -> int:
                 totals["grid_sample_ms"] += l_ms
                 totals["gather_device_ms"] += k_dev
                 totals["grid_sample_device_ms"] += l_dev
-                rec = {**tag, "kernel": "sweep_gather", "shape": f"stage{i + 1} view{v}",
+                shape = f"stage{i + 1} view{v}"
+                rec = {**tag, "kernel": "sweep_gather", "shape": shape,
                        "dhwc": [nd, h, w, c], "ms": k_ms, "grid_sample_ms": l_ms,
                        "device_ms": k_dev, "grid_sample_device_ms": l_dev, "max_abs_err": err}
                 if args.sweep:  # planes a thread walks: 1, 2, 4 and 8
@@ -405,6 +465,12 @@ def main() -> int:
                         "sweep_gather", src, xs, ys, out, nd, h, w, c, p), 2 * args.reps)
                         for p in (1, 2, 4, 8)}
                 print(json.dumps(rec), flush=True)
+                for rec in time_sweep_pair(cs, sg, args, src, xs, ys, g):
+                    rec = {**tag, "shape": shape, "dhwc": [nd, h, w, c], **rec}
+                    for key in ("ms", "device_ms", "host_ms"):
+                        totals[f"{rec['kernel']}_{key}"] = (
+                            totals.get(f"{rec['kernel']}_{key}", 0.0) + rec[key])
+                    print(json.dumps(rec), flush=True)
                 del xs, ys, src, g, fwd
     if args.only in ("all", "plane"):
         time_plane(cs, randn, args, tag, totals)

@@ -18,9 +18,12 @@ namespace bilinear {
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC; q += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + q));
+      v[q] = t.x; v[q + 1] = t.y; v[q + 2] = t.z; v[q + 3] = t.w;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
@@ -55,7 +58,15 @@ __device__ __forceinline__ float bf16_value(unsigned short b) {
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const unsigned short* __restrict__ p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
+  if constexpr (VEC == 8) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[2 * q] = bf16_value((unsigned short)(u[q] & 0xffffu));
+      v[2 * q + 1] = bf16_value((unsigned short)(u[q] >> 16));
+    }
+  } else if constexpr (VEC == 4) {
     const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
     v[0] = bf16_value((unsigned short)(t.x & 0xffffu));
     v[1] = bf16_value((unsigned short)(t.x >> 16));
@@ -70,7 +81,13 @@ __device__ __forceinline__ void load_vec(const unsigned short* __restrict__ p, f
 template <int VEC>
 __device__ __forceinline__ void store_streaming(unsigned short* __restrict__ p,
                                                 const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
+  if constexpr (VEC == 8) {
+    unsigned u[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      u[q] = bf16_bits(v[2 * q]) | ((unsigned)bf16_bits(v[2 * q + 1]) << 16);
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(u[0], u[1], u[2], u[3]));
+  } else if constexpr (VEC == 4) {
     __stcs(reinterpret_cast<uint2*>(p),
            make_uint2(bf16_bits(v[0]) | ((unsigned)bf16_bits(v[1]) << 16),
                       bf16_bits(v[2]) | ((unsigned)bf16_bits(v[3]) << 16)));

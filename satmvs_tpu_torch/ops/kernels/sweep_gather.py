@@ -6,7 +6,12 @@ Replaces the two TPU kernels of `satmvs_tpu/ops/pallas/sweep_gather.py`:
 `_sweep_scatter_impl_hcw` (pallas_call at :576, kernel :475), tied together
 by the custom VJP of its `sweep_gather` (:636-681).  The CUDA source is
 `satmvs_tpu_torch/csrc/sweep_gather.cu`; its header gives the design, the
-bound and the scatter's summation-order tolerance.
+bound and the scatter's summation-order tolerance.  The fp32 pair walks
+runs of planes a thread; the bf16 pair has kernels of its own: the gather
+keeps a thread's corners while they stay, the scatter sorts a block's
+samples by floor corner in a shared-memory window and sums each touched
+pixel in registers (`scatter_window_plan`), and counts the blocks whose
+window did not fit (`window_blocks`).
 
 `sweep_gather(src, xs, ys, out_dtype=None)` is differentiable in `src`
 (the coordinates carry no gradient, as in JAX): its backward is
@@ -25,6 +30,7 @@ the fp32 cotangent, the form of `_bilinear_scatter`, sweep_gather.py:607-633).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -73,12 +79,21 @@ def sweep_scatter_reference(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     return out.reshape(height, width, c)
 
 
-def _c_fn(name: str, n_ints: int):
+@functools.lru_cache(maxsize=None)
+def _c_fn(name: str, n_ints: int, n_ptrs: int = 0):
+    """The C entry point `name`: four pointers, n_ints ints, n_ptrs more
+    pointers, the stream."""
     fn = getattr(build.load("sweep_gather"), name)
     # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p] * (n_ptrs + 1))
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
@@ -100,6 +115,91 @@ def _check(name: str, values: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
 # were fastest at the train step's shapes (kernel_ab.py --sweep on an H100),
 # and 4 keeps twice the threads in flight
 GATHER_PLANES = 4
+# planes each bf16 gather thread walks, keeping its corners while they stay
+GATHER_PLANES_BF16 = 8
+
+# the bf16 scatter's window: its sort of a block's samples by floor corner
+# takes SCATTER_SORT ints a sample and one a floor corner, room for
+# SCATTER_CORNERS corners, and at most SCATTER_WINDOW ints of shared memory
+# (48 KB less the kernel's 144 static bytes, its most); at most
+# SCATTER_GROUP channels a block, and enough blocks for SCATTER_WAVES waves
+# of SCATTER_RESIDENT blocks an SM (its launch bounds: 64 registers a
+# thread).  kernel_ab.py --sweep on an H100 chose 8, 8 and 4 planes at the
+# train shapes, and windows sized to the block over the most
+SCATTER_WINDOW = 12252
+SCATTER_SORT = 7
+SCATTER_CORNERS = 4096
+SCATTER_GROUP = 32
+SCATTER_WAVES = 4
+SCATTER_RESIDENT = 4
+
+
+def volume_vec(c: int, aligned: bool = True) -> int:
+    """Channels a thread of the bf16 kernels moves: 8 (16 bytes of bf16)
+    where C % 8 == 0, else 4 where C % 4 == 0, else 1; 1 when a pointer is
+    not 16-byte aligned."""
+    if not aligned:
+        return 1
+    return 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1
+
+
+def scatter_window_plan(d: int, h: int, w: int, c: int, hs: int | None = None, sms: int = 132,
+                        vec: int | None = None, planes: int | None = None,
+                        budget: int | None = None) -> dict:
+    """The bf16 scatter's launch plan for g (d, h, w, c) into a source of hs
+    rows (default h): channels a thread `vec`, channels a block `cg` (all of
+    C up to SCATTER_GROUP, else SCATTER_GROUP rounded down to a multiple of
+    vec), `lanes` = cg / vec threads a pixel, tiles of ty × tx pixels (tx up
+    to 32, about 256 threads), `threads` a block, chunks of `planes` planes
+    (D cut into the fewest equal chunks that still give SCATTER_WAVES waves
+    of SCATTER_RESIDENT blocks an SM, unless given), the window's `budget`
+    ints (unless given, SCATTER_SORT a sample of a full block and
+    SCATTER_CORNERS, at most SCATTER_WINDOW: shared memory the window does
+    not take is L1 cache for the block's reads), and the `grid` (tiles_y ·
+    tiles_x, chunks, channel groups).  A block keeps its window when its
+    floor corners (the box of the pixels its samples touch, one more row
+    and column) + 1 + SCATTER_SORT × its samples fit the budget."""
+    hs = h if hs is None else hs
+    if min(d, h, w, c) < 1 or hs < h:
+        raise ValueError(f"scatter_window_plan: no plan for g {(d, h, w, c)} into {hs} rows")
+    vec = volume_vec(c) if vec is None else vec
+    if vec not in (1, 4, 8) or c % vec:
+        raise ValueError(f"scatter_window_plan: {vec} channels a thread for C = {c}")
+    if planes is not None and planes < 1:
+        raise ValueError(f"scatter_window_plan: {planes} planes a block")
+    if budget is not None and not 0 <= budget <= SCATTER_WINDOW:
+        raise ValueError(f"scatter_window_plan: a window of {budget} ints, the most is "
+                         f"{SCATTER_WINDOW}")
+    cg = min(c, max(vec, SCATTER_GROUP // vec * vec))
+    lanes = cg // vec
+    pixels = max(1, 256 // lanes)
+    tx = min(32, pixels)
+    ty = max(1, pixels // tx)
+    threads = min(256, -(-ty * tx * lanes // 32) * 32)
+    tiles = -(-h // ty) * -(-w // tx) * -(-c // cg)
+    if planes is None:
+        per = max(1, min(d, d * tiles // (SCATTER_WAVES * SCATTER_RESIDENT * sms)))
+        planes = -(-d // -(-d // per))
+    if budget is None:
+        budget = min(SCATTER_WINDOW, SCATTER_SORT * ty * tx * planes + SCATTER_CORNERS)
+    return {"vec": vec, "cg": cg, "lanes": lanes, "ty": ty, "tx": tx, "threads": threads,
+            "planes": planes, "budget": budget,
+            "grid": (-(-h // ty) * -(-w // tx), -(-d // planes), -(-c // cg))}
+
+
+_window_blocks: dict = {}
+
+
+def window_blocks(device) -> torch.Tensor:
+    """The bf16 scatter's block counts on `device` since its first launch
+    there: int32 [blocks launched, blocks whose window did not fit (they
+    took the per-pixel path)], on the device, added to by the kernel."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _window_blocks:
+        _window_blocks[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _window_blocks[device]
 
 
 def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
@@ -111,25 +211,63 @@ def scatter_planes(d: int, h: int, w: int, groups: int, sms: int = 132) -> int:
     return -(-d // -(-d // per))
 
 
-def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, planes: int,
-            hs: int | None = None):
-    """Runs the kernel `name` (its instance for the volume's dtype: out's for
-    the gather, values' for the scatter) on CUDA tensors (contiguous; float4
-    access when C and every pointer allow it) on the current stream, each
-    thread walking `planes` planes, the source map of `hs` rows (by default
-    the samples' h); raises on a CUDA error."""
+def _pointers(name: str, values, xs, ys, out) -> tuple[list[int], bool]:
+    """The four tensors' pointers (values, xs, ys contiguous) and whether
+    all are 16-byte aligned."""
     for key, t in (("values", values), ("xs", xs), ("ys", ys)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     ptrs = [t.data_ptr() for t in (values, xs, ys, out)]
-    vec = 4 if c % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
+    return ptrs, all(p % 16 == 0 for p in ptrs)
+
+
+@functools.lru_cache(maxsize=256)
+def _window_plan(d: int, h: int, w: int, c: int, hs: int, sms: int) -> dict:
+    return scatter_window_plan(d, h, w, c, hs, sms)
+
+
+def _launch(name: str, values, xs, ys, out, d: int, h: int, w: int, c: int, planes: int,
+            hs: int | None = None):
+    """Runs the per-pixel kernel `name` (sweep_gather, its instance for out's
+    dtype, or the fp32 sweep_scatter) on CUDA tensors (contiguous; float4
+    access, or 8 channels a thread in the bf16 gather, when C and every
+    pointer allow it) on the current stream, each thread walking `planes`
+    planes, the source map of `hs` rows (by default the samples' h); raises
+    on a CUDA error."""
+    if name == "sweep_scatter" and values.dtype != torch.float32:
+        raise ValueError("sweep_scatter: the bf16 scatter launches through _launch_window")
+    ptrs, aligned = _pointers(name, values, xs, ys, out)
+    volume = out if name == "sweep_gather" else values
+    if volume.dtype == torch.bfloat16:
+        vec = volume_vec(c, aligned)
+    else:
+        vec = 4 if c % 4 == 0 and aligned else 1
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        volume = out if name == "sweep_gather" else values
         rc = _c_fn(f"{name}_{_SUFFIX[volume.dtype]}", 7)(*ptrs, d, h, w, c, vec, planes,
                                                          h if hs is None else hs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launch_window(g, xs, ys, dsrc, plan: dict, hs: int):
+    """Runs the bf16 scatter (g bf16 (D, H, W, C), dsrc (hs, W, C) fp32,
+    zeroed by the caller) under `plan` (`scatter_window_plan`; planned
+    again at one channel a thread when a pointer is not 16-byte aligned) on
+    the current stream, counting blocks in `window_blocks`; raises on a CUDA
+    error."""
+    d, h, w, c = g.shape
+    ptrs, aligned = _pointers("sweep_scatter", g, xs, ys, dsrc)
+    if not aligned and plan["vec"] != 1:
+        plan = scatter_window_plan(d, h, w, c, hs, vec=1, planes=plan["planes"],
+                                   budget=plan["budget"])
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _c_fn("sweep_scatter_bf16", 12, 1)(
+            *ptrs, d, h, w, c, hs, plan["vec"], plan["cg"], plan["ty"], plan["tx"], plan["planes"],
+            plan["threads"], plan["budget"], window_blocks(g.device).data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_scatter kernel launch failed: CUDA error {rc}")
 
 
 def _count(fn, dtype: torch.dtype) -> None:
@@ -150,7 +288,8 @@ def _gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     d, h, w = xs.shape
     c = src.shape[-1]
     out = torch.empty((d, h, w, c), dtype=out_dtype, device=src.device)
-    _launch("sweep_gather", src, xs, ys, out, d, h, w, c, GATHER_PLANES, src.shape[0])
+    planes = GATHER_PLANES_BF16 if out_dtype == torch.bfloat16 else GATHER_PLANES
+    _launch("sweep_gather", src, xs, ys, out, d, h, w, c, planes, src.shape[0])
     _count(sweep_gather, out_dtype)
     return out
 
@@ -161,9 +300,11 @@ def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     or bfloat16 (widened exactly at the read), xs/ys (D, H, W) float32 → the
     source's cotangent (height, W, C) float32 (height: the source's rows, by
     default H; more when the samples are a band of them).  CUDA tensors go
-    to the kernel (inputs contiguous; runs of planes summed in registers,
-    then atomics, so the order of each element's sum changes from run to
-    run), CPU tensors to `sweep_scatter_reference`."""
+    to the kernel (inputs contiguous; fp32: runs of planes summed in
+    registers, then atomics; bf16: a block's samples sorted in a
+    shared-memory window and each touched pixel summed in registers, then
+    atomics; so the order of each element's sum changes from run to run),
+    CPU tensors to `sweep_scatter_reference`."""
     _check("sweep_scatter", g, xs, ys, tuple(_SUFFIX))
     if g.ndim != 4 or tuple(g.shape[:3]) != tuple(xs.shape):
         raise ValueError(f"sweep_scatter: want g {tuple(xs.shape)} + (C,), got {tuple(g.shape)}")
@@ -174,10 +315,13 @@ def sweep_scatter(g: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     if g.device.type == "cpu":
         return sweep_scatter_reference(g, xs, ys, hs, w)
     dsrc = torch.zeros((hs, w, c), dtype=torch.float32, device=g.device)
-    groups = c // 4 if c % 4 == 0 else c
-    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c, scatter_planes(d, h, w, groups, sms),
-            hs)
+    sms = _sms(g.device)
+    if g.dtype == torch.bfloat16:
+        _launch_window(g, xs, ys, dsrc, _window_plan(d, h, w, c, hs, sms), hs)
+    else:
+        groups = c // 4 if c % 4 == 0 else c
+        _launch("sweep_scatter", g, xs, ys, dsrc, d, h, w, c,
+                scatter_planes(d, h, w, groups, sms), hs)
     _count(sweep_scatter, g.dtype)
     return dsrc
 
@@ -210,8 +354,9 @@ def sweep_gather(src: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     the fp32 sample rounded once to nearest even), zero outside the image;
     differentiable in src (backward: `sweep_scatter` of the cotangent, in
     the output's dtype), not in the coordinates.  CUDA tensors go to the
-    kernel (inputs contiguous; each thread walks GATHER_PLANES planes), CPU
-    tensors to `sweep_gather_reference`.
+    kernel (inputs contiguous; each thread walks GATHER_PLANES planes, or
+    GATHER_PLANES_BF16 for a bf16 volume), CPU tensors to
+    `sweep_gather_reference`.
     """
     return _SweepGather.apply(src, xs, ys, _volume_dtype(out_dtype))
 

@@ -8,6 +8,7 @@ nvcc and skip without them), every wrapper but the forward-only
 CostRegNet forms carries an autograd graph on both, and the modules import
 without nvcc."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -563,6 +564,113 @@ def test_cuda_bf16_gather_and_scatter_match_plain_versions(d, h, w, c, spread):
     assert sg.sweep_scatter.launches_bf16 == before + 1
     assert bool(((grad - sg.sweep_scatter_reference(gb, xs, ys, h, w)).abs() <= bound + 1e-30)
                 .all())
+
+
+@functools.lru_cache(maxsize=1)
+def _train_sweeps():
+    """chip_smoke.gather_cases(): the sweep pair's phase-6 shapes."""
+    return _chip_smoke().gather_cases()
+
+
+def _bf16_pair(src, xs, ys, g, hs, what, plan=None, planes=None):
+    """The bf16 gather against its plain version (one bf16 ulp + 1e-5 ×
+    max(1, max |plain|)) and the same bits twice (through `_launch` with
+    `planes` planes a thread when given); the bf16 scatter of g (under
+    `plan` when given) against the plain scatter and a second run within
+    the summation bound.  Returns the scatter's [blocks, blocks outside
+    their window]."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    d, h, w = xs.shape
+    c = src.shape[-1]
+    if planes is None:
+        out, again = (sg.sweep_gather(src, xs, ys, torch.bfloat16) for _ in range(2))
+    else:
+        out, again = (torch.empty((d, h, w, c), dtype=torch.bfloat16, device="cuda")
+                      for _ in range(2))
+        for t in (out, again):
+            sg._launch("sweep_gather", src, xs, ys, t, d, h, w, c, planes, hs)
+    want = sg.sweep_gather_reference(src, xs, ys, torch.bfloat16)
+    tol = _bf16_ulp(want) + 1e-5 * max(1.0, want.float().abs().max().item())
+    assert bool(((out.float() - want.float()).abs() <= tol).all()), what
+    assert torch.equal(out, again), what
+    gb = g.to(torch.bfloat16)
+    counts = sg.window_blocks("cuda").clone()
+
+    def scatter():
+        if plan is None:
+            return sg.sweep_scatter(gb, xs, ys, hs)
+        dsrc = torch.zeros((hs, w, c), device="cuda")
+        sg._launch_window(gb, xs, ys, dsrc, plan, hs)
+        return dsrc
+
+    got, second = scatter(), scatter()
+    bound = 2 * (4 * d - 1) * 2.0 ** -24 * sg.sweep_scatter_reference(gb.abs(), xs, ys, hs, w)
+    torch.cuda.synchronize()
+    for other in (sg.sweep_scatter_reference(gb, xs, ys, hs, w), second):
+        err = (got - other).abs()
+        assert bool((err <= bound + 1e-30).all()), f"{what}: {err.max().item()}"
+    return ((sg.window_blocks("cuda") - counts) // 2).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_cuda_bf16_pair_at_the_train_shapes(case):
+    """The bf16 kernels at chip_smoke's phase-6 shapes (both source views of
+    every stage of a 384×768 train step, then coordinates pushed off the
+    image): `_bf16_pair`; the smooth sweeps keep at least 95 % of their
+    scatter blocks in the shared-memory window."""
+    _cuda()
+    label, src, xs, ys, g = _train_sweeps()[case]
+    blocks, outside = _bf16_pair(src, xs, ys, g, xs.shape[1], label)
+    print(f"[bf16] {label}: {outside} of {blocks} scatter blocks outside their window")
+    if label != "off-image":
+        assert outside <= 0.05 * blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 12, 8, 32])
+@pytest.mark.parametrize("row0,hb", [(0, 16), (5, 9)])
+def test_cuda_bf16_pair_at_odd_widths_and_a_band(c, row0, hb):
+    """C = 3 (one channel a thread), 12 (four), 8 and 32 (eight), on the
+    whole 16-row source and on a band of 9 of its rows (height sharding),
+    coordinates partly off the image: `_bf16_pair` with the wrappers' own
+    launches, the gather at 1, 3 and 8 planes a thread and the scatter at
+    1, 3 and all planes a block."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    d, h, w = 7, 16, 40
+    src, xs, ys, g = _sweep_case(d, h, w, c, 3.0, 110 + c)
+    xs, ys, g = (t[:, row0:row0 + hb].contiguous() for t in (xs, ys, g))
+    _bf16_pair(src, xs, ys, g, h, f"C={c} band {row0}+{hb}")
+    for planes in (1, 3, d):
+        plan = sg.scatter_window_plan(d, hb, w, c, h, planes=planes)
+        _bf16_pair(src, xs, ys, g, h, f"C={c} {planes} planes", plan, planes=min(planes, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32])
+def test_cuda_bf16_scatter_counts_blocks_outside_the_window(c):
+    """Samples spread over the whole 128×160 image give every block a window
+    past its budget: the kernel counts them outside and sums them on its
+    per-pixel path, within the summation bound; a smooth shift keeps every
+    block in its window; a budget of 0 sends every block outside."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    _cuda()
+    d, h, w = 6, 128, 160
+    src, xs, ys, g = _sweep_case(d, h, w, c, 0.0, 130 + c)
+    blocks, outside = _bf16_pair(src, xs, ys, g, h, f"wide C={c}")
+    assert blocks == np.prod(sg.scatter_window_plan(d, h, w, c)["grid"]) and outside == blocks
+    jj, ii = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    shift = 0.4 * np.arange(d, dtype=np.float32)[:, None, None]
+    xs = torch.from_numpy(np.ascontiguousarray(jj[None] + shift - 2.3)).cuda()
+    ys = torch.from_numpy(np.ascontiguousarray(ii[None] - 0.3 * shift + 0.7)).cuda()
+    assert _bf16_pair(src, xs, ys, g, h, f"smooth C={c}")[1] == 0
+    plan = {**sg.scatter_window_plan(d, h, w, c, planes=3), "budget": 0}
+    blocks, outside = _bf16_pair(src, xs, ys, g, h, f"budget 0 C={c}", plan)
+    assert outside == blocks == np.prod(plan["grid"])
 
 
 def _sweep_case(d, h, w, c, spread, seed, device="cuda"):
