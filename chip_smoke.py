@@ -8,9 +8,10 @@ Phases, each reported on its own lines:
   1  build: every CUDA source of satmvs_tpu_torch/csrc with nvcc (sm_90a),
      each kernel instance's registers and spills; no instance of the plane
      convs, of the sweep (sweep_variance_kernel, and
-     sweep_variance_groups_kernel for more than four source views) or of
-     the bf16 sweep pair (sweep_gather_bf16_kernel,
-     sweep_scatter_bf16_kernel) may spill;
+     sweep_variance_groups_kernel for more than four source views), of its
+     backward (sweep_variance_backward_kernel,
+     sweep_variance_backward_groups_kernel) or of the bf16 sweep pair
+     (sweep_gather_bf16_kernel, sweep_scatter_bf16_kernel) may spill;
   2  each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it (sweep_variance at the forward's
      coordinates: stage 1 uniform, stages 2-3 windows around a seeded
@@ -112,16 +113,19 @@ Phases, each reported on its own lines:
   11 the training sweeps at 384×768, B = 1, Config() (the fused RED
      pipeline): three train steps on the fused sweep (SATMVS_TRAIN_FUSED_SWEEP;
      exact launches per step: 3 sweep_variance, 3 sweep_variance_backward,
-     6 sweep_scatter, no sweep_gather, and phase 7's RED kernels) and three
+     no sweep_gather or sweep_scatter, and phase 7's RED kernels) and three
      with bf16 volumes (the sweep pair's bf16 instances, 6 + 6), each one's
      step ms and peak memory beside phase 7's default step and one step at
      96×192 against its CPU run; each new kernel instance
-     (sweep_variance_backward, the bf16 gather and scatter; run beside
-     phase 6) against its plain version at the train step's shapes, kernel ms by events, device
-     ms by torch.profiler, bound, plain ms, the same bits twice where no
-     atomics are involved; the bf16 scatter's blocks outside their
-     shared-memory window at each shape, the wrappers' host time a call,
-     and the pair's figures before its redesign beside them ("was"); three CascadeMVSNet and three UCSNet train steps
+     (sweep_variance_backward, the fused sweep's whole VJP; the bf16 gather
+     and scatter; run beside phase 6) against its plain version at the
+     train step's shapes, kernel ms by events, device ms by
+     torch.profiler, bound, plain ms, the same bits twice where no atomics
+     are involved (the VJP's dref) and the run-to-run spread within the
+     summation bound where they are (its dsrcs); the bf16 scatter's blocks
+     outside their shared-memory window at each shape, the wrappers' host
+     time a call, and the figures before each redesign beside them
+     ("was"); three CascadeMVSNet and three UCSNet train steps
      (the sweep pair only: their CostRegNet trains as cuDNN's conv3d), their
      step ms, peak memory and one step at 96×192 against the CPU, and a
      `cli.train --mode=train --model ucs` epoch on phase 9's tree; and the
@@ -522,7 +526,7 @@ STAGE_INTERVALS = (10.0, 5.0, 2.5)
 
 
 def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
-                 planes: slice = slice(None), views: int = 3):
+                 planes: slice = slice(None), views: int = 3, device="cuda"):
     """Features (b, views, h, w, C) and coordinates xs, ys (b, views − 1, D,
     h, w) of cascade stage `stage` (0-based) on b patches of h×w pixels at
     the stage's scale.  Sample i takes the synthetic RPC triplet of seed i
@@ -531,7 +535,7 @@ def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
     seeds i + 17, i + 34, ...) and the hypotheses the forward builds
     (`stage_hypotheses`): uniform over the height range at stage 0 or with
     window=False, else a window around a seeded smooth previous depth within
-    the range; `planes` cuts a slab."""
+    the range; `planes` cuts a slab; on `device` (gen's)."""
     import torch.nn.functional as F
 
     from satmvs_tpu_torch.data import synthetic
@@ -545,21 +549,21 @@ def sweep_inputs(stage: int, b: int, h: int, w: int, gen, window: bool = True,
         trips = [synthetic.make_rpc_triplet(w * scale, h * scale, seed=i + 17 * k)
                  for k in range(-(-(views - 1) // 2))]
         rpcs = np.stack([trips[0][2]] + [trips[k // 2][k % 2] for k in range(views - 1)])
-        cams = warp.build_rpc_warp_cams(rpcs, 0, 1.0 / scale, device="cuda")
+        cams = warp.build_rpc_warp_cams(rpcs, 0, 1.0 / scale, device=device)
         lo, hi = rpclib.height_range(rpcs[0])
         prev = None
         if stage > 0 and window:  # a 6×12 random grid, bilinearly upsampled
-            grid = torch.rand((1, 1, 6, 12), generator=gen, device="cuda")
+            grid = torch.rand((1, 1, 6, 12), generator=gen, device=device)
             up = F.interpolate(grid, size=(h // 2, w // 2), mode="bilinear", align_corners=True)
             prev = lo + (hi - lo) * (0.1 + 0.8 * up[:, 0])
-        hyps = stage_hypotheses(NDEPTHS[stage], h, w, torch.tensor([lo], device="cuda"),
-                                torch.tensor([hi], device="cuda"), STAGE_INTERVALS[stage],
+        hyps = stage_hypotheses(NDEPTHS[stage], h, w, torch.tensor([lo], device=device),
+                                torch.tensor([hi], device=device), STAGE_INTERVALS[stage],
                                 prev)[0, planes]
         coords.append([warp.rpc_sweep_coords(cams, s, hyps, h, w) for s in range(views - 1)])
     d = coords[0][0][0].shape[0]
     xs, ys = torch.stack([q[k] for pair in coords for q in pair for k in (0, 1)]).view(
         b, views - 1, 2, d, h, w).unbind(2)
-    feats = torch.randn((b, views, h, w, FEAT_CH[stage]), generator=gen, device="cuda")
+    feats = torch.randn((b, views, h, w, FEAT_CH[stage]), generator=gen, device=device)
     return feats, xs.contiguous(), ys.contiguous()
 
 
@@ -954,14 +958,15 @@ LAUNCHES_PER_EVAL_STEP = dict(LAUNCHES_PER_FORWARD)
 LAUNCHES_PER_SCAN_STEP = {**{k: 0 for k in LAUNCHES_PER_FORWARD}, "sweep_gather": 6,
                           "sweep_scatter": 6}
 # phase 11, per train step at B = 1: on the fused sweep (train_fused_sweep)
-# per stage one sweep_variance forward, one sweep_variance_backward and a
-# sweep_scatter per source view, no sweep_gather; with bf16 volumes the
+# per stage one sweep_variance forward and one sweep_variance_backward (the
+# whole VJP), no sweep_gather or sweep_scatter; with bf16 volumes the
 # sweep pair's bf16 instances; CasMVS / UCS the fp32 sweep pair only (their
 # CostRegNet trains as cuDNN's conv3d, no CostRegNet kernel); per-view
 # inference forwards a gather per stage and source view instead of
 # sweep_variance
 LAUNCHES_PER_FUSED_SWEEP_STEP = {**LAUNCHES_PER_TRAIN_STEP, "sweep_variance": 3,
-                                 "sweep_variance_backward": 3, "sweep_gather": 0}
+                                 "sweep_variance_backward": 3, "sweep_gather": 0,
+                                 "sweep_scatter": 0}
 LAUNCHES_PER_BF16_STEP = {**LAUNCHES_PER_TRAIN_STEP, "sweep_gather": 0, "sweep_scatter": 0,
                           "sweep_gather_bf16": 6, "sweep_scatter_bf16": 6}
 LAUNCHES_PER_COSTREG_TRAIN_STEP = LAUNCHES_PER_SCAN_STEP
@@ -981,8 +986,7 @@ SWEEP_TRAIN_PATHS = {"sweep_variance_backward": ("fused_sweep_step",),
                      "sweep_scatter_bf16": ("bf16_step",)}
 FP32_SWEEP_PATHS = {"sweep_gather": ("casmvs_train_step", "ucs_train_step", "cli_train_ucs",
                                      "per_view_forward"),
-                    "sweep_scatter": ("casmvs_train_step", "ucs_train_step", "cli_train_ucs",
-                                      "fused_sweep_step")}
+                    "sweep_scatter": ("casmvs_train_step", "ucs_train_step", "cli_train_ucs")}
 
 
 def build_model(device, geo_model: str = "rpc", ndepths=NDEPTHS, **knobs):
@@ -2124,60 +2128,98 @@ def launch_host_ms(fn, calls: int = 20) -> float:
 
 
 def sweep_backward_work(feats, xs, ys) -> tuple[float, float]:
-    """Bytes (the volume's cotangent read once, the S cotangent volumes and
-    the reference's cotangent written once, coordinates and features read
-    once) and flops (valid taps: a multiply and an add a channel; per
-    output element the mean, the reference's term and each view's: 4·S + 5)
-    of one sweep_variance_backward on this data."""
+    """Bytes (the volume's cotangent, the coordinates and the features read
+    once, the reference's and the source views' cotangents written once)
+    and flops (per valid tap a multiply and an add a channel to gather and
+    as many to scatter; per element of the volume the mean, the reference's
+    term and each view's cotangent: 4·S + 5) of one sweep_variance_backward
+    on this data: feats (B, V, Hs, W, C), xs/ys (B, S, D, H, W)."""
     b, n_src, d, h, w = xs.shape
-    c = feats.shape[-1]
+    hs, c = feats.shape[2], feats.shape[-1]
     vol = b * d * h * w * c
-    nbytes = 4 * (vol * (1 + n_src) + b * h * w * c + 2 * xs.numel() + feats.numel())
+    nbytes = 4 * (vol + b * h * w * c + b * n_src * hs * w * c + 2 * xs.numel() + feats.numel())
     x0, y0 = torch.floor(xs), torch.floor(ys)
-    taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum().item()
+    taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < hs)).sum().item()
                for dx in (0, 1) for dy in (0, 1))
-    return nbytes, 2 * c * taps + vol * (4 * n_src + 5)
+    return nbytes, 4 * c * taps + vol * (4 * n_src + 5)
+
+
+def summation_bound(gs, xs, ys, height: int) -> torch.Tensor:
+    """How far each element of the scatter of gs (..., D, H', W', C) at the
+    samples xs/ys (..., D, H', W') into (..., height, W', C) may move when its
+    n = 4·D terms are summed in another order (float atomics): 2·(n − 1)·2⁻²⁴
+    times the sum of the magnitudes of its terms.  Reads only
+    `sweep_scatter_reference`, so it serves any tree kernel_ab.py times."""
+    from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
+
+    d, w = xs.shape[-3], xs.shape[-1]
+    flat = zip(gs.reshape(-1, *gs.shape[-4:]), xs.reshape(-1, *xs.shape[-3:]),
+               ys.reshape(-1, *ys.shape[-3:]))
+    mag = torch.stack([sg.sweep_scatter_reference(g.abs(), x, y, height, w) for g, x, y in flat])
+    return 2 * (4 * d - 1) * 2.0 ** -24 * mag.reshape(*xs.shape[:-3], height, w, gs.shape[-1])
+
+
+# the fused sweep's VJP before it scattered as it went (PERF.md rows "1,
+# backward" and 3 on an H100 80GB HBM3 at 700 W): the backward kernel that
+# wrote the cotangent volumes, over a train step's 3 launches, and the fp32
+# sweep_scatter over its 6 (device time from kernel_ab.py --only gather):
+# CUDA events ms, profiler device ms and the bound
+FUSED_VJP_WAS = {"backward": (0.8547, 0.6211, 0.3859), "scatter": (1.3075, 1.0131, 0.2634)}
 
 
 def phase_sweep_train_kernels(card: str) -> list[dict]:
     """Phase 11 (c): each new kernel instance against its plain version at
-    the three stage shapes of a 384×768 train step: sweep_variance_backward
-    on the forward's coordinates (B = 1, S = 2; gs and dref, the same bits in
-    a second run), the bf16 gather (`bf16_tol`, the same bits twice) and the bf16 scatter (the
+    the three stage shapes of a 384×768 train step: sweep_variance_backward,
+    the fused sweep's whole VJP, on the forward's coordinates (B = 1, S = 2;
+    dref and dsrcs against the plain VJP to rel_tol, dref the same bits in
+    a second run, dsrcs from run to run within `summation_bound`), the
+    bf16 gather (`bf16_tol`, the same bits twice) and the bf16 scatter (the
     summation bound of phase 6; its run-to-run difference; the share of its
     blocks outside their shared-memory window) on phase 6's cases; kernel
     ms by events, device ms by torch.profiler (`bf16_kernel`), the
-    wrappers' host ms a call, bound and plain ms, and BF16_PAIR_WAS beside
-    the step's sums.  No single PyTorch call computes any of the three
-    (library null)."""
+    wrappers' host ms a call, bound and plain ms, and FUSED_VJP_WAS and
+    BF16_PAIR_WAS beside the step's sums.  No single PyTorch call computes
+    any of the three (library null)."""
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
     from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
 
     backward = KernelReport("sweep_variance_backward", "satmvs_tpu_torch/csrc/sweep_variance.cu",
                             "satmvs_tpu/ops/pallas/sweep_variance.py:226", card)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    dev = 0.0
+    dev, spread = 0.0, 0.0
     for i in range(3):
         h, w = HEIGHT // STAGE_SCALES[i], WIDTH // STAGE_SCALES[i]
         feats, xs, ys = sweep_inputs(i, 1, h, w, gen)
         g = torch.randn((1, NDEPTHS[i], h, w, FEAT_CH[i]), generator=gen, device="cuda")
+        bound = summation_bound(sv._backward_reference(feats[:, 0], feats[:, 1:], xs, ys, g)[0],
+                                xs, ys, h)
         label = f"stage{i + 1} {tuple(g.shape)}"
         backward.case(label, lambda: sv.sweep_variance_backward(feats, xs, ys, g),
                       lambda: sv.sweep_variance_backward_reference(feats, xs, ys, g),
                       (rel_tol, rel_tol), *sweep_backward_work(feats, xs, ys))
         a, b = sv.sweep_variance_backward(feats, xs, ys, g), sv.sweep_variance_backward(
             feats, xs, ys, g)
-        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        same = torch.equal(a[0], b[0])
+        diff = (a[1] - b[1]).abs()
+        within = bool((diff <= bound + 1e-30).all())
+        spread = max(spread, diff.max().item())
         d_ms = device_ms(lambda: sv.sweep_variance_backward(feats, xs, ys, g),
                          "sweep_variance_backward", 5)
         dev += d_ms
-        print(f"[sweeps] sweep_variance_backward {label}: same bits in a second run {same}, "
-              f"device {d_ms:.4f} ms (profiler) card={card}", flush=True)
-        check(same, f"sweep_variance_backward {label}: bits differ between runs")
-        del feats, xs, ys, g, a, b
-    print(f"[sweeps] sweep_variance_backward over a train step's 3 launches: device "
-          f"{dev:.4f} ms, events {backward.rec['ms']:.4f} ms, bound {backward.rec['bound_ms']:.4f} "
-          f"ms card={card}", flush=True)
+        print(f"[sweeps] sweep_variance_backward {label}: dref the same bits in a second run "
+              f"{same}, dsrcs run to run {diff.max().item():.3e} (summation bound up to "
+              f"{bound.max().item():.3e}, within it {within}), device {d_ms:.4f} ms (profiler) "
+              f"card={card}", flush=True)
+        check(same, f"sweep_variance_backward {label}: dref bits differ between runs")
+        check(within, f"sweep_variance_backward {label}: dsrcs run to run past the bound")
+        del feats, xs, ys, g, a, b, bound, diff
+    was_b, was_s = FUSED_VJP_WAS["backward"], FUSED_VJP_WAS["scatter"]
+    print(f"[sweeps] sweep_variance_backward (the whole VJP) over a train step's 3 launches: "
+          f"device {dev:.4f} ms (was {was_b[1]} + {was_s[1]} = {was_b[1] + was_s[1]:.4f}: 3 "
+          f"backward + 6 sweep_scatter), events {backward.rec['ms']:.4f} ms (was {was_b[0]} + "
+          f"{was_s[0]} = {was_b[0] + was_s[0]:.4f}), bound {backward.rec['bound_ms']:.4f} ms "
+          f"(was {was_b[2]} + {was_s[2]}), dsrcs run to run at most {spread:.3e} card={card}",
+          flush=True)
 
     gather = KernelReport("sweep_gather_bf16", "satmvs_tpu_torch/csrc/sweep_gather.cu",
                           "satmvs_tpu/ops/pallas/sweep_gather.py:436", card)
@@ -4017,9 +4059,10 @@ def shard_join(procs) -> list:
             for r in range(SHARD_RANKS)]
 
 
-# the band scatter against its plain version: its float atomics sum up to
-# 4·D = 64 products an element in an order that changes from run to run
-# (sweep_gather.cu), within 2·(4·D − 1)·2⁻²⁴ of the sum of their magnitudes
+# the band scatters (sweep_scatter, the fused VJP's dsrcs) against their
+# plain versions: float atomics sum up to 4·D = 64 products an element in an
+# order that changes from run to run (sweep_gather.cu), within
+# 2·(4·D − 1)·2⁻²⁴ of the sum of their magnitudes
 SCATTER_BAND_TOL = 1e-4
 
 
@@ -4027,8 +4070,9 @@ def band_kernel_checks(card: str) -> None:
     """The sweep kernels on a rank's band of reference rows (the source
     views whole; `Hs` > H in the kernels) at the main path's stage 3 (192
     of 384 rows, 768 wide, 64 hypotheses, C 8) against their plain versions:
-    the fused sweep (sweep_variance_batched, row0 192) and its backward,
-    the per-view gather and its scatter."""
+    the fused sweep (sweep_variance_batched, row0 192) and its VJP (dref,
+    and dsrcs into the whole sources), the per-view gather and its
+    scatter."""
     from satmvs_tpu_torch.ops.kernels import sweep_gather as sg
     from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
 
@@ -4052,9 +4096,11 @@ def band_kernel_checks(card: str) -> None:
         want = sv.sweep_variance_reference(ref_band[0], feats[0, 1:], xs[0], ys[0])[None]
         errs["sweep_variance"] = err(got, want)
         g = torch.rand_like(got)
-        gs, dref = sv._cotangents(ref_band, feats[:, 1:], 3 * h * w * c, xs, ys, g)
-        wgs, wdref = sv._backward_reference(ref_band, feats[:, 1:], xs, ys, g)
-        errs["sweep_variance_backward"] = max(err(gs, wgs), err(dref, wdref))
+        dref, dsrcs = sv._cotangents(ref_band, feats[:, 1:], 3 * h * w * c, xs, ys, g)
+        wdref, wdsrcs = sv._plain_vjp(ref_band, feats[:, 1:], xs, ys, g)
+        check(dsrcs.shape == (1, 2, h, w, c), f"band VJP: dsrcs {tuple(dsrcs.shape)}")
+        errs["sweep_variance_backward dref"] = err(dref, wdref)
+        errs["sweep_variance_backward dsrcs"] = err(dsrcs, wdsrcs)
         src = feats[0, 1].contiguous()
         got = sg.sweep_gather(src, xs[0, 0], ys[0, 0])
         want = sg.sweep_gather_reference(src, xs[0, 0], ys[0, 0])
@@ -4067,11 +4113,11 @@ def band_kernel_checks(card: str) -> None:
     print(f"[multi] (d) the sweep kernels on a band of rows {row0}..{h - 1} of {h} (sources "
           f"whole), {d} planes, {w} wide, C {c}, against their plain versions: max |Δ| / "
           f"max(1, max |plain|) " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (tol {KERNEL_TOL}; the scatter's atomics {SCATTER_BAND_TOL}) card={card}",
+          + f" (tol {KERNEL_TOL}; a scatter's atomics {SCATTER_BAND_TOL}) card={card}",
           flush=True)
+    scattered = ("sweep_scatter", "sweep_variance_backward dsrcs")
     for k, v in errs.items():
-        check(v <= (SCATTER_BAND_TOL if k == "sweep_scatter" else KERNEL_TOL),
-              f"band {k}: {v}")
+        check(v <= (SCATTER_BAND_TOL if k in scattered else KERNEL_TOL), f"band {k}: {v}")
 
 
 
@@ -5877,13 +5923,16 @@ def run(scene_job, tree_job, render_ahead) -> int:
             if m and kernel.startswith(("conv3x3_kernel", "deconv3x3_s2_kernel",
                                         "sweep_variance_kernel",
                                         "sweep_variance_groups_kernel",
+                                        "sweep_variance_backward_kernel",
+                                        "sweep_variance_backward_groups_kernel",
                                         "conv3d_block_kernel", "sweep_gather_bf16_kernel",
                                         "sweep_scatter_bf16_kernel")):
                 spills[kernel] = int(m.group(1))
     if spills:  # built in this run: these instances must not spill
         print(f"[build] {len(spills)} instances of conv3x3_kernel, deconv3x3_s2_kernel, "
-              f"sweep_variance_kernel, sweep_variance_groups_kernel, conv3d_block_kernel, "
-              f"sweep_gather_bf16_kernel and sweep_scatter_bf16_kernel, "
+              f"sweep_variance_kernel, sweep_variance_groups_kernel, "
+              f"sweep_variance_backward_kernel, sweep_variance_backward_groups_kernel, "
+              f"conv3d_block_kernel, sweep_gather_bf16_kernel and sweep_scatter_bf16_kernel, "
               f"{sum(spills.values())} bytes of spill", flush=True)
         check(not any(spills.values()), f"an instance spills: {spills}")
     took("[build]", "1", t0)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's ConvGRU forward and adjoint, its sweep gather, its plane
-convs and its cost-volume sweep of one checkout on one CUDA device, to
-compare two trees (parent, change, change, parent) in one call.
+convs, its cost-volume sweep and that sweep's VJP of one checkout on one
+CUDA device, to compare two trees (parent, change, change, parent) in one
+call.
 
     python3 kernel_ab.py [--root DIR] [--sweep] [--reps N]
-                         [--only {all,red_recur,gather,plane,sweep}]
+                         [--only {all,red_recur,gather,plane,sweep,sweep_vjp} ...]
+                         [--vjp_dir DIR]
 
 Imports `satmvs_tpu_torch` from DIR (default: the directory of this file),
 builds its kernels there, and at every shape a 384×768, B = 1 train step
@@ -24,7 +26,8 @@ per shape:
   outputs' bytes (the states; dx and every parameter's cotangent), so two
   trees that compute the same bits print the same digests;
   sweep_gather (row 2) at both source views of each stage: its error
-  against its plain version, and its time and that of grid_sample
+  against its plain version, the `digest` of its output, and its time and
+  that of grid_sample
   (bilinear, zero padding) on the same data, each over calls launched
   back to back (chip_smoke.loop_ms) and as the device time of the kernels
   under torch.profiler (a call this short is near the host's launch time);
@@ -52,7 +55,21 @@ per shape:
   through `sweep_variance_batched` where
   the tree has it, else one `sweep_variance` call a tile: CUDA events, back
   to back, the device time of the kernels whose names hold sweep_variance,
-  the bound and the error against the plain version.
+  the bound and the error against the plain version;
+  sweep_vjp (row "1, backward": the fused sweep's VJP) at the three stage
+  shapes of a 384×768 train step (B = 1, S = 2, as chip_smoke.py's phase 11
+  (c) draws them; their sums in the totals), at stage 2 with five source
+  views (the kernel's form past four) and on the band of stage 3's
+  reference rows 192..383 (the source views whole), through the entry every
+  tree has,
+  torch.autograd.grad of `sweep_variance_batched` (the graph built once):
+  CUDA events (median of --reps calls), back to back, the device time of
+  the kernels the backward launches (names that start with
+  sweep_variance_backward or sweep_scatter, fp32), the `digest` of dref,
+  and dsrcs against the first run's, saved under --vjp_dir: the greatest
+  difference beside the greatest summation bound (chip_smoke.summation_bound)
+  and whether every element is within its bound.  Empty --vjp_dir before
+  the first run of a comparison.
 
 With --sweep (a tree whose `red_recur._launch` and `red_recur._adjoint`
 take a plan, whose gather takes planes a thread and whose plane convs take
@@ -72,6 +89,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -268,6 +286,65 @@ def time_sweep(cs, args, tag: dict, totals: dict):
         del run
 
 
+def vjp_kernel(key: str) -> bool:
+    """A profiler key of the kernels the fused sweep's backward launches in
+    either design: sweep_variance_backward*_kernel, and the fp32
+    sweep_scatter_kernel the composed pair launched."""
+    return re.search(r"\b(sweep_variance_backward\w*|sweep_scatter)_kernel\b", key) is not None
+
+
+def time_sweep_vjp(cs, args, tag: dict, totals: dict):
+    """Row "1, backward" at the three stage shapes of a 384×768 train step,
+    at five source views and on a band of reference rows (module
+    docstring): one record a case, the step's sums in totals."""
+    from satmvs_tpu_torch.ops.kernels import sweep_variance as sv
+
+    save = Path(args.vjp_dir)
+    save.mkdir(parents=True, exist_ok=True)
+    for key in ("ms", "loop_ms", "device_ms", "bound_ms"):
+        totals[f"sweep_vjp_{key}"] = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # (label, stage, source views + 1, first reference row of the band)
+    cases = [("stage1", 0, 3, 0), ("stage2", 1, 3, 0), ("stage3", 2, 3, 0),
+             ("stage2 S=5", 1, 6, 0), ("stage3 band", 2, 3, cs.HEIGHT // 2)]
+    for label, i, views, row0 in cases:
+        h, w = cs.HEIGHT // cs.STAGE_SCALES[i], cs.WIDTH // cs.STAGE_SCALES[i]
+        feats, xs, ys = cs.sweep_inputs(i, 1, h, w, gen, views=views)
+        band = slice(row0 * h // cs.HEIGHT, h)  # the band's rows at this stage's scale
+        xs, ys = xs[..., band, :].contiguous(), ys[..., band, :].contiguous()
+        g = torch.randn((1, cs.NDEPTHS[i], xs.shape[3], w, cs.FEAT_CH[i]), generator=gen,
+                        device="cuda")
+        f = feats.clone().requires_grad_(True)
+        out = sv.sweep_variance_batched(f, xs, ys, band.start)
+
+        def run():
+            return torch.autograd.grad(out, f, g, retain_graph=True)[0]
+        grad = run()
+        dref, dsrcs = grad[:, 0, band], grad[:, 1:]
+        rec = {**tag, "kernel": "sweep_vjp", "shape": label, "bsdhwc": list(xs.shape) + [
+            feats.shape[-1]], "ms": cs.time_ms(run, reps=args.reps),
+            "loop_ms": cs.loop_ms(run, 2 * args.reps),
+            "device_ms": cs.device_ms(run, vjp_kernel, args.reps), "digest": digest(dref)}
+        if band.start == 0:
+            rec["bound_ms"], rec["bound_by"] = cs.bound_ms(*cs.sweep_backward_work(feats, xs, ys))
+        first = save / f"{label.replace(' ', '_')}.pt"
+        if first.is_file():
+            was = torch.load(first, map_location=dsrcs.device)
+            bound = cs.summation_bound(sv._backward_reference(
+                feats[:, 0, band], feats[:, 1:], xs, ys, g)[0], xs, ys, h)
+            diff = (dsrcs - was["dsrcs"]).abs()
+            rec.update({"first_root": was["root"], "dsrcs_vs_first": diff.max().item(),
+                        "bound": bound.max().item(),
+                        "within_bound": bool((diff <= bound + 1e-30).all())})
+        else:
+            torch.save({"root": tag["root"], "dsrcs": dsrcs.detach().cpu()}, first)
+        if label.startswith("stage") and " " not in label:
+            for key in ("ms", "loop_ms", "device_ms", "bound_ms"):
+                totals[f"sweep_vjp_{key}"] += rec[key]
+        print(json.dumps(rec), flush=True)
+        del feats, xs, ys, g, f, out, grad, dref, dsrcs, run
+
+
 def time_sweep_pair(cs, sg, args, src, xs, ys, g) -> list[dict]:
     """The fp32 scatter and the bf16 pair at one shape (module docstring):
     one record each."""
@@ -321,9 +398,11 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE), help="checkout whose port is timed")
     ap.add_argument("--sweep", action="store_true", help="time other plans of each conv")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("all", "red_recur", "gather", "plane", "sweep"),
-                    default="all",
+    ap.add_argument("--only", nargs="+", default=["all"],
+                    choices=("all", "red_recur", "gather", "plane", "sweep", "sweep_vjp"),
                     help="time only these kernels")
+    ap.add_argument("--vjp_dir", default=str(HERE / "build" / "kernel_ab_vjp"),
+                    help="where sweep_vjp keeps the first run's dsrcs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
@@ -363,7 +442,8 @@ def main() -> int:
               "row5_chunk_device_ms": 0.0, "row6_ms": 0.0, "adjoint_ms": 0.0, "gather_ms": 0.0,
               "grid_sample_ms": 0.0, "gather_device_ms": 0.0, "grid_sample_device_ms": 0.0}
     sweep_reps = max(3, args.reps // 3)
-    if args.only in ("all", "red_recur"):
+    only = set(args.only)
+    if only & {"all", "red_recur"}:
         # the forward: row 4 at the train step's shapes (B = 1), row 5 at a scene
         # chunk's (B tiles, slabs of SLAB planes, seeded), with its calls a chunk
         cases = [(f"{stage} scale{s}", 1, d, h // s, w // s, ci, c, 1)
@@ -423,7 +503,7 @@ def main() -> int:
                 print(json.dumps(rec), flush=True)
                 del x, out, g, cell
 
-    if args.only in ("all", "gather"):
+    if only & {"all", "gather"}:
         from satmvs_tpu_torch.data import synthetic
         from satmvs_tpu_torch.geo import rpc as rpclib
         from satmvs_tpu_torch.ops import warp
@@ -458,7 +538,8 @@ def main() -> int:
                 shape = f"stage{i + 1} view{v}"
                 rec = {**tag, "kernel": "sweep_gather", "shape": shape,
                        "dhwc": [nd, h, w, c], "ms": k_ms, "grid_sample_ms": l_ms,
-                       "device_ms": k_dev, "grid_sample_device_ms": l_dev, "max_abs_err": err}
+                       "device_ms": k_dev, "grid_sample_device_ms": l_dev, "max_abs_err": err,
+                       "digest": digest(sg.sweep_gather(src, xs, ys))}
                 if args.sweep:  # planes a thread walks: 1, 2, 4 and 8
                     out = torch.empty((nd, h, w, c), device="cuda")
                     rec["planes_ms"] = {p: cs.loop_ms(lambda: sg._launch(
@@ -472,10 +553,12 @@ def main() -> int:
                             totals.get(f"{rec['kernel']}_{key}", 0.0) + rec[key])
                     print(json.dumps(rec), flush=True)
                 del xs, ys, src, g, fwd
-    if args.only in ("all", "plane"):
+    if only & {"all", "plane"}:
         time_plane(cs, randn, args, tag, totals)
-    if args.only in ("all", "sweep"):
+    if only & {"all", "sweep"}:
         time_sweep(cs, args, tag, totals)
+    if only & {"all", "sweep_vjp"}:
+        time_sweep_vjp(cs, args, tag, totals)
     print(json.dumps({**tag, "totals": totals}), flush=True)
     return 0
 

@@ -309,102 +309,185 @@ __global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_groups_kernel(
 //
 // Replaces the fused sweep's custom VJP, `_sweep_variance_bwd`
 // (satmvs_tpu/ops/pallas/sweep_variance.py:226), which re-gathers the
-// source views with the gather kernel and forms the per-view cotangents
-// elementwise before the scatter kernel transposes them.  With V = S + 1
-// views, the samples w_s of the forward, the mean m = (ref + Σ_s w_s) / V
-// (summed in view order after the reference) and the volume's cotangent g
-// (B, D, H, W, C), sweep_variance_backward_kernel writes
+// source views with the gather kernel (sweep_gather.py:436), forms each
+// view's cotangent volume elementwise and transposes it with the scatter
+// kernel (:576).  With V = S + 1 views, the samples w_s of the forward, the
+// mean m = (ref + Σ_s w_s) / V (summed in view order after the reference)
+// and the volume's cotangent g (B, D, H, W, C), sweep_variance_backward_kernel
+// computes the whole VJP in one launch:
 //
-//   gs[b, s, d, y, x, :] = g · ((2/V)·(w_s − m))      (B, S, D, H, W, C)
-//   dref[b, y, x, :]     = Σ_d g · ((2/V)·(ref − m))   (B, H, W, C)
+//   dref[b, y, x, :]  = Σ_d g · ((2/V)·(ref − m))                  (B, H, W, C)
+//   dsrcs[b, s]      += Σ over (d, y, x) and the four corners of the sample
+//                       w_s of (corner weight) · g · ((2/V)·(w_s − m))
+//                                                               (B, S, Hs, W, C)
 //
-// each product rounded where JAX's composition rounds it; the caller then
-// scatters each gs[b, s] into its view's cotangent with sweep_scatter
-// (sweep_gather.cu), JAX's composition.
+// into dsrcs zeroed by the caller; no cotangent volume is stored.
 //
-// What bounds it: memory.  The least traffic is g read once, the S
-// cotangent volumes written once, the coordinates and the features read
-// once: at the cascade's train shapes (S = 2) ~1.1 GB a step.  Design: a
-// thread owns one pixel and group of VEC channels of one sample (the
-// forward's tiles, Site) and walks all D planes in order, so dref is summed
-// over the planes in a fixed order, with no atomics, and every run gives
-// the same bits.  Per plane it gathers the S views' samples together (the
-// forward's sample_views: one memory round trip for the coordinates, one
-// for the corners), reads g once, writes the S cotangents with streaming
-// stores and adds the reference's term in registers.
+// What bounds it: memory.  The least traffic is g, the coordinates and the
+// features read once and dref and dsrcs written once: at the cascade's
+// train shapes (S = 2) 184.0, 217.1 and 169.9 MB, ~0.170 ms at 3.35 TB/s.
+// Composed as JAX composes it, the S cotangent volumes (755 MB a step
+// there) were written by one kernel and read back by S scatters.
+//
+// Design.  A thread owns one pixel and group of VEC channels of one sample
+// (the forward's tiles, Site) and walks all D planes in order, so dref is
+// summed over the planes in a fixed order, with no atomics, and every run
+// gives the same bits.  Per plane it loads the next plane's coordinates
+// and g while this plane is sampled (evict-first: both are read once),
+// samples each view from its four corners, kept in registers while the
+// view's floor corner (x0, y0) stays (the forward's rule), forms the mean,
+// the reference's term and each view's cotangent, and adds each corner's
+// tap-weighted cotangent into a register sum of that corner.  The sums go
+// into dsrcs (≤ 19 MB at the train shapes, so it stays in L2 while g
+// streams past) with sm_90's float4 atomicAdd
+// (red.global.add.v4.f32) only when the floor corner moves: along an
+// epipolar line it mostly stays or moves one column with the same row, and
+// then only the column that leaves is added and the shared column's sums
+// and corner values shift into place; on any other move all four are
+// added, and at the end what is left.  A corner off the image is skipped.
+// Each term is rounded as the composed pair rounds it: the cotangent
+// g · ((2/V)·(w_s − m)) as each product of JAX's composition, then
+// __fmul_rn(weight, cotangent) as sweep_gather.cu's scatter_runs, summed
+// in some order: only the order of each dsrcs element's additions changes,
+// within the summation bound of sweep_gather.cu (2·(n − 1)·2⁻²⁴ times the
+// sum of the magnitudes of its n terms), and from run to run.
+//
+// Views.  Up to kKeptViews = 2 source views are unrolled with their
+// corners kept; three and four are unrolled with their corners loaded
+// again each plane (from L1: kept corners beside four views' sums would
+// not fit in registers).  Beyond four, sweep_variance_backward_groups_kernel walks
+// the D planes once for each pair of views, carrying that pair's sums and
+// corners, the mean recomputed each walk from all S views (the others
+// sampled one at a time), dref summed on the first walk.
+//
+// Registers.  At S = 2 and VEC = 4 a thread carries 64 floats of corner
+// values and sums, and more beside them than the forward kernel (g loaded
+// ahead, the samples, dref's sum).  Under __launch_bounds__(256, 1) ptxas
+// may give a thread up to 255 registers (an SM then holds one block of 256
+// threads), under (256, 2) up to 128.  Both were built and timed on an
+// H100 (PERF.md, row "1, backward"); the backward kernels take the one
+// that spilled nothing and ran faster, (256, 1).
 
-// g · ((2/V)·(w_s − m)) of views s0 .. s0 + NS − 1 into gs (gsp at view s0,
-// `vol` floats from one view's volume to the next).
-template <int VEC, int NS>
-__device__ __forceinline__ void store_cotangents(const float (&w)[NS][VEC], const float (&m)[VEC],
-                                                 const float (&gv)[VEC], float scale,
-                                                 float* __restrict__ gsp, int64_t vol) {
+constexpr int kKeptViews = 2;     // views whose corners a thread keeps
+constexpr int kUnrolledViews = 4;  // views sweep_variance_backward_kernel unrolls
+
+template <int VEC>
+__device__ __forceinline__ void load_streaming(const float* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    float v[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(w[s][j], m[j])));
-    bilinear::store_streaming<VEC>(gsp + s * vol, v);
+    for (int i = 0; i < VEC; ++i) v[i] = __ldcs(p + i);
   }
 }
 
-// One plane of a thread: m from the reference and the sums, the
-// reference's term added onto acc.
+// What a thread carries for one source view: the floor corner (x0, y0) of
+// its last sample (−3: none yet; Taps clamps to ≥ −2), the scatter sums of
+// that sample's four corners in Taps order, and with KEEP their values.
+template <int VEC, bool KEEP>
+struct Carried {
+  int x0, y0;
+  float sums[4][VEC];
+  float cv[KEEP ? 4 : 1][VEC];
+};
+
+// Adds sums[k] into the dsrc pixel of corner k of (x0, y0), for each corner
+// k in MASK that lies in the image (dsrc offset by the thread's channels),
+// and zeroes the sums of MASK: one float4 atomic a corner at VEC = 4, else
+// VEC scalar ones.
+template <int VEC, int MASK>
+__device__ __forceinline__ void add_corners(float* __restrict__ dsrc, int x0, int y0, int H,
+                                            int W, int C, float (&sums)[4][VEC]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!((MASK >> k) & 1)) continue;
+    const int x = x0 + (k & 1), y = y0 + (k >> 1);
+    if (x >= 0 && x < W && y >= 0 && y < H) {
+      float* dst = dsrc + (y * W + x) * C;
+      if constexpr (VEC == 4) {
+        atomicAdd(reinterpret_cast<float4*>(dst),
+                  make_float4(sums[k][0], sums[k][1], sums[k][2], sums[k][3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, sums[k][i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sums[k][i] = 0.f;
+  }
+}
+
+// The values of pixel (x, y) for a thread's VEC channels, zero off the image.
 template <int VEC>
-__device__ __forceinline__ void mean_and_ref_term(const float (&r)[VEC], const float (&sum)[VEC],
-                                                  const float (&gv)[VEC], float nv, float scale,
-                                                  float (&m)[VEC], float (&acc)[VEC]) {
+__device__ __forceinline__ void load_corner(const float* __restrict__ src, int x, int y, int H,
+                                            int W, int C, float (&v)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+  if (x >= 0 && x < W && y >= 0 && y < H) bilinear::load_vec<VEC>(src + (y * W + x) * C, v);
+}
+
+// Corner `from`'s column of the carried sums (and values) moves to column
+// `to` (0 or 1); the sums of column `from` start again from 0.
+template <int VEC, bool KEEP>
+__device__ __forceinline__ void shift_column(Carried<VEC, KEEP>& v, int from, int to) {
+#pragma unroll
+  for (int r = 0; r < 4; r += 2)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      v.sums[r + to][i] = v.sums[r + from][i];
+      v.sums[r + from][i] = 0.f;
+      if constexpr (KEEP) v.cv[r + to][i] = v.cv[r + from][i];
+    }
+}
+
+// The carried view moves to the sample with taps t (src and dsrc: the
+// view's map and cotangent, offset by the thread's channels): nothing when
+// the floor corner stays; one column over with the same row, the column
+// that leaves is added into dsrc and the other shifts into place (with
+// KEEP the new column's values are loaded); otherwise all four are added
+// (and with KEEP loaded anew).
+template <int VEC, bool KEEP>
+__device__ __forceinline__ void move_to(Carried<VEC, KEEP>& v, const bilinear::Taps& t,
+                                        const float* __restrict__ src, float* __restrict__ dsrc,
+                                        int H, int W, int C) {
+  if (t.x0 == v.x0 && t.y0 == v.y0) return;
+  if (t.y0 == v.y0 && t.x0 == v.x0 + 1) {
+    add_corners<VEC, 0b0101>(dsrc, v.x0, v.y0, H, W, C, v.sums);
+    shift_column<VEC, KEEP>(v, 1, 0);
+    if constexpr (KEEP) {
+      load_corner<VEC>(src, t.x0 + 1, t.y0, H, W, C, v.cv[1]);
+      load_corner<VEC>(src, t.x0 + 1, t.y0 + 1, H, W, C, v.cv[3]);
+    }
+  } else if (t.y0 == v.y0 && t.x0 == v.x0 - 1) {
+    add_corners<VEC, 0b1010>(dsrc, v.x0, v.y0, H, W, C, v.sums);
+    shift_column<VEC, KEEP>(v, 0, 1);
+    if constexpr (KEEP) {
+      load_corner<VEC>(src, t.x0, t.y0, H, W, C, v.cv[0]);
+      load_corner<VEC>(src, t.x0, t.y0 + 1, H, W, C, v.cv[2]);
+    }
+  } else {
+    add_corners<VEC, 0b1111>(dsrc, v.x0, v.y0, H, W, C, v.sums);
+    if constexpr (KEEP) load_corners<VEC, 1>(src, t, H, W, C, 0, v.cv);
+  }
+  v.x0 = t.x0;
+  v.y0 = t.y0;
+}
+
+// The sample of corner values cv at taps t: an fma chain over the corners
+// in Taps order onto 0, as sweep_variance_kernel's.
+template <int VEC>
+__device__ __forceinline__ void sample_corners(const float (&cv)[4][VEC], const bilinear::Taps& t,
+                                               float (&w)[VEC]) {
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
-    m[j] = __fdiv_rn(sum[j], nv);
-    acc[j] = __fadd_rn(acc[j], __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(r[j], m[j]))));
+    w[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[j] = __fmaf_rn(cv[c][j], t.w[c], w[j]);
   }
 }
 
-// The kernel for S ≤ 4 source views, all unrolled: each view's sample is
-// gathered once a plane and kept for its cotangent.  Grid (tiles, 1, B) and
-// thread map: Site with K = D (one group of VEC channels a thread).
-template <int VEC, int S>
-__global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_kernel(
-    const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
-    const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
-    float* __restrict__ gs, float* __restrict__ dref, int D, int H, int W, int C, int tx,
-    int ty, int Hs) {
-  const Site at(VEC, D, H, W, C, D, tx, ty);
-  if (!at.ok) return;
-  const int step = at.lanes * VEC;
-  const int64_t hw = (int64_t)H * W;
-  const int64_t p = (int64_t)at.y * W + at.x;
-  const int64_t pc = p * C + at.lane * VEC;
-  const int64_t view = (int64_t)D * hw;  // coordinates of one view to the next
-  const int64_t vol = view * C;          // floats of one (D, H, W, C) volume
-  const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
-  const int map = Hs * W * C;
-  float r[VEC], acc[VEC];
-  bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-  const float nv = (float)(S + 1), scale = __fdiv_rn(2.f, nv);
-  int64_t ci = (int64_t)at.b * S * view + p;  // view 0, plane 0
-  const float* gp = g + (int64_t)at.b * vol + pc;
-  float* gsp = gs + (int64_t)at.b * S * vol + pc;
-  for (int d = 0; d < D; ++d, ci += hw, gp += hw * C, gsp += hw * C) {
-    float w[S][VEC], gv[VEC], sum[VEC], m[VEC];
-    sample_views<VEC, S>(src, xs, ys, ci, view, map, Hs, W, C, step, w);
-    bilinear::load_vec<VEC>(gp, gv);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      sum[j] = r[j];
-#pragma unroll
-      for (int s = 0; s < S; ++s) sum[j] = __fadd_rn(sum[j], w[s][j]);
-    }
-    mean_and_ref_term<VEC>(r, sum, gv, nv, scale, m, acc);
-    store_cotangents<VEC, S>(w, m, gv, scale, gsp, vol);
-  }
-  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * hw * C + pc, acc);
-}
-
-// Views s0 .. s0 + NS − 1 added in view order onto sum.
+// Views s0 .. s0 + NS − 1 added in view order onto sum (sample_views).
 template <int VEC, int NS>
 __device__ __forceinline__ void sum_views(const float* __restrict__ src,
                                           const float* __restrict__ xs,
@@ -419,83 +502,206 @@ __device__ __forceinline__ void sum_views(const float* __restrict__ src,
     for (int s = 0; s < NS; ++s) sum[j] = __fadd_rn(sum[j], w[s][j]);
 }
 
-// Views s0 .. s0 + NS − 1 gathered again and their cotangents stored.
-template <int VEC, int NS>
-__device__ __forceinline__ void cotangent_views(const float* __restrict__ src,
-                                                const float* __restrict__ xs,
-                                                const float* __restrict__ ys, int64_t ci,
-                                                int64_t view, int map, int H, int W, int C,
-                                                int step, const float (&m)[VEC],
-                                                const float (&gv)[VEC], float scale,
-                                                float* __restrict__ gsp, int64_t vol) {
-  float w[NS][VEC];
-  sample_views<VEC, NS>(src, xs, ys, ci, view, map, H, W, C, step, w);
-  store_cotangents<VEC, NS>(w, m, gv, scale, gsp, vol);
+// One thread's operands of the backward (B = 1 of them: pointers offset by
+// its sample, pixel and channels).
+struct Walk {
+  const float* src;   // view 0's map of the sample, at the thread's channels
+  float* dsrc;        // view 0's cotangent of the sample, at the thread's channels
+  const float* xs;
+  const float* ys;
+  const float* g;     // the volume's cotangent at plane 0, pixel and channels
+  int64_t ci;         // coordinates of view 0, plane 0, the thread's pixel
+  int64_t hw, view;   // a plane's and a view's coordinates
+  int map;            // floats of one source view's map
+  int S, D, Hs, W, C, step;
+};
+
+// Walks the D planes of a thread, carrying views s0 .. s0 + NS − 1 (KEEP:
+// their corner values kept), the mean over all S views (with OTHERS the
+// views outside s0 .. s0 + NS − 1 sampled one at a time; without, NS = S),
+// and adds their cotangents into dsrc; with ref_term, the reference's term
+// onto dref.
+template <int VEC, int NS, bool KEEP, bool OTHERS>
+__device__ __forceinline__ void backward_walk(const Walk& k, int s0, const float (&r)[VEC],
+                                              bool ref_term, float (&dref)[VEC]) {
+  const float nv = (float)(k.S + 1), scale = __fdiv_rn(2.f, nv);
+  const float* src = k.src + (int64_t)s0 * k.map;
+  float* dsrc = k.dsrc + (int64_t)s0 * k.map;
+  Carried<VEC, KEEP> v[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    v[s].x0 = v[s].y0 = -3;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[s].sums[c][i] = 0.f;
+  }
+  float nx[NS], ny[NS], ng[VEC];  // the next plane's coordinates and g
+  if (k.D > 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      nx[s] = __ldcs(k.xs + k.ci + (s0 + s) * k.view);
+      ny[s] = __ldcs(k.ys + k.ci + (s0 + s) * k.view);
+    }
+    load_streaming<VEC>(k.g, ng);
+  }
+  int64_t ci = k.ci;
+  const float* gp = k.g;
+  const int64_t gplane = k.hw * k.C;
+  for (int d = 0; d < k.D; ++d, ci += k.hw, gp += gplane) {
+    bilinear::Taps t[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) t[s] = bilinear::Taps(nx[s], ny[s], k.Hs, k.W);
+    float gv[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) gv[j] = ng[j];
+    if (d + 1 < k.D) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        nx[s] = __ldcs(k.xs + ci + k.hw + (s0 + s) * k.view);
+        ny[s] = __ldcs(k.ys + ci + k.hw + (s0 + s) * k.view);
+      }
+      load_streaming<VEC>(gp + gplane, ng);
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      move_to<VEC, KEEP>(v[s], t[s], src + (int64_t)s * k.map, dsrc + (int64_t)s * k.map, k.Hs,
+                         k.W, k.C);
+    float w[NS][VEC];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if constexpr (KEEP) {
+        sample_corners<VEC>(v[s].cv, t[s], w[s]);
+      } else {
+        float cv[4][VEC];
+        load_corners<VEC, 1>(src + (int64_t)s * k.map, t[s], k.Hs, k.W, k.C, 0, cv);
+        sample_corners<VEC>(cv, t[s], w[s]);
+      }
+    }
+    float sum[VEC], m[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sum[j] = r[j];
+    if constexpr (OTHERS) {
+      for (int s = 0; s < s0; ++s)
+        sum_views<VEC, 1>(k.src + (int64_t)s * k.map, k.xs, k.ys, ci + s * k.view, k.view,
+                          k.map, k.Hs, k.W, k.C, k.step, sum);
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) sum[j] = __fadd_rn(sum[j], w[s][j]);
+    if constexpr (OTHERS) {
+      for (int s = s0 + NS; s < k.S; ++s)
+        sum_views<VEC, 1>(k.src + (int64_t)s * k.map, k.xs, k.ys, ci + s * k.view, k.view,
+                          k.map, k.Hs, k.W, k.C, k.step, sum);
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      m[j] = __fdiv_rn(sum[j], nv);
+      if (ref_term)
+        dref[j] = __fadd_rn(dref[j], __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(r[j], m[j]))));
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float cot = __fmul_rn(gv[j], __fmul_rn(scale, __fsub_rn(w[s][j], m[j])));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[s].sums[c][j] += __fmul_rn(t[s].w[c], cot);
+      }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    add_corners<VEC, 0b1111>(dsrc + (int64_t)s * k.map, v[s].x0, v[s].y0, k.Hs, k.W, k.C,
+                             v[s].sums);
 }
 
-// sweep_variance_backward_kernel for any S ≥ 1 (run for S > 4): each plane
-// walks the views in groups of up to four twice, first for the mean (the
-// same sums in the same order as the unrolled kernel), then again for the
-// cotangents (S samples do not fit in registers).  The same grid and
-// thread map.
+// The thread's Walk, its reference vector r, and where its dref goes
+// (Site with K = D: one group of VEC channels a thread, all D planes).
 template <int VEC>
-__global__ void __launch_bounds__(kMaxThreads, 2) sweep_variance_backward_groups_kernel(
+__device__ __forceinline__ Walk walk_of(const Site& at, const float* __restrict__ srcs,
+                                        int64_t feat_bstride, const float* __restrict__ xs,
+                                        const float* __restrict__ ys,
+                                        const float* __restrict__ g, float* __restrict__ dsrcs,
+                                        int S, int D, int H, int W, int C, int Hs) {
+  Walk k;
+  k.hw = (int64_t)H * W;
+  const int64_t p = (int64_t)at.y * W + at.x;
+  k.view = (int64_t)D * k.hw;
+  k.map = Hs * W * C;
+  k.src = srcs + at.b * feat_bstride + at.lane * VEC;
+  k.dsrc = dsrcs + (int64_t)at.b * S * k.map + at.lane * VEC;
+  k.xs = xs;
+  k.ys = ys;
+  k.g = g + ((int64_t)at.b * D * k.hw + p) * C + at.lane * VEC;
+  k.ci = (int64_t)at.b * S * k.view + p;
+  k.S = S;
+  k.D = D;
+  k.Hs = Hs;
+  k.W = W;
+  k.C = C;
+  k.step = at.lanes * VEC;
+  return k;
+}
+
+// The kernel for S ≤ kUnrolledViews source views, all unrolled in one walk
+// (corners kept up to kKeptViews views).  Grid (tiles, 1, B) and thread
+// map: Site with K = D (one group of VEC channels a thread).
+template <int VEC, int S>
+__global__ void __launch_bounds__(kMaxThreads, 1) sweep_variance_backward_kernel(
     const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
     const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
-    float* __restrict__ gs, float* __restrict__ dref, int S, int D, int H, int W, int C, int tx,
+    float* __restrict__ dsrcs, float* __restrict__ dref, int D, int H, int W, int C, int tx,
     int ty, int Hs) {
   const Site at(VEC, D, H, W, C, D, tx, ty);
   if (!at.ok) return;
-  const int step = at.lanes * VEC;
-  const int64_t hw = (int64_t)H * W;
-  const int64_t p = (int64_t)at.y * W + at.x;
-  const int64_t pc = p * C + at.lane * VEC;
-  const int64_t view = (int64_t)D * hw;
-  const int64_t vol = view * C;
-  const float* src = srcs + at.b * feat_bstride + at.lane * VEC;
-  const int map = Hs * W * C;
+  const Walk k = walk_of<VEC>(at, srcs, feat_bstride, xs, ys, g, dsrcs, S, D, H, W, C, Hs);
+  const int64_t pc = ((int64_t)at.y * W + at.x) * C + at.lane * VEC;
   float r[VEC], acc[VEC];
   bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
 #pragma unroll
   for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-  const float nv = (float)(S + 1), scale = __fdiv_rn(2.f, nv);
-  int64_t ci = (int64_t)at.b * S * view + p;
-  const float* gp = g + (int64_t)at.b * vol + pc;
-  float* gsp = gs + (int64_t)at.b * S * vol + pc;
-#define SWEEP_GROUP(F, ...)                      \
-  switch (S - s0) {                              \
-    case 1: F<VEC, 1>(__VA_ARGS__); break;       \
-    case 2: F<VEC, 2>(__VA_ARGS__); break;       \
-    case 3: F<VEC, 3>(__VA_ARGS__); break;       \
-    default: F<VEC, 4>(__VA_ARGS__);             \
-  }
-  for (int d = 0; d < D; ++d, ci += hw, gp += hw * C, gsp += hw * C) {
-    float gv[VEC], sum[VEC], m[VEC];
-    bilinear::load_vec<VEC>(gp, gv);
+  backward_walk<VEC, S, (S <= kKeptViews), false>(k, 0, r, true, acc);
+  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * k.hw * C + pc, acc);
+}
+
+// The kernel for any S ≥ 1 (run for S > kUnrolledViews): one walk over the
+// D planes for each pair of views (a single view last when S is odd), its
+// corners kept, the mean from all S views each walk; dref on the first
+// walk, summed in the order of the unrolled kernel.  The same grid and
+// thread map.
+template <int VEC>
+__global__ void __launch_bounds__(kMaxThreads, 1) sweep_variance_backward_groups_kernel(
+    const float* __restrict__ ref, const float* __restrict__ srcs, int64_t feat_bstride,
+    const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ g,
+    float* __restrict__ dsrcs, float* __restrict__ dref, int S, int D, int H, int W, int C,
+    int tx, int ty, int Hs) {
+  const Site at(VEC, D, H, W, C, D, tx, ty);
+  if (!at.ok) return;
+  const Walk k = walk_of<VEC>(at, srcs, feat_bstride, xs, ys, g, dsrcs, S, D, H, W, C, Hs);
+  const int64_t pc = ((int64_t)at.y * W + at.x) * C + at.lane * VEC;
+  float r[VEC], acc[VEC];
+  bilinear::load_vec<VEC>(ref + at.b * feat_bstride + pc, r);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) sum[j] = r[j];
-    for (int s0 = 0; s0 < S; s0 += 4) {
-      SWEEP_GROUP(sum_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map, Hs, W,
-                  C, step, sum)
-    }
-    mean_and_ref_term<VEC>(r, sum, gv, nv, scale, m, acc);
-    for (int s0 = 0; s0 < S; s0 += 4) {
-      SWEEP_GROUP(cotangent_views, src + (int64_t)s0 * map, xs, ys, ci + s0 * view, view, map,
-                  Hs, W, C, step, m, gv, scale, gsp + s0 * vol, vol)
-    }
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 2) {
+    if (S - s0 >= 2)
+      backward_walk<VEC, 2, true, true>(k, s0, r, s0 == 0, acc);
+    else
+      backward_walk<VEC, 1, true, true>(k, s0, r, s0 == 0, acc);
   }
-#undef SWEEP_GROUP
-  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * hw * C + pc, acc);
+  bilinear::store_streaming<VEC>(dref + (int64_t)at.b * k.hw * C + pc, acc);
 }
 
 template <int VEC>
 void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float* ref,
                      const float* srcs, int64_t feat_bstride, const float* xs, const float* ys,
-                     const float* g, float* gs, float* dref, int D, int H, int W, int C, int tx,
-                     int ty, int Hs) {
+                     const float* g, float* dsrcs, float* dref, int D, int H, int W, int C,
+                     int tx, int ty, int Hs) {
 #define SWEEP_BWD(NS)                                                                    \
   sweep_variance_backward_kernel<VEC, NS><<<grid, threads, 0, st>>>(                     \
-      ref, srcs, feat_bstride, xs, ys, g, gs, dref, D, H, W, C, tx, ty, Hs)
+      ref, srcs, feat_bstride, xs, ys, g, dsrcs, dref, D, H, W, C, tx, ty, Hs)
+  static_assert(kUnrolledViews == 4, "the switch below unrolls up to four views");
   switch (S) {
     case 1: SWEEP_BWD(1); break;
     case 2: SWEEP_BWD(2); break;
@@ -503,7 +709,7 @@ void launch_backward(int S, dim3 grid, int threads, cudaStream_t st, const float
     case 4: SWEEP_BWD(4); break;
     default:
       sweep_variance_backward_groups_kernel<VEC><<<grid, threads, 0, st>>>(
-          ref, srcs, feat_bstride, xs, ys, g, gs, dref, S, D, H, W, C, tx, ty, Hs);
+          ref, srcs, feat_bstride, xs, ys, g, dsrcs, dref, S, D, H, W, C, tx, ty, Hs);
   }
 #undef SWEEP_BWD
 }
@@ -577,19 +783,19 @@ extern "C" int sweep_variance_f32(const float* ref, const float* srcs, long long
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
-// The backward's cotangents from the forward's operands (ref, srcs,
+// The fused sweep's VJP from the forward's operands (ref, srcs,
 // feat_bstride, xs, ys as sweep_variance_f32 takes them) and the volume's
-// cotangent g (B, D, H, W, C) (Hs the source maps' rows, as there): gs
-// (B, S, D, H, W, C), each source view's
-// cotangent volume, and dref (B, H, W, C), the reference's, under the tile
-// (vec, tx × ty) of `sweep_variance_backward_plan` (one group of vec
-// channels a thread, all D planes).  Launches on `stream`; vec is 4 (C % 4
-// == 0, ref, srcs, g, gs, dref and feat_bstride 16-byte aligned) or 1;
-// S ≥ 1.  Returns cudaGetLastError() (0 = launched), or
+// cotangent g (B, D, H, W, C) (Hs the source maps' rows, as there): dref
+// (B, H, W, C), the reference's cotangent, written, and dsrcs (B, S, Hs, W,
+// C), each source view's cotangent, added into (the caller zeroes it),
+// under the tile (vec, tx × ty) of `sweep_variance_backward_plan` (one
+// group of vec channels a thread, all D planes).  Launches on `stream`; vec
+// is 4 (C % 4 == 0, ref, srcs, g, dsrcs, dref and feat_bstride 16-byte
+// aligned) or 1; S ≥ 1.  Returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int sweep_variance_backward_f32(const float* ref, const float* srcs,
                                            long long feat_bstride, const float* xs,
-                                           const float* ys, const float* g, float* gs,
+                                           const float* ys, const float* g, float* dsrcs,
                                            float* dref, int B, int S, int D, int H, int W, int C,
                                            int vec, int tx, int ty, int Hs, void* stream) {
   if ((vec != 1 && vec != 4) || C < 1 || C % vec != 0 || tx < 1 || ty < 1 || B < 0 || S < 1 ||
@@ -604,11 +810,11 @@ extern "C" int sweep_variance_backward_f32(const float* ref, const float* srcs,
   const dim3 grid((unsigned)tiles, 1u, (unsigned)B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    launch_backward<4>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
-                       D, H, W, C, tx, ty, Hs);
+    launch_backward<4>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, dsrcs,
+                       dref, D, H, W, C, tx, ty, Hs);
   } else {
-    launch_backward<1>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, gs, dref,
-                       D, H, W, C, tx, ty, Hs);
+    launch_backward<1>(S, grid, (int)threads, st, ref, srcs, feat_bstride, xs, ys, g, dsrcs,
+                       dref, D, H, W, C, tx, ty, Hs);
   }
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,8 @@ cost volume, chosen as JAX chooses them
 autograd records a graph:
 
   the fused sweep: the `sweep_variance` kernel, one launch for the whole
-    batch (under autograd its backward is the `sweep_variance_backward`
-    kernel and a `sweep_scatter` per sample and source view); taken at
+    batch (under autograd its backward is one `sweep_variance_backward`
+    launch for the batch, which scatters as it goes); taken at
     inference, and in training with train_fused_sweep=True, unless
     fused_sweep=False;
   the per-view sweep: per source view the `sweep_gather` kernel

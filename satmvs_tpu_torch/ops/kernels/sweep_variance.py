@@ -15,12 +15,13 @@ the plain versions `sweep_variance_reference` and
 Both are differentiable in the features, as JAX's custom VJP
 (`_sweep_variance_bwd`, sweep_variance.py:226-256) makes its kernel: the
 forward saves the features and the coordinates, never a volume; the
-backward is the `sweep_variance_backward` kernel (it gathers the source
-views again and writes each one's cotangent volume and the reference's
-cotangent, counted in `sweep_variance_backward.launches`), then one
-`sweep_scatter` per sample and source view (`_vjp`).  The
-coordinates get no gradient.  For CPU tensors the backward is the plain
-`sweep_variance_backward_reference`, then `sweep_scatter_reference`.
+backward is one launch of the `sweep_variance_backward` kernel for the
+batch (`_vjp`, counted in `sweep_variance_backward.launches`): it gathers
+the source views again and adds each view's cotangent into its source
+view's as it goes, with no cotangent volume, and writes the reference's.
+The coordinates get no gradient.  For CPU tensors the backward is the
+plain `sweep_variance_backward_reference`: JAX's composition, each
+view's cotangent volume, then `sweep_scatter_reference`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 from ..cost_volume import sweep_variance_volume
 from ..sampling import bilinear_sample
 from . import build
-from .sweep_gather import sweep_scatter
+from .sweep_gather import sweep_scatter_reference
 
 SWEEP_THREADS = 256        # threads a block at most (the kernel's launch bounds)
 SWEEP_ROW_THREADS = (32, 64, 128)  # threads a tile row: a warp, two, four
@@ -63,20 +64,34 @@ def sweep_variance_batched_reference(feats: torch.Tensor, xs: torch.Tensor,
 def sweep_variance_backward_reference(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                                       g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the `sweep_variance_backward` kernel, JAX's
-    composition (`_sweep_variance_bwd`): each source view sampled again
-    (`bilinear_sample`), the mean m = (ref + Σ_s w_s) / V over the V = S + 1
-    views, and the elementwise adjoint of the variance, ∂var/∂f = (2/V)(f − m):
-    feats (B, V, H, W, C), view 0 the reference; xs/ys (B, S, D, H, W); g
-    (B, D, H, W, C) the volume's cotangent → gs (B, S, D, H, W, C), each
-    source view's cotangent volume g·((2/V)(w_s − m)), and dref (B, H, W, C),
-    Σ_d g·((2/V)(ref − m)).  `_vjp` transposes gs into the
-    source views' cotangents with `sweep_scatter_reference`."""
-    return _backward_reference(feats[:, 0], feats[:, 1:], xs, ys, g)
+    composition (`_sweep_variance_bwd`): feats (B, V, H, W, C), view 0 the
+    reference; xs/ys (B, S, D, H, W); g (B, D, H, W, C) the volume's
+    cotangent → dref (B, H, W, C) and dsrcs (B, S, H, W, C), the reference's
+    and each source view's cotangent: `_backward_reference`'s cotangent
+    volumes, each scattered into its source view by
+    `sweep_scatter_reference`."""
+    return _plain_vjp(feats[:, 0], feats[:, 1:], xs, ys, g)
+
+
+def _plain_vjp(ref, srcs, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """`sweep_variance_backward_reference` of ref (B, H', W, C) and srcs
+    (B, S, H, W, C), H' ≤ H (a band of reference rows): (dref, dsrcs)."""
+    gs, dref = _backward_reference(ref, srcs, xs, ys, g)
+    hs, w = srcs.shape[2], srcs.shape[3]
+    dsrcs = torch.stack([torch.stack([sweep_scatter_reference(gs[b, s], xs[b, s], ys[b, s], hs, w)
+                                      for s in range(xs.shape[1])])
+                         for b in range(xs.shape[0])])
+    return dref, dsrcs
 
 
 def _backward_reference(ref, srcs, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor]:
-    """`sweep_variance_backward_reference` of ref (B, H', W, C) and srcs
-    (B, S, H, W, C), H' ≤ H (a band of reference rows)."""
+    """The cotangents of JAX's composition before its scatter: each source
+    view sampled again (`bilinear_sample`), the mean m = (ref + Σ_s w_s) / V
+    over the V = S + 1 views, and the elementwise adjoint of the variance,
+    ∂var/∂f = (2/V)(f − m): ref (B, H', W, C) and srcs (B, S, H, W, C), H' ≤ H
+    (a band of reference rows), xs/ys (B, S, D, H', W), g (B, D, H', W, C) →
+    gs (B, S, D, H', W, C), each source view's cotangent volume
+    g·((2/V)(w_s − m)), and dref (B, H', W, C), Σ_d g·((2/V)(ref − m))."""
     v = srcs.shape[1] + 1
     scale = 2.0 / v
     gs, dref = [], []
@@ -206,7 +221,8 @@ def sweep_variance_backward_plan(b: int, s: int, d: int, h: int, w: int, c: int,
     group of vec channels a thread, a tile of about two warps a row (one of
     `sweep_variance_plan_options`), and every thread walking all D planes,
     so each reference cotangent is summed over the planes in order by one
-    thread (grid (tiles, 1, B)).  Raises where `sweep_variance_plan` does."""
+    thread and each view's corner sums are carried from plane to plane
+    (grid (tiles, 1, B)).  Raises where `sweep_variance_plan` does."""
     sweep_variance_plan(b, s, d, h, w, c, aligned)
     options = [o for o in sweep_variance_plan_options(b, s, d, h, w, c, aligned)
                if o["groups"] == 1]
@@ -225,25 +241,28 @@ def _c_bwd():
 
 def _cotangents(ref, srcs, bstride: int, xs, ys, g):
     """The backward kernel for sample b's maps at ref + b·bstride and srcs +
-    b·bstride (as `_launch` takes them), xs/ys (B, S, D, H, W) and g (B, D, H,
-    W, C) → (gs, dref); counts the launch."""
+    b·bstride (ref (B, H, W, C), srcs (B, S, Hs, W, C), as `_launch` takes
+    them), xs/ys (B, S, D, H, W) and g (B, D, H, W, C) → (dref (B, H, W, C),
+    dsrcs (B, S, Hs, W, C)); one launch, counted."""
     b, n_src, d, h, w = xs.shape
     c = g.shape[-1]
-    gs = torch.empty((b, n_src, d, h, w, c), dtype=torch.float32, device=g.device)
+    hs = srcs.shape[-3]
     dref = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    dsrcs = torch.zeros((b, n_src, hs, w, c), dtype=torch.float32, device=g.device)
     if dref.numel() == 0:
-        return gs, dref
-    aligned = bstride % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (ref, srcs, g, gs, dref))
+        return dref, dsrcs
+    aligned = bstride % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                       for t in (ref, srcs, g, dsrcs, dref))
     plan = sweep_variance_backward_plan(b, n_src, d, h, w, c, aligned)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _c_bwd()(ref.data_ptr(), srcs.data_ptr(), bstride, xs.data_ptr(), ys.data_ptr(),
-                      g.data_ptr(), gs.data_ptr(), dref.data_ptr(), b, n_src, d, h, w, c,
-                      plan["vec"], plan["tx"], plan["ty"], srcs.shape[-3], stream)
+                      g.data_ptr(), dsrcs.data_ptr(), dref.data_ptr(), b, n_src, d, h, w, c,
+                      plan["vec"], plan["tx"], plan["ty"], hs, stream)
     if rc != 0:
         raise RuntimeError(f"sweep_variance_backward kernel launch failed: CUDA error {rc}")
     sweep_variance_backward.launches += 1
-    return gs, dref
+    return dref, dsrcs
 
 
 def _check(ref, srcs, xs, ys, batched: bool):
@@ -286,18 +305,11 @@ def _vjp(ref, srcs, bstride: int, xs, ys, g) -> tuple[torch.Tensor, torch.Tensor
     srcs + b·bstride (ref (B, H, W, C) and srcs (B, S, H, W, C), as `_launch`
     takes them; bstride is not read for CPU tensors), xs/ys (B, S, D, H, W)
     and the volume's cotangent g (B, D, H, W, C) contiguous → (dref (B, H,
-    W, C), dsrcs (B, S, H, W, C)): `sweep_variance_backward`'s cotangents
-    (the kernel, or for CPU tensors its plain version), then each source
-    view's volume scattered into its cotangent by `sweep_scatter`."""
+    W, C), dsrcs (B, S, H, W, C)): one `sweep_variance_backward` launch, or
+    for CPU tensors its plain version."""
     if g.device.type == "cpu":
-        gs, dref = _backward_reference(ref, srcs, xs, ys, g)
-    else:
-        gs, dref = _cotangents(ref, srcs, bstride, xs, ys, g)
-    hs = srcs.shape[2]
-    dsrcs = torch.stack([torch.stack([sweep_scatter(gs[b, s], xs[b, s], ys[b, s], hs)
-                                      for s in range(xs.shape[1])])
-                         for b in range(xs.shape[0])])
-    return dref, dsrcs
+        return _plain_vjp(ref, srcs, xs, ys, g)
+    return _cotangents(ref, srcs, bstride, xs, ys, g)
 
 
 class _SweepVariance(torch.autograd.Function):
@@ -363,7 +375,7 @@ def sweep_variance_batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tens
     one device → (B, D, H', W, C) float32, each sample
     `sweep_variance(feats[b, 0], feats[b, 1:], xs[b], ys[b])` bit for bit
     (on the band, its rows), differentiable in feats (one
-    `sweep_variance_backward` launch for the batch, then the scatters).
+    `sweep_variance_backward` launch for the batch).
     CUDA tensors (contiguous) go to the CUDA kernel; CPU tensors to
     `sweep_variance_batched_reference`.
     """
@@ -383,12 +395,14 @@ def sweep_variance_batched(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tens
 
 def sweep_variance_backward(feats: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
                             g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernel alone: feats (B, V, H, W, C), view 0 the
-    reference; xs/ys (B, V − 1, D, H, W); g (B, D, H, W, C) the volume's
-    cotangent; all float32 on one device → (gs (B, S, D, H, W, C), dref (B,
-    H, W, C)) as `sweep_variance_backward_reference` defines them.  CUDA
-    tensors (contiguous) go to the kernel (one launch; every output the same
-    bits in every run), CPU tensors to the plain version."""
+    """The fused sweep's VJP, the backward kernel alone: feats (B, V, H, W,
+    C), view 0 the reference; xs/ys (B, V − 1, D, H, W); g (B, D, H, W, C)
+    the volume's cotangent; all float32 on one device → (dref (B, H, W, C),
+    dsrcs (B, S, H, W, C)) as `sweep_variance_backward_reference` defines
+    them.  CUDA tensors (contiguous) go to the kernel: one launch; dref the
+    same bits in every run, dsrcs summed with float atomics in an order that
+    changes from run to run (within the summation bound of
+    csrc/sweep_gather.cu).  CPU tensors go to the plain version."""
     if feats.ndim != 5 or tuple(g.shape) != (feats.shape[0], xs.shape[2], *feats.shape[2:]):
         raise ValueError(f"sweep_variance_backward: want feats (B, V, H, W, C) and g (B, D, H, "
                          f"W, C), got {tuple(feats.shape)} and {tuple(g.shape)}")

@@ -1,13 +1,14 @@
 """The training sweeps against the JAX package on the CPU: the fused sweep's
 backward (`sweep_variance` under autograd: `sweep_variance_backward`'s plain
-version, then `sweep_scatter_reference`) against `jax.vjp` of the Pallas
-`sweep_variance` (interpret mode) where its stencil covers every tap and of
-the per-view path everywhere; bf16 volume transport (`sweep_gather` and
-`rpc_warp` with out_dtype=bfloat16, its VJP, and what autograd saves);
-`train_fused_sweep=True` against the default step; the per-view inference
-sweep (`fused_sweep=False`) of each family against its default forward and,
-with bf16 volumes, against JAX `model.apply`; and the CLIs' sweep flags.
-Inputs come from numpy seeds; every tolerance is stated in its test."""
+version, its cotangent volumes then `sweep_scatter_reference`) against
+`jax.vjp` of the Pallas `sweep_variance` (interpret mode) where its stencil
+covers every tap and of the per-view path everywhere; bf16 volume
+transport (`sweep_gather` and `rpc_warp` with out_dtype=bfloat16, its VJP,
+and what autograd saves); `train_fused_sweep=True` against the default
+step; the per-view inference sweep (`fused_sweep=False`) of each family
+against its default forward and, with bf16 volumes, against JAX
+`model.apply`; and the CLIs' sweep flags.  Inputs come from numpy seeds;
+every tolerance is stated in its test."""
 
 import os
 
@@ -138,8 +139,8 @@ def test_fused_backward_matches_per_view_vjp(s):
 def test_batched_backward_is_per_sample_and_coordinates_get_none():
     """sweep_variance_batched's gradient at B = 2 is each sample's alone, bit
     for bit; the coordinates get no gradient (as in JAX); the backward
-    kernel's wrapper takes its plain version for CPU tensors, and the plain
-    backward is that version's cotangents scattered by sweep_scatter."""
+    kernel's wrapper takes its plain version for CPU tensors, which is the
+    whole VJP: its cotangent volumes scattered by sweep_scatter."""
     b, s, d, h, w, c = 2, 2, 3, 7, 11, 4
     feats = T(_rand((b, s + 1, h, w, c), 8))
     xs, ys = (T(np.stack([_scattered(s, d, h, w, 20 + i)[k] for i in range(b)]))
@@ -154,13 +155,14 @@ def test_batched_backward_is_per_sample_and_coordinates_get_none():
         fi = feats[i].clone().requires_grad_(True)
         (want,) = torch.autograd.grad(sv.sweep_variance(fi[0], fi[1:], xs[i], ys[i]), fi, g[i])
         assert torch.equal(got[i], want)
-    gs, dref = sv.sweep_variance_backward(feats, xs, ys, g)
-    wgs, wdref = sv.sweep_variance_backward_reference(feats, xs, ys, g)
-    assert torch.equal(gs, wgs) and torch.equal(dref, wdref)
+    dref, dsrcs = sv.sweep_variance_backward(feats, xs, ys, g)
+    wdref, wdsrcs = sv.sweep_variance_backward_reference(feats, xs, ys, g)
+    assert torch.equal(dref, wdref) and torch.equal(dsrcs, wdsrcs)
     assert torch.equal(got[:, 0], dref)
+    gs, _ = sv._backward_reference(feats[:, 0], feats[:, 1:], xs, ys, g)
     dsrc = torch.stack([torch.stack([sg.sweep_scatter_reference(gs[i, k], xs[i, k], ys[i, k], h, w)
                                      for k in range(s)]) for i in range(b)])
-    assert torch.equal(got[:, 1:], dsrc)
+    assert torch.equal(got[:, 1:], dsrc) and torch.equal(dsrcs, dsrc)
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:
